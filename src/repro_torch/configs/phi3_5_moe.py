@@ -1,0 +1,18 @@
+"""phi3.5-moe-42b-a6.6b [moe] — 16 experts top-2. [hf:microsoft/Phi-3.5-MoE-instruct]"""
+from repro_torch.configs.base import ModelConfig, MoEConfig, MOE
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family=MOE,
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=6400,
+    vocab_size=32064,
+    moe=MoEConfig(num_experts=16, top_k=2, capacity_factor=1.25),
+    norm="layernorm",
+    mlp="swiglu",
+    source="hf:microsoft/Phi-3.5-MoE-instruct",
+    supports_long_context=False,
+)

@@ -1,0 +1,100 @@
+"""Shared layer machinery (port of ``repro.models.common``: ``LayerCtx``,
+``_mods``, ``_norm_modulate`` and the paged-serving branch of
+``tlayer_apply``).
+
+Modes ported: ``decode`` (one token per slot over the paged cache, the
+denoising probe when ``commit`` is False) and ``prefill_chunk`` (C prompt
+tokens per slot appended to the paged cache and attended in one call).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.nn import adaln
+from repro_torch.nn import attention as A
+from repro_torch.nn import cache as KVC
+from repro_torch.nn import layers as L
+
+
+@dataclasses.dataclass
+class LayerCtx:
+    cfg: ModelConfig
+    mode: str = "decode"
+    cond: Optional[torch.Tensor] = None         # (B, d) σ embedding, or None
+    cond_mask: Optional[torch.Tensor] = None    # (S,) bool: where AdaLN applies
+    impl: str = "kernels"                       # kernels | ref
+    precision: Any = None                       # precision.Policy | None
+    # ---- paged serving (nn.cache) ----
+    lengths: Optional[torch.Tensor] = None      # (B,) int32 committed tokens
+    page_table: Optional[torch.Tensor] = None   # (B, n_logical_pages) int32
+    active: Optional[torch.Tensor] = None       # (B,) bool: slots that commit
+    n_valid: Optional[torch.Tensor] = None      # (B,) prefill_chunk real toks
+    commit: bool = True                         # False = denoise probe
+
+    def dims(self) -> A.AttnDims:
+        c = self.cfg
+        return A.AttnDims(c.n_heads, c.n_kv_heads, c.head_dim, c.rope_theta)
+
+
+def tlayer_spec(cfg: ModelConfig, db: bool):
+    d = cfg.d_model
+    dims = A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                      cfg.rope_theta)
+    spec = {
+        "ln1": L.norm_spec(d, cfg.norm),
+        "attn": A.attention_spec(d, dims, cfg.qkv_bias),
+        "ln2": L.norm_spec(d, cfg.norm),
+        "mlp": L.mlp_spec(d, cfg.d_ff, cfg.mlp),
+    }
+    if db:
+        spec["adaln"] = adaln.adaln_spec(d, n_mods=6)
+    return spec
+
+
+def _mods(params, ctx: LayerCtx):
+    if ctx.cond is None or "adaln" not in params:
+        return (None,) * 6
+    return adaln.adaln_mods(params["adaln"], ctx.cond, ctx.cfg.d_model, 6)
+
+
+def _norm_modulate(p_ln, h, ctx: LayerCtx, shift, scale, cond_mask):
+    """norm → AdaLN modulate. (JAX fuses the ``nonparam_ln`` case into the
+    ``fused_ln_modulate`` kernel; that kernel is not ported yet, so every
+    norm kind takes this composition.)"""
+    return adaln.modulate(L.apply_norm(p_ln, h, ctx.cfg.norm), shift, scale,
+                          cond_mask)
+
+
+def tlayer_apply(params, h, ctx: LayerCtx, *, cache: KVC.PagedKV):
+    """One transformer layer over the paged cache. Returns (h, cache)."""
+    cfg = ctx.cfg
+    dims = ctx.dims()
+    s1, c1, g1, s2, c2, g2 = _mods(params, ctx)
+    cm = ctx.cond_mask
+
+    x = _norm_modulate(params["ln1"], h, ctx, s1, c1, cm)
+    if ctx.mode == "prefill_chunk":
+        attn_out, cache = KVC.paged_prefill_attention(
+            params["attn"], x, dims, cache, lengths=ctx.lengths,
+            page_table=ctx.page_table, n_valid=ctx.n_valid,
+            window=cfg.sliding_window, impl=ctx.impl)
+    elif ctx.mode == "decode":
+        attn_out, cache = KVC.paged_decode_attention(
+            params["attn"], x, dims, cache, lengths=ctx.lengths,
+            page_table=ctx.page_table, active=ctx.active,
+            commit=ctx.commit, window=cfg.sliding_window, impl=ctx.impl)
+    else:
+        raise NotImplementedError(
+            f"mode {ctx.mode!r}: the port serves the paged decode and "
+            "prefill_chunk modes only so far")
+    h = adaln.gate(h, attn_out, g1, cm, impl=ctx.impl)
+
+    x = _norm_modulate(params["ln2"], h, ctx, s2, c2, cm)
+    mlp_out = L.apply_mlp(params["mlp"], x, cfg.mlp)
+    h = adaln.gate(h, mlp_out, g2, cm, impl=ctx.impl)
+    return h, cache
+

@@ -1,0 +1,169 @@
+"""PyTorch port on the card: each CUDA kernel against its plain PyTorch
+version, and the serving path through the kernels against the same path
+through the plain versions.
+
+Every test is marked ``gpu`` and skips without a CUDA device. This file
+imports neither JAX nor ``tests/conftest.py``'s helpers, so it runs on a
+machine that has PyTorch and the CUDA toolkit only:
+
+    PYTHONPATH=src python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
+
+Tolerance 2e-4 (absolute and relative): fp32 outputs from identical inputs,
+summed in another order. TF32 is off, so fp32 products stay fp32.
+"""
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.configs import DBConfig, get_config, reduced
+from repro_torch.core.blocks import DiffusionBlocksModel
+from repro_torch.kernels import flash_decode as FD
+from repro_torch.kernels import flash_prefill as FP
+from repro_torch.kernels import fused_adaln as AD
+from repro_torch.launch import serve as S
+
+TOL = 2e-4
+SWEEP = [(G, w, dt) for G in (1, 2, 4) for w in (None, 5)
+         for dt in (torch.float32, torch.bfloat16, torch.int8)]
+
+
+@pytest.fixture
+def cuda():
+    """The card, TF32 off; skips without one (decided here, not at import,
+    so every xdist worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels run on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pool(gen, dtype, P, psz, kv, hd, dev):
+    shape = (P, psz, kv, hd)
+    if dtype == torch.int8:
+        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+        return (k, v, torch.rand(P, generator=gen, device=dev) * 0.02 + 1e-3,
+                torch.rand(P, generator=gen, device=dev) * 0.02 + 1e-3)
+    return (torch.randn(shape, generator=gen, device=dev).to(dtype),
+            torch.randn(shape, generator=gen, device=dev).to(dtype),
+            None, None)
+
+
+def _table(gen, B, npg, dev):
+    return (1 + torch.randperm(B * npg, generator=gen, device=dev)
+            ).to(torch.int32).reshape(B, npg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FD.SUPPORTED_HD)
+@pytest.mark.parametrize("G,window,dtype", SWEEP + [(6, 64, torch.bfloat16)])
+def test_flash_decode_kernel(cuda, hd, G, window, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(hd + G)
+    B, kv, psz, npg = 4, 3, 16, 40
+    k, v, ks, vs = _pool(gen, dtype, 1 + B * npg, psz, kv, hd, cuda)
+    table = _table(gen, B, npg, cuda)
+    lens = torch.tensor([0, 1, 300, 640], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, kv, G, hd, generator=gen, device=cuda)
+    for qq in (q, q.bfloat16()):
+        n0 = FD.flash_decode.launches
+        out, lse = FD.flash_decode(qq, k, v, table, lens, window=window,
+                                   k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        assert FD.flash_decode.launches == n0 + 1
+        ro, rl = FD.flash_decode_ref(qq, k, v, table, lens, window=window,
+                                     k_scale=ks, v_scale=vs)
+        torch.testing.assert_close(out, ro, atol=TOL, rtol=TOL)
+        torch.testing.assert_close(lse, rl, atol=TOL, rtol=TOL)
+        assert (out[0] == 0).all() and (lse[0] < -1e29).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FD.SUPPORTED_HD)
+@pytest.mark.parametrize("G,window,dtype", SWEEP)
+@pytest.mark.parametrize("C", [1, 17, 64])
+def test_flash_prefill_kernel(cuda, hd, G, window, dtype, C):
+    gen = torch.Generator(device=cuda).manual_seed(hd + G + C)
+    B, kv, psz, npg = 3, 2, 16, 24
+    k, v, ks, vs = _pool(gen, dtype, 1 + B * npg, psz, kv, hd, cuda)
+    table = _table(gen, B, npg, cuda)
+    lens = torch.tensor([0, 64, 300], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, C, kv, G, hd, generator=gen, device=cuda)
+    for qq in (q, q.bfloat16()):
+        out = FP.flash_prefill(qq, k, v, table, lens, window=window,
+                               k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        ref = FP.flash_prefill_ref(qq, k, v, table, lens, window=window,
+                                   k_scale=ks, v_scale=vs)
+        torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1, 2048), (3, 65, 256)])
+def test_gate_residual_kernel(cuda, xdt, gdt, shape):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, _, d = shape
+    res = torch.randn(shape, generator=gen, device=cuda).to(xdt)
+    br = torch.randn(shape, generator=gen, device=cuda).to(xdt)
+    heads = torch.randn(B, 6 * d, generator=gen, device=cuda).to(gdt)
+    gate = heads[:, 2 * d:3 * d]                   # strided column slice
+    out = AD.gate_residual(res, br, gate)
+    torch.cuda.synchronize()
+    # explicit round-to-nearest adds and multiplies: bit-equal to the plain
+    torch.testing.assert_close(out, AD.gate_residual_ref(res, br, gate),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(2, 2, 1, 96, device=cuda)
+    pages = torch.randn(5, 4, 2, 96, device=cuda)
+    table = torch.ones(2, 2, dtype=torch.int32, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        FD.flash_decode(q, pages, pages, table, lens)
+    q, pages = q[..., :64].contiguous(), pages[..., :64].contiguous()
+    with pytest.raises(TypeError, match="int32"):
+        FD.flash_decode(q, pages, pages, table.long(), lens)
+    with pytest.raises(ValueError, match="scale"):
+        FD.flash_decode(q, pages.to(torch.int8), pages.to(torch.int8),
+                        table, lens)
+    q5 = torch.randn(2, 1, 2, 1, 128, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        FP.flash_prefill(q5, pages, pages, table, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "h2o-danube-3-4b"])
+def test_serving_through_kernels_matches_plain_versions(cuda, arch):
+    """The fp32 serving path through the kernels gives the plain versions'
+    greedy tokens, and every kernel of the path was launched."""
+    cfg = reduced(get_config(arch), n_layers=4, d_model=512, n_heads=8)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen,
+                            device=cuda).cpu().numpy()
+    z0 = dbm.db.sigma_max * torch.randn(6, 3, 1, cfg.d_model, generator=gen,
+                                        device=cuda)
+    outs = {}
+    for impl in ("ref", "kernels"):
+        K.reset_launch_counts()
+        outs[impl] = S.generate(dbm, params, prompts, 6,
+                                prompt_lengths=[40, 7, 23], precision="fp32",
+                                impl=impl, chunk_size=16, z0=z0)
+        counts = K.launch_counts()
+        if impl == "ref":
+            assert counts == {k: 0 for k in counts}
+        else:
+            L = cfg.n_layers
+            assert counts == {"flash_decode": 6 * 2 * L,
+                              "flash_prefill": 3 * L,
+                              "gate_residual": 6 * 2 * L}
+    assert torch.equal(outs["ref"], outs["kernels"])
