@@ -6,12 +6,15 @@
 Phases, each fatal on failure:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off
      (fp32 products stay fp32, or fp32 parity would mean nothing);
-  2. build: compiles the three kernels from ``src/repro_torch/kernels/csrc``
-     (one nvcc each, in parallel) and prints ``-Xptxas -v``'s summary;
+  2. build: compiles the five kernel sources from
+     ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel) and prints
+     ``-Xptxas -v``'s summary;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the serving path's shapes (max |err| <= 2e-4 + 2e-4 |ref|: fp32 outputs
-     from identical inputs, summed in another order), timed with CUDA events
-     beside its bound and the plain version;
+     the serving and training paths' shapes (max |err| <= 2e-4 + 2e-4 |ref|
+     for fp32 outputs from identical inputs, summed in another order; a bf16
+     output may also differ by its one final rounding, 2^-7 |ref|), timed by
+     CUDA-graph replay beside its bound, the plain version and, where one
+     PyTorch call computes the same function, that call;
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -19,6 +22,16 @@ Phases, each fatal on failure:
      equal the path's arithmetic;
   5. cross-check: one fp32 serve step from the same prefilled pool and z,
      through the kernels and through their plain versions; logits must
+     agree to 1e-3 relative;
+  6. train: the same model, bf16 policy, MarkovLM batches of 8 x 512: one
+     DiffusionBlocks step on each of the 4 blocks (each block with its own
+     AdamW state, freed after its step), then one end-to-end step; loss,
+     wall and device time and peak memory of each; launch counts equal to
+     the path's arithmetic (one attention forward, dq and dk/dv per layer);
+     finite losses; params change only in the trained block and the
+     periphery;
+  7. train cross-check: one fp32 DB step on block 0 through the kernels and
+     through the plain attention; loss, grad norm and one layer's gradient
      agree to 1e-3 relative.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
@@ -41,8 +54,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16 = 989e12             # dense tensor-core bf16
 PEAK_FP32 = 67e12              # fp32 outside the tensor cores
 TOL = 2e-4
+BF16_ULP = 2.0 ** -7           # one rounding of a bf16 output, relative
 ARCH = "stablelm-1.6b"
 BATCH, PROMPT, CHUNK, MAX_NEW, PSZ = 8, 512, 64, 32, 16
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+ATTN = ("flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")
 
 
 class SmokeError(RuntimeError):
@@ -151,17 +168,23 @@ def device_ms(fn, n_inputs: int, calls: int = 16, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-def compare(name: str, got, want) -> float:
+def compare(name: str, got, want, bf16_rounding: bool = False) -> float:
+    """Max |err|; raises past TOL + TOL |ref|, or, for bf16 outputs with
+    ``bf16_rounding``, past TOL + 2^-7 |ref| (one rounding of the output:
+    the kernel and the plain version accumulate in fp32 in another order,
+    which moves a value across a bf16 rounding boundary now and then)."""
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
     worst = 0.0
     for g, w in zip(got, want):
+        rel = BF16_ULP if bf16_rounding and g.dtype == torch.bfloat16 \
+            else TOL
         g, w = g.float(), w.float()
         if not torch.isfinite(g).all():
             raise SmokeError(f"{name}: kernel output is not finite")
         err = (g - w).abs()
         worst = max(worst, err.max().item())
-        if (err > TOL + TOL * w.abs()).any():
+        if (err > TOL + rel * w.abs()).any():
             raise SmokeError(f"{name}: kernel disagrees with its plain "
                              f"version, max |err| {err.max().item():.3e}")
     return worst
@@ -297,6 +320,123 @@ def gate_case(label, shape, x_dtype, gate_dtype, dev, gen):
             "library_ms": library_ms, "bytes": nbytes, "flops": flops}
 
 
+def attention_work(cfg, B, H, KV, S, hd, elt):
+    """Bytes and flops of each attention kernel at these shapes: every
+    input read once, every output written once (fp32 lse and delta); flops
+    over the (q, k) pairs this mask keeps: 4 hd per pair and head for the
+    forward (q.k, p.v), 6 hd for dq (q.k, dO.v, ds.k), 8 hd for dk/dv."""
+    from repro_torch.kernels import flash_attention as FA
+    pairs = int(FA.keep_mask(cfg, S, S).sum())
+    q_b, kv_b, row_b = B * H * S * hd * elt, B * KV * S * hd * elt, B * H * S * 4
+    return {"flash_attention_fwd": (2 * q_b + 2 * kv_b + row_b,
+                                    4 * hd * pairs * B * H),
+            "flash_attention_bwd_dq": (3 * q_b + 2 * kv_b + 2 * row_b,
+                                       6 * hd * pairs * B * H),
+            "flash_attention_bwd_dkv": (2 * q_b + 4 * kv_b + 2 * row_b,
+                                        8 * hd * pairs * B * H)}
+
+
+def attention_case(label, kind, *, B, H, KV, S, hd, dtype, window=None,
+                   mask_seq=None, dev, gen) -> dict:
+    """The three attention kernels at one shape, against their plain
+    versions (the backward ones on the kernel forward's lse and delta, so
+    each kernel is checked alone); (B, S, H, hd) tensors passed as
+    transposed views, as the model passes them. Library yardstick:
+    ``scaled_dot_product_attention`` with the same boolean mask, forward,
+    and forward + backward less forward (one call computes dq, dk, dv)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    cfg = FA.FlashConfig(kind, window=window, mask_seq=mask_seq)
+    mk = lambda n: torch.randn(B, S, n, hd, generator=gen, device=dev  # noqa: E731
+                               ).to(dtype).transpose(1, 2)
+    q, k, v, do = mk(H), mk(KV), mk(KV), mk(H)
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    calls = {
+        "flash_attention_fwd": (
+            lambda i: FA.flash_attention_fwd(q, k, v, cfg),
+            lambda i: FA.flash_attention_fwd_ref(q, k, v, cfg)),
+        "flash_attention_bwd_dq": (
+            lambda i: FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg),
+            lambda i: FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg)),
+        "flash_attention_bwd_dkv": (
+            lambda i: FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                 cfg),
+            lambda i: FA._bwd_dkv_ref(q, k, v, do, lse, delta, cfg)),
+    }
+    got = {"flash_attention_fwd": (out, lse), "flash_attention_bwd_dq": dq,
+           "flash_attention_bwd_dkv": (dk, dv)}
+    mask = FA.keep_mask(cfg, S, S, dev)
+    gqa = {"enable_gqa": True} if H != KV else {}
+    # GQA in one call needs torch >= 2.5 (enable_gqa); else no yardstick
+    lib_fwd = lib_bwd = None
+    if not gqa or tuple(int(x) for x in
+                        torch.__version__.split(".")[:2]) >= (2, 5):
+        lib_fwd = eager_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, **gqa), 1, iters=5)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd_bwd(i):
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                               **gqa)
+            torch.autograd.grad(o, (qg, kg, vg), do)
+        lib_bwd = max(eager_ms(sdpa_fwd_bwd, 1, iters=5) - lib_fwd, 0.0)
+    work = attention_work(cfg, B, H, KV, S, hd, q.element_size())
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    rows = {}
+    for name, (kern, ref) in calls.items():
+        err = compare(f"{name} {label}", got[name], ref(0),
+                      bf16_rounding=True)
+        ms = device_ms(kern, 1, calls=3, reps=3)
+        plain_ms = device_ms(ref, 1, calls=2, reps=2)
+        nbytes, flops = work[name]
+        bound_ms, by = bound(nbytes, flops, peak)
+        lib = lib_fwd if name == "flash_attention_fwd" else lib_bwd
+        rows[name] = {"case": label, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": by, "library_ms": lib, "bytes": nbytes,
+                      "flops": flops}
+        say(f"[kernels] {name} {label}: max|err| {err:.2e} | kernel "
+            f"{ms:.4f} ms device | bound {bound_ms:.4f} ms ({by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | plain "
+            f"{plain_ms:.3f} ms | library (sdpa, bool mask"
+            f"{', fwd' if name.endswith('fwd') else ', whole backward'}) "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}")
+    return rows
+
+
+def phase_attention(dev) -> dict:
+    """Attention kernels at the training path's shapes: the DB step's
+    db_concat stream (8 x 1024 rows, mask_seq 512) and the e2e step's causal
+    512, in bf16 (the path's policy) and fp32, plus one GQA G=4 window case
+    at hd 128. The first case of each kernel is its main case."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = {n: [] for n in ATTN}
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("(e) db_concat B=8 H=32 S=2x512 hd=64 bf16 (DB step)", "db_concat",
+         dict(B=8, H=32, KV=32, S=1024, hd=64, dtype=bf16, mask_seq=512)),
+        ("(e) db_concat B=8 H=32 S=2x512 hd=64 fp32", "db_concat",
+         dict(B=8, H=32, KV=32, S=1024, hd=64, dtype=f32, mask_seq=512)),
+        ("(f) causal B=8 H=32 S=512 hd=64 bf16 (e2e step)", "causal",
+         dict(B=8, H=32, KV=32, S=512, hd=64, dtype=bf16)),
+        ("(f) causal B=8 H=32 S=512 hd=64 fp32", "causal",
+         dict(B=8, H=32, KV=32, S=512, hd=64, dtype=f32)),
+        ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 bf16", "window",
+         dict(B=4, H=32, KV=8, S=1024, hd=128, dtype=bf16, window=256)),
+        ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 fp32", "window",
+         dict(B=4, H=32, KV=8, S=1024, hd=128, dtype=f32, window=256)),
+    ]
+    for label, kind, kw in cases:
+        for name, row in attention_case(label, kind, dev=dev, gen=gen,
+                                        **kw).items():
+            rows[name].append(row)
+    return rows
+
+
 def phase_kernels(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     ragged = [0, 128, 200, 333, 416, 480, 511, 544]
@@ -399,7 +539,8 @@ def phase_serve(dev) -> dict:
     L = cfg.n_layers
     expect = {"flash_decode": MAX_NEW * 2 * L,
               "gate_residual": MAX_NEW * 2 * L,
-              "flash_prefill": -(-PROMPT // CHUNK) * L}
+              "flash_prefill": -(-PROMPT // CHUNK) * L,
+              **{n: 0 for n in ATTN}}
     decode_ms = tim["total_ms"] - tim["prefill_ms"]
     say(f"[serve] bf16, greedy, {BATCH} requests, prompts padded to {PROMPT} "
         f"(lengths {plens.tolist()}), chunk {CHUNK}, {MAX_NEW} new tokens")
@@ -434,10 +575,10 @@ def phase_serve(dev) -> dict:
             "clocks": clocks, "bounds": lb, "model": (dbm, params, gen)}
 
 
-def device_busy(fn):
+def device_busy(fn, top: int = 6):
     """Run fn() under torch.profiler: (wall ms under the profiler, summed
-    device-kernel ms, the top kernels by device time). One stream, so the
-    kernel sum is the device's busy time."""
+    device-kernel ms, the ``top`` kernels by device time). One stream, so
+    the kernel sum is the device's busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -456,7 +597,7 @@ def device_busy(fn):
             us = getattr(e, "self_cuda_time_total", 0)
         rows.append((us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows), rows[:6]
+    return wall, sum(r[0] for r in rows), rows[:top]
 
 
 def phase_profile(dev, model) -> dict:
@@ -579,6 +720,208 @@ def phase_crosscheck(dev, model) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 6. full-width training steps, 7. fp32 cross-check
+# ---------------------------------------------------------------------------
+
+def unit_digests(params) -> torch.Tensor:
+    """(n_units + 1,) int64: per unit an exact integer sum of the bits of
+    its layer params (any changed element changes it, short of a
+    cancellation), and last the same over the periphery."""
+    from repro_torch.nn.init import tree_items
+    wq = params["layers"]["attn"]["wq"]
+    L = wq.shape[0]
+    per_unit = torch.zeros(L, dtype=torch.int64, device=wq.device)
+    periphery = torch.zeros((), dtype=torch.int64, device=wq.device)
+    for path, x in tree_items(params):
+        bits = x.detach().view(torch.int32)
+        if path[0] == "layers":
+            per_unit += bits.reshape(L, -1).sum(1, dtype=torch.int64)
+        else:
+            periphery += bits.sum(dtype=torch.int64)
+    return torch.cat([per_unit, periphery[None]])
+
+
+def timed_step(run):
+    """(result, wall s, device ms between CUDA events, peak bytes, bytes
+    allocated before) of run(); counts are reset just before it."""
+    from repro_torch import kernels as K
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    start.record()
+    out = run()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, start.elapsed_time(end),
+            torch.cuda.max_memory_allocated(), base, K.launch_counts())
+
+
+def profile_step(label, fn) -> dict:
+    wall, busy, top = device_busy(fn, top=10)
+    say(f"[profile] {label}: wall {wall:.1f} ms under the profiler, device "
+        f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%)")
+    for ms, count, key in top:
+        say(f"[profile]   {ms:8.2f} ms  x{count:<5d} {key[:90]}")
+    return {"wall_ms": wall, "device_ms": busy}
+
+
+def phase_train(dev, model) -> dict:
+    """Phase 6. The serve phase's model (fp32 masters; its serving caches
+    are dropped first), bf16 policy. Each DB step runs with its block's own
+    AdamW state, made before the step and freed after it, so the resident
+    memory is what training that block alone holds: the masters and one
+    block's moments. A warm-up step of each kind comes first (first-call
+    costs: cuBLAS heuristics, the allocator growing); one more step of each
+    kind runs under the profiler."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import training as T
+    from repro_torch.data import MarkovLM
+    dbm, params, gen = model
+    dbm.__dict__.pop("_compute_copies", None)     # serving's bf16 copy
+    dbm.model.__dict__.pop("_unit_memo", None)
+    torch.cuda.empty_cache()
+    cfg = dbm.cfg
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    data = MarkovLM(vocab_size=cfg.vocab_size, seed=7).iterator(
+        TRAIN_BATCH, TRAIN_SEQ)
+    batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    zero = {n: 0 for n in ("flash_decode", "flash_prefill", "gate_residual")}
+    say(f"[train] {cfg.name} full width, bf16 policy, MarkovLM batches "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}; fp32 masters resident: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def db_step(b, tokens):
+        init, step = T.make_db_train_step(dbm, b, tcfg, precision="bf16")
+        state = init(params)
+        return lambda: step(params, state, tokens, gen)[2:]
+
+    loss, _ = db_step(3, batch())()
+    say(f"[train] warm-up DB step on block 3: loss {float(loss):.4f}")
+    out = {"db": [], "launches": {n: 0 for n in ATTN}}
+    for b, (start, size) in enumerate(dbm.ranges):
+        before = unit_digests(params)
+        run = db_step(b, batch())
+        (res, wall, dev_ms, peak, base, counts) = timed_step(run)
+        loss, m = res
+        # frees the block's AdamW state; the allocator keeps the blocks
+        # cached (no cudaMalloc inside the next timed step)
+        del run, res
+        changed = (unit_digests(params) != before).tolist()
+        expect = {**zero, **{n: size for n in ATTN}}
+        say(f"[train] DB step block {b} (units {start}-{start + size - 1}): "
+            f"loss {float(loss):.4f} | grad norm {float(m['grad_norm']):.3f}"
+            f" | wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) "
+            f"| peak {peak / 2**30:.2f} GiB (resident before "
+            f"{base / 2**30:.2f}: masters + this block's AdamW state) | "
+            f"launches {counts}")
+        if counts != expect:
+            raise SmokeError(f"DB step block {b}: launch counts {counts} != "
+                             f"path arithmetic {expect}")
+        if not math.isfinite(float(loss)):
+            raise SmokeError(f"DB step block {b}: loss {float(loss)}")
+        want = [start <= u < start + size for u in range(cfg.n_layers)] \
+            + [True]
+        if changed != want:
+            raise SmokeError(f"DB step block {b} changed units "
+                             f"{changed} (expected {want})")
+        for n in ATTN:
+            out["launches"][n] += counts[n]
+        out["db"].append({"block": b, "loss": float(loss), "wall_s": wall,
+                          "device_ms": dev_ms, "peak_bytes": peak,
+                          "resident_bytes": base})
+    out["db_profile"] = profile_step("DB step block 0", db_step(0, batch()))
+
+    init, step = T.make_e2e_train_step(dbm, tcfg, precision="bf16")
+    opt = init(params)
+    loss = step(params, opt, batch())[2]
+    say(f"[train] warm-up e2e step: loss {float(loss):.4f}")
+    tokens = batch()
+    (res, wall, dev_ms, peak, base, counts) = timed_step(
+        lambda: step(params, opt, tokens)[2:])
+    loss, m = res
+    expect = {**zero, **{n: cfg.n_layers for n in ATTN}}
+    say(f"[train] e2e step (all {cfg.n_layers} layers): loss "
+        f"{float(loss):.4f} | grad norm {float(m['grad_norm']):.3f} | wall "
+        f"{wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
+        f"{peak / 2**30:.2f} GiB (resident before {base / 2**30:.2f}: "
+        f"masters + AdamW state of every param) | launches {counts}")
+    if counts != expect:
+        raise SmokeError(f"e2e step: launch counts {counts} != path "
+                         f"arithmetic {expect}")
+    if not math.isfinite(float(loss)):
+        raise SmokeError(f"e2e step: loss {float(loss)}")
+    for n in ATTN:
+        out["launches"][n] += counts[n]
+    out["e2e"] = {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
+                  "peak_bytes": peak, "resident_bytes": base}
+    tokens = batch()
+    out["e2e_profile"] = profile_step("e2e step",
+                                      lambda: step(params, opt, tokens))
+    db_peak = max(r["peak_bytes"] for r in out["db"])
+    say(f"[train] peak memory: DB step {db_peak / 2**30:.2f} GiB vs e2e step "
+        f"{peak / 2**30:.2f} GiB ({db_peak / peak:.3f}); nvidia-smi (sm MHz, "
+        f"W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_crosscheck(dev, model) -> dict:
+    """Phase 7: one fp32 DB step on block 0 from the same params and
+    draws, through the attention kernels and through the plain attention
+    (``impl="ref"``); the view is restored between the two."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import training as T
+    from repro_torch.nn.init import tree_map
+    dbm, params, gen = model
+    start, size = dbm.ranges[0]
+    saved = tree_map(lambda _, x: x.clone(),
+                     T.extract_block_view(params, start, size))
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    sigma = dbm.sample_block_sigma(gen, (TRAIN_BATCH, 1, 1), 0, device=dev)
+    eps = torch.randn(TRAIN_BATCH, TRAIN_SEQ, dbm.cfg.d_model, generator=gen,
+                      device=dev)
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    res = {}
+    for impl, n in (("kernels", size), ("ref", 0)):
+        init, step = T.make_db_train_step(dbm, 0, tcfg, impl=impl,
+                                          precision="fp32")
+        K.reset_launch_counts()
+        _, opt, loss, m = step(params, init(params), tokens, sigma=sigma,
+                               eps=eps)
+        counts = {k: v for k, v in K.launch_counts().items() if k in ATTN}
+        if counts != {k: n for k in ATTN}:
+            raise SmokeError(f"train cross-check impl={impl}: attention "
+                             f"launches {counts}, expected {n} each")
+        # first moment of unit 0's wq: 0.1 x its (clipped) gradient
+        res[impl] = (float(loss), float(m["grad_norm"]),
+                     opt.mu["layers"]["attn"]["wq"][0].clone())
+        del opt
+        T.write_back_block_view(params, saved, start)
+        torch.cuda.empty_cache()
+    (lk, gk, mk), (lr, gr, mr) = res["kernels"], res["ref"]
+    loss_rel, gn_rel = abs(lk - lr) / abs(lr), abs(gk - gr) / abs(gr)
+    grad_rel = ((mk - mr).abs().max() / mr.abs().max()).item()
+    say(f"[crosscheck] fp32 DB step block 0, kernels vs plain attention: "
+        f"loss {lk:.7f} vs {lr:.7f} (rel {loss_rel:.2e}) | grad norm "
+        f"{gk:.7f} vs {gr:.7f} (rel {gn_rel:.2e}) | unit 0 wq grad rel "
+        f"max|diff| {grad_rel:.2e}; limit 1e-3")
+    if not (loss_rel <= 1e-3 and gn_rel <= 1e-3 and grad_rel <= 1e-3):
+        raise SmokeError("fp32 train cross-check: kernels and plain "
+                         "attention disagree")
+    return {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+            "grad_rel": grad_rel}
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -587,6 +930,15 @@ SOURCES = {
                       "src/repro/kernels/flash_prefill.py:52"),
     "gate_residual": ("src/repro_torch/kernels/csrc/gate_residual.cu",
                       "src/repro/kernels/fused_adaln.py:137"),
+    "flash_attention_fwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+        "src/repro/kernels/flash_attention.py:101"),
+    "flash_attention_bwd_dq": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:195"),
+    "flash_attention_bwd_dkv": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:228"),
 }
 
 
@@ -605,19 +957,23 @@ def main() -> int:
     phase_device()
     phase_build()
     rows = phase_kernels(dev)
+    rows.update(phase_attention(dev))
     serve = phase_serve(dev)
     model = serve.pop("model")
     phase_profile(dev, model)
     phase_crosscheck(dev, model)
+    train = phase_train(dev, model)
+    phase_train_crosscheck(dev, model)
+    launches = {**serve["counts"], **train["launches"]}
     kernels = []
     for name, cases in rows.items():
         main_case = cases[0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": serve["counts"][name],
-            **{k: main_case[k] for k in ("max_abs_err", "ms", "eager_ms",
-                                         "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")},
+            "replaces": SOURCES[name][1], "launches": launches[name],
+            **{k: main_case.get(k) for k in (
+                "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
             "case": main_case["case"], "cases": cases[1:]})
     say(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -8,7 +8,11 @@ copied. Hand-written CUDA kernels for ``sm_90a`` live in
 at first use); on CPU tensors every kernel wrapper runs its plain PyTorch
 version instead.
 
-Ported so far: the paged block-wise serving path of dense decoders
+Ported so far, for dense decoders: the paged block-wise serving path
 (``launch.serve`` → ``core.blocks`` → ``models`` → ``nn.cache`` and the
-flash-decode, flash-prefill and gate-residual kernels).
+flash-decode, flash-prefill and gate-residual kernels), and DiffusionBlocks
+training in concat mode with CE plus the end-to-end baseline
+(``launch.train`` → ``core.training`` → ``core.blocks.block_loss`` →
+``models`` → ``nn.attention`` and the flash-attention forward, dq and
+dk/dv kernels).
 """

@@ -1,9 +1,12 @@
-"""Parameter bridge from the JAX package's param tree to the port's.
+"""Parameter bridge between the JAX package's param tree and the port's.
 
 The JAX tree is handed over as nested dicts of numpy arrays (bf16 leaves
 either as ``astype(np.float32)`` or as ml_dtypes bfloat16, which is widened
 here), so this module needs numpy only. Every leaf must map onto the port's
 spec tree with an equal shape: a missing or extra key raises.
+``params_to_numpy`` goes the other way: a port tree (params, AdamW moments)
+as nested dicts of numpy arrays, which ``jax.tree_util.tree_map(jnp.asarray,
+...)`` turns into the JAX package's tree.
 """
 from __future__ import annotations
 
@@ -48,3 +51,14 @@ def params_from_jax(np_tree: Any, device, spec: Any,
                        f"keys the port does not know {extra}")
     return {k: params_from_jax(np_tree[k], device, spec[k], _path + (k,))
             for k in spec}
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The port's tree as nested dicts of numpy arrays (bf16 widened to
+    fp32), keys unchanged."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

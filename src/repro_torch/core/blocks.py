@@ -1,5 +1,15 @@
-"""DiffusionBlocks sampler over the paged cache (port of the serving half of
-``repro.core.blocks.DiffusionBlocksModel``).
+"""DiffusionBlocks over the dense decoder (port of
+``repro.core.blocks``): the block-local training loss of the AR adapter in
+concat mode with CE (``block_loss``), the end-to-end baseline
+(``e2e_loss``), and the sampler over the paged cache.
+
+Training. ``block_loss`` runs the clean‖noisy stream of length 2S through
+block b's units under ``db_concat_mask``; it reads only units
+``ranges[b]`` (+ the embedding, readout and σ conditioning), so autograd
+never reaches another block's units. σ and ε can be passed in; otherwise
+they are drawn from a ``torch.Generator``. ``chunked_ce`` recomputes each
+chunk's logits in the backward (``torch.utils.checkpoint``), so the
+(S, vocab) logits never exist for the whole sequence.
 
 The next token's embedding is denoised by an Euler chain σ_max → 0 in which
 block b (units ``ranges[b]``) serves the noise range [edges[b+1], edges[b]]
@@ -20,10 +30,12 @@ temperature sampler.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import precision as precision_mod
 from repro_torch.configs.base import DBConfig, ModelConfig
@@ -31,7 +43,36 @@ from repro_torch.core import edm
 from repro_torch.core import partition as P
 from repro_torch.models.common import LayerCtx
 from repro_torch.models.transformer import DecoderModel
+from repro_torch.nn import attention as A
 from repro_torch.nn.init import cast_floating
+
+
+def _ce_sum(model, params, h_i, t_i):
+    logits = model.logits(params, h_i)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tgt = torch.clamp(t_i, min=0).long()
+    ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+    return torch.where(t_i >= 0, ce, torch.zeros((), device=ce.device)).sum()
+
+
+def chunked_ce(model, params, h: torch.Tensor, targets: torch.Tensor,
+               chunk: int = 512) -> torch.Tensor:
+    """Mean next-token CE through the readout, ``chunk`` positions at a
+    time; each chunk's logits are recomputed in the backward, so the
+    (S, vocab) logits never exist for the whole sequence."""
+    B, S = targets.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(h.shape[1] // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + checkpoint(_ce_sum, model, params, h[:, sl],
+                                   targets[:, sl], use_reentrant=False)
+    return total / (B * S)
+
 
 # leaves that stay fp32 in the compute-dtype copy: norm gains are read in
 # fp32, and the AdaLN heads run only in the fp32 probe
@@ -68,6 +109,98 @@ class DiffusionBlocksModel:
                                                      keep=_KEEP_FP32))
             hit = memo[dtype] = (params, copy)
         return hit[1]
+
+    def sample_block_sigma(self, generator, shape, b: int, *, u=None,
+                           device=None) -> torch.Tensor:
+        q_lo, q_hi = P.block_qrange(self.db, b, with_overlap=True)
+        return edm.sample_sigma_in_qrange(generator, shape, self.db, q_lo,
+                                          q_hi, u=u, device=device)
+
+    def make_ctx(self, params, S: int, mode: str, sigma=None,
+                 precision=None, **kw) -> LayerCtx:
+        """A ``LayerCtx`` over positions arange(S) (on the CPU: they only
+        describe the mask), σ-conditioned when ``sigma`` is given."""
+        ctx = LayerCtx(cfg=self.cfg, mode=mode, positions=torch.arange(S),
+                       precision=precision_mod.get_policy(precision), **kw)
+        if sigma is not None:
+            ctx.cond = self.model.cond(params, torch.log(sigma.reshape(-1)))
+        return ctx
+
+    # ------------------------------------------------------------------
+    # Training losses
+    # ------------------------------------------------------------------
+    def block_loss(self, params, b: int, tokens: torch.Tensor,
+                   generator: Optional[torch.Generator] = None, *,
+                   sigma: Optional[torch.Tensor] = None,
+                   eps: Optional[torch.Tensor] = None,
+                   impl: str = "kernels",
+                   unit_range: Optional[Tuple[int, int]] = None,
+                   precision=None) -> Tuple[torch.Tensor, Dict]:
+        """Paper Eq. (6) for the AR adapter (concat mode, CE): noisy slot i
+        carries z_i = emb(x_i) + σ ε and is conditioned on clean x_{<i};
+        block b denoises it and CE is taken through the readout. σ (B, 1, 1)
+        is drawn in block b's overlap-expanded range, one per example; ε
+        (B, S, d) is standard normal. Both come from ``generator`` unless
+        given. The σ preconditioning, denoiser combine and loss stay fp32;
+        the hidden stream runs in the policy's compute dtype."""
+        if self.db.causal_mode != "concat":
+            raise NotImplementedError(
+                f"causal_mode={self.db.causal_mode!r}: the port trains the "
+                "concat mode only so far; two_pass belongs to a later slice "
+                "(it needs the gate-residual backward kernel)")
+        if self.db.loss != "ce":
+            raise NotImplementedError(
+                f"loss={self.db.loss!r}: the port trains CE only so far; l2 "
+                "belongs to a later slice (it needs the EDM-loss kernels)")
+        pol = precision_mod.get_policy(precision)
+        cd = pol.compute_for(self.cfg.family)
+        Bsz, S = tokens.shape
+        dev = tokens.device
+        start, size = unit_range if unit_range is not None \
+            else self.ranges[b]
+        if sigma is None:
+            sigma = self.sample_block_sigma(generator, (Bsz, 1, 1), b,
+                                            device=dev)
+        sigma = torch.as_tensor(sigma, dtype=torch.float32,
+                                device=dev).reshape(Bsz, 1, 1)
+
+        emb_clean = self.model.embed(params, tokens)
+        z, _ = edm.add_noise(generator, emb_clean.float(), sigma, eps=eps)
+        _, _, c_in, _ = edm.preconditioning(sigma, self.db.sigma_data)
+        z_in = (c_in * z).to(cd)
+
+        stream = torch.cat([emb_clean.to(cd), z_in], dim=1)
+        ctx = self.make_ctx(params, 2 * S, "train", sigma, impl=impl,
+                            precision=pol)
+        ctx.mask_mod = A.db_concat_mask(S)
+        ar = torch.arange(S, device=dev)
+        ctx.rope_positions = torch.cat([ar, ar])
+        ctx.cond_mask = torch.arange(2 * S, device=dev) >= S
+        h, _ = self.model.apply_units(params, stream, start, size, ctx)
+        f_out = h[:, S:]
+
+        d_hat = edm.denoise_combine(z, f_out.float(), sigma,
+                                    self.db.sigma_data)
+        loss = chunked_ce(self.model, params, d_hat.to(emb_clean.dtype),
+                          tokens)
+        return loss, {"ce": loss, "loss": loss,
+                      "sigma_mean": sigma.mean()}
+
+    def e2e_loss(self, params, tokens: torch.Tensor, *,
+                 impl: str = "kernels", precision=None
+                 ) -> Tuple[torch.Tensor, Dict]:
+        """End-to-end next-token CE over the FULL stack (the backprop
+        baseline; ``cond`` is None, so the AdaLN heads stay inert)."""
+        pol = precision_mod.get_policy(precision)
+        S = tokens.shape[1]
+        ctx = self.make_ctx(params, S, "train", None, impl=impl,
+                            precision=pol)
+        ctx.rope_positions = torch.arange(S, device=tokens.device)
+        h = self.model.embed(params, tokens,
+                             dtype=pol.compute_for(self.cfg.family))
+        h, _ = self.model.apply_units(params, h, 0, self.model.n_units, ctx)
+        loss = chunked_ce(self.model, params, h[:, :-1], tokens[:, 1:])
+        return loss, {"ce": loss}
 
     # ------------------------------------------------------------------
     # Block-wise Euler sampling of the next token (App. B / H)

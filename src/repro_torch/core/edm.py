@@ -1,16 +1,29 @@
-"""EDM machinery (Karras et al. 2022) as the sampler uses it (port of
-``repro.core.edm``).
+"""EDM machinery (Karras et al. 2022) as the sampler and the training
+losses use it (port of ``repro.core.edm``).
 
 Variance-Exploding formulation: z_σ = y + σ ε. Denoiser parameterization
 
     D_θ(z; σ) = c_skip(σ) z + c_out(σ) F_θ(c_in(σ) z; c_noise(σ))
 
 with  c_skip = σ_d²/(σ²+σ_d²),  c_out = σ σ_d/√(σ²+σ_d²),
-      c_in  = 1/√(σ²+σ_d²),    c_noise = log(σ)/4.
+      c_in  = 1/√(σ²+σ_d²),    c_noise = log(σ)/4,
+and loss weighting w(σ) = (σ²+σ_d²)/(σ σ_d)².
+
+The random draws (u for σ, ε for the noise) can be passed in; otherwise
+they come from an explicit ``torch.Generator`` (torch and JAX give
+different numbers from one seed, so tests hand both sides the same draws).
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+
+from repro_torch.configs.base import DBConfig
+
+
+def weighting(sigma: torch.Tensor, sigma_data: float) -> torch.Tensor:
+    return (sigma ** 2 + sigma_data ** 2) / (sigma * sigma_data) ** 2
 
 
 def preconditioning(sigma: torch.Tensor, sigma_data: float):
@@ -22,6 +35,33 @@ def preconditioning(sigma: torch.Tensor, sigma_data: float):
     c_in = torch.rsqrt(s2 + d2)
     c_noise = torch.log(sigma) / 4.0
     return c_skip, c_out, c_in, c_noise
+
+
+def sample_sigma_in_qrange(generator: Optional[torch.Generator], shape,
+                           db: DBConfig, q_lo: float, q_hi: float, *,
+                           u: Optional[torch.Tensor] = None,
+                           device=None) -> torch.Tensor:
+    """Truncated log-normal σ by the inverse CDF of a uniform q in
+    [q_lo, q_hi] (q is the CDF of log σ under N(P_mean, P_std²)). ``u`` is
+    that uniform draw, else it comes from ``generator``."""
+    if u is None:
+        u = q_lo + (q_hi - q_lo) * torch.rand(
+            shape, generator=generator, dtype=torch.float32,
+            device=device if device is not None else
+            (generator.device if generator is not None else None))
+    return torch.exp(db.p_mean + db.p_std * torch.special.ndtri(u.float()))
+
+
+def add_noise(generator: Optional[torch.Generator], y: torch.Tensor,
+              sigma: torch.Tensor, *, eps: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y: (..., d); sigma broadcastable to y[..., :1]. Returns (z_σ, ε);
+    ``eps`` is the standard-normal draw, else it comes from ``generator``."""
+    if eps is None:
+        eps = torch.randn(y.shape, generator=generator, dtype=torch.float32,
+                          device=y.device)
+    eps = eps.to(device=y.device, dtype=torch.float32)
+    return y + sigma * eps.to(y.dtype), eps
 
 
 def denoise_combine(z: torch.Tensor, f_out: torch.Tensor,

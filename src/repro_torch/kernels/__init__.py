@@ -1,18 +1,23 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
-One module per kernel (``flash_decode``, ``flash_prefill``,
-``fused_adaln``). Each wrapper launches its CUDA kernel on CUDA tensors and
+One module per TPU kernel module (``flash_decode``, ``flash_prefill``,
+``fused_adaln``, ``flash_attention``; ``ops`` routes the model's attention
+calls onto them). Each wrapper launches its CUDA kernel on CUDA tensors and
 runs its plain version on CPU tensors; it counts its launches in
 ``<wrapper>.launches``. Importing builds and loads nothing: a kernel is
 compiled by ``_build`` at its first launch (or ahead with ``_build.build()``).
 """
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import flash_prefill as _fp
 from repro_torch.kernels import fused_adaln as _ad
 
 WRAPPERS = {"flash_decode": _fd.flash_decode,
             "flash_prefill": _fp.flash_prefill,
-            "gate_residual": _ad.gate_residual}
+            "gate_residual": _ad.gate_residual,
+            "flash_attention_fwd": _fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": _fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": _fa.flash_attention_bwd_dkv}
 
 
 def launch_counts() -> dict:

@@ -24,6 +24,8 @@ SOURCES = {
     "flash_decode": "flash_decode.cu",
     "flash_prefill": "flash_prefill.cu",
     "gate_residual": "gate_residual.cu",
+    "flash_attention_fwd": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",   # dq and dk/dv
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,15 +1,17 @@
 """Shared layer machinery (port of ``repro.models.common``: ``LayerCtx``,
-``_mods``, ``_norm_modulate`` and the paged-serving branch of
-``tlayer_apply``).
+``_mods``, ``_norm_modulate``, ``default_mask`` and ``tlayer_apply``).
 
-Modes ported: ``decode`` (one token per slot over the paged cache, the
-denoising probe when ``commit`` is False) and ``prefill_chunk`` (C prompt
-tokens per slot appended to the paged cache and attended in one call).
+Modes ported: ``train`` (the full sequence under ``ctx.mask_mod``, the
+causal mask by default; the DB concat stream sets ``db_concat_mask`` and
+separate rope positions), ``decode`` (one token per slot over the paged
+cache, the denoising probe when ``commit`` is False) and ``prefill_chunk``
+(C prompt tokens per slot appended to the paged cache and attended in one
+call).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -24,6 +26,10 @@ from repro_torch.nn import layers as L
 class LayerCtx:
     cfg: ModelConfig
     mode: str = "decode"
+    # ---- train ----
+    positions: Optional[torch.Tensor] = None       # (S,) mask positions, CPU
+    rope_positions: Optional[torch.Tensor] = None  # (S,) rope phases
+    mask_mod: Optional[Callable] = None            # None: default_mask
     cond: Optional[torch.Tensor] = None         # (B, d) σ embedding, or None
     cond_mask: Optional[torch.Tensor] = None    # (S,) bool: where AdaLN applies
     impl: str = "kernels"                       # kernels | ref
@@ -38,6 +44,14 @@ class LayerCtx:
     def dims(self) -> A.AttnDims:
         c = self.cfg
         return A.AttnDims(c.n_heads, c.n_kv_heads, c.head_dim, c.rope_theta)
+
+
+def default_mask(cfg: ModelConfig, bidirectional: bool = False):
+    if bidirectional:
+        return A.bidirectional_mask
+    if cfg.sliding_window:
+        return A.sliding_window_mask(cfg.sliding_window)
+    return A.causal_mask
 
 
 def tlayer_spec(cfg: ModelConfig, db: bool):
@@ -69,15 +83,22 @@ def _norm_modulate(p_ln, h, ctx: LayerCtx, shift, scale, cond_mask):
                           cond_mask)
 
 
-def tlayer_apply(params, h, ctx: LayerCtx, *, cache: KVC.PagedKV):
-    """One transformer layer over the paged cache. Returns (h, cache)."""
+def tlayer_apply(params, h, ctx: LayerCtx, *,
+                 cache: Optional[KVC.PagedKV] = None):
+    """One transformer layer: over the paged ``cache`` in the serving modes,
+    over the whole sequence (no cache) in ``train``. Returns (h, cache)."""
     cfg = ctx.cfg
     dims = ctx.dims()
     s1, c1, g1, s2, c2, g2 = _mods(params, ctx)
     cm = ctx.cond_mask
 
     x = _norm_modulate(params["ln1"], h, ctx, s1, c1, cm)
-    if ctx.mode == "prefill_chunk":
+    if ctx.mode == "train":
+        attn_out, _ = A.attention_fwd(
+            params["attn"], x, dims, positions=ctx.positions,
+            mask_mod=ctx.mask_mod or default_mask(cfg),
+            rope_positions=ctx.rope_positions, impl=ctx.impl)
+    elif ctx.mode == "prefill_chunk":
         attn_out, cache = KVC.paged_prefill_attention(
             params["attn"], x, dims, cache, lengths=ctx.lengths,
             page_table=ctx.page_table, n_valid=ctx.n_valid,
@@ -89,7 +110,7 @@ def tlayer_apply(params, h, ctx: LayerCtx, *, cache: KVC.PagedKV):
             commit=ctx.commit, window=cfg.sliding_window, impl=ctx.impl)
     else:
         raise NotImplementedError(
-            f"mode {ctx.mode!r}: the port serves the paged decode and "
+            f"mode {ctx.mode!r}: the port has the train, paged decode and "
             "prefill_chunk modes only so far")
     h = adaln.gate(h, attn_out, g1, cm, impl=ctx.impl)
 

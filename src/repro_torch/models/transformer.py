@@ -1,7 +1,10 @@
 """Dense decoder (port of ``repro.models.transformer.DecoderModel``, dense
-family, paged-serving paths). The JAX ``lax.scan`` over units is a Python
-loop over the stacked ``layers`` axis."""
+family: the training pass and the paged-serving paths). The JAX
+``lax.scan`` over units is a Python loop over the stacked ``layers``
+axis."""
 from __future__ import annotations
+
+from typing import Optional
 
 from repro_torch import precision as precision_mod
 from repro_torch.configs.base import DENSE
@@ -9,7 +12,7 @@ from repro_torch.models import common as C
 from repro_torch.models.model_api import BaseModel
 from repro_torch.nn import attention as A
 from repro_torch.nn import cache as KVC
-from repro_torch.nn.init import stack_specs
+from repro_torch.nn.init import stack_specs, tree_map
 
 
 class DecoderModel(BaseModel):
@@ -34,12 +37,22 @@ class DecoderModel(BaseModel):
         return spec
 
     def apply_units(self, params, h, start: int, size: int, ctx,
-                    cache: KVC.PagedKV, reset_mask=None):
+                    cache: Optional[KVC.PagedKV] = None, reset_mask=None):
         """Run units [start, start + size) over the paged ``cache`` (whose
-        unit axis covers exactly those units). ``reset_mask`` (a sequence of
-        ``size`` bools) restarts the hidden stream from the input ``h`` before
-        each flagged unit: the commit passes restart every DB block's clean
-        stream from the raw embeddings. Returns (h, cache)."""
+        unit axis covers exactly those units), or with no cache over the
+        whole sequence (``ctx.mode == "train"``). ``reset_mask`` (a sequence
+        of ``size`` bools) restarts the hidden stream from the input ``h``
+        before each flagged unit: the commit passes restart every DB block's
+        clean stream from the raw embeddings. Returns (h, cache)."""
+        if cache is None:
+            assert reset_mask is None
+            # one unbind per leaf: its backward stacks the units' grads in
+            # one pass (per-unit indexing would add a zero-padded full-size
+            # grad per unit)
+            units = _unbind(params["layers"], start, size)
+            for u in units:
+                h, _ = C.tlayer_apply(u, h, ctx)
+            return h, None
         h0 = h
         units = self.unit_params(params)
         for i in range(size):
@@ -74,6 +87,14 @@ class DecoderModel(BaseModel):
                           cfg.rope_theta)
         return KVC.init_paged_kv(n_pages, page_size, dims, pol.kv,
                                  n_units=self.n_units, device=device)
+
+
+def _unbind(tree, start: int, size: int) -> list:
+    """``size`` per-unit trees of units [start, start + size)."""
+    parts = tree_map(lambda _, t: (t if (start, size) == (0, t.shape[0])
+                                   else t[start:start + size]).unbind(0),
+                     tree)
+    return [tree_map(lambda _, p: p[i], parts) for i in range(size)]
 
 
 def _index(tree, i: int):

@@ -37,7 +37,7 @@ NEG_INF = -1e30
 TRASH_PAGE = 0
 DEFAULT_PAGE_SIZE = 16
 KV_SCALE_DTYPE = torch.float32
-IMPLS = ("kernels", "ref")
+IMPLS = A.IMPLS
 
 
 @dataclasses.dataclass

@@ -60,12 +60,13 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    """x: (..., S, H, hd); positions: broadcastable to (..., S), on any
+    device (the training masks keep theirs on the CPU)."""
     if theta <= 0:   # architecture without rope (whisper/vit/dit)
         return x
     half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., :, None, None].float() * freqs   # (...,S,1,half)
+    angles = positions.to(x.device)[..., :, None, None].float() * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half], x[..., half:]
     y1 = x1 * cos - x2 * sin

@@ -7,6 +7,10 @@ and the weight copies the matmuls see: bf16 under ``bf16``) and ``kv_dtype``
 stores quantized pages with per-page fp32 scales). Softmax and norm
 statistics are fp32 under every policy. Recurrent families keep fp32
 compute under ``bf16`` (``fp32_families``).
+
+``cast_params_for_compute`` is the training cast: a differentiable copy of
+every floating leaf in the compute dtype, so gradients flow back to the fp32
+masters through the cast.
 """
 from __future__ import annotations
 
@@ -88,3 +92,17 @@ def with_kv_dtype(policy: PolicyLike, kv_dtype) -> Policy:
         f"no registered precision policy stores {want} KV pages over "
         f"{pol.name!r} compute; known policies: "
         f"{sorted(k for k in _POLICIES if isinstance(k, str))}")
+
+
+def cast_params_for_compute(policy: PolicyLike, params,
+                            family: Optional[str] = None):
+    """Compute-dtype weight copies for one loss evaluation: ``params``
+    itself under fp32, else every floating leaf (norm gains and AdaLN heads
+    included, as JAX casts them) through a differentiable ``.to``."""
+    pol = get_policy(policy)
+    cd = pol.compute_for(family)
+    if cd == pol.param_dtype:
+        return params
+    from repro_torch.nn.init import tree_map
+    return tree_map(lambda _, x: x.to(cd) if x.is_floating_point() else x,
+                    params)

@@ -1,6 +1,6 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version, and the serving path through the kernels against the same path
-through the plain versions.
+version, and the serving path and the training step through the kernels
+against the same paths through the plain versions.
 
 Every test is marked ``gpu`` and skips without a CUDA device. This file
 imports neither JAX nor ``tests/conftest.py``'s helpers, so it runs on a
@@ -15,12 +15,15 @@ import pytest
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.configs import DBConfig, get_config, reduced
+from repro_torch.configs import DBConfig, TrainConfig, get_config, reduced
 from repro_torch.core.blocks import DiffusionBlocksModel
+from repro_torch.core import training as T
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import fused_adaln as AD
 from repro_torch.launch import serve as S
+from repro_torch.nn.init import tree_map
 
 TOL = 2e-4
 SWEEP = [(G, w, dt) for G in (1, 2, 4) for w in (None, 5)
@@ -165,5 +168,144 @@ def test_serving_through_kernels_matches_plain_versions(cuda, arch):
             L = cfg.n_layers
             assert counts == {"flash_decode": 6 * 2 * L,
                               "flash_prefill": 3 * L,
-                              "gate_residual": 6 * 2 * L}
+                              "gate_residual": 6 * 2 * L,
+                              "flash_attention_fwd": 0,
+                              "flash_attention_bwd_dq": 0,
+                              "flash_attention_bwd_dkv": 0}
     assert torch.equal(outs["ref"], outs["kernels"])
+
+
+# kind -> (Sq, Sk, window, mask_seq); lengths that are not multiples of the
+# kernels' 64-row tiles
+FA_CASES = {"full": (100, 190, None, None), "causal": (200, 200, None, None),
+            "window": (200, 200, 37, None), "db_concat": (260, 260, None, 130),
+            "two_pass": (130, 260, None, 130)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", sorted(FA_CASES))
+def test_flash_attention_kernels(cuda, kind, dtype, G, hd):
+    """Forward (out, lse), dq and dk/dv against the plain versions, on
+    (B, S, H, hd) tensors passed as transposed views, as the model does."""
+    Sq, Sk, window, mseq = FA_CASES[kind]
+    cfg = FA.FlashConfig(kind, window=window, mask_seq=mseq)
+    gen = torch.Generator(device=cuda).manual_seed(hd + G)
+    B, KV = 2, 2
+    mk = lambda S, H: torch.randn(B, S, H, hd, generator=gen, device=cuda  # noqa: E731
+                                  ).to(dtype).transpose(1, 2)
+    q, k, v, do = mk(Sq, KV * G), mk(Sk, KV), mk(Sk, KV), mk(Sq, KV * G)
+    n0 = K.launch_counts()
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert n1[name] == n0[name] + 1
+    assert out.stride() == q.stride() and dk.stride() == k.stride()
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    rdelta = FA.attention_delta(ro, do)
+    want = (ro, rl, FA._bwd_dq_ref(q, k, v, do, rl, rdelta, cfg)) + \
+        FA._bwd_dkv_ref(q, k, v, do, rl, rdelta, cfg)
+    # bf16 outputs round once, in another order than the plain version:
+    # one bf16 ulp of the largest value
+    tol = TOL if dtype == torch.float32 else 1e-2
+    for got, ref in zip((out, lse, dq, dk, dv), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_and_empty_rows(cuda):
+    """Through the autograd.Function: a two_pass query whose keys are cut
+    off (row 0 sees nothing) gives out = 0 and zero gradients, never NaN;
+    grads match the plain versions'."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    S = 70
+    q, k, v = (torch.randn(2, 4, S, 64, generator=gen, device=cuda
+                           ).requires_grad_() for _ in range(3))
+    do = torch.randn(2, 4, S, 64, generator=gen, device=cuda)
+    out = FA.flash_attention(q, k, v, mask_kind="two_pass", mask_seq=S)
+    out.backward(do)
+    assert (out[:, :, 0] == 0).all() and (q.grad[:, :, 0] == 0).all()
+    cfg = FA.FlashConfig("two_pass", mask_seq=S)
+    ro, rl = FA.flash_attention_fwd_ref(q.detach(), k.detach(), v.detach(),
+                                        cfg)
+    want = FA.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                      ro, rl, do, cfg)
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_rejects_what_the_kernels_do_not_take(cuda):
+    cfg = FA.FlashConfig("causal")
+    x = torch.randn(1, 2, 8, 96, device=cuda)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        FA.flash_attention_fwd(x, x, x, cfg)
+    x = torch.randn(1, 2, 8, 64, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        FA.flash_attention_fwd(x, x.bfloat16(), x, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.randn(1, 2, 8, 128, device=cuda)[..., ::2]
+        FA.flash_attention_fwd(y, y, y, cfg)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        FA.flash_attention_fwd(torch.randn(1, 3, 8, 64, device=cuda), x, x,
+                               cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["db", "e2e"])
+def test_train_step_through_kernels_matches_plain_versions(cuda, mode):
+    """One fp32 training step through the kernels and through the plain
+    versions from the same params and draws: loss, grad norm and the
+    updated params agree, and the launch counts are the path's
+    arithmetic (one fwd, dq and dk/dv per layer)."""
+    cfg = reduced(get_config("stablelm-1.6b"), n_layers=4, d_model=512,
+                  n_heads=8)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    master = dbm.init(gen)
+    for k in ("w", "b"):
+        master["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96), generator=gen,
+                           device=cuda)
+    sigma = torch.rand(2, 1, 1, generator=gen, device=cuda) + 0.1
+    eps = torch.randn(2, 96, cfg.d_model, generator=gen, device=cuda)
+    tcfg = TrainConfig(steps=10, warmup_steps=2, lr=1e-3)
+    res = {}
+    for impl in ("ref", "kernels"):
+        params = tree_map(lambda _, x: x.clone(), master)
+        if mode == "db":
+            init, step = T.make_db_train_step(dbm, 1, tcfg, impl=impl)
+            K.reset_launch_counts()
+            params, opt, loss, m = step(params, init(params), tokens,
+                                        sigma=sigma, eps=eps)
+            n_layers = dbm.ranges[1][1]
+        else:
+            init, step = T.make_e2e_train_step(dbm, tcfg, impl=impl)
+            K.reset_launch_counts()
+            params, opt, loss, m = step(params, init(params), tokens)
+            n_layers = cfg.n_layers
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        expect = 0 if impl == "ref" else n_layers
+        assert {k: counts[k] for k in counts if k.startswith("flash_att")} \
+            == {k: expect for k in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")}
+        res[impl] = (loss, m["grad_norm"], opt.mu["layers"]["attn"])
+    (lr_, gr, mr), (lk, gk, mk) = res["ref"], res["kernels"]
+    assert torch.isfinite(lk) and abs(lk - lr_) <= 1e-4 * abs(lr_)
+    assert abs(gk - gr) <= 1e-3 * abs(gr)
+    for name in ("wq", "wk", "wv"):   # first moments: 0.1 x the grads
+        scale = mr[name].abs().max().item()
+        torch.testing.assert_close(mk[name], mr[name], atol=1e-3 * scale,
+                                   rtol=1e-3)

@@ -9,14 +9,17 @@ accumulate in fp32.
 The CUDA kernels themselves are held against their plain versions on the
 card by ``tests/test_torch_gpu.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import flash_attention as JFA
 from repro.kernels import flash_decode as JFD
 from repro.kernels import flash_prefill as JFP
 from repro.kernels import fused_adaln as JAD
+from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import flash_decode as TFD
 from repro_torch.kernels import flash_prefill as TFP
 from repro_torch.kernels import fused_adaln as TAD
@@ -171,3 +174,122 @@ def test_wrappers_never_fall_back_off_cpu():
         TAD.gate_residual(torch.empty(2, 1, 64, **meta),
                         torch.empty(2, 1, 64, **meta),
                         torch.empty(2, 64, **meta))
+    x = torch.empty(2, 2, 8, 64, **meta)
+    cfg = TFA.FlashConfig("causal")
+    with pytest.raises(ValueError, match="CUDA"):
+        TFA.flash_attention_fwd(x, x, x, cfg)
+    lse = torch.empty(2, 2, 8, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        TFA.flash_attention_bwd_dq(x, x, x, x, lse, lse, cfg)
+    with pytest.raises(ValueError, match="CUDA"):
+        TFA.flash_attention_bwd_dkv(x, x, x, x, lse, lse, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (forward, dq, dk/dv): plain versions against the Pallas
+# kernels in interpret mode, values and jax.vjp grads. JAX tiles of 16 over
+# lengths that are not multiples of 16 cover padded and partial tiles.
+# ---------------------------------------------------------------------------
+
+FA_HD, FA_BLK = 16, 16
+# kind -> (Sq, Sk, window, mask_seq)
+FA_CASES = {"full": (21, 37, None, None), "causal": (37, 37, None, None),
+            "window": (37, 37, 5, None), "db_concat": (38, 38, None, 19),
+            "two_pass": (19, 38, None, 19)}
+
+
+def _fa_inputs(rs, G, Sq, Sk, KV=2, B=2):
+    q = rs.randn(B, KV * G, Sq, FA_HD).astype(np.float32)
+    k = rs.randn(B, KV, Sk, FA_HD).astype(np.float32)
+    v = rs.randn(B, KV, Sk, FA_HD).astype(np.float32)
+    do = rs.randn(B, KV * G, Sq, FA_HD).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_fa(q, k, v, do, kind, window, mseq):
+    f = lambda q_, k_, v_: JFA.flash_attention(  # noqa: E731
+        q_, k_, v_, mask_kind=kind, window=window, mask_seq=mseq,
+        block_q=FA_BLK, block_k=FA_BLK, interpret=True)
+    out, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    return (out,) + vjp(jnp.asarray(do))
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("kind", sorted(FA_CASES))
+def test_flash_attention_matches_pallas(kind, G):
+    Sq, Sk, window, mseq = FA_CASES[kind]
+    rs = np.random.RandomState(50 + G)
+    q, k, v, do = _fa_inputs(rs, G, Sq, Sk)
+    want = _jax_fa(q, k, v, do, kind, window, mseq)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = TFA.flash_attention(tq, tk, tv, mask_kind=kind, window=window,
+                              mask_seq=mseq)
+    out.backward(torch.from_numpy(do))
+    for got, ref in zip((out, tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                                   ATOL, RTOL)
+
+
+def test_flash_attention_lse_and_empty_rows_match_pallas():
+    """lse against ``_fwd_impl``; a two_pass query whose keys are cut off
+    (Sk = S, no noisy keys: row 0 sees nothing) gives out = 0,
+    lse ~ -1e30 and zero, finite gradients, as the Pallas kernels do."""
+    rs = np.random.RandomState(60)
+    q, k, v, do = _fa_inputs(rs, 1, 19, 19)
+    cfg = TFA.FlashConfig(mask_kind="two_pass", mask_seq=19)
+    jcfg = JFA.FlashConfig(mask_kind="two_pass", mask_seq=19, block_q=FA_BLK,
+                           block_k=FA_BLK, interpret=True)
+    _, lse_j = JFA._fwd_impl(*map(jnp.asarray, (q, k, v)), jcfg)
+    out_t, lse_t = TFA.flash_attention_fwd(*map(torch.from_numpy, (q, k, v)),
+                                           cfg)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[..., :19],
+                               ATOL, RTOL)
+    assert np.all(out_t.numpy()[:, :, 0] == 0)
+    assert np.all(lse_t.numpy()[:, :, 0] < -1e29)
+    want = _jax_fa(q, k, v, do, "two_pass", None, 19)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    TFA.flash_attention(tq, tk, tv, mask_kind="two_pass",
+                        mask_seq=19).backward(torch.from_numpy(do))
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want[1:]):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), ATOL, RTOL)
+    assert np.all(tq.grad.numpy()[:, :, 0] == 0)
+
+
+def test_flash_attention_db_concat_first_noisy_row_sees_only_itself():
+    S = 8
+    rs = np.random.RandomState(61)
+    q, k, v, _ = _fa_inputs(rs, 1, 2 * S, 2 * S)
+    out = TFA.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              mask_kind="db_concat", mask_seq=S)
+    np.testing.assert_allclose(out.numpy()[:, :, S], v[:, :, S], ATOL, RTOL)
+    mask = TFA.keep_mask(TFA.FlashConfig("db_concat", mask_seq=S), 2 * S,
+                         2 * S)
+    assert mask[S].nonzero().flatten().tolist() == [S]
+    assert mask[S + 3].nonzero().flatten().tolist() == [0, 1, 2, S + 3]
+
+
+def test_flash_attention_backward_runs_the_plain_bwd_functions(monkeypatch):
+    """On CPU tensors the autograd.Function's backward calls the plain dq
+    and dk/dv functions once each (never autograd through the forward)."""
+    calls = []
+    for name in ("_bwd_dq_ref", "_bwd_dkv_ref"):
+        fn = getattr(TFA, name)
+        monkeypatch.setattr(TFA, name, lambda *a, _fn=fn, _n=name: (
+            calls.append(_n), _fn(*a))[1])
+    rs = np.random.RandomState(62)
+    q, k, v, do = _fa_inputs(rs, 2, 12, 12)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = TFA.flash_attention(tq, tk, tv, mask_kind="causal")
+    assert type(out.grad_fn).__name__ == "_FlashBackward"
+    out.backward(torch.from_numpy(do))
+    assert sorted(calls) == ["_bwd_dkv_ref", "_bwd_dq_ref"]
+
+
+def test_flash_attention_config_rejects_unknown_masks():
+    with pytest.raises(ValueError, match="unknown mask_kind"):
+        TFA.FlashConfig(mask_kind="diagonal")
+    with pytest.raises(ValueError, match="requires window"):
+        TFA.FlashConfig(mask_kind="window")
+    with pytest.raises(ValueError, match="requires mask_seq"):
+        TFA.FlashConfig(mask_kind="db_concat")
