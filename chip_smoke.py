@@ -25,7 +25,8 @@ Phases, each fatal on failure:
      agree to 1e-3 relative;
   6. train: the same model, bf16 policy, MarkovLM batches of 8 x 512: one
      DiffusionBlocks step on each of the 4 blocks (each block with its own
-     AdamW state, freed after its step), then one end-to-end step; loss,
+     AdamW state, freed after its step), one iteration of ``train_db``
+     (every block's state resident), then one end-to-end step; loss,
      wall and device time and peak memory of each; launch counts equal to
      the path's arithmetic (one attention forward, dq and dk/dv per layer);
      finite losses; params change only in the trained block and the
@@ -38,9 +39,11 @@ Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a CUDA device or without the
 repository's ``src`` beside it.
 """
+import dataclasses
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -140,11 +143,13 @@ def eager_ms(fn, n_inputs: int, iters: int = 40) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, n_inputs: int, calls: int = 16, reps: int = 10) -> float:
-    """Device ms per call of fn(i): ``calls`` calls captured in one CUDA
-    graph, replayed ``reps`` times between CUDA events, so no host time is
-    counted. Inputs cycle over n_inputs copies that together exceed the
-    50 MB L2, so each call finds its pages cold, as on the serving path."""
+def device_trials(fn, n_inputs: int, calls: int = 16, reps: int = 10,
+                  trials: int = 1) -> list:
+    """Device ms per call of fn(i), ``trials`` readings: ``calls`` calls
+    captured in one CUDA graph, replayed ``reps`` times between CUDA events
+    per reading, so no host time is counted. Inputs cycle over n_inputs
+    copies that together exceed the 50 MB L2, so each call finds its pages
+    cold, as on the serving path."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -158,14 +163,21 @@ def device_ms(fn, n_inputs: int, calls: int = 16, reps: int = 10) -> float:
             fn(i % n_inputs)
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * calls)
+    readings = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        readings.append(start.elapsed_time(end) / (reps * calls))
+    return readings
+
+
+def device_ms(fn, n_inputs: int, calls: int = 16, reps: int = 10) -> float:
+    return device_trials(fn, n_inputs, calls, reps)[0]
 
 
 def compare(name: str, got, want, bf16_rounding: bool = False) -> float:
@@ -343,7 +355,8 @@ def attention_case(label, kind, *, B, H, KV, S, hd, dtype, window=None,
     each kernel is checked alone); (B, S, H, hd) tensors passed as
     transposed views, as the model passes them. Library yardstick:
     ``scaled_dot_product_attention`` with the same boolean mask, forward,
-    and forward + backward less forward (one call computes dq, dk, dv)."""
+    and forward + backward less forward (one call computes dq, dk, dv),
+    each the median of three CUDA-graph readings."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     cfg = FA.FlashConfig(kind, window=window, mask_seq=mask_seq)
@@ -372,18 +385,24 @@ def attention_case(label, kind, *, B, H, KV, S, hd, dtype, window=None,
     mask = FA.keep_mask(cfg, S, S, dev)
     gqa = {"enable_gqa": True} if H != KV else {}
     # GQA in one call needs torch >= 2.5 (enable_gqa); else no yardstick
-    lib_fwd = lib_bwd = None
+    lib_fwd = lib_bwd = lib_spread = None
     if not gqa or tuple(int(x) for x in
                         torch.__version__.split(".")[:2]) >= (2, 5):
-        lib_fwd = eager_ms(lambda i: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, **gqa), 1, iters=5)
+        # timed as the kernels are (CUDA-graph replay, device time only);
+        # the backward is forward + backward less forward, both captured
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
 
         def sdpa_fwd_bwd(i):
             o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
                                                **gqa)
             torch.autograd.grad(o, (qg, kg, vg), do)
-        lib_bwd = max(eager_ms(sdpa_fwd_bwd, 1, iters=5) - lib_fwd, 0.0)
+        fwd_t = device_trials(lambda i: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, **gqa), 1, calls=3, reps=3, trials=3)
+        both_t = device_trials(sdpa_fwd_bwd, 1, calls=3, reps=3, trials=3)
+        lib_fwd, both = statistics.median(fwd_t), statistics.median(both_t)
+        lib_bwd = both - lib_fwd
+        lib_spread = {"fwd": [min(fwd_t), max(fwd_t)],
+                      "fwd_bwd": [min(both_t), max(both_t)]}
     work = attention_work(cfg, B, H, KV, S, hd, q.element_size())
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
     rows = {}
@@ -397,14 +416,20 @@ def attention_case(label, kind, *, B, H, KV, S, hd, dtype, window=None,
         lib = lib_fwd if name == "flash_attention_fwd" else lib_bwd
         rows[name] = {"case": label, "max_abs_err": err, "ms": ms,
                       "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": by, "library_ms": lib, "bytes": nbytes,
+                      "bound_by": by, "library_ms": lib,
+                      "library_spread_ms": lib_spread, "bytes": nbytes,
                       "flops": flops}
         say(f"[kernels] {name} {label}: max|err| {err:.2e} | kernel "
             f"{ms:.4f} ms device | bound {bound_ms:.4f} ms ({by}; "
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) | plain "
             f"{plain_ms:.3f} ms | library (sdpa, bool mask"
             f"{', fwd' if name.endswith('fwd') else ', whole backward'}) "
-            f"{'none' if lib is None else f'{lib:.4f} ms'}")
+            f"{'none' if lib is None else f'{lib:.4f} ms'}"
+            + ("" if lib_spread is None else
+               f" (3 readings: fwd {lib_spread['fwd'][0]:.4f}-"
+               f"{lib_spread['fwd'][1]:.4f}, fwd+bwd "
+               f"{lib_spread['fwd_bwd'][0]:.4f}-"
+               f"{lib_spread['fwd_bwd'][1]:.4f} ms)"))
     return rows
 
 
@@ -775,9 +800,10 @@ def phase_train(dev, model) -> dict:
     are dropped first), bf16 policy. Each DB step runs with its block's own
     AdamW state, made before the step and freed after it, so the resident
     memory is what training that block alone holds: the masters and one
-    block's moments. A warm-up step of each kind comes first (first-call
-    costs: cuBLAS heuristics, the allocator growing); one more step of each
-    kind runs under the profiler."""
+    block's moments. Then one iteration of ``train_db``, which keeps every
+    block's state resident as the training CLI does. A warm-up step of each
+    kind comes first (first-call costs: cuBLAS heuristics, the allocator
+    growing); one more step of each kind runs under the profiler."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import training as T
     from repro_torch.data import MarkovLM
@@ -836,6 +862,30 @@ def phase_train(dev, model) -> dict:
                           "resident_bytes": base})
     out["db_profile"] = profile_step("DB step block 0", db_step(0, batch()))
 
+    # the shipped trainer (``train_db``, what ``launch.train --mode db``
+    # runs) makes every block's AdamW state up front and keeps them all:
+    # one iteration of it, states made inside the timed region
+    one = dataclasses.replace(tcfg, steps=1, log_every=0)
+    (res, wall, dev_ms, peak, base, counts) = timed_step(
+        lambda: T.train_db(dbm, one, data, gen, params=params,
+                           precision="bf16")[1])
+    (_, b, loss), = res
+    del res
+    torch.cuda.empty_cache()
+    expect = {**zero, **{n: dbm.ranges[b][1] for n in ATTN}}
+    say(f"[train] train_db, 1 iteration (block {b}, all "
+        f"{dbm.num_blocks} AdamW states resident): loss {loss:.4f} | wall "
+        f"{wall * 1e3:.1f} ms (states made inside) | peak "
+        f"{peak / 2**30:.2f} GiB | launches {counts}")
+    if counts != expect:
+        raise SmokeError(f"train_db: launch counts {counts} != path "
+                         f"arithmetic {expect}")
+    if not math.isfinite(loss):
+        raise SmokeError(f"train_db: loss {loss}")
+    for n in ATTN:
+        out["launches"][n] += counts[n]
+    out["train_db"] = {"block": b, "loss": loss, "peak_bytes": peak}
+
     init, step = T.make_e2e_train_step(dbm, tcfg, precision="bf16")
     opt = init(params)
     loss = step(params, opt, batch())[2]
@@ -863,8 +913,12 @@ def phase_train(dev, model) -> dict:
     out["e2e_profile"] = profile_step("e2e step",
                                       lambda: step(params, opt, tokens))
     db_peak = max(r["peak_bytes"] for r in out["db"])
-    say(f"[train] peak memory: DB step {db_peak / 2**30:.2f} GiB vs e2e step "
-        f"{peak / 2**30:.2f} GiB ({db_peak / peak:.3f}); nvidia-smi (sm MHz, "
+    all_peak = out["train_db"]["peak_bytes"]
+    say(f"[train] peak memory: DB step with one block's AdamW state "
+        f"{db_peak / 2**30:.2f} GiB ({db_peak / peak:.3f} of e2e), train_db "
+        f"with all {dbm.num_blocks} states {all_peak / 2**30:.2f} GiB "
+        f"({all_peak / peak:.3f} of e2e), e2e step "
+        f"{peak / 2**30:.2f} GiB; nvidia-smi (sm MHz, "
         f"W, limit, C): "
         f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
     del opt
@@ -973,7 +1027,7 @@ def main() -> int:
             "replaces": SOURCES[name][1], "launches": launches[name],
             **{k: main_case.get(k) for k in (
                 "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")},
+                "bound_by", "library_ms", "library_spread_ms")},
             "case": main_case["case"], "cases": cases[1:]})
     say(f"[done] all phases passed in {time.perf_counter() - t_all:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -83,8 +83,7 @@ def _as_leaves(view):
 
 
 def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
-                       impl: str = "kernels", unit_range=None,
-                       precision=None, guard=None):
+                       impl: str = "kernels", precision=None, guard=None):
     """Returns (init_opt_state_fn, step_fn).
 
     step_fn(params, opt_state_b, tokens, generator=None, *, sigma=None,
@@ -97,7 +96,7 @@ def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
         raise NotImplementedError(
             "guard (GuardConfig) belongs to the fault-tolerant training "
             "slice of the port")
-    start, size = unit_range if unit_range is not None else dbm.ranges[b]
+    start, size = dbm.ranges[b]
     pol = precision_mod.get_policy(precision)
     opt_init, opt_update = make_optimizer(tcfg)
 

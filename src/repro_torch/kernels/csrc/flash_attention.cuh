@@ -34,6 +34,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <atomic>
 
 namespace rtfa {
 
@@ -148,16 +149,28 @@ __device__ __forceinline__ float row16_sum(float v) {
   return v;
 }
 
-// Launch KERNEL with `smem` bytes of dynamic shared memory. The attribute
-// that allows more than 48 KB is set once per kernel (a function-local
-// static per instantiation), so later launches, CUDA-graph captures
-// included, make no other runtime call.
+// Launch KERNEL with `smem` bytes of dynamic shared memory on the current
+// device. The attribute that allows more than 48 KB is a property of the
+// function on one device, so it is set once per (instantiation, device):
+// `allowed[dev]` keeps the largest size granted there, and later launches,
+// CUDA-graph captures included, make no other runtime call than
+// cudaGetDevice.
+constexpr int kMaxDevices = 64;
+
 template <void (*KERNEL)(const FlashArgs)>
 cudaError_t launch(dim3 grid, size_t smem, const FlashArgs& a,
                    cudaStream_t st) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return attr;
+  static std::atomic<int> allowed[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (allowed[dev].load() < (int)smem) {
+    err = cudaFuncSetAttribute(
+        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed[dev].store((int)smem);
+  }
   KERNEL<<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }

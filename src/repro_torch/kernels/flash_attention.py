@@ -313,15 +313,12 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
+def flash_attention(q, k, v, *, mask_kind: str,
                     window: Optional[int] = None,
-                    mask_kind: Optional[str] = None,
                     mask_seq: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, Sq, hd); k/v: (B, KV, Sk, hd); H = KV * G. Returns like q.
-    Differentiable through the backward kernels (their plain versions on
-    the CPU)."""
-    if mask_kind is None:
-        mask_kind = ("window" if window is not None
-                     else "causal" if causal else "full")
+    ``(mask_kind, window, mask_seq)`` is a ``FlashConfig``; the model's
+    masks reach it through ``ops._route_mask``. Differentiable through the
+    backward kernels (their plain versions on the CPU)."""
     cfg = FlashConfig(mask_kind=mask_kind, window=window, mask_seq=mask_seq)
     return _Flash.apply(q, k, v, cfg)

@@ -10,21 +10,17 @@ from indices, so either would be silently wrong attention.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
 
 
-def _route_mask(mask_mod, causal: bool, window: Optional[int]):
+def _route_mask(mask_mod):
     """Map an ``attention.MaskMod`` onto a kernel mask kind: the tag
-    ``(kind, window, mask_seq)`` the supported constructors carry. Anything
-    untagged is rejected."""
+    ``(kind, window, mask_seq)`` the supported constructors carry; no mask
+    is ``full``. Anything untagged is rejected."""
     if mask_mod is None:
-        return (("window", window, None) if window is not None
-                else ("causal", None, None) if causal
-                else ("full", None, None))
+        return ("full", None, None)
     tag = getattr(mask_mod, "kernel_mask", None)
     if tag is None:
         raise NotImplementedError(
@@ -52,13 +48,12 @@ def _check_positions(pos, n: int, name: str):
             "kernel mask equivalent, use impl='ref')")
 
 
-def flash_attention(q, k, v, *, mask_mod=None, qpos=None, kpos=None,
-                    causal: bool = True, window: Optional[int] = None):
+def flash_attention(q, k, v, *, mask_mod=None, qpos=None, kpos=None):
     """q: (B, Sq, H, hd), k/v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
-    kind, win, mseq = _route_mask(mask_mod, causal, window)
+    kind, win, mseq = _route_mask(mask_mod)
     _check_positions(qpos, q.shape[1], "qpos")
     _check_positions(kpos, k.shape[1], "kpos")
     out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal, window=win,
-                              mask_kind=kind, mask_seq=mseq)
+                              v.transpose(1, 2), mask_kind=kind, window=win,
+                              mask_seq=mseq)
     return out.transpose(1, 2)

@@ -153,7 +153,7 @@ def attend(q, k, v, *, mask_mod: Optional[MaskMod], qpos, kpos,
     if impl == "kernels":
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, mask_mod=mask_mod, qpos=qpos,
-                                    kpos=kpos, causal=False)
+                                    kpos=kpos)
     if impl == "ref":
         mask = mask_mod(qpos, kpos) if mask_mod is not None else None
         return naive_attention(q, k, v, mask)

@@ -151,9 +151,8 @@ def test_ops_route_and_positions():
                              qpos=torch.arange(1, 5))
     with pytest.raises(NotImplementedError, match="arange"):
         TOPS.flash_attention(x, x, x, kpos=torch.arange(3))
-    assert TOPS._route_mask(TA.db_concat_mask(7), True, None) == \
-        ("db_concat", None, 7)
-    assert TOPS._route_mask(None, False, None) == ("full", None, None)
+    assert TOPS._route_mask(TA.db_concat_mask(7)) == ("db_concat", None, 7)
+    assert TOPS._route_mask(None) == ("full", None, None)
 
 
 @pytest.mark.parametrize("concat", [True, False])
