@@ -6,15 +6,17 @@
 Phases, each fatal on failure:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off
      (fp32 products stay fp32, or fp32 parity would mean nothing);
-  2. build: compiles the five kernel sources from
+  2. build: compiles the seven kernel sources from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel) and prints
      ``-Xptxas -v``'s summary;
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     the serving and training paths' shapes (max |err| <= 2e-4 + 2e-4 |ref|
-     for fp32 outputs from identical inputs, summed in another order; a bf16
-     output may also differ by its one final rounding, 2^-7 |ref|), timed by
-     CUDA-graph replay beside its bound, the plain version and, where one
-     PyTorch call computes the same function, that call;
+  3. kernels: each of the eleven kernels against its plain PyTorch version
+     on the card, at the serving and training paths' shapes (max |err| <=
+     2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs, summed in
+     another order; a bf16 output may also differ by its one final rounding,
+     2^-7 |ref|), timed by CUDA-graph replay beside its bound, the plain
+     version and, where one PyTorch call computes the same function, that
+     call; the row-wise kernels (ln-modulate, gate-residual backward, EDM
+     loss) and the attention calls of a two-pass layer at olmo-1b's shapes;
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -33,13 +35,28 @@ Phases, each fatal on failure:
      periphery;
   7. train cross-check: one fp32 DB step on block 0 through the kernels and
      through the plain attention; loss, grad norm and one layer's gradient
-     agree to 1e-3 relative.
+     agree to 1e-3 relative;
+  8. two-pass l2 train: stablelm freed first; olmo-1b at full width (16
+     layers, d=2048, 16 heads of 128, non-parametric LayerNorm), random
+     weights from seed 0 with the AdaLN heads randomised,
+     ``DBConfig(num_blocks=4, overlap_gamma=0.1, causal_mode="two_pass",
+     loss="l2")``, bf16 policy, MarkovLM batches of 8 x 512: one DB step per
+     block and one ``train_db`` iteration; loss, wall and device time, peak
+     memory, device-busy share under the profiler; launch counts equal to
+     the path's arithmetic (per layer two attention calls, two ln-modulate
+     and two gate-residual calls on the noisy stream, forward and backward;
+     one EDM loss forward and backward); finite losses; params change only
+     in the trained block and the periphery;
+  9. two-pass cross-check: one fp32 two-pass l2 DB step on block 0 through
+     the kernels and through the plain versions (``impl="ref"``); loss,
+     grad norm and one layer's gradients agree to 1e-3 relative.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. Exits non-zero without a CUDA device or without the
 repository's ``src`` beside it.
 """
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -59,6 +76,7 @@ PEAK_FP32 = 67e12              # fp32 outside the tensor cores
 TOL = 2e-4
 BF16_ULP = 2.0 ** -7           # one rounding of a bf16 output, relative
 ARCH = "stablelm-1.6b"
+TWO_PASS_ARCH = "olmo-1b"
 BATCH, PROMPT, CHUNK, MAX_NEW, PSZ = 8, 512, 64, 32, 16
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 ATTN = ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -332,14 +350,119 @@ def gate_case(label, shape, x_dtype, gate_dtype, dev, gen):
             "library_ms": library_ms, "bytes": nbytes, "flops": flops}
 
 
-def attention_work(cfg, B, H, KV, S, hd, elt):
-    """Bytes and flops of each attention kernel at these shapes: every
-    input read once, every output written once (fp32 lse and delta); flops
-    over the (q, k) pairs this mask keeps: 4 hd per pair and head for the
-    forward (q.k, p.v), 6 hd for dq (q.k, dO.v, ds.k), 8 hd for dk/dv."""
+def rowwise_case(label, kern, ref, sets, nbytes, flops) -> dict:
+    """One row-wise kernel (its wrapper, partial sums included) against its
+    plain version on input set 0, then timed by CUDA-graph replay over the
+    sets, which together exceed the 50 MB L2 (each call finds its inputs
+    cold, as a layer of the training step does). No single PyTorch call
+    computes these functions: F.layer_norm takes no per-example affine, and
+    the loss needs its target formed first."""
+    got = kern(*sets[0])
+    torch.cuda.synchronize()
+    err = compare(label, got, ref(*sets[0]), bf16_rounding=True)
+    n = len(sets)
+    ms = device_ms(lambda i: kern(*sets[i]), n)
+    plain_ms = device_ms(lambda i: ref(*sets[i]), n, calls=4, reps=3)
+    bound_ms, by = bound(nbytes, flops, PEAK_FP32)
+    say(f"[kernels] {label}: max|err| {err:.2e} | kernel {ms:.4f} ms device "
+        f"| bound {bound_ms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP) | plain {plain_ms:.4f} ms | library none")
+    return {"case": label, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None, "bytes": nbytes, "flops": flops}
+
+
+def phase_rowwise(dev) -> dict:
+    """The ln-modulate, gate-residual backward and EDM-loss kernels at the
+    two-pass olmo-1b path's shapes (8 x 512 rows of d = 2048; the AdaLN
+    vectors fp32 column slices of a (B, 6d) head output, row stride 6d),
+    the first case of each being its main case; plus an fp32-stream case
+    and a ragged one (S not a multiple of the kernels' tiles). Bytes: each
+    input read once, each output written once; flops per element: ln
+    forward 8, ln backward 16, gate backward 3, loss forward 6, loss
+    backward 9."""
+    from repro_torch.kernels import edm_loss as EDM
+    from repro_torch.kernels import fused_adaln as AD
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d = 2048
+    rows = {n: [] for n in ("ln_modulate_fwd", "ln_modulate_bwd",
+                            "gate_residual_bwd", "edm_loss_fwd",
+                            "edm_loss_bwd")}
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def adaln_sets(B, S, dt):
+        """(x, scale, shift, g) sets: x off-centre, mods fp32 slices."""
+        one = 2 * B * S * d * torch.tensor([], dtype=dt).element_size()
+        out = []
+        for _ in range(rotations(one)):
+            x = (1.0 + torch.randn(B, S, d, generator=gen, device=dev)
+                 ).to(dt)
+            g = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
+            heads = 0.1 * torch.randn(B, 6 * d, generator=gen, device=dev)
+            out.append((x, heads[:, d:2 * d], heads[:, :d], g))
+        return out
+
+    for B, S, dt, tag in ((8, 512, bf16, "bf16 (two-pass path)"),
+                          (8, 512, f32, "fp32"),
+                          (8, 130, bf16, "bf16, ragged S=130")):
+        sets = adaln_sets(B, S, dt)
+        n, elt, vec = B * S * d, sets[0][0].element_size(), B * d * 4
+        shape = f"({B},{S},{d}) {tag}, fp32 slices"
+        rows["ln_modulate_fwd"].append(rowwise_case(
+            f"(i) ln_modulate fwd {shape}",
+            lambda x, sc, sh, g: AD.ln_modulate_fwd(x, sc, sh),
+            lambda x, sc, sh, g: AD.ln_modulate_ref(x, sc, sh),
+            sets, 2 * n * elt + 2 * vec, 8 * n))
+        rows["ln_modulate_bwd"].append(rowwise_case(
+            f"(i) ln_modulate bwd {shape}",
+            lambda x, sc, sh, g: AD.ln_modulate_bwd(x, sc, g),
+            lambda x, sc, sh, g: AD.ln_modulate_bwd_ref(x, sc, g),
+            sets, 3 * n * elt + 3 * vec, 16 * n))
+        # gate backward: the same streams as branch and cotangent
+        rows["gate_residual_bwd"].append(rowwise_case(
+            f"(j) gate_residual bwd {shape}",
+            lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
+            lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
+            sets, 3 * n * elt + 2 * vec, 3 * n))
+
+    for B, S, tag in ((8, 512, "(two-pass l2 path)"),
+                      (8, 300, "ragged S=300")):
+        nt = -(-S // EDM.BLOCK_ROWS)
+        n = B * S * d
+        sets = []
+        for _ in range(rotations(3 * n * 4)):
+            f, z, y = (torch.randn(B, S, d, generator=gen, device=dev)
+                       for _ in range(3))
+            sigma = torch.rand(B, generator=gen, device=dev) * 3 + 0.01
+            cs, co = EDM._coeffs(sigma, 0.5)
+            g = torch.randn(B, nt, generator=gen, device=dev)
+            sets.append((f, z, y, cs, co, g))
+        shape = f"({B},{S},{d}) fp32 {tag}"
+        rows["edm_loss_fwd"].append(rowwise_case(
+            f"(k) edm_loss fwd {shape}",
+            lambda f, z, y, cs, co, g: EDM.edm_loss_fwd(f, z, y, cs, co),
+            lambda f, z, y, cs, co, g: EDM.edm_loss_partials_ref(
+                f, z, y, cs, co, EDM.BLOCK_ROWS),
+            sets, 3 * n * 4 + 2 * B * 4 + B * nt * 4, 6 * n))
+        rows["edm_loss_bwd"].append(rowwise_case(
+            f"(k) edm_loss bwd {shape}",
+            lambda f, z, y, cs, co, g: EDM.edm_loss_bwd(f, z, y, cs, co, g),
+            lambda f, z, y, cs, co, g: EDM.edm_loss_bwd_ref(
+                f, z, y, cs, co, g, EDM.BLOCK_ROWS),
+            sets, 6 * n * 4 + 2 * B * 4 + B * nt * 4, 9 * n))
+    return rows
+
+
+def attention_work(cfg, B, H, KV, S, Sk, hd, elt):
+    """Bytes and flops of each attention kernel at these shapes (S queries,
+    Sk keys): every input read once, every output written once (fp32 lse
+    and delta); flops over the (q, k) pairs this mask keeps: 4 hd per pair
+    and head for the forward (q.k, p.v), 6 hd for dq (q.k, dO.v, ds.k), 8 hd
+    for dk/dv."""
     from repro_torch.kernels import flash_attention as FA
-    pairs = int(FA.keep_mask(cfg, S, S).sum())
-    q_b, kv_b, row_b = B * H * S * hd * elt, B * KV * S * hd * elt, B * H * S * 4
+    pairs = int(FA.keep_mask(cfg, S, Sk).sum())
+    q_b, kv_b, row_b = B * H * S * hd * elt, B * KV * Sk * hd * elt, \
+        B * H * S * 4
     return {"flash_attention_fwd": (2 * q_b + 2 * kv_b + row_b,
                                     4 * hd * pairs * B * H),
             "flash_attention_bwd_dq": (3 * q_b + 2 * kv_b + 2 * row_b,
@@ -348,21 +471,22 @@ def attention_work(cfg, B, H, KV, S, hd, elt):
                                         8 * hd * pairs * B * H)}
 
 
-def attention_case(label, kind, *, B, H, KV, S, hd, dtype, window=None,
-                   mask_seq=None, dev, gen) -> dict:
-    """The three attention kernels at one shape, against their plain
-    versions (the backward ones on the kernel forward's lse and delta, so
-    each kernel is checked alone); (B, S, H, hd) tensors passed as
-    transposed views, as the model passes them. Library yardstick:
-    ``scaled_dot_product_attention`` with the same boolean mask, forward,
-    and forward + backward less forward (one call computes dq, dk, dv),
-    each the median of three CUDA-graph readings."""
+def attention_case(label, kind, *, B, H, KV, S, hd, dtype, Sk=None,
+                   window=None, mask_seq=None, dev, gen) -> dict:
+    """The three attention kernels at one shape (S queries, Sk keys,
+    default S), against their plain versions (the backward ones on the
+    kernel forward's lse and delta, so each kernel is checked alone);
+    (B, S, H, hd) tensors passed as transposed views, as the model passes
+    them. Library yardstick: ``scaled_dot_product_attention`` with the same
+    boolean mask, forward, and forward + backward less forward (one call
+    computes dq, dk, dv), each the median of three CUDA-graph readings."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     cfg = FA.FlashConfig(kind, window=window, mask_seq=mask_seq)
-    mk = lambda n: torch.randn(B, S, n, hd, generator=gen, device=dev  # noqa: E731
-                               ).to(dtype).transpose(1, 2)
-    q, k, v, do = mk(H), mk(KV), mk(KV), mk(H)
+    Sk = S if Sk is None else Sk
+    mk = lambda n, L: torch.randn(B, L, n, hd, generator=gen,  # noqa: E731
+                                  device=dev).to(dtype).transpose(1, 2)
+    q, k, v, do = mk(H, S), mk(KV, Sk), mk(KV, Sk), mk(H, S)
     out, lse = FA.flash_attention_fwd(q, k, v, cfg)
     delta = FA.attention_delta(out, do)
     dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
@@ -382,7 +506,7 @@ def attention_case(label, kind, *, B, H, KV, S, hd, dtype, window=None,
     }
     got = {"flash_attention_fwd": (out, lse), "flash_attention_bwd_dq": dq,
            "flash_attention_bwd_dkv": (dk, dv)}
-    mask = FA.keep_mask(cfg, S, S, dev)
+    mask = FA.keep_mask(cfg, S, Sk, dev)
     gqa = {"enable_gqa": True} if H != KV else {}
     # GQA in one call needs torch >= 2.5 (enable_gqa); else no yardstick
     lib_fwd = lib_bwd = lib_spread = None
@@ -403,7 +527,7 @@ def attention_case(label, kind, *, B, H, KV, S, hd, dtype, window=None,
         lib_bwd = both - lib_fwd
         lib_spread = {"fwd": [min(fwd_t), max(fwd_t)],
                       "fwd_bwd": [min(both_t), max(both_t)]}
-    work = attention_work(cfg, B, H, KV, S, hd, q.element_size())
+    work = attention_work(cfg, B, H, KV, S, Sk, hd, q.element_size())
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
     rows = {}
     for name, (kern, ref) in calls.items():
@@ -436,8 +560,9 @@ def attention_case(label, kind, *, B, H, KV, S, hd, dtype, window=None,
 def phase_attention(dev) -> dict:
     """Attention kernels at the training path's shapes: the DB step's
     db_concat stream (8 x 1024 rows, mask_seq 512) and the e2e step's causal
-    512, in bf16 (the path's policy) and fp32, plus one GQA G=4 window case
-    at hd 128. The first case of each kernel is its main case."""
+    512, in bf16 (the path's policy) and fp32, one GQA G=4 window case at hd
+    128, and the two calls of an olmo-1b two-pass layer (hd 128). The first
+    case of each kernel is its main case."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {n: [] for n in ATTN}
     bf16, f32 = torch.bfloat16, torch.float32
@@ -454,6 +579,13 @@ def phase_attention(dev) -> dict:
          dict(B=4, H=32, KV=8, S=1024, hd=128, dtype=bf16, window=256)),
         ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 fp32", "window",
          dict(B=4, H=32, KV=8, S=1024, hd=128, dtype=f32, window=256)),
+        # the two calls of an olmo-1b two-pass layer (phase 8)
+        ("(h) causal B=8 H=16 S=512 hd=128 bf16 (two-pass clean stream)",
+         "causal", dict(B=8, H=16, KV=16, S=512, hd=128, dtype=bf16)),
+        ("(h) two_pass B=8 H=16 Sq=512 Sk=2x512 hd=128 bf16 (two-pass "
+         "noisy stream)", "two_pass",
+         dict(B=8, H=16, KV=16, S=512, Sk=1024, hd=128, dtype=bf16,
+              mask_seq=512)),
     ]
     for label, kind, kw in cases:
         for name, row in attention_case(label, kind, dev=dev, gen=gen,
@@ -499,6 +631,45 @@ def phase_kernels(dev) -> dict:
         "(d) gate_residual (8,64,2048) bf16, bf16 gate slice", (8, 64, 2048),
         bf16, bf16, dev, gen))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# launch counts a path must show
+# ---------------------------------------------------------------------------
+
+def expected_counts(**nonzero) -> dict:
+    """Every kernel's count: the named ones, the rest 0."""
+    from repro_torch import kernels as K
+    unknown = set(nonzero) - set(K.WRAPPERS)
+    if unknown:
+        raise SmokeError(f"no kernel wrapper named {sorted(unknown)}")
+    return {**{n: 0 for n in K.WRAPPERS}, **nonzero}
+
+
+def db_step_counts(dbm, size: int) -> dict:
+    """Launches of one DB step over a block of ``size`` layers. concat: one
+    attention forward, dq and dk/dv per layer (the clean||noisy stream
+    carries a cond_mask, so no AdaLN kernel). two_pass: per layer a causal
+    clean call and a two_pass noisy call, whose backward runs for all but
+    the last layer's clean call (its output reaches no loss); on the noisy
+    stream two gate-residual calls and, for a non-parametric LayerNorm, two
+    ln-modulate calls, forward and backward. l2: one EDM loss forward and
+    backward."""
+    l2 = int(dbm.db.loss == "l2")
+    if dbm.db.causal_mode == "concat":
+        return expected_counts(**{n: size for n in ATTN}, edm_loss_fwd=l2,
+                               edm_loss_bwd=l2)
+    ln = 2 * size if dbm.cfg.norm == "nonparam_ln" else 0
+    return expected_counts(
+        flash_attention_fwd=2 * size, flash_attention_bwd_dq=2 * size - 1,
+        flash_attention_bwd_dkv=2 * size - 1, gate_residual=2 * size,
+        gate_residual_bwd=2 * size, ln_modulate_fwd=ln, ln_modulate_bwd=ln,
+        edm_loss_fwd=l2, edm_loss_bwd=l2)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c
 
 
 # ---------------------------------------------------------------------------
@@ -562,10 +733,9 @@ def phase_serve(dev) -> dict:
     n_tok = BATCH * MAX_NEW
     pool_bytes = KVC.cache_bytes(eng.last_kv)
     L = cfg.n_layers
-    expect = {"flash_decode": MAX_NEW * 2 * L,
-              "gate_residual": MAX_NEW * 2 * L,
-              "flash_prefill": -(-PROMPT // CHUNK) * L,
-              **{n: 0 for n in ATTN}}
+    expect = expected_counts(flash_decode=MAX_NEW * 2 * L,
+                             gate_residual=MAX_NEW * 2 * L,
+                             flash_prefill=-(-PROMPT // CHUNK) * L)
     decode_ms = tim["total_ms"] - tim["prefill_ms"]
     say(f"[serve] bf16, greedy, {BATCH} requests, prompts padded to {PROMPT} "
         f"(lengths {plens.tolist()}), chunk {CHUNK}, {MAX_NEW} new tokens")
@@ -795,31 +965,19 @@ def profile_step(label, fn) -> dict:
     return {"wall_ms": wall, "device_ms": busy}
 
 
-def phase_train(dev, model) -> dict:
-    """Phase 6. The serve phase's model (fp32 masters; its serving caches
-    are dropped first), bf16 policy. Each DB step runs with its block's own
-    AdamW state, made before the step and freed after it, so the resident
-    memory is what training that block alone holds: the masters and one
-    block's moments. Then one iteration of ``train_db``, which keeps every
-    block's state resident as the training CLI does. A warm-up step of each
-    kind comes first (first-call costs: cuBLAS heuristics, the allocator
-    growing); one more step of each kind runs under the profiler."""
-    from repro_torch.configs.base import TrainConfig
+def db_steps(dbm, params, gen, tcfg, data, tag: str) -> dict:
+    """One bf16 DB step on each block, each with its block's own AdamW
+    state, made before the step and freed after it (so the resident memory
+    is what training that block alone holds: the masters and one block's
+    moments), after a warm-up step (first-call costs: cuBLAS heuristics, the
+    allocator growing); one more under the profiler; then one iteration of
+    ``train_db``, which keeps every block's state resident as the training
+    CLI does. Each run's launch counts must equal the path's arithmetic and
+    only the trained block and the periphery may change."""
     from repro_torch.core import training as T
-    from repro_torch.data import MarkovLM
-    dbm, params, gen = model
-    dbm.__dict__.pop("_compute_copies", None)     # serving's bf16 copy
-    dbm.model.__dict__.pop("_unit_memo", None)
-    torch.cuda.empty_cache()
     cfg = dbm.cfg
-    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
-    data = MarkovLM(vocab_size=cfg.vocab_size, seed=7).iterator(
-        TRAIN_BATCH, TRAIN_SEQ)
+    dev = params["embed"]["table"].device
     batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
-    zero = {n: 0 for n in ("flash_decode", "flash_prefill", "gate_residual")}
-    say(f"[train] {cfg.name} full width, bf16 policy, MarkovLM batches "
-        f"{TRAIN_BATCH}x{TRAIN_SEQ}; fp32 masters resident: "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
     def db_step(b, tokens):
         init, step = T.make_db_train_step(dbm, b, tcfg, precision="bf16")
@@ -827,8 +985,8 @@ def phase_train(dev, model) -> dict:
         return lambda: step(params, state, tokens, gen)[2:]
 
     loss, _ = db_step(3, batch())()
-    say(f"[train] warm-up DB step on block 3: loss {float(loss):.4f}")
-    out = {"db": [], "launches": {n: 0 for n in ATTN}}
+    say(f"[{tag}] warm-up DB step on block 3: loss {float(loss):.4f}")
+    out = {"db": [], "launches": {}}
     for b, (start, size) in enumerate(dbm.ranges):
         before = unit_digests(params)
         run = db_step(b, batch())
@@ -838,8 +996,8 @@ def phase_train(dev, model) -> dict:
         # cached (no cudaMalloc inside the next timed step)
         del run, res
         changed = (unit_digests(params) != before).tolist()
-        expect = {**zero, **{n: size for n in ATTN}}
-        say(f"[train] DB step block {b} (units {start}-{start + size - 1}): "
+        expect = db_step_counts(dbm, size)
+        say(f"[{tag}] DB step block {b} (units {start}-{start + size - 1}): "
             f"loss {float(loss):.4f} | grad norm {float(m['grad_norm']):.3f}"
             f" | wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) "
             f"| peak {peak / 2**30:.2f} GiB (resident before "
@@ -855,12 +1013,12 @@ def phase_train(dev, model) -> dict:
         if changed != want:
             raise SmokeError(f"DB step block {b} changed units "
                              f"{changed} (expected {want})")
-        for n in ATTN:
-            out["launches"][n] += counts[n]
+        add_counts(out["launches"], counts)
         out["db"].append({"block": b, "loss": float(loss), "wall_s": wall,
                           "device_ms": dev_ms, "peak_bytes": peak,
                           "resident_bytes": base})
-    out["db_profile"] = profile_step("DB step block 0", db_step(0, batch()))
+    out["db_profile"] = profile_step(f"{tag}: DB step block 0",
+                                     db_step(0, batch()))
 
     # the shipped trainer (``train_db``, what ``launch.train --mode db``
     # runs) makes every block's AdamW state up front and keeps them all:
@@ -872,8 +1030,8 @@ def phase_train(dev, model) -> dict:
     (_, b, loss), = res
     del res
     torch.cuda.empty_cache()
-    expect = {**zero, **{n: dbm.ranges[b][1] for n in ATTN}}
-    say(f"[train] train_db, 1 iteration (block {b}, all "
+    expect = db_step_counts(dbm, dbm.ranges[b][1])
+    say(f"[{tag}] train_db, 1 iteration (block {b}, all "
         f"{dbm.num_blocks} AdamW states resident): loss {loss:.4f} | wall "
         f"{wall * 1e3:.1f} ms (states made inside) | peak "
         f"{peak / 2**30:.2f} GiB | launches {counts}")
@@ -882,9 +1040,33 @@ def phase_train(dev, model) -> dict:
                          f"arithmetic {expect}")
     if not math.isfinite(loss):
         raise SmokeError(f"train_db: loss {loss}")
-    for n in ATTN:
-        out["launches"][n] += counts[n]
+    add_counts(out["launches"], counts)
     out["train_db"] = {"block": b, "loss": loss, "peak_bytes": peak}
+    return out
+
+
+def phase_train(dev, model) -> dict:
+    """Phase 6. The serve phase's model (fp32 masters; its serving caches
+    are dropped first), bf16 policy: ``db_steps``, then a warm-up e2e step,
+    one timed and one under the profiler, every param's AdamW state
+    resident."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import training as T
+    from repro_torch.data import MarkovLM
+    dbm, params, gen = model
+    dbm.__dict__.pop("_compute_copies", None)     # serving's bf16 copy
+    dbm.model.__dict__.pop("_unit_memo", None)
+    torch.cuda.empty_cache()
+    cfg = dbm.cfg
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    data = MarkovLM(vocab_size=cfg.vocab_size, seed=7).iterator(
+        TRAIN_BATCH, TRAIN_SEQ)
+    batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    say(f"[train] {cfg.name} full width, bf16 policy, MarkovLM batches "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}; fp32 masters resident: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    out = db_steps(dbm, params, gen, tcfg, data, "train")
 
     init, step = T.make_e2e_train_step(dbm, tcfg, precision="bf16")
     opt = init(params)
@@ -894,7 +1076,7 @@ def phase_train(dev, model) -> dict:
     (res, wall, dev_ms, peak, base, counts) = timed_step(
         lambda: step(params, opt, tokens)[2:])
     loss, m = res
-    expect = {**zero, **{n: cfg.n_layers for n in ATTN}}
+    expect = expected_counts(**{n: cfg.n_layers for n in ATTN})
     say(f"[train] e2e step (all {cfg.n_layers} layers): loss "
         f"{float(loss):.4f} | grad norm {float(m['grad_norm']):.3f} | wall "
         f"{wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
@@ -905,8 +1087,7 @@ def phase_train(dev, model) -> dict:
                          f"arithmetic {expect}")
     if not math.isfinite(float(loss)):
         raise SmokeError(f"e2e step: loss {float(loss)}")
-    for n in ATTN:
-        out["launches"][n] += counts[n]
+    add_counts(out["launches"], counts)
     out["e2e"] = {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
                   "peak_bytes": peak, "resident_bytes": base}
     tokens = batch()
@@ -926,10 +1107,12 @@ def phase_train(dev, model) -> dict:
     return out
 
 
-def phase_train_crosscheck(dev, model) -> dict:
-    """Phase 7: one fp32 DB step on block 0 from the same params and
-    draws, through the attention kernels and through the plain attention
-    (``impl="ref"``); the view is restored between the two."""
+def db_crosscheck(dev, model, tag: str, grads) -> dict:
+    """One fp32 DB step on block 0 from the same params and draws, through
+    the kernels and through their plain versions (``impl="ref"``); the view
+    is restored between the two. Loss, grad norm and the first moments of
+    unit 0's ``grads`` leaves (0.1 x their clipped gradients) must agree to
+    1e-3 relative, and the kernel path's launches equal its arithmetic."""
     from repro_torch import kernels as K
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import training as T
@@ -945,34 +1128,80 @@ def phase_train_crosscheck(dev, model) -> dict:
                       device=dev)
     tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
     res = {}
-    for impl, n in (("kernels", size), ("ref", 0)):
+    for impl in ("kernels", "ref"):
         init, step = T.make_db_train_step(dbm, 0, tcfg, impl=impl,
                                           precision="fp32")
         K.reset_launch_counts()
         _, opt, loss, m = step(params, init(params), tokens, sigma=sigma,
                                eps=eps)
-        counts = {k: v for k, v in K.launch_counts().items() if k in ATTN}
-        if counts != {k: n for k in ATTN}:
-            raise SmokeError(f"train cross-check impl={impl}: attention "
-                             f"launches {counts}, expected {n} each")
-        # first moment of unit 0's wq: 0.1 x its (clipped) gradient
+        counts = K.launch_counts()
+        expect = db_step_counts(dbm, size) if impl == "kernels" \
+            else expected_counts()
+        if counts != expect:
+            raise SmokeError(f"{tag} cross-check impl={impl}: launches "
+                             f"{counts}, expected {expect}")
         res[impl] = (float(loss), float(m["grad_norm"]),
-                     opt.mu["layers"]["attn"]["wq"][0].clone())
+                     {g: opt.mu["layers"][g[0]][g[1]][0].clone()
+                      for g in grads})
         del opt
         T.write_back_block_view(params, saved, start)
         torch.cuda.empty_cache()
     (lk, gk, mk), (lr, gr, mr) = res["kernels"], res["ref"]
     loss_rel, gn_rel = abs(lk - lr) / abs(lr), abs(gk - gr) / abs(gr)
-    grad_rel = ((mk - mr).abs().max() / mr.abs().max()).item()
-    say(f"[crosscheck] fp32 DB step block 0, kernels vs plain attention: "
-        f"loss {lk:.7f} vs {lr:.7f} (rel {loss_rel:.2e}) | grad norm "
-        f"{gk:.7f} vs {gr:.7f} (rel {gn_rel:.2e}) | unit 0 wq grad rel "
-        f"max|diff| {grad_rel:.2e}; limit 1e-3")
-    if not (loss_rel <= 1e-3 and gn_rel <= 1e-3 and grad_rel <= 1e-3):
-        raise SmokeError("fp32 train cross-check: kernels and plain "
-                         "attention disagree")
+    grad_rel = {"/".join(g): ((mk[g] - mr[g]).abs().max()
+                              / mr[g].abs().max()).item() for g in grads}
+    say(f"[crosscheck] {tag}: fp32 DB step block 0, kernels vs plain "
+        f"versions: loss {lk:.7f} vs {lr:.7f} (rel {loss_rel:.2e}) | grad "
+        f"norm {gk:.7f} vs {gr:.7f} (rel {gn_rel:.2e}) | unit 0 grad rel "
+        f"max|diff| " + ", ".join(f"{k} {v:.2e}" for k, v in grad_rel.items())
+        + "; limit 1e-3")
+    if not (loss_rel <= 1e-3 and gn_rel <= 1e-3
+            and max(grad_rel.values()) <= 1e-3):
+        raise SmokeError(f"fp32 {tag} cross-check: kernels and plain "
+                         "versions disagree")
     return {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
             "grad_rel": grad_rel}
+
+
+def phase_two_pass(dev) -> dict:
+    """Phase 8: olmo-1b at full width trained as DiffusionBlocks in the
+    two-pass mode with the l2 loss (bf16 policy), through ``db_steps``. The
+    model is made here from seed 0 (AdaLN heads randomised so the σ
+    conditioning and its kernels do real work)."""
+    from repro_torch.configs import DBConfig, get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    from repro_torch.data import MarkovLM
+    t0 = time.perf_counter()
+    cfg = get_config(TWO_PASS_ARCH)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(
+        num_blocks=4, overlap_gamma=0.1, causal_mode="two_pass", loss="l2"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in _leaves(params))
+    say(f"[two-pass] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+        f"heads={cfg.n_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} norm={cfg.norm}, {dbm.num_blocks} blocks "
+        f"{dbm.ranges}, causal_mode=two_pass loss=l2; {n_params / 1e9:.3f} "
+        f"B params fp32 made in {time.perf_counter() - t0:.1f} s; bf16 "
+        f"policy, MarkovLM batches {TRAIN_BATCH}x{TRAIN_SEQ}; resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    data = MarkovLM(vocab_size=cfg.vocab_size, seed=7).iterator(
+        TRAIN_BATCH, TRAIN_SEQ)
+    out = db_steps(dbm, params, gen, tcfg, data, "two-pass")
+    say(f"[two-pass] peak memory: DB step with one block's AdamW state "
+        f"{max(r['peak_bytes'] for r in out['db']) / 2**30:.2f} GiB, "
+        f"train_db with all {dbm.num_blocks} states "
+        f"{out['train_db']['peak_bytes'] / 2**30:.2f} GiB; nvidia-smi (sm "
+        f"MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    torch.cuda.empty_cache()
+    out["model"] = (dbm, params, gen)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -984,6 +1213,16 @@ SOURCES = {
                       "src/repro/kernels/flash_prefill.py:52"),
     "gate_residual": ("src/repro_torch/kernels/csrc/gate_residual.cu",
                       "src/repro/kernels/fused_adaln.py:137"),
+    "gate_residual_bwd": ("src/repro_torch/kernels/csrc/gate_residual.cu",
+                          "src/repro/kernels/fused_adaln.py:143"),
+    "ln_modulate_fwd": ("src/repro_torch/kernels/csrc/ln_modulate.cu",
+                        "src/repro/kernels/fused_adaln.py:43"),
+    "ln_modulate_bwd": ("src/repro_torch/kernels/csrc/ln_modulate.cu",
+                        "src/repro/kernels/fused_adaln.py:53"),
+    "edm_loss_fwd": ("src/repro_torch/kernels/csrc/edm_loss.cu",
+                     "src/repro/kernels/edm_loss.py:41"),
+    "edm_loss_bwd": ("src/repro_torch/kernels/csrc/edm_loss.cu",
+                     "src/repro/kernels/edm_loss.py:58"),
     "flash_attention_fwd": (
         "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:101"),
@@ -1011,14 +1250,29 @@ def main() -> int:
     phase_device()
     phase_build()
     rows = phase_kernels(dev)
+    rows.update(phase_rowwise(dev))
     rows.update(phase_attention(dev))
     serve = phase_serve(dev)
     model = serve.pop("model")
     phase_profile(dev, model)
     phase_crosscheck(dev, model)
     train = phase_train(dev, model)
-    phase_train_crosscheck(dev, model)
-    launches = {**serve["counts"], **train["launches"]}
+    db_crosscheck(dev, model, "concat ce", [("attn", "wq")])
+    del model                      # stablelm's masters and caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_pass = phase_two_pass(dev)
+    model = two_pass.pop("model")
+    db_crosscheck(dev, model, "two-pass l2",
+                  [("attn", "wq"), ("mlp", "wg"), ("adaln", "w")])
+    launches = {}
+    for counts in (serve["counts"], train["launches"],
+                   two_pass["launches"]):
+        add_counts(launches, counts)
+    missing = sorted(n for n in SOURCES if launches.get(n, 0) == 0)
+    if missing or sorted(rows) != sorted(SOURCES):
+        raise SmokeError(f"kernels not launched on the main path: {missing}"
+                         f"; checked in phase 3: {sorted(rows)}")
     kernels = []
     for name, cases in rows.items():
         main_case = cases[0]

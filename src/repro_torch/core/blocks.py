@@ -1,15 +1,16 @@
 """DiffusionBlocks over the dense decoder (port of
 ``repro.core.blocks``): the block-local training loss of the AR adapter in
-concat mode with CE (``block_loss``), the end-to-end baseline
-(``e2e_loss``), and the sampler over the paged cache.
+concat or two-pass mode with the CE or l2 loss (``block_loss``), the
+end-to-end baseline (``e2e_loss``), and the sampler over the paged cache.
 
-Training. ``block_loss`` runs the clean‖noisy stream of length 2S through
-block b's units under ``db_concat_mask``; it reads only units
-``ranges[b]`` (+ the embedding, readout and σ conditioning), so autograd
-never reaches another block's units. σ and ε can be passed in; otherwise
-they are drawn from a ``torch.Generator``. ``chunked_ce`` recomputes each
-chunk's logits in the backward (``torch.utils.checkpoint``), so the
-(S, vocab) logits never exist for the whole sequence.
+Training. ``block_loss`` runs block b's units over the clean‖noisy stream
+of length 2S under ``db_concat_mask`` (concat) or over paired clean and
+noisy streams (two_pass); it reads only units ``ranges[b]`` (+ the
+embedding, readout and σ conditioning), so autograd never reaches another
+block's units. σ and ε can be passed in; otherwise they are drawn from a
+``torch.Generator``. ``chunked_ce`` recomputes each chunk's logits in the
+backward (``torch.utils.checkpoint``), so the (S, vocab) logits never exist
+for the whole sequence.
 
 The next token's embedding is denoised by an Euler chain σ_max → 0 in which
 block b (units ``ranges[b]``) serves the noise range [edges[b+1], edges[b]]
@@ -136,22 +137,20 @@ class DiffusionBlocksModel:
                    impl: str = "kernels",
                    unit_range: Optional[Tuple[int, int]] = None,
                    precision=None) -> Tuple[torch.Tensor, Dict]:
-        """Paper Eq. (6) for the AR adapter (concat mode, CE): noisy slot i
-        carries z_i = emb(x_i) + σ ε and is conditioned on clean x_{<i};
-        block b denoises it and CE is taken through the readout. σ (B, 1, 1)
-        is drawn in block b's overlap-expanded range, one per example; ε
-        (B, S, d) is standard normal. Both come from ``generator`` unless
-        given. The σ preconditioning, denoiser combine and loss stay fp32;
+        """Paper Eq. (6) for the AR adapter: noisy slot i carries
+        z_i = emb(x_i) + σ ε and is conditioned on clean x_{<i}; block b
+        denoises it. σ (B, 1, 1) is drawn in block b's overlap-expanded
+        range, one per example; ε (B, S, d) is standard normal. Both come
+        from ``generator`` unless given.
+
+        ``DBConfig.causal_mode``: ``concat`` runs one clean‖noisy stream of
+        length 2S under ``db_concat_mask``; ``two_pass`` runs the clean and
+        noisy streams side by side through ``apply_units_two_pass``.
+        ``DBConfig.loss``: ``ce`` takes CE of the denoiser output through
+        the readout; ``l2`` is the score-matching loss in F-space (under
+        ``impl="kernels"`` the EDM-loss kernels, which never store the
+        target). The σ preconditioning, denoiser combine and loss stay fp32;
         the hidden stream runs in the policy's compute dtype."""
-        if self.db.causal_mode != "concat":
-            raise NotImplementedError(
-                f"causal_mode={self.db.causal_mode!r}: the port trains the "
-                "concat mode only so far; two_pass belongs to a later slice "
-                "(it needs the gate-residual backward kernel)")
-        if self.db.loss != "ce":
-            raise NotImplementedError(
-                f"loss={self.db.loss!r}: the port trains CE only so far; l2 "
-                "belongs to a later slice (it needs the EDM-loss kernels)")
         pol = precision_mod.get_policy(precision)
         cd = pol.compute_for(self.cfg.family)
         Bsz, S = tokens.shape
@@ -169,22 +168,40 @@ class DiffusionBlocksModel:
         _, _, c_in, _ = edm.preconditioning(sigma, self.db.sigma_data)
         z_in = (c_in * z).to(cd)
 
-        stream = torch.cat([emb_clean.to(cd), z_in], dim=1)
-        ctx = self.make_ctx(params, 2 * S, "train", sigma, impl=impl,
-                            precision=pol)
-        ctx.mask_mod = A.db_concat_mask(S)
         ar = torch.arange(S, device=dev)
-        ctx.rope_positions = torch.cat([ar, ar])
-        ctx.cond_mask = torch.arange(2 * S, device=dev) >= S
-        h, _ = self.model.apply_units(params, stream, start, size, ctx)
-        f_out = h[:, S:]
+        if self.db.causal_mode == "concat":
+            stream = torch.cat([emb_clean.to(cd), z_in], dim=1)
+            ctx = self.make_ctx(params, 2 * S, "train", sigma, impl=impl,
+                                precision=pol)
+            ctx.mask_mod = A.db_concat_mask(S)
+            ctx.rope_positions = torch.cat([ar, ar])
+            ctx.cond_mask = torch.arange(2 * S, device=dev) >= S
+            h, _ = self.model.apply_units(params, stream, start, size, ctx)
+            f_out = h[:, S:]
+        else:
+            ctx = self.make_ctx(params, S, "train", sigma, impl=impl,
+                                precision=pol)
+            ctx.rope_positions = ar
+            _, f_out = self.model.apply_units_two_pass(
+                params, emb_clean.to(cd), z_in, start, size, ctx)
 
-        d_hat = edm.denoise_combine(z, f_out.float(), sigma,
-                                    self.db.sigma_data)
-        loss = chunked_ce(self.model, params, d_hat.to(emb_clean.dtype),
-                          tokens)
-        return loss, {"ce": loss, "loss": loss,
-                      "sigma_mean": sigma.mean()}
+        if self.db.loss == "l2":
+            f32, y32 = f_out.float(), emb_clean.float()
+            if impl == "kernels":
+                from repro_torch.kernels import ops as kops
+                loss = kops.edm_loss(f32, z, y32, sigma.reshape(Bsz),
+                                     sigma_data=self.db.sigma_data)
+            else:
+                loss = edm.edm_l2_loss(f32, z, y32, sigma,
+                                       self.db.sigma_data)
+            metrics = {"l2": loss}
+        else:
+            d_hat = edm.denoise_combine(z, f_out.float(), sigma,
+                                        self.db.sigma_data)
+            loss = chunked_ce(self.model, params, d_hat.to(emb_clean.dtype),
+                              tokens)
+            metrics = {"ce": loss}
+        return loss, {**metrics, "loss": loss, "sigma_mean": sigma.mean()}
 
     def e2e_loss(self, params, tokens: torch.Tensor, *,
                  impl: str = "kernels", precision=None

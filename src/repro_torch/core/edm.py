@@ -72,6 +72,15 @@ def denoise_combine(z: torch.Tensor, f_out: torch.Tensor,
     return c_skip * z + c_out * f_out
 
 
+def edm_l2_loss(f_out: torch.Tensor, z: torch.Tensor, y: torch.Tensor,
+                sigma: torch.Tensor, sigma_data: float) -> torch.Tensor:
+    """w(σ)·||D − y||² rewritten in F-space with unit weight:
+    ||F − (y − c_skip z)/c_out||² (elementwise mean)."""
+    c_skip, c_out, _, _ = preconditioning(sigma, sigma_data)
+    target = (y - c_skip * z) / c_out
+    return torch.mean(torch.square(f_out.float() - target.float()))
+
+
 def euler_step(z: torch.Tensor, d_hat: torch.Tensor, sigma_from: float,
                sigma_to: float) -> torch.Tensor:
     """PF-ODE Euler step σ_from -> σ_to (< σ_from), paper Eq. (5):

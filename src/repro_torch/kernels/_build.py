@@ -23,7 +23,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "flash_decode": "flash_decode.cu",
     "flash_prefill": "flash_prefill.cu",
-    "gate_residual": "gate_residual.cu",
+    "gate_residual": "gate_residual.cu",     # forward and backward
+    "ln_modulate": "ln_modulate.cu",         # forward and backward
+    "edm_loss": "edm_loss.cu",               # forward and backward
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",   # dq and dk/dv
 }

@@ -1,59 +1,33 @@
-// Gated residual, out = res + branch * (1 + gate), for sm_90a. Replaces the
-// forward Pallas TPU kernel src/repro/kernels/fused_adaln.py:137
-// (_gate_res_kernel, called through fused_gate_residual at :203).
+// Gated residual, out = res + branch * (1 + gate), and its backward, for
+// sm_90a. Replaces the Pallas TPU kernels src/repro/kernels/fused_adaln.py:137
+// (_gate_res_kernel) and :143 (_gate_res_bwd_kernel), called through
+// fused_gate_residual at :203.
 //
-// What bounds it: bytes. It reads res and branch (B, S, d), reads the
-// per-example gate (B, d), writes out (B, S, d), and does 2 flops per
-// element. The TPU kernel tiled rows into VMEM; here a grid-stride loop
-// gives each thread 4 neighbouring elements (one 16-byte fp32 or 8-byte
-// bf16 load per stream), so every warp access is coalesced. The gate is read
-// through a row stride, so a column slice of the AdaLN head's (B, 6d)
-// output needs no copy. Math is fp32 with explicit round-to-nearest adds
-// and multiplies (no fused multiply-add), the same two roundings as the
-// plain PyTorch version; the output is written in res's dtype.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// What bounds them: bytes. The forward reads res and branch (B, S, d),
+// reads the per-example gate (B, d), writes out (B, S, d), and does 2 flops
+// per element; the backward reads the cotangent g and branch, writes
+// d_branch = g * (1 + gate) and per-tile sums of g * branch for d_gate. The
+// TPU kernels tiled rows into VMEM; here each thread takes 4 neighbouring
+// elements (one 16-byte fp32 or 8-byte bf16 load per stream), so every warp
+// access is coalesced. The gate is read through a row stride, so a column
+// slice of the AdaLN head's (B, 6d) output needs no copy. Elementwise math
+// is fp32 with explicit round-to-nearest adds and multiplies (no fused
+// multiply-add), the same roundings as the plain PyTorch versions; outputs
+// are written in the streams' dtype.
+//
+// The backward's d_gate is a sum over the rows of one example. A block owns
+// one tile of tile_rows rows of one example and loops over them per column,
+// so no tile crosses examples and no atomics are needed: it writes its fp32
+// column sums to partials[b, tile, :], and the caller sums the tiles (the
+// TPU kernel's (B, n_tiles, d) partials, summed outside it).
+#include "rowwise.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using rowwise::to_f;
+using rowwise::Vec4;
 
-template <typename T>
-struct Vec4;
-
-template <>
-struct Vec4<float> {
-  static __device__ __forceinline__ void load(const float* p, float* o) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* v) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Vec4<__nv_bfloat16> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float* o) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(h[0]);
-    const float2 b = __bfloat1622float2(h[1]);
-    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p,
-                                               const float* v) {
-    uint2 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-    h[0] = __floats2bfloat162_rn(v[0], v[1]);
-    h[1] = __floats2bfloat162_rn(v[2], v[3]);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
+constexpr int kThreads = 256;
 
 template <typename T, typename TG>
 __global__ void gate_residual_kernel(const T* __restrict__ res,
@@ -76,6 +50,42 @@ __global__ void gate_residual_kernel(const T* __restrict__ res,
   }
 }
 
+// grid (n_tiles, B): block (tile, b) owns rows [tile*tile_rows, ...) of
+// example b; each thread owns column quads and walks the tile's rows.
+template <typename T, typename TG>
+__global__ void gate_residual_bwd_kernel(const T* __restrict__ branch,
+                                         const TG* __restrict__ gate,
+                                         const T* __restrict__ g,
+                                         T* __restrict__ dbranch,
+                                         float* __restrict__ dgate_part,
+                                         int S, int d, long long gate_stride,
+                                         int tile_rows, int n_tiles) {
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int row0 = tile * tile_rows;
+  const int nrows = min(tile_rows, S - row0);
+  const TG* gt = gate + b * gate_stride;
+  const long long base = (static_cast<long long>(b) * S + row0) * d;
+  float* part = dgate_part + (static_cast<long long>(b) * n_tiles + tile) * d;
+  for (int c = threadIdx.x * 4; c < d; c += blockDim.x * 4) {
+    float g1[4], acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) g1[j] = __fadd_rn(1.f, to_f(gt[c + j]));
+    for (int r = 0; r < nrows; ++r) {
+      const long long off = base + static_cast<long long>(r) * d + c;
+      float gv[4], bv[4], o[4];
+      Vec4<T>::load(g + off, gv);
+      Vec4<T>::load(branch + off, bv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[j] = __fmul_rn(gv[j], g1[j]);
+        acc[j] = fmaf(gv[j], bv[j], acc[j]);
+      }
+      Vec4<T>::store(dbranch + off, o);
+    }
+    Vec4<float>::store(part + c, acc);
+  }
+}
+
 template <typename T, typename TG>
 void launch(const void* res, const void* branch, const void* gate, void* out,
             long long n4, int S, int d4, long long gate_stride,
@@ -88,6 +98,17 @@ void launch(const void* res, const void* branch, const void* gate, void* out,
       static_cast<const T*>(res), static_cast<const T*>(branch),
       static_cast<const TG*>(gate), static_cast<T*>(out), n4, S, d4,
       gate_stride);
+}
+
+template <typename T, typename TG>
+void launch_bwd(const void* branch, const void* gate, const void* g,
+                void* dbranch, float* part, int B, int S, int d,
+                long long gate_stride, int tile_rows, cudaStream_t st) {
+  const int n_tiles = (S + tile_rows - 1) / tile_rows;
+  gate_residual_bwd_kernel<T, TG><<<dim3(n_tiles, B), kThreads, 0, st>>>(
+      static_cast<const T*>(branch), static_cast<const TG*>(gate),
+      static_cast<const T*>(g), static_cast<T*>(dbranch), part, S, d,
+      gate_stride, tile_rows, n_tiles);
 }
 
 }  // namespace
@@ -106,6 +127,28 @@ extern "C" int rt_gate_residual(const void* res, const void* branch,
     case 1: launch<float, __nv_bfloat16>(res, branch, gate, out, n4, S, d4, gate_stride, st); break;
     case 2: launch<__nv_bfloat16, float>(res, branch, gate, out, n4, S, d4, gate_stride, st); break;
     case 3: launch<__nv_bfloat16, __nv_bfloat16>(res, branch, gate, out, n4, S, d4, gate_stride, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// branch, g, dbranch: (B, S, d) in x_dtype; gate (B, d) with row stride
+// gate_stride; dgate_part (B, ceil(S / tile_rows), d) fp32. d % 4 == 0.
+extern "C" int rt_gate_residual_bwd(const void* branch, const void* gate,
+                                    const void* g, void* dbranch,
+                                    void* dgate_part, int B, int S, int d,
+                                    long long gate_stride, int tile_rows,
+                                    int x_dtype, int gate_dtype,
+                                    void* stream) {
+  if (d % 4 != 0 || B < 1 || S < 1 || tile_rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(dgate_part);
+  switch (x_dtype * 2 + gate_dtype) {
+    case 0: launch_bwd<float, float>(branch, gate, g, dbranch, part, B, S, d, gate_stride, tile_rows, st); break;
+    case 1: launch_bwd<float, __nv_bfloat16>(branch, gate, g, dbranch, part, B, S, d, gate_stride, tile_rows, st); break;
+    case 2: launch_bwd<__nv_bfloat16, float>(branch, gate, g, dbranch, part, B, S, d, gate_stride, tile_rows, st); break;
+    case 3: launch_bwd<__nv_bfloat16, __nv_bfloat16>(branch, gate, g, dbranch, part, B, S, d, gate_stride, tile_rows, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

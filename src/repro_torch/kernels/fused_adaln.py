@@ -1,9 +1,23 @@
-"""Fused AdaLN kernels (port of ``repro.kernels.fused_adaln``): so far the
-forward gated residual, out = res + branch * (1 + gate), with a per-example
-(B, d) gate broadcast over the sequence (CUDA source
-``csrc/gate_residual.cu``). ``gate_residual`` launches the Hopper kernel on
-CUDA tensors and runs ``gate_residual_ref`` on CPU tensors. The backward
-kernel, ``fused_ln_modulate`` and ``fused_euler`` are not ported yet.
+"""Fused AdaLN kernels (port of ``repro.kernels.fused_adaln``): the gated
+residual and the non-parametric LayerNorm + AdaLN modulation, each with a
+hand-written backward.
+
+  gate_residual: out = res + branch * (1 + gate)     (csrc/gate_residual.cu)
+  ln_modulate:   out = LN(x) * (1 + scale) + shift   (csrc/ln_modulate.cu)
+
+gate/scale/shift are per-example (B, d) vectors broadcast over the sequence;
+they may be column slices of the AdaLN head's (B, 6d) output (unit stride
+along d, any row stride), which the kernels read in place.
+
+Four wrappers, one per kernel, each counting its launches in ``.launches``:
+``gate_residual_fwd``, ``gate_residual_bwd``, ``ln_modulate_fwd`` and
+``ln_modulate_bwd``. On CUDA tensors they launch the kernel or raise; on CPU
+tensors they run the plain versions (``*_ref``). ``gate_residual`` and
+``ln_modulate`` tie each pair together in a ``torch.autograd.Function``
+whose backward calls the backward wrapper, never autograd through the
+forward. The backward kernels write per-tile (B, n_tiles, d) fp32 partial
+sums for the (B, d) gradients, summed here by one ``torch.sum``, as JAX sums
+its kernels' partials outside them. ``fused_euler`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,64 +28,244 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE_ROWS = 16        # rows of one example per backward block (partials)
+LN_EPS = 1e-6
 _FN = {}
 
 
+# ---------------------------------------------------------------------------
+# Plain versions (the JAX kernels' formulas, fp32 math)
+# ---------------------------------------------------------------------------
+
 def gate_residual_ref(res, branch, gate):
-    """Plain version: fp32 math, output in ``res``'s dtype."""
+    """res + branch * (1 + gate), fp32 math, output in ``res``'s dtype."""
     return (res.float() + branch.float() * (1.0 + gate.float()[:, None, :])
             ).to(res.dtype)
 
 
-def _kernel():
-    if "fn" not in _FN:
-        fn = _build.load("gate_residual").rt_gate_residual
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, LL, I, I, LL, I, I, P]
-        fn.restype = I
-        _FN["fn"] = fn
-    return _FN["fn"]
+def gate_residual_bwd_ref(branch, gate, g):
+    """(d_branch, d_gate) of ``_gate_res_bwd_kernel``: d_branch =
+    g * (1 + gate) in branch's dtype, d_gate = sum over rows of g * branch
+    in gate's dtype (d_res is g itself)."""
+    gf = g.float()
+    d_branch = (gf * (1.0 + gate.float()[:, None, :])).to(branch.dtype)
+    d_gate = (gf * branch.float()).sum(1).to(gate.dtype)
+    return d_branch, d_gate
 
 
-def gate_residual(res, branch, gate):
+def _ln_stats(xf, eps):
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    return mean, torch.rsqrt(var + eps)
+
+
+def ln_modulate_ref(x, scale, shift, eps: float = LN_EPS):
+    """LN(x) * (1 + scale) + shift with ``_ln_mod_kernel``'s two-pass
+    statistics, fp32 math, output in x's dtype."""
+    xf = x.float()
+    mean, rstd = _ln_stats(xf, eps)
+    y = (xf - mean) * rstd
+    y = y * (1.0 + scale.float()[:, None, :]) + shift.float()[:, None, :]
+    return y.to(x.dtype)
+
+
+def ln_modulate_bwd_ref(x, scale, g, eps: float = LN_EPS):
+    """(dx, d_scale, d_shift) of ``_ln_mod_bwd_kernel``:
+    dx = rstd * (dy - mean(dy) - xhat * mean(dy * xhat)), dy = g (1 + scale);
+    d_scale = sum over rows of g * xhat, d_shift = sum over rows of g
+    (both in scale's dtype)."""
+    xf, gf = x.float(), g.float()
+    mean, rstd = _ln_stats(xf, eps)
+    xhat = (xf - mean) * rstd
+    dy = gf * (1.0 + scale.float()[:, None, :])
+    dx = rstd * (dy - dy.mean(-1, keepdim=True)
+                 - xhat * (dy * xhat).mean(-1, keepdim=True))
+    return (dx.to(x.dtype), (gf * xhat).sum(1).to(scale.dtype),
+            gf.sum(1).to(scale.dtype))
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _kernel(lib: str, sym: str, argtypes):
+    if sym not in _FN:
+        fn = getattr(_build.load(lib), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FN[sym] = fn
+    return _FN[sym]
+
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+
+
+def _check_rows(name, rows, vecs):
+    """Raise on what the row-wise kernels do not take: ``rows`` (B, S, d)
+    streams of one fp32/bf16 dtype, contiguous, 16-byte aligned, d a
+    multiple of 4; ``vecs`` (B, d) fp32/bf16 with unit stride along d.
+    Returns (B, S, d)."""
+    x = rows[0]
+    if any(t.device.type != "cuda" or t.device != x.device
+           for t in rows + vecs):
+        raise ValueError(f"{name}: every tensor must lie on one CUDA device")
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in rows) \
+            or any(t.dtype not in _DTYPES for t in vecs) \
+            or any(t.dtype != vecs[0].dtype for t in vecs):
+        raise TypeError(f"{name}: the (B, S, d) streams must share fp32 or "
+                        f"bf16 and the (B, d) vectors be fp32 or bf16, got "
+                        f"{[t.dtype for t in rows + vecs]}")
+    if x.ndim != 3 or any(t.shape != x.shape for t in rows):
+        raise ValueError(f"{name}: the streams must be (B, S, d) alike, got "
+                         f"{[tuple(t.shape) for t in rows]}")
+    B, S, d = x.shape
+    if any(t.ndim != 2 or tuple(t.shape) != (B, d) or t.stride(1) != 1
+           for t in vecs):
+        raise ValueError(f"{name}: the per-example vectors must be (B, d) = "
+                         f"{(B, d)} with unit stride along d, got "
+                         f"{[tuple(t.shape) for t in vecs]}")
+    if d % 4:
+        raise NotImplementedError(f"{name}: d must be a multiple of 4")
+    if S == 0 or B == 0:
+        raise ValueError(f"{name}: empty batch or sequence")
+    if not all(t.is_contiguous() for t in rows):
+        raise ValueError(f"{name}: the (B, S, d) streams must be contiguous")
+    if any(t.data_ptr() % 16 for t in rows):
+        raise ValueError(f"{name}: the (B, S, d) streams must be 16-byte "
+                         "aligned")
+    return B, S, d
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def gate_residual_fwd(res, branch, gate):
     """res/branch: (B, S, d) fp32 or bf16, one dtype; gate: (B, d) fp32 or
-    bf16 with unit stride along d (a column slice of the AdaLN head's output
-    is fine). Returns (B, S, d) in res's dtype."""
+    bf16 with unit stride along d. Returns (B, S, d) in res's dtype."""
     if res.device.type == "cpu":
         return gate_residual_ref(res, branch, gate)
-    if res.device.type != "cuda" or branch.device != res.device \
-            or gate.device != res.device:
-        raise ValueError("gate_residual: res, branch and gate must share one "
-                         "CUDA device")
-    if res.dtype not in _DTYPES or branch.dtype != res.dtype \
-            or gate.dtype not in _DTYPES:
-        raise TypeError(f"gate_residual: res/branch must share fp32 or bf16 "
-                        f"and gate be fp32 or bf16, got {res.dtype}, "
-                        f"{branch.dtype}, {gate.dtype}")
-    if res.ndim != 3 or branch.shape != res.shape:
-        raise ValueError(f"gate_residual: res and branch must be (B, S, d) "
-                         f"alike, got {tuple(res.shape)} and "
-                         f"{tuple(branch.shape)}")
-    B, S, d = res.shape
-    if gate.ndim != 2 or tuple(gate.shape) != (B, d) or gate.stride(1) != 1:
-        raise ValueError(f"gate_residual: gate must be (B, d) = {(B, d)} with "
-                         f"unit stride along d, got {tuple(gate.shape)}")
-    if d % 4:
-        raise NotImplementedError("gate_residual: d must be a multiple of 4")
-    if not (res.is_contiguous() and branch.is_contiguous()):
-        raise ValueError("gate_residual: res and branch must be contiguous")
-    if res.data_ptr() % 16 or branch.data_ptr() % 16:
-        raise ValueError("gate_residual: res and branch must be 16-byte "
-                         "aligned")
+    B, S, d = _check_rows("gate_residual", (res, branch), (gate,))
     out = torch.empty_like(res)
+    fn = _kernel("gate_residual", "rt_gate_residual",
+                 [_P, _P, _P, _P, _LL, _I, _I, _LL, _I, _I, _P])
     with torch.cuda.device(res.device):
-        rc = _kernel()(res.data_ptr(), branch.data_ptr(), gate.data_ptr(),
-                       out.data_ptr(), B * S, S, d, gate.stride(0),
-                       _DTYPES[res.dtype], _DTYPES[gate.dtype],
-                       torch.cuda.current_stream(res.device).cuda_stream)
+        rc = fn(res.data_ptr(), branch.data_ptr(), gate.data_ptr(),
+                out.data_ptr(), B * S, S, d, gate.stride(0),
+                _DTYPES[res.dtype], _DTYPES[gate.dtype], _stream(res))
     _build.check(rc, "gate_residual")
-    gate_residual.launches += 1
+    gate_residual_fwd.launches += 1
     return out
 
 
-gate_residual.launches = 0
+def gate_residual_bwd(branch, gate, g):
+    """(d_branch like branch, d_gate like gate) from the cotangent g of the
+    output (branch's dtype)."""
+    if branch.device.type == "cpu":
+        return gate_residual_bwd_ref(branch, gate, g)
+    B, S, d = _check_rows("gate_residual_bwd", (branch, g), (gate,))
+    d_branch = torch.empty_like(branch)
+    part = torch.empty((B, -(-S // TILE_ROWS), d), dtype=torch.float32,
+                       device=branch.device)
+    fn = _kernel("gate_residual", "rt_gate_residual_bwd",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P])
+    with torch.cuda.device(branch.device):
+        rc = fn(branch.data_ptr(), gate.data_ptr(), g.data_ptr(),
+                d_branch.data_ptr(), part.data_ptr(), B, S, d,
+                gate.stride(0), TILE_ROWS, _DTYPES[branch.dtype],
+                _DTYPES[gate.dtype], _stream(branch))
+    _build.check(rc, "gate_residual_bwd")
+    gate_residual_bwd.launches += 1
+    return d_branch, part.sum(1).to(gate.dtype)
+
+
+def ln_modulate_fwd(x, scale, shift, eps: float = LN_EPS):
+    """x: (B, S, d) fp32 or bf16; scale/shift: (B, d) of one dtype, fp32 or
+    bf16, unit stride along d. Returns (B, S, d) in x's dtype."""
+    if x.device.type == "cpu":
+        return ln_modulate_ref(x, scale, shift, eps)
+    B, S, d = _check_rows("ln_modulate", (x,), (scale, shift))
+    out = torch.empty_like(x)
+    fn = _kernel("ln_modulate", "rt_ln_modulate_fwd",
+                 [_P, _P, _P, _P, _I, _I, _I, _LL, _LL, _F, _I, _I, _P])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                out.data_ptr(), B, S, d, scale.stride(0), shift.stride(0),
+                eps, _DTYPES[x.dtype], _DTYPES[scale.dtype], _stream(x))
+    _build.check(rc, "ln_modulate")
+    ln_modulate_fwd.launches += 1
+    return out
+
+
+def ln_modulate_bwd(x, scale, g, eps: float = LN_EPS):
+    """(dx like x, d_scale, d_shift in scale's dtype) from the cotangent g
+    of the output (x's dtype)."""
+    if x.device.type == "cpu":
+        return ln_modulate_bwd_ref(x, scale, g, eps)
+    B, S, d = _check_rows("ln_modulate_bwd", (x, g), (scale,))
+    dx = torch.empty_like(x)
+    part = torch.empty((2, B, -(-S // TILE_ROWS), d), dtype=torch.float32,
+                       device=x.device)
+    fn = _kernel("ln_modulate", "rt_ln_modulate_bwd",
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _F, _I, _I,
+                  _P])
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                part[0].data_ptr(), part[1].data_ptr(), B, S, d,
+                scale.stride(0), TILE_ROWS, eps, _DTYPES[x.dtype],
+                _DTYPES[scale.dtype], _stream(x))
+    _build.check(rc, "ln_modulate_bwd")
+    ln_modulate_bwd.launches += 1
+    sums = part.sum(2).to(scale.dtype)
+    return dx, sums[0], sums[1]
+
+
+for _w in (gate_residual_fwd, gate_residual_bwd, ln_modulate_fwd,
+           ln_modulate_bwd):
+    _w.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Differentiable entry points
+# ---------------------------------------------------------------------------
+
+class _GateResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, res, branch, gate):
+        ctx.save_for_backward(branch, gate)     # as _gate_res_vjp_fwd
+        return gate_residual_fwd(res, branch, gate)
+
+    @staticmethod
+    def backward(ctx, g):
+        branch, gate = ctx.saved_tensors
+        d_branch, d_gate = gate_residual_bwd(branch, gate, g.contiguous())
+        return g, d_branch, d_gate              # d res: g itself, no copy
+
+
+class _LnModulate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, eps):
+        ctx.save_for_backward(x, scale)         # as _ln_mod_vjp_fwd
+        ctx.eps, ctx.shift_dtype = eps, shift.dtype
+        return ln_modulate_fwd(x, scale, shift, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, d_scale, d_shift = ln_modulate_bwd(x, scale, g.contiguous(),
+                                               ctx.eps)
+        return dx, d_scale, d_shift.to(ctx.shift_dtype), None
+
+
+def gate_residual(res, branch, gate):
+    """res/branch: (B, S, d); gate: (B, d). Differentiable through the
+    backward kernel (its plain version on CPU tensors)."""
+    return _GateResidual.apply(res, branch, gate)
+
+
+def ln_modulate(x, scale, shift, eps: float = LN_EPS):
+    """x: (B, S, d); scale/shift: (B, d). Non-parametric LN + AdaLN affine,
+    differentiable through the backward kernel (its plain version on CPU
+    tensors)."""
+    return _LnModulate.apply(x, scale, shift, eps)

@@ -1,18 +1,22 @@
-"""Routing from the model's attention calls onto the kernels (port of the
-flash-attention part of ``repro.kernels.ops``).
+"""Routing from the model's training calls onto the kernels (port of
+``repro.kernels.ops``; the serving attends call theirs from ``nn.cache``).
 
-``flash_attention`` is the (B, S, H, hd) adapter ``nn.attention.attend``
-uses under ``impl="kernels"``: it maps the mask constructor onto a kernel
-mask kind by its ``kernel_mask`` tag and hands the kernels (B, H, S, hd)
-transposed VIEWS, which they read through strides (no copy). Untagged masks
-and positions that are not an arange raise: the kernels derive positions
-from indices, so either would be silently wrong attention.
+``ln_modulate``, ``gate_residual`` and ``edm_loss`` are the differentiable
+fused AdaLN and EDM-loss kernels. ``flash_attention`` is the (B, S, H, hd)
+adapter ``nn.attention.attend`` uses under ``impl="kernels"``: it maps the
+mask constructor onto a kernel mask kind by its ``kernel_mask`` tag and
+hands the kernels (B, H, S, hd) transposed VIEWS, which they read through
+strides (no copy). Untagged masks and positions that are not an arange
+raise: the kernels derive positions from indices, so either would be
+silently wrong attention.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import edm_loss as _edm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import fused_adaln as _ad
 
 
 def _route_mask(mask_mod):
@@ -57,3 +61,15 @@ def flash_attention(q, k, v, *, mask_mod=None, qpos=None, kpos=None):
                               v.transpose(1, 2), mask_kind=kind, window=win,
                               mask_seq=mseq)
     return out.transpose(1, 2)
+
+
+def ln_modulate(x, scale, shift):
+    return _ad.ln_modulate(x, scale, shift)
+
+
+def gate_residual(res, branch, gate):
+    return _ad.gate_residual(res, branch, gate)
+
+
+def edm_loss(f, z, y, sigma, sigma_data: float = 0.5):
+    return _edm.edm_loss(f, z, y, sigma, sigma_data)

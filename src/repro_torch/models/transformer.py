@@ -1,7 +1,7 @@
 """Dense decoder (port of ``repro.models.transformer.DecoderModel``, dense
-family: the training pass and the paged-serving paths). The JAX
-``lax.scan`` over units is a Python loop over the stacked ``layers``
-axis."""
+family: the training passes, concat and two-pass, and the paged-serving
+paths). The JAX ``lax.scan`` over units is a Python loop over the stacked
+``layers`` axis."""
 from __future__ import annotations
 
 from typing import Optional
@@ -61,6 +61,15 @@ class DecoderModel(BaseModel):
             h, _ = C.tlayer_apply(units[start + i], h, ctx,
                                   cache=cache.unit(i))
         return h, cache
+
+    def apply_units_two_pass(self, params, h_clean, h_noisy, start: int,
+                             size: int, ctx):
+        """DB two-pass training over units [start, start + size): the clean
+        and noisy streams through ``tlayer_two_pass`` unit by unit. Returns
+        (h_clean, h_noisy)."""
+        for u in _unbind(params["layers"], start, size):
+            h_clean, h_noisy = C.tlayer_two_pass(u, h_clean, h_noisy, ctx)
+        return h_clean, h_noisy
 
     def unit_params(self, params) -> list:
         """Per-unit views of the stacked ``layers`` tree, made once per param

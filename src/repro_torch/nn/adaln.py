@@ -8,7 +8,8 @@ gate) pairs that modulate the pre-norm stream and gate the residual branch:
     h' = h + gate * f( norm(h) * (1 + scale) + shift )
 
 ``gate`` routes the unmasked σ-conditioned case, a per-example ``(B, 1, d)``
-gate, through the gate-residual kernel (``kernels.fused_adaln``).
+gate, through the differentiable gate-residual kernels
+(``kernels.fused_adaln``).
 """
 from __future__ import annotations
 
@@ -88,15 +89,15 @@ def gate(residual: torch.Tensor, branch: torch.Tensor,
          cond_mask: Optional[torch.Tensor] = None,
          impl: str = "kernels") -> torch.Tensor:
     """``impl="kernels"`` sends a per-example ``(B, 1, d)`` gate with no
-    ``cond_mask`` to the gate-residual kernel (its plain version on CPU
-    tensors); ``impl="ref"`` and the masked or unconditioned cases stay in
-    plain torch."""
+    ``cond_mask`` to the gate-residual kernels, forward and backward (their
+    plain versions on CPU tensors); ``impl="ref"`` and the masked or
+    unconditioned cases stay in plain torch."""
     if g is None:
         return residual + branch
     if impl == "kernels" and cond_mask is None and g.ndim == 3 \
             and g.shape[1] == 1:
-        from repro_torch.kernels.fused_adaln import gate_residual
-        return gate_residual(residual, branch, g[:, 0])
+        from repro_torch.kernels import ops as kops
+        return kops.gate_residual(residual, branch, g[:, 0])
     gated = branch * (1.0 + g.to(branch.dtype))
     if cond_mask is not None:
         gated = torch.where(cond_mask[None, :, None], gated, branch)

@@ -74,6 +74,12 @@ def init_params(spec_tree: Any, generator: torch.Generator,
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = p
+
+    def subtrees(spec, node):   # keep leafless subtrees (nonparam_ln's {})
+        for k, v in spec.items():
+            if isinstance(v, dict):
+                subtrees(v, node.setdefault(k, {}))
+    subtrees(spec_tree, out)
     return out
 
 

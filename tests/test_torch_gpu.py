@@ -18,6 +18,7 @@ from repro_torch import kernels as K
 from repro_torch.configs import DBConfig, TrainConfig, get_config, reduced
 from repro_torch.core.blocks import DiffusionBlocksModel
 from repro_torch.core import training as T
+from repro_torch.kernels import edm_loss as EDM
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import flash_decode as FD
 from repro_torch.kernels import flash_prefill as FP
@@ -121,6 +122,132 @@ def test_gate_residual_kernel(cuda, xdt, gdt, shape):
                                atol=0, rtol=0)
 
 
+def _heads(gen, B, d, dtype, dev):
+    """A (B, 6d) AdaLN head output: the kernels read its column slices."""
+    return (0.1 * torch.randn(B, 6 * d, generator=gen, device=dev)
+            ).to(dtype)
+
+
+def _bf16_close(got, want):
+    """fp32 tolerance, plus one bf16 rounding of the output (the kernel and
+    the plain version sum in another order)."""
+    rel = 2.0 ** -7 if got.dtype == torch.bfloat16 else TOL
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL, rtol=rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1, 2048), (3, 130, 256),
+                                   (2, 16, 64)])
+def test_gate_residual_bwd_kernel(cuda, xdt, gdt, shape):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    B, _, d = shape
+    br = torch.randn(shape, generator=gen, device=cuda).to(xdt)
+    g = torch.randn(shape, generator=gen, device=cuda).to(xdt)
+    gate = _heads(gen, B, d, gdt, cuda)[:, 5 * d:]       # strided slice
+    n0 = AD.gate_residual_bwd.launches
+    d_br, d_gate = AD.gate_residual_bwd(br, gate, g)
+    torch.cuda.synchronize()
+    assert AD.gate_residual_bwd.launches == n0 + 1
+    r_br, r_gate = AD.gate_residual_bwd_ref(br, gate, g)
+    # d_branch: one exact product, rounded as the plain version rounds it
+    torch.testing.assert_close(d_br, r_br, atol=0, rtol=0)
+    assert d_gate.dtype == gdt
+    _bf16_close(d_gate, r_gate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 512, 2048), (3, 130, 256),
+                                   (2, 17, 64)])
+def test_ln_modulate_kernels(cuda, xdt, mdt, shape):
+    """Forward and backward against the plain versions, mods as strided
+    slices of one head output; x off-centre so the two-pass variance
+    matters."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    B, _, d = shape
+    x = (3.0 + torch.randn(shape, generator=gen, device=cuda)).to(xdt)
+    g = torch.randn(shape, generator=gen, device=cuda).to(xdt)
+    heads = _heads(gen, B, d, mdt, cuda)
+    shift, scale = heads[:, :d], heads[:, d:2 * d]
+    n0 = (AD.ln_modulate_fwd.launches, AD.ln_modulate_bwd.launches)
+    out = AD.ln_modulate_fwd(x, scale, shift)
+    dx, dsc, dsh = AD.ln_modulate_bwd(x, scale, g)
+    torch.cuda.synchronize()
+    assert (AD.ln_modulate_fwd.launches, AD.ln_modulate_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    _bf16_close(out, AD.ln_modulate_ref(x, scale, shift))
+    for got, want in zip((dx, dsc, dsh), AD.ln_modulate_bwd_ref(x, scale,
+                                                                g)):
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        _bf16_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,block_rows", [(512, 256), (130, 256), (130, 64),
+                                          (16, 256)])
+def test_edm_loss_kernels(cuda, S, block_rows):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, d = 4, 256
+    f, z, y = (torch.randn(B, S, d, generator=gen, device=cuda)
+               for _ in range(3))
+    sigma = torch.rand(B, generator=gen, device=cuda) * 3 + 0.01
+    cs, co = EDM._coeffs(sigma, 0.5)
+    br = min(block_rows, S)
+    part = EDM.edm_loss_fwd(f, z, y, cs, co, br)
+    g = torch.randn(part.shape, generator=gen, device=cuda)
+    grads = EDM.edm_loss_bwd(f, z, y, cs, co, g, br)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(part, EDM.edm_loss_partials_ref(
+        f, z, y, cs, co, br), atol=TOL, rtol=TOL)
+    # explicit round-to-nearest operations in the plain version's order
+    for got, want in zip(grads, EDM.edm_loss_bwd_ref(f, z, y, cs, co, g,
+                                                     br)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+    # through the autograd.Function: grads of the scalar loss
+    fs = [x.clone().requires_grad_() for x in (f, z, y)]
+    n0 = (EDM.edm_loss_fwd.launches, EDM.edm_loss_bwd.launches)
+    loss = EDM.edm_loss(*fs, sigma, 0.5)
+    loss.backward()
+    assert (EDM.edm_loss_fwd.launches, EDM.edm_loss_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    ref = [x.clone().requires_grad_() for x in (f, z, y)]
+    c_skip, c_out = cs[:, None, None], co[:, None, None]
+    want = ((ref[0] - (ref[2] - c_skip * ref[1]) / c_out) ** 2).mean()
+    want.backward()
+    torch.testing.assert_close(loss, want, atol=TOL, rtol=TOL)
+    for a, r in zip(fs, ref):
+        torch.testing.assert_close(a.grad, r.grad, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_gate_residual_autograd_on_cuda(cuda, xdt):
+    """Gradients reach res, branch and the gate slice through the
+    gate-residual Function on CUDA tensors, by the backward kernel, and
+    equal the plain versions'; d res is the cotangent itself."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    B, S, d = 4, 70, 256
+    res, br = (torch.randn(B, S, d, generator=gen, device=cuda).to(xdt)
+               .requires_grad_() for _ in range(2))
+    heads = _heads(gen, B, d, torch.float32, cuda).requires_grad_()
+    n0 = AD.gate_residual_bwd.launches
+    out = AD.gate_residual(res, br, heads[:, 2 * d:3 * d])
+    assert out.grad_fn is not None
+    g = torch.randn(B, S, d, generator=gen, device=cuda).to(xdt)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert AD.gate_residual_bwd.launches == n0 + 1
+    assert torch.equal(res.grad, g)
+    r_br, r_gate = AD.gate_residual_bwd_ref(br.detach(),
+                                            heads.detach()[:, 2 * d:3 * d], g)
+    torch.testing.assert_close(br.grad, r_br, atol=0, rtol=0)
+    _bf16_close(heads.grad[:, 2 * d:3 * d], r_gate)
+    assert (heads.grad[:, :2 * d] == 0).all()
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 2, 1, 96, device=cuda)
@@ -138,6 +265,30 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q5 = torch.randn(2, 1, 2, 1, 128, device=cuda)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         FP.flash_prefill(q5, pages, pages, table, lens)
+    # the row-wise kernels: (B, S, d) streams, (B, d) vectors
+    x = torch.randn(2, 5, 64, device=cuda)
+    vec = torch.randn(2, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="multiple of 4"):
+        AD.ln_modulate_fwd(x[..., :62].contiguous(), vec[:, :62],
+                           vec[:, :62])
+    with pytest.raises(ValueError, match="contiguous"):
+        AD.ln_modulate_bwd(x.transpose(1, 2).contiguous().transpose(1, 2),
+                           vec, x)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        AD.ln_modulate_fwd(x, vec, vec.bfloat16())
+    with pytest.raises(ValueError, match="unit stride"):
+        AD.gate_residual_fwd(x, x, torch.randn(64, 2, device=cuda).T)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        AD.gate_residual_bwd(x, vec, x.bfloat16())
+    with pytest.raises(ValueError, match=r"\(B, d\)"):
+        AD.gate_residual_bwd(x, vec[:1], x)
+    cs = torch.rand(2, device=cuda) + 0.5
+    with pytest.raises(TypeError, match="fp32"):
+        EDM.edm_loss_fwd(x.bfloat16(), x, x, cs, cs)
+    with pytest.raises(ValueError, match="contiguous"):
+        EDM.edm_loss_fwd(x[:, ::2], x[:, ::2], x[:, ::2], cs, cs)
+    with pytest.raises(ValueError, match="n_tiles"):
+        EDM.edm_loss_bwd(x, x, x, cs, cs, torch.ones(2, 3, device=cuda))
 
 
 @pytest.mark.gpu
@@ -166,12 +317,10 @@ def test_serving_through_kernels_matches_plain_versions(cuda, arch):
             assert counts == {k: 0 for k in counts}
         else:
             L = cfg.n_layers
-            assert counts == {"flash_decode": 6 * 2 * L,
+            assert counts == {**{k: 0 for k in counts},
+                              "flash_decode": 6 * 2 * L,
                               "flash_prefill": 3 * L,
-                              "gate_residual": 6 * 2 * L,
-                              "flash_attention_fwd": 0,
-                              "flash_attention_bwd_dq": 0,
-                              "flash_attention_bwd_dkv": 0}
+                              "gate_residual": 6 * 2 * L}
     assert torch.equal(outs["ref"], outs["kernels"])
 
 
@@ -309,3 +458,59 @@ def test_train_step_through_kernels_matches_plain_versions(cuda, mode):
         scale = mr[name].abs().max().item()
         torch.testing.assert_close(mk[name], mr[name], atol=1e-3 * scale,
                                    rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss", ["l2", "ce"])
+def test_two_pass_step_through_kernels_matches_plain_versions(cuda, loss):
+    """One fp32 two-pass DB step of reduced olmo-1b (non-parametric LN)
+    through the kernels and through the plain versions from the same params
+    and draws: loss, grad norm and first moments agree, and the launch
+    counts are the path's arithmetic: per layer two attention calls (clean
+    causal, noisy two_pass), whose backward runs for all but the last
+    layer's clean call (its output reaches no loss), and two ln-modulate
+    and two gate-residual calls on the noisy stream, forward and backward;
+    one EDM loss forward and backward under l2."""
+    cfg = reduced(get_config("olmo-1b"), n_layers=4, d_model=512, n_heads=4)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1,
+                                             causal_mode="two_pass",
+                                             loss=loss))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    master = dbm.init(gen)
+    for k in ("w", "b"):
+        master["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96), generator=gen,
+                           device=cuda)
+    sigma = torch.rand(2, 1, 1, generator=gen, device=cuda) + 0.1
+    eps = torch.randn(2, 96, cfg.d_model, generator=gen, device=cuda)
+    tcfg = TrainConfig(steps=10, warmup_steps=2, lr=1e-3)
+    res = {}
+    for impl in ("ref", "kernels"):
+        params = tree_map(lambda _, x: x.clone(), master)
+        init, step = T.make_db_train_step(dbm, 1, tcfg, impl=impl)
+        K.reset_launch_counts()
+        params, opt, lv, m = step(params, init(params), tokens, sigma=sigma,
+                                  eps=eps)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        n = dbm.ranges[1][1]
+        l2 = int(loss == "l2")
+        expect = {k: 0 for k in counts}
+        if impl == "kernels":
+            expect.update({"flash_attention_fwd": 2 * n,
+                           "flash_attention_bwd_dq": 2 * n - 1,
+                           "flash_attention_bwd_dkv": 2 * n - 1,
+                           "ln_modulate_fwd": 2 * n,
+                           "ln_modulate_bwd": 2 * n,
+                           "gate_residual": 2 * n,
+                           "gate_residual_bwd": 2 * n,
+                           "edm_loss_fwd": l2, "edm_loss_bwd": l2})
+        assert counts == expect
+        res[impl] = (lv, m["grad_norm"], opt.mu["layers"])
+    (lr_, gr, mr), (lk, gk, mk) = res["ref"], res["kernels"]
+    assert torch.isfinite(lk) and abs(lk - lr_) <= 1e-4 * abs(lr_)
+    assert abs(gk - gr) <= 1e-3 * abs(gr)
+    for path in (("attn", "wq"), ("mlp", "wg"), ("adaln", "w")):
+        a, r = mk[path[0]][path[1]], mr[path[0]][path[1]]
+        scale = r.abs().max().item()
+        torch.testing.assert_close(a, r, atol=1e-3 * scale, rtol=1e-3)

@@ -19,6 +19,7 @@ from repro.kernels import flash_attention as JFA
 from repro.kernels import flash_decode as JFD
 from repro.kernels import flash_prefill as JFP
 from repro.kernels import fused_adaln as JAD
+from repro_torch.kernels import edm_loss as TEDM
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import flash_decode as TFD
 from repro_torch.kernels import flash_prefill as TFP
@@ -170,10 +171,21 @@ def test_wrappers_never_fall_back_off_cpu():
         TFD.flash_decode(q, pages, pages, table, lens)
     with pytest.raises(ValueError, match="CUDA"):
         TFP.flash_prefill(q[:, None], pages, pages, table, lens)
+    rows, vec = torch.empty(2, 3, 64, **meta), torch.empty(2, 64, **meta)
     with pytest.raises(ValueError, match="CUDA"):
-        TAD.gate_residual(torch.empty(2, 1, 64, **meta),
-                        torch.empty(2, 1, 64, **meta),
-                        torch.empty(2, 64, **meta))
+        TAD.gate_residual(rows, rows, vec)
+    with pytest.raises(ValueError, match="CUDA"):
+        TAD.gate_residual_bwd(rows, vec, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        TAD.ln_modulate(rows, vec, vec)
+    with pytest.raises(ValueError, match="CUDA"):
+        TAD.ln_modulate_bwd(rows, vec, rows)
+    sig = torch.empty(2, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        TEDM.edm_loss(rows, rows, rows, sig, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        TEDM.edm_loss_bwd(rows, rows, rows, sig, sig, torch.empty(2, 1,
+                                                                  **meta))
     x = torch.empty(2, 2, 8, 64, **meta)
     cfg = TFA.FlashConfig("causal")
     with pytest.raises(ValueError, match="CUDA"):

@@ -246,16 +246,6 @@ def test_edm_draw_functions_match_jax():
     close(e, eps)
 
 
-@pytest.mark.parametrize("what", ["two_pass", "l2"])
-def test_unported_db_variants_raise(setup, what):
-    _, tree, _, tokens = setup
-    kw = {"causal_mode": "two_pass"} if what == "two_pass" else {"loss": "l2"}
-    db = TC.DBConfig(**{**dataclasses.asdict(DB), **kw})
-    tdbm = TDBM(TC.ModelConfig(**dataclasses.asdict(CFG)), db)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tdbm.block_loss(tparams(tdbm, tree), 0, t(tokens))
-
-
 # ---------------------------------------------------------------------------
 # Train steps
 # ---------------------------------------------------------------------------
