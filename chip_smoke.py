@@ -6,17 +6,26 @@
 Phases, each fatal on failure:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off
      (fp32 products stay fp32, or fp32 parity would mean nothing);
-  2. build: compiles the seven kernel sources from
+  2. build: compiles the eight kernel sources from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel) and prints
      ``-Xptxas -v``'s summary;
-  3. kernels: each of the eleven kernels against its plain PyTorch version
-     on the card, at the serving and training paths' shapes (max |err| <=
-     2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs, summed in
-     another order; a bf16 output may also differ by its one final rounding,
-     2^-7 |ref|), timed by CUDA-graph replay beside its bound, the plain
-     version and, where one PyTorch call computes the same function, that
-     call; the row-wise kernels (ln-modulate, gate-residual backward, EDM
-     loss) and the attention calls of a two-pass layer at olmo-1b's shapes;
+  3. kernels: each of the thirteen kernels against its plain PyTorch
+     version on the card, at the serving and training paths' shapes (max
+     |err| <= 2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs,
+     summed in another order; a bf16 output may also differ by its one
+     final rounding, 2^-7 |ref|), timed by CUDA-graph replay beside its
+     bound, the plain version and, where one PyTorch call computes the same
+     function, that call; the row-wise kernels (ln-modulate, gate-residual
+     backward, EDM loss) and the attention calls of a two-pass layer at
+     olmo-1b's shapes;
+     the Euler step forward and backward at the DiT sampler's (256, 256, 16)
+     and the recurrent sampler's (8, 512, 512) with F strided, in bf16 and
+     at a ragged S, plus one ``torch.autograd.grad`` through
+     ``fused_euler`` (the backward kernel must run); the kernels of the
+     DiT-S/2 step at its shapes (attention ``full`` B=256 H=6 S=256 hd 64,
+     gate-residual forward and backward (256, 256, 384), EDM loss
+     (256, 256, 16), fp32) and Huginn's attention (causal and db_concat,
+     B=8 H=8 hd 64, fp32);
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -49,10 +58,33 @@ Phases, each fatal on failure:
      in the trained block and the periphery;
   9. two-pass cross-check: one fp32 two-pass l2 DB step on block 0 through
      the kernels and through the plain versions (``impl="ref"``); loss,
-     grad norm and one layer's gradients agree to 1e-3 relative.
+     grad norm and one layer's gradients agree to 1e-3 relative;
+ 10. DiT-S/2 (paper §5.2) at full width (12 layers, d=384, 6 heads of 64,
+     LayerNorm, gelu; ``DIT_DB``: 3 blocks of 4, l2), 256 tokens of 16
+     dims (a 32x32x4 latent, patch 2), fp32, olmo freed first: one DB step
+     per block and one e2e step at batch 256 of
+     ``MixtureImagesContinuous`` (wall, device busy, peak memory; launch
+     counts per step: attention 4 or 12 per kernel, gate-residual 8 or 24
+     forward and backward, EDM loss 1/1), Euler sampling of 256 samples in
+     18 steps, blockwise (72 layer evaluations) and full stack (216), with
+     launch counts of attention forward = layer evaluations, gate-residual
+     twice that, Euler 18; one fp32 DB step on block 0 at batch 256 with σ
+     from block 0's range, through the kernels against ``impl="ref"``
+     within 1e-3;
+ 11. Huginn (paper §5.5) at full width (prelude 2, core 4, coda 2, d=512,
+     8 heads of 64, rmsnorm, swiglu, vocab 32000, K=32, bptt_k 8), fp32,
+     MarkovLM batches of 8 x 512: one ``db_loss`` step (attention 8 per
+     kernel) and one ``baseline_loss`` step (132 forward, 36 dq and dk/dv),
+     each also as one fp32 step of every param through the kernels against
+     ``impl="ref"`` within 1e-3 (loss, grad norm, the first core layer's
+     moments), then ``db_generate_logits`` with 32 Euler steps (132
+     attention forward, 32 Euler), its logits within 1e-3 of the plain
+     versions'.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
-"device": {...}}``. Exits non-zero without a CUDA device or without the
+"device": {...}}``. The Euler backward runs on no main path (both samplers
+run under ``no_grad``): it is checked in phase 3 only and reports 0
+launches. Exits non-zero without a CUDA device or without the
 repository's ``src`` beside it.
 """
 import dataclasses
@@ -81,6 +113,9 @@ BATCH, PROMPT, CHUNK, MAX_NEW, PSZ = 8, 512, 64, 32, 16
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
 ATTN = ("flash_attention_fwd", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv")
+DIT_TOKENS, DIT_DIM, DIT_BATCH = 256, 16, 256   # DiT-S/2: 32x32x4, patch 2
+DIT_SAMPLES, DIT_STEPS = 256, 18
+HUGINN_BPTT = 8
 
 
 class SmokeError(RuntimeError):
@@ -376,21 +411,22 @@ def phase_rowwise(dev) -> dict:
     """The ln-modulate, gate-residual backward and EDM-loss kernels at the
     two-pass olmo-1b path's shapes (8 x 512 rows of d = 2048; the AdaLN
     vectors fp32 column slices of a (B, 6d) head output, row stride 6d),
-    the first case of each being its main case; plus an fp32-stream case
-    and a ragged one (S not a multiple of the kernels' tiles). Bytes: each
+    the first case of each being its main case; plus an fp32-stream case,
+    a ragged one (S not a multiple of the kernels' tiles) and, for the
+    gate backward and the loss, the DiT-S/2 step's (256, 256, 384) and
+    (256, 256, 16) fp32. Bytes: each
     input read once, each output written once; flops per element: ln
     forward 8, ln backward 16, gate backward 3, loss forward 6, loss
     backward 9."""
     from repro_torch.kernels import edm_loss as EDM
     from repro_torch.kernels import fused_adaln as AD
     gen = torch.Generator(device=dev).manual_seed(3)
-    d = 2048
     rows = {n: [] for n in ("ln_modulate_fwd", "ln_modulate_bwd",
                             "gate_residual_bwd", "edm_loss_fwd",
                             "edm_loss_bwd")}
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def adaln_sets(B, S, dt):
+    def adaln_sets(B, S, d, dt):
         """(x, scale, shift, g) sets: x off-centre, mods fp32 slices."""
         one = 2 * B * S * d * torch.tensor([], dtype=dt).element_size()
         out = []
@@ -402,10 +438,11 @@ def phase_rowwise(dev) -> dict:
             out.append((x, heads[:, d:2 * d], heads[:, :d], g))
         return out
 
+    d = 2048
     for B, S, dt, tag in ((8, 512, bf16, "bf16 (two-pass path)"),
                           (8, 512, f32, "fp32"),
                           (8, 130, bf16, "bf16, ragged S=130")):
-        sets = adaln_sets(B, S, dt)
+        sets = adaln_sets(B, S, d, dt)
         n, elt, vec = B * S * d, sets[0][0].element_size(), B * d * 4
         shape = f"({B},{S},{d}) {tag}, fp32 slices"
         rows["ln_modulate_fwd"].append(rowwise_case(
@@ -424,9 +461,17 @@ def phase_rowwise(dev) -> dict:
             lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
             lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
             sets, 3 * n * elt + 2 * vec, 3 * n))
+    B, S, d = 256, 256, 384            # the DiT-S/2 layer's σ-gates
+    sets, n = adaln_sets(B, S, d, f32), B * S * d
+    rows["gate_residual_bwd"].append(rowwise_case(
+        f"(m) gate_residual bwd ({B},{S},{d}) fp32 (DiT-S/2 step), fp32 "
+        "slices", lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
+        lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
+        sets, 3 * n * 4 + 2 * B * d * 4, 3 * n))
 
-    for B, S, tag in ((8, 512, "(two-pass l2 path)"),
-                      (8, 300, "ragged S=300")):
+    for B, S, d, tag in ((8, 512, 2048, "(two-pass l2 path)"),
+                         (8, 300, 2048, "ragged S=300"),
+                         (256, 256, 16, "(DiT-S/2 l2 path)")):
         nt = -(-S // EDM.BLOCK_ROWS)
         n = B * S * d
         sets = []
@@ -450,6 +495,78 @@ def phase_rowwise(dev) -> dict:
             lambda f, z, y, cs, co, g: EDM.edm_loss_bwd_ref(
                 f, z, y, cs, co, g, EDM.BLOCK_ROWS),
             sets, 6 * n * 4 + 2 * B * 4 + B * nt * 4, 9 * n))
+    return rows
+
+
+def phase_euler(dev) -> dict:
+    """The Euler step's kernels: the DiT sampler's (256, 256, 16) fp32 (the
+    main case), the recurrent sampler's (8, 512, 512) fp32 with F the
+    strided noisy half of a (8, 1024, 512) stream (read in place: no copy,
+    so the bytes are those of the half), a bf16 case and a ragged S. Bytes:
+    z, F (or g) read once, outputs written once, a and b (B,) fp32; flops 3
+    per element forward, 2 backward. Then one ``torch.autograd.grad``
+    through ``fused_euler`` on the card: the backward kernel must run and
+    give the plain version's gradients."""
+    from repro_torch.kernels import fused_adaln as AD
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = {"euler_fwd": [], "euler_bwd": []}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def coeffs(B):
+        sigma = torch.rand(B, generator=gen, device=dev) * 40 + 0.01
+        sigma_to = sigma * torch.rand(B, generator=gen, device=dev)
+        sigma_to[0] = 0.0                     # the chain's last step
+        return sigma, sigma_to
+
+    def stream(B, S, d, dt, strided):
+        if strided:
+            return torch.randn(B, 2 * S, d, generator=gen,
+                               device=dev).to(dt)[:, S:]
+        return torch.randn(B, S, d, generator=gen, device=dev).to(dt)
+
+    for (B, S, d), dt, strided, tag in (
+            ((256, 256, 16), f32, False, "DiT-S/2 sampler, 256 samples"),
+            ((8, 512, 512), f32, True, "Huginn sampler, F strided"),
+            ((8, 512, 512), bf16, True, "bf16, F strided"),
+            ((8, 333, 512), f32, False, "ragged S=333")):
+        n, elt = B * S * d, torch.tensor([], dtype=dt).element_size()
+        sets = []
+        for _ in range(rotations(3 * n * elt)):
+            z = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
+            a, b = AD.euler_coeffs(*coeffs(B), 0.5)
+            g = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
+            sets.append((z, stream(B, S, d, dt, strided), a, b, g))
+        shape = f"({B},{S},{d}) {str(dt)[6:]} {tag}"
+        rows["euler_fwd"].append(rowwise_case(
+            f"(l) euler fwd {shape}",
+            lambda z, f, a, b, g: AD.euler_fwd(z, f, a, b),
+            lambda z, f, a, b, g: AD.euler_ref(z, f, a, b),
+            sets, 3 * n * elt + 2 * B * 4, 3 * n))
+        rows["euler_bwd"].append(rowwise_case(
+            f"(l) euler bwd {shape}",
+            lambda z, f, a, b, g: AD.euler_bwd(g, a, b),
+            lambda z, f, a, b, g: AD.euler_bwd_ref(g, a, b),
+            sets, 3 * n * elt + 2 * B * 4, 2 * n))
+
+    B, S, d = 8, 512, 512
+    z = torch.randn(B, S, d, generator=gen, device=dev).requires_grad_()
+    f2 = torch.randn(B, 2 * S, d, generator=gen, device=dev).requires_grad_()
+    sigma, sigma_to = coeffs(B)
+    n0 = AD.euler_bwd.launches
+    out = AD.fused_euler(z, f2[:, S:], sigma, sigma_to, 0.5)
+    g = torch.randn(B, S, d, generator=gen, device=dev)
+    dz, df2 = torch.autograd.grad(out, (z, f2), g)
+    torch.cuda.synchronize()
+    if AD.euler_bwd.launches != n0 + 1:
+        raise SmokeError("autograd through fused_euler did not launch the "
+                         "backward kernel")
+    want = AD.euler_bwd_ref(g, *AD.euler_coeffs(sigma, sigma_to, 0.5))
+    err = compare("fused_euler autograd", (dz, df2[:, S:]), want)
+    if (df2[:, :S] != 0).any():
+        raise SmokeError("fused_euler autograd: gradient outside F's view")
+    say(f"[kernels] autograd.grad through fused_euler (8,512,512), F "
+        f"strided: euler_bwd launched, max|err| {err:.2e} against the plain "
+        f"backward")
     return rows
 
 
@@ -561,8 +678,9 @@ def phase_attention(dev) -> dict:
     """Attention kernels at the training path's shapes: the DB step's
     db_concat stream (8 x 1024 rows, mask_seq 512) and the e2e step's causal
     512, in bf16 (the path's policy) and fp32, one GQA G=4 window case at hd
-    128, and the two calls of an olmo-1b two-pass layer (hd 128). The first
-    case of each kernel is its main case."""
+    128, the two calls of an olmo-1b two-pass layer (hd 128), the DiT-S/2
+    layer's ``full`` attention and Huginn's causal and db_concat ones (fp32,
+    hd 64). The first case of each kernel is its main case."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {n: [] for n in ATTN}
     bf16, f32 = torch.bfloat16, torch.float32
@@ -586,6 +704,15 @@ def phase_attention(dev) -> dict:
          "noisy stream)", "two_pass",
          dict(B=8, H=16, KV=16, S=512, Sk=1024, hd=128, dtype=bf16,
               mask_seq=512)),
+        # the DiT-S/2 step's layers (phase 10) and Huginn's (phase 11)
+        ("(m) full B=256 H=6 S=256 hd=64 fp32 (DiT-S/2 step)", "full",
+         dict(B=256, H=6, KV=6, S=256, hd=64, dtype=f32)),
+        ("(n) causal B=8 H=8 S=512 hd=64 fp32 (Huginn prelude, coda, "
+         "baseline core)", "causal",
+         dict(B=8, H=8, KV=8, S=512, hd=64, dtype=f32)),
+        ("(n) db_concat B=8 H=8 S=2x512 hd=64 fp32 (Huginn db core)",
+         "db_concat", dict(B=8, H=8, KV=8, S=1024, hd=64, dtype=f32,
+                           mask_seq=512)),
     ]
     for label, kind, kw in cases:
         for name, row in attention_case(label, kind, dev=dev, gen=gen,
@@ -630,6 +757,10 @@ def phase_kernels(dev) -> dict:
     rows["gate_residual"].append(gate_case(
         "(d) gate_residual (8,64,2048) bf16, bf16 gate slice", (8, 64, 2048),
         bf16, bf16, dev, gen))
+    # (m) the DiT-S/2 layer's two σ-gates (phase 10: batch 256, d 384)
+    rows["gate_residual"].append(gate_case(
+        "(m) gate_residual (256,256,384) fp32, fp32 gate slice (DiT-S/2)",
+        (256, 256, 384), f32, f32, dev, gen))
     return rows
 
 
@@ -644,6 +775,12 @@ def expected_counts(**nonzero) -> dict:
     if unknown:
         raise SmokeError(f"no kernel wrapper named {sorted(unknown)}")
     return {**{n: 0 for n in K.WRAPPERS}, **nonzero}
+
+
+def check_counts(tag: str, counts: dict, expect: dict) -> None:
+    if counts != expect:
+        raise SmokeError(f"{tag}: launch counts {counts} != path arithmetic "
+                         f"{expect}")
 
 
 def db_step_counts(dbm, size: int) -> dict:
@@ -1107,41 +1244,32 @@ def phase_train(dev, model) -> dict:
     return out
 
 
-def db_crosscheck(dev, model, tag: str, grads) -> dict:
-    """One fp32 DB step on block 0 from the same params and draws, through
-    the kernels and through their plain versions (``impl="ref"``); the view
-    is restored between the two. Loss, grad norm and the first moments of
-    unit 0's ``grads`` leaves (0.1 x their clipped gradients) must agree to
-    1e-3 relative, and the kernel path's launches equal its arithmetic."""
+def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
+                     grads, stack: str = "layers") -> dict:
+    """One fp32 step from the same params and draws (``step(params, state,
+    *args, **kw)``), through the kernels and through their plain versions
+    (``make_step(impl)`` for impl "kernels" and "ref"), on ``view`` =
+    (start, size), the block of layers [start, start + size) and the
+    periphery, or on every param when ``view`` is None; the trained params
+    are restored between the two. Loss, grad norm and the first moments
+    (0.1 x the clipped gradients) of the ``grads`` leaves of the first
+    trained layer of ``stack`` must agree to 1e-3 relative, and the
+    launches equal ``expect`` (none for the plain path)."""
     from repro_torch import kernels as K
-    from repro_torch.configs.base import TrainConfig
     from repro_torch.core import training as T
     from repro_torch.nn.init import tree_map
-    dbm, params, gen = model
-    start, size = dbm.ranges[0]
-    saved = tree_map(lambda _, x: x.clone(),
-                     T.extract_block_view(params, start, size))
-    tokens = torch.randint(0, dbm.cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
-                           generator=gen, device=dev)
-    sigma = dbm.sample_block_sigma(gen, (TRAIN_BATCH, 1, 1), 0, device=dev)
-    eps = torch.randn(TRAIN_BATCH, TRAIN_SEQ, dbm.cfg.d_model, generator=gen,
-                      device=dev)
-    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    start, size = view or (0, None)
+    saved = tree_map(lambda _, x: x.clone(), params if view is None
+                     else T.extract_block_view(params, start, size))
     res = {}
     for impl in ("kernels", "ref"):
-        init, step = T.make_db_train_step(dbm, 0, tcfg, impl=impl,
-                                          precision="fp32")
+        init, step = make_step(impl)
         K.reset_launch_counts()
-        _, opt, loss, m = step(params, init(params), tokens, sigma=sigma,
-                               eps=eps)
-        counts = K.launch_counts()
-        expect = db_step_counts(dbm, size) if impl == "kernels" \
-            else expected_counts()
-        if counts != expect:
-            raise SmokeError(f"{tag} cross-check impl={impl}: launches "
-                             f"{counts}, expected {expect}")
+        _, opt, loss, m = step(params, init(params), *args, **kw)
+        check_counts(f"{tag} cross-check impl={impl}", K.launch_counts(),
+                     expect if impl == "kernels" else expected_counts())
         res[impl] = (float(loss), float(m["grad_norm"]),
-                     {g: opt.mu["layers"][g[0]][g[1]][0].clone()
+                     {g: opt.mu[stack][g[0]][g[1]][0].clone()
                       for g in grads})
         del opt
         T.write_back_block_view(params, saved, start)
@@ -1150,10 +1278,13 @@ def db_crosscheck(dev, model, tag: str, grads) -> dict:
     loss_rel, gn_rel = abs(lk - lr) / abs(lr), abs(gk - gr) / abs(gr)
     grad_rel = {"/".join(g): ((mk[g] - mr[g]).abs().max()
                               / mr[g].abs().max()).item() for g in grads}
-    say(f"[crosscheck] {tag}: fp32 DB step block 0, kernels vs plain "
+    what = ("every param" if view is None
+            else f"layers {start}-{start + size - 1}")
+    say(f"[crosscheck] {tag}: fp32 step on {what}, kernels vs plain "
         f"versions: loss {lk:.7f} vs {lr:.7f} (rel {loss_rel:.2e}) | grad "
-        f"norm {gk:.7f} vs {gr:.7f} (rel {gn_rel:.2e}) | unit 0 grad rel "
-        f"max|diff| " + ", ".join(f"{k} {v:.2e}" for k, v in grad_rel.items())
+        f"norm {gk:.7f} vs {gr:.7f} (rel {gn_rel:.2e}) | {stack}[{start}] "
+        "grad rel max|diff| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in grad_rel.items())
         + "; limit 1e-3")
     if not (loss_rel <= 1e-3 and gn_rel <= 1e-3
             and max(grad_rel.values()) <= 1e-3):
@@ -1161,6 +1292,27 @@ def db_crosscheck(dev, model, tag: str, grads) -> dict:
                          "versions disagree")
     return {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
             "grad_rel": grad_rel}
+
+
+def db_crosscheck(dev, model, tag: str, grads) -> dict:
+    """``block_crosscheck`` of one DB step on block 0 of a
+    ``DiffusionBlocksModel`` (random tokens, σ and ε from the generator)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import training as T
+    dbm, params, gen = model
+    start, size = dbm.ranges[0]
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    sigma = dbm.sample_block_sigma(gen, (TRAIN_BATCH, 1, 1), 0, device=dev)
+    eps = torch.randn(TRAIN_BATCH, TRAIN_SEQ, dbm.cfg.d_model, generator=gen,
+                      device=dev)
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    return block_crosscheck(
+        params, (start, size),
+        lambda impl: T.make_db_train_step(dbm, 0, tcfg, impl=impl,
+                                          precision="fp32"),
+        (tokens,), {"sigma": sigma, "eps": eps}, db_step_counts(dbm, size),
+        tag, grads)
 
 
 def phase_two_pass(dev) -> dict:
@@ -1205,6 +1357,294 @@ def phase_two_pass(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 10. DiT-S/2, 11. Huginn at full width
+# ---------------------------------------------------------------------------
+
+def dit_step_counts(size: int) -> dict:
+    """Launches of one DiT training step over ``size`` layers: per layer one
+    attention forward, dq and dk/dv (``full`` mask), two gate-residual
+    forward and backward (the σ-gates, no ``cond_mask``); one EDM loss
+    forward and backward."""
+    return expected_counts(**{n: size for n in ATTN},
+                           gate_residual=2 * size,
+                           gate_residual_bwd=2 * size, edm_loss_fwd=1,
+                           edm_loss_bwd=1)
+
+
+def sample_counts(evals: int, steps: int) -> dict:
+    """Launches of a DiT sampler run: per layer evaluation one attention
+    forward and two gate-residual forwards; one Euler forward per step."""
+    return expected_counts(flash_attention_fwd=evals,
+                           gate_residual=2 * evals, euler_fwd=steps)
+
+
+def phase_dit(dev) -> dict:
+    """Phase 10: DiT-S/2 at full width, fp32, batch 256 of 256 tokens."""
+    import numpy as np
+    from repro_torch.configs import paper
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import dit as DIT
+    from repro_torch.core import edm
+    from repro_torch.core import partition as PT
+    from repro_torch.data import MixtureImagesContinuous
+    t0 = time.perf_counter()
+    dit = DIT.DiTDiffusionBlocks(paper.DIT_S2, paper.DIT_DB,
+                                 data_dim=DIT_DIM, n_tokens=DIT_TOKENS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dit.init(gen)
+    # AdaLN heads and out_proj are zero at init: randomise them so the σ
+    # conditioning, the gate kernels and F do real work
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    params["out_proj"]["w"].normal_(0.0, 0.02, generator=gen)
+    cfg = dit.cfg
+    n_params = sum(p.numel() for _, p in _leaves(params))
+    mix = MixtureImagesContinuous(n_tokens=DIT_TOKENS, dim=DIT_DIM,
+                                  n_modes=4)
+    data = mix.iterator(DIT_BATCH)
+    batch = lambda: torch.as_tensor(next(data)[0], device=dev)  # noqa: E731
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    say(f"[dit] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+        f"heads={cfg.n_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
+        f"norm={cfg.norm} mlp={cfg.mlp}, {dit.db.num_blocks} blocks "
+        f"{dit.ranges}, loss={dit.db.loss}; {DIT_TOKENS} tokens of "
+        f"{DIT_DIM} dims; {n_params / 1e6:.2f} M params fp32 made in "
+        f"{time.perf_counter() - t0:.1f} s; fp32, MixtureImagesContinuous "
+        f"batches of {DIT_BATCH}")
+
+    def db_run(b, y):
+        init, step = DIT.make_db_step(dit, b, tcfg)
+        state = init(params)
+        return lambda: step(params, state, y, gen)[2:]
+
+    loss, _ = db_run(0, batch())()
+    say(f"[dit] warm-up DB step on block 0: loss {float(loss):.4f}")
+    out = {"db": [], "launches": {}}
+    for b, (start, size) in enumerate(dit.ranges):
+        before = unit_digests(params)
+        run = db_run(b, batch())
+        (res, wall, dev_ms, peak, base, counts) = timed_step(run)
+        loss, m = res
+        del run, res
+        changed = (unit_digests(params) != before).tolist()
+        say(f"[dit] DB step block {b} (layers {start}-{start + size - 1}): "
+            f"loss {float(loss):.4f} | grad norm {float(m['grad_norm']):.3f}"
+            f" | wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) "
+            f"| peak {peak / 2**30:.2f} GiB (resident before "
+            f"{base / 2**30:.2f}) | launches {counts}")
+        check_counts(f"DiT DB step block {b}", counts, dit_step_counts(size))
+        if not math.isfinite(float(loss)):
+            raise SmokeError(f"DiT DB step block {b}: loss {float(loss)}")
+        want = [start <= u < start + size for u in range(cfg.n_layers)] \
+            + [True]
+        if changed != want:
+            raise SmokeError(f"DiT DB step block {b} changed layers "
+                             f"{changed} (expected {want})")
+        add_counts(out["launches"], counts)
+        out["db"].append({"block": b, "loss": float(loss), "wall_s": wall,
+                          "device_ms": dev_ms, "peak_bytes": peak})
+    out["db_profile"] = profile_step("DiT-S/2: DB step block 0",
+                                     db_run(0, batch()))
+
+    init, step = DIT.make_e2e_step(dit, tcfg)
+    opt = init(params)
+    step(params, opt, batch(), gen)
+    y = batch()
+    (res, wall, dev_ms, peak, base, counts) = timed_step(
+        lambda: step(params, opt, y, gen)[2:])
+    loss, m = res
+    say(f"[dit] e2e step (all {cfg.n_layers} layers): loss "
+        f"{float(loss):.4f} | grad norm {float(m['grad_norm']):.3f} | wall "
+        f"{wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
+        f"{peak / 2**30:.2f} GiB (resident before {base / 2**30:.2f}) | "
+        f"launches {counts}")
+    check_counts("DiT e2e step", counts, dit_step_counts(cfg.n_layers))
+    if not math.isfinite(float(loss)):
+        raise SmokeError(f"DiT e2e step: loss {float(loss)}")
+    add_counts(out["launches"], counts)
+    out["e2e"] = {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
+                  "peak_bytes": peak}
+    out["e2e_profile"] = profile_step("DiT-S/2: e2e step",
+                                      lambda: step(params, opt, y, gen))
+    del opt
+    torch.cuda.empty_cache()
+
+    sched = PT.sampling_schedule(dit.db, DIT_STEPS)[:-1]
+    per_block = [sum(PT.block_of_sigma(dit.db, float(s)) == b for s in sched)
+                 for b in range(dit.db.num_blocks)]
+    out["sample"] = {}
+    for blockwise in (True, False):
+        kind = "blockwise" if blockwise else "full stack"
+        dit.sample(params, DIT_SAMPLES, 2, blockwise, generator=gen)
+        (res, wall, dev_ms, peak, base, counts) = timed_step(
+            lambda: dit.sample(params, DIT_SAMPLES, DIT_STEPS, blockwise,
+                               generator=gen))
+        z, evals = res
+        want = (sum(n * s for n, (_, s) in zip(per_block, dit.ranges))
+                if blockwise else DIT_STEPS * cfg.n_layers)
+        if evals != want:
+            raise SmokeError(f"DiT sampler ({kind}): {evals} layer "
+                             f"evaluations, expected {want}")
+        check_counts(f"DiT sampler ({kind})", counts,
+                     sample_counts(evals, DIT_STEPS))
+        if tuple(z.shape) != (DIT_SAMPLES, DIT_TOKENS, DIT_DIM) \
+                or not torch.isfinite(z).all():
+            raise SmokeError(f"DiT sampler ({kind}): samples not finite or "
+                             f"of shape {tuple(z.shape)}")
+        dist, cover = mix.fidelity(z.cpu().numpy())
+        say(f"[dit] sample ({kind}), {DIT_SAMPLES} samples, {DIT_STEPS} "
+            f"steps (per block {per_block}): {evals} layer evaluations | "
+            f"wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | "
+            f"peak {peak / 2**30:.2f} GiB | fidelity (untrained weights, "
+            f"sanity only): mean distance to nearest mode {dist:.3f}, mode "
+            f"coverage {cover:.3f} | launches {counts}")
+        add_counts(out["launches"], counts)
+        out["sample"][kind] = {"evals": evals, "wall_s": wall,
+                               "device_ms": dev_ms, "fidelity": (dist, cover)}
+    bw, fs = out["sample"]["blockwise"], out["sample"]["full stack"]
+    say(f"[dit] full stack / blockwise: wall {fs['wall_s'] / bw['wall_s']:.3f}"
+        f"x, device {fs['device_ms'] / bw['device_ms']:.3f}x, layer "
+        f"evaluations {fs['evals'] / bw['evals']:.3f}x ({fs['evals']} / "
+        f"{bw['evals']})")
+
+    # fp32 cross-check: one DB step on block 0 at the steps' batch, σ from
+    # block 0's range as its steps draw it, kernels against impl="ref"
+    y = batch()
+    sigma = edm.sample_sigma_in_qrange(gen, (DIT_BATCH, 1, 1), dit.db,
+                                       *PT.block_qrange(dit.db, 0),
+                                       device=dev)
+    eps = torch.randn(y.shape, generator=gen, device=dev)
+    out["crosscheck"] = block_crosscheck(
+        params, dit.ranges[0], lambda impl: DIT.make_db_step(dit, 0, tcfg,
+                                                             impl=impl),
+        (y,), {"sigma": sigma, "eps": eps},
+        dit_step_counts(dit.ranges[0][1]), "DiT-S/2",
+        [("attn", "wq"), ("mlp", "wi"), ("adaln", "w")])
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_huginn(dev) -> dict:
+    """Phase 11: Huginn at full width, fp32, MarkovLM batches of 8 x 512."""
+    from repro_torch.configs import paper
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import edm
+    from repro_torch.core import partition as PT
+    from repro_torch.core import recurrent as REC
+    from repro_torch.data import MarkovLM
+    t0 = time.perf_counter()
+    m = REC.RecurrentDepthModel(paper.HUGINN, paper.HUGINN_DB,
+                                prelude=paper.HUGINN_PRELUDE_LAYERS,
+                                coda=paper.HUGINN_CODA_LAYERS,
+                                recurrence=paper.HUGINN_RECURRENCE,
+                                bptt_k=HUGINN_BPTT)
+    cfg = m.cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = m.init(gen)
+    for k in ("w", "b"):
+        params["core"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    n_params = sum(p.numel() for _, p in _leaves(params))
+    data = MarkovLM(vocab_size=cfg.vocab_size, seed=7).iterator(
+        TRAIN_BATCH, TRAIN_SEQ)
+    batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    P_, C_, L_, K_ = (paper.HUGINN_PRELUDE_LAYERS, paper.HUGINN_CODA_LAYERS,
+                      cfg.n_layers, m.K)
+    say(f"[huginn] {cfg.name}: prelude {P_}, core {L_} x K={K_} (bptt_k "
+        f"{m.bptt_k}), coda {C_}; d={cfg.d_model} heads={cfg.n_heads} "
+        f"hd={cfg.head_dim} ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"norm={cfg.norm} mlp={cfg.mlp}; {n_params / 1e6:.2f} M params fp32 "
+        f"made in {time.perf_counter() - t0:.1f} s; MarkovLM batches "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}")
+    fwd_k = P_ + K_ * L_ + C_
+    bwd_k = P_ + m.bptt_k * L_ + C_
+    expect = {"db_loss": expected_counts(**{n: P_ + L_ + C_ for n in ATTN}),
+              "baseline_loss": expected_counts(
+                  flash_attention_fwd=fwd_k, flash_attention_bwd_dq=bwd_k,
+                  flash_attention_bwd_dkv=bwd_k)}
+    out = {"launches": {}}
+    for loss_name in ("db_loss", "baseline_loss"):
+        init, step = REC.make_step(getattr(m, loss_name), tcfg)
+        state = init(params)
+        step(params, state, batch(), gen)
+        tokens = batch()
+        (res, wall, dev_ms, peak, base, counts) = timed_step(
+            lambda: step(params, state, tokens, gen)[2:])
+        loss, met = res
+        say(f"[huginn] {loss_name} step: loss {float(loss):.4f} | grad norm "
+            f"{float(met['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | "
+            f"device {dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB "
+            f"(resident before {base / 2**30:.2f}) | launches {counts}")
+        check_counts(f"Huginn {loss_name}", counts, expect[loss_name])
+        if not math.isfinite(float(loss)):
+            raise SmokeError(f"Huginn {loss_name}: loss {float(loss)}")
+        add_counts(out["launches"], counts)
+        out[loss_name] = {"loss": float(loss), "wall_s": wall,
+                          "device_ms": dev_ms, "peak_bytes": peak}
+        out[f"{loss_name}_profile"] = profile_step(
+            f"Huginn {loss_name} step",
+            lambda: step(params, state, tokens, gen))
+        del state
+        torch.cuda.empty_cache()
+    base, db = out["baseline_loss"], out["db_loss"]
+    say(f"[huginn] baseline / db step: wall "
+        f"{base['wall_s'] / db['wall_s']:.2f}x, device "
+        f"{base['device_ms'] / db['device_ms']:.2f}x")
+
+    # fp32 cross-check of each step at 8 x 512, kernels against impl="ref"
+    tokens = batch()
+    shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)
+    q_lo, q_hi = (float(PT.q_of_sigma(s, m.db))
+                  for s in (m.db.sigma_min, m.db.sigma_max))
+    draws = {"db_loss": {
+        "sigma": edm.sample_sigma_in_qrange(gen, (TRAIN_BATCH, 1, 1), m.db,
+                                            q_lo, q_hi, device=dev),
+        "eps": torch.randn(shape, generator=gen, device=dev)},
+        "baseline_loss": {"s0": m.db.sigma_data * torch.randn(
+            shape, generator=gen, device=dev)}}
+    # the baseline runs the core unconditioned: its AdaLN gets no gradient
+    grads = {"db_loss": [("attn", "wq"), ("mlp", "wg"), ("adaln", "w")],
+             "baseline_loss": [("attn", "wq"), ("mlp", "wg")]}
+    out["crosscheck"] = {name: block_crosscheck(
+        params, None,
+        lambda impl, name=name: REC.make_step(getattr(m, name), tcfg, impl),
+        (tokens,), draws[name], expect[name], f"Huginn {name}", grads[name],
+        stack="core") for name in ("db_loss", "baseline_loss")}
+
+    tokens = batch()
+    m.db_generate_logits(params, tokens, num_steps=2, generator=gen)
+    z0 = m.db.sigma_max * torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model,
+                                      generator=gen, device=dev)
+    (logits, wall, dev_ms, peak, base, counts) = timed_step(
+        lambda: m.db_generate_logits(params, tokens, z0=z0))
+    check_counts("Huginn db_generate_logits", counts, expected_counts(
+        flash_attention_fwd=fwd_k, euler_fwd=K_))
+    if tuple(logits.shape) != (TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise SmokeError("Huginn db_generate_logits: logits not finite or of "
+                         f"shape {tuple(logits.shape)}")
+    logp = torch.log_softmax(logits.float(), -1)
+    ce = -torch.gather(logp, -1, tokens[..., None])[..., 0].mean().item()
+    add_counts(out["launches"], counts)
+    ref = m.db_generate_logits(params, tokens, z0=z0, impl="ref")
+    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
+    say(f"[huginn] db_generate_logits, {K_} Euler steps: wall "
+        f"{wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
+        f"{peak / 2**30:.2f} GiB | teacher-forced CE (untrained) {ce:.4f} | "
+        f"launches {counts} | kernels vs plain versions: logits rel "
+        f"max|diff| {rel:.2e} (limit 1e-3)")
+    if not (rel <= 1e-3 and math.isfinite(rel)):
+        raise SmokeError(f"Huginn generation: kernels and plain versions "
+                         f"differ by {rel:.2e}")
+    out["generate"] = {"wall_s": wall, "device_ms": dev_ms, "ce": ce,
+                       "logits_rel": rel}
+    del params, logits, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 SOURCES = {
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -1223,6 +1663,10 @@ SOURCES = {
                      "src/repro/kernels/edm_loss.py:41"),
     "edm_loss_bwd": ("src/repro_torch/kernels/csrc/edm_loss.cu",
                      "src/repro/kernels/edm_loss.py:58"),
+    "euler_fwd": ("src/repro_torch/kernels/csrc/euler.cu",
+                  "src/repro/kernels/fused_adaln.py:214"),
+    "euler_bwd": ("src/repro_torch/kernels/csrc/euler.cu",
+                  "src/repro/kernels/fused_adaln.py:221"),
     "flash_attention_fwd": (
         "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:101"),
@@ -1233,6 +1677,9 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:228"),
 }
+# kernels no main path launches: the samplers run under no_grad, so the
+# Euler backward is held against its plain version in phase 3 only
+OFF_PATH = {"euler_bwd"}
 
 
 def main() -> int:
@@ -1252,6 +1699,7 @@ def main() -> int:
     rows = phase_kernels(dev)
     rows.update(phase_rowwise(dev))
     rows.update(phase_attention(dev))
+    rows.update(phase_euler(dev))
     serve = phase_serve(dev)
     model = serve.pop("model")
     phase_profile(dev, model)
@@ -1265,11 +1713,18 @@ def main() -> int:
     model = two_pass.pop("model")
     db_crosscheck(dev, model, "two-pass l2",
                   [("attn", "wq"), ("mlp", "wg"), ("adaln", "w")])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dit = phase_dit(dev)
+    huginn = phase_huginn(dev)
     launches = {}
     for counts in (serve["counts"], train["launches"],
-                   two_pass["launches"]):
+                   two_pass["launches"], dit["launches"],
+                   huginn["launches"]):
         add_counts(launches, counts)
-    missing = sorted(n for n in SOURCES if launches.get(n, 0) == 0)
+    missing = sorted(n for n in SOURCES
+                     if n not in OFF_PATH and launches.get(n, 0) == 0)
     if missing or sorted(rows) != sorted(SOURCES):
         raise SmokeError(f"kernels not launched on the main path: {missing}"
                          f"; checked in phase 3: {sorted(rows)}")
@@ -1278,7 +1733,7 @@ def main() -> int:
         main_case = cases[0]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[name],
+            "replaces": SOURCES[name][1], "launches": launches.get(name, 0),
             **{k: main_case.get(k) for k in (
                 "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "library_spread_ms")},

@@ -87,3 +87,22 @@ def euler_step(z: torch.Tensor, d_hat: torch.Tensor, sigma_from: float,
     z' = (σ_to/σ_from) z + (1 − σ_to/σ_from) D (returns D at σ_to = 0)."""
     r = sigma_to / sigma_from
     return r * z + (1.0 - r) * d_hat
+
+
+def sampler_step(z: torch.Tensor, f_out: torch.Tensor, sigma_from: float,
+                 sigma_to: float, sigma_data: float,
+                 impl: str = "kernels") -> torch.Tensor:
+    """One sampler step σ_from → σ_to of z (B, ...) given the denoiser's F
+    at σ_from: under ``impl="kernels"`` the fused Euler kernel (combine and
+    step in one pass), else ``denoise_combine`` + ``euler_step`` (D itself
+    at σ_to = 0), as the JAX samplers compose them."""
+    sig = torch.full((z.shape[0],), sigma_from, dtype=torch.float32,
+                     device=z.device)
+    if impl == "kernels":
+        from repro_torch.kernels import ops as kops
+        return kops.euler_update(z, f_out, sig, torch.full_like(sig, sigma_to),
+                                 sigma_data)
+    sig = sig.reshape((-1,) + (1,) * (z.ndim - 1))
+    d_hat = denoise_combine(z, f_out.float(), sig, sigma_data)
+    return euler_step(z, d_hat, sigma_from, sigma_to) if sigma_to > 0 \
+        else d_hat

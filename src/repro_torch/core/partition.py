@@ -9,7 +9,10 @@ exactly 1/B of p_noise's probability mass within [σ_min, σ_max]:
 
 Uniform partitioning (Table 7 ablation baseline) splits [σ_min, σ_max]
 linearly. Overlap (App. C) expands block b's range to [σ_b/α_b, α_b σ_{b-1}]
-with α_b = (σ_{b-1}/σ_b)^γ.
+with α_b = (σ_{b-1}/σ_b)^γ. ``sampling_schedule`` places the sampler's
+Euler steps at equal probability-mass quantiles and ``block_of_sigma``
+names the block that serves a noise level (the DiT and recurrent-depth
+samplers).
 """
 from __future__ import annotations
 
@@ -81,3 +84,27 @@ def unit_ranges(n_units: int, num_blocks: int,
         ranges.append((start, s))
         start += s
     return ranges
+
+
+def sampling_schedule(db: DBConfig, num_steps: int | None = None) -> np.ndarray:
+    """σ sequence for inference (descending, num_steps+1 points incl. 0 end).
+
+    Steps are placed at equal probability-mass quantiles of p_noise so each
+    block serves ≈ num_steps/B steps (paper App. H). The final step targets
+    σ = 0 (i.e. returns D exactly)."""
+    N = num_steps or db.num_sampling_steps
+    q_min = q_of_sigma(db.sigma_min, db)
+    q_max = q_of_sigma(db.sigma_max, db)
+    qs = q_max - (np.arange(N) / N) * (q_max - q_min)
+    sig = sigma_of_q(qs, db)
+    sig[0] = db.sigma_max
+    return np.concatenate([sig, [0.0]])
+
+
+def block_of_sigma(db: DBConfig, sigma: float) -> int:
+    """Host-side: which block serves noise level σ (non-overlapped ranges)."""
+    edges = sigma_edges(db)            # descending
+    for b in range(db.num_blocks):
+        if sigma >= edges[b + 1]:
+            return b
+    return db.num_blocks - 1

@@ -9,8 +9,10 @@ graph, and gradients and AdamW moments exist for the view alone. AdamW then
 updates the view, and so the masters, in place.
 
 ``make_e2e_train_step`` is the end-to-end backprop baseline over every
-param. Both steps return ``(params, opt_state, loss, metrics)`` with
-``params`` updated in place (the same dict).
+param. Both are ``make_view_train_step`` over a loss, which the DiT and
+recurrent-depth adapters' steps use too. Every step returns ``(params,
+opt_state, loss, metrics)`` with ``params`` updated in place (the same
+dict).
 """
 from __future__ import annotations
 
@@ -82,6 +84,38 @@ def _as_leaves(view):
                     view)
 
 
+def make_view_train_step(loss_fn, tcfg: TrainConfig, unit_range=None):
+    """(init_opt_state_fn, step_fn) training one view of the params with
+    AdamW: block b's slice ``unit_range = (start, size)`` of every stack in
+    ``STACK_KEYS`` plus the periphery, or every param when ``unit_range`` is
+    None. ``loss_fn(view, *args, **kw) -> (loss, metrics)`` sees the view;
+    gradients and AdamW moments exist for the view alone, and the update
+    lands in the masters in place.
+
+    step_fn(params, opt_state, *args, **kw) -> (params, opt_state, loss,
+    metrics)"""
+    opt_init, opt_update = make_optimizer(tcfg)
+
+    def view_of(params):
+        if unit_range is None:
+            return tree_map(lambda _, p: p.detach(), params)
+        return extract_block_view(params, *unit_range)
+
+    def init_opt(params):
+        return opt_init(view_of(params))
+
+    def step(params, opt_state, *args, **kw):
+        view = _as_leaves(view_of(params))
+        loss, metrics = loss_fn(view, *args, **kw)
+        grads = _grads(loss, view)
+        # the view shares the masters' storage: the update lands in params
+        opt_state, om = opt_update(grads, opt_state, view)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, loss.detach(), {**metrics, **om}
+
+    return init_opt, step
+
+
 def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
                        impl: str = "kernels", precision=None, guard=None):
     """Returns (init_opt_state_fn, step_fn).
@@ -98,25 +132,13 @@ def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
             "slice of the port")
     start, size = dbm.ranges[b]
     pol = precision_mod.get_policy(precision)
-    opt_init, opt_update = make_optimizer(tcfg)
 
-    def init_opt(params):
-        return opt_init(extract_block_view(params, start, size))
-
-    def step(params, opt_state, tokens, generator=None, *, sigma=None,
-             eps=None):
-        view = _as_leaves(extract_block_view(params, start, size))
+    def loss_fn(view, tokens, generator=None, *, sigma=None, eps=None):
         vc = precision_mod.cast_params_for_compute(pol, view, dbm.cfg.family)
-        loss, metrics = dbm.block_loss(vc, b, tokens, generator, sigma=sigma,
-                                       eps=eps, impl=impl,
-                                       unit_range=(0, size), precision=pol)
-        grads = _grads(loss, view)
-        # the view shares the masters' storage: the update lands in params
-        opt_state, om = opt_update(grads, opt_state, view)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, loss.detach(), {**metrics, **om}
+        return dbm.block_loss(vc, b, tokens, generator, sigma=sigma, eps=eps,
+                              impl=impl, unit_range=(0, size), precision=pol)
 
-    return init_opt, step
+    return make_view_train_step(loss_fn, tcfg, (start, size))
 
 
 def make_e2e_train_step(dbm: DiffusionBlocksModel, tcfg: TrainConfig,
@@ -125,18 +147,12 @@ def make_e2e_train_step(dbm: DiffusionBlocksModel, tcfg: TrainConfig,
     step_fn(params, opt_state, tokens) -> (params, opt_state, loss,
     metrics)."""
     pol = precision_mod.get_policy(precision)
-    opt_init, opt_update = make_optimizer(tcfg)
 
-    def step(params, opt_state, tokens):
-        view = _as_leaves(tree_map(lambda _, p: p.detach(), params))
+    def loss_fn(view, tokens):
         pc = precision_mod.cast_params_for_compute(pol, view, dbm.cfg.family)
-        loss, metrics = dbm.e2e_loss(pc, tokens, impl=impl, precision=pol)
-        grads = _grads(loss, view)
-        opt_state, om = opt_update(grads, opt_state, view)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, loss.detach(), {**metrics, **om}
+        return dbm.e2e_loss(pc, tokens, impl=impl, precision=pol)
 
-    return opt_init, step
+    return make_view_train_step(loss_fn, tcfg)
 
 
 def _tokens(batch, device) -> torch.Tensor:

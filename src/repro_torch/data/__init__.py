@@ -1,1 +1,1 @@
-from repro_torch.data.synthetic import MarkovLM
+from repro_torch.data.synthetic import MarkovLM, MixtureImagesContinuous

@@ -19,6 +19,8 @@ WRAPPERS = {"flash_decode": _fd.flash_decode,
             "gate_residual_bwd": _ad.gate_residual_bwd,
             "ln_modulate_fwd": _ad.ln_modulate_fwd,
             "ln_modulate_bwd": _ad.ln_modulate_bwd,
+            "euler_fwd": _ad.euler_fwd,
+            "euler_bwd": _ad.euler_bwd,
             "edm_loss_fwd": _edm.edm_loss_fwd,
             "edm_loss_bwd": _edm.edm_loss_bwd,
             "flash_attention_fwd": _fa.flash_attention_fwd,

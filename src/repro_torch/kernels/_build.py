@@ -26,6 +26,7 @@ SOURCES = {
     "gate_residual": "gate_residual.cu",     # forward and backward
     "ln_modulate": "ln_modulate.cu",         # forward and backward
     "edm_loss": "edm_loss.cu",               # forward and backward
+    "euler": "euler.cu",                     # forward and backward
     "flash_attention_fwd": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",   # dq and dk/dv
 }

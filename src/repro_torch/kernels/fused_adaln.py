@@ -1,23 +1,30 @@
 """Fused AdaLN kernels (port of ``repro.kernels.fused_adaln``): the gated
-residual and the non-parametric LayerNorm + AdaLN modulation, each with a
-hand-written backward.
+residual, the non-parametric LayerNorm + AdaLN modulation and the fused EDM
+Euler step, each with a hand-written backward.
 
   gate_residual: out = res + branch * (1 + gate)     (csrc/gate_residual.cu)
   ln_modulate:   out = LN(x) * (1 + scale) + shift   (csrc/ln_modulate.cu)
+  euler:         z' = a z + b F                      (csrc/euler.cu)
 
 gate/scale/shift are per-example (B, d) vectors broadcast over the sequence;
 they may be column slices of the AdaLN head's (B, 6d) output (unit stride
 along d, any row stride), which the kernels read in place.
 
-Four wrappers, one per kernel, each counting its launches in ``.launches``:
-``gate_residual_fwd``, ``gate_residual_bwd``, ``ln_modulate_fwd`` and
-``ln_modulate_bwd``. On CUDA tensors they launch the kernel or raise; on CPU
-tensors they run the plain versions (``*_ref``). ``gate_residual`` and
-``ln_modulate`` tie each pair together in a ``torch.autograd.Function``
-whose backward calls the backward wrapper, never autograd through the
-forward. The backward kernels write per-tile (B, n_tiles, d) fp32 partial
-sums for the (B, d) gradients, summed here by one ``torch.sum``, as JAX sums
-its kernels' partials outside them. ``fused_euler`` is not ported yet.
+The Euler step folds the denoiser combine D = c_skip z + c_out F and the
+step z' = r z + (1 - r) D (r = σ_to/σ) into one pass with per-example fp32
+coefficients a = r + (1 - r) c_skip, b = (1 - r) c_out (``euler_coeffs``);
+at σ_to = 0 it returns D. z and F may be strided (unit stride along d).
+
+Six wrappers, one per kernel, each counting its launches in ``.launches``:
+``gate_residual_fwd``, ``gate_residual_bwd``, ``ln_modulate_fwd``,
+``ln_modulate_bwd``, ``euler_fwd`` and ``euler_bwd``. On CUDA tensors they
+launch the kernel or raise; on CPU tensors they run the plain versions
+(``*_ref``). ``gate_residual``, ``ln_modulate`` and ``fused_euler`` tie each
+pair together in a ``torch.autograd.Function`` whose backward calls the
+backward wrapper, never autograd through the forward. The AdaLN backward
+kernels write per-tile (B, n_tiles, d) fp32 partial sums for the (B, d)
+gradients, summed here by one ``torch.sum``, as JAX sums its kernels'
+partials outside them.
 """
 from __future__ import annotations
 
@@ -82,6 +89,32 @@ def ln_modulate_bwd_ref(x, scale, g, eps: float = LN_EPS):
                  - xhat * (dy * xhat).mean(-1, keepdim=True))
     return (dx.to(x.dtype), (gf * xhat).sum(1).to(scale.dtype),
             gf.sum(1).to(scale.dtype))
+
+
+def euler_coeffs(sigma, sigma_to, sigma_data: float):
+    """(a, b), each (B,) fp32, of ``_euler_coeffs``: a = r + (1 - r) c_skip,
+    b = (1 - r) c_out with r = σ_to/σ; sigma and sigma_to are (B,)."""
+    sf = sigma.float().reshape(-1)
+    s2 = sf ** 2
+    d2 = sigma_data ** 2
+    c_skip = d2 / (s2 + d2)
+    c_out = sf * sigma_data * torch.rsqrt(s2 + d2)
+    r = sigma_to.float().reshape(-1) / sf
+    return r + (1 - r) * c_skip, (1 - r) * c_out
+
+
+def euler_ref(z, f, a, b):
+    """a z + b F with ``ref.euler_reference``'s formula: fp32 math, a and b
+    (B,) broadcast over (S, d), output in z's dtype."""
+    a3, b3 = a.float()[:, None, None], b.float()[:, None, None]
+    return (a3 * z.float() + b3 * f.float()).to(z.dtype)
+
+
+def euler_bwd_ref(g, a, b):
+    """(dz, dF) = (a g, b g) of ``_euler_bwd_kernel``, in g's dtype."""
+    gf = g.float()
+    return ((a.float()[:, None, None] * gf).to(g.dtype),
+            (b.float()[:, None, None] * gf).to(g.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +254,85 @@ def ln_modulate_bwd(x, scale, g, eps: float = LN_EPS):
     return dx, sums[0], sums[1]
 
 
+def _check_euler(name, streams, coeffs):
+    """Raise on what the Euler kernels do not take: (B, S, d) fp32/bf16
+    streams (z and F both fp32, both bf16, or fp32 z and bf16 F) with unit
+    stride along d (any row strides), contiguous fp32 (B,) coefficients,
+    all on one CUDA device. Returns (B, S, d) and whether every row start
+    is 4-element aligned (the 4-wide path)."""
+    x = streams[0]
+    if any(t.device.type != "cuda" or t.device != x.device
+           for t in streams + coeffs):
+        raise ValueError(f"{name}: every tensor must lie on one CUDA device")
+    if any(t.dtype not in _DTYPES for t in streams) \
+            or any(t.dtype != torch.float32 for t in coeffs):
+        raise TypeError(f"{name}: the (B, S, d) streams must be fp32 or bf16 "
+                        f"and the coefficients fp32, got "
+                        f"{[t.dtype for t in streams + coeffs]}")
+    if streams[0].dtype == torch.bfloat16 \
+            and any(t.dtype == torch.float32 for t in streams):
+        raise TypeError(f"{name}: a bf16 z takes a bf16 F, got "
+                        f"{[t.dtype for t in streams]}")
+    if x.ndim != 3 or any(t.shape != x.shape for t in streams):
+        raise ValueError(f"{name}: the streams must be (B, S, d) alike, got "
+                         f"{[tuple(t.shape) for t in streams]}")
+    B, S, d = x.shape
+    if B == 0 or S == 0 or d == 0:
+        raise ValueError(f"{name}: empty batch, sequence or width")
+    if any(tuple(t.shape) != (B,) or not t.is_contiguous() for t in coeffs):
+        raise ValueError(f"{name}: the coefficients must be contiguous (B,) "
+                         f"= ({B},), got {[tuple(t.shape) for t in coeffs]}")
+    if any(t.stride(2) != 1 for t in streams):
+        raise ValueError(f"{name}: the streams need unit stride along d")
+    vec = d % 4 == 0 and all(
+        t.stride(0) % 4 == 0 and t.stride(1) % 4 == 0
+        and t.data_ptr() % (4 * t.element_size()) == 0 for t in streams)
+    return (B, S, d), vec
+
+
+def euler_fwd(z, f, a, b):
+    """z, F: (B, S, d) fp32 or bf16 (fp32 z may take a bf16 F; unit stride
+    along d, any row strides); a, b: (B,) fp32. Returns a z + b F, contiguous, in
+    z's dtype."""
+    if z.device.type == "cpu":
+        return euler_ref(z, f, a, b)
+    (B, S, d), vec = _check_euler("euler", (z, f), (a, b))
+    out = torch.empty((B, S, d), dtype=z.dtype, device=z.device)
+    fn = _kernel("euler", "rt_euler_fwd",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _I,
+                  _I, _P])
+    with torch.cuda.device(z.device):
+        rc = fn(z.data_ptr(), f.data_ptr(), a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), B, S, d, z.stride(0), z.stride(1),
+                f.stride(0), f.stride(1), _DTYPES[z.dtype], _DTYPES[f.dtype],
+                int(vec), _stream(z))
+    _build.check(rc, "euler")
+    euler_fwd.launches += 1
+    return out
+
+
+def euler_bwd(g, a, b):
+    """(dz, dF) = (a g, b g), contiguous, in g's dtype; g: (B, S, d) fp32 or
+    bf16, contiguous; a, b: (B,) fp32."""
+    if g.device.type == "cpu":
+        return euler_bwd_ref(g, a, b)
+    (B, S, d), vec = _check_euler("euler_bwd", (g,), (a, b))
+    if not g.is_contiguous():
+        raise ValueError("euler_bwd: g must be contiguous")
+    dz, df = torch.empty_like(g), torch.empty_like(g)
+    fn = _kernel("euler", "rt_euler_bwd",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+    with torch.cuda.device(g.device):
+        rc = fn(g.data_ptr(), a.data_ptr(), b.data_ptr(), dz.data_ptr(),
+                df.data_ptr(), B, S, d, _DTYPES[g.dtype], int(vec),
+                _stream(g))
+    _build.check(rc, "euler_bwd")
+    euler_bwd.launches += 1
+    return dz, df
+
+
 for _w in (gate_residual_fwd, gate_residual_bwd, ln_modulate_fwd,
-           ln_modulate_bwd):
+           ln_modulate_bwd, euler_fwd, euler_bwd):
     _w.launches = 0
 
 
@@ -258,6 +368,22 @@ class _LnModulate(torch.autograd.Function):
         return dx, d_scale, d_shift.to(ctx.shift_dtype), None
 
 
+class _Euler(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, f, sigma, sigma_to, sigma_data):
+        a, b = euler_coeffs(sigma, sigma_to, sigma_data)
+        ctx.save_for_backward(a, b)             # as _euler_vjp_fwd
+        ctx.dtypes = (z.dtype, f.dtype)
+        return euler_fwd(z, f, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        dz, df = euler_bwd(g.contiguous(), a, b)
+        # σ is sampled noise-schedule data, never a learnable input
+        return dz.to(ctx.dtypes[0]), df.to(ctx.dtypes[1]), None, None, None
+
+
 def gate_residual(res, branch, gate):
     """res/branch: (B, S, d); gate: (B, d). Differentiable through the
     backward kernel (its plain version on CPU tensors)."""
@@ -269,3 +395,12 @@ def ln_modulate(x, scale, shift, eps: float = LN_EPS):
     differentiable through the backward kernel (its plain version on CPU
     tensors)."""
     return _LnModulate.apply(x, scale, shift, eps)
+
+
+def fused_euler(z, f, sigma, sigma_to, sigma_data: float):
+    """Fused denoise-combine + Euler step (paper Eq. 5 with the EDM
+    parameterization): z' = (r + (1-r) c_skip) z + (1-r) c_out F. z/f:
+    (B, S, d); sigma/sigma_to: (B,) per-example noise levels. Differentiable
+    in z and F through the backward kernel (its plain version on CPU
+    tensors); σ gets no gradient."""
+    return _Euler.apply(z, f, sigma, sigma_to, sigma_data)

@@ -1,12 +1,12 @@
 """Routing from the model's training calls onto the kernels (port of
 ``repro.kernels.ops``; the serving attends call theirs from ``nn.cache``).
 
-``ln_modulate``, ``gate_residual`` and ``edm_loss`` are the differentiable
-fused AdaLN and EDM-loss kernels. ``flash_attention`` is the (B, S, H, hd)
-adapter ``nn.attention.attend`` uses under ``impl="kernels"``: it maps the
-mask constructor onto a kernel mask kind by its ``kernel_mask`` tag and
-hands the kernels (B, H, S, hd) transposed VIEWS, which they read through
-strides (no copy). Untagged masks and positions that are not an arange
+``ln_modulate``, ``gate_residual``, ``euler_update`` and ``edm_loss`` are
+the differentiable fused AdaLN, Euler-step and EDM-loss kernels.
+``flash_attention`` is the (B, S, H, hd) adapter ``nn.attention.attend``
+uses under ``impl="kernels"``: it maps the mask constructor onto a kernel
+mask kind by its ``kernel_mask`` tag and hands the kernels (B, H, S, hd)
+transposed VIEWS, which they read through strides (no copy). Untagged masks and positions that are not an arange
 raise: the kernels derive positions from indices, so either would be
 silently wrong attention.
 """
@@ -69,6 +69,10 @@ def ln_modulate(x, scale, shift):
 
 def gate_residual(res, branch, gate):
     return _ad.gate_residual(res, branch, gate)
+
+
+def euler_update(z, f, sigma, sigma_to, sigma_data: float = 0.5):
+    return _ad.fused_euler(z, f, sigma, sigma_to, sigma_data)
 
 
 def edm_loss(f, z, y, sigma, sigma_data: float = 0.5):

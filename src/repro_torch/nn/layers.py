@@ -1,4 +1,4 @@
-"""Basic layers: norms, rotary embeddings, MLP, embedding/readout
+"""Basic layers: linear, norms, rotary embeddings, MLP, embedding/readout
 (port of ``repro.nn.layers``).
 
 JAX casts every weight with ``.astype(x.dtype)`` inside each matmul. The
@@ -17,6 +17,25 @@ from repro_torch.nn.init import ParamSpec
 
 def as_dtype(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w if w.dtype == dtype else w.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear
+# ---------------------------------------------------------------------------
+
+def linear_spec(d_in: int, d_out: int, axes=("embed", "mlp"),
+                bias: bool = False, init: str = "normal", scale: float = 1.0):
+    spec = {"w": ParamSpec((d_in, d_out), axes, init, scale)}
+    if bias:
+        spec["b"] = ParamSpec((d_out,), (axes[1],), "zeros")
+    return spec
+
+
+def linear(params, x):
+    y = x @ as_dtype(params["w"], x.dtype)
+    if "b" in params:
+        y = y + as_dtype(params["b"], x.dtype)
+    return y
 
 
 # ---------------------------------------------------------------------------

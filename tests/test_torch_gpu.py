@@ -248,6 +248,87 @@ def test_gate_residual_autograd_on_cuda(cuda, xdt):
     assert (heads.grad[:, :2 * d] == 0).all()
 
 
+# (B, S, d, z dtype, F dtype, F strided): chip_smoke.py phase 3's cases (the
+# DiT sampler at 256 samples, the recurrent sampler's strided F, bf16, a
+# ragged S) and the 1-wide path (d not a multiple of 4)
+EULER_SHAPES = [(256, 256, 16, torch.float32, torch.float32, False),
+                (8, 512, 512, torch.float32, torch.float32, True),
+                (8, 512, 512, torch.bfloat16, torch.bfloat16, False),
+                (8, 512, 512, torch.float32, torch.bfloat16, True),
+                (3, 130, 64, torch.float32, torch.float32, True),
+                (2, 9, 18, torch.bfloat16, torch.bfloat16, True)]
+
+
+def _euler_case(gen, B, S, d, zdt, fdt, strided, dev):
+    z = torch.randn(B, S, d, generator=gen, device=dev).to(zdt)
+    f2 = torch.randn(B, 2 * S, d, generator=gen, device=dev).to(fdt)
+    f = f2[:, S:] if strided else f2[:, :S].contiguous()
+    sigma = torch.rand(B, generator=gen, device=dev) * 40 + 0.01
+    sigma_to = sigma * torch.rand(B, generator=gen, device=dev)
+    sigma_to[0] = 0.0                         # the chain's last step
+    return z, f, sigma, sigma_to
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,d,zdt,fdt,strided", EULER_SHAPES)
+def test_euler_kernels(cuda, B, S, d, zdt, fdt, strided):
+    """Forward and backward against their plain versions: bit-equal (the
+    same round-to-nearest operations in the same order)."""
+    gen = torch.Generator(device=cuda).manual_seed(B + S + d)
+    z, f, sigma, sigma_to = _euler_case(gen, B, S, d, zdt, fdt, strided,
+                                        cuda)
+    a, b = AD.euler_coeffs(sigma, sigma_to, 0.5)
+    n0, m0 = AD.euler_fwd.launches, AD.euler_bwd.launches
+    out = AD.euler_fwd(z, f, a, b)
+    g = torch.randn(B, S, d, generator=gen, device=cuda).to(zdt)
+    dz, df = AD.euler_bwd(g, a, b)
+    torch.cuda.synchronize()
+    assert (AD.euler_fwd.launches, AD.euler_bwd.launches) == (n0 + 1, m0 + 1)
+    assert out.dtype == zdt and out.is_contiguous()
+    torch.testing.assert_close(out, AD.euler_ref(z, f, a, b), atol=0, rtol=0)
+    for got, want in zip((dz, df), AD.euler_bwd_ref(g, a, b)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_euler_autograd_on_cuda(cuda):
+    """``torch.autograd.grad`` through ``fused_euler`` on the card runs the
+    backward kernel and gives the plain versions' gradients; σ gets none."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    z, f, sigma, sigma_to = _euler_case(gen, 8, 512, 512, torch.float32,
+                                        torch.float32, True, cuda)
+    z.requires_grad_()
+    f2 = f.detach().clone().requires_grad_()
+    n0 = AD.euler_bwd.launches
+    out = AD.fused_euler(z, f2, sigma, sigma_to, 0.5)
+    assert out.grad_fn is not None
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    dz, df = torch.autograd.grad(out, (z, f2), g)
+    torch.cuda.synchronize()
+    assert AD.euler_bwd.launches == n0 + 1
+    a, b = AD.euler_coeffs(sigma, sigma_to, 0.5)
+    for got, want in zip((dz, df), AD.euler_bwd_ref(g, a, b)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_euler_rejects_what_the_kernel_does_not_take(cuda):
+    z = torch.randn(2, 5, 16, device=cuda)
+    a = torch.rand(2, device=cuda)
+    with pytest.raises(TypeError, match="fp32"):
+        AD.euler_fwd(z, z, a.double(), a)
+    with pytest.raises(TypeError, match="bf16 F"):
+        AD.euler_fwd(z.bfloat16(), z, a, a)
+    with pytest.raises(ValueError, match="unit stride"):
+        AD.euler_fwd(z, z.transpose(1, 2).contiguous().transpose(1, 2), a, a)
+    with pytest.raises(ValueError, match=r"\(B,\)"):
+        AD.euler_fwd(z, z, a[:1], a)
+    with pytest.raises(ValueError, match="CUDA"):
+        AD.euler_fwd(z, z.cpu(), a, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        AD.euler_bwd(z[:, ::2], a, a)
+
+
 @pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(2, 2, 1, 96, device=cuda)
@@ -514,3 +595,86 @@ def test_two_pass_step_through_kernels_matches_plain_versions(cuda, loss):
         a, r = mk[path[0]][path[1]], mr[path[0]][path[1]]
         scale = r.abs().max().item()
         torch.testing.assert_close(a, r, atol=1e-3 * scale, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_dit_through_kernels_matches_plain_versions(cuda):
+    """Reduced DiT-S/2 (4 layers, d 384, hd 64, 64 tokens of 16 dims), fp32:
+    one DB step's loss and first moments and a blockwise sample through the
+    kernels against the plain versions (``impl="ref"``), from the same
+    params and draws; the sampler's launch counts are the path's
+    arithmetic."""
+    from repro_torch.configs import paper
+    from repro_torch.core import dit as DIT
+    from repro_torch.core import partition as PT
+    cfg = reduced(paper.DIT_S2, n_layers=4, d_model=384, n_heads=6)
+    dit = DIT.DiTDiffusionBlocks(cfg, paper.DIT_DB, data_dim=16, n_tokens=64)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    master = dit.init(gen)
+    for k in ("w", "b"):
+        master["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    master["out_proj"]["w"].normal_(0.0, 0.05, generator=gen)
+    y = torch.randn(4, 64, 16, generator=gen, device=cuda)
+    sigma = torch.rand(4, 1, 1, generator=gen, device=cuda) * 3 + 0.1
+    eps = torch.randn(4, 64, 16, generator=gen, device=cuda)
+    z0 = 80.0 * torch.randn(4, 64, 16, generator=gen, device=cuda)
+    tcfg = TrainConfig(steps=10, warmup_steps=2, lr=1e-3)
+    res = {}
+    for impl in ("ref", "kernels"):
+        params = tree_map(lambda _, x: x.clone(), master)
+        init, step = DIT.make_db_step(dit, 0, tcfg, impl=impl)
+        params, opt, loss, _ = step(params, init(params), y, sigma=sigma,
+                                    eps=eps)
+        K.reset_launch_counts()
+        z, evals = dit.sample(master, 4, 6, z0=z0, impl=impl)
+        torch.cuda.synchronize()
+        res[impl] = (loss, opt.mu["layers"]["attn"]["wq"], z,
+                     K.launch_counts())
+    (lr_, mr, zr, cr), (lk, mk, zk, ck) = res["ref"], res["kernels"]
+    assert all(v == 0 for v in cr.values())
+    sched = PT.sampling_schedule(dit.db, 6)[:-1]
+    evals = sum(dit.ranges[PT.block_of_sigma(dit.db, float(s))][1]
+                for s in sched)
+    assert ck["flash_attention_fwd"] == evals
+    assert ck["gate_residual"] == 2 * evals and ck["euler_fwd"] == 6
+    assert abs(lk - lr_) <= 1e-4 * abs(lr_)
+    torch.testing.assert_close(mk, mr, atol=1e-3 * mr.abs().max().item(),
+                               rtol=1e-3)
+    torch.testing.assert_close(zk, zr, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_recurrent_through_kernels_matches_plain_versions(cuda):
+    """Reduced Huginn (core 2 layers, d 256, hd 64, K 4), fp32: db_loss,
+    baseline_loss and db_generate_logits through the kernels against the
+    plain versions; the sampler reads F strided and launches K Euler
+    steps."""
+    from repro_torch.configs import paper
+    from repro_torch.core import recurrent as REC
+    cfg = reduced(paper.HUGINN, n_layers=2, d_model=256, n_heads=4, vocab=512)
+    m = REC.RecurrentDepthModel(cfg, paper.HUGINN_DB, recurrence=4, bptt_k=2)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = m.init(gen)
+    for k in ("w", "b"):
+        params["core"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    tokens = torch.randint(0, 512, (2, 96), generator=gen, device=cuda)
+    sigma = torch.rand(2, 1, 1, generator=gen, device=cuda) * 3 + 0.1
+    eps = torch.randn(2, 96, 256, generator=gen, device=cuda)
+    s0 = 0.5 * torch.randn(2, 96, 256, generator=gen, device=cuda)
+    z0 = 80.0 * torch.randn(2, 96, 256, generator=gen, device=cuda)
+    res = {}
+    for impl in ("ref", "kernels"):
+        K.reset_launch_counts()
+        db = m.db_loss(params, tokens, sigma=sigma, eps=eps, impl=impl)[0]
+        base = m.baseline_loss(params, tokens, s0=s0, impl=impl)[0]
+        logits = m.db_generate_logits(params, tokens, z0=z0, impl=impl)
+        torch.cuda.synchronize()
+        res[impl] = (db, base, logits, K.launch_counts())
+    (dr, br, lr_, cr), (dk, bk, lk, ck) = res["ref"], res["kernels"]
+    assert all(v == 0 for v in cr.values())
+    assert ck["euler_fwd"] == 4
+    assert ck["flash_attention_fwd"] == (2 + 2 + 2) + (2 + 4 * 2 + 2) \
+        + (2 + 4 * 2 + 2)
+    for got, want in ((dk, dr), (bk, br)):
+        assert abs(got - want) <= 1e-4 * abs(want)
+    torch.testing.assert_close(lk, lr_, atol=1e-3, rtol=1e-3)

@@ -19,6 +19,8 @@ from repro.kernels import flash_attention as JFA
 from repro.kernels import flash_decode as JFD
 from repro.kernels import flash_prefill as JFP
 from repro.kernels import fused_adaln as JAD
+from repro.kernels import ref as JREF
+from repro_torch.core import edm as TEDMC
 from repro_torch.kernels import edm_loss as TEDM
 from repro_torch.kernels import flash_attention as TFA
 from repro_torch.kernels import flash_decode as TFD
@@ -186,6 +188,10 @@ def test_wrappers_never_fall_back_off_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         TEDM.edm_loss_bwd(rows, rows, rows, sig, sig, torch.empty(2, 1,
                                                                   **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        TAD.fused_euler(rows, rows, sig, sig, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        TAD.euler_bwd(rows, sig, sig)
     x = torch.empty(2, 2, 8, 64, **meta)
     cfg = TFA.FlashConfig("causal")
     with pytest.raises(ValueError, match="CUDA"):
@@ -305,3 +311,111 @@ def test_flash_attention_config_rejects_unknown_masks():
         TFA.FlashConfig(mask_kind="window")
     with pytest.raises(ValueError, match="requires mask_seq"):
         TFA.FlashConfig(mask_kind="db_concat")
+
+
+# ---------------------------------------------------------------------------
+# Fused Euler step: the plain versions against the Pallas kernel in
+# interpret mode and ``ref.euler_reference``, values and jax.vjp grads. JAX
+# tiles of 16 rows over S = 13 cover a padded tile; F may be the strided
+# noisy half of a (B, 2S, d) stream, as the recurrent-depth sampler passes
+# it. Tolerance 1e-6 in fp32; bf16 outputs within one rounding.
+# ---------------------------------------------------------------------------
+
+EULER_CASES = [(2, 16, 16, "fp32", False), (3, 13, 64, "fp32", False),
+               (2, 13, 64, "fp32", True), (2, 16, 16, "bf16", False),
+               (2, 13, 18, "fp32", True)]
+EULER_SIG = (np.array([0.05, 2.0, 40.0], np.float32),
+             np.array([0.01, 0.0, 25.0], np.float32))
+
+
+def _euler_inputs(B, S, d, dtype, strided, seed):
+    rs = np.random.RandomState(seed)
+    z = rs.randn(B, S, d).astype(np.float32)
+    f2 = rs.randn(B, 2 * S, d).astype(np.float32)
+    g = rs.randn(B, S, d).astype(np.float32)
+    if dtype == "bf16":
+        z, f2, g = _bf16_round(z), _bf16_round(f2), _bf16_round(g)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    tf2 = torch.from_numpy(f2).to(tdt)
+    tf = tf2[:, S:] if strided else tf2[:, :S].contiguous()
+    f = f2[:, S:] if strided else f2[:, :S]
+    sig, sig_to = (x[:B] for x in EULER_SIG)
+    return ((jnp.asarray(z, jdt), jnp.asarray(f, jdt), jnp.asarray(g, jdt),
+             jnp.asarray(sig), jnp.asarray(sig_to)),
+            (torch.from_numpy(z).to(tdt), tf, torch.from_numpy(g).to(tdt),
+             torch.from_numpy(sig), torch.from_numpy(sig_to)))
+
+
+@pytest.mark.parametrize("B,S,d,dtype,strided", EULER_CASES)
+def test_fused_euler_matches_pallas(B, S, d, dtype, strided):
+    (jz, jf, jg, jsig, jsto), (tz, tf, tg, tsig, tsto) = _euler_inputs(
+        B, S, d, dtype, strided, seed=S + d)
+    if strided:
+        assert not tf.is_contiguous() and tf.stride(1) == d
+    kern = lambda z, f, s: JAD.fused_euler(  # noqa: E731
+        z, f, s, jsto, 0.5, block_rows=16, interpret=True)
+    out_j, vjp = jax.vjp(kern, jz, jf, jsig)
+    dz_j, df_j, dsig_j = vjp(jg)
+    assert float(jnp.abs(dsig_j).max()) == 0.0
+    ref_j = JREF.euler_reference(jz, jf, jsig, jsto, 0.5)
+    tz.requires_grad_()
+    tf.requires_grad_()
+    tsig.requires_grad_()
+    out_t = TAD.fused_euler(tz, tf, tsig, tsto, 0.5)
+    assert out_t.dtype == tz.dtype and out_t.shape == tz.shape
+    out_t.backward(tg)
+    tol = dict(atol=1e-6, rtol=1e-6 if dtype == "fp32" else 2.0 ** -7)
+    for want in (out_j, ref_j):
+        np.testing.assert_allclose(out_t.detach().float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+    for got, want in ((tz.grad, dz_j), (tf.grad, df_j)):
+        assert got.dtype == tz.dtype
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+    assert tsig.grad is None          # σ is schedule data: no cotangent
+
+
+def test_euler_at_sigma_to_zero_is_the_denoiser():
+    """σ_to = 0 gives D = c_skip z + c_out F, the last step of every
+    chain."""
+    _, (tz, tf, _, tsig, _) = _euler_inputs(3, 7, 16, "fp32", False, 1)
+    out = TAD.fused_euler(tz, tf, tsig, torch.zeros(3), 0.5)
+    want = TEDMC.denoise_combine(tz, tf, tsig[:, None, None], 0.5)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6,
+                               rtol=1e-6)
+
+
+def test_euler_coeffs_match_edm_preconditioning():
+    """``euler_coeffs`` re-derives c_skip/c_out; pinned to
+    ``core/edm.preconditioning`` (as the JAX package pins its
+    ``_euler_coeffs``) and to the JAX kernel's own coefficients."""
+    sigma = torch.tensor([0.05, 0.5, 2.0, 40.0])
+    sigma_to = sigma * 0.3
+    c_skip, c_out, _, _ = TEDMC.preconditioning(sigma, 0.5)
+    a, b = TAD.euler_coeffs(sigma, sigma_to, 0.5)
+    r = sigma_to / sigma
+    np.testing.assert_allclose(a.numpy(), (r + (1 - r) * c_skip).numpy(),
+                               rtol=1e-6)
+    np.testing.assert_allclose(b.numpy(), ((1 - r) * c_out).numpy(),
+                               rtol=1e-6)
+    ja, jb = JAD._euler_coeffs(jnp.asarray(sigma.numpy()),
+                               jnp.asarray(sigma_to.numpy()), 0.5)
+    np.testing.assert_allclose(a.numpy(), np.asarray(ja)[:, 0], rtol=1e-6)
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb)[:, 0], rtol=1e-6)
+
+
+def test_fused_euler_backward_runs_the_plain_bwd_function(monkeypatch):
+    calls = []
+    fn = TAD.euler_bwd_ref
+    monkeypatch.setattr(TAD, "euler_bwd_ref", lambda *a: (
+        calls.append("euler_bwd_ref"), fn(*a))[1])
+    _, (tz, tf, tg, tsig, tsto) = _euler_inputs(2, 5, 16, "fp32", True, 2)
+    tz.requires_grad_()
+    tf.requires_grad_()
+    out = TAD.fused_euler(tz, tf, tsig, tsto, 0.5)
+    assert type(out.grad_fn).__name__ == "_EulerBackward"
+    out.backward(tg)
+    assert calls == ["euler_bwd_ref"]
