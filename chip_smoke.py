@@ -8,7 +8,8 @@ Phases, each fatal on failure:
      (fp32 products stay fp32, or fp32 parity would mean nothing);
   2. build: compiles the eight kernel sources from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel) and prints
-     ``-Xptxas -v``'s summary;
+     ``-Xptxas -v``'s summary, and its lines for the bf16 attention
+     forward's tensor-core kernel (``fwd_tc_kernel``: registers, spills);
   3. kernels: each of the thirteen kernels against its plain PyTorch
      version on the card, at the serving and training paths' shapes (max
      |err| <= 2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs,
@@ -17,7 +18,7 @@ Phases, each fatal on failure:
      bound, the plain version and, where one PyTorch call computes the same
      function, that call; the row-wise kernels (ln-modulate, gate-residual
      backward, EDM loss) and the attention calls of a two-pass layer at
-     olmo-1b's shapes;
+     olmo-1b's shapes; a ragged causal attention case at S=1000 in bf16;
      the Euler step forward and backward at the DiT sampler's (256, 256, 16)
      and the recurrent sampler's (8, 512, 512) with F strided, in bf16 and
      at a ragged S, plus one ``torch.autograd.grad`` through
@@ -38,7 +39,8 @@ Phases, each fatal on failure:
      DiffusionBlocks step on each of the 4 blocks (each block with its own
      AdamW state, freed after its step), one iteration of ``train_db``
      (every block's state resident), then one end-to-end step; loss,
-     wall and device time and peak memory of each; launch counts equal to
+     wall and device time and peak memory of each, the DB steps' wall as
+     median and min-max over the blocks; launch counts equal to
      the path's arithmetic (one attention forward, dq and dk/dv per layer);
      finite losses; params change only in the trained block and the
      periphery;
@@ -50,8 +52,9 @@ Phases, each fatal on failure:
      weights from seed 0 with the AdaLN heads randomised,
      ``DBConfig(num_blocks=4, overlap_gamma=0.1, causal_mode="two_pass",
      loss="l2")``, bf16 policy, MarkovLM batches of 8 x 512: one DB step per
-     block and one ``train_db`` iteration; loss, wall and device time, peak
-     memory, device-busy share under the profiler; launch counts equal to
+     block and one ``train_db`` iteration; loss, wall and device time (the
+     DB steps' wall as median and min-max), peak memory, device-busy share
+     under the profiler; launch counts equal to
      the path's arithmetic (per layer two attention calls, two ln-modulate
      and two gate-residual calls on the noisy stream, forward and backward;
      one EDM loss forward and backward); finite losses; params change only
@@ -171,6 +174,12 @@ def phase_build() -> None:
             f"{max(smem, default=0)} B, kernels that spill: {len(spills)}")
         for line in spills[:4]:
             say(f"[build]   {line}")
+        # the bf16 attention forward's tensor-core kernel, line by line
+        for entry in re.split(r"(?=ptxas info\s*: Compiling entry)", log):
+            if "fwd_tc_kernel" in entry:
+                for line in entry.splitlines():
+                    if "Compile time" not in line:
+                        say(f"[build]   {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
 
@@ -693,6 +702,9 @@ def phase_attention(dev) -> dict:
          dict(B=8, H=32, KV=32, S=512, hd=64, dtype=bf16)),
         ("(f) causal B=8 H=32 S=512 hd=64 fp32", "causal",
          dict(B=8, H=32, KV=32, S=512, hd=64, dtype=f32)),
+        # ragged: 16 key tiles, the last one 40 keys long
+        ("(f) causal B=8 H=32 S=1000 hd=64 bf16 (ragged)", "causal",
+         dict(B=8, H=32, KV=32, S=1000, hd=64, dtype=bf16)),
         ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 bf16", "window",
          dict(B=4, H=32, KV=8, S=1024, hd=128, dtype=bf16, window=256)),
         ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 fp32", "window",
@@ -1154,6 +1166,10 @@ def db_steps(dbm, params, gen, tcfg, data, tag: str) -> dict:
         out["db"].append({"block": b, "loss": float(loss), "wall_s": wall,
                           "device_ms": dev_ms, "peak_bytes": peak,
                           "resident_bytes": base})
+    walls = [r["wall_s"] * 1e3 for r in out["db"]]
+    say(f"[{tag}] DB step wall over the {len(walls)} blocks: median "
+        f"{statistics.median(walls):.1f} ms, min-max {min(walls):.1f}-"
+        f"{max(walls):.1f} ms")
     out["db_profile"] = profile_step(f"{tag}: DB step block 0",
                                      db_step(0, batch()))
 

@@ -16,14 +16,15 @@
 // copy. lse and delta are (B, H, Sq) fp32, contiguous.
 //
 // What bounds it. At the training shapes (S = 512-1024, hd = 64) attention
-// does about 2*S*hd/(bytes per row) flops per byte, far above the card's
-// ridge: it is bound by operations. This first version does them as fp32
-// FMAs on the CUDA cores for both fp32 and bf16 inputs (bf16 is widened as
-// it is loaded into shared memory), so fp32 parity holds without TF32; the
-// tensor cores (mma / wgmma for bf16) are later work. Each of the 256
-// threads computes a 4 x 4 block of the 64 x 64 score tile from shared
-// memory, with rows padded to hd + 1 floats so the column reads of a warp
-// fall in distinct banks.
+// does about 2*S*hd/(bytes per row) flops per byte. On fp32 FMAs that is far
+// above the CUDA cores' ridge: bound by operations. The fp32 forward and the
+// dq and dk/dv kernels do them as fp32 FMAs on the CUDA cores for fp32 and
+// bf16 inputs (bf16 is widened as it is loaded into shared memory), so fp32
+// parity holds without TF32. Each of their 256 threads computes a 4 x 4
+// block of the 64 x 64 score tile from shared memory, with rows padded to
+// hd + 1 floats so the column reads of a warp fall in distinct banks. The
+// bf16 forward runs on the tensor cores instead (fwd_tc_kernel in
+// flash_attention_fwd.cu, built on mma.cuh).
 //
 // Edges. Masks are finite (-1e30) and the normaliser is max(l, 1e-30), so a
 // row that sees no key ends with out = 0 and lse ~ -1e30, as the TPU kernel
@@ -81,6 +82,34 @@ __device__ __forceinline__ bool keep(const FlashArgs& a, int qp, int kp) {
   }
 }
 
+// The keys that keep() admits for row qp, as an interval [lo, hi) and one
+// more key x (-1: none), all inside [0, Sk): the same mask with a few
+// integer compares a pair, for kernels that test many pairs of one row.
+__device__ __forceinline__ void row_keys(const FlashArgs& a, int qp, int& lo,
+                                         int& hi, int& x) {
+  lo = 0;
+  hi = 0;
+  x = -1;
+  if (qp >= a.Sq) return;
+  const int S = a.mask_seq;
+  switch (a.mask_kind) {
+    case kCausal: hi = qp + 1; break;
+    case kWindow: lo = max(0, qp - a.window + 1); hi = qp + 1; break;
+    case kDbConcat:
+      if (qp < S) {
+        hi = qp + 1;                 // clean <- clean past
+      } else {
+        hi = min(qp - S, S);         // noisy <- clean strictly before
+        x = qp;                      // and itself
+      }
+      break;
+    case kTwoPass: hi = min(S, qp); x = qp + S; break;
+    default: hi = a.Sk;
+  }
+  hi = min(hi, a.Sk);
+  if (x >= a.Sk) x = -1;
+}
+
 // Whether the tile [q0, q0 + 64) x [k0, k0 + 64) holds any kept pair: a
 // conservative test, exact enough that the skipped tiles hold none.
 __device__ __forceinline__ bool tile_visible(const FlashArgs& a, int q0,
@@ -102,6 +131,25 @@ __device__ __forceinline__ bool tile_visible(const FlashArgs& a, int q0,
       const int S = a.mask_seq;
       return (k0 < S && k0 < q1) || max(q0 + S, k0) <= min(q1 + S, k1);
     }
+    default: return true;
+  }
+}
+
+// Whether the mask keeps every pair of the tile [q0, q0 + 64) x
+// [k0, k0 + 64), so that the tensor-core forward skips masking it: both
+// ranges lie inside the sequences and the worst corner is kept.
+__device__ __forceinline__ bool tile_full(const FlashArgs& a, int q0,
+                                          int k0) {
+  const int q1 = q0 + kB - 1, k1 = k0 + kB - 1;
+  if (q1 >= a.Sq || k1 >= a.Sk) return false;
+  switch (a.mask_kind) {
+    case kCausal: return k1 <= q0;
+    case kWindow: return k1 <= q0 && k0 > q1 - a.window;
+    case kDbConcat: {
+      const int S = a.mask_seq;
+      return (q1 < S && k1 <= q0) || (q0 >= S && k1 < S && k1 < q0 - S);
+    }
+    case kTwoPass: return k1 < a.mask_seq && k1 < q0;
     default: return true;
   }
 }
@@ -149,15 +197,16 @@ __device__ __forceinline__ float row16_sum(float v) {
   return v;
 }
 
-// Launch KERNEL with `smem` bytes of dynamic shared memory on the current
-// device. The attribute that allows more than 48 KB is a property of the
-// function on one device, so it is set once per (instantiation, device):
+// Launch KERNEL with THREADS threads a block and `smem` bytes of dynamic
+// shared memory on the current device. The attribute that allows more than
+// 48 KB is a property of the function on one device, so it is set once per
+// (instantiation, device):
 // `allowed[dev]` keeps the largest size granted there, and later launches,
 // CUDA-graph captures included, make no other runtime call than
 // cudaGetDevice.
 constexpr int kMaxDevices = 64;
 
-template <void (*KERNEL)(const FlashArgs)>
+template <void (*KERNEL)(const FlashArgs), int THREADS = kThreads>
 cudaError_t launch(dim3 grid, size_t smem, const FlashArgs& a,
                    cudaStream_t st) {
   static std::atomic<int> allowed[kMaxDevices];
@@ -171,7 +220,7 @@ cudaError_t launch(dim3 grid, size_t smem, const FlashArgs& a,
     if (err != cudaSuccess) return err;
     allowed[dev].store((int)smem);
   }
-  KERNEL<<<grid, kThreads, smem, st>>>(a);
+  KERNEL<<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 

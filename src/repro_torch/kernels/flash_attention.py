@@ -15,6 +15,12 @@ Layout: q (B, H, Sq, hd), k/v (B, KV, Sk, hd), H = KV * G; any strides with
 a contiguous head dim (the model passes (B, S, H, hd) tensors as transposed
 views, which the kernels read in place).
 
+The bf16 forward runs on the tensor cores (``fwd_tc_kernel``: mma.sync,
+ldmatrix, cp.async, with P split into two bf16 terms so that P.V keeps the
+reference's fp32 P); it copies 16-byte chunks, so a bf16 q, k, v (or out)
+that ``tc_aligned`` refuses raises. The fp32 forward and the backward
+kernels run fp32 FMAs on the CUDA cores.
+
 Three wrappers, one per kernel, each counting its launches in
 ``.launches``: ``flash_attention_fwd`` -> (out, lse), ``flash_attention_bwd_dq``
 -> dq and ``flash_attention_bwd_dkv`` -> (dk, dv). On CUDA tensors they
@@ -223,6 +229,26 @@ def _check(name, q, k, v, *more):
     return B, H, KV, Sq, Sk, hd
 
 
+def tc_aligned(data_ptr: int, strides, element_size: int) -> bool:
+    """Whether the bf16 tensor-core forward can copy a (B, H, S, hd) tensor
+    in 16-byte chunks: its base address is 16-byte aligned and its batch,
+    head and sequence strides (``strides[:3]``, in elements) are multiples
+    of 16 bytes (8 bf16 elements)."""
+    return data_ptr % 16 == 0 and all(
+        s * element_size % 16 == 0 for s in strides[:3])
+
+
+def _check_tc_aligned(name, **tensors):
+    for tname, t in tensors.items():
+        if not tc_aligned(t.data_ptr(), t.stride(), t.element_size()):
+            raise ValueError(
+                f"{name}: bf16 {tname} must start on a 16-byte boundary and "
+                "have batch, head and sequence strides that are multiples "
+                "of 8 elements (the tensor-core kernel copies 16-byte "
+                f"chunks); got address % 16 = {t.data_ptr() % 16}, strides "
+                f"{tuple(t.stride())}")
+
+
 def _args(cfg: FlashConfig, q, k, **tensors) -> _FlashArgs:
     B, H, Sq, hd = q.shape
     a = _FlashArgs()
@@ -248,11 +274,14 @@ def _launch(lib, sym, q, args: _FlashArgs, what: str) -> None:
 
 
 def flash_attention_fwd(q, k, v, cfg: FlashConfig):
-    """(out like q, lse (B, H, Sq) fp32)."""
+    """(out like q, lse (B, H, Sq) fp32). bf16 runs on the tensor cores,
+    which take tensors that ``tc_aligned`` admits and raise on others."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, cfg)
     B, H, _, Sq, _, _ = _check("flash_attention_fwd", q, k, v)
     out = torch.empty_like(q)           # keeps q's strides (dense views)
+    if q.dtype == torch.bfloat16:
+        _check_tc_aligned("flash_attention_fwd", q=q, k=k, v=v, o=out)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     args = _args(cfg, q, k, v=v, o=out, lse=lse)
     _launch("flash_attention_fwd", "rt_flash_attention_fwd", q, args,

@@ -475,6 +475,71 @@ def test_flash_attention_autograd_and_empty_rows(cuda):
 
 
 @pytest.mark.gpu
+def test_flash_attention_bf16_empty_row(cuda):
+    """bf16 (the tensor-core forward): a two_pass query whose keys are cut
+    off (row 0 sees nothing) gives out = 0 exactly and a finite lse at
+    -1e30; the other rows match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    S = 70
+    q, k, v = (torch.randn(2, 4, S, 64, generator=gen, device=cuda
+                           ).bfloat16() for _ in range(3))
+    cfg = FA.FlashConfig("two_pass", mask_seq=S)
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    torch.cuda.synchronize()
+    assert (out[:, :, 0] == 0).all()
+    assert torch.isfinite(lse).all() and (lse[:, :, 0] <= -1e29).all()
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    torch.testing.assert_close(out.float(), ro.float(), atol=1e-2,
+                               rtol=1e-2)
+    torch.testing.assert_close(lse, rl, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["causal", "db_concat"])
+def test_flash_attention_bf16_long_ragged(cuda, kind):
+    """Sq = Sk = 1000: sixteen 64-key tiles, more than the forward's two
+    ring stages, the last one ragged; every kernel against its plain
+    version as in test_flash_attention_kernels."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    S = 1000
+    cfg = FA.FlashConfig(kind, mask_seq=S // 2 if kind == "db_concat"
+                         else None)
+    mk = lambda: torch.randn(1, S, 4, 64, generator=gen, device=cuda  # noqa: E731
+                             ).bfloat16().transpose(1, 2)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    rdelta = FA.attention_delta(ro, do)
+    want = (ro, rl, FA._bwd_dq_ref(q, k, v, do, rl, rdelta, cfg)) + \
+        FA._bwd_dkv_ref(q, k, v, do, rl, rdelta, cfg)
+    for got, ref in zip((out, lse, dq, dk, dv), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_bf16_refuses_unaligned_views(cuda):
+    """The tensor-core forward copies 16-byte chunks: a bf16 tensor whose
+    sequence stride is not a multiple of 8 elements, or whose base is not
+    16-byte aligned, raises (no fallback); fp32 takes both."""
+    cfg = FA.FlashConfig("causal")
+    x = torch.randn(1, 2, 8, 64, device=cuda).bfloat16()
+    odd = torch.randn(1, 2, 8, 68, device=cuda).bfloat16()[..., :64]
+    with pytest.raises(ValueError, match="bf16 k must start on a 16-byte"):
+        FA.flash_attention_fwd(x, odd, x, cfg)
+    shifted = torch.randn(2 * 8 * 64 + 1, device=cuda).bfloat16()[1:]
+    with pytest.raises(ValueError, match="bf16 q must start on a 16-byte"):
+        FA.flash_attention_fwd(shifted.view(1, 2, 8, 64), x, x, cfg)
+    oddf = torch.randn(1, 2, 8, 68, device=cuda)[..., :64]
+    FA.flash_attention_fwd(oddf, oddf, oddf, cfg)
+
+
+@pytest.mark.gpu
 def test_flash_attention_rejects_what_the_kernels_do_not_take(cuda):
     cfg = FA.FlashConfig("causal")
     x = torch.randn(1, 2, 8, 96, device=cuda)
