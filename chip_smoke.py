@@ -9,16 +9,20 @@ Phases, each fatal on failure:
   2. build: compiles the eight kernel sources from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel) and prints
      ``-Xptxas -v``'s summary, and its lines for the bf16 attention
-     forward's tensor-core kernel (``fwd_tc_kernel``: registers, spills);
+     kernels on the tensor cores (``fwd_tc_kernel``, ``dq_tc_kernel``,
+     ``dkv_tc_kernel``: registers, spills);
   3. kernels: each of the thirteen kernels against its plain PyTorch
      version on the card, at the serving and training paths' shapes (max
      |err| <= 2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs,
      summed in another order; a bf16 output may also differ by its one
      final rounding, 2^-7 |ref|), timed by CUDA-graph replay beside its
      bound, the plain version and, where one PyTorch call computes the same
-     function, that call; the row-wise kernels (ln-modulate, gate-residual
-     backward, EDM loss) and the attention calls of a two-pass layer at
-     olmo-1b's shapes; a ragged causal attention case at S=1000 in bf16;
+     function, that call (the bf16 attention dq and dk/dv also printed
+     beside the times PERF.md records for their CUDA-core predecessors,
+     which this run does not measure); the row-wise kernels (ln-modulate,
+     gate-residual backward, EDM loss) and the attention calls of a
+     two-pass layer at olmo-1b's shapes; a ragged causal attention case
+     at S=1000 in bf16;
      the Euler step forward and backward at the DiT sampler's (256, 256, 16)
      and the recurrent sampler's (8, 512, 512) with F strided, in bf16 and
      at a ragged S, plus one ``torch.autograd.grad`` through
@@ -119,6 +123,7 @@ ATTN = ("flash_attention_fwd", "flash_attention_bwd_dq",
 DIT_TOKENS, DIT_DIM, DIT_BATCH = 256, 16, 256   # DiT-S/2: 32x32x4, patch 2
 DIT_SAMPLES, DIT_STEPS = 256, 18
 HUGINN_BPTT = 8
+TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel")
 
 
 class SmokeError(RuntimeError):
@@ -174,9 +179,9 @@ def phase_build() -> None:
             f"{max(smem, default=0)} B, kernels that spill: {len(spills)}")
         for line in spills[:4]:
             say(f"[build]   {line}")
-        # the bf16 attention forward's tensor-core kernel, line by line
+        # the bf16 attention kernels on the tensor cores, line by line
         for entry in re.split(r"(?=ptxas info\s*: Compiling entry)", log):
-            if "fwd_tc_kernel" in entry:
+            if any(k in entry for k in TC_KERNELS):
                 for line in entry.splitlines():
                     if "Compile time" not in line:
                         say(f"[build]   {line.strip()}")
@@ -693,29 +698,39 @@ def phase_attention(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {n: [] for n in ATTN}
     bf16, f32 = torch.bfloat16, torch.float32
+    # ``pr16``: the bf16 (dq, dk/dv) ms of the CUDA-core kernels that the
+    # tensor-core ones replaced, as PERF.md records them from an earlier
+    # run of this script (NVIDIA H100 80GB HBM3, 700.00 W). Printed beside
+    # this run's times for comparison; not measured here, so kept out of
+    # the rows and the kernels line.
     cases = [
         ("(e) db_concat B=8 H=32 S=2x512 hd=64 bf16 (DB step)", "db_concat",
-         dict(B=8, H=32, KV=32, S=1024, hd=64, dtype=bf16, mask_seq=512)),
+         dict(B=8, H=32, KV=32, S=1024, hd=64, dtype=bf16, mask_seq=512,
+              pr16=(1.5059, 1.9363))),
         ("(e) db_concat B=8 H=32 S=2x512 hd=64 fp32", "db_concat",
          dict(B=8, H=32, KV=32, S=1024, hd=64, dtype=f32, mask_seq=512)),
         ("(f) causal B=8 H=32 S=512 hd=64 bf16 (e2e step)", "causal",
-         dict(B=8, H=32, KV=32, S=512, hd=64, dtype=bf16)),
+         dict(B=8, H=32, KV=32, S=512, hd=64, dtype=bf16,
+              pr16=(0.7224, 0.8770))),
         ("(f) causal B=8 H=32 S=512 hd=64 fp32", "causal",
          dict(B=8, H=32, KV=32, S=512, hd=64, dtype=f32)),
         # ragged: 16 key tiles, the last one 40 keys long
         ("(f) causal B=8 H=32 S=1000 hd=64 bf16 (ragged)", "causal",
-         dict(B=8, H=32, KV=32, S=1000, hd=64, dtype=bf16)),
+         dict(B=8, H=32, KV=32, S=1000, hd=64, dtype=bf16,
+              pr16=(2.4825, 3.0347))),
         ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 bf16", "window",
-         dict(B=4, H=32, KV=8, S=1024, hd=128, dtype=bf16, window=256)),
+         dict(B=4, H=32, KV=8, S=1024, hd=128, dtype=bf16, window=256,
+              pr16=(1.5950, 2.0039))),
         ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 fp32", "window",
          dict(B=4, H=32, KV=8, S=1024, hd=128, dtype=f32, window=256)),
         # the two calls of an olmo-1b two-pass layer (phase 8)
         ("(h) causal B=8 H=16 S=512 hd=128 bf16 (two-pass clean stream)",
-         "causal", dict(B=8, H=16, KV=16, S=512, hd=128, dtype=bf16)),
+         "causal", dict(B=8, H=16, KV=16, S=512, hd=128, dtype=bf16,
+                        pr16=(1.0059, 1.0849))),
         ("(h) two_pass B=8 H=16 Sq=512 Sk=2x512 hd=128 bf16 (two-pass "
          "noisy stream)", "two_pass",
          dict(B=8, H=16, KV=16, S=512, Sk=1024, hd=128, dtype=bf16,
-              mask_seq=512)),
+              mask_seq=512, pr16=(1.1898, 1.3607))),
         # the DiT-S/2 step's layers (phase 10) and Huginn's (phase 11)
         ("(m) full B=256 H=6 S=256 hd=64 fp32 (DiT-S/2 step)", "full",
          dict(B=256, H=6, KV=6, S=256, hd=64, dtype=f32)),
@@ -727,9 +742,15 @@ def phase_attention(dev) -> dict:
                            mask_seq=512)),
     ]
     for label, kind, kw in cases:
-        for name, row in attention_case(label, kind, dev=dev, gen=gen,
-                                        **kw).items():
+        pr16 = kw.pop("pr16", None)
+        got = attention_case(label, kind, dev=dev, gen=gen, **kw)
+        for name, row in got.items():
             rows[name].append(row)
+        if pr16 is not None:
+            say(f"[kernels] {label}: dq / dk/dv {got[ATTN[1]]['ms']:.4f} / "
+                f"{got[ATTN[2]]['ms']:.4f} ms this run; PR 16's CUDA-core "
+                f"kernels {pr16[0]:.4f} / {pr16[1]:.4f} ms (recorded in "
+                "PERF.md, NVIDIA H100 80GB HBM3, 700.00 W; not this run)")
     return rows
 
 

@@ -17,14 +17,15 @@
 //
 // What bounds it. At the training shapes (S = 512-1024, hd = 64) attention
 // does about 2*S*hd/(bytes per row) flops per byte. On fp32 FMAs that is far
-// above the CUDA cores' ridge: bound by operations. The fp32 forward and the
-// dq and dk/dv kernels do them as fp32 FMAs on the CUDA cores for fp32 and
-// bf16 inputs (bf16 is widened as it is loaded into shared memory), so fp32
-// parity holds without TF32. Each of their 256 threads computes a 4 x 4
-// block of the 64 x 64 score tile from shared memory, with rows padded to
-// hd + 1 floats so the column reads of a warp fall in distinct banks. The
-// bf16 forward runs on the tensor cores instead (fwd_tc_kernel in
-// flash_attention_fwd.cu, built on mma.cuh).
+// above the CUDA cores' ridge: bound by operations. The fp32 kernels
+// (fwd_kernel, dq_kernel, dkv_kernel) do them as fp32 FMAs on the CUDA
+// cores, so fp32 parity holds without TF32. Each of their 256 threads
+// computes a 4 x 4 block of the 64 x 64 score tile from shared memory, with
+// rows padded to hd + 1 floats so the column reads of a warp fall in
+// distinct banks. The bf16 kernels run on the tensor cores instead
+// (fwd_tc_kernel in flash_attention_fwd.cu, dq_tc_kernel and dkv_tc_kernel
+// in flash_attention_bwd.cu, built on mma.cuh), where the bytes bound
+// them.
 //
 // Edges. Masks are finite (-1e30) and the normaliser is max(l, 1e-30), so a
 // row that sees no key ends with out = 0 and lse ~ -1e30, as the TPU kernel
@@ -36,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <atomic>
+
+#include "mma.cuh"
 
 namespace rtfa {
 
@@ -110,6 +113,43 @@ __device__ __forceinline__ void row_keys(const FlashArgs& a, int qp, int& lo,
   if (x >= a.Sk) x = -1;
 }
 
+// The queries that keep() admits for key kp, as two intervals [lo1, hi1)
+// and [lo2, hi2) inside [0, Sq) (empty: lo >= hi): row_keys() seen from the
+// key side, for the dk/dv kernel, whose rows are keys.
+__device__ __forceinline__ void key_queries(const FlashArgs& a, int kp,
+                                            int& lo1, int& hi1, int& lo2,
+                                            int& hi2) {
+  lo1 = hi1 = lo2 = hi2 = 0;
+  if (kp >= a.Sk) return;
+  const int S = a.mask_seq;
+  hi1 = a.Sq;
+  switch (a.mask_kind) {
+    case kCausal: lo1 = kp; break;
+    case kWindow: lo1 = kp; hi1 = kp + a.window; break;
+    case kDbConcat:
+      lo1 = kp;
+      if (kp < S) {
+        hi1 = S;                     // clean queries at or after it
+        lo2 = kp + S + 1;            // noisy queries strictly after it
+        hi2 = a.Sq;
+      } else {
+        hi1 = kp + 1;                // a noisy key: its own query
+      }
+      break;
+    case kTwoPass:
+      if (kp < S) {
+        lo1 = kp + 1;                // clean key: later queries
+      } else {
+        lo1 = kp - S;                // diagonal key: its one query
+        hi1 = kp - S + 1;
+      }
+      break;
+    default: break;
+  }
+  hi1 = min(hi1, a.Sq);
+  hi2 = min(hi2, a.Sq);
+}
+
 // Whether the tile [q0, q0 + 64) x [k0, k0 + 64) holds any kept pair: a
 // conservative test, exact enough that the skipped tiles hold none.
 __device__ __forceinline__ bool tile_visible(const FlashArgs& a, int q0,
@@ -154,33 +194,51 @@ __device__ __forceinline__ bool tile_full(const FlashArgs& a, int q0,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float ld(const void* p, long long i) {
-  if constexpr (sizeof(T) == 2)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  else
-    return static_cast<const float*>(p)[i];
+// The tensor-core kernels (fwd_tc_kernel, dq_tc_kernel, dkv_tc_kernel):
+// 4 warps, each owning 16 rows of a 64-row tile.
+constexpr int kTcThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Start the cp.async copies of rows [r0, r0 + 64) of (b, h) of the bf16
+// tensor t into the swizzled tile dst; rows at or past n are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
+                                                const TRef& t, int b, int h,
+                                                int r0, int n) {
+  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(t.p) +
+                              (long long)b * t.sb + (long long)h * t.sh;
+#pragma unroll
+  for (int i = 0; i < kB * CH / kTcThreads; ++i) {
+    const int e = threadIdx.x + i * kTcThreads;
+    const int r = e / CH, c = e % CH;
+    const bool ok = r0 + r < n;
+    const __nv_bfloat16* src =
+        ok ? base + (long long)(r0 + r) * t.ss + c * 8 : base;
+    rtmma::cp_async_16(rtmma::smem_addr(dst + rtmma::swizzle<CH>(r, c)), src,
+                       ok);
+  }
 }
 
-template <typename T>
-__device__ __forceinline__ void st(void* p, long long i, float x) {
-  if constexpr (sizeof(T) == 2)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x);
-  else
-    static_cast<float*>(p)[i] = x;
+// The first key tile at or after k0 that tile_visible admits for the query
+// tile q0 (>= a.Sk: none).
+__device__ __forceinline__ int next_visible(const FlashArgs& a, int q0,
+                                            int k0) {
+  while (k0 < a.Sk && !tile_visible(a, q0, k0)) k0 += kB;
+  return k0;
 }
 
-// Copy rows [r0, r0 + 64) of (b, h) of t into smem as fp32, row stride
-// HD + 1; rows past n are zero.
-template <typename T, int HD>
+// Copy rows [r0, r0 + 64) of (b, h) of the fp32 tensor t into smem, row
+// stride HD + 1; rows past n are zero.
+template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, const TRef& t, int b,
                                           int h, int r0, int n) {
-  const long long base = (long long)b * t.sb + (long long)h * t.sh;
+  const float* src = static_cast<const float*>(t.p) + (long long)b * t.sb +
+                     (long long)h * t.sh;
   for (int e = threadIdx.x; e < kB * HD; e += kThreads) {
     const int r = e / HD, d = e % HD;
     const int row = r0 + r;
-    dst[r * (HD + 1) + d] =
-        row < n ? ld<T>(t.p, base + (long long)row * t.ss + d) : 0.f;
+    dst[r * (HD + 1) + d] = row < n ? src[(long long)row * t.ss + d] : 0.f;
   }
 }
 

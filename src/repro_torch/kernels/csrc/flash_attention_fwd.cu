@@ -73,11 +73,10 @@
 //   is not 16-byte aligned or whose batch, head and sequence strides are
 //   not multiples of 8 elements (16-byte copies).
 #include "flash_attention.cuh"
-#include "mma.cuh"
 
 namespace rtfa {
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(const FlashArgs a) {
   constexpr int LD = HD + 1;
   constexpr int ND = HD / 16;  // output dims per thread
@@ -93,7 +92,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const FlashArgs a) {
   const int hk = h / (a.H / a.KV);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, HD>(Qs, a.q, b, h, q0, a.Sq);
+  load_tile<HD>(Qs, a.q, b, h, q0, a.Sq);
 
   float m[4], l[4], acc[4][ND];
 #pragma unroll
@@ -107,8 +106,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const FlashArgs a) {
   for (int k0 = 0; k0 < a.Sk; k0 += kB) {
     if (!tile_visible(a, q0, k0)) continue;
     __syncthreads();  // the previous tile's Ks, Vs and Ps are consumed
-    load_tile<T, HD>(Ks, a.k, b, hk, k0, a.Sk);
-    load_tile<T, HD>(Vs, a.v, b, hk, k0, a.Sk);
+    load_tile<HD>(Ks, a.k, b, hk, k0, a.Sk);
+    load_tile<HD>(Vs, a.v, b, hk, k0, a.Sk);
     __syncthreads();
 
     float s[4][4];
@@ -179,50 +178,20 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const FlashArgs a) {
                            (long long)qp * a.o.ss;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      st<T>(a.o.p, base + tx + 16 * j, acc[i][j] / lc);
+      static_cast<float*>(a.o.p)[base + tx + 16 * j] = acc[i][j] / lc;
     if (tx == 0)
       a.lse[((long long)b * a.H + h) * a.Sq + qp] = m[i] + logf(lc);
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t fwd(const FlashArgs& a, cudaStream_t st) {
   const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
   const size_t smem = (3 * kB * (HD + 1) + kB * (kB + 1)) * sizeof(float);
-  return launch<fwd_kernel<T, HD>>(grid, smem, a, st);
+  return launch<fwd_kernel<HD>>(grid, smem, a, st);
 }
 
-constexpr int kTcThreads = 128;  // 4 warps, 16 q rows each
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// Start the cp.async copies of rows [r0, r0 + 64) of (b, h) of the bf16
-// tensor t into the swizzled tile dst; rows at or past n are zero-filled.
-template <int HD>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const TRef& t, int b, int h,
-                                                int r0, int n) {
-  constexpr int CH = HD / 8;  // 16-byte chunks of a row
-  const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(t.p) +
-                              (long long)b * t.sb + (long long)h * t.sh;
-#pragma unroll
-  for (int i = 0; i < kB * CH / kTcThreads; ++i) {
-    const int e = threadIdx.x + i * kTcThreads;
-    const int r = e / CH, c = e % CH;
-    const bool ok = r0 + r < n;
-    const __nv_bfloat16* src =
-        ok ? base + (long long)(r0 + r) * t.ss + c * 8 : base;
-    rtmma::cp_async_16(rtmma::smem_addr(dst + rtmma::swizzle<CH>(r, c)), src,
-                       ok);
-  }
-}
-
-// The first tile at or after k0 that tile_visible admits (>= a.Sk: none).
-__device__ __forceinline__ int next_visible(const FlashArgs& a, int q0,
-                                            int k0) {
-  while (k0 < a.Sk && !tile_visible(a, q0, k0)) k0 += kB;
-  return k0;
-}
 
 // Blocks an SM must hold at once: 3 at hd 64 (<= 168 registers a thread),
 // 2 at hd 128 (its 64 output floats a thread leave no room for a third).
@@ -349,19 +318,13 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t hi[4], lo[4];
-      rtmma::split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
-      rtmma::split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
-      rtmma::split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
-      rtmma::split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+      rtmma::split_a_frag(s[2 * kk], s[2 * kk + 1], hi, lo);
 #pragma unroll
       for (int dp = 0; dp < ND / 2; ++dp) {
         uint32_t vf[4];  // B fragments of output n8 tiles 2dp and 2dp + 1
         rtmma::ldmatrix_x4_trans(vf, rtmma::smem_addr(Vt + rtmma::swizzle<CH>(
             16 * kk + (lane & 15), 2 * dp + lane / 16)));
-        rtmma::mma_bf16(o[2 * dp], hi, vf[0], vf[1]);
-        rtmma::mma_bf16(o[2 * dp], lo, vf[0], vf[1]);
-        rtmma::mma_bf16(o[2 * dp + 1], hi, vf[2], vf[3]);
-        rtmma::mma_bf16(o[2 * dp + 1], lo, vf[2], vf[3]);
+        rtmma::mma_bf16_split(o[2 * dp], o[2 * dp + 1], hi, lo, vf);
       }
     }
     k0 = kn;
@@ -402,9 +365,9 @@ extern "C" int rt_flash_attention_fwd(const rtfa::FlashArgs* a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (a->hd * 2 + a->bf16) {
-    case 128: e = rtfa::fwd<float, 64>(*a, st); break;
+    case 128: e = rtfa::fwd<64>(*a, st); break;
     case 129: e = rtfa::fwd_tc<64>(*a, st); break;
-    case 256: e = rtfa::fwd<float, 128>(*a, st); break;
+    case 256: e = rtfa::fwd<128>(*a, st); break;
     case 257: e = rtfa::fwd_tc<128>(*a, st); break;
     default: e = cudaErrorInvalidValue;
   }

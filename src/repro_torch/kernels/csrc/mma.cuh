@@ -67,6 +67,14 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                : "r"(dst), "l"(src), "r"(valid ? 16 : 0));
 }
 
+// Copy 4 bytes from global to shared memory (cp.async.ca: the 4- and
+// 8-byte sizes go through L1); both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :
+               : "r"(dst), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -111,6 +119,30 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// Two adjacent n8 accumulator tiles (c0: columns 0..7, c1: 8..15 of a
+// 16 x 16 fp32 tile) as the hi and lo bf16 A fragments of the next product.
+__device__ __forceinline__ void split_a_frag(const float (&c0)[4],
+                                             const float (&c1)[4],
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// d0 += (hi + lo) b[0..1] and d1 += (hi + lo) b[2..3]: the split A operand
+// times the two n8 B fragments that one ldmatrix_x4(_trans) gives.
+__device__ __forceinline__ void mma_bf16_split(float (&d0)[4], float (&d1)[4],
+                                               const uint32_t (&hi)[4],
+                                               const uint32_t (&lo)[4],
+                                               const uint32_t (&b)[4]) {
+  mma_bf16(d0, hi, b[0], b[1]);
+  mma_bf16(d0, lo, b[0], b[1]);
+  mma_bf16(d1, hi, b[2], b[3]);
+  mma_bf16(d1, lo, b[2], b[3]);
 }
 
 }  // namespace rtmma

@@ -15,11 +15,13 @@ Layout: q (B, H, Sq, hd), k/v (B, KV, Sk, hd), H = KV * G; any strides with
 a contiguous head dim (the model passes (B, S, H, hd) tensors as transposed
 views, which the kernels read in place).
 
-The bf16 forward runs on the tensor cores (``fwd_tc_kernel``: mma.sync,
-ldmatrix, cp.async, with P split into two bf16 terms so that P.V keeps the
-reference's fp32 P); it copies 16-byte chunks, so a bf16 q, k, v (or out)
-that ``tc_aligned`` refuses raises. The fp32 forward and the backward
-kernels run fp32 FMAs on the CUDA cores.
+In bf16 all three kernels run on the tensor cores (``fwd_tc_kernel``,
+``dq_tc_kernel``, ``dkv_tc_kernel``: mma.sync, ldmatrix, cp.async, with the
+fp32 operands P and dS split into two bf16 terms each, so that the products
+keep the reference's fp32 P and dS). They copy 16-byte chunks, so a bf16
+tensor (input or output) that ``tc_aligned`` refuses raises; the autograd
+backward first copies a ``dO`` it refuses. In fp32 the kernels run fp32
+FMAs on the CUDA cores.
 
 Three wrappers, one per kernel, each counting its launches in
 ``.launches``: ``flash_attention_fwd`` -> (out, lse), ``flash_attention_bwd_dq``
@@ -230,7 +232,7 @@ def _check(name, q, k, v, *more):
 
 
 def tc_aligned(data_ptr: int, strides, element_size: int) -> bool:
-    """Whether the bf16 tensor-core forward can copy a (B, H, S, hd) tensor
+    """Whether the bf16 tensor-core kernels can copy a (B, H, S, hd) tensor
     in 16-byte chunks: its base address is 16-byte aligned and its batch,
     head and sequence strides (``strides[:3]``, in elements) are multiples
     of 16 bytes (8 bf16 elements)."""
@@ -291,11 +293,16 @@ def flash_attention_fwd(q, k, v, cfg: FlashConfig):
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg: FlashConfig):
-    """dq like q, from the saved lse and delta = rowsum(dO * O)."""
+    """dq like q, from the saved lse and delta = rowsum(dO * O). bf16 runs
+    on the tensor cores, which take tensors that ``tc_aligned`` admits and
+    raise on others."""
     if q.device.type == "cpu":
         return _bwd_dq_ref(q, k, v, do, lse, delta, cfg)
     _check("flash_attention_bwd_dq", q, k, v, do)
     dq = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:
+        _check_tc_aligned("flash_attention_bwd_dq", q=q, k=k, v=v, do=do,
+                          dq=dq)
     args = _args(cfg, q, k, v=v, dout=do, dq=dq, lse=lse.contiguous(),
                  delta=delta.contiguous())
     _launch("flash_attention_bwd", "rt_flash_attention_bwd_dq", q, args,
@@ -305,11 +312,15 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg: FlashConfig):
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg: FlashConfig):
-    """(dk, dv) like k and v, summed over each GQA group in the kernel."""
+    """(dk, dv) like k and v, summed over each GQA group in the kernel (in
+    fp32, rounded once). bf16 runs on the tensor cores, as for dq."""
     if q.device.type == "cpu":
         return _bwd_dkv_ref(q, k, v, do, lse, delta, cfg)
     _check("flash_attention_bwd_dkv", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.bfloat16:
+        _check_tc_aligned("flash_attention_bwd_dkv", q=q, k=k, v=v, do=do,
+                          dk=dk, dv=dv)
     args = _args(cfg, q, k, v=v, dout=do, dk=dk, dv=dv, lse=lse.contiguous(),
                  delta=delta.contiguous())
     _launch("flash_attention_bwd", "rt_flash_attention_bwd_dkv", q, args,
@@ -334,8 +345,12 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not
+                                  tc_aligned(do.data_ptr(), do.stride(),
+                                             do.element_size())):
+            # a layout the kernels cannot read in place: a fresh dense copy
+            # (contiguous() would keep a dense tensor at an odd address)
+            do = do.clone(memory_format=torch.contiguous_format)
         delta = attention_delta(o, do)
         dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.cfg)
         dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.cfg)

@@ -6,7 +6,9 @@ runs only on the card. Here:
 (a) the layout it takes: ``flash_attention.tc_aligned`` (16-byte aligned
     base, batch / head / sequence strides in multiples of 16 bytes) admits
     every view the model hands the kernels, in concat and two-pass DB
-    steps, and refuses odd strides and offsets;
+    steps (forward inputs, and the backward's dO and gradient buffers, which
+    the tensor-core backward kernels take under the same rule), and refuses
+    odd strides and offsets;
 (b) its arithmetic, emulated in torch: bf16 inputs, fp32 scores, an online
     softmax over 64-key tiles in base 2, P split into bf16 hi + lo and both
     products accumulated in fp32. Held against ``flash_attention_fwd_ref``
@@ -54,15 +56,26 @@ CASES = {"full": (100, 190, None, None), "causal": (200, 200, None, None),
 def test_model_views_are_tc_aligned(monkeypatch, mode):
     """Every q, k, v a bf16 DB step hands the attention kernels (the
     reshaped projections as transposed views, the two-pass noisy stream's
-    ``torch.cat`` keys) is one the tensor-core forward takes."""
-    seen = []
+    ``torch.cat`` keys) is one the tensor-core forward takes; so is every
+    dO the step's backward hands the attention backward, as it arrives
+    (before any copy), and the dq, dk, dv buffers the backward wrappers
+    allocate (``torch.empty_like`` of q, k, v)."""
+    seen, seen_bwd = [], []
     orig = FA.flash_attention
+    orig_bwd = FA._Flash.backward
 
     def record(q, k, v, **kw):
         seen.append((kw["mask_kind"], q, k, v))
         return orig(q, k, v, **kw)
 
+    def record_bwd(ctx, do):
+        q, k, v = ctx.saved_tensors[:3]
+        seen_bwd.append((ctx.cfg.mask_kind, do, torch.empty_like(q),
+                         torch.empty_like(k), torch.empty_like(v)))
+        return orig_bwd(ctx, do)
+
     monkeypatch.setattr(FA, "flash_attention", record)
+    monkeypatch.setattr(FA._Flash, "backward", staticmethod(record_bwd))
     arch = "olmo-1b" if mode == "two_pass" else "stablelm-1.6b"
     cfg = reduced(get_config(arch), n_layers=2, d_model=128, n_heads=2)
     dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2,
@@ -77,8 +90,15 @@ def test_model_views_are_tc_aligned(monkeypatch, mode):
     kinds = {k for k, *_ in seen}
     assert kinds == ({"causal", "two_pass"} if mode == "two_pass"
                      else {"db_concat"})
+    # the two-pass step's last clean call reaches no loss: no backward
+    assert len(seen_bwd) == len(seen) - (mode == "two_pass")
     for kind, *tensors in seen:
         for name, x in zip("qkv", tensors):
+            assert x.dtype == torch.bfloat16 and x.shape[-1] == 64
+            assert FA.tc_aligned(x.data_ptr(), x.stride(),
+                                 x.element_size()), (kind, name, x.stride())
+    for kind, *tensors in seen_bwd:
+        for name, x in zip(("do", "dq", "dk", "dv"), tensors):
             assert x.dtype == torch.bfloat16 and x.shape[-1] == 64
             assert FA.tc_aligned(x.data_ptr(), x.stride(),
                                  x.element_size()), (kind, name, x.stride())

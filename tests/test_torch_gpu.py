@@ -25,6 +25,8 @@ from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import fused_adaln as AD
 from repro_torch.launch import serve as S
 from repro_torch.nn.init import tree_map
+# the bf16 tensor-core backward's shapes, shared with its CPU emulation
+from torch_attention_cases import TC_BWD_CASES
 
 TOL = 2e-4
 SWEEP = [(G, w, dt) for G in (1, 2, 4) for w in (None, 5)
@@ -554,6 +556,110 @@ def test_flash_attention_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of KV"):
         FA.flash_attention_fwd(torch.randn(1, 3, 8, 64, device=cuda), x, x,
                                cfg)
+
+
+def _within_card_bound(got, want):
+    """chip_smoke.compare's bound for bf16 outputs: |err| <= 2e-4 +
+    2^-7 |ref| (fp32 sums in another order, one final rounding)."""
+    err = (got.float() - want.float()).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= TOL + 2.0 ** -7 * want.float().abs()).all(), \
+        err.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("name", sorted(TC_BWD_CASES))
+def test_flash_attention_tc_backward(cuda, name, G, hd):
+    """dq_tc_kernel and dkv_tc_kernel (bf16) against _bwd_dq_ref and
+    _bwd_dkv_ref on the kernel forward's lse and delta, under the card
+    check's bound: ragged lengths, GQA, a row that sees no key."""
+    kind, Sq, Sk, window, mseq = TC_BWD_CASES[name]
+    cfg = FA.FlashConfig(kind, window=window, mask_seq=mseq)
+    gen = torch.Generator(device=cuda).manual_seed(hd + G + Sq + Sk)
+    B, KV = 2, 2
+    mk = lambda S, H: torch.randn(B, S, H, hd, generator=gen, device=cuda  # noqa: E731
+                                  ).bfloat16().transpose(1, 2)
+    q, k, v, do = mk(Sq, KV * G), mk(Sk, KV), mk(Sk, KV), mk(Sq, KV * G)
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    n0 = K.launch_counts()
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert n1[n] == n0[n] + 1
+    _within_card_bound(dq, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg))
+    for got, want in zip((dk, dv), FA._bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   cfg)):
+        _within_card_bound(got, want)
+    if name == "two_pass, cut keys":
+        assert (dq[:, :, 0] == 0).all()
+
+
+def _odd(x: torch.Tensor) -> torch.Tensor:
+    """A dense copy of x that starts 2 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    y = buf[1:1 + x.numel()].view(x.shape)
+    return y.copy_(x)
+
+
+@pytest.mark.gpu
+def test_flash_attention_tc_backward_refuses_unaligned(cuda, monkeypatch):
+    """The tensor-core backward copies 16-byte chunks: a bf16 dO, q, k or
+    v at an odd address raises (no fallback), and so does a dq, dk or dv
+    buffer at one (``torch.empty_like`` replaced to make one)."""
+    cfg = FA.FlashConfig("causal")
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(1, 2, 80, 64, generator=gen, device=cuda
+                               ).bfloat16() for _ in range(4))
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    args = {"q": q, "k": k, "v": v, "do": do}
+    for name in args:
+        bad = dict(args, **{name: _odd(args[name])})
+        call = (bad["q"], bad["k"], bad["v"], bad["do"], lse, delta, cfg)
+        with pytest.raises(ValueError, match=f"bf16 {name} must start"):
+            FA.flash_attention_bwd_dq(*call)
+        with pytest.raises(ValueError, match=f"bf16 {name} must start"):
+            FA.flash_attention_bwd_dkv(*call)
+    empty_like = torch.empty_like
+    for name, target in (("dq", q), ("dk", k), ("dv", v)):
+        monkeypatch.setattr(torch, "empty_like", lambda x, t=target: (
+            _odd(x) if x is t else empty_like(x)))
+        fn = (FA.flash_attention_bwd_dq if name == "dq"
+              else FA.flash_attention_bwd_dkv)
+        with pytest.raises(ValueError, match=f"bf16 {name} must start"):
+            fn(q, k, v, do, lse, delta, cfg)
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_copies_an_unaligned_do(cuda):
+    """torch.autograd.grad through flash_attention (bf16) with a dO at an
+    odd address: the backward copies it, runs both tensor-core kernels and
+    matches flash_attention_bwd_ref on the forward kernel's out and lse."""
+    cfg = FA.FlashConfig("db_concat", mask_seq=96)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    mk = lambda H: torch.randn(2, 192, H, 64, generator=gen, device=cuda  # noqa: E731
+                               ).bfloat16().transpose(1, 2)
+    q, k, v = (mk(4).requires_grad_(), mk(2).requires_grad_(),
+               mk(2).requires_grad_())
+    do = _odd(mk(4))
+    assert not FA.tc_aligned(do.data_ptr(), do.stride(), do.element_size())
+    out = FA.flash_attention(q, k, v, mask_kind="db_concat", mask_seq=96)
+    n0 = K.launch_counts()
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert n1[n] == n0[n] + 1
+    o, lse = FA.flash_attention_fwd(q.detach(), k.detach(), v.detach(), cfg)
+    want = FA.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o,
+                                      lse, do, cfg)
+    for got, ref in zip(grads, want):
+        _within_card_bound(got, ref)
 
 
 @pytest.mark.gpu
