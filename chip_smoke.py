@@ -8,18 +8,22 @@ Phases, each fatal on failure:
      (fp32 products stay fp32, or fp32 parity would mean nothing);
   2. build: compiles the eight kernel sources from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel) and prints
-     ``-Xptxas -v``'s summary, and its lines for the bf16 attention
-     kernels on the tensor cores (``fwd_tc_kernel``, ``dq_tc_kernel``,
-     ``dkv_tc_kernel``: registers, spills);
+     ``-Xptxas -v``'s summary, and its lines for the attention kernels on
+     the tensor cores (``fwd_tc_kernel``, ``fwd_tf32_kernel``,
+     ``dq_tc_kernel``, ``dkv_tc_kernel``: registers, spills);
   3. kernels: each of the thirteen kernels against its plain PyTorch
      version on the card, at the serving and training paths' shapes (max
      |err| <= 2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs,
      summed in another order; a bf16 output may also differ by its one
-     final rounding, 2^-7 |ref|), timed by CUDA-graph replay beside its
-     bound, the plain version and, where one PyTorch call computes the same
-     function, that call (the bf16 attention dq and dk/dv also printed
-     beside the times PERF.md records for their CUDA-core predecessors,
-     which this run does not measure); the row-wise kernels (ln-modulate,
+     final rounding, 2^-7 |ref|), timed by CUDA-graph replay (the
+     gate-residual forward and its library call as the median of three
+     readings) beside its bound (fp32 attention at the larger of the fp32
+     and the 3xTF32 tensor-core rate), the plain version and, where one
+     PyTorch call computes the same function, that call (the bf16
+     attention dq and dk/dv, the fp32 forward at DiT's shape and the
+     gate-residual forward's (d) fp32 and (m) cases also printed beside
+     the times PERF.md records for their predecessors, which this run does
+     not measure); the row-wise kernels (ln-modulate,
      gate-residual backward, EDM loss) and the attention calls of a
      two-pass layer at olmo-1b's shapes; a ragged causal attention case
      at S=1000 in bf16;
@@ -112,6 +116,10 @@ OUT_DIR = ROOT / "build" / "chip_smoke"      # full -Xptxas -v logs
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16 = 989e12             # dense tensor-core bf16
 PEAK_FP32 = 67e12              # fp32 outside the tensor cores
+# fp32-accurate products on the tensor cores: three tf32 products each
+# (3xTF32) at the dense tf32 rate. The fp32 attention bounds take the larger
+# of this and PEAK_FP32, the least time for the work whatever kernel does it
+PEAK_FP32_TC = 494.7e12 / 3
 TOL = 2e-4
 BF16_ULP = 2.0 ** -7           # one rounding of a bf16 output, relative
 ARCH = "stablelm-1.6b"
@@ -123,7 +131,8 @@ ATTN = ("flash_attention_fwd", "flash_attention_bwd_dq",
 DIT_TOKENS, DIT_DIM, DIT_BATCH = 256, 16, 256   # DiT-S/2: 32x32x4, patch 2
 DIT_SAMPLES, DIT_STEPS = 256, 18
 HUGINN_BPTT = 8
-TC_KERNELS = ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel")
+TC_KERNELS = ("fwd_tc_kernel", "fwd_tf32_kernel", "dq_tc_kernel",
+              "dkv_tc_kernel")
 
 
 class SmokeError(RuntimeError):
@@ -179,7 +188,7 @@ def phase_build() -> None:
             f"{max(smem, default=0)} B, kernels that spill: {len(spills)}")
         for line in spills[:4]:
             say(f"[build]   {line}")
-        # the bf16 attention kernels on the tensor cores, line by line
+        # the attention kernels on the tensor cores, line by line
         for entry in re.split(r"(?=ptxas info\s*: Compiling entry)", log):
             if any(k in entry for k in TC_KERNELS):
                 for line in entry.splitlines():
@@ -369,7 +378,10 @@ def paged_case(label, kind, *, KV, G, hd, page_dtype, q_dtype, window,
     return row
 
 
-def gate_case(label, shape, x_dtype, gate_dtype, dev, gen):
+def gate_case(label, shape, x_dtype, gate_dtype, dev, gen, prior=None):
+    """The gate-residual forward on a strided (B, 6d) head slice; ``prior``:
+    its predecessor's ms as PERF.md records it, printed beside this run's
+    (not measured here, so kept out of the row)."""
     from repro_torch.kernels import fused_adaln as AD
     B, S, d = shape
     res = torch.randn(shape, generator=gen, device=dev).to(x_dtype)
@@ -381,19 +393,28 @@ def gate_case(label, shape, x_dtype, gate_dtype, dev, gen):
     torch.cuda.synchronize()
     err = compare(label, got, AD.gate_residual_ref(res, br, gate))
     call_k = lambda i: AD.gate_residual(res, br, gate)
-    ms, e_ms = device_ms(call_k, 1, calls=64), eager_ms(call_k, 1, iters=200)
+    g1 = 1.0 + gate[:, None, :].to(x_dtype)
+    call_l = lambda i: torch.addcmul(res, br, g1)
+    # a launch lasts about a microsecond at the probe's shape, where one
+    # reading of kernel and library each swings by ~10%: median of three
+    ms = statistics.median(device_trials(call_k, 1, calls=64, trials=3))
+    library_ms = statistics.median(device_trials(call_l, 1, calls=64,
+                                                 trials=3))
+    e_ms = eager_ms(call_k, 1, iters=200)
     plain_ms = device_ms(lambda i: AD.gate_residual_ref(res, br, gate), 1,
                          calls=64)
-    g1 = 1.0 + gate[:, None, :].to(x_dtype)
-    library_ms = device_ms(lambda i: torch.addcmul(res, br, g1), 1, calls=64)
     nbytes = 3 * res.numel() * res.element_size() + B * d * \
         gate.element_size()
     flops = 2 * res.numel()
     bound_ms, by = bound(nbytes, flops, PEAK_FP32)
-    say(f"[kernels] {label}: max|err| {err:.2e} | kernel {ms:.4f} ms device "
+    say(f"[kernels] {label}: max|err| {err:.2e} | kernel {ms:.5f} ms device "
         f"({e_ms:.4f} ms per eager call) | bound {bound_ms:.5f} ms ({by}; "
-        f"{nbytes / 1e6:.3f} MB) | plain {plain_ms:.4f} ms | library "
-        f"(addcmul, 1+gate made outside) {library_ms:.4f} ms")
+        f"{nbytes / 1e6:.3f} MB) | plain {plain_ms:.5f} ms | library "
+        f"(addcmul, 1+gate made outside) {library_ms:.5f} ms")
+    if prior is not None:
+        say(f"[kernels] {label}: {ms:.5f} ms this run; the grid-stride "
+            f"kernel it replaced {prior:.4f} ms (recorded in PERF.md, NVIDIA "
+            "H100 80GB HBM3, 700.00 W; not this run)")
     return {"case": label, "max_abs_err": err, "ms": ms, "eager_ms": e_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": library_ms, "bytes": nbytes, "flops": flops}
@@ -659,7 +680,8 @@ def attention_case(label, kind, *, B, H, KV, S, hd, dtype, Sk=None,
         lib_spread = {"fwd": [min(fwd_t), max(fwd_t)],
                       "fwd_bwd": [min(both_t), max(both_t)]}
     work = attention_work(cfg, B, H, KV, S, Sk, hd, q.element_size())
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else max(PEAK_FP32,
+                                                         PEAK_FP32_TC)
     rows = {}
     for name, (kern, ref) in calls.items():
         err = compare(f"{name} {label}", got[name], ref(0),
@@ -700,9 +722,10 @@ def phase_attention(dev) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     # ``pr16``: the bf16 (dq, dk/dv) ms of the CUDA-core kernels that the
     # tensor-core ones replaced, as PERF.md records them from an earlier
-    # run of this script (NVIDIA H100 80GB HBM3, 700.00 W). Printed beside
-    # this run's times for comparison; not measured here, so kept out of
-    # the rows and the kernels line.
+    # run of this script (NVIDIA H100 80GB HBM3, 700.00 W); ``cuda_core_fwd``:
+    # the fp32 forward's on the CUDA cores, likewise. Printed beside this
+    # run's times for comparison; not measured here, so kept out of the
+    # rows and the kernels line.
     cases = [
         ("(e) db_concat B=8 H=32 S=2x512 hd=64 bf16 (DB step)", "db_concat",
          dict(B=8, H=32, KV=32, S=1024, hd=64, dtype=bf16, mask_seq=512,
@@ -733,7 +756,8 @@ def phase_attention(dev) -> dict:
               mask_seq=512, pr16=(1.1898, 1.3607))),
         # the DiT-S/2 step's layers (phase 10) and Huginn's (phase 11)
         ("(m) full B=256 H=6 S=256 hd=64 fp32 (DiT-S/2 step)", "full",
-         dict(B=256, H=6, KV=6, S=256, hd=64, dtype=f32)),
+         dict(B=256, H=6, KV=6, S=256, hd=64, dtype=f32,
+              cuda_core_fwd=1.3070)),
         ("(n) causal B=8 H=8 S=512 hd=64 fp32 (Huginn prelude, coda, "
          "baseline core)", "causal",
          dict(B=8, H=8, KV=8, S=512, hd=64, dtype=f32)),
@@ -743,6 +767,7 @@ def phase_attention(dev) -> dict:
     ]
     for label, kind, kw in cases:
         pr16 = kw.pop("pr16", None)
+        cuda_core_fwd = kw.pop("cuda_core_fwd", None)
         got = attention_case(label, kind, dev=dev, gen=gen, **kw)
         for name, row in got.items():
             rows[name].append(row)
@@ -751,6 +776,11 @@ def phase_attention(dev) -> dict:
                 f"{got[ATTN[2]]['ms']:.4f} ms this run; PR 16's CUDA-core "
                 f"kernels {pr16[0]:.4f} / {pr16[1]:.4f} ms (recorded in "
                 "PERF.md, NVIDIA H100 80GB HBM3, 700.00 W; not this run)")
+        if cuda_core_fwd is not None:
+            say(f"[kernels] {label}: forward {got[ATTN[0]]['ms']:.4f} ms "
+                f"this run; the CUDA-core fp32 forward it replaced "
+                f"{cuda_core_fwd:.4f} ms (recorded in PERF.md, NVIDIA H100 "
+                "80GB HBM3, 700.00 W; not this run)")
     return rows
 
 
@@ -786,14 +816,14 @@ def phase_kernels(dev) -> dict:
     # (d) gate-residual: the probe's (8,1,2048) fp32, a (8,64,2048) bf16
     rows["gate_residual"].append(gate_case(
         "(d) gate_residual (8,1,2048) fp32, fp32 gate slice", (8, 1, 2048),
-        f32, f32, dev, gen))
+        f32, f32, dev, gen, prior=0.0017))
     rows["gate_residual"].append(gate_case(
         "(d) gate_residual (8,64,2048) bf16, bf16 gate slice", (8, 64, 2048),
         bf16, bf16, dev, gen))
     # (m) the DiT-S/2 layer's two σ-gates (phase 10: batch 256, d 384)
     rows["gate_residual"].append(gate_case(
         "(m) gate_residual (256,256,384) fp32, fp32 gate slice (DiT-S/2)",
-        (256, 256, 384), f32, f32, dev, gen))
+        (256, 256, 384), f32, f32, dev, gen, prior=0.1013))
     return rows
 
 

@@ -17,15 +17,16 @@
 //
 // What bounds it. At the training shapes (S = 512-1024, hd = 64) attention
 // does about 2*S*hd/(bytes per row) flops per byte. On fp32 FMAs that is far
-// above the CUDA cores' ridge: bound by operations. The fp32 kernels
-// (fwd_kernel, dq_kernel, dkv_kernel) do them as fp32 FMAs on the CUDA
-// cores, so fp32 parity holds without TF32. Each of their 256 threads
-// computes a 4 x 4 block of the 64 x 64 score tile from shared memory, with
-// rows padded to hd + 1 floats so the column reads of a warp fall in
-// distinct banks. The bf16 kernels run on the tensor cores instead
-// (fwd_tc_kernel in flash_attention_fwd.cu, dq_tc_kernel and dkv_tc_kernel
-// in flash_attention_bwd.cu, built on mma.cuh), where the bytes bound
-// them.
+// above the CUDA cores' ridge: bound by operations. The fp32 backward
+// kernels (dq_kernel, dkv_kernel) do them as fp32 FMAs on the CUDA cores, so
+// fp32 parity holds without TF32. Each of their 256 threads computes a
+// 4 x 4 block of the 64 x 64 score tile from shared memory, with rows padded
+// to hd + 1 floats so the column reads of a warp fall in distinct banks.
+// The forwards and the bf16 backward run on the tensor cores instead
+// (fwd_tc_kernel and fwd_tf32_kernel in flash_attention_fwd.cu,
+// dq_tc_kernel and dkv_tc_kernel in flash_attention_bwd.cu, built on
+// mma.cuh): the fp32 forward at fp32 accuracy by splitting each operand
+// into two tf32 terms (3xTF32).
 //
 // Edges. Masks are finite (-1e30) and the normaliser is max(l, 1e-30), so a
 // row that sees no key ends with out = 0 and lse ~ -1e30, as the TPU kernel
@@ -217,6 +218,31 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
         ok ? base + (long long)(r0 + r) * t.ss + c * 8 : base;
     rtmma::cp_async_16(rtmma::smem_addr(dst + rtmma::swizzle<CH>(r, c)), src,
                        ok);
+  }
+}
+
+// Start the cp.async copies of rows [r0, r0 + 64) of (b, h) of the fp32
+// tensor t into the tile dst, PITCH floats a row; rows at or past n are
+// zero-filled. V16: 16-byte chunks (t's base 16-byte aligned, its strides
+// multiples of 4 floats); else one float a copy.
+template <int HD, int PITCH, bool V16>
+__device__ __forceinline__ void load_tile_async(float* dst, const TRef& t,
+                                                int b, int h, int r0, int n) {
+  constexpr int W = V16 ? 4 : 1;  // floats a copy
+  constexpr int CH = HD / W;      // copies a row
+  const float* base = static_cast<const float*>(t.p) + (long long)b * t.sb +
+                      (long long)h * t.sh;
+#pragma unroll
+  for (int i = 0; i < kB * CH / kTcThreads; ++i) {
+    const int e = threadIdx.x + i * kTcThreads;
+    const int r = e / CH, c = (e % CH) * W;
+    const bool ok = r0 + r < n;
+    const float* src = ok ? base + (long long)(r0 + r) * t.ss + c : base;
+    const uint32_t to = rtmma::smem_addr(dst + r * PITCH + c);
+    if constexpr (V16)
+      rtmma::cp_async_16(to, src, ok);
+    else
+      rtmma::cp_async_4(to, src, ok);
   }
 }
 

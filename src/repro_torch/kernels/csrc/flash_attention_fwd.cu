@@ -2,12 +2,11 @@
 // accumulation, writing out (in q's dtype) and the per-row logsumexp.
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:101
 // (_fwd_kernel, called through _fwd_impl at :141). Layout, masks and edges:
-// see flash_attention.cuh. Two kernels: fwd_kernel (fp32 inputs, fp32 FMAs
-// on the CUDA cores) and fwd_tc_kernel (bf16 inputs, tensor cores).
-//
-// fwd_kernel: one block per (64-row q tile, head, batch); GQA head h reads
-// KV head h / (H / KV). Thread (ty, tx) owns score rows 4*ty + i and columns
-// tx + 16*j of each 64 x 64 tile, and output dims tx + 16*j of its rows.
+// see flash_attention.cuh. Two kernels, both on the tensor cores:
+// fwd_tc_kernel (bf16 inputs, mma.sync m16n8k16) and fwd_tf32_kernel (fp32
+// inputs, mma.sync m16n8k8 on tf32 operands split three ways). Both run one
+// block of 4 warps per (64-row q tile, head, batch); GQA head h reads KV
+// head h / (H / KV).
 //
 // fwd_tc_kernel (bf16). What bounds it: at the DB step's db_concat case
 // (B=8, H=32, S=2x512, hd 64) the call must move 135.3 MB (q, k, v, out
@@ -46,7 +45,7 @@
 //   exponentiated by ex2.approx, lse written in natural log; row max across
 //   the quad with two shuffles, the row sum kept per thread and summed
 //   across the quad once at the end; the accumulator rescaled by the
-//   correction factor as fwd_kernel does. P never goes to shared memory.
+//   correction factor 2^(m_old - m_new). P never goes to shared memory.
 //   O += P V with P at fp32 accuracy: standard flash attention rounds P to
 //   bf16 before this product, but the reference keeps P in fp32 (the
 //   Pallas kernel upcasts q, k, v; the plain version does the same).
@@ -63,7 +62,7 @@
 //   row-major [key][d]).
 //   Epilogue: divide by max(l, 1e-30), round to bf16, store bf16 pairs
 //   (4 bytes) through o's strides; lane 0 of each quad writes lse. A row
-//   that sees no key gets out = 0 and lse = -1e30, as fwd_kernel.
+//   that sees no key gets out = 0 and lse = -1e30.
 //   Why mma.sync and not yet wgmma: wgmma needs shared-memory descriptors,
 //   its own swizzled layouts (or TMA tensor maps) and warpgroup barriers,
 //   none of which the repository has yet; mma.sync, ldmatrix and cp.async
@@ -72,126 +71,126 @@
 //   products changing. The wrapper refuses bf16 tensors whose base pointer
 //   is not 16-byte aligned or whose batch, head and sequence strides are
 //   not multiples of 8 elements (16-byte copies).
+//
+// fwd_tf32_kernel (fp32: the DiT and recurrent-depth models, and the fp32
+// cross-checks of the AR paths). What bounds it: at the DiT-S/2 step's
+// `full` case (B=256, H=6, S=256, hd 64) the call must move 404.2 MB
+// (0.1207 ms at 3.35 TB/s) and do 25.77 GFLOP, which at fp32 accuracy on the
+// tensor cores is three tf32 products each (0.1563 ms at 494.7 TFLOP/s):
+// bound by operations, so the products go to the tensor cores.
+//   Precision. A plain tf32 product keeps 11 bits of each operand: rounding
+//   Q, K (or P, V) to tf32 puts outputs past the card check's fp32 bound
+//   (2e-4 + 2e-4 |ref|), in thousands per case at inputs of scale 3 (the CPU
+//   emulation in tests/test_torch_attention_tf32.py). So every operand x is
+//   split into big = tf32(x) (to nearest) and small = tf32(x - big)
+//   (truncated; split_tf32 in mma.cuh, three instructions an element), and
+//   each product is big*big + big*small + small*big in one fp32 accumulator
+//   (3xTF32): in the emulation, as close to an fp64 reference as the fp32
+//   plain version is, for 3x the tensor-core work.
+//   Products: mma.sync m16n8k8 (ldmatrix moves b16 only, so fragments come
+//   from shared memory by plain loads). The order of a k-sum is free, so
+//   k-index t stands for element 2t of an 8-wide slice and t + 4 for 2t + 1:
+//   - S = Q K^T: A = Q (rows g, g + 8; dims 8kk + 2t, 2t + 1), B = K (key
+//     8j + g, the same dims), each a float2 load. Q and K rows are padded to
+//     HD + 8 floats, so a half-warp's float2 reads (words 8g + 2t) hit every
+//     bank once.
+//   - O += P V: the score accumulators give a thread keys 2t and 2t + 1 of
+//     each n8 tile, which is the A operand of one k8 step as it stands (no
+//     shuffle); V's B fragment is V[8j + 2t][8d + g] and V[8j + 2t + 1][..],
+//     single floats from rows padded to HD + 4 (words 8t + g and 8t + 4 + g:
+//     conflict-free). P is split in registers.
+//   Each warp splits the Q, K and V values it reads, every tile: holding
+//   Q's split fragments in registers across the loop at hd 64 (231
+//   registers against 202) measured no faster, and at hd 128 it spills.
+//   Loads: at hd 64 K and V go through a 2-stage cp.async ring as in
+//   fwd_tc_kernel (next visible tile prefetched right after the barrier,
+//   one barrier a tile): Q + 2 x K at HD + 8, 2 x V at HD + 4 floats a row
+//   is 88 KB, 2 blocks an SM. At hd 128 two stages (168 KB) allow one
+//   block of 4 warps an SM, which leaves the mma.sync chains' latency
+//   unhidden; one stage (103 KB: the next tile loads after a second
+//   barrier) allows two, which measured 16% faster (kTf32Stages). Masks,
+//   online softmax in base 2 and the epilogue as fwd_tc_kernel; out is
+//   stored as float2 pairs.
+//   Alignment: the copies are 16 bytes when every tensor's base is 16-byte
+//   aligned and its strides multiples of 4 floats; otherwise the same
+//   kernel is instantiated with 4-byte copies and scalar stores, so any
+//   fp32 view with a contiguous head dim is taken.
 #include "flash_attention.cuh"
 
 namespace rtfa {
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(const FlashArgs a) {
-  constexpr int LD = HD + 1;
-  constexpr int ND = HD / 16;  // output dims per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;             // kB x LD
-  float* Ks = Qs + kB * LD;     // kB x LD
-  float* Vs = Ks + kB * LD;     // kB x LD
-  float* Ps = Vs + kB * LD;     // kB x (kB + 1)
-
-  const int q0 = blockIdx.x * kB;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (a.H / a.KV);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_tile<HD>(Qs, a.q, b, h, q0, a.Sq);
-
-  float m[4], l[4], acc[4][ND];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < a.Sk; k0 += kB) {
-    if (!tile_visible(a, q0, k0)) continue;
-    __syncthreads();  // the previous tile's Ks, Vs and Ps are consumed
-    load_tile<HD>(Ks, a.k, b, hk, k0, a.Sk);
-    load_tile<HD>(Vs, a.v, b, hk, k0, a.Sk);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + 4 * ty + i;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ok[j] = keep(a, qp, k0 + tx + 16 * j);
-        s[i][j] = ok[j] ? s[i][j] * a.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row16_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(4 * ty + i) * (kB + 1) + tx + 16 * j] = p;
-        sum += p;
-      }
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + row16_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < ND; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kB; ++kk) {
-      float vv[ND];
-#pragma unroll
-      for (int j = 0; j < ND; ++j) vv[j] = Vs[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(4 * ty + i) * (kB + 1) + kk];
-#pragma unroll
-        for (int j = 0; j < ND; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + 4 * ty + i;
-    if (qp >= a.Sq) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-    const long long base = (long long)b * a.o.sb + (long long)h * a.o.sh +
-                           (long long)qp * a.o.ss;
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-      static_cast<float*>(a.o.p)[base + tx + 16 * j] = acc[i][j] / lc;
-    if (tx == 0)
-      a.lse[((long long)b * a.H + h) * a.Sq + qp] = m[i] + logf(lc);
-  }
-}
-
-template <int HD>
-cudaError_t fwd(const FlashArgs& a, cudaStream_t st) {
-  const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
-  const size_t smem = (3 * kB * (HD + 1) + kB * (kB + 1)) * sizeof(float);
-  return launch<fwd_kernel<HD>>(grid, smem, a, st);
-}
-
 constexpr float kLn2 = 0.6931471805599453f;
+
+// One key tile of the online softmax, for the two rows (row0, row0 + 8) a
+// thread holds: element e of s[j] is row row0 + 8 (e / 2), key
+// k0 + 8j + 2t + e % 2. Scales the scores by scale2 (base 2), masks them
+// to -1e30 unless the tile is full (klo/khi/kx from row_keys), turns them
+// into P = 2^(s - m_new) in place, and rescales the output accumulators o
+// and the per-thread row sums l by 2^(m_old - m_new).
+template <int ND>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4],
+                                             float (&o)[ND][4], float (&m)[2],
+                                             float (&l)[2], bool full,
+                                             const int (&klo)[2],
+                                             const int (&khi)[2],
+                                             const int (&kx)[2], int k0,
+                                             int t, float scale2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
+  if (!full) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2, kp = k0 + 8 * j + 2 * t + e % 2;
+        if (!((kp >= klo[i] && kp < khi[i]) || kp == kx[i]))
+          s[j][e] = kNegInf;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    // a row that has seen no key yet keeps m = -1e30: subtracting 0
+    // instead sends every exponential to 0 (masked scores sit at -1e30)
+    const float m_use = m_new == kNegInf ? 0.f : m_new;
+    const float corr = rtmma::exp2_approx(m[i] - m_use);
+    m[i] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        s[j][e] = rtmma::exp2_approx(s[j][e] - m_use);
+        sum += s[j][e];
+      }
+    l[i] = l[i] * corr + sum;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      o[d][2 * i] *= corr;
+      o[d][2 * i + 1] *= corr;
+    }
+  }
+}
+
+// The row sum of row i of a thread's pair (summed across the quad), and
+// the row's lse (natural log; -1e30 for a row that saw no key). Returns
+// max(l, 1e-30), the divisor of the output.
+__device__ __forceinline__ float finish_row(float& l, float m, float* lse,
+                                            bool write) {
+  l += __shfl_xor_sync(kFull, l, 1);
+  l += __shfl_xor_sync(kFull, l, 2);
+  const float lc = fmaxf(l, 1e-30f);
+  if (write) *lse = l > 0.f ? m * kLn2 + logf(lc) : kNegInf;
+  return lc;
+}
 
 // Blocks an SM must hold at once: 3 at hd 64 (<= 168 registers a thread),
 // 2 at hd 128 (its 64 output floats a thread leave no room for a third).
@@ -268,51 +267,8 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
         rtmma::mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
       }
     }
-
-    // element e of s[j]: row row0 + 8 (e / 2), key k0 + 8j + 2t + e % 2
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
-    if (!tile_full(a, q0, k0)) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e / 2, kp = k0 + 8 * j + 2 * t + e % 2;
-          if (!((kp >= klo[i] && kp < khi[i]) || kp == kx[i]))
-            s[j][e] = kNegInf;
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m[i], mx);
-      // a row that has seen no key yet keeps m = -1e30: subtracting 0
-      // instead sends every exponential to 0 (masked scores sit at -1e30)
-      const float m_use = m_new == kNegInf ? 0.f : m_new;
-      const float corr = rtmma::exp2_approx(m[i] - m_use);
-      m[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 2 * i; e < 2 * i + 2; ++e) {
-          s[j][e] = rtmma::exp2_approx(s[j][e] - m_use);
-          sum += s[j][e];
-        }
-      l[i] = l[i] * corr + sum;
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        o[d][2 * i] *= corr;
-        o[d][2 * i + 1] *= corr;
-      }
-    }
+    softmax_tile<ND>(s, o, m, l, tile_full(a, q0, k0), klo, khi, kx, k0, t,
+                     scale2);
 
     // O += P V over 4 k16 steps of 16 keys; P as hi + lo bf16 fragments
 #pragma unroll
@@ -332,11 +288,11 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(kFull, l[i], 1);
-    l[i] += __shfl_xor_sync(kFull, l[i], 2);
     const int qp = row0 + 8 * i;
+    const float lc = finish_row(l[i], m[i],
+                                a.lse + ((long long)b * a.H + h) * a.Sq + qp,
+                                qp < a.Sq && t == 0);
     if (qp >= a.Sq) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
     __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(a.o.p) +
                           (long long)b * a.o.sb + (long long)h * a.o.sh +
                           (long long)qp * a.o.ss + 2 * t;
@@ -344,9 +300,6 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
     for (int d = 0; d < ND; ++d)
       *reinterpret_cast<uint32_t*>(orow + 8 * d) =
           rtmma::pack_bf16(o[d][2 * i] / lc, o[d][2 * i + 1] / lc);
-    if (t == 0)
-      a.lse[((long long)b * a.H + h) * a.Sq + qp] =
-          l[i] > 0.f ? m[i] * kLn2 + logf(lc) : kNegInf;
   }
 }
 
@@ -357,6 +310,181 @@ cudaError_t fwd_tc(const FlashArgs& a, cudaStream_t st) {
   return launch<fwd_tc_kernel<HD>, kTcThreads>(grid, smem, a, st);
 }
 
+// Row pitches of fwd_tf32_kernel's fp32 tiles, in floats: Q and K rows are
+// read as float2 at words 8g + 2t (mod 32) of a half-warp, V's as floats
+// at words 8t + g and 8t + 4 + g: every bank once a request.
+template <int HD>
+constexpr int kQKPitch = HD + 8;
+template <int HD>
+constexpr int kVPitch = HD + 4;
+// Stages of fwd_tf32_kernel's K/V ring (2: the next tile's loads overlap
+// this tile's products; 1: they wait for them). The kernel asks for 2
+// blocks an SM, which at hd 128 leaves shared memory for one stage only
+// (103 KB a block against 168 KB with two): a trade that measured faster
+// (tune_attention_fwd.py).
+template <int HD>
+constexpr int kTf32Stages = HD == 64 ? 2 : 1;
+
+// The A fragment of Q K^T's k8 step from the fp32 rows at p (row g, dims
+// 2t and 2t + 1 of the step) and p + 8 rows, split into big and small.
+template <int PITCH>
+__device__ __forceinline__ void q_frag_tf32(const float* p, uint32_t (&big)[4],
+                                            uint32_t (&small)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(p);
+  const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * PITCH);
+  rtmma::split_tf32(x0.x, big[0], small[0]);  // (g, k t)
+  rtmma::split_tf32(x1.x, big[1], small[1]);  // (g + 8, k t)
+  rtmma::split_tf32(x0.y, big[2], small[2]);  // (g, k t + 4)
+  rtmma::split_tf32(x1.y, big[3], small[3]);  // (g + 8, k t + 4)
+}
+
+template <int HD, bool V16>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    fwd_tf32_kernel(const FlashArgs a) {
+  constexpr int QP = kQKPitch<HD>, VP = kVPitch<HD>, ST = kTf32Stages<HD>;
+  constexpr int KS = HD / 8;          // k8 steps of Q K^T
+  constexpr int ND = HD / 8;          // n8 tiles of a warp's output
+  extern __shared__ float4 tf_smem[];
+  float* Qs = reinterpret_cast<float*>(tf_smem);
+  float* Ks = Qs + kB * QP;           // ST stages
+  float* Vs = Ks + ST * kB * QP;      // ST stages
+
+  const int q0 = blockIdx.x * kB;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (a.H / a.KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + warp * 16 + g;  // and row0 + 8
+  int klo[2], khi[2], kx[2];
+  row_keys(a, row0, klo[0], khi[0], kx[0]);
+  row_keys(a, row0 + 8, klo[1], khi[1], kx[1]);
+
+  int k0 = next_visible(a, q0, 0);
+  if (k0 < a.Sk) {  // else the rows see no key: out = 0, lse = -1e30
+    load_tile_async<HD, QP, V16>(Qs, a.q, b, h, q0, a.Sq);
+    load_tile_async<HD, QP, V16>(Ks, a.k, b, hk, k0, a.Sk);
+    load_tile_async<HD, VP, V16>(Vs, a.v, b, hk, k0, a.Sk);
+  }
+  rtmma::cp_async_commit();
+  const float* qrow = Qs + (warp * 16 + g) * QP + 2 * t;
+
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float scale2 = a.scale * kLog2e;
+
+  for (int stage = 0; k0 < a.Sk; stage = (stage + 1) % ST) {
+    rtmma::cp_async_wait<0>();
+    __syncthreads();  // as fwd_tc_kernel: tile k0 is in, the other stage free
+    const int kn = next_visible(a, q0, k0 + kB);
+    if constexpr (ST == 2) {
+      if (kn < a.Sk) {
+        load_tile_async<HD, QP, V16>(Ks + (stage ^ 1) * kB * QP, a.k, b, hk,
+                                     kn, a.Sk);
+        load_tile_async<HD, VP, V16>(Vs + (stage ^ 1) * kB * VP, a.v, b, hk,
+                                     kn, a.Sk);
+      }
+      rtmma::cp_async_commit();
+    }
+    const float* Kt = Ks + stage * kB * QP;
+    const float* Vt = Vs + stage * kB * VP;
+
+    // S = Q K^T: n8 tile j holds keys k0 + 8j .. + 7; k-index t of step kk
+    // is dim 8kk + 2t, t + 4 is dim 8kk + 2t + 1
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], as[4];
+      q_frag_tf32<QP>(qrow + 8 * kk, ab, as);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(
+            Kt + (8 * j + g) * QP + 8 * kk + 2 * t);
+        uint32_t b0, b0s, b1, b1s;
+        rtmma::split_tf32(kv.x, b0, b0s);
+        rtmma::split_tf32(kv.y, b1, b1s);
+        rtmma::mma_tf32x3(s[j], ab, as, b0, b1, b0s, b1s);
+      }
+    }
+    softmax_tile<ND>(s, o, m, l, tile_full(a, q0, k0), klo, khi, kx, k0, t,
+                     scale2);
+
+    // O += P V: score tile j is the k8 step over keys k0 + 8j .. + 7 with
+    // k-index t <-> key 8j + 2t and t + 4 <-> key 8j + 2t + 1
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t pb[4], ps[4];
+      rtmma::split_tf32(s[j][0], pb[0], ps[0]);  // (g, key 2t)
+      rtmma::split_tf32(s[j][2], pb[1], ps[1]);  // (g + 8, key 2t)
+      rtmma::split_tf32(s[j][1], pb[2], ps[2]);  // (g, key 2t + 1)
+      rtmma::split_tf32(s[j][3], pb[3], ps[3]);  // (g + 8, key 2t + 1)
+      const float* vrow = Vt + (8 * j + 2 * t) * VP + g;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        uint32_t b0, b0s, b1, b1s;
+        rtmma::split_tf32(vrow[8 * d], b0, b0s);        // V[8j + 2t][8d + g]
+        rtmma::split_tf32(vrow[VP + 8 * d], b1, b1s);   // V[8j + 2t + 1][..]
+        rtmma::mma_tf32x3(o[d], pb, ps, b0, b1, b0s, b1s);
+      }
+    }
+    if constexpr (ST == 1) {
+      __syncthreads();  // every warp is done with the one stage
+      if (kn < a.Sk) {
+        load_tile_async<HD, QP, V16>(Ks, a.k, b, hk, kn, a.Sk);
+        load_tile_async<HD, VP, V16>(Vs, a.v, b, hk, kn, a.Sk);
+      }
+      rtmma::cp_async_commit();
+    }
+    k0 = kn;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = row0 + 8 * i;
+    const float lc = finish_row(l[i], m[i],
+                                a.lse + ((long long)b * a.H + h) * a.Sq + qp,
+                                qp < a.Sq && t == 0);
+    if (qp >= a.Sq) continue;
+    float* orow = static_cast<float*>(a.o.p) + (long long)b * a.o.sb +
+                  (long long)h * a.o.sh + (long long)qp * a.o.ss + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const float x = o[d][2 * i] / lc, y = o[d][2 * i + 1] / lc;
+      if constexpr (V16) {
+        *reinterpret_cast<float2*>(orow + 8 * d) = make_float2(x, y);
+      } else {
+        orow[8 * d] = x;
+        orow[8 * d + 1] = y;
+      }
+    }
+  }
+}
+
+// Whether fwd_tf32_kernel can copy t in 16-byte chunks: a 16-byte aligned
+// base and batch, head and sequence strides that are multiples of 4 floats.
+inline bool copies16(const TRef& t) {
+  return reinterpret_cast<uintptr_t>(t.p) % 16 == 0 && t.sb % 4 == 0 &&
+         t.sh % 4 == 0 && t.ss % 4 == 0;
+}
+
+template <int HD>
+cudaError_t fwd_tf32(const FlashArgs& a, cudaStream_t st) {
+  const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
+  const size_t smem = ((1 + kTf32Stages<HD>) * kQKPitch<HD> +
+                       kTf32Stages<HD> * kVPitch<HD>) * kB * sizeof(float);
+  if (copies16(a.q) && copies16(a.k) && copies16(a.v) && copies16(a.o))
+    return launch<fwd_tf32_kernel<HD, true>, kTcThreads>(grid, smem, a, st);
+  return launch<fwd_tf32_kernel<HD, false>, kTcThreads>(grid, smem, a, st);
+}
+
 }  // namespace rtfa
 
 // Writes a->o and a->lse from a->q, a->k, a->v. hd must be 64 or 128; bf16
@@ -365,9 +493,9 @@ extern "C" int rt_flash_attention_fwd(const rtfa::FlashArgs* a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (a->hd * 2 + a->bf16) {
-    case 128: e = rtfa::fwd<64>(*a, st); break;
+    case 128: e = rtfa::fwd_tf32<64>(*a, st); break;
     case 129: e = rtfa::fwd_tc<64>(*a, st); break;
-    case 256: e = rtfa::fwd<128>(*a, st); break;
+    case 256: e = rtfa::fwd_tf32<128>(*a, st); break;
     case 257: e = rtfa::fwd_tc<128>(*a, st); break;
     default: e = cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 // Tensor-core building blocks for sm_80+ kernels (used on sm_90a): warp-wide
-// bf16 matrix products (mma.sync m16n8k16, fp32 accumulators), ldmatrix
-// fragment loads from shared memory, cp.async 16-byte copies from global to
-// shared memory with zero-fill, and the XOR swizzle that keeps ldmatrix's
-// row reads free of bank conflicts.
+// bf16 matrix products (mma.sync m16n8k16, fp32 accumulators), tf32 ones
+// (m16n8k8) with the 3xTF32 split that keeps fp32 accuracy, ldmatrix
+// fragment loads from shared memory, cp.async 16- and 4-byte copies from
+// global to shared memory with zero-fill, and the XOR swizzle that keeps
+// ldmatrix's row reads free of bank conflicts.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -15,6 +16,12 @@
 // So two adjacent n8 accumulator tiles, packed to bf16 pairs, are an A
 // fragment of the next product (the score-to-probability register reuse of
 // FlashAttention-2).
+//
+// m16n8k8 with tf32 inputs (one 32-bit register an element):
+//   A (16 x 8): a[0] = (g, t), a[1] = (g + 8, t), a[2] = (g, t + 4),
+//     a[3] = (g + 8, t + 4);
+//   B (8 x 8, k x n): b[0] = (k t, n g), b[1] = (k t + 4, n g);
+//   C/D as above.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,11 +75,13 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
 }
 
 // Copy 4 bytes from global to shared memory (cp.async.ca: the 4- and
-// 8-byte sizes go through L1); both addresses 4-byte aligned.
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+// 8-byte sizes go through L1); both addresses 4-byte aligned. With `valid`
+// false nothing is read and the 4 bytes are zeroed.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :
-               : "r"(dst), "l"(src));
+               : "r"(dst), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -143,6 +152,46 @@ __device__ __forceinline__ void mma_bf16_split(float (&d0)[4], float (&d1)[4],
   mma_bf16(d0, lo, b[0], b[1]);
   mma_bf16(d1, hi, b[2], b[3]);
   mma_bf16(d1, lo, b[2], b[3]);
+}
+
+// D = A * B + D, tf32 inputs (fp32 bit patterns; the low 13 mantissa bits
+// are ignored), fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x as big + small for a 3xTF32 product. The tensor cores read a tf32
+// operand's top 19 bits and ignore its low 13 (ptxas's own expansion of
+// cvt.rna.tf32.f32 hands them x + 0x1000 unmasked). So big is x plus half a
+// tf32 ulp, which they read as x rounded to nearest (ties away), and small
+// is x - that rounded value (exact in fp32), which they read truncated to
+// tf32: big + small keeps ~21 bits of x's mantissa, where big alone keeps
+// 11. Three instructions; cvt.rna of both also guards each value against
+// Inf and NaN, which finite operands never need, and the splits are most
+// of a 3xTF32 kernel's instructions.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) + 0x1000u;
+  small = __float_as_uint(x - __uint_as_float(big & 0xffffe000u));
+}
+
+// d += A B at fp32 accuracy from split operands (3xTF32): the two cross
+// terms first, then big * big; small * small (~2^-22 relative) is dropped.
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           uint32_t b0_big, uint32_t b1_big,
+                                           uint32_t b0_small,
+                                           uint32_t b1_small) {
+  mma_tf32(d, a_small, b0_big, b1_big);
+  mma_tf32(d, a_big, b0_small, b1_small);
+  mma_tf32(d, a_big, b0_big, b1_big);
 }
 
 }  // namespace rtmma

@@ -25,8 +25,8 @@ from repro_torch.kernels import flash_prefill as FP
 from repro_torch.kernels import fused_adaln as AD
 from repro_torch.launch import serve as S
 from repro_torch.nn.init import tree_map
-# the bf16 tensor-core backward's shapes, shared with its CPU emulation
-from torch_attention_cases import TC_BWD_CASES
+# the tensor-core kernels' shapes, shared with their CPU emulations
+from torch_attention_cases import TC_BWD_CASES, TF32_FWD_CASES
 
 TOL = 2e-4
 SWEEP = [(G, w, dt) for G in (1, 2, 4) for w in (None, 5)
@@ -120,6 +120,39 @@ def test_gate_residual_kernel(cuda, xdt, gdt, shape):
     out = AD.gate_residual(res, br, gate)
     torch.cuda.synchronize()
     # explicit round-to-nearest adds and multiplies: bit-equal to the plain
+    torch.testing.assert_close(out, AD.gate_residual_ref(res, br, gate),
+                               atol=0, rtol=0)
+
+
+# (B, S, d, x dtype, gate dtype, gate column offset): the forward's vector
+# paths at their edges. bf16 rows of a d that is a multiple of 4 but not of
+# 8 (8-byte vectors); gate slices that are not aligned to the gate vector
+# (one element off: scalar gate loads); S = 1; a ragged last row tile;
+# more examples than one launch's grid holds (65535).
+GATE_EDGES = [(8, 1, 2048, torch.float32, torch.float32, 1),
+              (65537, 1, 4, torch.float32, torch.float32, 0),
+              (8, 1, 2048, torch.bfloat16, torch.bfloat16, 0),
+              (3, 5, 36, torch.bfloat16, torch.bfloat16, 0),
+              (3, 5, 36, torch.bfloat16, torch.float32, 1),
+              (2, 67, 20, torch.float32, torch.bfloat16, 1),
+              (2, 67, 24, torch.bfloat16, torch.bfloat16, 3),
+              (4, 33, 2048, torch.bfloat16, torch.float32, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,d,xdt,gdt,off", GATE_EDGES)
+def test_gate_residual_kernel_vector_edges(cuda, B, S, d, xdt, gdt, off):
+    """The forward's 16- and 8-byte vector paths and its scalar gate path,
+    bit-equal to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(d + off)
+    res = torch.randn(B, S, d, generator=gen, device=cuda).to(xdt)
+    br = torch.randn(B, S, d, generator=gen, device=cuda).to(xdt)
+    heads = torch.randn(B, 6 * d + 8, generator=gen, device=cuda).to(gdt)
+    gate = heads[:, 2 * d + off:3 * d + off]
+    n0 = AD.gate_residual_fwd.launches
+    out = AD.gate_residual(res, br, gate)
+    torch.cuda.synchronize()
+    assert AD.gate_residual_fwd.launches == n0 + 1
     torch.testing.assert_close(out, AD.gate_residual_ref(res, br, gate),
                                atol=0, rtol=0)
 
@@ -539,6 +572,73 @@ def test_flash_attention_bf16_refuses_unaligned_views(cuda):
         FA.flash_attention_fwd(shifted.view(1, 2, 8, 64), x, x, cfg)
     oddf = torch.randn(1, 2, 8, 68, device=cuda)[..., :64]
     FA.flash_attention_fwd(oddf, oddf, oddf, cfg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("name", sorted(TF32_FWD_CASES))
+def test_flash_attention_tf32_forward(cuda, name, G, hd):
+    """fwd_tf32_kernel (fp32, 3xTF32 on the tensor cores) against
+    flash_attention_fwd_ref under the card check's fp32 bound, on inputs of
+    scale 3 (where a plain tf32 product would miss it by far): ragged S =
+    1000, GQA, a row that sees no key (out = 0, lse = -1e30)."""
+    kind, Sq, Sk, window, mseq = TF32_FWD_CASES[name]
+    cfg = FA.FlashConfig(kind, window=window, mask_seq=mseq)
+    gen = torch.Generator(device=cuda).manual_seed(hd + G + Sq + Sk)
+    B, KV = 2, 2
+    mk = lambda S, H: 3 * torch.randn(B, S, H, hd, generator=gen,  # noqa: E731
+                                      device=cuda).transpose(1, 2)
+    q, k, v = mk(Sq, KV * G), mk(Sk, KV), mk(Sk, KV)
+    n0 = FA.flash_attention_fwd.launches
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_fwd.launches == n0 + 1
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    for got, want in ((out, ro), (lse, rl)):
+        err = (got - want).abs()
+        assert torch.isfinite(got).all()
+        assert (err <= TOL + TOL * want.abs()).all(), err.max().item()
+    if name == "two_pass, cut keys":
+        assert (out[:, :, 0] == 0).all() and (lse[:, :, 0] <= -1e29).all()
+
+
+def _shifted(x: torch.Tensor, floats: int = 1) -> torch.Tensor:
+    """A dense copy of the fp32 x that starts ``floats`` floats past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    return buf[floats:floats + x.numel()].view(x.shape).copy_(x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["q shifted", "k, v shifted",
+                                    "sequence stride hd + 2"])
+def test_flash_attention_tf32_forward_4_byte_copies(cuda, layout, hd):
+    """fp32 tensors the 16-byte copies cannot take (a base one float past a
+    16-byte boundary, a sequence stride that is not a multiple of 4 floats)
+    go through the 4-byte-copy instantiation: matched against the plain
+    version under the card bound, never refused."""
+    cfg = FA.FlashConfig("db_concat", mask_seq=100)
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    mk = lambda: torch.randn(2, 200, 4, hd, generator=gen,  # noqa: E731
+                             device=cuda).transpose(1, 2)
+    q, k, v = mk(), mk(), mk()
+    if layout == "q shifted":
+        q = _shifted(q.contiguous())
+    elif layout == "k, v shifted":
+        k, v = _shifted(k.contiguous()), _shifted(v.contiguous(), 3)
+    else:
+        wide = torch.randn(2, 4, 200, hd + 2, generator=gen, device=cuda)
+        q = wide[..., :hd]
+    assert not all(FA.tc_aligned(x.data_ptr(), x.stride(), 4)
+                   for x in (q, k, v))
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    torch.cuda.synchronize()
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    for got, want in ((out, ro), (lse, rl)):
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs() <= TOL + TOL * want.abs()).all()
 
 
 @pytest.mark.gpu
