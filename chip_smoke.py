@@ -10,7 +10,8 @@ Phases, each fatal on failure:
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel) and prints
      ``-Xptxas -v``'s summary, and its lines for the attention kernels on
      the tensor cores (``fwd_tc_kernel``, ``fwd_tf32_kernel``,
-     ``dq_tc_kernel``, ``dkv_tc_kernel``: registers, spills);
+     ``dq_tc_kernel``, ``dkv_tc_kernel``, ``dq_tf32_kernel``,
+     ``dkv_tf32_kernel``: registers, spills);
   3. kernels: each of the thirteen kernels against its plain PyTorch
      version on the card, at the serving and training paths' shapes (max
      |err| <= 2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs,
@@ -20,10 +21,11 @@ Phases, each fatal on failure:
      readings) beside its bound (fp32 attention at the larger of the fp32
      and the 3xTF32 tensor-core rate), the plain version and, where one
      PyTorch call computes the same function, that call (the bf16
-     attention dq and dk/dv, the fp32 forward at DiT's shape and the
-     gate-residual forward's (d) fp32 and (m) cases also printed beside
-     the times PERF.md records for their predecessors, which this run does
-     not measure); the row-wise kernels (ln-modulate,
+     attention dq and dk/dv, the fp32 forward, dq and dk/dv at DiT's shape
+     and the gate-residual forward's (d) fp32 and (m) cases also printed
+     beside the times PERF.md records for their predecessors, which this
+     run does not measure, and DiT's fp32 dq + dk/dv beside SDPA's whole
+     backward); the row-wise kernels (ln-modulate,
      gate-residual backward, EDM loss) and the attention calls of a
      two-pass layer at olmo-1b's shapes; a ragged causal attention case
      at S=1000 in bf16;
@@ -132,7 +134,7 @@ DIT_TOKENS, DIT_DIM, DIT_BATCH = 256, 16, 256   # DiT-S/2: 32x32x4, patch 2
 DIT_SAMPLES, DIT_STEPS = 256, 18
 HUGINN_BPTT = 8
 TC_KERNELS = ("fwd_tc_kernel", "fwd_tf32_kernel", "dq_tc_kernel",
-              "dkv_tc_kernel")
+              "dkv_tc_kernel", "dq_tf32_kernel", "dkv_tf32_kernel")
 
 
 class SmokeError(RuntimeError):
@@ -722,10 +724,10 @@ def phase_attention(dev) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     # ``pr16``: the bf16 (dq, dk/dv) ms of the CUDA-core kernels that the
     # tensor-core ones replaced, as PERF.md records them from an earlier
-    # run of this script (NVIDIA H100 80GB HBM3, 700.00 W); ``cuda_core_fwd``:
-    # the fp32 forward's on the CUDA cores, likewise. Printed beside this
-    # run's times for comparison; not measured here, so kept out of the
-    # rows and the kernels line.
+    # run of this script (NVIDIA H100 80GB HBM3, 700.00 W); ``cuda_core_fwd``
+    # and ``cuda_core_bwd``: the fp32 forward's and (dq, dk/dv)'s on the CUDA
+    # cores, likewise. Printed beside this run's times for comparison; not
+    # measured here, so kept out of the rows and the kernels line.
     cases = [
         ("(e) db_concat B=8 H=32 S=2x512 hd=64 bf16 (DB step)", "db_concat",
          dict(B=8, H=32, KV=32, S=1024, hd=64, dtype=bf16, mask_seq=512,
@@ -757,7 +759,7 @@ def phase_attention(dev) -> dict:
         # the DiT-S/2 step's layers (phase 10) and Huginn's (phase 11)
         ("(m) full B=256 H=6 S=256 hd=64 fp32 (DiT-S/2 step)", "full",
          dict(B=256, H=6, KV=6, S=256, hd=64, dtype=f32,
-              cuda_core_fwd=1.3070)),
+              cuda_core_fwd=1.3070, cuda_core_bwd=(1.5936, 2.1385))),
         ("(n) causal B=8 H=8 S=512 hd=64 fp32 (Huginn prelude, coda, "
          "baseline core)", "causal",
          dict(B=8, H=8, KV=8, S=512, hd=64, dtype=f32)),
@@ -768,6 +770,7 @@ def phase_attention(dev) -> dict:
     for label, kind, kw in cases:
         pr16 = kw.pop("pr16", None)
         cuda_core_fwd = kw.pop("cuda_core_fwd", None)
+        cuda_core_bwd = kw.pop("cuda_core_bwd", None)
         got = attention_case(label, kind, dev=dev, gen=gen, **kw)
         for name, row in got.items():
             rows[name].append(row)
@@ -781,6 +784,16 @@ def phase_attention(dev) -> dict:
                 f"this run; the CUDA-core fp32 forward it replaced "
                 f"{cuda_core_fwd:.4f} ms (recorded in PERF.md, NVIDIA H100 "
                 "80GB HBM3, 700.00 W; not this run)")
+        if cuda_core_bwd is not None:
+            dq_ms, dkv_ms = got[ATTN[1]]["ms"], got[ATTN[2]]["ms"]
+            lib = got[ATTN[1]]["library_ms"]
+            say(f"[kernels] {label}: dq / dk/dv {dq_ms:.4f} / {dkv_ms:.4f} "
+                f"ms this run; the CUDA-core fp32 kernels they replaced "
+                f"{cuda_core_bwd[0]:.4f} / {cuda_core_bwd[1]:.4f} ms "
+                "(recorded in PERF.md, NVIDIA H100 80GB HBM3, 700.00 W; not "
+                f"this run); dq + dk/dv {dq_ms + dkv_ms:.4f} ms against "
+                "SDPA's whole backward "
+                f"{'none' if lib is None else f'{lib:.4f} ms'} this run")
     return rows
 
 

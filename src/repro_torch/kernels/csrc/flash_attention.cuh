@@ -16,17 +16,14 @@
 // copy. lse and delta are (B, H, Sq) fp32, contiguous.
 //
 // What bounds it. At the training shapes (S = 512-1024, hd = 64) attention
-// does about 2*S*hd/(bytes per row) flops per byte. On fp32 FMAs that is far
-// above the CUDA cores' ridge: bound by operations. The fp32 backward
-// kernels (dq_kernel, dkv_kernel) do them as fp32 FMAs on the CUDA cores, so
-// fp32 parity holds without TF32. Each of their 256 threads computes a
-// 4 x 4 block of the 64 x 64 score tile from shared memory, with rows padded
-// to hd + 1 floats so the column reads of a warp fall in distinct banks.
-// The forwards and the bf16 backward run on the tensor cores instead
-// (fwd_tc_kernel and fwd_tf32_kernel in flash_attention_fwd.cu,
-// dq_tc_kernel and dkv_tc_kernel in flash_attention_bwd.cu, built on
-// mma.cuh): the fp32 forward at fp32 accuracy by splitting each operand
-// into two tf32 terms (3xTF32).
+// does about 2*S*hd/(bytes per row) flops per byte, above the ridge of the
+// tensor cores' rate in bf16 and far above the CUDA cores' in fp32. So all
+// six kernels run on the tensor cores with mma.sync (mma.cuh): in bf16
+// fwd_tc_kernel (flash_attention_fwd.cu), dq_tc_kernel and dkv_tc_kernel
+// (flash_attention_bwd.cu) on m16n8k16; in fp32 fwd_tf32_kernel,
+// dq_tf32_kernel and dkv_tf32_kernel on m16n8k8 tf32, at fp32 accuracy by
+// splitting each operand into two tf32 terms and taking each product three
+// times (3xTF32). Each block of 4 warps owns one 64-row tile.
 //
 // Edges. Masks are finite (-1e30) and the normaliser is max(l, 1e-30), so a
 // row that sees no key ends with out = 0 and lse ~ -1e30, as the TPU kernel
@@ -45,7 +42,6 @@ namespace rtfa {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kB = 64;         // rows of a q tile and of a k tile
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr unsigned kFull = 0xffffffffu;
 
 enum MaskKind { kFullMask = 0, kCausal = 1, kWindow = 2, kDbConcat = 3,
@@ -67,28 +63,9 @@ struct FlashArgs {
   float scale;
 };
 
-// The keep-mask of _tile_mask (flash_attention.py:68) for one pair.
-__device__ __forceinline__ bool keep(const FlashArgs& a, int qp, int kp) {
-  if (qp >= a.Sq || kp >= a.Sk) return false;
-  switch (a.mask_kind) {
-    case kCausal: return kp <= qp;
-    case kWindow: return kp <= qp && kp > qp - a.window;
-    case kDbConcat: {
-      const int S = a.mask_seq;
-      if (qp < S) return kp < S && kp <= qp;       // clean <- clean past
-      return (kp < S && kp < qp - S) || kp == qp;  // noisy <- clean / self
-    }
-    case kTwoPass: {
-      const int S = a.mask_seq;
-      return (kp < S && kp < qp) || kp == qp + S;
-    }
-    default: return true;
-  }
-}
-
-// The keys that keep() admits for row qp, as an interval [lo, hi) and one
-// more key x (-1: none), all inside [0, Sk): the same mask with a few
-// integer compares a pair, for kernels that test many pairs of one row.
+// The keys that the keep-mask of _tile_mask (flash_attention.py:68) admits
+// for row qp, as an interval [lo, hi) and one more key x (-1: none), all
+// inside [0, Sk): the mask with a few integer compares a pair.
 __device__ __forceinline__ void row_keys(const FlashArgs& a, int qp, int& lo,
                                          int& hi, int& x) {
   lo = 0;
@@ -114,7 +91,7 @@ __device__ __forceinline__ void row_keys(const FlashArgs& a, int qp, int& lo,
   if (x >= a.Sk) x = -1;
 }
 
-// The queries that keep() admits for key kp, as two intervals [lo1, hi1)
+// The queries that the mask admits for key kp, as two intervals [lo1, hi1)
 // and [lo2, hi2) inside [0, Sq) (empty: lo >= hi): row_keys() seen from the
 // key side, for the dk/dv kernel, whose rows are keys.
 __device__ __forceinline__ void key_queries(const FlashArgs& a, int kp,
@@ -254,31 +231,25 @@ __device__ __forceinline__ int next_visible(const FlashArgs& a, int q0,
   return k0;
 }
 
-// Copy rows [r0, r0 + 64) of (b, h) of the fp32 tensor t into smem, row
-// stride HD + 1; rows past n are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const TRef& t, int b,
-                                          int h, int r0, int n) {
-  const float* src = static_cast<const float*>(t.p) + (long long)b * t.sb +
-                     (long long)h * t.sh;
-  for (int e = threadIdx.x; e < kB * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int row = r0 + r;
-    dst[r * (HD + 1) + d] = row < n ? src[(long long)row * t.ss + d] : 0.f;
-  }
+// Whether the fp32 kernels can copy t in 16-byte chunks: a 16-byte aligned
+// base and batch, head and sequence strides that are multiples of 4 floats.
+inline bool copies16(const TRef& t) {
+  return reinterpret_cast<uintptr_t>(t.p) % 16 == 0 && t.sb % 4 == 0 &&
+         t.sh % 4 == 0 && t.ss % 4 == 0;
 }
 
-// Sum over the 16 lanes that share a row (lanes differ in their low 4 bits).
-__device__ __forceinline__ float row16_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+// The m16n8k8 tf32 A fragment of one k8 step from fp32 rows at p (row g,
+// dims 2t and 2t + 1 of the step, as k-indices t and t + 4) and p + 8 rows,
+// split into big and small.
+template <int PITCH>
+__device__ __forceinline__ void q_frag_tf32(const float* p, uint32_t (&big)[4],
+                                            uint32_t (&small)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(p);
+  const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * PITCH);
+  rtmma::split_tf32(x0.x, big[0], small[0]);  // (g, k t)
+  rtmma::split_tf32(x1.x, big[1], small[1]);  // (g + 8, k t)
+  rtmma::split_tf32(x0.y, big[2], small[2]);  // (g, k t + 4)
+  rtmma::split_tf32(x1.y, big[3], small[3]);  // (g + 8, k t + 4)
 }
 
 // Launch KERNEL with THREADS threads a block and `smem` bytes of dynamic
@@ -290,7 +261,7 @@ __device__ __forceinline__ float row16_sum(float v) {
 // cudaGetDevice.
 constexpr int kMaxDevices = 64;
 
-template <void (*KERNEL)(const FlashArgs), int THREADS = kThreads>
+template <void (*KERNEL)(const FlashArgs), int THREADS>
 cudaError_t launch(dim3 grid, size_t smem, const FlashArgs& a,
                    cudaStream_t st) {
   static std::atomic<int> allowed[kMaxDevices];

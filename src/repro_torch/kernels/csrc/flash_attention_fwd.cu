@@ -22,8 +22,8 @@
 //   each warp owning 16 q rows; K/V tiles of 64 keys, so tile_visible()
 //   applies unchanged. A tile that tile_full() finds wholly kept skips the
 //   mask; in the others each score is tested against its row's keys from
-//   row_keys() (keep()'s mask as an interval and one key: a few integer
-//   compares a score, where keep() branches on the mask kind for each).
+//   row_keys() (the mask as an interval and one key: a few integer
+//   compares a score, where testing the mask kind for each pair was slow).
 //   Registers are capped for 3 blocks an SM at hd 64 and 2 at hd 128
 //   (__launch_bounds__), with no spills.
 //   Loads: cp.async 16-byte chunks into shared tiles swizzled by
@@ -325,19 +325,6 @@ constexpr int kVPitch = HD + 4;
 template <int HD>
 constexpr int kTf32Stages = HD == 64 ? 2 : 1;
 
-// The A fragment of Q K^T's k8 step from the fp32 rows at p (row g, dims
-// 2t and 2t + 1 of the step) and p + 8 rows, split into big and small.
-template <int PITCH>
-__device__ __forceinline__ void q_frag_tf32(const float* p, uint32_t (&big)[4],
-                                            uint32_t (&small)[4]) {
-  const float2 x0 = *reinterpret_cast<const float2*>(p);
-  const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * PITCH);
-  rtmma::split_tf32(x0.x, big[0], small[0]);  // (g, k t)
-  rtmma::split_tf32(x1.x, big[1], small[1]);  // (g + 8, k t)
-  rtmma::split_tf32(x0.y, big[2], small[2]);  // (g, k t + 4)
-  rtmma::split_tf32(x1.y, big[3], small[3]);  // (g + 8, k t + 4)
-}
-
 template <int HD, bool V16>
 __global__ void __launch_bounds__(kTcThreads, 2)
     fwd_tf32_kernel(const FlashArgs a) {
@@ -466,13 +453,6 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       }
     }
   }
-}
-
-// Whether fwd_tf32_kernel can copy t in 16-byte chunks: a 16-byte aligned
-// base and batch, head and sequence strides that are multiples of 4 floats.
-inline bool copies16(const TRef& t) {
-  return reinterpret_cast<uintptr_t>(t.p) % 16 == 0 && t.sb % 4 == 0 &&
-         t.sh % 4 == 0 && t.ss % 4 == 0;
 }
 
 template <int HD>

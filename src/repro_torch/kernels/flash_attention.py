@@ -20,12 +20,12 @@ In bf16 all three kernels run on the tensor cores (``fwd_tc_kernel``,
 fp32 operands P and dS split into two bf16 terms each, so that the products
 keep the reference's fp32 P and dS). They copy 16-byte chunks, so a bf16
 tensor (input or output) that ``tc_aligned`` refuses raises; the autograd
-backward first copies a ``dO`` it refuses. In fp32 the forward runs on the
-tensor cores too (``fwd_tf32_kernel``: each operand split into two tf32
-terms and each product taken three times, 3xTF32, which keeps fp32
-accuracy); it copies 16-byte chunks where ``tc_aligned`` admits all of q, k,
-v and out, and single floats otherwise, so it takes every fp32 view. The
-fp32 backward runs fp32 FMAs on the CUDA cores.
+backward first copies a ``dO`` it refuses. In fp32 all three run on the
+tensor cores too (``fwd_tf32_kernel``, ``dq_tf32_kernel``,
+``dkv_tf32_kernel``: each operand split into two tf32 terms and each product
+taken three times, 3xTF32, which keeps fp32 accuracy); each copies 16-byte
+chunks where ``tc_aligned`` admits all of its tensors (inputs, dO and
+outputs), and single floats otherwise, so it takes every fp32 view.
 
 Three wrappers, one per kernel, each counting its launches in
 ``.launches``: ``flash_attention_fwd`` -> (out, lse), ``flash_attention_bwd_dq``
@@ -239,8 +239,8 @@ def tc_aligned(data_ptr: int, strides, element_size: int) -> bool:
     """Whether the tensor-core kernels can copy a (B, H, S, hd) tensor in
     16-byte chunks: its base address is 16-byte aligned and its batch, head
     and sequence strides (``strides[:3]``, in elements) are multiples of 16
-    bytes (8 bf16 or 4 fp32 elements). The fp32 forward makes the same test
-    in C (``copies16``) to choose its 16- or 4-byte copies."""
+    bytes (8 bf16 or 4 fp32 elements). The fp32 kernels make the same test
+    in C (``copies16``) to choose their 16- or 4-byte copies."""
     return data_ptr % 16 == 0 and all(
         s * element_size % 16 == 0 for s in strides[:3])
 
@@ -299,9 +299,10 @@ def flash_attention_fwd(q, k, v, cfg: FlashConfig):
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg: FlashConfig):
-    """dq like q, from the saved lse and delta = rowsum(dO * O). bf16 runs
-    on the tensor cores, which take tensors that ``tc_aligned`` admits and
-    raise on others."""
+    """dq like q, from the saved lse and delta = rowsum(dO * O), on the
+    tensor cores. bf16 takes tensors that ``tc_aligned`` admits and raises
+    on others; fp32 takes any (4-byte copies where ``tc_aligned`` refuses
+    one)."""
     if q.device.type == "cpu":
         return _bwd_dq_ref(q, k, v, do, lse, delta, cfg)
     _check("flash_attention_bwd_dq", q, k, v, do)
@@ -319,7 +320,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg: FlashConfig):
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg: FlashConfig):
     """(dk, dv) like k and v, summed over each GQA group in the kernel (in
-    fp32, rounded once). bf16 runs on the tensor cores, as for dq."""
+    fp32, rounded once), on the tensor cores; the layouts taken as for
+    dq."""
     if q.device.type == "cpu":
         return _bwd_dkv_ref(q, k, v, do, lse, delta, cfg)
     _check("flash_attention_bwd_dkv", q, k, v, do)

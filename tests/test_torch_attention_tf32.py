@@ -21,8 +21,9 @@ runs only on the card. Here:
     bound, in Q K^T and in P V, in every mask kind: the reason the kernel
     splits both;
 (d) the fp32 q, k, v and out of a reduced DiT DB step and of reduced Huginn
-    losses are tensors ``tc_aligned`` admits, so the main paths take the
-    kernel's 16-byte copies (the 4-byte ones are for other views);
+    steps, and their backward's dO, dq, dk and dv, are tensors
+    ``tc_aligned`` admits, so the main paths take the fp32 kernels' 16-byte
+    copies (the 4-byte ones are for other views);
 (e) ``tune_attention_fwd.py``'s variants still apply to the committed
     source, and its "chosen" variant is that source.
 """
@@ -245,23 +246,39 @@ def test_1xtf32_breaks_the_card_bound(name, plain):
 # ---------------------------------------------------------------------------
 
 def _record(monkeypatch):
-    """Record q, k, v and the out buffer (``torch.empty_like(q)``, as the
-    card's wrapper allocates it) of every attention call."""
+    """Record, for every attention call, q, k, v and the out buffer of the
+    forward, and dO and the dq, dk and dv buffers of the backward
+    (``torch.empty_like``, as the card's wrappers allocate them)."""
     seen = []
-    orig = FA.flash_attention
+    fwd, dq, dkv = (FA.flash_attention, FA.flash_attention_bwd_dq,
+                    FA.flash_attention_bwd_dkv)
 
     def record(q, k, v, **kw):
-        seen.append((kw["mask_kind"], q, k, v, torch.empty_like(q)))
-        return orig(q, k, v, **kw)
+        seen.append((kw["mask_kind"], {"q": q, "k": k, "v": v,
+                                       "out": torch.empty_like(q)}))
+        return fwd(q, k, v, **kw)
+
+    def record_dq(q, k, v, do, lse, delta, cfg):
+        seen.append((cfg.mask_kind, {"dO": do, "dq": torch.empty_like(q)}))
+        return dq(q, k, v, do, lse, delta, cfg)
+
+    def record_dkv(q, k, v, do, lse, delta, cfg):
+        seen.append((cfg.mask_kind, {"dO": do, "dk": torch.empty_like(k),
+                                     "dv": torch.empty_like(v)}))
+        return dkv(q, k, v, do, lse, delta, cfg)
 
     monkeypatch.setattr(FA, "flash_attention", record)
+    monkeypatch.setattr(FA, "flash_attention_bwd_dq", record_dq)
+    monkeypatch.setattr(FA, "flash_attention_bwd_dkv", record_dkv)
     return seen
 
 
 def _assert_16_byte_copies(seen, kinds):
-    assert {kind for kind, *_ in seen} == kinds
-    for kind, *tensors in seen:
-        for name, x in zip(("q", "k", "v", "out"), tensors):
+    assert {kind for kind, _ in seen} == kinds
+    assert {name for _, tensors in seen for name in tensors} == {
+        "q", "k", "v", "out", "dO", "dq", "dk", "dv"}
+    for kind, tensors in seen:
+        for name, x in tensors.items():
             assert x.dtype == torch.float32 and x.shape[-1] == 64
             assert FA.tc_aligned(x.data_ptr(), x.stride(),
                                  x.element_size()), (kind, name, x.stride())
@@ -288,10 +305,13 @@ def test_recurrent_views_take_16_byte_copies(monkeypatch):
     gen = torch.Generator().manual_seed(0)
     params = m.init(gen)
     tokens = torch.randint(0, 64, (2, 12), generator=gen)
-    m.db_loss(params, tokens, sigma=torch.full((2, 1, 1), 0.5),
-              eps=torch.randn(2, 12, 128, generator=gen))
-    m.baseline_loss(params, tokens,
-                    s0=0.5 * torch.randn(2, 12, 128, generator=gen))
+    tcfg = TrainConfig(steps=2)
+    init, step = REC.make_step(m.db_loss, tcfg)
+    step(params, init(params), tokens, sigma=torch.full((2, 1, 1), 0.5),
+         eps=torch.randn(2, 12, 128, generator=gen))
+    init, step = REC.make_step(m.baseline_loss, tcfg)
+    step(params, init(params), tokens,
+         s0=0.5 * torch.randn(2, 12, 128, generator=gen))
     _assert_16_byte_copies(seen, {"causal", "db_concat"})
 
 

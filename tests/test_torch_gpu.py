@@ -641,6 +641,128 @@ def test_flash_attention_tf32_forward_4_byte_copies(cuda, layout, hd):
         assert ((got - want).abs() <= TOL + TOL * want.abs()).all()
 
 
+# the fp32 backward's inputs are of scale 2: its gradients' errors grow
+# steeply with the scale, and at scale 3 the fp32 plain version itself misses
+# the card bound against its formulas in fp64
+# (tests/test_torch_attention_bwd_tf32.py); at 2 it is within half of it
+TF32_BWD_SCALE = 2.0
+
+
+def _within_fp32_bound(got, want):
+    """chip_smoke.compare's bound for fp32 outputs: |err| <= 2e-4 +
+    2e-4 |ref|."""
+    err = (got - want).abs()
+    assert torch.isfinite(got).all()
+    assert (err <= TOL + TOL * want.abs()).all(), err.max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("name", sorted(TF32_FWD_CASES))
+def test_flash_attention_tf32_backward(cuda, name, G, hd):
+    """dq_tf32_kernel and dkv_tf32_kernel (fp32, 3xTF32 on the tensor
+    cores) against _bwd_dq_ref and _bwd_dkv_ref on the forward kernel's lse
+    and delta, under the card check's fp32 bound: ragged S = 1000, GQA, a
+    row that sees no key (dq = 0)."""
+    kind, Sq, Sk, window, mseq = TF32_FWD_CASES[name]
+    cfg = FA.FlashConfig(kind, window=window, mask_seq=mseq)
+    gen = torch.Generator(device=cuda).manual_seed(hd + G + Sq + Sk + 1)
+    B, KV = 2, 2
+    mk = lambda S, H: TF32_BWD_SCALE * torch.randn(  # noqa: E731
+        B, S, H, hd, generator=gen, device=cuda).transpose(1, 2)
+    q, k, v, do = mk(Sq, KV * G), mk(Sk, KV), mk(Sk, KV), mk(Sq, KV * G)
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    n0 = K.launch_counts()
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert n1[n] == n0[n] + 1
+    _within_fp32_bound(dq, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg))
+    for got, want in zip((dk, dv), FA._bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   cfg)):
+        _within_fp32_bound(got, want)
+    if name == "two_pass, cut keys":
+        assert (dq[:, :, 0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["q shifted", "k, v shifted",
+                                    "dO sequence stride hd + 2",
+                                    "dq shifted", "dk shifted",
+                                    "dv shifted"])
+def test_flash_attention_tf32_backward_4_byte_copies(cuda, monkeypatch,
+                                                     layout, hd):
+    """fp32 inputs, dO or gradient buffers (``torch.empty_like`` replaced
+    to make one) that the 16-byte copies cannot take go through the
+    backward's 4-byte-copy instantiations: matched against the plain
+    versions under the card bound, never refused."""
+    cfg = FA.FlashConfig("db_concat", mask_seq=100)
+    gen = torch.Generator(device=cuda).manual_seed(hd + 1)
+    mk = lambda: torch.randn(2, 200, 4, hd, generator=gen,  # noqa: E731
+                             device=cuda).transpose(1, 2)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    if layout == "q shifted":
+        q = _shifted(q.contiguous())
+    elif layout == "k, v shifted":
+        k, v = _shifted(k.contiguous()), _shifted(v.contiguous(), 3)
+    elif layout == "dO sequence stride hd + 2":
+        do = torch.randn(2, 4, 200, hd + 2, generator=gen,
+                         device=cuda)[..., :hd]
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    if layout in ("dq shifted", "dk shifted", "dv shifted"):
+        target = {"dq": q, "dk": k, "dv": v}[layout[:2]]
+        empty_like = torch.empty_like
+        monkeypatch.setattr(torch, "empty_like", lambda x: (
+            _shifted(x) if x is target else empty_like(x)))
+    else:
+        assert not all(FA.tc_aligned(x.data_ptr(), x.stride(), 4)
+                       for x in (q, k, v, do))
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    if layout.endswith("shifted") and layout[:2] in ("dq", "dk", "dv"):
+        got = {"dq": dq, "dk": dk, "dv": dv}[layout[:2]]
+        assert not FA.tc_aligned(got.data_ptr(), got.stride(), 4)
+    _within_fp32_bound(dq, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg))
+    for got, want in zip((dk, dv), FA._bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   cfg)):
+        _within_fp32_bound(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_attention_tf32_autograd_takes_a_4_byte_do(cuda):
+    """torch.autograd.grad through fp32 flash_attention with a dO whose
+    sequence stride is hd + 2 floats: the backward takes it as it is (no
+    copy: its head dim is contiguous), runs both kernels and matches
+    flash_attention_bwd_ref on the forward kernel's out and lse."""
+    cfg = FA.FlashConfig("db_concat", mask_seq=96)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mk = lambda H: torch.randn(2, 192, H, 64, generator=gen,  # noqa: E731
+                               device=cuda).transpose(1, 2)
+    q, k, v = (mk(4).requires_grad_(), mk(2).requires_grad_(),
+               mk(2).requires_grad_())
+    do = torch.randn(2, 4, 192, 66, generator=gen, device=cuda)[..., :64]
+    assert not FA.tc_aligned(do.data_ptr(), do.stride(), do.element_size())
+    out = FA.flash_attention(q, k, v, mask_kind="db_concat", mask_seq=96)
+    n0 = K.launch_counts()
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for n in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert n1[n] == n0[n] + 1
+    o, lse = FA.flash_attention_fwd(q.detach(), k.detach(), v.detach(), cfg)
+    want = FA.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), o,
+                                      lse, do, cfg)
+    for got, ref in zip(grads, want):
+        _within_fp32_bound(got, ref)
+
+
 @pytest.mark.gpu
 def test_flash_attention_rejects_what_the_kernels_do_not_take(cuda):
     cfg = FA.FlashConfig("causal")

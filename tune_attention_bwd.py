@@ -1,16 +1,23 @@
-"""Compare build variants of the bf16 tensor-core attention backward
-(``dq_tc_kernel`` and ``dkv_tc_kernel`` in
+"""Compare build variants of the tensor-core attention backward (bf16
+``dq_tc_kernel`` and ``dkv_tc_kernel``, fp32 ``dq_tf32_kernel`` and
+``dkv_tf32_kernel`` in
 ``src/repro_torch/kernels/csrc/flash_attention_bwd.cu``) on one card.
 
 Each variant is the committed source with its tuning constants replaced as
-text: the width of a pass over the streamed tile (32 or 64 rows), the
-minimum blocks an SM that ``__launch_bounds__`` asks for at hd 64, and
-whether the pass loop is unrolled. All variants are built at once (one
-``nvcc`` each) into ``build/tune_attention_bwd/``; for each, the script
-prints registers and spills of both kernels at hd 64 and 128 (``-Xptxas
--v``), then checks dq and dk/dv against their plain versions under
-``chip_smoke.compare``'s bound and times them by CUDA-graph replay at three
-of ``chip_smoke.py``'s phase-3 cases. The committed choice is "chosen".
+text: for bf16 the width of a pass over the streamed tile (32 or 64 rows),
+the minimum blocks an SM that ``__launch_bounds__`` asks for at hd 64, and
+whether the pass loop is unrolled; for fp32 the width of a pass at each
+head dim (``kTf32Pass``). All variants are built at once (one ``nvcc``
+each) into ``build/tune_attention_bwd/``; for each, the script prints
+registers and spills of the four kernels at hd 64 and 128 (``-Xptxas -v``),
+then checks dq and dk/dv against their plain versions under
+``chip_smoke.compare``'s bound and times them by CUDA-graph replay at six
+of ``chip_smoke.py``'s phase-3 cases (three bf16, three fp32), in two
+rounds (the second in reverse order). The committed choice is "chosen".
+Last, the committed fp32 kernels' accuracy: dq, dk and dv at a causal
+S = 1000, G = 4 case (keys that 4000 query rows see) against the plain
+versions and against the plain versions' formulas in fp64, each max error
+as a fraction of ``chip_smoke.compare``'s fp32 bound, and per 64-row tile.
 
     python3 tune_attention_bwd.py
 
@@ -29,18 +36,31 @@ import chip_smoke as CS
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "tune_attention_bwd"
-# name -> (rows a pass, min blocks an SM at hd 64 or None, unrolled)
-VARIANTS = {"chosen": (32, 3, False), "p32_minb2": (32, 2, False),
-            "p32_minb3_unrolled": (32, 3, True), "p32_nominb": (32, None,
-                                                               False),
-            "p64_minb2": (64, 2, False), "p64_nominb": (64, None, False)}
-CASES = [  # (label, kind, B, H, KV, S, Sk, hd, window, mask_seq)
+# name -> (bf16 rows a pass, bf16 min blocks an SM at hd 64 or None, bf16
+# pass loop unrolled, fp32 rows a pass as a C++ expression of HD)
+TF32_PASS = "32"                     # the committed fp32 pass width
+VARIANTS = {"chosen": (32, 3, False, TF32_PASS),
+            "p32_minb2": (32, 2, False, TF32_PASS),
+            "p32_minb3_unrolled": (32, 3, True, TF32_PASS),
+            "p32_nominb": (32, None, False, TF32_PASS),
+            "p64_minb2": (64, 2, False, TF32_PASS),
+            "p64_nominb": (64, None, False, TF32_PASS),
+            "tf32_p64_hd64": (32, 3, False, "HD == 64 ? 64 : 32"),
+            "tf32_p16_hd128": (32, 3, False, "HD == 64 ? 32 : 16")}
+BF16, F32 = torch.bfloat16, torch.float32
+CASES = [  # (label, kind, B, H, KV, S, Sk, hd, window, mask_seq, dtype)
     ("(e) db_concat B=8 H=32 S=2x512 hd=64", "db_concat", 8, 32, 32, 1024,
-     1024, 64, None, 512),
+     1024, 64, None, 512, BF16),
     ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128", "window", 4, 32, 8,
-     1024, 1024, 128, 256, None),
+     1024, 1024, 128, 256, None, BF16),
     ("(h) causal B=8 H=16 S=512 hd=128", "causal", 8, 16, 16, 512, 512, 128,
-     None, None)]
+     None, None, BF16),
+    ("(m) full B=256 H=6 S=256 hd=64 fp32", "full", 256, 6, 6, 256, 256, 64,
+     None, None, F32),
+    ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 fp32", "window", 4, 32, 8,
+     1024, 1024, 128, 256, None, F32),
+    ("(n) db_concat B=8 H=8 S=2x512 hd=64 fp32", "db_concat", 8, 8, 8, 1024,
+     1024, 64, None, 512, F32)]
 
 
 def subst(text: str, old: str, new: str, count: int) -> str:
@@ -49,7 +69,8 @@ def subst(text: str, old: str, new: str, count: int) -> str:
     return text.replace(old, new)
 
 
-def variant_source(src: str, width: int, minb, unrolled: bool) -> str:
+def variant_source(src: str, width: int, minb, unrolled: bool,
+                   tf32_pass: str) -> str:
     for c in ("QP", "KP"):
         src = subst(src, f"constexpr int {c} = 32;",
                     f"constexpr int {c} = {width};", 1)
@@ -61,7 +82,8 @@ def variant_source(src: str, width: int, minb, unrolled: bool) -> str:
         for v in ("qb", "kb"):
             src = subst(src, f"#pragma unroll 1\n    for (int {v} = 0;",
                         f"#pragma unroll\n    for (int {v} = 0;", 1)
-    return src
+    return subst(src, f"constexpr int kTf32Pass = {TF32_PASS};",
+                 f"constexpr int kTf32Pass = {tf32_pass};", 1)
 
 
 def build_all() -> dict:
@@ -86,12 +108,14 @@ def build_all() -> dict:
         if p.returncode != 0:
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         for entry in re.split(r"(?=ptxas info\s*: Compiling entry)", log):
-            m = re.search(r"(dq|dkv)_tc_kernelILi(\d+)", entry)
+            m = re.search(r"(dq|dkv)_(tc|tf32)_kernelILi(\d+)E(Lb1)?",
+                          entry)
             regs = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores", entry)
             if m and regs:
-                CS.say(f"[build] {name}: {m.group(1)}_tc_kernel<"
-                       f"{m.group(2)}> {regs.group(1)} registers, "
+                v16 = ", true" if m.group(4) else ""
+                CS.say(f"[build] {name}: {m.group(1)}_{m.group(2)}_kernel<"
+                       f"{m.group(3)}{v16}> {regs.group(1)} registers, "
                        f"{spill.group(1) if spill else '?'} B spill stores")
         built[name] = so
     return built
@@ -101,10 +125,10 @@ def run_cases(dev) -> list:
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
-    for label, kind, B, H, KV, S, Sk, hd, window, mseq in CASES:
+    for label, kind, B, H, KV, S, Sk, hd, window, mseq, dt in CASES:
         cfg = FA.FlashConfig(kind, window=window, mask_seq=mseq)
         mk = lambda n, L: torch.randn(  # noqa: E731
-            B, L, n, hd, generator=gen, device=dev).bfloat16().transpose(1, 2)
+            B, L, n, hd, generator=gen, device=dev).to(dt).transpose(1, 2)
         q, k, v, do = mk(H, S), mk(KV, Sk), mk(KV, Sk), mk(H, S)
         o, lse = FA.flash_attention_fwd(q, k, v, cfg)
         delta = FA.attention_delta(o, do)
@@ -124,6 +148,51 @@ def time_variant(FA, what: str, cfg, args, want) -> None:
         CS.compare(f"dk/dv {what}", dkv(0), want[1], bf16_rounding=True)
     CS.say(f"[time] {what}: dq {CS.device_ms(dq, 1, calls=3, reps=3):.4f} "
            f"ms, dk/dv {CS.device_ms(dkv, 1, calls=3, reps=3):.4f} ms")
+
+
+def bwd_fp64(q, k, v, do, lse, delta, cfg):
+    """(dq, dk, dv) of the plain versions' formulas evaluated in fp64."""
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v, do, lse, delta = (x.double() for x in (q, k, v, do, lse, delta))
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    ke, ve = FA._expand_kv(k, H // KV), FA._expand_kv(v, H // KV)
+    s = q @ ke.transpose(-1, -2) / hd ** 0.5
+    p = torch.where(FA.keep_mask(cfg, Sq, Sk, q.device),
+                    torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    ds = p * (do @ ve.transpose(-1, -2) - delta[..., None]) / hd ** 0.5
+    dk = (ds.transpose(-1, -2) @ q).reshape(B, KV, H // KV, Sk, hd).sum(2)
+    dv = (p.transpose(-1, -2) @ do).reshape(B, KV, H // KV, Sk, hd).sum(2)
+    return ds @ ke, dk, dv
+
+
+def accuracy(dev) -> None:
+    """The fp32 kernels (the library loaded now) at a causal S = 1000, G = 4
+    case on inputs of scale 2, against the plain versions and both against
+    fp64: max |err| / (2e-4 + 2e-4 |ref|), and that of each 64-row tile."""
+    from repro_torch.kernels import flash_attention as FA
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cfg = FA.FlashConfig("causal")
+    mk = lambda n: 2 * torch.randn(  # noqa: E731
+        2, 1000, n, 64, generator=gen, device=dev).transpose(1, 2)
+    q, k, v, do = mk(8), mk(2), mk(2), mk(8)
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    args = (q, k, v, do, lse, FA.attention_delta(out, do), cfg)
+    got = (FA.flash_attention_bwd_dq(*args),) + \
+        FA.flash_attention_bwd_dkv(*args)
+    plain = (FA._bwd_dq_ref(*args),) + FA._bwd_dkv_ref(*args)
+    exact = bwd_fp64(*args)
+    share = lambda x, w: ((x.double() - w.double()).abs() / (  # noqa: E731
+        CS.TOL + CS.TOL * w.double().abs()))
+    for name, g, p, x in zip(("dq", "dk", "dv"), got, plain, exact):
+        tiles = share(g, p).amax(dim=(0, 1, 3))
+        CS.say(f"[accuracy] causal S=1000 G=4 hd=64 fp32 x2 {name}: kernel "
+               f"vs plain {share(g, p).max().item():.3f} of the bound, "
+               f"kernel vs fp64 {share(g, x).max().item():.3f}, plain vs "
+               f"fp64 {share(p, x).max().item():.3f}; kernel vs plain by "
+               "64-row tile " + " ".join(
+                   f"{tiles[i:i + 64].max().item():.2f}"
+                   for i in range(0, 1000, 64)))
 
 
 def main() -> int:
@@ -153,6 +222,10 @@ def main() -> int:
             for label, cfg, args, want in cases:
                 time_variant(FA, f"round {rnd + 1} {name} {label}", cfg,
                              args, want if rnd == 0 else None)
+    _build._LIBS["flash_attention_bwd"] = libs["chosen"]
+    FA._FN.pop("rt_flash_attention_bwd_dq", None)
+    FA._FN.pop("rt_flash_attention_bwd_dkv", None)
+    accuracy(dev)
     CS.say("[done] every variant agrees with the plain versions")
     return 0
 
