@@ -11,7 +11,9 @@ Phases, each fatal on failure:
      ``-Xptxas -v``'s summary, and its lines for the attention kernels on
      the tensor cores (``fwd_tc_kernel``, ``fwd_tf32_kernel``,
      ``dq_tc_kernel``, ``dkv_tc_kernel``, ``dq_tf32_kernel``,
-     ``dkv_tf32_kernel``: registers, spills);
+     ``dkv_tf32_kernel``: registers, spills), and one line (registers,
+     shared memory, spills) per instantiation of the paged kernels
+     (``paged_decode_kernel``, ``prefill_tc_kernel``);
   3. kernels: each of the thirteen kernels against its plain PyTorch
      version on the card, at the serving and training paths' shapes (max
      |err| <= 2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs,
@@ -21,11 +23,14 @@ Phases, each fatal on failure:
      readings) beside its bound (fp32 attention at the larger of the fp32
      and the 3xTF32 tensor-core rate), the plain version and, where one
      PyTorch call computes the same function, that call (the bf16
-     attention dq and dk/dv, the fp32 forward, dq and dk/dv at DiT's shape
-     and the gate-residual forward's (d) fp32 and (m) cases also printed
-     beside the times PERF.md records for their predecessors, which this
-     run does not measure, and DiT's fp32 dq + dk/dv beside SDPA's whole
-     backward); the row-wise kernels (ln-modulate,
+     attention dq and dk/dv, the fp32 forward, dq and dk/dv at DiT's shape,
+     the gate-residual forward's (d) fp32 and (m) cases, decode (a) and
+     prefill (c) also printed beside the times PERF.md records for their
+     predecessors, which this run does not measure, and DiT's fp32 dq +
+     dk/dv beside SDPA's whole backward); the paged kernels at stablelm's
+     (a, c) and h2o-danube3's (b) shapes, each case with the kernel it ran
+     (prefill (c) through both routes: bf16 on the tensor cores, fp32 on
+     the CUDA cores); the row-wise kernels (ln-modulate,
      gate-residual backward, EDM loss) and the attention calls of a
      two-pass layer at olmo-1b's shapes; a ragged causal attention case
      at S=1000 in bf16;
@@ -44,7 +49,12 @@ Phases, each fatal on failure:
      equal the path's arithmetic;
   5. cross-check: one fp32 serve step from the same prefilled pool and z,
      through the kernels and through their plain versions; logits must
-     agree to 1e-3 relative;
+     agree to 1e-3 relative. Then its bf16 counterpart: the prefill (the
+     tensor-core prefill route) and one serve step through the kernels,
+     and both again through the plain versions, from the same z; the
+     first-step logits within 5e-2 x max|ref| (the bound
+     tests/test_torch_serve.py holds bf16 first-step logits to), greedy
+     agreement printed;
   6. train: the same model, bf16 policy, MarkovLM batches of 8 x 512: one
      DiffusionBlocks step on each of the 4 blocks (each block with its own
      AdamW state, freed after its step), one iteration of ``train_db``
@@ -135,6 +145,17 @@ DIT_SAMPLES, DIT_STEPS = 256, 18
 HUGINN_BPTT = 8
 TC_KERNELS = ("fwd_tc_kernel", "fwd_tf32_kernel", "dq_tc_kernel",
               "dkv_tc_kernel", "dq_tf32_kernel", "dkv_tf32_kernel")
+PAGED_KERNELS = ("paged_decode_kernel", "prefill_tc_kernel")
+# kernel ms that PERF.md records for the kernels the paged redesign
+# replaced (NVIDIA H100 80GB HBM3, 700.00 W); printed beside this run's
+# times, never measured here
+PRIOR_DECODE_A_MS, PRIOR_PREFILL_C_MS = 0.0548, 0.3148
+# the bf16 serve cross-check (phase 5): prompts and z of each seed, and the
+# limits set from its readings (PERF.md): the whole path's logits, and the
+# pages the tensor-core prefill reaches, above every sound seed and below
+# the bf16-P control
+BF16_CROSS_SEEDS = (0, 1, 2)
+BF16_LOGITS_LIMIT, BF16_PAGES_LIMIT = 4.5e-5, 1.5e-3
 
 
 class SmokeError(RuntimeError):
@@ -170,6 +191,20 @@ def phase_device() -> None:
 # 2. build
 # ---------------------------------------------------------------------------
 
+def ptxas_summary(entry: str) -> str:
+    """One instantiation's ``-Xptxas -v`` entry as one line: its mangled
+    name, registers, shared memory, spills."""
+    name = re.search(r"Compiling entry function '(\S+)'", entry)
+    regs = re.search(r"Used (\d+) registers", entry)
+    smem = re.search(r"(\d+) bytes smem", entry)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      entry)
+    return (f"{name.group(1) if name else '?'}: "
+            f"{regs.group(1) if regs else '?'} registers, "
+            f"{smem.group(1) if smem else 0} B static smem, spills "
+            f"{spill.groups() if spill else (0, 0)}")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -190,12 +225,15 @@ def phase_build() -> None:
             f"{max(smem, default=0)} B, kernels that spill: {len(spills)}")
         for line in spills[:4]:
             say(f"[build]   {line}")
-        # the attention kernels on the tensor cores, line by line
+        # the attention kernels on the tensor cores, line by line; the
+        # paged kernels, a line an instantiation
         for entry in re.split(r"(?=ptxas info\s*: Compiling entry)", log):
             if any(k in entry for k in TC_KERNELS):
                 for line in entry.splitlines():
                     if "Compile time" not in line:
                         say(f"[build]   {line.strip()}")
+            elif any(k in entry for k in PAGED_KERNELS):
+                say(f"[build]   {ptxas_summary(entry)}")
     for name in _build.SOURCES:
         _build.load(name)
 
@@ -312,8 +350,10 @@ def attn_work(q, pages, lengths, npg, window, prefill, quantized):
               + B * npg * 4 + B * 4 + B * C * KV * G * hd * 4
               + (0 if prefill else B * KV * G * 4))
     flops = pairs * KV * G * hd * 4
-    tensor_core_type = q.dtype == torch.bfloat16
-    return nbytes, flops, PEAK_BF16 if tensor_core_type else PEAK_FP32
+    # fp32 q: the fp32 rate the card reaches, on the tensor cores by 3xTF32
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else max(PEAK_FP32,
+                                                           PEAK_FP32_TC)
+    return nbytes, flops, peak
 
 
 def bound(nbytes: float, flops: float, peak: float):
@@ -338,18 +378,24 @@ def make_pool(gen, dtype, P, KV, hd, dev):
 
 
 def paged_case(label, kind, *, KV, G, hd, page_dtype, q_dtype, window,
-               lengths, dev, gen, C=1):
+               lengths, dev, gen, C=1, prior=None, cap=PROMPT + MAX_NEW):
+    """One paged kernel case against its plain version, timed by CUDA-graph
+    replay: one slot a length, each with pages for ``cap`` keys; ``prior``:
+    the ms PERF.md records for the kernel this one replaced at the same
+    case, printed beside this run's (not measured here, so kept out of the
+    row)."""
     from repro_torch.kernels import flash_decode as FD
     from repro_torch.kernels import flash_prefill as FP
-    npg = -(-(PROMPT + MAX_NEW) // PSZ)
-    P = 1 + BATCH * npg
+    B = len(lengths)
+    npg = -(-cap // PSZ)
+    P = 1 + B * npg
     prefill = kind == "flash_prefill"
     kern, ref = ((FP.flash_prefill, FP.flash_prefill_ref) if prefill
                  else (FD.flash_decode, FD.flash_decode_ref))
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    table = (1 + torch.randperm(BATCH * npg, generator=gen, device=dev)
-             ).to(torch.int32).reshape(BATCH, npg)
-    qshape = (BATCH, C, KV, G, hd) if prefill else (BATCH, KV, G, hd)
+    table = (1 + torch.randperm(B * npg, generator=gen, device=dev)
+             ).to(torch.int32).reshape(B, npg)
+    qshape = (B, C, KV, G, hd) if prefill else (B, KV, G, hd)
     one = make_pool(gen, page_dtype, P, KV, hd, dev)
     pool_bytes = sum(t.numel() * t.element_size() for t in one
                      if t is not None)
@@ -373,10 +419,21 @@ def paged_case(label, kind, *, KV, G, hd, page_dtype, q_dtype, window,
     row = {"case": label, "max_abs_err": err, "ms": ms, "eager_ms": e_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
            "library_ms": None, "bytes": nbytes, "flops": flops}
-    say(f"[kernels] {label}: max|err| {err:.2e} | kernel {ms:.4f} ms device "
-        f"({e_ms:.4f} ms per eager call) | bound {bound_ms:.4f} ms ({by}; "
-        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) | plain "
+    if prefill:
+        route = {"tc": "prefill_tc_kernel", "simt": "paged_attention_kernel"
+                 }[FP.prefill_route(q_dtype, page_dtype)]
+    else:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ns = FD.decode_splits(B * KV, FD.max_tiles(npg * PSZ, window), sms)
+        route = f"paged_decode_kernel, {ns} blocks a pair"
+    say(f"[kernels] {label} [{route}]: max|err| {err:.2e} | kernel {ms:.4f} "
+        f"ms device ({e_ms:.4f} ms per eager call) | bound {bound_ms:.4f} ms "
+        f"({by}; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP) | plain "
         f"{plain_ms:.3f} ms | library none")
+    if prior is not None:
+        say(f"[kernels] {label}: {ms:.4f} ms this run; the kernel it "
+            f"replaced {prior:.4f} ms (recorded in PERF.md, NVIDIA H100 80GB "
+            "HBM3, 700.00 W; not this run)")
     return row
 
 
@@ -798,6 +855,7 @@ def phase_attention(dev) -> dict:
 
 
 def phase_kernels(dev) -> dict:
+    from repro_torch.kernels import flash_decode as FD
     gen = torch.Generator(device=dev).manual_seed(1)
     ragged = [0, 128, 200, 333, 416, 480, 511, 544]
     starts = [0, 64, 128, 192, 256, 320, 384, 448]
@@ -807,7 +865,8 @@ def phase_kernels(dev) -> dict:
     rows["flash_decode"].append(paged_case(
         "(a) decode B=8 KV=32 G=1 hd=64 bf16 pages, fp32 q (probe)",
         "flash_decode", KV=32, G=1, hd=64, page_dtype=bf16, q_dtype=f32,
-        window=None, lengths=ragged, dev=dev, gen=gen))
+        window=None, lengths=ragged, dev=dev, gen=gen,
+        prior=PRIOR_DECODE_A_MS))
     rows["flash_decode"].append(paged_case(
         "(a) decode B=8 KV=32 G=1 hd=64 bf16 pages, bf16 q (commit)",
         "flash_decode", KV=32, G=1, hd=64, page_dtype=bf16, q_dtype=bf16,
@@ -821,10 +880,37 @@ def phase_kernels(dev) -> dict:
         "(b) prefill C=64 KV=8 G=4 hd=120 window=64 int8 pages",
         "flash_prefill", KV=8, G=4, hd=120, page_dtype=i8, q_dtype=bf16,
         window=64, lengths=starts, dev=dev, gen=gen, C=CHUNK))
+    # (o) decode split across blocks where the pairs do not fill the SMs:
+    # KV=8 G=4 hd 128 (llama-3.2-vision-11b, phi3.5-moe, grok-1) at phase
+    # 4's lengths x8, against one block a pair
+    long = [8 * n for n in ragged]
+    split = dict(KV=8, G=4, hd=128, page_dtype=bf16, q_dtype=bf16,
+                 window=None, lengths=long, cap=8 * (PROMPT + MAX_NEW),
+                 dev=dev)
+    row = paged_case("(o) decode B=8 KV=8 G=4 hd=128 bf16 pages, lengths "
+                     "to 4352 (split)", "flash_decode", gen=gen, **split)
+    heuristic = FD.decode_splits
+    FD.decode_splits = lambda *args: 1
+    try:
+        one = paged_case("(o) the same, one block a pair", "flash_decode",
+                         gen=torch.Generator(device=dev).manual_seed(1),
+                         **split)
+    finally:
+        FD.decode_splits = heuristic
+    row["one_block_ms"] = one["ms"]
+    rows["flash_decode"].append(row)
+    say(f"[kernels] (o) decode split: {row['ms']:.4f} ms against one block "
+        f"a pair {one['ms']:.4f} ms, this run")
     # (c) prefill at stablelm widths (commit_prompt_chunk: bf16 q)
     rows["flash_prefill"].insert(0, paged_case(
         "(c) prefill C=64 B=8 KV=32 G=1 hd=64 bf16 pages, bf16 q",
         "flash_prefill", KV=32, G=1, hd=64, page_dtype=bf16, q_dtype=bf16,
+        window=None, lengths=starts, dev=dev, gen=gen, C=CHUNK,
+        prior=PRIOR_PREFILL_C_MS))
+    # (c) through the fp32 route (the fp32 policy's prefill: CUDA cores)
+    rows["flash_prefill"].append(paged_case(
+        "(c) prefill C=64 B=8 KV=32 G=1 hd=64 fp32 pages, fp32 q",
+        "flash_prefill", KV=32, G=1, hd=64, page_dtype=f32, q_dtype=f32,
         window=None, lengths=starts, dev=dev, gen=gen, C=CHUNK))
     # (d) gate-residual: the probe's (8,1,2048) fp32, a (8,64,2048) bf16
     rows["gate_residual"].append(gate_case(
@@ -904,9 +990,9 @@ def build_model(dev):
     return cfg, dbm, params, gen
 
 
-def prompts_np(vocab: int):
+def prompts_np(vocab: int, seed: int = 0):
     import numpy as np
-    rs = np.random.RandomState(0)
+    rs = np.random.RandomState(seed)
     prompts = rs.randint(0, vocab, size=(BATCH, PROMPT))
     plens = rs.randint(PROMPT // 4, PROMPT + 1, size=BATCH)
     plens[0], plens[-1] = PROMPT // 4, PROMPT
@@ -1125,6 +1211,137 @@ def phase_crosscheck(dev, model) -> dict:
     if not (rel <= 1e-3 and math.isfinite(rel)):
         raise SmokeError(f"fp32 cross-check: logits differ by {rel:.2e}")
     return {"logits_rel": rel, "pool_rel": pool_rel}
+
+
+def prefill_ref_bf16_p(q, k_pages, v_pages, page_table, lengths, *,
+                       window=None, k_scale=None, v_scale=None):
+    """The bf16 cross-check's control: ``flash_prefill_ref`` with P.V taken
+    on bf16 P alone, as a tensor-core prefill that dropped P's lo term
+    would take it (the row sum l keeps fp32 p)."""
+    from repro_torch.kernels import flash_prefill as FP
+    B, C, KV, G, hd = q.shape
+    kk, vv = FP._gather_pages(k_pages, v_pages, page_table, k_scale, v_scale)
+    s = torch.einsum("bckgd,bksd->bkgcs", q.float(), kk) / hd ** 0.5
+    idx = torch.arange(kk.shape[2], device=q.device)
+    qabs = lengths.long()[:, None] + torch.arange(C, device=q.device)
+    valid = idx[None, None, :] <= qabs[:, :, None]
+    if window is not None:
+        valid &= idx[None, None, :] > qabs[:, :, None] - window
+    valid = valid[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, FP.NEG_INF))
+    p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)),
+                    torch.zeros_like(s))
+    l = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgcs,bksd->bkgcd", p.bfloat16().float(), vv) / l
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def bf16_serve_run(dev, model, impl: str, seed: int, prefill=None):
+    """Prefill seed's prompts into a fresh bf16 pool through ``impl`` (with
+    ``prefill`` in place of the paged prefill attention, if given), then
+    one greedy serve step from seed's z: (tokens, logits fp32, the live
+    K and V pages after the prefill of the second unit of each block: the
+    first pages a prefill output reaches, since each block's first unit
+    starts from the embedding)."""
+    from repro_torch.launch.serve import get_engine
+    from repro_torch.nn import cache as KVC
+    dbm, params, _ = model
+    prompts, plens = prompts_np(dbm.cfg.vocab_size, seed)
+    pps = KVC.pages_for(PROMPT + MAX_NEW, PSZ)
+    table = KVC.identity_page_table(BATCH, pps, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(100 + seed)
+    z0 = dbm.db.sigma_max * torch.randn((BATCH, 1, dbm.cfg.d_model),
+                                        generator=gen, device=dev)
+    eng = get_engine(dbm, precision="bf16", chunk_size=CHUNK, impl=impl)
+    kv = dbm.model.init_paged_cache(BATCH, 1 + BATCH * pps, PSZ, eng.pol,
+                                    device=dev)
+    plain = KVC.flash_prefill
+    KVC.flash_prefill = prefill or plain
+    try:
+        kv, lengths = eng.run_prefill(
+            params, kv, table,
+            torch.zeros(BATCH, dtype=torch.int32, device=dev),
+            torch.as_tensor(prompts, device=dev),
+            torch.as_tensor(plens, dtype=torch.int32, device=dev))
+    finally:
+        KVC.flash_prefill = plain
+    units = [start + 1 for start, size in dbm.ranges if size > 1]
+    pages = [getattr(kv, n)[units, 1:].float() for n in ("k", "v")]
+    tok, _, _, logits = dbm.serve_step_paged(
+        params, kv, table, lengths, z0=z0, precision="bf16", impl=impl,
+        return_logits=True)
+    return tok, logits.float(), pages
+
+
+def bf16_gap(run, ref) -> dict:
+    """``run`` against ``ref``: logits max|diff| / max|ref|, the reached
+    pages' mean|diff| / mean|ref| (the larger of K and V), greedy
+    agreement."""
+    return {
+        "logits_rel": ((run[1] - ref[1]).abs().max()
+                       / ref[1].abs().max()).item(),
+        "pages_rel": max(((a - b).abs().mean() / b.abs().mean()).item()
+                         for a, b in zip(run[2], ref[2])),
+        "greedy_equal": (run[0] == ref[0]).float().mean().item()}
+
+
+def phase_crosscheck_bf16(dev, model) -> dict:
+    """The bf16 serving path from the prompts on, for each of
+    BF16_CROSS_SEEDS (prompts and z), each run prefilling its own pool and
+    taking one serve step from the same z:
+    * the whole path, kernels vs plain versions (``impl="ref"``): logits
+      max|diff| / max|ref| within BF16_LOGITS_LIMIT. bf16 rounds the
+      activations between the layers, so this reads the model's bf16
+      noise, in which a prefill fault moves the reading by less than 2x;
+    * the tensor-core prefill alone: kernels vs kernels with the plain
+      prefill, on the pages the prefill outputs first reach (the second
+      unit of each block): mean|diff| / mean|ref| within BF16_PAGES_LIMIT.
+    The control is the kernels with the plain prefill on bf16 P alone (a
+    prefill that dropped P's lo term) against the plain prefill, seed 0.
+    Each limit sits between the largest sound reading and the control's
+    (both recorded in PERF.md), and the control must exceed it in this run
+    too, or the check could not see that fault."""
+    from repro_torch.kernels import flash_prefill as FP
+    sound = []
+    for seed in BF16_CROSS_SEEDS:
+        ref = bf16_serve_run(dev, model, "ref", seed)
+        got = bf16_serve_run(dev, model, "kernels", seed)
+        base = bf16_serve_run(dev, model, "kernels", seed,
+                              prefill=FP.flash_prefill_ref)
+        whole, alone = bf16_gap(got, ref), bf16_gap(got, base)
+        sound.append({"whole": whole, "prefill": alone})
+        say(f"[crosscheck] bf16 prefill + serve step, seed {seed}: whole "
+            f"path, kernels vs plain versions: logits max|diff| / max|ref| "
+            f"{whole['logits_rel']:.3e}, greedy tokens equal "
+            f"{whole['greedy_equal']:.3f} | tensor-core prefill vs plain "
+            f"prefill: reached pages mean|diff| / mean|ref| "
+            f"{alone['pages_rel']:.3e}, logits {alone['logits_rel']:.3e}")
+        if seed == BF16_CROSS_SEEDS[0]:
+            control = bf16_gap(bf16_serve_run(
+                dev, model, "kernels", seed, prefill=prefill_ref_bf16_p),
+                base)
+            say(f"[crosscheck] bf16 control, seed {seed}: plain prefill "
+                f"with bf16 P alone vs plain prefill: reached pages "
+                f"{control['pages_rel']:.3e}, logits "
+                f"{control['logits_rel']:.3e}, greedy tokens equal "
+                f"{control['greedy_equal']:.3f}")
+        del ref, got, base
+    for what, part, key, limit in (
+            ("whole path: logits", "whole", "logits_rel", BF16_LOGITS_LIMIT),
+            ("prefill alone: reached pages", "prefill", "pages_rel",
+             BF16_PAGES_LIMIT)):
+        worst = max(g[part][key] for g in sound)
+        say(f"[crosscheck] bf16 {what}, largest of {len(sound)} seeds "
+            f"{worst:.3e} <= limit {limit:.2e} < control "
+            f"{control[key]:.3e}")
+        if not (worst <= limit and math.isfinite(worst)):
+            raise SmokeError(f"bf16 cross-check: {what} {worst:.3e} past "
+                             f"its limit {limit:.2e}")
+        if not control[key] > limit:
+            raise SmokeError(f"bf16 cross-check: the control's {what} "
+                             f"{control[key]:.3e} is within the limit "
+                             f"{limit:.2e}; the check cannot see that fault")
+    return {"sound": sound, "control": control}
 
 
 # ---------------------------------------------------------------------------
@@ -1784,6 +2001,7 @@ def main() -> int:
     model = serve.pop("model")
     phase_profile(dev, model)
     phase_crosscheck(dev, model)
+    phase_crosscheck_bf16(dev, model)
     train = phase_train(dev, model)
     db_crosscheck(dev, model, "concat ce", [("attn", "wq")])
     del model                      # stablelm's masters and caches

@@ -1,7 +1,7 @@
 // Tensor-core building blocks for sm_80+ kernels (used on sm_90a): warp-wide
 // bf16 matrix products (mma.sync m16n8k16, fp32 accumulators), tf32 ones
 // (m16n8k8) with the 3xTF32 split that keeps fp32 accuracy, ldmatrix
-// fragment loads from shared memory, cp.async 16- and 4-byte copies from
+// fragment loads from shared memory, cp.async 16-, 8- and 4-byte copies from
 // global to shared memory with zero-fill, and the XOR swizzle that keeps
 // ldmatrix's row reads free of bank conflicts.
 //
@@ -72,6 +72,15 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
                : "r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Copy 8 bytes (cp.async.ca); both addresses 8-byte aligned. With `valid`
+// false nothing is read and the 8 bytes are zeroed.
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :
+               : "r"(dst), "l"(src), "r"(valid ? 8 : 0));
 }
 
 // Copy 4 bytes from global to shared memory (cp.async.ca: the 4- and

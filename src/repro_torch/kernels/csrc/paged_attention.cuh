@@ -1,43 +1,47 @@
-// Paged attention for Hopper (sm_90a): the body shared by flash_decode.cu
-// and flash_prefill.cu.
+// Paged attention for Hopper (sm_90a): what flash_decode.cu and
+// flash_prefill.cu share, and the CUDA-core kernel of prefill's fp32 route.
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/flash_decode.py
 // (_decode_kernel) and src/repro/kernels/flash_prefill.py (_prefill_kernel).
 // Those walk a (slot, kv_head, page) grid whose page axis runs in order on
 // one core, carrying the online-softmax state (m, l, acc) in VMEM scratch.
-// Here one thread block owns one (slot, kv_head) pair and a tile of query
-// rows; the page axis becomes a loop inside the block.
+// Here a thread block owns one (slot, kv_head) pair (and a tile of query
+// rows, or a share of the keys); the page axis becomes a loop inside the
+// block. Three kernels:
+//   * paged_decode_kernel (flash_decode.cu): every page dtype, CUDA cores,
+//     K/V tiles staged in shared memory by cp.async;
+//   * prefill_tc_kernel (flash_prefill.cu): bf16 q over bf16 or int8 pages,
+//     on the tensor cores (mma.sync);
+//   * paged_attention_kernel (below): fp32 q or fp32 pages in prefill (the
+//     fp32 and fp32_kvint8 policies), CUDA cores, reading K and V straight
+//     from device memory; the kernel both paged wrappers ran before the
+//     two above.
 //
-// What bounds it. Decode reads every committed K/V row of the slot once and
-// does 4*G*hd flops per key: at G = 1 it is bound by bytes (about 1 flop per
-// byte). Prefill reuses each key across its C*G rows, so at C = 64 it is
-// bound by operations, which this version does on fp32 CUDA cores (no
-// tensor cores yet).
+// Common to all three: the block loops only over keys some of its rows can
+// see, [max(0, q_first - window + 1), min(q_last + incl, n_pages * psz)), so
+// no page past lengths[b] (decode) or lengths[b] + C - 1 (prefill) is read;
+// masks are finite (-1e30) and the normaliser is max(l, 1e-30), so an empty
+// slot gives out = 0 and lse ~ -1e30, as the TPU kernel does, and rows past
+// a chunk's valid tokens stay finite; q is read as it is, G or C*G rows with
+// no padded copy (the TPU kernel padded them to 8 sublanes).
 //
-// Design.
-//   * Lane j of a warp owns key j of a 32-key tile: it reads its own page
-//     table entry, streams its K row (16-byte loads, dequantized in
-//     registers, int8 pages times their page's fp32 scale) and dots it with
-//     the warp's query rows, which sit in shared memory in fp32. The tile's
-//     max and sum are warp shuffles; the P·V product reads each V row once
-//     per warp with lanes on neighbouring dims (coalesced) and broadcasts
-//     p_j with a shuffle, so one warp covers R query rows per pass.
-//   * The block loops only over keys some of its rows can see:
-//     [max(0, q_first - window + 1), min(q_last + incl, n_pages * psz)), so
-//     no page past lengths[b] (decode) or lengths[b] + C - 1 (prefill) is
-//     read. The warps along the key axis take interleaved tiles and merge
-//     their (m, l, acc) through shared memory at the end; the warps along
-//     the row axis take disjoint rows.
-//   * Masks are finite (-1e30) and the normaliser is max(l, 1e-30), so an
-//     empty slot gives out = 0 and lse ~ -1e30, as the TPU kernel does, and
-//     rows past a chunk's valid tokens stay finite.
-//   * q is read as it is, G or C*G rows with no padded copy (the TPU kernel
-//     padded them to 8 sublanes); a warp masks the rows past the end.
+// paged_attention_kernel: lane j of a warp owns key j of a 32-key tile: it
+// reads its own page table entry, streams its K row (16-byte loads,
+// dequantized in registers, int8 pages times their page's fp32 scale) and
+// dots it with the warp's query rows, which sit in shared memory in fp32.
+// The tile's max and sum are warp shuffles; the P.V product reads each V row
+// once per warp with lanes on neighbouring dims and broadcasts p_j with a
+// shuffle, so one warp covers R query rows per pass. The warps along the key
+// axis take interleaved tiles and merge their (m, l, acc) through shared
+// memory at the end; the warps along the row axis take disjoint rows.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <atomic>
+
+#include "mma.cuh"
 
 namespace rtk {
 
@@ -117,6 +121,9 @@ struct PagedArgs {
   const int* lengths;     // (B,) committed tokens before this step
   float* out;             // like q, fp32
   float* lse;             // (B, KV, G) fp32, decode only
+  float* part;            // decode split across blocks: per (slot, kv head,
+                          // split, row) acc[HD], m, l; else null
+  int nsplit;             // decode: blocks per (slot, kv head)
   int q_bf16;
   int C, KV, G, npg, psz;
   int window;             // <= 0: no sliding window
@@ -131,11 +138,10 @@ __device__ __forceinline__ size_t row_offset(const PagedArgs& a, int b,
          (size_t)hd;
 }
 
-// Decode (PREFILL = false): row r sits at position lengths[b] and sees keys
-// idx < lengths[b] (its own k/v is folded in by the caller). Prefill: row r
-// sits at lengths[b] + r/G and sees idx <= its position (the chunk's own k/v
-// are already in the pool). Both: idx > position - window when windowed.
-template <typename T, int HD, int R, bool PREFILL>
+// Row r of slot b sits at lengths[b] + r/G and sees idx <= its position
+// (the chunk's own k/v are already in the pool), and idx > position - window
+// when windowed.
+template <typename T, int HD, int R>
 __global__ void __launch_bounds__(kWarp* kMaxWarps)
     paged_attention_kernel(const PagedArgs a) {
   constexpr int NI = (HD + kWarp - 1) / kWarp;  // dims per lane
@@ -172,9 +178,9 @@ __global__ void __launch_bounds__(kWarp* kMaxWarps)
   __syncwarp();
 
   const int last_row = min(rb0 + rows_block, rows_total) - 1;
-  const int q_first = PREFILL ? length + rb0 / a.G : length;
-  const int q_last = PREFILL ? length + last_row / a.G : length;
-  const int kend = min(PREFILL ? q_last + 1 : length, n_keys);
+  const int q_first = length + rb0 / a.G;
+  const int q_last = length + last_row / a.G;
+  const int kend = min(q_last + 1, n_keys);
   const int kbeg = a.window > 0 ? max(0, q_first - a.window + 1) : 0;
 
   float m[R], l[R], acc[R][NI];
@@ -187,7 +193,7 @@ __global__ void __launch_bounds__(kWarp* kMaxWarps)
 #pragma unroll
     for (int i = 0; i < NI; ++i) acc[r][i] = 0.f;
     row_ok[r] = r0 + r < rows_total;
-    qpos[r] = PREFILL ? length + (r0 + r) / a.G : length;
+    qpos[r] = length + (r0 + r) / a.G;
   }
 
   for (int t0 = (kbeg / kTile) * kTile + ks * kTile; t0 < kend;
@@ -226,8 +232,7 @@ __global__ void __launch_bounds__(kWarp* kMaxWarps)
     float p[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      bool valid = in_range && row_ok[r] &&
-                   (PREFILL ? idx <= qpos[r] : idx < qpos[r]);
+      bool valid = in_range && row_ok[r] && idx <= qpos[r];
       if (a.window > 0) valid = valid && idx > qpos[r] - a.window;
       const float sc = valid ? s[r] * ksc * a.scale : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(sc));
@@ -306,54 +311,35 @@ __global__ void __launch_bounds__(kWarp* kMaxWarps)
       const int d = lane + kWarp * i;
       if (d < HD) a.out[off + d] = o[i] / Lc;
     }
-    if (!PREFILL && lane == 0)
-      a.lse[((size_t)b * a.KV + kv) * a.G + row % a.G] = M + logf(Lc);
   }
 }
 
-template <bool PREFILL, typename T, int HD>
-cudaError_t launch_hd(const PagedArgs& a, int R, dim3 grid, dim3 block,
-                      cudaStream_t st) {
-  if constexpr (PREFILL) {
-    if (R != 8) return cudaErrorInvalidValue;
-    paged_attention_kernel<T, HD, 8, true><<<grid, block, 0, st>>>(a);
-  } else {
-    switch (R) {
-      case 1: paged_attention_kernel<T, HD, 1, false><<<grid, block, 0, st>>>(a); break;
-      case 2: paged_attention_kernel<T, HD, 2, false><<<grid, block, 0, st>>>(a); break;
-      case 4: paged_attention_kernel<T, HD, 4, false><<<grid, block, 0, st>>>(a); break;
-      case 8: paged_attention_kernel<T, HD, 8, false><<<grid, block, 0, st>>>(a); break;
-      default: return cudaErrorInvalidValue;
-    }
+// Launch KERNEL with `smem` bytes of dynamic shared memory on the current
+// device. The attribute that allows more than 48 KB is a property of the
+// function on one device, so it is set once per (instantiation, device):
+// `allowed[dev]` keeps the largest size granted there, and later launches,
+// CUDA-graph captures included, make no other runtime call than
+// cudaGetDevice.
+constexpr int kMaxDevices = 64;
+constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
+
+template <void (*KERNEL)(const PagedArgs)>
+cudaError_t launch_smem(dim3 grid, dim3 block, size_t smem,
+                        const PagedArgs& a, cudaStream_t st) {
+  static std::atomic<int> allowed[kMaxDevices];
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (allowed[dev].load() < (int)smem) {
+    err = cudaFuncSetAttribute(
+        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed[dev].store((int)smem);
   }
+  KERNEL<<<grid, block, smem, st>>>(a);
   return cudaGetLastError();
-}
-
-template <bool PREFILL, typename T>
-cudaError_t launch_t(const PagedArgs& a, int hd, int R, dim3 grid,
-                     dim3 block, cudaStream_t st) {
-  switch (hd) {
-    case 64: return launch_hd<PREFILL, T, 64>(a, R, grid, block, st);
-    case 120: return launch_hd<PREFILL, T, 120>(a, R, grid, block, st);
-    case 128: return launch_hd<PREFILL, T, 128>(a, R, grid, block, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// page_dtype: 0 fp32, 1 bf16, 2 int8 (with scales).
-template <bool PREFILL>
-int launch_paged(const PagedArgs& a, int B, int hd, int page_dtype, int R,
-                 int nwarps, int grid_y, cudaStream_t st) {
-  const dim3 grid(B * a.KV, grid_y);
-  const dim3 block(kWarp * nwarps);
-  cudaError_t e;
-  switch (page_dtype) {
-    case 0: e = launch_t<PREFILL, float>(a, hd, R, grid, block, st); break;
-    case 1: e = launch_t<PREFILL, __nv_bfloat16>(a, hd, R, grid, block, st); break;
-    case 2: e = launch_t<PREFILL, int8_t>(a, hd, R, grid, block, st); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
 }
 
 }  // namespace rtk

@@ -7,6 +7,10 @@ online softmax over the committed tokens (port of
 falls back from one to the other. It returns the partials ``(out, lse)``
 over tokens ``idx < lengths[b]`` (and ``idx > lengths[b] - window``);
 ``combine_self`` folds in the current token's own k/v, as in JAX.
+
+The kernel stages 32-key K/V tiles in a per-warp ring of shared memory
+and picks its warps a block itself; ``decode_splits`` is the plain function
+that sizes the rest of its launch (blocks per (slot, kv head)).
 """
 from __future__ import annotations
 
@@ -21,7 +25,33 @@ NEG_INF = -1e30
 SUPPORTED_HD = (64, 120, 128)       # stablelm; h2o-danube3; olmo, qwen
 MAX_GROUP = 8
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+TILE_KEYS = 32           # keys of a warp's tile: one a lane
+BLOCK_TILES = 16         # a split leaves a block at least this many tiles
+MAX_SPLIT = 16
 _FN = {}
+
+
+def decode_splits(pairs: int, tiles: int, sms: int) -> int:
+    """Blocks per (slot, kv head). One when the B * KV pairs alone give
+    every SM a block; else enough for about two blocks an SM, but no more
+    than leave each block BLOCK_TILES of the ``tiles`` key tiles a pair can
+    have (at most MAX_SPLIT). ``tune_paged_decode.py`` times the split: a
+    block's share must outweigh the merge launch, so a pair of 17 tiles
+    (544 keys) runs fastest, or near it, as one block, and one of 128 or
+    more runs 1.15-5.5x faster split."""
+    if pairs >= sms:
+        return 1
+    want = -(-2 * sms // pairs)
+    return max(1, min(want, tiles // BLOCK_TILES, MAX_SPLIT))
+
+
+def max_tiles(n_keys: int, window: Optional[int]) -> int:
+    """The most 32-key tiles a slot's visible keys can touch: all of the
+    pool's ``n_keys``, or a window's ``window - 1`` keys, which may start
+    mid-tile."""
+    if window is None:
+        return -(-n_keys // TILE_KEYS)
+    return -(-min(n_keys, window - 1) // TILE_KEYS) + 1
 
 
 def _gather_pages(k_pages, v_pages, page_table, k_scale, v_scale):
@@ -130,8 +160,8 @@ def _kernel():
     if "fn" not in _FN:
         fn = _build.load("flash_decode").rt_flash_decode
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                       ctypes.c_float, I, P]
+        fn.argtypes = [P, I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                       I, ctypes.c_float, I, I, P]
         fn.restype = I
         _FN["fn"] = fn
     return _FN["fn"]
@@ -157,16 +187,20 @@ def flash_decode(q, k_pages, v_pages, page_table, lengths, *,
     B, KV, G, hd = q.shape
     if G > MAX_GROUP:
         raise NotImplementedError(f"flash_decode: group {G} > {MAX_GROUP}")
+    npg, psz = page_table.shape[1], k_pages.shape[1]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    nsplit = decode_splits(B * KV, max_tiles(npg * psz, window), sms)
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+    part = (torch.empty(B * KV * nsplit * G * (hd + 2), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
     with torch.cuda.device(q.device):
         rc = _kernel()(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, KV, G, hd, page_table.shape[1],
-            k_pages.shape[1], window or 0, 1.0 / (hd ** 0.5),
-            PAGE_DTYPES[k_pages.dtype],
+            lse.data_ptr(), _ptr(part), B, KV, G, hd, npg, psz, window or 0,
+            1.0 / (hd ** 0.5), PAGE_DTYPES[k_pages.dtype], nsplit,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_decode")
     flash_decode.launches += 1

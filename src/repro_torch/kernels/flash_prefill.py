@@ -5,8 +5,12 @@ launch (port of ``repro.kernels.flash_prefill``; CUDA source
 
 The chunk occupies positions [lengths[b], lengths[b] + C) and its own k/v
 are already in the pool; row r = i*G + g sees keys ``idx <= lengths[b] + i``
-(and ``idx > lengths[b] + i - window``). ``flash_prefill`` launches the
+(and ``idx > lengths[b] + i - window``). ``flash_prefill`` launches a
 Hopper kernel on CUDA tensors and runs ``flash_prefill_ref`` on CPU tensors.
+Which kernel is a plain function of the dtypes (``prefill_route``), with no
+fallback from one to the other: bf16 q over bf16 or int8 pages goes to
+``prefill_tc_kernel`` (tensor cores), fp32 q or fp32 pages to the CUDA-core
+``paged_attention_kernel``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,16 @@ from repro_torch.kernels.flash_decode import (NEG_INF, PAGE_DTYPES,
                                               check_paged)
 
 _FN = {}
+
+
+def prefill_route(q_dtype: torch.dtype, page_dtype: torch.dtype) -> str:
+    """``"tc"``: ``prefill_tc_kernel`` (bf16 q over bf16 or int8 pages, every
+    bf16 policy); ``"simt"``: the CUDA-core kernel (fp32 q or fp32 pages,
+    the fp32 and fp32_kvint8 policies)."""
+    if q_dtype == torch.bfloat16 and page_dtype in (torch.bfloat16,
+                                                    torch.int8):
+        return "tc"
+    return "simt"
 
 
 def flash_prefill_ref(q, k_pages, v_pages, page_table, lengths, *,
@@ -47,15 +61,17 @@ def flash_prefill_ref(q, k_pages, v_pages, page_table, lengths, *,
     return out.permute(0, 3, 1, 2, 4)                        # (B,C,KV,G,hd)
 
 
-def _kernel():
-    if "fn" not in _FN:
-        fn = _build.load("flash_prefill").rt_flash_prefill
+def _kernel(route: str):
+    """The C entry point of a route (both take the same arguments)."""
+    if route not in _FN:
+        name = "rt_flash_prefill_tc" if route == "tc" else "rt_flash_prefill"
+        fn = getattr(_build.load("flash_prefill"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                        ctypes.c_float, I, P]
         fn.restype = I
-        _FN["fn"] = fn
-    return _FN["fn"]
+        _FN[route] = fn
+    return _FN[route]
 
 
 def flash_prefill(q, k_pages, v_pages, page_table, lengths, *,
@@ -74,10 +90,13 @@ def flash_prefill(q, k_pages, v_pages, page_table, lengths, *,
     check_paged("flash_prefill", q, k_pages, v_pages, page_table, lengths,
                 window, k_scale, v_scale)
     B, C, KV, G, hd = q.shape
+    route = prefill_route(q.dtype, k_pages.dtype)
     out = torch.empty((B, C, KV, G, hd), dtype=torch.float32,
                       device=q.device)
+    # check_paged holds both routes to 16-byte aligned, contiguous q and
+    # pages, which is the layout the tensor-core kernel's copies need
     with torch.cuda.device(q.device):
-        rc = _kernel()(
+        rc = _kernel(route)(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),
             v_pages.data_ptr(), _ptr(k_scale), _ptr(v_scale),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),

@@ -106,6 +106,162 @@ def test_flash_prefill_kernel(cuda, hd, G, window, dtype, C):
         torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
 
 
+def _paged_check(kind, q, pools, table, lens, window):
+    """The kernel against its plain version at TOL; returns its outputs."""
+    k, v, ks, vs = pools
+    kern, ref = ((FD.flash_decode, FD.flash_decode_ref) if kind == "decode"
+                 else (FP.flash_prefill, FP.flash_prefill_ref))
+    got = kern(q, k, v, table, lens, window=window, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    want = ref(q, k, v, table, lens, window=window, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 120])
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_paged_kernels_over_long_histories(cuda, hd, window, dtype):
+    """Histories past 1000 keys (many 32- and 64-key tiles, ~100 pages):
+    decode at B*KV = 6 pairs, split across blocks, and a 64-token chunk of
+    4-member groups (256 rows a KV head) on both prefill routes."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + (window or 0))
+    B, kv, G, psz, npg = 3, 2, 4, 16, 100
+    pools = _pool(gen, dtype, 1 + B * npg, psz, kv, hd, cuda)
+    table = _table(gen, B, npg, cuda)
+    lens = torch.tensor([0, 1100, 1530], dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    tiles = FD.max_tiles(npg * psz, window)
+    assert window or FD.decode_splits(B * kv, tiles, sms) > 1
+    q = torch.randn(B, kv, G, hd, generator=gen, device=cuda)
+    for qq in (q, q.bfloat16()):
+        out, lse = _paged_check("decode", qq, pools, table, lens, window)
+        assert (out[0] == 0).all() and (lse[0] < -1e29).all()
+    q5 = torch.randn(B, 64, kv, G, hd, generator=gen, device=cuda)
+    for qq in (q5, q5.bfloat16()):
+        _paged_check("prefill", qq, pools, table, lens, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_prefill_tensor_cores_int8_hd120(cuda, window):
+    """h2o-danube3's prefill case on the tensor-core route: C=64, G=4,
+    hd 120 (rows padded to 128 dims), int8 pages with per-page scales."""
+    gen = torch.Generator(device=cuda).manual_seed(120)
+    B, kv, G, psz, npg = 4, 8, 4, 16, 34
+    pools = _pool(gen, torch.int8, 1 + B * npg, psz, kv, 120, cuda)
+    table = _table(gen, B, npg, cuda)
+    lens = torch.tensor([0, 64, 200, 448], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, 64, kv, G, 120, generator=gen,
+                    device=cuda).bfloat16()
+    assert FP.prefill_route(q.dtype, pools[0].dtype) == "tc"
+    _paged_check("prefill", q, pools, table, lens, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8,
+                                   torch.float32])
+def test_paged_kernels_never_read_the_trash_page(cuda, dtype):
+    """Table entries past a slot's allocation point at the trash page
+    (page 0), here full of NaN: the kernels read only the visible keys, so
+    their outputs equal the plain versions' over a clean trash page."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, kv, G, hd, psz, npg, C = 3, 2, 2, 64, 16, 12, 17
+    k, v, ks, vs = _pool(gen, dtype, 1 + B * npg, psz, kv, hd, cuda)
+    lens = torch.tensor([0, 30, 100], dtype=torch.int32, device=cuda)
+    table = _table(gen, B, npg, cuda)
+    for b, n in enumerate(lens.tolist()):      # allocated: n + C keys
+        table[b, -(-(n + C) // psz):] = 0
+    dirty = [x.clone() for x in (k, v)]
+    for x in dirty:
+        x[0] = 127 if dtype == torch.int8 else float("nan")
+    if ks is not None:
+        ks, vs = ks.clone(), vs.clone()
+        ks[0] = vs[0] = float("nan")
+    q = torch.randn(B, kv, G, hd, generator=gen, device=cuda).bfloat16()
+    q5 = torch.randn(B, C, kv, G, hd, generator=gen, device=cuda).bfloat16()
+    clean = (k, v, None if ks is None else ks.nan_to_num(0.0),
+             None if vs is None else vs.nan_to_num(0.0))
+    for kind, qq in (("decode", q), ("prefill", q5)):
+        for qx in (qq, qq.float()):
+            kern = FD.flash_decode if kind == "decode" else FP.flash_prefill
+            ref = (FD.flash_decode_ref if kind == "decode"
+                   else FP.flash_prefill_ref)
+            got = kern(qx, *dirty, table, lens, k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            want = ref(qx, clean[0], clean[1], table, lens,
+                       k_scale=clean[2], v_scale=clean[3])
+            torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+def test_prefill_tensor_core_route_raises_on_a_misaligned_view(cuda):
+    """A bf16 q (or page pool) whose base is not 16-byte aligned is refused
+    on the tensor-core route: no launch, and no re-route to the CUDA-core
+    kernel or the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    B, kv, G, hd, psz, npg, C = 2, 2, 1, 64, 16, 4, 8
+    k, v, _, _ = _pool(gen, torch.bfloat16, 1 + B * npg, psz, kv, hd, cuda)
+    table = _table(gen, B, npg, cuda)
+    lens = torch.tensor([0, 9], dtype=torch.int32, device=cuda)
+    n = B * C * kv * G * hd
+    flat = torch.randn(n + 8, generator=gen, device=cuda).bfloat16()
+    q_off = flat[1:n + 1].view(B, C, kv, G, hd)       # base 2 bytes off
+    assert FP.prefill_route(q_off.dtype, k.dtype) == "tc"
+    flat_k = torch.randn(k.numel() + 8, generator=gen,
+                         device=cuda).bfloat16()
+    k_off = flat_k[4:k.numel() + 4].view(k.shape)     # base 8 bytes off
+    q = q_off.clone()
+    n0 = FP.flash_prefill.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FP.flash_prefill(q_off, k, v, table, lens)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FP.flash_prefill(q, k_off, v, table, lens)
+    assert FP.flash_prefill.launches == n0
+
+
+@pytest.mark.gpu
+def test_paged_kernels_replay_in_cuda_graphs(cuda):
+    """Both wrappers captured in one CUDA graph (decode split across
+    blocks with its merge kernel; prefill on the tensor-core route) give
+    the eager results on every replay, and the plain versions' within
+    TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, kv, G, hd, psz, npg, C = 2, 4, 2, 64, 16, 100, 64
+    k, v, _, _ = _pool(gen, torch.bfloat16, 1 + B * npg, psz, kv, hd, cuda)
+    table = _table(gen, B, npg, cuda)
+    lens = torch.tensor([700, 870], dtype=torch.int32, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert FD.decode_splits(B * kv, FD.max_tiles(npg * psz, None), sms) > 1
+    q = torch.randn(B, kv, G, hd, generator=gen, device=cuda).bfloat16()
+    q5 = torch.randn(B, C, kv, G, hd, generator=gen, device=cuda).bfloat16()
+    run = lambda: (FD.flash_decode(q, k, v, table, lens),  # noqa: E731
+                   FP.flash_prefill(q5, k, v, table, lens))
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        for x in (*captured[0], captured[1]):
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip((*captured[0], captured[1]),
+                             (*eager[0], eager[1])):
+            assert torch.equal(got, want)
+    torch.testing.assert_close(eager[0], FD.flash_decode_ref(
+        q, k, v, table, lens), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(eager[1], FP.flash_prefill_ref(
+        q5, k, v, table, lens), atol=TOL, rtol=TOL)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gdt", [torch.float32, torch.bfloat16])
