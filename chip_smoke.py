@@ -479,13 +479,15 @@ def gate_case(label, shape, x_dtype, gate_dtype, dev, gen, prior=None):
             "library_ms": library_ms, "bytes": nbytes, "flops": flops}
 
 
-def rowwise_case(label, kern, ref, sets, nbytes, flops) -> dict:
-    """One row-wise kernel (its wrapper, partial sums included) against its
-    plain version on input set 0, then timed by CUDA-graph replay over the
+def rowwise_case(label, kern, ref, sets, nbytes, flops, prior=None) -> dict:
+    """One row-wise kernel (its wrapper, with any launch it makes) against
+    its plain version on input set 0, then timed by CUDA-graph replay over the
     sets, which together exceed the 50 MB L2 (each call finds its inputs
     cold, as a layer of the training step does). No single PyTorch call
     computes these functions: F.layer_norm takes no per-example affine, and
-    the loss needs its target formed first."""
+    the loss needs its target formed first. ``prior``: the predecessor's ms
+    at this case as PERF.md records it, printed beside this run's (not
+    measured here, so kept out of the row)."""
     got = kern(*sets[0])
     torch.cuda.synchronize()
     err = compare(label, got, ref(*sets[0]), bf16_rounding=True)
@@ -496,9 +498,46 @@ def rowwise_case(label, kern, ref, sets, nbytes, flops) -> dict:
     say(f"[kernels] {label}: max|err| {err:.2e} | kernel {ms:.4f} ms device "
         f"| bound {bound_ms:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
         f"{flops / 1e9:.3f} GFLOP) | plain {plain_ms:.4f} ms | library none")
+    if prior is not None:
+        say(f"[kernels] {label}: {ms:.4f} ms this run; the kernel it "
+            f"replaced {prior:.4f} ms (PR 20's run, recorded in PERF.md, "
+            "NVIDIA H100 80GB HBM3, 700.00 W; not this run)")
     return {"case": label, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": None, "bytes": nbytes, "flops": flops}
+
+
+def adaln_sets(gen, dev, B, S, d, dt):
+    """(x, scale, shift, g) input sets for the AdaLN kernels, enough to
+    exceed the L2 together: x off-centre, the (B, d) vectors fp32 column
+    slices of one (B, 6d) head output (row stride 6d)."""
+    one = 2 * B * S * d * torch.tensor([], dtype=dt).element_size()
+    out = []
+    for _ in range(rotations(one)):
+        x = (1.0 + torch.randn(B, S, d, generator=gen, device=dev)).to(dt)
+        g = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
+        heads = 0.1 * torch.randn(B, 6 * d, generator=gen, device=dev)
+        out.append((x, heads[:, d:2 * d], heads[:, :d], g))
+    return out
+
+
+def adaln_plan(name, x, vec) -> str:
+    """The redesigned AdaLN backward's launch plan at these inputs."""
+    from repro_torch.kernels import fused_adaln as AD
+    B, S, d = x.shape
+    p = AD.backward_plan(name, B, S, d, x.dtype, vec.dtype, x.device)
+    return (f"blocks ({p['cx']}, {p['ry']}) threads, {p['n_tiles']} tiles "
+            f"of {p['tile_rows']} rows an example in clusters of {p['cl']}, "
+            f"{p['scratch'] * 4 / 1e6:.3f} MB scratch; the tiles are summed "
+            "in the kernel (no partial-sum launch)")
+
+
+# ms of the AdaLN backwards the redesign replaced, at phase 3's cases, from
+# PR 20's chip_smoke.py run (NVIDIA H100 80GB HBM3, 700.00 W; recorded in
+# PERF.md): printed beside this run's, never measured here
+PRIOR_LN_BWD_MS = {"bf16": 0.0564, "fp32": 0.0755, "ragged": 0.0336}
+PRIOR_GATE_BWD_MS = {"bf16": 0.0318, "fp32": 0.0433, "ragged": 0.0207,
+                     "dit": 0.1101}
 
 
 def phase_rowwise(dev) -> dict:
@@ -520,23 +559,12 @@ def phase_rowwise(dev) -> dict:
                             "edm_loss_bwd")}
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def adaln_sets(B, S, d, dt):
-        """(x, scale, shift, g) sets: x off-centre, mods fp32 slices."""
-        one = 2 * B * S * d * torch.tensor([], dtype=dt).element_size()
-        out = []
-        for _ in range(rotations(one)):
-            x = (1.0 + torch.randn(B, S, d, generator=gen, device=dev)
-                 ).to(dt)
-            g = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
-            heads = 0.1 * torch.randn(B, 6 * d, generator=gen, device=dev)
-            out.append((x, heads[:, d:2 * d], heads[:, :d], g))
-        return out
-
     d = 2048
-    for B, S, dt, tag in ((8, 512, bf16, "bf16 (two-pass path)"),
-                          (8, 512, f32, "fp32"),
-                          (8, 130, bf16, "bf16, ragged S=130")):
-        sets = adaln_sets(B, S, d, dt)
+    for B, S, dt, tag, key in ((8, 512, bf16, "bf16 (two-pass path)", "bf16"),
+                               (8, 512, f32, "fp32", "fp32"),
+                               (8, 130, bf16, "bf16, ragged S=130",
+                                "ragged")):
+        sets = adaln_sets(gen, dev, B, S, d, dt)
         n, elt, vec = B * S * d, sets[0][0].element_size(), B * d * 4
         shape = f"({B},{S},{d}) {tag}, fp32 slices"
         rows["ln_modulate_fwd"].append(rowwise_case(
@@ -544,25 +572,31 @@ def phase_rowwise(dev) -> dict:
             lambda x, sc, sh, g: AD.ln_modulate_fwd(x, sc, sh),
             lambda x, sc, sh, g: AD.ln_modulate_ref(x, sc, sh),
             sets, 2 * n * elt + 2 * vec, 8 * n))
+        label = f"(i) ln_modulate bwd {shape}"
+        say(f"[kernels] {label}: "
+            f"{adaln_plan('ln_modulate_bwd', sets[0][0], sets[0][1])}")
         rows["ln_modulate_bwd"].append(rowwise_case(
-            f"(i) ln_modulate bwd {shape}",
-            lambda x, sc, sh, g: AD.ln_modulate_bwd(x, sc, g),
+            label, lambda x, sc, sh, g: AD.ln_modulate_bwd(x, sc, g),
             lambda x, sc, sh, g: AD.ln_modulate_bwd_ref(x, sc, g),
-            sets, 3 * n * elt + 3 * vec, 16 * n))
+            sets, 3 * n * elt + 3 * vec, 16 * n, PRIOR_LN_BWD_MS[key]))
         # gate backward: the same streams as branch and cotangent
+        label = f"(j) gate_residual bwd {shape}"
+        say(f"[kernels] {label}: "
+            f"{adaln_plan('gate_residual_bwd', sets[0][0], sets[0][1])}")
         rows["gate_residual_bwd"].append(rowwise_case(
-            f"(j) gate_residual bwd {shape}",
-            lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
+            label, lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
             lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
-            sets, 3 * n * elt + 2 * vec, 3 * n))
+            sets, 3 * n * elt + 2 * vec, 3 * n, PRIOR_GATE_BWD_MS[key]))
     B, S, d = 256, 256, 384            # the DiT-S/2 layer's σ-gates
-    sets, n = adaln_sets(B, S, d, f32), B * S * d
+    sets, n = adaln_sets(gen, dev, B, S, d, f32), B * S * d
+    label = (f"(m) gate_residual bwd ({B},{S},{d}) fp32 (DiT-S/2 step), fp32 "
+             "slices")
+    say(f"[kernels] {label}: "
+        f"{adaln_plan('gate_residual_bwd', sets[0][0], sets[0][1])}")
     rows["gate_residual_bwd"].append(rowwise_case(
-        f"(m) gate_residual bwd ({B},{S},{d}) fp32 (DiT-S/2 step), fp32 "
-        "slices", lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
+        label, lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
         lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
-        sets, 3 * n * 4 + 2 * B * d * 4, 3 * n))
-
+        sets, 3 * n * 4 + 2 * B * d * 4, 3 * n, PRIOR_GATE_BWD_MS["dit"]))
     for B, S, d, tag in ((8, 512, 2048, "(two-pass l2 path)"),
                          (8, 300, 2048, "ragged S=300"),
                          (256, 256, 16, "(DiT-S/2 l2 path)")):

@@ -25,7 +25,8 @@
 
 namespace {
 
-using rowwise::Vec4;
+using rowwise::load_vec;
+using rowwise::store_vec;
 
 constexpr int kThreads = 256;
 
@@ -53,9 +54,9 @@ __global__ void edm_loss_fwd_kernel(const float* __restrict__ f,
     const long long n = static_cast<long long>(r1 - r0) * d;
     for (long long i = threadIdx.x * 4LL; i < n; i += kThreads * 4LL) {
       float fv[4], zv[4], yv[4];
-      Vec4<float>::load(f + base + i, fv);
-      Vec4<float>::load(z + base + i, zv);
-      Vec4<float>::load(y + base + i, yv);
+      load_vec<float, 4>(f + base + i, fv);
+      load_vec<float, 4>(z + base + i, zv);
+      load_vec<float, 4>(y + base + i, yv);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float e = __fsub_rn(fv[j], target(yv[j], zv[j], cs, co));
@@ -91,9 +92,9 @@ __global__ void edm_loss_bwd_kernel(const float* __restrict__ f,
     const float gv = g[b * n_tiles + s / block_rows];
     const float ratio = __fdiv_rn(cs, co);
     float fv[4], zv[4], yv[4], o_f[4], o_z[4], o_y[4];
-    Vec4<float>::load(f + i * 4, fv);
-    Vec4<float>::load(z + i * 4, zv);
-    Vec4<float>::load(y + i * 4, yv);
+    load_vec<float, 4>(f + i * 4, fv);
+    load_vec<float, 4>(z + i * 4, zv);
+    load_vec<float, 4>(y + i * 4, yv);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float t = target(yv[j], zv[j], cs, co);
@@ -102,9 +103,9 @@ __global__ void edm_loss_bwd_kernel(const float* __restrict__ f,
       o_z[j] = __fmul_rn(e, ratio);
       o_y[j] = __fdiv_rn(-e, co);
     }
-    Vec4<float>::store(df + i * 4, o_f);
-    Vec4<float>::store(dz + i * 4, o_z);
-    Vec4<float>::store(dy + i * 4, o_y);
+    store_vec<float, 4>(df + i * 4, o_f);
+    store_vec<float, 4>(dz + i * 4, o_z);
+    store_vec<float, 4>(dy + i * 4, o_y);
   }
 }
 

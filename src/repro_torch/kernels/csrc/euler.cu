@@ -24,16 +24,13 @@
 
 namespace {
 
+using rowwise::load_vec;
+using rowwise::store1;
+using rowwise::store_vec;
 using rowwise::to_f;
-using rowwise::Vec4;
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 32;
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float axpby(float a, float x, float b, float y) {
   return __fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y));
@@ -62,11 +59,11 @@ __global__ void euler_kernel(const TZ* __restrict__ z,
     TZ* op = out + row * d + c;
     if constexpr (W == 4) {
       float zv[4], fv[4], o[4];
-      Vec4<TZ>::load(zp, zv);
-      Vec4<TF>::load(fp, fv);
+      load_vec<TZ, 4>(zp, zv);
+      load_vec<TF, 4>(fp, fv);
 #pragma unroll
       for (int j = 0; j < 4; ++j) o[j] = axpby(ab, zv[j], bb, fv[j]);
-      Vec4<TZ>::store(op, o);
+      store_vec<TZ, 4>(op, o);
     } else {
       store1(op, axpby(ab, to_f(*zp), bb, to_f(*fp)));
     }
@@ -88,14 +85,14 @@ __global__ void euler_bwd_kernel(const TG* __restrict__ g,
     const long long off = i * W;
     if constexpr (W == 4) {
       float gv[4], oz[4], of[4];
-      Vec4<TG>::load(g + off, gv);
+      load_vec<TG, 4>(g + off, gv);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         oz[j] = __fmul_rn(ab, gv[j]);
         of[j] = __fmul_rn(bb, gv[j]);
       }
-      Vec4<TG>::store(dz + off, oz);
-      Vec4<TG>::store(df + off, of);
+      store_vec<TG, 4>(dz + off, oz);
+      store_vec<TG, 4>(df + off, of);
     } else {
       const float gv = to_f(g[off]);
       store1(dz + off, __fmul_rn(ab, gv));

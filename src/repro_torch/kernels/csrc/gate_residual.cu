@@ -6,8 +6,8 @@
 // What bounds them: bytes. The forward reads res and branch (B, S, d),
 // reads the per-example gate (B, d), writes out (B, S, d), and does 2 flops
 // per element; the backward reads the cotangent g and branch, writes
-// d_branch = g * (1 + gate) and per-tile sums of g * branch for d_gate. The
-// TPU kernels tiled rows into VMEM. The gate is read through a row stride,
+// d_branch = g * (1 + gate) and d_gate = the sum over rows of g * branch.
+// The TPU kernels tiled rows into VMEM. The gate is read through a row stride,
 // so a column slice of the AdaLN head's (B, 6d) output needs no copy.
 // Elementwise math is fp32 with explicit round-to-nearest adds and
 // multiplies (no fused multiply-add), the same roundings as the plain
@@ -25,11 +25,22 @@
 // rows: the probe has one row an example, and where S is larger the
 // neighbouring rows' threads find the gate vector in cache.
 //
-// The backward's d_gate is a sum over the rows of one example. A block owns
-// one tile of tile_rows rows of one example and loops over them per column,
-// so no tile crosses examples and no atomics are needed: it writes its fp32
-// column sums to partials[b, tile, :], and the caller sums the tiles (the
-// TPU kernel's (B, n_tiles, d) partials, summed outside it).
+// The backward's d_gate is a sum over the rows of one example. A block is
+// (cx, ry) threads, laid out as the forward's: thread (tx, ty) owns column
+// vector tx of the block's span of cx vectors (16 bytes; 8 for bf16 rows
+// of a d that is not a multiple of 8) and walks rows ty, ty + ry, ... with
+// 4 rows' loads issued at once, keeping its sums of g * branch in
+// registers; the gate is read once per thread, and each byte of g and
+// branch once. Where the (example, span) pairs fill 90% of a wave at spans
+// as narrow as 8 vectors (128 bytes of a row), a block takes every row of
+// its pair and sums its row groups in shared memory: no block sums
+// another's columns (the two-pass path's (8, 512, 2048) at 8 vectors,
+// DiT-S/2's (256, 256, 384) fp32 at (96, 2), where no thread idles). Else
+// a block takes a tile of rows of a span of up to 128 vectors, and the
+// tiles' sums go through rowwise::column_sums (rowwise.cuh: a cluster of
+// tiles in shared memory, then an atomic ticket, in a fixed order). Either
+// way d_gate is written by this launch, in the gate's dtype, bit-equal
+// from call to call.
 #include <stdint.h>
 
 #include <algorithm>
@@ -38,67 +49,16 @@
 
 namespace {
 
+using rowwise::load_mod;
+using rowwise::load_raw;
+using rowwise::load_vec;
+using rowwise::store_vec;
 using rowwise::to_f;
-using rowwise::Vec4;
+using rowwise::unpack;
 
-constexpr int kThreads = 256;     // backward
 constexpr int kFwdThreads = 128;  // forward: a block of cx x ry threads
-
-// V elements of T at p (8, 16 or 32 bytes, aligned to min(16, that)) as
-// floats; bf16 widened exactly (its bits are the top half of an fp32).
-template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* p, float (&o)[V]) {
-  constexpr int W = V * static_cast<int>(sizeof(T)) / 4;  // 32-bit words
-  static_assert(W == 2 || W % 4 == 0, "8-byte or 16-byte pieces");
-  uint32_t w[W];
-  if constexpr (W == 2) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    w[0] = u.x;
-    w[1] = u.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < W / 4; ++i) {
-      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
-      w[4 * i] = u.x;
-      w[4 * i + 1] = u.y;
-      w[4 * i + 2] = u.z;
-      w[4 * i + 3] = u.w;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    if constexpr (sizeof(T) == 4) {
-      o[j] = __uint_as_float(w[j]);
-    } else {
-      o[2 * j] = __uint_as_float(w[j] << 16);
-      o[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
-    }
-  }
-}
-
-// The V floats v stored at p as T (bf16 rounded to nearest), as load_vec.
-template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
-  constexpr int W = V * static_cast<int>(sizeof(T)) / 4;
-  uint32_t w[W];
-#pragma unroll
-  for (int j = 0; j < W; ++j) {
-    if constexpr (sizeof(T) == 4) {
-      w[j] = __float_as_uint(v[j]);
-    } else {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-      w[j] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-  }
-  if constexpr (W == 2) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < W / 4; ++i)
-      reinterpret_cast<uint4*>(p)[i] =
-          make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
-  }
-}
+constexpr int kBwdThreads = 256;  // backward: a block of cx x ry threads
+constexpr int kMaxGridY = 65535;
 
 // grid (tiles, B, column blocks), block (cx, ry): block (x, b, z) owns rows
 // [x * ry, x * ry + ry) of example b and the column vectors
@@ -130,40 +90,66 @@ __global__ void gate_residual_kernel(const T* __restrict__ res,
   store_vec<T, V>(out + row + c, r);
 }
 
-// grid (n_tiles, B): block (tile, b) owns rows [tile*tile_rows, ...) of
-// example b; each thread owns column quads and walks the tile's rows.
-template <typename T, typename TG>
-__global__ void gate_residual_bwd_kernel(const T* __restrict__ branch,
-                                         const TG* __restrict__ gate,
-                                         const T* __restrict__ g,
-                                         T* __restrict__ dbranch,
-                                         float* __restrict__ dgate_part,
-                                         int S, int d, long long gate_stride,
-                                         int tile_rows, int n_tiles) {
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int row0 = tile * tile_rows;
-  const int nrows = min(tile_rows, S - row0);
-  const TG* gt = gate + b * gate_stride;
-  const long long base = (static_cast<long long>(b) * S + row0) * d;
-  float* part = dgate_part + (static_cast<long long>(b) * n_tiles + tile) * d;
-  for (int c = threadIdx.x * 4; c < d; c += blockDim.x * 4) {
-    float g1[4], acc[4] = {0.f, 0.f, 0.f, 0.f};
+// grid (n_tiles, B, spans) in clusters of (cl, 1, 1), block (cx, ry):
+// block (tile, b, z) owns rows [tile * tile_rows, ...) of example b and the
+// column vectors [z * cx, z * cx + cx). dgate (B, d) in TG.
+template <typename T, typename TG, int V>
+__global__ void __launch_bounds__(kBwdThreads)
+    gate_residual_bwd_kernel(const T* __restrict__ branch,
+                             const TG* __restrict__ gate,
+                             const T* __restrict__ g,
+                             T* __restrict__ dbranch, TG* __restrict__ dgate,
+                             float* __restrict__ scratch,
+                             unsigned* __restrict__ tickets, int S, int d,
+                             long long gate_stride, int tile_rows,
+                             int n_clusters, bool gvec) {
+  constexpr int U = 4;  // rows a thread loads at once
+  constexpr int W = rowwise::kWords<T, V>;
+  extern __shared__ __align__(16) float sm[];
+  const int cx = blockDim.x, ry = blockDim.y;
+  const int b = blockIdx.y;
+  const int col0 = blockIdx.z * cx * V;
+  const int c = col0 + threadIdx.x * V;
+  const bool on = c < d;
+  const int row0 = blockIdx.x * tile_rows;
+  const int nrows = on ? max(0, min(tile_rows, S - row0)) : 0;
+  const long long base = (static_cast<long long>(b) * S + row0) * d + c;
+  float g1[V] = {}, acc[1][1][V] = {};
+  if (on) load_mod<TG, V>(gate + b * gate_stride + c, gvec, g1);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) g1[j] = __fadd_rn(1.f, to_f(gt[c + j]));
-    for (int r = 0; r < nrows; ++r) {
-      const long long off = base + static_cast<long long>(r) * d + c;
-      float gv[4], bv[4], o[4];
-      Vec4<T>::load(g + off, gv);
-      Vec4<T>::load(branch + off, bv);
+  for (int j = 0; j < V; ++j) g1[j] = __fadd_rn(1.f, g1[j]);
+  for (int r0 = threadIdx.y; r0 < nrows; r0 += ry * U) {
+    uint32_t gw[U][W], bw[U][W];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        o[j] = __fmul_rn(gv[j], g1[j]);
-        acc[j] = fmaf(gv[j], bv[j], acc[j]);
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * ry;
+      if (r < nrows) {
+        const long long off = base + static_cast<long long>(r) * d;
+        load_raw<T, V>(g + off, gw[u]);
+        load_raw<T, V>(branch + off, bw[u]);
       }
-      Vec4<T>::store(dbranch + off, o);
     }
-    Vec4<float>::store(part + c, acc);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * ry;
+      if (r >= nrows) break;
+      float gv[V], bv[V], o[V];
+      unpack<T, V>(gw[u], gv);
+      unpack<T, V>(bw[u], bv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        o[j] = __fmul_rn(gv[j], g1[j]);
+        acc[0][0][j] = fmaf(gv[j], bv[j], acc[0][0][j]);
+      }
+      store_vec<T, V>(dbranch + base + static_cast<long long>(r) * d, o);
+    }
   }
+  const int cl = gridDim.x / n_clusters;
+  const rowwise::ColumnSums<TG> cs{
+      dgate, 0, scratch,
+      tickets + (static_cast<long long>(b) * gridDim.z + blockIdx.z) * cl, d,
+      b, col0, min(d - col0, cx * V), n_clusters};
+  rowwise::column_sums<1, 1, V>(acc, sm, cs);
 }
 
 template <typename T, typename TG, int V>
@@ -180,7 +166,6 @@ void launch_v(const void* res, const void* branch, const void* gate,
   const int ry = std::max(1, std::min(kFwdThreads / cx, S));
   const dim3 block(cx, ry);
   // gridDim.y holds at most 65535 examples: larger batches in chunks
-  constexpr int kMaxGridY = 65535;
   for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
     const dim3 grid((S + ry - 1) / ry, std::min(B - b0, kMaxGridY),
                     (dv + cx - 1) / cx);
@@ -212,15 +197,95 @@ void launch(const void* res, const void* branch, const void* gate, void* out,
   launch_v<T, TG, 4>(res, branch, gate, out, B, S, d, gate_stride, st);
 }
 
+struct BwdArgs {
+  const void *branch, *gate, *g;
+  void *dbranch, *dgate;
+  float* scratch;
+  unsigned* tickets;
+  int B, S, d;
+  long long gate_stride;
+  cudaStream_t st;
+};
+
+// The backward's plan for these shapes; with sizes, only report it
+// (rowwise::report), else launch.
+template <typename T, typename TG, int V>
+cudaError_t run_bwd(const BwdArgs& a, long long* sizes) {
+  constexpr int U = 4;
+  constexpr int kMaxSpan = 128, kMinSpan = 8;  // column vectors a block
+  auto kernel = gate_residual_bwd_kernel<T, TG, V>;
+  const int dv = a.d / V, dv32 = (dv + 31) / 32 * 32;
+  const int bc = std::min(a.B, kMaxGridY);
+  // A block takes all rows of its (example, span) where those pairs fill
+  // 90% of a wave: the widest span that does, so no block sums another's
+  // columns. Else tiles of rows, at the widest span.
+  const long long wave = static_cast<long long>(rowwise::sm_count()) *
+                         rowwise::kBlocksPerSM;
+  int whole = 0;
+  for (int w = kMaxSpan; w >= kMinSpan && whole == 0; w /= 2) {
+    const int c = std::min(w, dv32);
+    if (10LL * bc * ((dv + c - 1) / c) >= 9 * wave) whole = c;
+  }
+  rowwise::Plan p;
+  p.cx = whole ? whole : std::min(dv32, kMaxSpan);
+  p.ry = std::max(1, kBwdThreads / p.cx);
+  p.smem = sizeof(float) * p.ry * p.cx * V;
+  cudaError_t e = rowwise::allow_smem(kernel, p.smem);
+  if (e != cudaSuccess) return e;
+  const int spans = (dv + p.cx - 1) / p.cx;
+  if (whole) {
+    p.cl = p.n_tiles = 1;
+    p.tile_rows = a.S;
+    if (rowwise::wave_blocks(kernel, p, 1) < 1)
+      return cudaErrorInvalidConfiguration;
+  } else if (!rowwise::plan_tiles(kernel, p, bc, a.S, spans, p.ry * U)) {
+    return cudaErrorInvalidConfiguration;
+  }
+  const int ncl = p.n_clusters();
+  if (sizes != nullptr) {
+    rowwise::report(p, ncl > 1 ? static_cast<long long>(bc) * ncl * a.d : 0,
+                    static_cast<long long>(bc) * spans * p.cl, sizes);
+    return cudaSuccess;
+  }
+  // the gate as one vector a thread where its slice allows
+  constexpr int kAlign = V * sizeof(TG) < 16 ? V * sizeof(TG) : 16;
+  const bool gvec = reinterpret_cast<uintptr_t>(a.gate) % kAlign == 0 &&
+                    a.gate_stride * static_cast<long long>(sizeof(TG)) %
+                            kAlign == 0;
+  for (int b0 = 0; b0 < a.B; b0 += kMaxGridY) {
+    const int nb = std::min(a.B - b0, kMaxGridY);
+    const long long off = static_cast<long long>(b0) * a.S * a.d;
+    e = rowwise::launch_clusters(
+        kernel, dim3(p.n_tiles, nb, spans), dim3(p.cx, p.ry, 1), p.smem,
+        p.cl, a.st, static_cast<const T*>(a.branch) + off,
+        static_cast<const TG*>(a.gate) + b0 * a.gate_stride,
+        static_cast<const T*>(a.g) + off, static_cast<T*>(a.dbranch) + off,
+        static_cast<TG*>(a.dgate) + static_cast<long long>(b0) * a.d,
+        a.scratch, a.tickets, a.S, a.d, a.gate_stride, p.tile_rows, ncl,
+        gvec);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
 template <typename T, typename TG>
-void launch_bwd(const void* branch, const void* gate, const void* g,
-                void* dbranch, float* part, int B, int S, int d,
-                long long gate_stride, int tile_rows, cudaStream_t st) {
-  const int n_tiles = (S + tile_rows - 1) / tile_rows;
-  gate_residual_bwd_kernel<T, TG><<<dim3(n_tiles, B), kThreads, 0, st>>>(
-      static_cast<const T*>(branch), static_cast<const TG*>(gate),
-      static_cast<const T*>(g), static_cast<T*>(dbranch), part, S, d,
-      gate_stride, tile_rows, n_tiles);
+cudaError_t run_bwd_t(const BwdArgs& a, long long* sizes) {
+  if constexpr (sizeof(T) == 2) {
+    if (a.d % 8 == 0) return run_bwd<T, TG, 8>(a, sizes);
+  }
+  return run_bwd<T, TG, 4>(a, sizes);
+}
+
+cudaError_t dispatch_bwd(const BwdArgs& a, int x_dtype, int gate_dtype,
+                         long long* sizes) {
+  if (a.d % 4 != 0 || a.B < 1 || a.S < 1) return cudaErrorInvalidValue;
+  switch (x_dtype * 2 + gate_dtype) {
+    case 0: return run_bwd_t<float, float>(a, sizes);
+    case 1: return run_bwd_t<float, __nv_bfloat16>(a, sizes);
+    case 2: return run_bwd_t<__nv_bfloat16, float>(a, sizes);
+    case 3: return run_bwd_t<__nv_bfloat16, __nv_bfloat16>(a, sizes);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -245,24 +310,33 @@ extern "C" int rt_gate_residual(const void* res, const void* branch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// branch, g, dbranch: (B, S, d) in x_dtype; gate (B, d) with row stride
-// gate_stride; dgate_part (B, ceil(S / tile_rows), d) fp32. d % 4 == 0.
+// The backward's plan for these shapes on the current device, into
+// sizes[rowwise::kPlanFields]: fp32 scratch elements, unsigned tickets
+// (zero before the first launch; each launch leaves them zero), cx, ry,
+// tile_rows, n_tiles, cl.
+extern "C" int rt_gate_residual_bwd_plan(int B, int S, int d, int x_dtype,
+                                         int gate_dtype, long long* sizes) {
+  BwdArgs a = {};
+  a.B = B;
+  a.S = S;
+  a.d = d;
+  return static_cast<int>(dispatch_bwd(a, x_dtype, gate_dtype, sizes));
+}
+
+// branch, g, dbranch: (B, S, d) contiguous in x_dtype; gate (B, d) in
+// gate_dtype with row stride gate_stride; dgate (B, d) in gate_dtype;
+// scratch and tickets as rt_gate_residual_bwd_plan sizes them. d % 4 == 0.
 extern "C" int rt_gate_residual_bwd(const void* branch, const void* gate,
                                     const void* g, void* dbranch,
-                                    void* dgate_part, int B, int S, int d,
-                                    long long gate_stride, int tile_rows,
-                                    int x_dtype, int gate_dtype,
-                                    void* stream) {
-  if (d % 4 != 0 || B < 1 || S < 1 || tile_rows < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(dgate_part);
-  switch (x_dtype * 2 + gate_dtype) {
-    case 0: launch_bwd<float, float>(branch, gate, g, dbranch, part, B, S, d, gate_stride, tile_rows, st); break;
-    case 1: launch_bwd<float, __nv_bfloat16>(branch, gate, g, dbranch, part, B, S, d, gate_stride, tile_rows, st); break;
-    case 2: launch_bwd<__nv_bfloat16, float>(branch, gate, g, dbranch, part, B, S, d, gate_stride, tile_rows, st); break;
-    case 3: launch_bwd<__nv_bfloat16, __nv_bfloat16>(branch, gate, g, dbranch, part, B, S, d, gate_stride, tile_rows, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                    void* dgate, void* scratch,
+                                    void* tickets, int B, int S, int d,
+                                    long long gate_stride, int x_dtype,
+                                    int gate_dtype, void* stream) {
+  const BwdArgs a = {branch, gate, g, dbranch, dgate,
+                     static_cast<float*>(scratch),
+                     static_cast<unsigned*>(tickets), B, S, d, gate_stride,
+                     static_cast<cudaStream_t>(stream)};
+  const cudaError_t e = dispatch_bwd(a, x_dtype, gate_dtype, nullptr);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

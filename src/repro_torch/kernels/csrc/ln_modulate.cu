@@ -5,10 +5,9 @@
 //
 // What bounds them: bytes. The forward reads x (B, S, d) and the
 // per-example scale and shift (B, d) and writes out (B, S, d), a few flops
-// per element; the backward reads x and the cotangent g and writes dx, plus
-// per-tile (B, d) sums for d_scale and d_shift. The TPU kernels kept a
-// (rows x d) tile in VMEM; here a row is re-read from L1/L2 for each pass
-// over it, so device memory is still read about once.
+// per element; the backward reads x and the cotangent g and writes dx and
+// the (B, d) sums d_scale and d_shift. The TPU kernels kept a (rows x d)
+// tile in VMEM.
 //
 // Statistics are the reference's two-pass form: mean = sum(x) / d, then
 // var = sum((x - mean)^2) / d (never E[x^2] - mean^2), rstd =
@@ -17,29 +16,45 @@
 //
 // Forward: one warp per row; pass 1 sums x, pass 2 sums the squared
 // deviations, pass 3 writes the modulated row (4 neighbouring elements per
-// lane, coalesced).
+// lane, coalesced), re-reading the row from L1/L2.
 //
 // Backward: dy = g * (1 + scale), xhat = (x - mean) * rstd,
 // dx = rstd * (dy - mean(dy) - xhat * mean(dy * xhat)),
 // d_scale = sum over rows of g * xhat, d_shift = sum over rows of g. A block
-// owns a tile of tile_rows rows of one example (so no tile crosses examples
-// and no atomics are needed). Step 1, one warp per row: the row's mean,
-// rstd, mean(dy) and mean(dy * xhat) = rstd * mean(dy * (x - mean)) into
-// shared memory. Step 2, one thread per column quad: walk the tile's rows,
-// write dx and sum g * xhat and g per column, then write the tile's fp32
-// column sums to partials[b, tile, :]; the caller sums the tiles (the TPU
-// kernel's (B, n_tiles, d) partials, summed outside it).
+// owns a tile of rows of one example and is (cx, ry) threads: thread (tx,
+// ty) owns the 16-byte column vectors tx + p * cx of every row (8 bf16 or 4
+// fp32 elements; 8 bytes for bf16 rows of a d that is not a multiple of 8;
+// PV vectors where d is wider than 512 vectors) and walks the tile's rows
+// ty, ty + ry, ..., U = 4 / PV rows a step. Each byte of x and g is read
+// from memory once: cp.async copies the rows into a ring of 2 steps in
+// shared memory, the next step in flight while one reduces, and a step
+// reads its rows into registers once, as floats. A step sums its rows over the row group's
+// threads in two rounds, each a reduce-scatter of warp shuffles and, where
+// a row spans several warps, one barrier: sum(x) and sum(dy), then
+// sum((x - mean)^2) and sum(dy (x - mean)); then dx is written once. The
+// column sums of g * xhat and g stay in registers for the whole tile and
+// go through rowwise::column_sums (rowwise.cuh): across the row groups and
+// a cluster of tiles in shared memory, across clusters by a ticket, in a
+// fixed order, so the (B, d) results are written by this launch and are
+// bit-equal from call to call. The launch sizes the tiles so that one wave
+// fills the card (rowwise::plan_tiles).
+#include "mma.cuh"
 #include "rowwise.cuh"
 
 namespace {
 
+using rowwise::load_mod;
+using rowwise::load_vec;
+using rowwise::store_vec;
 using rowwise::to_f;
-using rowwise::Vec4;
 using rowwise::warp_sum;
 
 constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxTileRows = 64;
+constexpr int kThreads = 32 * kWarps;   // forward
+constexpr int kMaxThreads = 512;        // backward block: cx * ry
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxGridY = 65535;
+constexpr int kStages = 2;  // backward: steps of rows in the shared ring
 
 template <typename T, typename TM>
 __global__ void ln_mod_fwd_kernel(const T* __restrict__ x,
@@ -57,14 +72,14 @@ __global__ void ln_mod_fwd_kernel(const T* __restrict__ x,
     float s = 0.f;
     for (int c = lane * 4; c < d; c += 128) {
       float v[4];
-      Vec4<T>::load(xr + c, v);
+      load_vec<T, 4>(xr + c, v);
       s += (v[0] + v[1]) + (v[2] + v[3]);
     }
     const float mean = warp_sum(s) / fd;
     float q = 0.f;
     for (int c = lane * 4; c < d; c += 128) {
       float v[4];
-      Vec4<T>::load(xr + c, v);
+      load_vec<T, 4>(xr + c, v);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float t = v[j] - mean;
@@ -78,103 +93,232 @@ __global__ void ln_mod_fwd_kernel(const T* __restrict__ x,
     T* o = out + row * d;
     for (int c = lane * 4; c < d; c += 128) {
       float v[4], y[4];
-      Vec4<T>::load(xr + c, v);
+      load_vec<T, 4>(xr + c, v);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         y[j] = (v[j] - mean) * rstd * (1.f + to_f(sc[c + j])) +
                to_f(sh[c + j]);
-      Vec4<T>::store(o + c, y);
+      store_vec<T, 4>(o + c, y);
     }
   }
 }
 
-// grid (n_tiles, B); block (tile, b) owns rows [tile*tile_rows, ...) of
-// example b. dscale_part / dshift_part: (B, n_tiles, d) fp32.
-template <typename T, typename TM>
-__global__ void ln_mod_bwd_kernel(const T* __restrict__ x,
-                                  const TM* __restrict__ scale,
-                                  const T* __restrict__ g,
-                                  T* __restrict__ dx,
-                                  float* __restrict__ dscale_part,
-                                  float* __restrict__ dshift_part, int S,
-                                  int d, long long scale_stride,
-                                  int tile_rows, int n_tiles, float eps) {
-  __shared__ float st_mean[kMaxTileRows], st_rstd[kMaxTileRows],
-      st_mdy[kMaxTileRows], st_mdyx[kMaxTileRows];
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int row0 = tile * tile_rows;
-  const int nrows = min(tile_rows, S - row0);
-  const TM* sc = scale + b * scale_stride;
-  const long long base = (static_cast<long long>(b) * S + row0) * d;
+__host__ __device__ constexpr int ilog2(int n) {
+  return n > 1 ? 1 + ilog2(n / 2) : 0;
+}
+
+// The N values v (N a power of two, at most 32) summed over the cx threads
+// of this thread's row group (blockDim.x threads, a multiple of 32). In the
+// warp a reduce-scatter: each exchange halves the values a lane keeps, so
+// lane l ends with value l >> (5 - log2 N) in N - 1 + 5 - log2 N shuffles
+// (5 N for a butterfly a value). Where a row group spans several warps, one
+// round through red and one barrier, each lane adding its value over the
+// group's warps; then the N sums go back to every lane. Every thread of
+// the block calls it.
+template <int N>
+__device__ __forceinline__ void group_sum(float (&v)[N],
+                                          float (&red)[kMaxWarps][N]) {
+  constexpr int kShift = 5 - ilog2(N);
   const int lane = threadIdx.x & 31;
-  const float fd = static_cast<float>(d);
-
-  // step 1: per-row statistics, one warp per row
-  for (int r = threadIdx.x >> 5; r < nrows; r += kWarps) {
-    const T* xr = x + base + static_cast<long long>(r) * d;
-    const T* gr = g + base + static_cast<long long>(r) * d;
-    float sx = 0.f, sdy = 0.f;
-    for (int c = lane * 4; c < d; c += 128) {
-      float xv[4], gv[4];
-      Vec4<T>::load(xr + c, xv);
-      Vec4<T>::load(gr + c, gv);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sx += xv[j];
-        sdy += gv[j] * (1.f + to_f(sc[c + j]));
-      }
-    }
-    const float mean = warp_sum(sx) / fd;
-    const float mdy = warp_sum(sdy) / fd;
-    float sq = 0.f, sdyx = 0.f;
-    for (int c = lane * 4; c < d; c += 128) {
-      float xv[4], gv[4];
-      Vec4<T>::load(xr + c, xv);
-      Vec4<T>::load(gr + c, gv);
+  for (int n = N, o = 16; n > 1; n >>= 1, o >>= 1) {
+    const bool up = lane & o;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float t = xv[j] - mean;
-        sq = fmaf(t, t, sq);
-        sdyx = fmaf(gv[j] * (1.f + to_f(sc[c + j])), t, sdyx);
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(sq) / fd + eps);
-    const float mdyx = warp_sum(sdyx) / fd * rstd;
-    if (lane == 0) {
-      st_mean[r] = mean;
-      st_rstd[r] = rstd;
-      st_mdy[r] = mdy;
-      st_mdyx[r] = mdyx;
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = up ? v[i] : v[i + n / 2];
+      const float keep = up ? v[i + n / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
     }
   }
-  __syncthreads();
-
-  // step 2: dx and the column sums, one thread per column quad
-  const long long pbase = (static_cast<long long>(b) * n_tiles + tile) * d;
-  for (int c = threadIdx.x * 4; c < d; c += blockDim.x * 4) {
-    float s1[4], asc[4] = {0.f, 0.f, 0.f, 0.f}, ash[4] = {0.f, 0.f, 0.f, 0.f};
+  float s = v[0];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s1[j] = 1.f + to_f(sc[c + j]);
-    for (int r = 0; r < nrows; ++r) {
-      const long long off = base + static_cast<long long>(r) * d + c;
-      const float mean = st_mean[r], rstd = st_rstd[r], mdy = st_mdy[r],
-                  mdyx = st_mdyx[r];
-      float xv[4], gv[4], o[4];
-      Vec4<T>::load(x + off, xv);
-      Vec4<T>::load(g + off, gv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float xhat = (xv[j] - mean) * rstd;
-        const float dy = gv[j] * s1[j];
-        o[j] = rstd * (dy - mdy - xhat * mdyx);
-        asc[j] = fmaf(gv[j], xhat, asc[j]);
-        ash[j] += gv[j];
-      }
-      Vec4<T>::store(dx + off, o);
-    }
-    Vec4<float>::store(dscale_part + pbase + c, asc);
-    Vec4<float>::store(dshift_part + pbase + c, ash);
+  for (int o = (1 << kShift) >> 1; o > 0; o >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+  const int cx = blockDim.x;
+  if (cx > 32) {
+    const int warp = (threadIdx.y * cx + threadIdx.x) >> 5;
+    if ((lane & ((1 << kShift) - 1)) == 0) red[warp][lane >> kShift] = s;
+    __syncthreads();
+    const int nw = cx >> 5, w0 = threadIdx.y * nw;
+    s = 0.f;
+    for (int w = 0; w < nw; ++w) s += red[w0 + w][lane >> kShift];
   }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    v[i] = __shfl_sync(0xffffffffu, s, i << kShift);
+}
+
+// grid (n_tiles, B) in clusters of (cl, 1, 1); block (tile, b) owns rows
+// [tile * tile_rows, ...) of example b. dsums: d_scale then d_shift, each
+// (B, d) in TM, out_stream elements apart.
+template <typename T, typename TM, int V, int PV>
+__global__ void __launch_bounds__(kMaxThreads)
+    ln_mod_bwd_kernel(const T* __restrict__ x, const TM* __restrict__ scale,
+                      const T* __restrict__ g, T* __restrict__ dx,
+                      TM* __restrict__ dsums, long long out_stream,
+                      float* __restrict__ scratch,
+                      unsigned* __restrict__ tickets, int S, int d,
+                      long long scale_stride, int tile_rows, int n_clusters,
+                      bool svec, float eps) {
+  constexpr int U = 4 / PV;
+  extern __shared__ __align__(16) float sm[];
+  // one buffer a round, so a round's writes never meet the other's reads
+  __shared__ float red[2][kMaxWarps][2 * U];
+  const int cx = blockDim.x, ry = blockDim.y;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * tile_rows;
+  const int nrows = max(0, min(tile_rows, S - row0));
+  const long long base = (static_cast<long long>(b) * S + row0) * d;
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  int col[PV];
+  bool on[PV];
+  float s1[PV][V];  // 1 + scale
+  float acc[2][PV][V];  // sums of g * xhat and of g
+#pragma unroll
+  for (int p = 0; p < PV; ++p) {
+    col[p] = (threadIdx.x + p * cx) * V;
+    on[p] = col[p] < d;
+    float m[V];
+    if (on[p]) {
+      load_mod<TM, V>(scale + b * scale_stride + col[p], svec, m);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) m[j] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      s1[p][j] = 1.f + m[j];
+      acc[0][p][j] = 0.f;
+      acc[1][p][j] = 0.f;
+    }
+  }
+
+  // The tile's rows stream through a ring of kStages steps in shared
+  // memory: kStages - 1 steps of copies in flight while a step reduces.
+  // Slot u of step it is row (it * U + u) * ry + ty of the tile; a thread
+  // reads back only the vectors it copied, so the ring needs no barrier.
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));  // a vector
+  const int rstep = ry * U;
+  const int n_it = (nrows + rstep - 1) / rstep;  // the same for the block
+  auto slot = [&](int stage, int u, int stream, int p) {
+    return reinterpret_cast<char*>(sm) +
+           ((((stage * U + u) * 2 + stream) * PV + p) * ry * cx +
+            threadIdx.y * cx + threadIdx.x) * kBytes;
+  };
+  auto issue = [&](int it) {
+    if (it < n_it) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = (it * U + u) * ry + threadIdx.y;
+#pragma unroll
+        for (int p = 0; p < PV; ++p) {
+          const bool ok = r < nrows && on[p];
+          const long long off =
+              ok ? base + static_cast<long long>(r) * d + col[p] : 0;
+#pragma unroll
+          for (int stream = 0; stream < 2; ++stream) {
+            const uint32_t dst =
+                rtmma::smem_addr(slot(it % kStages, u, stream, p));
+            const T* src = (stream == 0 ? x : g) + off;
+            if constexpr (kBytes == 16)
+              rtmma::cp_async_16(dst, src, ok);
+            else
+              rtmma::cp_async_8(dst, src, ok);
+          }
+        }
+      }
+    }
+    rtmma::cp_async_commit();  // empty past the tile: the count stays even
+  };
+
+  // one step: its rows as floats, each read once from the ring
+  auto step = [&](const float (&xf)[U][PV][V], const float (&gf)[U][PV][V],
+                  int it) {
+    float v[2 * U], mean[U], mdy[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float sx = 0.f, sdy = 0.f;
+#pragma unroll
+      for (int p = 0; p < PV; ++p) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          sx += xf[u][p][j];
+          sdy = fmaf(gf[u][p][j], s1[p][j], sdy);
+        }
+      }
+      v[2 * u] = sx;
+      v[2 * u + 1] = sdy;
+    }
+    group_sum<2 * U>(v, red[0]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      mean[u] = v[2 * u] * inv_d;
+      mdy[u] = v[2 * u + 1] * inv_d;
+      float sq = 0.f, sdyx = 0.f;
+#pragma unroll
+      for (int p = 0; p < PV; ++p) {
+        if (!on[p]) continue;  // its zeros are not (0 - mean)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float t = xf[u][p][j] - mean[u];
+          sq = fmaf(t, t, sq);
+          sdyx = fmaf(gf[u][p][j] * s1[p][j], t, sdyx);
+        }
+      }
+      v[2 * u] = sq;
+      v[2 * u + 1] = sdyx;
+    }
+    group_sum<2 * U>(v, red[1]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // dx = rstd dy + (-rstd mean(dy xhat)) xhat + (-rstd mean(dy))
+      const float rstd = rsqrtf(fmaf(v[2 * u], inv_d, eps));
+      const float c1 = -(v[2 * u + 1] * inv_d * rstd) * rstd;
+      const float c0 = -mdy[u] * rstd;
+      const int r = (it * U + u) * ry + threadIdx.y;
+#pragma unroll
+      for (int p = 0; p < PV; ++p) {
+        if (!on[p]) continue;
+        float o[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xhat = (xf[u][p][j] - mean[u]) * rstd;
+          o[j] = fmaf(gf[u][p][j] * s1[p][j], rstd, fmaf(xhat, c1, c0));
+          acc[0][p][j] = fmaf(gf[u][p][j], xhat, acc[0][p][j]);
+          acc[1][p][j] += gf[u][p][j];
+        }
+        if (r < nrows)
+          store_vec<T, V>(dx + base + static_cast<long long>(r) * d + col[p],
+                          o);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int it = 0; it < n_it; ++it) {
+    rtmma::cp_async_wait<kStages - 2>();  // step it has landed
+    issue(it + kStages - 1);              // into the slot step it - 1 left
+    float xf[U][PV][V], gf[U][PV][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int p = 0; p < PV; ++p) {
+        load_vec<T, V>(reinterpret_cast<const T*>(slot(it % kStages, u, 0, p)),
+                       xf[u][p]);
+        load_vec<T, V>(reinterpret_cast<const T*>(slot(it % kStages, u, 1, p)),
+                       gf[u][p]);
+      }
+    step(xf, gf, it);
+  }
+  rtmma::cp_async_wait<0>();
+  __syncthreads();  // the ring's memory becomes the epilogue's
+
+  const int cl = gridDim.x / n_clusters;
+  const rowwise::ColumnSums<TM> cs{dsums, out_stream, scratch,
+                                   tickets + b * cl, d, b, 0, d, n_clusters};
+  rowwise::column_sums<2, PV, V>(acc, sm, cs);
 }
 
 template <typename T, typename TM>
@@ -191,16 +335,93 @@ void launch_fwd(const void* x, const void* scale, const void* shift,
       scale_stride, shift_stride, eps);
 }
 
+struct BwdArgs {
+  const void *x, *scale, *g;
+  void *dx, *dsums;
+  float* scratch;
+  unsigned* tickets;
+  int B, S, d;
+  long long scale_stride;
+  float eps;
+  cudaStream_t st;
+};
+
+// The backward's plan for these shapes; with sizes, only report it
+// (rowwise::report), else launch.
+template <typename T, typename TM, int V, int PV>
+cudaError_t run_bwd(const BwdArgs& a, long long* sizes) {
+  constexpr int U = 4 / PV;
+  auto kernel = ln_mod_bwd_kernel<T, TM, V, PV>;
+  rowwise::Plan p;
+  p.cx = ((a.d / V + PV - 1) / PV + 31) / 32 * 32;
+  p.ry = p.cx >= 256 ? 1 : 256 / p.cx;
+  const size_t ring = static_cast<size_t>(kStages) * U * 2 * PV * p.ry *
+                      p.cx * V * sizeof(T);
+  const size_t sums = sizeof(float) * p.ry * 2 * p.cx * PV * V;
+  p.smem = ring > sums ? ring : sums;
+  cudaError_t e = rowwise::allow_smem(kernel, p.smem);
+  if (e != cudaSuccess) return e;
+  const int bc = a.B < kMaxGridY ? a.B : kMaxGridY;
+  if (!rowwise::plan_tiles(kernel, p, bc, a.S, 1, p.ry * U))
+    return cudaErrorInvalidConfiguration;
+  const int ncl = p.n_clusters();
+  if (sizes != nullptr) {
+    rowwise::report(p, ncl > 1 ? 2LL * bc * ncl * a.d : 0,
+                    static_cast<long long>(bc) * p.cl, sizes);
+    return cudaSuccess;
+  }
+  // the scale as one vector a thread where its slice allows
+  constexpr int kAlign = V * sizeof(TM) < 16 ? V * sizeof(TM) : 16;
+  const bool svec = reinterpret_cast<uintptr_t>(a.scale) % kAlign == 0 &&
+                    a.scale_stride * static_cast<long long>(sizeof(TM)) %
+                            kAlign == 0;
+  const long long out_stream = static_cast<long long>(a.B) * a.d;
+  for (int b0 = 0; b0 < a.B; b0 += kMaxGridY) {
+    const int nb = a.B - b0 < kMaxGridY ? a.B - b0 : kMaxGridY;
+    const long long off = static_cast<long long>(b0) * a.S * a.d;
+    e = rowwise::launch_clusters(
+        kernel, dim3(p.n_tiles, nb, 1), dim3(p.cx, p.ry, 1), p.smem, p.cl,
+        a.st, static_cast<const T*>(a.x) + off,
+        static_cast<const TM*>(a.scale) + b0 * a.scale_stride,
+        static_cast<const T*>(a.g) + off, static_cast<T*>(a.dx) + off,
+        static_cast<TM*>(a.dsums) + static_cast<long long>(b0) * a.d,
+        out_stream, a.scratch, a.tickets, a.S, a.d, a.scale_stride,
+        p.tile_rows, ncl, svec, a.eps);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// PV column vectors a thread: one up to 512 vectors a row, else 2 or 4.
+template <typename T, typename TM, int V>
+cudaError_t run_bwd_v(const BwdArgs& a, long long* sizes) {
+  const int dv = a.d / V;
+  if (dv <= kMaxThreads) return run_bwd<T, TM, V, 1>(a, sizes);
+  if (dv <= 2 * kMaxThreads) return run_bwd<T, TM, V, 2>(a, sizes);
+  if (dv <= 4 * kMaxThreads) return run_bwd<T, TM, V, 4>(a, sizes);
+  return cudaErrorInvalidValue;
+}
+
+// 16-byte vectors (8 bf16 or 4 fp32 elements); bf16 rows whose d is not a
+// multiple of 8 are not 16-byte aligned, and take 8-byte vectors.
 template <typename T, typename TM>
-void launch_bwd(const void* x, const void* scale, const void* g, void* dx,
-                float* dscale_part, float* dshift_part, int B, int S, int d,
-                long long scale_stride, int tile_rows, float eps,
-                cudaStream_t st) {
-  const int n_tiles = (S + tile_rows - 1) / tile_rows;
-  ln_mod_bwd_kernel<T, TM><<<dim3(n_tiles, B), kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const TM*>(scale),
-      static_cast<const T*>(g), static_cast<T*>(dx), dscale_part,
-      dshift_part, S, d, scale_stride, tile_rows, n_tiles, eps);
+cudaError_t run_bwd_t(const BwdArgs& a, long long* sizes) {
+  if constexpr (sizeof(T) == 2) {
+    if (a.d % 8 == 0) return run_bwd_v<T, TM, 8>(a, sizes);
+  }
+  return run_bwd_v<T, TM, 4>(a, sizes);
+}
+
+cudaError_t dispatch_bwd(const BwdArgs& a, int x_dtype, int mod_dtype,
+                         long long* sizes) {
+  if (a.d % 4 != 0 || a.B < 1 || a.S < 1) return cudaErrorInvalidValue;
+  switch (x_dtype * 2 + mod_dtype) {
+    case 0: return run_bwd_t<float, float>(a, sizes);
+    case 1: return run_bwd_t<float, __nv_bfloat16>(a, sizes);
+    case 2: return run_bwd_t<__nv_bfloat16, float>(a, sizes);
+    case 3: return run_bwd_t<__nv_bfloat16, __nv_bfloat16>(a, sizes);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -227,27 +448,32 @@ extern "C" int rt_ln_modulate_fwd(const void* x, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward's plan for these shapes on the current device, into
+// sizes[rowwise::kPlanFields]: fp32 scratch elements, unsigned tickets
+// (zero before the first launch; each launch leaves them zero), cx, ry,
+// tile_rows, n_tiles, cl.
+extern "C" int rt_ln_modulate_bwd_plan(int B, int S, int d, int x_dtype,
+                                       int mod_dtype, long long* sizes) {
+  BwdArgs a = {};
+  a.B = B;
+  a.S = S;
+  a.d = d;
+  return static_cast<int>(dispatch_bwd(a, x_dtype, mod_dtype, sizes));
+}
+
 // x, g, dx: (B, S, d) contiguous in x_dtype; scale (B, d) in mod_dtype with
-// row stride scale_stride; dscale_part, dshift_part: (B, ceil(S /
-// tile_rows), d) fp32. 1 <= tile_rows <= 64, d % 4 == 0.
+// row stride scale_stride; dsums (2, B, d) in mod_dtype: d_scale, d_shift.
+// scratch and tickets as rt_ln_modulate_bwd_plan sizes them. d % 4 == 0,
+// d at most 2048 vectors.
 extern "C" int rt_ln_modulate_bwd(const void* x, const void* scale,
-                                  const void* g, void* dx, void* dscale_part,
-                                  void* dshift_part, int B, int S, int d,
-                                  long long scale_stride, int tile_rows,
-                                  float eps, int x_dtype, int mod_dtype,
-                                  void* stream) {
-  if (d % 4 != 0 || B < 1 || S < 1 || tile_rows < 1 ||
-      tile_rows > kMaxTileRows)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* psc = static_cast<float*>(dscale_part);
-  float* psh = static_cast<float*>(dshift_part);
-  switch (x_dtype * 2 + mod_dtype) {
-    case 0: launch_bwd<float, float>(x, scale, g, dx, psc, psh, B, S, d, scale_stride, tile_rows, eps, st); break;
-    case 1: launch_bwd<float, __nv_bfloat16>(x, scale, g, dx, psc, psh, B, S, d, scale_stride, tile_rows, eps, st); break;
-    case 2: launch_bwd<__nv_bfloat16, float>(x, scale, g, dx, psc, psh, B, S, d, scale_stride, tile_rows, eps, st); break;
-    case 3: launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, scale, g, dx, psc, psh, B, S, d, scale_stride, tile_rows, eps, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                  const void* g, void* dx, void* dsums,
+                                  void* scratch, void* tickets, int B, int S,
+                                  int d, long long scale_stride, float eps,
+                                  int x_dtype, int mod_dtype, void* stream) {
+  const BwdArgs a = {x, scale, g, dx, dsums, static_cast<float*>(scratch),
+                     static_cast<unsigned*>(tickets), B, S, d, scale_stride,
+                     eps, static_cast<cudaStream_t>(stream)};
+  const cudaError_t e = dispatch_bwd(a, x_dtype, mod_dtype, nullptr);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

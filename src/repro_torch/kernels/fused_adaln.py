@@ -22,9 +22,11 @@ launch the kernel or raise; on CPU tensors they run the plain versions
 (``*_ref``). ``gate_residual``, ``ln_modulate`` and ``fused_euler`` tie each
 pair together in a ``torch.autograd.Function`` whose backward calls the
 backward wrapper, never autograd through the forward. The AdaLN backward
-kernels write per-tile (B, n_tiles, d) fp32 partial sums for the (B, d)
-gradients, summed here by one ``torch.sum``, as JAX sums its kernels'
-partials outside them.
+kernels write the (B, d) gradients themselves, summing their tiles' column
+sums in a fixed order (JAX sums its kernels' (B, n_tiles, d) partials
+outside them); they take an fp32 scratch sized by the kernel's own plan and
+a zeroed ticket array kept per (device, stream), which each launch leaves
+zero again.
 """
 from __future__ import annotations
 
@@ -35,9 +37,10 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE_ROWS = 16        # rows of one example per backward block (partials)
 LN_EPS = 1e-6
 _FN = {}
+_PLANS = {}           # AdaLN backward launch plans, by shape and device
+_TICKETS = {}         # zeroed ticket arrays, by (device, stream)
 
 
 # ---------------------------------------------------------------------------
@@ -192,25 +195,66 @@ def gate_residual_fwd(res, branch, gate):
     return out
 
 
+PLAN_FIELDS = ("scratch", "tickets", "cx", "ry", "tile_rows", "n_tiles",
+               "cl")
+
+
+def backward_plan(name, B, S, d, x_dtype, vec_dtype, device):
+    """The launch plan of the AdaLN backward ``name`` (``"gate_residual_bwd"``
+    or ``"ln_modulate_bwd"``) for these shapes and dtypes on the CUDA
+    ``device``, as the kernel's plan function reports it (``PLAN_FIELDS``):
+    the fp32 scratch and tickets a launch takes, blocks of (cx, ry)
+    threads, tiles of tile_rows rows, n_tiles of them an example in
+    clusters of cl."""
+    key = (name, B, S, d, x_dtype, vec_dtype, device.index)
+    if key not in _PLANS:
+        out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+        fn = _kernel(name.rsplit("_", 1)[0], f"rt_{name}_plan",
+                     [_I, _I, _I, _I, _I, _P])
+        with torch.cuda.device(device):
+            rc = fn(B, S, d, _DTYPES[x_dtype], _DTYPES[vec_dtype], out)
+        _build.check(rc, f"{name} plan")
+        _PLANS[key] = dict(zip(PLAN_FIELDS, out))
+    return _PLANS[key]
+
+
+def _workspace(name, x, vec):
+    """(fp32 scratch, tickets) for one launch of the AdaLN backward
+    ``name`` on the (B, S, d) stream x and the (B, d) vector vec. The
+    tickets are zero between launches; launches on one stream share them,
+    so they run one after another."""
+    B, S, d = x.shape
+    plan = backward_plan(name, B, S, d, x.dtype, vec.dtype, x.device)
+    scratch = torch.empty(plan["scratch"], dtype=torch.float32,
+                          device=x.device)
+    key = (x.device.index, _stream(x))
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < plan["tickets"]:
+        tickets = _TICKETS[key] = torch.zeros(max(plan["tickets"], 1024),
+                                              dtype=torch.int32,
+                                              device=x.device)
+    return scratch, tickets
+
+
 def gate_residual_bwd(branch, gate, g):
     """(d_branch like branch, d_gate like gate) from the cotangent g of the
     output (branch's dtype)."""
     if branch.device.type == "cpu":
         return gate_residual_bwd_ref(branch, gate, g)
     B, S, d = _check_rows("gate_residual_bwd", (branch, g), (gate,))
+    scratch, tickets = _workspace("gate_residual_bwd", branch, gate)
     d_branch = torch.empty_like(branch)
-    part = torch.empty((B, -(-S // TILE_ROWS), d), dtype=torch.float32,
-                       device=branch.device)
+    d_gate = torch.empty((B, d), dtype=gate.dtype, device=branch.device)
     fn = _kernel("gate_residual", "rt_gate_residual_bwd",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _I, _P])
+                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P])
     with torch.cuda.device(branch.device):
         rc = fn(branch.data_ptr(), gate.data_ptr(), g.data_ptr(),
-                d_branch.data_ptr(), part.data_ptr(), B, S, d,
-                gate.stride(0), TILE_ROWS, _DTYPES[branch.dtype],
-                _DTYPES[gate.dtype], _stream(branch))
+                d_branch.data_ptr(), d_gate.data_ptr(), scratch.data_ptr(),
+                tickets.data_ptr(), B, S, d, gate.stride(0),
+                _DTYPES[branch.dtype], _DTYPES[gate.dtype], _stream(branch))
     _build.check(rc, "gate_residual_bwd")
     gate_residual_bwd.launches += 1
-    return d_branch, part.sum(1).to(gate.dtype)
+    return d_branch, d_gate
 
 
 def ln_modulate_fwd(x, scale, shift, eps: float = LN_EPS):
@@ -237,20 +281,19 @@ def ln_modulate_bwd(x, scale, g, eps: float = LN_EPS):
     if x.device.type == "cpu":
         return ln_modulate_bwd_ref(x, scale, g, eps)
     B, S, d = _check_rows("ln_modulate_bwd", (x, g), (scale,))
+    scratch, tickets = _workspace("ln_modulate_bwd", x, scale)
     dx = torch.empty_like(x)
-    part = torch.empty((2, B, -(-S // TILE_ROWS), d), dtype=torch.float32,
-                       device=x.device)
+    sums = torch.empty((2, B, d), dtype=scale.dtype, device=x.device)
     fn = _kernel("ln_modulate", "rt_ln_modulate_bwd",
-                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _F, _I, _I,
+                 [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _F, _I, _I,
                   _P])
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                part[0].data_ptr(), part[1].data_ptr(), B, S, d,
-                scale.stride(0), TILE_ROWS, eps, _DTYPES[x.dtype],
+                sums.data_ptr(), scratch.data_ptr(), tickets.data_ptr(), B,
+                S, d, scale.stride(0), eps, _DTYPES[x.dtype],
                 _DTYPES[scale.dtype], _stream(x))
     _build.check(rc, "ln_modulate_bwd")
     ln_modulate_bwd.launches += 1
-    sums = part.sum(2).to(scale.dtype)
     return dx, sums[0], sums[1]
 
 

@@ -376,6 +376,146 @@ def test_ln_modulate_kernels(cuda, xdt, mdt, shape):
         _bf16_close(got, want)
 
 
+# (B, S, d, x dtype, vector dtype, vector column offset, extra head
+# columns): the redesigned AdaLN backwards at their edges. The two-pass
+# main case and DiT-S/2's fp32 step; S = 1, 2 and 130 (a ragged last tile);
+# bf16 rows of a d that is not a multiple of 8 (8-byte vectors); vector
+# slices off their vector alignment or with an odd row stride (scalar
+# loads); d wider than 512 vectors (2 and 4 vectors a thread, the last past
+# 48 KB of shared memory); more examples than one launch's grid holds.
+ADALN_BWD_EDGES = [(8, 512, 2048, torch.bfloat16, torch.float32, 0, 0),
+                   (256, 256, 384, torch.float32, torch.float32, 0, 0),
+                   (8, 1, 2048, torch.bfloat16, torch.bfloat16, 0, 0),
+                   (8, 2, 2048, torch.float32, torch.float32, 0, 0),
+                   (8, 130, 2048, torch.bfloat16, torch.float32, 0, 0),
+                   (3, 130, 68, torch.bfloat16, torch.bfloat16, 0, 8),
+                   (5, 33, 68, torch.bfloat16, torch.float32, 1, 0),
+                   (4, 70, 384, torch.float32, torch.float32, 1, 1),
+                   (4, 70, 384, torch.float32, torch.bfloat16, 3, 1),
+                   (2, 57, 2048, torch.bfloat16, torch.bfloat16, 2, 8),
+                   (2, 33, 6144, torch.bfloat16, torch.float32, 0, 0),
+                   (2, 9, 8192, torch.float32, torch.float32, 0, 0),
+                   (65537, 1, 4, torch.float32, torch.float32, 0, 0)]
+
+
+def _adaln_bwd_case(dev, B, S, d, xdt, mdt, off, extra, seed):
+    """(x, g, scale, gate) on the card: x off-centre, scale and gate column
+    slices at offset off of one (B, 6d + extra) head output."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (2.0 + torch.randn(B, S, d, generator=gen, device=dev)).to(xdt)
+    g = torch.randn(B, S, d, generator=gen, device=dev).to(xdt)
+    heads = (0.1 * torch.randn(B, 6 * d + extra, generator=gen, device=dev)
+             ).to(mdt)
+    return x, g, heads[:, d + off:2 * d + off], \
+        heads[:, 2 * d + off:3 * d + off]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,d,xdt,mdt,off,extra", ADALN_BWD_EDGES)
+def test_adaln_backward_kernels_at_their_edges(cuda, B, S, d, xdt, mdt, off,
+                                               extra):
+    """Both redesigned backwards against their plain versions: d_branch
+    bit-equal, dx and the (B, d) sums within one bf16 rounding; one launch
+    each, whatever the plan."""
+    x, g, scale, gate = _adaln_bwd_case(cuda, B, S, d, xdt, mdt, off, extra,
+                                        d + S + off)
+    n0 = (AD.ln_modulate_bwd.launches, AD.gate_residual_bwd.launches)
+    got_ln = AD.ln_modulate_bwd(x, scale, g)
+    got_gate = AD.gate_residual_bwd(x, gate, g)
+    torch.cuda.synchronize()
+    assert (AD.ln_modulate_bwd.launches, AD.gate_residual_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    for got, want in zip(got_ln, AD.ln_modulate_bwd_ref(x, scale, g)):
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        _bf16_close(got, want)
+    r_br, r_gate = AD.gate_residual_bwd_ref(x, gate, g)
+    torch.testing.assert_close(got_gate[0], r_br, atol=0, rtol=0)
+    assert got_gate[1].dtype == mdt
+    _bf16_close(got_gate[1], r_gate)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ln_modulate_bwd", "gate_residual_bwd"])
+@pytest.mark.parametrize("B,d,dt", [(8, 2048, torch.bfloat16),
+                                    (8, 2048, torch.float32),
+                                    (1, 384, torch.float32)])
+def test_adaln_backward_at_one_tile_and_a_row_either_side(cuda, name, B, d,
+                                                         dt):
+    """S at the tile the kernel's plan picks for S = 512, one row less and
+    one row more, each against the plain version."""
+    rows = AD.backward_plan(name, B, 512, d, dt, torch.float32,
+                            cuda)["tile_rows"]
+    kern, ref = getattr(AD, name), getattr(AD, name + "_ref")
+    for S in (rows - 1, rows, rows + 1):
+        x, g, scale, _ = _adaln_bwd_case(cuda, B, S, d, dt, torch.float32,
+                                         0, 0, S)
+        for got, want in zip(kern(x, scale, g), ref(x, scale, g)):
+            _bf16_close(got, want)
+
+
+@pytest.mark.gpu
+def test_adaln_backward_is_deterministic_and_replays_in_a_graph(cuda):
+    """Two calls give bit-equal results (the tiles' sums are combined in a
+    fixed order), and both backwards captured in one CUDA graph give the
+    eager results on every replay (the tickets are left at zero)."""
+    cases = [_adaln_bwd_case(cuda, 8, S, 2048, torch.bfloat16,
+                             torch.float32, 0, 0, S) for S in (512, 130)]
+    cases.append(_adaln_bwd_case(cuda, 256, 256, 384, torch.float32,
+                                 torch.float32, 0, 0, 7))
+
+    def run():
+        return [t for x, g, sc, gate in cases
+                for t in (*AD.ln_modulate_bwd(x, sc, g),
+                          *AD.gate_residual_bwd(x, gate, g))]
+
+    eager = run()
+    again = run()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, again):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(3):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_ln_modulate_autograd_on_cuda(cuda, xdt):
+    """Gradients reach x, scale and shift through the ln-modulate Function
+    on CUDA tensors, by the backward kernel, and equal the plain
+    versions'."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    B, S, d = 4, 70, 256
+    x = (1.0 + torch.randn(B, S, d, generator=gen, device=cuda)).to(xdt) \
+        .requires_grad_()
+    heads = _heads(gen, B, d, torch.float32, cuda).requires_grad_()
+    n0 = AD.ln_modulate_bwd.launches
+    out = AD.ln_modulate(x, heads[:, d:2 * d], heads[:, :d])
+    assert out.grad_fn is not None
+    g = torch.randn(B, S, d, generator=gen, device=cuda).to(xdt)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert AD.ln_modulate_bwd.launches == n0 + 1
+    r_dx, r_sc, r_sh = AD.ln_modulate_bwd_ref(x.detach(),
+                                              heads.detach()[:, d:2 * d], g)
+    _bf16_close(x.grad, r_dx)
+    _bf16_close(heads.grad[:, d:2 * d], r_sc)
+    _bf16_close(heads.grad[:, :d], r_sh)
+    assert (heads.grad[:, 2 * d:] == 0).all()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,block_rows", [(512, 256), (130, 256), (130, 64),
                                           (16, 256)])

@@ -74,19 +74,19 @@ def _stream(rs, shape, dtype):
     return jnp.asarray(x), t(x)
 
 
-def _slices(rs, n, scale=0.1):
-    """n (B, D) column slices of one (B, 6D) head output: JAX copies, torch
-    strided views (row stride 6D) of one leaf that takes gradients."""
-    heads = (scale * rs.randn(B, 6 * D)).astype(np.float32)
+def _slices(rs, n, scale=0.1, d=D):
+    """n (B, d) column slices of one (B, 6d) head output: JAX copies, torch
+    strided views (row stride 6d) of one leaf that takes gradients."""
+    heads = (scale * rs.randn(B, 6 * d)).astype(np.float32)
     th = t(heads).requires_grad_()
-    js = [jnp.asarray(heads[:, i * D:(i + 1) * D]) for i in range(n)]
-    ts = [th[:, i * D:(i + 1) * D] for i in range(n)]
-    assert all(x.stride() == (6 * D, 1) for x in ts)
+    js = [jnp.asarray(heads[:, i * d:(i + 1) * d]) for i in range(n)]
+    ts = [th[:, i * d:(i + 1) * d] for i in range(n)]
+    assert all(x.stride() == (6 * d, 1) for x in ts)
     return js, ts, th
 
 
-def _grads_of_slices(th, n):
-    return [th.grad[:, i * D:(i + 1) * D] for i in range(n)]
+def _grads_of_slices(th, n, d=D):
+    return [th.grad[:, i * d:(i + 1) * d] for i in range(n)]
 
 
 def _tol(dtype):
@@ -100,13 +100,19 @@ def _tol(dtype):
 # Kernels: plain versions against the Pallas kernels in interpret mode
 # ---------------------------------------------------------------------------
 
+# widths: the reduced models' 64, DiT-S/2's 384 (a row of 96 fp32 vectors:
+# 3 warps), and 68, a multiple of 4 but not of 8 (8-byte bf16 vectors)
+WIDTHS = [D, 384, 68]
+
+
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("S", [16, 130])
-def test_ln_modulate_matches_pallas(S, dtype):
-    rs = np.random.RandomState(S)
-    jx, tx = _stream(rs, (B, S, D), dtype)
-    (jsc, jsh), (tsc, tsh), th = _slices(rs, 2)
-    jg, tg = _stream(rs, (B, S, D), dtype)
+def test_ln_modulate_matches_pallas(S, dtype, d):
+    rs = np.random.RandomState(S + d - D)
+    jx, tx = _stream(rs, (B, S, d), dtype)
+    (jsc, jsh), (tsc, tsh), th = _slices(rs, 2, d=d)
+    jg, tg = _stream(rs, (B, S, d), dtype)
     f = lambda x, sc, sh: JAD.fused_ln_modulate(  # noqa: E731
         x, sc, sh, block_rows=JBLK, interpret=True)
     out_j, vjp = jax.vjp(f, jx, jsc, jsh)
@@ -119,19 +125,20 @@ def test_ln_modulate_matches_pallas(S, dtype):
     close(out_t, out_j, va, vr)
     assert tx.grad.dtype == tx.dtype
     close(tx.grad, dx_j, ga, gr)
-    dsc_t, dsh_t = _grads_of_slices(th, 2)
+    dsc_t, dsh_t = _grads_of_slices(th, 2, d)
     close(dsc_t, dsc_j, ga, 1e-4)
     close(dsh_t, dsh_j, ga, 1e-4)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("S", [16, 130])
-def test_gate_residual_grads_match_pallas(S, dtype):
-    rs = np.random.RandomState(100 + S)
-    jr, tr = _stream(rs, (B, S, D), dtype)
-    jb, tb = _stream(rs, (B, S, D), dtype)
-    (jgate,), (tgate,), th = _slices(rs, 1)
-    jg, tg = _stream(rs, (B, S, D), dtype)
+def test_gate_residual_grads_match_pallas(S, dtype, d):
+    rs = np.random.RandomState(100 + S + d - D)
+    jr, tr = _stream(rs, (B, S, d), dtype)
+    jb, tb = _stream(rs, (B, S, d), dtype)
+    (jgate,), (tgate,), th = _slices(rs, 1, d=d)
+    jg, tg = _stream(rs, (B, S, d), dtype)
     f = lambda r, b_, g_: JAD.fused_gate_residual(  # noqa: E731
         r, b_, g_, block_rows=JBLK, interpret=True)
     out_j, vjp = jax.vjp(f, jr, jb, jgate)
@@ -144,7 +151,7 @@ def test_gate_residual_grads_match_pallas(S, dtype):
     close(out_t, out_j, va, vr)
     close(tr.grad, dr_j, 0, 0)            # d res is the cotangent itself
     close(tb.grad, db_j, ga, gr)
-    close(_grads_of_slices(th, 1)[0], dg_j, ga, 1e-4)
+    close(_grads_of_slices(th, 1, d)[0], dg_j, ga, 1e-4)
 
 
 @pytest.mark.parametrize("S", [16, 130])
