@@ -13,7 +13,8 @@ Phases, each fatal on failure:
      ``dq_tc_kernel``, ``dkv_tc_kernel``, ``dq_tf32_kernel``,
      ``dkv_tf32_kernel``: registers, spills), and one line (registers,
      shared memory, spills) per instantiation of the paged kernels
-     (``paged_decode_kernel``, ``prefill_tc_kernel``);
+     (``paged_decode_kernel``, ``prefill_tc_kernel``,
+     ``prefill_tf32_kernel``);
   3. kernels: each of the thirteen kernels against its plain PyTorch
      version on the card, at the serving and training paths' shapes (max
      |err| <= 2e-4 + 2e-4 |ref| for fp32 outputs from identical inputs,
@@ -24,15 +25,18 @@ Phases, each fatal on failure:
      and the 3xTF32 tensor-core rate), the plain version and, where one
      PyTorch call computes the same function, that call (the bf16
      attention dq and dk/dv, the fp32 forward, dq and dk/dv at DiT's shape,
-     the gate-residual forward's (d) fp32 and (m) cases, decode (a) and
-     prefill (c) also printed beside the times PERF.md records for their
+     the gate-residual forward's (d) fp32 and (m) cases, decode (a),
+     prefill (c) in bf16 and in fp32 and the ln-modulate forward's main
+     case also printed beside the times PERF.md records for their
      predecessors, which this run does not measure, and DiT's fp32 dq +
      dk/dv beside SDPA's whole backward); the paged kernels at stablelm's
      (a, c) and h2o-danube3's (b) shapes, each case with the kernel it ran
-     (prefill (c) through both routes: bf16 on the tensor cores, fp32 on
-     the CUDA cores); the row-wise kernels (ln-modulate,
-     gate-residual backward, EDM loss) and the attention calls of a
-     two-pass layer at olmo-1b's shapes; a ragged causal attention case
+     (prefill (c) through both routes: bf16 q and pages on the bf16
+     tensor-core kernel; fp32 q over fp32 pages and over int8 pages, the
+     fp32 and fp32_kvint8 policies, on the 3xTF32 one); the row-wise
+     kernels (ln-modulate, gate-residual backward, EDM loss; each AdaLN
+     kernel's launch plan printed) and the attention calls of a two-pass
+     layer at olmo-1b's shapes; a ragged causal attention case
      at S=1000 in bf16;
      the Euler step forward and backward at the DiT sampler's (256, 256, 16)
      and the recurrent sampler's (8, 512, 512) with F strided, in bf16 and
@@ -47,10 +51,15 @@ Phases, each fatal on failure:
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
      128-512), chunk 64, 32 new tokens; the launch counters of that run must
      equal the path's arithmetic;
-  5. cross-check: one fp32 serve step from the same prefilled pool and z,
-     through the kernels and through their plain versions; logits must
-     agree to 1e-3 relative. Then its bf16 counterpart: the prefill (the
-     tensor-core prefill route) and one serve step through the kernels,
+  5. cross-check: the fp32 policy's prefill of phase 4's prompts through
+     the kernels (the 3xTF32 prefill route; after a warm-up, under the
+     profiler: device busy ms and the prefill kernel's ms, launch counts
+     checked) and through their plain versions (``impl="ref"``), the
+     committed pools (pages 1 and up: padding writes the trash page)
+     within 1e-3 relative; one fp32 serve step from the kernels' pool and
+     one z, through the kernels and through their plain versions; logits
+     must agree to 1e-3 relative. Then its bf16 counterpart: the prefill
+     (the tensor-core prefill route) and one serve step through the kernels,
      and both again through the plain versions, from the same z; the
      first-step logits within 5e-2 x max|ref| (the bound
      tests/test_torch_serve.py holds bf16 first-step logits to), greedy
@@ -145,11 +154,15 @@ DIT_SAMPLES, DIT_STEPS = 256, 18
 HUGINN_BPTT = 8
 TC_KERNELS = ("fwd_tc_kernel", "fwd_tf32_kernel", "dq_tc_kernel",
               "dkv_tc_kernel", "dq_tf32_kernel", "dkv_tf32_kernel")
-PAGED_KERNELS = ("paged_decode_kernel", "prefill_tc_kernel")
-# kernel ms that PERF.md records for the kernels the paged redesign
-# replaced (NVIDIA H100 80GB HBM3, 700.00 W); printed beside this run's
-# times, never measured here
+PAGED_KERNELS = ("paged_decode_kernel", "prefill_tc_kernel",
+                 "prefill_tf32_kernel")
+# kernel ms that PERF.md records for the kernels the paged redesigns
+# replaced (NVIDIA H100 80GB HBM3, 700.00 W): decode (a), prefill (c) in
+# bf16, and (c) with fp32 q and pages (the CUDA-core
+# paged_attention_kernel); printed beside this run's times, never measured
+# here
 PRIOR_DECODE_A_MS, PRIOR_PREFILL_C_MS = 0.0548, 0.3148
+PRIOR_PREFILL_C_FP32_MS = 0.2593
 # the bf16 serve cross-check (phase 5): prompts and z of each seed, and the
 # limits set from its readings (PERF.md): the whole path's logits, and the
 # pages the tensor-core prefill reaches, above every sound seed and below
@@ -420,7 +433,7 @@ def paged_case(label, kind, *, KV, G, hd, page_dtype, q_dtype, window,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
            "library_ms": None, "bytes": nbytes, "flops": flops}
     if prefill:
-        route = {"tc": "prefill_tc_kernel", "simt": "paged_attention_kernel"
+        route = {"tc": "prefill_tc_kernel", "tf32": "prefill_tf32_kernel"
                  }[FP.prefill_route(q_dtype, page_dtype)]
     else:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -500,7 +513,7 @@ def rowwise_case(label, kern, ref, sets, nbytes, flops, prior=None) -> dict:
         f"{flops / 1e9:.3f} GFLOP) | plain {plain_ms:.4f} ms | library none")
     if prior is not None:
         say(f"[kernels] {label}: {ms:.4f} ms this run; the kernel it "
-            f"replaced {prior:.4f} ms (PR 20's run, recorded in PERF.md, "
+            f"replaced {prior:.4f} ms (recorded in PERF.md, "
             "NVIDIA H100 80GB HBM3, 700.00 W; not this run)")
     return {"case": label, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
@@ -522,12 +535,15 @@ def adaln_sets(gen, dev, B, S, d, dt):
 
 
 def adaln_plan(name, x, vec) -> str:
-    """The redesigned AdaLN backward's launch plan at these inputs."""
+    """A redesigned AdaLN kernel's launch plan at these inputs."""
     from repro_torch.kernels import fused_adaln as AD
     B, S, d = x.shape
-    p = AD.backward_plan(name, B, S, d, x.dtype, vec.dtype, x.device)
-    return (f"blocks ({p['cx']}, {p['ry']}) threads, {p['n_tiles']} tiles "
-            f"of {p['tile_rows']} rows an example in clusters of {p['cl']}, "
+    p = AD.launch_plan(name, B, S, d, x.dtype, vec.dtype, x.device)
+    tiles = (f"blocks ({p['cx']}, {p['ry']}) threads, {p['n_tiles']} tiles "
+             f"of {p['tile_rows']} rows an example")
+    if name == "ln_modulate_fwd":
+        return tiles
+    return (f"{tiles} in clusters of {p['cl']}, "
             f"{p['scratch'] * 4 / 1e6:.3f} MB scratch; the tiles are summed "
             "in the kernel (no partial-sum launch)")
 
@@ -536,6 +552,10 @@ def adaln_plan(name, x, vec) -> str:
 # PR 20's chip_smoke.py run (NVIDIA H100 80GB HBM3, 700.00 W; recorded in
 # PERF.md): printed beside this run's, never measured here
 PRIOR_LN_BWD_MS = {"bf16": 0.0564, "fp32": 0.0755, "ragged": 0.0336}
+# the warp-per-row ln-modulate forward the row-tile redesign replaced, at
+# the main case (recorded in PERF.md, NVIDIA H100 80GB HBM3, 700.00 W; not
+# measured here)
+PRIOR_LN_FWD_MS = 0.0193
 PRIOR_GATE_BWD_MS = {"bf16": 0.0318, "fp32": 0.0433, "ragged": 0.0207,
                      "dit": 0.1101}
 
@@ -567,11 +587,14 @@ def phase_rowwise(dev) -> dict:
         sets = adaln_sets(gen, dev, B, S, d, dt)
         n, elt, vec = B * S * d, sets[0][0].element_size(), B * d * 4
         shape = f"({B},{S},{d}) {tag}, fp32 slices"
+        label = f"(i) ln_modulate fwd {shape}"
+        say(f"[kernels] {label}: "
+            f"{adaln_plan('ln_modulate_fwd', sets[0][0], sets[0][1])}")
         rows["ln_modulate_fwd"].append(rowwise_case(
-            f"(i) ln_modulate fwd {shape}",
-            lambda x, sc, sh, g: AD.ln_modulate_fwd(x, sc, sh),
+            label, lambda x, sc, sh, g: AD.ln_modulate_fwd(x, sc, sh),
             lambda x, sc, sh, g: AD.ln_modulate_ref(x, sc, sh),
-            sets, 2 * n * elt + 2 * vec, 8 * n))
+            sets, 2 * n * elt + 2 * vec, 8 * n,
+            PRIOR_LN_FWD_MS if key == "bf16" else None))
         label = f"(i) ln_modulate bwd {shape}"
         say(f"[kernels] {label}: "
             f"{adaln_plan('ln_modulate_bwd', sets[0][0], sets[0][1])}")
@@ -941,10 +964,16 @@ def phase_kernels(dev) -> dict:
         "flash_prefill", KV=32, G=1, hd=64, page_dtype=bf16, q_dtype=bf16,
         window=None, lengths=starts, dev=dev, gen=gen, C=CHUNK,
         prior=PRIOR_PREFILL_C_MS))
-    # (c) through the fp32 route (the fp32 policy's prefill: CUDA cores)
+    # (c) through the 3xTF32 route: the fp32 policy's prefill (fp32 q and
+    # pages) and the fp32_kvint8 policy's (fp32 q, int8 pages)
     rows["flash_prefill"].append(paged_case(
         "(c) prefill C=64 B=8 KV=32 G=1 hd=64 fp32 pages, fp32 q",
         "flash_prefill", KV=32, G=1, hd=64, page_dtype=f32, q_dtype=f32,
+        window=None, lengths=starts, dev=dev, gen=gen, C=CHUNK,
+        prior=PRIOR_PREFILL_C_FP32_MS))
+    rows["flash_prefill"].append(paged_case(
+        "(c) prefill C=64 B=8 KV=32 G=1 hd=64 int8 pages, fp32 q",
+        "flash_prefill", KV=32, G=1, hd=64, page_dtype=i8, q_dtype=f32,
         window=None, lengths=starts, dev=dev, gen=gen, C=CHUNK))
     # (d) gate-residual: the probe's (8,1,2048) fp32, a (8,64,2048) bf16
     rows["gate_residual"].append(gate_case(
@@ -1209,20 +1238,75 @@ def _generated(out, plens):
                                       for b, p in enumerate(plens)]))
 
 
-def phase_crosscheck(dev, model) -> dict:
+def fp32_prefill(dev, model, impl: str, profiled: bool = False):
+    """Phase 4's prompts prefilled into a fresh pool by the fp32 policy's
+    engine through ``impl``: (kv, table, lengths, timing); with
+    ``profiled``, timing holds the prefill's device busy ms and the ms of
+    the paged-attention kernels in it (``rtk::``, the prefill kernels of any
+    version of the port) under torch.profiler, else None."""
     from repro_torch.launch.serve import get_engine
     from repro_torch.nn import cache as KVC
-    dbm, params, gen = model
+    dbm, params, _ = model
     prompts, plens = prompts_np(dbm.cfg.vocab_size)
-    eng = get_engine(dbm, precision="fp32", chunk_size=CHUNK)
+    eng = get_engine(dbm, precision="fp32", chunk_size=CHUNK, impl=impl)
     pps = KVC.pages_for(PROMPT + MAX_NEW, PSZ)
     kv = dbm.model.init_paged_cache(BATCH, 1 + BATCH * pps, PSZ, eng.pol,
                                     device=dev)
     table = KVC.identity_page_table(BATCH, pps, device=dev)
-    kv, lengths = eng.run_prefill(
-        params, kv, table, torch.zeros(BATCH, dtype=torch.int32, device=dev),
-        torch.as_tensor(prompts, device=dev),
-        torch.as_tensor(plens, dtype=torch.int32, device=dev))
+    state = {"lens": torch.zeros(BATCH, dtype=torch.int32, device=dev)}
+
+    def run():
+        _, state["lens"] = eng.run_prefill(
+            params, kv, table, state["lens"], torch.as_tensor(prompts,
+                                                              device=dev),
+            torch.as_tensor(plens, dtype=torch.int32, device=dev))
+
+    timing = None
+    if profiled:
+        wall, busy, rows = device_busy(run, top=None)
+        timing = {"wall_ms": wall, "device_ms": busy,
+                  "attention_ms": sum(ms for ms, _, key in rows
+                                      if "rtk::" in key),
+                  "attention_launches": sum(n for _, n, key in rows
+                                            if "rtk::" in key)}
+    else:
+        run()
+    return kv, table, state["lens"], timing
+
+
+def phase_crosscheck(dev, model) -> dict:
+    """The fp32 policy's prefill through the kernels (the 3xTF32 prefill
+    route, timed under the profiler after a warm-up) and through the plain
+    versions (``impl="ref"``), committed pools (pages 1 and up) within
+    1e-3; then one fp32 serve step from the kernels' pool through both,
+    logits within 1e-3."""
+    from repro_torch import kernels as K
+    dbm, params, gen = model
+    fp32_prefill(dev, model, "kernels")                 # warm-up
+    K.reset_launch_counts()
+    kv, table, lengths, tim = fp32_prefill(dev, model, "kernels",
+                                           profiled=True)
+    counts = K.launch_counts()
+    expect = expected_counts(flash_prefill=-(-PROMPT // CHUNK)
+                             * dbm.cfg.n_layers)
+    check_counts("fp32 prefill", counts, expect)
+    kv_pre, _, lens_pre, _ = fp32_prefill(dev, model, "ref")
+    # pages 1 and up: a chunk's padding entries write the trash page 0
+    pre_rel = max(((getattr(kv, n)[:, 1:] - getattr(kv_pre, n)[:, 1:]).abs()
+                   .max() / getattr(kv_pre, n)[:, 1:].abs().max()).item()
+                  for n in ("k", "v"))
+    say(f"[crosscheck] fp32 prefill ({-(-PROMPT // CHUNK)} chunks, "
+        f"{counts['flash_prefill']} "
+        f"prefill_tf32 launches), kernels vs plain versions: committed pool "
+        f"rel max|diff| {pre_rel:.2e} (limit 1e-3) | device busy "
+        f"{tim['device_ms']:.2f} ms of {tim['wall_ms']:.1f} ms under the "
+        f"profiler, the prefill attention kernel {tim['attention_ms']:.2f} "
+        f"ms in {tim['attention_launches']} launches")
+    if not (pre_rel <= 1e-3 and math.isfinite(pre_rel)) or not torch.equal(
+            lengths, lens_pre):
+        raise SmokeError(f"fp32 prefill cross-check: pools differ by "
+                         f"{pre_rel:.2e}")
+    del kv_pre
     z0 = dbm.db.sigma_max * torch.randn((BATCH, 1, dbm.cfg.d_model),
                                         generator=gen, device=dev)
     kv_ref = kv.clone()
@@ -1244,7 +1328,8 @@ def phase_crosscheck(dev, model) -> dict:
         f"max|diff| {pool_rel:.2e} | greedy tokens equal {same:.3f}")
     if not (rel <= 1e-3 and math.isfinite(rel)):
         raise SmokeError(f"fp32 cross-check: logits differ by {rel:.2e}")
-    return {"logits_rel": rel, "pool_rel": pool_rel}
+    return {"logits_rel": rel, "pool_rel": pool_rel,
+            "prefill_pool_rel": pre_rel, "prefill": tim}
 
 
 def prefill_ref_bf16_p(q, k_pages, v_pages, page_table, lengths, *,

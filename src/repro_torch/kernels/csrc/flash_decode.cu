@@ -458,7 +458,6 @@ extern "C" int rt_flash_decode(const void* q, int q_bf16, const void* k_pages,
   a.psz = psz;
   a.window = window;
   a.scale = scale;
-  a.nrg = 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(B * KV, nsplit);
   cudaError_t e;

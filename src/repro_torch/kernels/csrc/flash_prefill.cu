@@ -3,13 +3,13 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_prefill.py:52
 // (_prefill_kernel, called through flash_prefill at :114). Common masks and
 // edges: see paged_attention.cuh. Two routes, a plain function of the dtypes
-// (flash_prefill.prefill_route), with no fallback between them:
+// (flash_prefill.prefill_route), with no fallback between them, both on the
+// tensor cores with one block of 4 warps per (64-row tile, slot * kv head):
 //   * bf16 q over bf16 or int8 pages (every bf16 policy, the serving path's
-//     commit_prompt_chunk among them): prefill_tc_kernel, below;
-//   * fp32 q or fp32 pages (the fp32 and fp32_kvint8 policies):
-//     paged_attention_kernel<T, HD, 8> of paged_attention.cuh on CUDA
-//     cores, one block of 8 warps per (slot, kv head, tile of rows), 8 rows
-//     a warp; up to 4 warps split the rows and the others split the keys.
+//     commit_prompt_chunk among them): prefill_tc_kernel, bf16 mma.sync;
+//   * fp32 q or fp32 pages (the fp32 and fp32_kvint8 policies; fp32 q over
+//     bf16 pages and bf16 q over fp32 pages too): prefill_tf32_kernel,
+//     3xTF32 mma.sync, further below.
 //
 // prefill_tc_kernel. What bounds it: at stablelm's case (C=64, B=8, KV=32,
 // G=1, hd 64, chunks at 0..448) the call must move 25 MB (0.0075 ms at
@@ -366,40 +366,398 @@ __global__ void __launch_bounds__(kPThreads, HD == 64 ? 3 : 2)
   }
 }
 
-// The CUDA-core kernel in prefill (R = 8 rows a warp), by page dtype and
-// head dim.
-template <typename T, int HD>
-cudaError_t launch_hd(const PagedArgs& a, dim3 grid, dim3 block,
-                      cudaStream_t st) {
-  paged_attention_kernel<T, HD, 8><<<grid, block, 0, st>>>(a);
-  return cudaGetLastError();
-}
+// prefill_tf32_kernel: the route of fp32 q or fp32 pages. What bounds it: at
+// stablelm's case with fp32 q and pages (C=64, B=8, KV=32, G=1, hd 64,
+// chunks at 0..448) the call must move 46 MB (0.0138 ms at 3.35 TB/s) and
+// do about 1 GFLOP over the kept pairs, which at the card's fp32-accurate
+// rate (3xTF32: 495 / 3 TFLOP/s) is 6 us: bytes, as long as the products
+// run on the tensor cores; on CUDA cores (67 TFLOP/s) the products alone
+// would take 15 us. The design is prefill_tc_kernel's, with fp32 tiles:
+//   Grid and rows: as prefill_tc_kernel, one block of 4 warps per (64-row
+//   tile, slot * kv head), rows r = i*G + g, 16 rows a warp; so a K/V row
+//   is read from device memory once per row tile.
+//   Q: copied once into an fp32 tile (cp.async from fp32 q; bf16 q widened
+//   on the copy, exact). At hd 64 each warp splits its A fragments into
+//   tf32 big + small (split_tf32) once and keeps them in registers (64);
+//   at hd 120/128 that would be 128 registers more, so it re-reads and
+//   splits them each key tile, as fwd_tf32_kernel does.
+//   K/V: 64-key tiles gathered through the page table by cp.async. fp32
+//   pages land in fp32 tiles of fwd_tf32_kernel's row pitches (Q and K
+//   rows a multiple of 32 floats plus 8, V rows plus 4: every fragment read
+//   touches each bank once) in a ring of its stage count (2 at hd 64; 1 at
+//   hd 120/128, where two stages would leave one block an SM). bf16 and
+//   int8 pages go raw through a 2-stage ring of their own (with the int8
+//   page scales, 4-byte copies); after the barrier the block widens the
+//   tile to fp32 (exact) into one K and one V tile, and a second barrier
+//   publishes it. Only tiles some row can see are loaded, keys outside
+//   [max(0, q_first - window + 1), q_last] and past the pool zero-filled.
+//   Products: S = Q K^T and O += P V by mma.sync m16n8k8 on tf32 operands,
+//   each fp32 operand split in big + small and the three products of
+//   mma_tf32x3 summed (3xTF32: fp32 accuracy; one tf32 product breaks the
+//   card bound, tests/test_torch_prefill_tf32.py). A bf16 or int8 operand
+//   is exact in tf32: its small term is zero, and the product it would
+//   feed is dropped (two products, not three).
+//   Softmax: online, base 2, fp32, prefill_tc_kernel's softmax_tile (an
+//   interval of keys per row, the per-score test skipped where the whole
+//   tile is visible to every row). int8: the K scale multiplies the score
+//   columns, the V scale is folded into p before the split, l sums the
+//   unscaled p.
+//   hd 120: 15 k8 steps, so rows need no padding (the pitches are those of
+//   hd 128); output columns stop at 120.
+//   Shared memory: hd 64 fp32 pages 88 KB (2 blocks an SM), hd 120/128
+//   101 KB; bf16 or int8 pages: Q, one K and V tile and the raw ring, 85 /
+//   70 KB at hd 64, 165 / 134 KB at hd 128.
+//   Measured at about 3.4x its bound at that case: a third block an SM,
+//   one stage, and a 2x2 warp layout with half the splits were all slower,
+//   while the time follows the product count (int8 pages, two products:
+//   0.71x), which points at the mma.sync tf32 rate (PERF.md); wgmma is
+//   the next step.
+template <int HD>
+constexpr int kTfRow = (HD + 31) / 32 * 32;  // a row's floats, rounded
 
-template <typename T>
-cudaError_t launch_t(const PagedArgs& a, int hd, dim3 grid, dim3 block,
-                     cudaStream_t st) {
-  switch (hd) {
-    case 64: return launch_hd<T, 64>(a, grid, block, st);
-    case 120: return launch_hd<T, 120>(a, grid, block, st);
-    case 128: return launch_hd<T, 128>(a, grid, block, st);
-    default: return cudaErrorInvalidValue;
+template <typename TQ, typename TP, int HD>
+struct PrefillTf32 {
+  static constexpr int QP = kTfRow<HD> + 8;  // Q and K rows: words 8g + 2t
+  static constexpr int VP = kTfRow<HD> + 4;  // V rows: words 8t + g
+  static constexpr bool QX = sizeof(TQ) == 2;  // bf16 q: exact in tf32
+  static constexpr bool PX = sizeof(TP) < 4;   // bf16 or int8 pages: exact
+  static constexpr bool Q8 = std::is_same<TP, int8_t>::value;
+  // fp32 K/V tiles: a ring of fwd_tf32_kernel's kTf32Stages for fp32
+  // pages, one tile (fed by the raw ring) for bf16 and int8 pages
+  static constexpr int ST = PX ? 1 : (HD == 64 ? 2 : 1);
+  static constexpr int RB = HD * static_cast<int>(sizeof(TP));  // raw row
+  static constexpr int RC = RB % 16 == 0 ? 16 : 8;  // bytes a raw copy
+  static constexpr size_t kSmem =
+      (size_t)(kPB * QP + ST * kPB * (QP + VP)) * sizeof(float) +
+      (PX ? 4 * kPB * RB + (Q8 ? 4 * kPB * sizeof(float) : 0) : 0);
+  static_assert(!(QX && PX), "bf16 q over bf16 or int8 pages is the tc "
+                "route");
+};
+
+// An operand for the tf32 products: exact (bf16 or int8 widened) as its own
+// bits with no small term, else split_tf32.
+template <bool EXACT>
+__device__ __forceinline__ void tf32_operand(float x, uint32_t& big,
+                                             uint32_t& small) {
+  if constexpr (EXACT) {
+    big = __float_as_uint(x);
+    small = 0u;
+  } else {
+    rtmma::split_tf32(x, big, small);
   }
 }
 
-// page_dtype: 0 fp32, 1 bf16, 2 int8 (with scales).
-inline int launch_paged_prefill(const PagedArgs& a, int B, int hd,
-                                int page_dtype, int nwarps, int grid_y,
-                                cudaStream_t st) {
-  const dim3 grid(B * a.KV, grid_y);
-  const dim3 block(kWarp * nwarps);
-  cudaError_t e;
-  switch (page_dtype) {
-    case 0: e = launch_t<float>(a, hd, grid, block, st); break;
-    case 1: e = launch_t<__nv_bfloat16>(a, hd, grid, block, st); break;
-    case 2: e = launch_t<int8_t>(a, hd, grid, block, st); break;
-    default: e = cudaErrorInvalidValue;
+// d += A B to fp32 accuracy from split operands, the products of a zero
+// small term (an exact operand) dropped: mma_tf32x3's order otherwise.
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma_fp32(float (&d)[4],
+                                         const uint32_t (&a_big)[4],
+                                         const uint32_t (&a_small)[4],
+                                         uint32_t b0, uint32_t b1,
+                                         uint32_t b0s, uint32_t b1s) {
+  if constexpr (!AX) rtmma::mma_tf32(d, a_small, b0, b1);
+  if constexpr (!BX) rtmma::mma_tf32(d, a_big, b0s, b1s);
+  rtmma::mma_tf32(d, a_big, b0, b1);
+}
+
+// The A fragment of Q's k8 step at p (row g's dims 8kk + 2t, 2t + 1; p +
+// 8 * QP is row g + 8): k-index t is dim 2t, t + 4 is dim 2t + 1.
+template <int QP, bool EXACT>
+__device__ __forceinline__ void q_frag(const float* p, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  const float2 x0 = *reinterpret_cast<const float2*>(p);
+  const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * QP);
+  tf32_operand<EXACT>(x0.x, big[0], small[0]);  // (g, k t)
+  tf32_operand<EXACT>(x1.x, big[1], small[1]);  // (g + 8, k t)
+  tf32_operand<EXACT>(x0.y, big[2], small[2]);  // (g, k t + 4)
+  tf32_operand<EXACT>(x1.y, big[3], small[3]);  // (g + 8, k t + 4)
+}
+
+// Four bf16 or int8 page values at p as a float4 (exact).
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float4 widen4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
+}
+
+template <typename TQ, typename TP, int HD>
+__global__ void __launch_bounds__(kPThreads, 2)
+    prefill_tf32_kernel(const PagedArgs a) {
+  using L = PrefillTf32<TQ, TP, HD>;
+  constexpr int QP = L::QP, VP = L::VP, ST = L::ST, RB = L::RB;
+  constexpr int KS = HD / 8, ND = HD / 8;  // k8 steps; n8 output tiles
+  constexpr int CH = HD / 4;               // 4-float pieces of a row
+  constexpr bool QREG = HD == 64;          // Q's split fragments in registers
+  constexpr bool RING = L::PX || ST == 2;  // next tile's copies overlap
+  extern __shared__ float4 tf_smem[];
+  float* const Qs = reinterpret_cast<float*>(tf_smem);
+  float* const Ks = Qs + kPB * QP;       // ST stages
+  float* const Vs = Ks + ST * kPB * QP;  // ST stages
+  // bf16 / int8 pages: raw [stage][K, V][64][RB] bytes, scales [stage][K,
+  // V][64]
+  char* const raw = reinterpret_cast<char*>(Vs + ST * kPB * VP);
+  float* const scl = reinterpret_cast<float*>(raw + 4 * kPB * RB);
+
+  const int b = blockIdx.y / a.KV, kv = blockIdx.y % a.KV;
+  const int rows = a.C * a.G;
+  const int r0 = blockIdx.x * kPB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int length = a.lengths[b];
+  const int n_keys = a.npg * a.psz;
+  const int q_first = length + r0 / a.G;
+  const int q_last = length + (min(r0 + kPB, rows) - 1) / a.G;
+  const int kend = min(q_last + 1, n_keys);
+  const int kbeg = a.window > 0 ? max(0, q_first - a.window + 1) : 0;
+  // keys every row of the block sees: [lo_all, hi_all]
+  const int hi_all = min(q_first, n_keys - 1);
+  const int lo_all = a.window > 0 ? max(0, q_last - a.window + 1) : 0;
+  int klo[2], khi[2];  // each of this thread's rows' keys
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + warp * 16 + g + 8 * i;
+    const int pos = length + row / a.G;
+    klo[i] = a.window > 0 ? max(0, pos - a.window + 1) : 0;
+    khi[i] = row < rows ? min(pos, n_keys - 1) : -1;
   }
-  return static_cast<int>(e);
+
+  const int* const table = a.page_table + (size_t)b * a.npg;
+  const TP* const kp = static_cast<const TP*>(a.k_pages);
+  const TP* const vp = static_cast<const TP*>(a.v_pages);
+  // the pool offset (elements) of key idx's row, or -1 outside [kbeg, kend)
+  auto key_row = [&](int idx) -> long long {
+    if (idx < kbeg || idx >= kend) return -1;
+    return (((long long)table[idx / a.psz] * a.psz + idx % a.psz) * a.KV +
+            kv) * HD;
+  };
+  // start the copies of key tile k0 into stage `stage` of its ring
+  auto load_kv = [&](int k0, int stage) {
+    if constexpr (L::PX) {
+      char* const rk = raw + stage * 2 * kPB * RB;
+      char* const rv = rk + kPB * RB;
+      constexpr int NRC = RB / L::RC;  // copies a row
+      for (int e = threadIdx.x; e < kPB * NRC; e += kPThreads) {
+        const int r = e / NRC, c = e % NRC;
+        const long long row = key_row(k0 + r);
+        const long long off = row < 0 ? 0 : row * (long long)sizeof(TP) +
+                                                 c * L::RC;
+        const uint32_t so = rtmma::smem_addr(rk + r * RB + c * L::RC);
+        const uint32_t sv = rtmma::smem_addr(rv + r * RB + c * L::RC);
+        const char* const ksrc = reinterpret_cast<const char*>(kp) + off;
+        const char* const vsrc = reinterpret_cast<const char*>(vp) + off;
+        if constexpr (L::RC == 16) {
+          rtmma::cp_async_16(so, ksrc, row >= 0);
+          rtmma::cp_async_16(sv, vsrc, row >= 0);
+        } else {
+          rtmma::cp_async_8(so, ksrc, row >= 0);
+          rtmma::cp_async_8(sv, vsrc, row >= 0);
+        }
+      }
+      if constexpr (L::Q8) {
+        if (threadIdx.x < kPB) {
+          const int idx = k0 + threadIdx.x;
+          const bool ok = idx >= kbeg && idx < kend;
+          const int ph = ok ? table[idx / a.psz] : 0;
+          float* const sc = scl + stage * 2 * kPB;
+          rtmma::cp_async_4(rtmma::smem_addr(sc + threadIdx.x),
+                            a.k_scale + ph, ok);
+          rtmma::cp_async_4(rtmma::smem_addr(sc + kPB + threadIdx.x),
+                            a.v_scale + ph, ok);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPB * CH / kPThreads; ++i) {
+        const int e = threadIdx.x + i * kPThreads;
+        const int r = e / CH, c = e % CH;
+        const long long row = key_row(k0 + r);
+        const long long off = row < 0 ? 0 : row + 4 * c;
+        rtmma::cp_async_16(
+            rtmma::smem_addr(Ks + (stage * kPB + r) * QP + 4 * c), kp + off,
+            row >= 0);
+        rtmma::cp_async_16(
+            rtmma::smem_addr(Vs + (stage * kPB + r) * VP + 4 * c), vp + off,
+            row >= 0);
+      }
+    }
+  };
+
+  int k0 = kbeg / kPB * kPB;
+  if (k0 < kend) {  // else no row sees a key: out = 0
+#pragma unroll
+    for (int i = 0; i < kPB * CH / kPThreads; ++i) {
+      const int e = threadIdx.x + i * kPThreads;
+      const int r = e / CH, c = e % CH;
+      const bool ok = r0 + r < rows;
+      const size_t off = ok ? row_offset(a, b, kv, r0 + r, HD) + 4 * c : 0;
+      float* const dst = Qs + r * QP + 4 * c;
+      if constexpr (L::QX) {  // widened on the copy; rows past C*G zero
+        *reinterpret_cast<float4*>(dst) =
+            ok ? widen4(static_cast<const __nv_bfloat16*>(a.q) + off)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        rtmma::cp_async_16(rtmma::smem_addr(dst),
+                           static_cast<const float*>(a.q) + off, ok);
+      }
+    }
+    load_kv(k0, 0);
+  }
+  rtmma::cp_async_commit();
+
+  const float* const qrow = Qs + (warp * 16 + g) * QP + 2 * t;
+  uint32_t qb[QREG ? KS : 1][4], qs[QREG ? KS : 1][4];
+  if constexpr (QREG) {
+    if (k0 < kend) {
+      rtmma::cp_async_wait<0>();
+      __syncthreads();  // Q is in shared memory for every thread
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        q_frag<QP, L::QX>(qrow + 8 * kk, qb[kk], qs[kk]);
+    }
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  const float scale2 = a.scale * kLog2e;
+
+  for (int it = 0; k0 < kend; ++it) {
+    const int cur = it & 1;
+    rtmma::cp_async_wait<0>();
+    // tile k0 (and Q) is in shared memory for every thread, and every warp
+    // is done with the other stage: prefetch the next tile into it
+    __syncthreads();
+    const int kn = k0 + kPB;
+    if constexpr (RING) {
+      if (kn < kend) load_kv(kn, cur ^ 1);
+      rtmma::cp_async_commit();
+    }
+    const float* Kt = Ks + (ST == 2 ? cur : 0) * kPB * QP;
+    const float* Vt = Vs + (ST == 2 ? cur : 0) * kPB * VP;
+    const float* ksc = nullptr;
+    if constexpr (L::PX) {  // widen the raw tile into the fp32 K and V
+      const TP* const rk =
+          reinterpret_cast<const TP*>(raw + cur * 2 * kPB * RB);
+      const TP* const rv = rk + kPB * HD;
+#pragma unroll
+      for (int i = 0; i < kPB * CH / kPThreads; ++i) {
+        const int e = threadIdx.x + i * kPThreads;
+        const int r = e / CH, c = e % CH;
+        *reinterpret_cast<float4*>(Ks + r * QP + 4 * c) =
+            widen4(rk + r * HD + 4 * c);
+        *reinterpret_cast<float4*>(Vs + r * VP + 4 * c) =
+            widen4(rv + r * HD + 4 * c);
+      }
+      __syncthreads();  // the fp32 tile is complete
+      if constexpr (L::Q8) ksc = scl + cur * 2 * kPB;
+    }
+
+    // S = Q K^T: n8 tile j holds keys k0 + 8j .. + 7; k-index t of step kk
+    // is dim 8kk + 2t, t + 4 is dim 8kk + 2t + 1
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ab[4], as[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ab[e] = qb[kk][e];
+          as[e] = qs[kk][e];
+        }
+      } else {
+        q_frag<QP, L::QX>(qrow + 8 * kk, ab, as);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 kx = *reinterpret_cast<const float2*>(
+            Kt + (8 * j + g) * QP + 8 * kk + 2 * t);
+        uint32_t b0, b0s, b1, b1s;
+        tf32_operand<L::PX>(kx.x, b0, b0s);
+        tf32_operand<L::PX>(kx.y, b1, b1s);
+        mma_fp32<L::QX, L::PX>(s[j], ab, as, b0, b1, b0s, b1s);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float c0 = scale2, c1 = scale2;
+      if constexpr (L::Q8) {  // the key's page K scale, per column
+        const float2 ks = *reinterpret_cast<const float2*>(ksc + 8 * j +
+                                                           2 * t);
+        c0 *= ks.x;
+        c1 *= ks.y;
+      }
+      s[j][0] *= c0;
+      s[j][1] *= c1;
+      s[j][2] *= c0;
+      s[j][3] *= c1;
+    }
+    const bool full = k0 >= lo_all && k0 + kPB - 1 <= hi_all;
+    softmax_tile<ND>(s, o, m, l, full, klo, khi, k0, t);
+    if constexpr (L::Q8) {  // fold the key's page V scale into p
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 vs = *reinterpret_cast<const float2*>(
+            ksc + kPB + 8 * j + 2 * t);
+        s[j][0] *= vs.x;
+        s[j][1] *= vs.y;
+        s[j][2] *= vs.x;
+        s[j][3] *= vs.y;
+      }
+    }
+
+    // O += P V: score tile j is the k8 step over keys k0 + 8j .. + 7 with
+    // k-index t <-> key 8j + 2t and t + 4 <-> key 8j + 2t + 1
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t pb[4], ps[4];
+      rtmma::split_tf32(s[j][0], pb[0], ps[0]);  // (g, key 2t)
+      rtmma::split_tf32(s[j][2], pb[1], ps[1]);  // (g + 8, key 2t)
+      rtmma::split_tf32(s[j][1], pb[2], ps[2]);  // (g, key 2t + 1)
+      rtmma::split_tf32(s[j][3], pb[3], ps[3]);  // (g + 8, key 2t + 1)
+      const float* const vrow = Vt + (8 * j + 2 * t) * VP + g;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        uint32_t b0, b0s, b1, b1s;
+        tf32_operand<L::PX>(vrow[8 * d], b0, b0s);       // V[8j + 2t][8d + g]
+        tf32_operand<L::PX>(vrow[VP + 8 * d], b1, b1s);  // V[8j + 2t + 1][..]
+        mma_fp32<false, L::PX>(o[d], pb, ps, b0, b1, b0s, b1s);
+      }
+    }
+    if constexpr (!RING) {
+      __syncthreads();  // every warp is done with the one stage
+      if (kn < kend) load_kv(kn, 0);
+      rtmma::cp_async_commit();
+    }
+    k0 = kn;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + warp * 16 + g + 8 * i;
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    const float lc = fmaxf(l[i], 1e-30f);
+    if (row >= rows) continue;
+    float* const orow = a.out + row_offset(a, b, kv, row, HD) + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<float2*>(orow + 8 * d) =
+          make_float2(o[d][2 * i] / lc, o[d][2 * i + 1] / lc);
+  }
 }
 
 template <typename T, int HD>
@@ -416,6 +774,24 @@ cudaError_t prefill_tc_hd(const PagedArgs& a, int B, int hd,
     case 64: return prefill_tc<T, 64>(a, B, st);
     case 120: return prefill_tc<T, 120>(a, B, st);
     case 128: return prefill_tc<T, 128>(a, B, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename TQ, typename TP, int HD>
+cudaError_t prefill_tf32(const PagedArgs& a, int B, cudaStream_t st) {
+  const dim3 grid((a.C * a.G + kPB - 1) / kPB, B * a.KV);
+  return launch_smem<prefill_tf32_kernel<TQ, TP, HD>>(
+      grid, dim3(kPThreads), PrefillTf32<TQ, TP, HD>::kSmem, a, st);
+}
+
+template <typename TQ, typename TP>
+cudaError_t prefill_tf32_hd(const PagedArgs& a, int B, int hd,
+                            cudaStream_t st) {
+  switch (hd) {
+    case 64: return prefill_tf32<TQ, TP, 64>(a, B, st);
+    case 120: return prefill_tf32<TQ, TP, 120>(a, B, st);
+    case 128: return prefill_tf32<TQ, TP, 128>(a, B, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -446,34 +822,12 @@ inline PagedArgs prefill_args(const void* q, int q_bf16, const void* k_pages,
   a.psz = psz;
   a.window = window;
   a.scale = scale;
-  a.nrg = 1;
   return a;
 }
 
 }  // namespace rtk
 
-// The CUDA-core route (fp32 q or fp32 pages). page_dtype: 0 fp32, 1 bf16,
-// 2 int8 (with scales).
-extern "C" int rt_flash_prefill(const void* q, int q_bf16,
-                                const void* k_pages, const void* v_pages,
-                                const void* k_scale, const void* v_scale,
-                                const void* page_table, const void* lengths,
-                                void* out, int B, int C, int KV, int G, int hd,
-                                int npg, int psz, int window, float scale,
-                                int page_dtype, void* stream) {
-  constexpr int R = 8;
-  constexpr int nwarps = 8;
-  const int rows = C * G;
-  rtk::PagedArgs a = rtk::prefill_args(q, q_bf16, k_pages, v_pages, k_scale,
-                                       v_scale, page_table, lengths, out, C,
-                                       KV, G, npg, psz, window, scale);
-  a.nrg = rows <= R ? 1 : rows <= 2 * R ? 2 : 4;
-  const int grid_y = (rows + R * a.nrg - 1) / (R * a.nrg);
-  return rtk::launch_paged_prefill(a, B, hd, page_dtype, nwarps, grid_y,
-                                   static_cast<cudaStream_t>(stream));
-}
-
-// The tensor-core route, with rt_flash_prefill's arguments: bf16 q
+// The bf16 tensor-core route: bf16 q
 // (q_bf16 = 1) over bf16 (page_dtype 1) or int8 (2, with scales) pages; q
 // and the pages 16-byte aligned and contiguous.
 extern "C" int rt_flash_prefill_tc(const void* q, int q_bf16,
@@ -493,6 +847,36 @@ extern "C" int rt_flash_prefill_tc(const void* q, int q_bf16,
   switch (page_dtype) {
     case 1: e = rtk::prefill_tc_hd<__nv_bfloat16>(a, B, hd, st); break;
     case 2: e = rtk::prefill_tc_hd<int8_t>(a, B, hd, st); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
+
+// The 3xTF32 route, with rt_flash_prefill_tc's arguments: fp32 q (q_bf16 =
+// 0) over fp32 (page_dtype 0), bf16 (1) or int8 (2, with scales) pages, or
+// bf16 q over fp32 pages; q and the pages 16-byte aligned and contiguous.
+extern "C" int rt_flash_prefill_tf32(const void* q, int q_bf16,
+                                     const void* k_pages, const void* v_pages,
+                                     const void* k_scale, const void* v_scale,
+                                     const void* page_table,
+                                     const void* lengths, void* out, int B,
+                                     int C, int KV, int G, int hd, int npg,
+                                     int psz, int window, float scale,
+                                     int page_dtype, void* stream) {
+  const rtk::PagedArgs a = rtk::prefill_args(
+      q, q_bf16, k_pages, v_pages, k_scale, v_scale, page_table, lengths,
+      out, C, KV, G, npg, psz, window, scale);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (q_bf16 * 3 + page_dtype) {
+    case 0: e = rtk::prefill_tf32_hd<float, float>(a, B, hd, st); break;
+    case 1:
+      e = rtk::prefill_tf32_hd<float, __nv_bfloat16>(a, B, hd, st);
+      break;
+    case 2: e = rtk::prefill_tf32_hd<float, int8_t>(a, B, hd, st); break;
+    case 3:
+      e = rtk::prefill_tf32_hd<__nv_bfloat16, float>(a, B, hd, st);
+      break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -14,9 +14,20 @@
 // rsqrt(var + eps), all in fp32. scale and shift are read through row
 // strides, so column slices of the AdaLN head's (B, 6d) output need no copy.
 //
-// Forward: one warp per row; pass 1 sums x, pass 2 sums the squared
-// deviations, pass 3 writes the modulated row (4 neighbouring elements per
-// lane, coalesced), re-reading the row from L1/L2.
+// Forward: a block owns a tile of rows of one example and is (cx, ry)
+// threads: thread (tx, ty) owns the 16-byte column vectors tx + p * cx of
+// every row (8 bf16 or 4 fp32 elements; 8 bytes for bf16 rows of a d that
+// is not a multiple of 8; PV vectors where d is wider than 512 vectors),
+// reads its columns of scale and shift once for the tile, and walks the
+// tile's rows ty, ty + ry, ..., U = 8 / PV rows a step (4 / PV where the
+// example has too few rows for 8-row steps to fill one wave of the card:
+// more bytes in flight a thread, against more tiles). A step's rows are
+// loaded into registers once, the next step's loads issued before this
+// step reduces; the mean, then the sum of squared deviations from those
+// registers, each a reduce-scatter over the row group (group_sum, below)
+// for the step's rows at once; then out is written once. Each byte of x is
+// read once, and the tiles are sized so that one wave fills the card
+// (rowwise::plan_tiles, no clusters: the forward has no column sums).
 //
 // Backward: dy = g * (1 + scale), xhat = (x - mean) * rstd,
 // dx = rstd * (dy - mean(dy) - xhat * mean(dy * xhat)),
@@ -44,64 +55,15 @@
 namespace {
 
 using rowwise::load_mod;
+using rowwise::load_raw;
 using rowwise::load_vec;
 using rowwise::store_vec;
-using rowwise::to_f;
-using rowwise::warp_sum;
+using rowwise::unpack;
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;   // forward
-constexpr int kMaxThreads = 512;        // backward block: cx * ry
+constexpr int kMaxThreads = 512;        // a block: cx * ry threads
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxGridY = 65535;
 constexpr int kStages = 2;  // backward: steps of rows in the shared ring
-
-template <typename T, typename TM>
-__global__ void ln_mod_fwd_kernel(const T* __restrict__ x,
-                                  const TM* __restrict__ scale,
-                                  const TM* __restrict__ shift,
-                                  T* __restrict__ out, long long rows, int S,
-                                  int d, long long scale_stride,
-                                  long long shift_stride, float eps) {
-  const int lane = threadIdx.x & 31;
-  const float fd = static_cast<float>(d);
-  for (long long row = blockIdx.x * static_cast<long long>(kWarps) +
-                       (threadIdx.x >> 5);
-       row < rows; row += static_cast<long long>(gridDim.x) * kWarps) {
-    const T* xr = x + row * d;
-    float s = 0.f;
-    for (int c = lane * 4; c < d; c += 128) {
-      float v[4];
-      load_vec<T, 4>(xr + c, v);
-      s += (v[0] + v[1]) + (v[2] + v[3]);
-    }
-    const float mean = warp_sum(s) / fd;
-    float q = 0.f;
-    for (int c = lane * 4; c < d; c += 128) {
-      float v[4];
-      load_vec<T, 4>(xr + c, v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float t = v[j] - mean;
-        q = fmaf(t, t, q);
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(q) / fd + eps);
-    const long long b = row / S;
-    const TM* sc = scale + b * scale_stride;
-    const TM* sh = shift + b * shift_stride;
-    T* o = out + row * d;
-    for (int c = lane * 4; c < d; c += 128) {
-      float v[4], y[4];
-      load_vec<T, 4>(xr + c, v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        y[j] = (v[j] - mean) * rstd * (1.f + to_f(sc[c + j])) +
-               to_f(sh[c + j]);
-      store_vec<T, 4>(o + c, y);
-    }
-  }
-}
 
 __host__ __device__ constexpr int ilog2(int n) {
   return n > 1 ? 1 + ilog2(n / 2) : 0;
@@ -146,6 +108,121 @@ __device__ __forceinline__ void group_sum(float (&v)[N],
 #pragma unroll
   for (int i = 0; i < N; ++i)
     v[i] = __shfl_sync(0xffffffffu, s, i << kShift);
+}
+
+// grid (n_tiles, B), block (cx, ry): block (tile, b) owns rows
+// [tile * tile_rows, ...) of example b, U rows a step. smod: scale and
+// shift each read as one vector a thread (bit 0: scale, bit 1: shift)
+// where the slice allows.
+template <typename T, typename TM, int V, int PV, int U>
+__global__ void __launch_bounds__(kMaxThreads)
+    ln_mod_fwd_kernel(const T* __restrict__ x, const TM* __restrict__ scale,
+                      const TM* __restrict__ shift, T* __restrict__ out,
+                      int S, int d, long long scale_stride,
+                      long long shift_stride, int tile_rows, int smod,
+                      float eps) {
+  constexpr int W = rowwise::kWords<T, V>;
+  __shared__ float red[2][kMaxWarps][U];
+  const int cx = blockDim.x, ry = blockDim.y;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * tile_rows;
+  const int nrows = max(0, min(tile_rows, S - row0));
+  const long long base = (static_cast<long long>(b) * S + row0) * d;
+  const float inv_d = 1.f / static_cast<float>(d);
+
+  int col[PV];
+  bool on[PV];
+  float s1[PV][V], sh[PV][V];  // 1 + scale, shift
+#pragma unroll
+  for (int p = 0; p < PV; ++p) {
+    col[p] = (threadIdx.x + p * cx) * V;
+    on[p] = col[p] < d;
+#pragma unroll
+    for (int j = 0; j < V; ++j) s1[p][j] = sh[p][j] = 0.f;
+    if (on[p]) {
+      load_mod<TM, V>(scale + b * scale_stride + col[p], smod & 1, s1[p]);
+      load_mod<TM, V>(shift + b * shift_stride + col[p], smod & 2, sh[p]);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) s1[p][j] += 1.f;
+  }
+
+  // slot u of step it is row (it * U + u) * ry + ty of the tile
+  const int rstep = ry * U;
+  const int n_it = (nrows + rstep - 1) / rstep;  // the same for the block
+  auto load = [&](int it, uint32_t (&w)[U][PV][W]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = (it * U + u) * ry + threadIdx.y;
+#pragma unroll
+      for (int p = 0; p < PV; ++p) {
+        if (r < nrows && on[p]) {
+          load_raw<T, V>(x + base + static_cast<long long>(r) * d + col[p],
+                         w[u][p]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < W; ++k) w[u][p][k] = 0u;
+        }
+      }
+    }
+  };
+
+  uint32_t cur[U][PV][W], nxt[U][PV][W];
+  if (n_it > 0) load(0, cur);
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) load(it + 1, nxt);  // in flight while this reduces
+    float xf[U][PV][V], v[U], mean[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float sx = 0.f;
+#pragma unroll
+      for (int p = 0; p < PV; ++p) {
+        unpack<T, V>(cur[u][p], xf[u][p]);
+#pragma unroll
+        for (int j = 0; j < V; ++j) sx += xf[u][p][j];
+      }
+      v[u] = sx;
+    }
+    group_sum<U>(v, red[0]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      mean[u] = v[u] * inv_d;
+      float sq = 0.f;
+#pragma unroll
+      for (int p = 0; p < PV; ++p) {
+        if (!on[p]) continue;  // its zeros are not (0 - mean)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float c = xf[u][p][j] - mean[u];
+          sq = fmaf(c, c, sq);
+        }
+      }
+      v[u] = sq;
+    }
+    group_sum<U>(v, red[1]);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float rstd = rsqrtf(fmaf(v[u], inv_d, eps));
+      const int r = (it * U + u) * ry + threadIdx.y;
+      if (r >= nrows) continue;
+#pragma unroll
+      for (int p = 0; p < PV; ++p) {
+        if (!on[p]) continue;
+        float y[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          y[j] = fmaf((xf[u][p][j] - mean[u]) * rstd, s1[p][j], sh[p][j]);
+        store_vec<T, V>(out + base + static_cast<long long>(r) * d + col[p],
+                        y);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int p = 0; p < PV; ++p)
+#pragma unroll
+        for (int k = 0; k < W; ++k) cur[u][p][k] = nxt[u][p][k];
+  }
 }
 
 // grid (n_tiles, B) in clusters of (cl, 1, 1); block (tile, b) owns rows
@@ -321,18 +398,108 @@ __global__ void __launch_bounds__(kMaxThreads)
   rowwise::column_sums<2, PV, V>(acc, sm, cs);
 }
 
+struct FwdArgs {
+  const void *x, *scale, *shift;
+  void* out;
+  int B, S, d;
+  long long scale_stride, shift_stride;
+  float eps;
+  cudaStream_t st;
+};
+
+// The row-wise kernels' thread shape for a row of dv vectors, PV a thread:
+// cx threads along the row (whole warps), ry row groups, 256 threads where
+// the row is narrower than that.
+inline void row_shape(rowwise::Plan& p, int dv, int PV) {
+  p.cx = ((dv + PV - 1) / PV + 31) / 32 * 32;
+  p.ry = p.cx >= 256 ? 1 : 256 / p.cx;
+}
+
+// Whether a (B, d) vector at p with row stride `stride` elements can be
+// read as one V-element vector a thread (V * sizeof(TM) bytes, at most 16).
+template <typename TM, int V>
+bool mod_vec(const void* p, long long stride) {
+  constexpr int kAlign = V * sizeof(TM) < 16 ? V * sizeof(TM) : 16;
+  return reinterpret_cast<uintptr_t>(p) % kAlign == 0 &&
+         stride * static_cast<long long>(sizeof(TM)) % kAlign == 0;
+}
+
+// Tiles for steps of U rows, then the launch (or, with sizes, the plan).
+template <typename T, typename TM, int V, int PV, int U>
+cudaError_t launch_fwd(const FwdArgs& a, rowwise::Plan& p, int bc,
+                       long long* sizes) {
+  auto kernel = ln_mod_fwd_kernel<T, TM, V, PV, U>;
+  if (!rowwise::plan_tiles(kernel, p, bc, a.S, 1, p.ry * U, 1))
+    return cudaErrorInvalidConfiguration;
+  if (sizes != nullptr) {
+    rowwise::report(p, 0, 0, sizes);
+    return cudaSuccess;
+  }
+  const int smod = (mod_vec<TM, V>(a.scale, a.scale_stride) ? 1 : 0) |
+                   (mod_vec<TM, V>(a.shift, a.shift_stride) ? 2 : 0);
+  for (int b0 = 0; b0 < a.B; b0 += kMaxGridY) {
+    const int nb = a.B - b0 < kMaxGridY ? a.B - b0 : kMaxGridY;
+    const long long off = static_cast<long long>(b0) * a.S * a.d;
+    kernel<<<dim3(p.n_tiles, nb, 1), dim3(p.cx, p.ry, 1), 0, a.st>>>(
+        static_cast<const T*>(a.x) + off,
+        static_cast<const TM*>(a.scale) + b0 * a.scale_stride,
+        static_cast<const TM*>(a.shift) + b0 * a.shift_stride,
+        static_cast<T*>(a.out) + off, a.S, a.d, a.scale_stride,
+        a.shift_stride, p.tile_rows, smod, a.eps);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// The forward's plan for these shapes; with sizes, only report it
+// (rowwise::report: no scratch, no tickets, cl 1), else launch. Steps of
+// 8 / PV rows where the example's steps give every block of a wave one
+// (timed faster at the two-pass path's (8, 512, 2048): PERF.md), else of
+// 4 / PV rows, which fill the card at fewer rows (S = 130).
+template <typename T, typename TM, int V, int PV>
+cudaError_t run_fwd(const FwdArgs& a, long long* sizes) {
+  constexpr int U8 = 8 / PV, U4 = 4 / PV;
+  rowwise::Plan p;
+  row_shape(p, a.d / V, PV);
+  p.smem = 0;
+  const int bc = a.B < kMaxGridY ? a.B : kMaxGridY;
+  const long long steps8 = (a.S + p.ry * U8 - 1) / (p.ry * U8);
+  if (steps8 * bc >=
+      rowwise::wave_blocks(ln_mod_fwd_kernel<T, TM, V, PV, U8>, p, 1))
+    return launch_fwd<T, TM, V, PV, U8>(a, p, bc, sizes);
+  return launch_fwd<T, TM, V, PV, U4>(a, p, bc, sizes);
+}
+
+// PV column vectors a thread: one up to 512 vectors a row, else 2 or 4.
+template <typename T, typename TM, int V>
+cudaError_t run_fwd_v(const FwdArgs& a, long long* sizes) {
+  const int dv = a.d / V;
+  if (dv <= kMaxThreads) return run_fwd<T, TM, V, 1>(a, sizes);
+  if (dv <= 2 * kMaxThreads) return run_fwd<T, TM, V, 2>(a, sizes);
+  if (dv <= 4 * kMaxThreads) return run_fwd<T, TM, V, 4>(a, sizes);
+  return cudaErrorInvalidValue;
+}
+
+// 16-byte vectors; bf16 rows whose d is not a multiple of 8 take 8 bytes.
 template <typename T, typename TM>
-void launch_fwd(const void* x, const void* scale, const void* shift,
-                void* out, long long rows, int S, int d,
-                long long scale_stride, long long shift_stride, float eps,
-                cudaStream_t st) {
-  long long blocks = (rows + kWarps - 1) / kWarps;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  if (blocks < 1) blocks = 1;
-  ln_mod_fwd_kernel<T, TM><<<static_cast<int>(blocks), kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const TM*>(scale),
-      static_cast<const TM*>(shift), static_cast<T*>(out), rows, S, d,
-      scale_stride, shift_stride, eps);
+cudaError_t run_fwd_t(const FwdArgs& a, long long* sizes) {
+  if constexpr (sizeof(T) == 2) {
+    if (a.d % 8 == 0) return run_fwd_v<T, TM, 8>(a, sizes);
+  }
+  return run_fwd_v<T, TM, 4>(a, sizes);
+}
+
+cudaError_t dispatch_fwd(const FwdArgs& a, int x_dtype, int mod_dtype,
+                         long long* sizes) {
+  if (a.d % 4 != 0 || a.B < 1 || a.S < 1) return cudaErrorInvalidValue;
+  switch (x_dtype * 2 + mod_dtype) {
+    case 0: return run_fwd_t<float, float>(a, sizes);
+    case 1: return run_fwd_t<float, __nv_bfloat16>(a, sizes);
+    case 2: return run_fwd_t<__nv_bfloat16, float>(a, sizes);
+    case 3: return run_fwd_t<__nv_bfloat16, __nv_bfloat16>(a, sizes);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 struct BwdArgs {
@@ -353,8 +520,7 @@ cudaError_t run_bwd(const BwdArgs& a, long long* sizes) {
   constexpr int U = 4 / PV;
   auto kernel = ln_mod_bwd_kernel<T, TM, V, PV>;
   rowwise::Plan p;
-  p.cx = ((a.d / V + PV - 1) / PV + 31) / 32 * 32;
-  p.ry = p.cx >= 256 ? 1 : 256 / p.cx;
+  row_shape(p, a.d / V, PV);
   const size_t ring = static_cast<size_t>(kStages) * U * 2 * PV * p.ry *
                       p.cx * V * sizeof(T);
   const size_t sums = sizeof(float) * p.ry * 2 * p.cx * PV * V;
@@ -371,10 +537,7 @@ cudaError_t run_bwd(const BwdArgs& a, long long* sizes) {
     return cudaSuccess;
   }
   // the scale as one vector a thread where its slice allows
-  constexpr int kAlign = V * sizeof(TM) < 16 ? V * sizeof(TM) : 16;
-  const bool svec = reinterpret_cast<uintptr_t>(a.scale) % kAlign == 0 &&
-                    a.scale_stride * static_cast<long long>(sizeof(TM)) %
-                            kAlign == 0;
+  const bool svec = mod_vec<TM, V>(a.scale, a.scale_stride);
   const long long out_stream = static_cast<long long>(a.B) * a.d;
   for (int b0 = 0; b0 < a.B; b0 += kMaxGridY) {
     const int nb = a.B - b0 < kMaxGridY ? a.B - b0 : kMaxGridY;
@@ -428,24 +591,28 @@ cudaError_t dispatch_bwd(const BwdArgs& a, int x_dtype, int mod_dtype,
 
 // x, out: (B, S, d) contiguous in x_dtype; scale, shift: (B, d) in
 // mod_dtype with unit stride along d and row strides scale_stride,
-// shift_stride. x_dtype / mod_dtype: 0 fp32, 1 bf16. d % 4 == 0.
+// shift_stride. x_dtype / mod_dtype: 0 fp32, 1 bf16. d % 4 == 0, d at
+// most 2048 vectors.
 extern "C" int rt_ln_modulate_fwd(const void* x, const void* scale,
                                   const void* shift, void* out, int B, int S,
                                   int d, long long scale_stride,
                                   long long shift_stride, float eps,
                                   int x_dtype, int mod_dtype, void* stream) {
-  if (d % 4 != 0 || B < 1 || S < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(B) * S;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (x_dtype * 2 + mod_dtype) {
-    case 0: launch_fwd<float, float>(x, scale, shift, out, rows, S, d, scale_stride, shift_stride, eps, st); break;
-    case 1: launch_fwd<float, __nv_bfloat16>(x, scale, shift, out, rows, S, d, scale_stride, shift_stride, eps, st); break;
-    case 2: launch_fwd<__nv_bfloat16, float>(x, scale, shift, out, rows, S, d, scale_stride, shift_stride, eps, st); break;
-    case 3: launch_fwd<__nv_bfloat16, __nv_bfloat16>(x, scale, shift, out, rows, S, d, scale_stride, shift_stride, eps, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const FwdArgs a = {x, scale, shift, out, B, S, d, scale_stride,
+                     shift_stride, eps, static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dispatch_fwd(a, x_dtype, mod_dtype, nullptr));
+}
+
+// The forward's plan for these shapes on the current device, into
+// sizes[rowwise::kPlanFields], as rt_ln_modulate_bwd_plan reports the
+// backward's (scratch and tickets 0, cl 1).
+extern "C" int rt_ln_modulate_fwd_plan(int B, int S, int d, int x_dtype,
+                                       int mod_dtype, long long* sizes) {
+  FwdArgs a = {};
+  a.B = B;
+  a.S = S;
+  a.d = d;
+  return static_cast<int>(dispatch_fwd(a, x_dtype, mod_dtype, sizes));
 }
 
 // The backward's plan for these shapes on the current device, into

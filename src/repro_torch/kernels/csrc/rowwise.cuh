@@ -212,16 +212,16 @@ int wave_blocks(void (*kernel)(Params...), const Plan& p, int cl) {
 
 // Tiles of an example's S rows for B x spans (example, column span) pairs,
 // each block stepping rstep rows at a time: as many tiles as one wave of
-// the card holds (kernel's own occupancy, in clusters of 2 where each pair
-// gets at least one, else 1), rounded down to a multiple of the cluster,
-// then rows spread evenly in whole steps. Returns false if no block fits
-// an SM.
+// the card holds (kernel's own occupancy, in clusters of max_cl where each
+// pair gets at least one, else of half that, down to 1), rounded down to a
+// multiple of the cluster, then rows spread evenly in whole steps. Returns
+// false if no block fits an SM.
 template <typename... Params>
 bool plan_tiles(void (*kernel)(Params...), Plan& p, int B, int S, int spans,
-                int rstep) {
+                int rstep, int max_cl = kMaxCluster) {
   const int steps = (S + rstep - 1) / rstep;
   int n = 0;
-  for (p.cl = kMaxCluster;; p.cl /= 2) {
+  for (p.cl = max_cl;; p.cl /= 2) {
     const int cap = wave_blocks(kernel, p, p.cl);
     n = cap / (B * spans) < steps ? cap / (B * spans) : steps;
     if (n >= p.cl) break;

@@ -8,9 +8,9 @@ are already in the pool; row r = i*G + g sees keys ``idx <= lengths[b] + i``
 (and ``idx > lengths[b] + i - window``). ``flash_prefill`` launches a
 Hopper kernel on CUDA tensors and runs ``flash_prefill_ref`` on CPU tensors.
 Which kernel is a plain function of the dtypes (``prefill_route``), with no
-fallback from one to the other: bf16 q over bf16 or int8 pages goes to
-``prefill_tc_kernel`` (tensor cores), fp32 q or fp32 pages to the CUDA-core
-``paged_attention_kernel``.
+fallback from one to the other, both on the tensor cores: bf16 q over bf16
+or int8 pages goes to ``prefill_tc_kernel`` (bf16 products), fp32 q or fp32
+pages to ``prefill_tf32_kernel`` (3xTF32 products, fp32 accuracy).
 """
 from __future__ import annotations
 
@@ -29,12 +29,12 @@ _FN = {}
 
 def prefill_route(q_dtype: torch.dtype, page_dtype: torch.dtype) -> str:
     """``"tc"``: ``prefill_tc_kernel`` (bf16 q over bf16 or int8 pages, every
-    bf16 policy); ``"simt"``: the CUDA-core kernel (fp32 q or fp32 pages,
+    bf16 policy); ``"tf32"``: ``prefill_tf32_kernel`` (fp32 q or fp32 pages,
     the fp32 and fp32_kvint8 policies)."""
     if q_dtype == torch.bfloat16 and page_dtype in (torch.bfloat16,
                                                     torch.int8):
         return "tc"
-    return "simt"
+    return "tf32"
 
 
 def flash_prefill_ref(q, k_pages, v_pages, page_table, lengths, *,
@@ -64,7 +64,7 @@ def flash_prefill_ref(q, k_pages, v_pages, page_table, lengths, *,
 def _kernel(route: str):
     """The C entry point of a route (both take the same arguments)."""
     if route not in _FN:
-        name = "rt_flash_prefill_tc" if route == "tc" else "rt_flash_prefill"
+        name = f"rt_flash_prefill_{route}"
         fn = getattr(_build.load("flash_prefill"), name)
         P, I = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
@@ -94,7 +94,7 @@ def flash_prefill(q, k_pages, v_pages, page_table, lengths, *,
     out = torch.empty((B, C, KV, G, hd), dtype=torch.float32,
                       device=q.device)
     # check_paged holds both routes to 16-byte aligned, contiguous q and
-    # pages, which is the layout the tensor-core kernel's copies need
+    # pages, which is the layout both kernels' 16-byte copies need
     with torch.cuda.device(q.device):
         rc = _kernel(route)(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pages.data_ptr(),

@@ -199,13 +199,14 @@ PLAN_FIELDS = ("scratch", "tickets", "cx", "ry", "tile_rows", "n_tiles",
                "cl")
 
 
-def backward_plan(name, B, S, d, x_dtype, vec_dtype, device):
-    """The launch plan of the AdaLN backward ``name`` (``"gate_residual_bwd"``
-    or ``"ln_modulate_bwd"``) for these shapes and dtypes on the CUDA
+def launch_plan(name, B, S, d, x_dtype, vec_dtype, device):
+    """The launch plan of the row-wise AdaLN kernel ``name``
+    (``"ln_modulate_fwd"``, ``"ln_modulate_bwd"`` or
+    ``"gate_residual_bwd"``) for these shapes and dtypes on the CUDA
     ``device``, as the kernel's plan function reports it (``PLAN_FIELDS``):
-    the fp32 scratch and tickets a launch takes, blocks of (cx, ry)
-    threads, tiles of tile_rows rows, n_tiles of them an example in
-    clusters of cl."""
+    the fp32 scratch and tickets a launch takes (none for the forward),
+    blocks of (cx, ry) threads, tiles of tile_rows rows, n_tiles of them an
+    example in clusters of cl."""
     key = (name, B, S, d, x_dtype, vec_dtype, device.index)
     if key not in _PLANS:
         out = (ctypes.c_longlong * len(PLAN_FIELDS))()
@@ -224,7 +225,7 @@ def _workspace(name, x, vec):
     tickets are zero between launches; launches on one stream share them,
     so they run one after another."""
     B, S, d = x.shape
-    plan = backward_plan(name, B, S, d, x.dtype, vec.dtype, x.device)
+    plan = launch_plan(name, B, S, d, x.dtype, vec.dtype, x.device)
     scratch = torch.empty(plan["scratch"], dtype=torch.float32,
                           device=x.device)
     key = (x.device.index, _stream(x))

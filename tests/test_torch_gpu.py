@@ -98,12 +98,77 @@ def test_flash_prefill_kernel(cuda, hd, G, window, dtype, C):
     lens = torch.tensor([0, 64, 300], dtype=torch.int32, device=cuda)
     q = torch.randn(B, C, kv, G, hd, generator=gen, device=cuda)
     for qq in (q, q.bfloat16()):
+        # every pair but bf16 q over bf16 / int8 pages takes prefill_tf32
+        tc = qq.dtype == torch.bfloat16 and dtype != torch.float32
+        assert FP.prefill_route(qq.dtype, dtype) == ("tc" if tc else "tf32")
+        n0 = FP.flash_prefill.launches
         out = FP.flash_prefill(qq, k, v, table, lens, window=window,
                                k_scale=ks, v_scale=vs)
+        again = FP.flash_prefill(qq, k, v, table, lens, window=window,
+                                 k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
+        assert FP.flash_prefill.launches == n0 + 2
+        assert torch.equal(out, again)
         ref = FP.flash_prefill_ref(qq, k, v, table, lens, window=window,
                                    k_scale=ks, v_scale=vs)
         torch.testing.assert_close(out, ref, atol=TOL, rtol=TOL)
+
+
+# (q dtype, page dtype, window): the 3xTF32 route's pairs, int8 windowed
+TF32_PAIRS = [(torch.float32, torch.float32, None),
+              (torch.float32, torch.bfloat16, None),
+              (torch.float32, torch.int8, 37),
+              (torch.bfloat16, torch.float32, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", FD.SUPPORTED_HD)
+@pytest.mark.parametrize("q_dtype,dtype,window", TF32_PAIRS)
+def test_flash_prefill_tf32_skips_the_trash_page_and_replays(cuda, hd,
+                                                             q_dtype, dtype,
+                                                             window):
+    """prefill_tf32_kernel with the table past each slot's allocation at a
+    trash page (page 0) of NaN: equal to the plain version over a clean
+    trash page; captured in a CUDA graph, every replay bit-equal to the
+    eager call."""
+    gen = torch.Generator(device=cuda).manual_seed(hd + 3)
+    B, kv, G, psz, npg, C = 3, 2, 4, 16, 20, 64
+    k, v, ks, vs = _pool(gen, dtype, 1 + B * npg, psz, kv, hd, cuda)
+    lens = torch.tensor([0, 30, 200], dtype=torch.int32, device=cuda)
+    table = _table(gen, B, npg, cuda)
+    for b, n in enumerate(lens.tolist()):      # allocated: n + C keys
+        table[b, -(-(n + C) // psz):] = 0
+    dirty = [x.clone() for x in (k, v)]
+    for x in dirty:
+        x[0] = 127 if dtype == torch.int8 else float("nan")
+    if ks is not None:
+        ks, vs = ks.clone(), vs.clone()
+        ks[0] = vs[0] = float("nan")
+    clean = (k, v, None if ks is None else ks.nan_to_num(0.0),
+             None if vs is None else vs.nan_to_num(0.0))
+    q = torch.randn(B, C, kv, G, hd, generator=gen, device=cuda).to(q_dtype)
+    assert FP.prefill_route(q.dtype, dtype) == "tf32"
+    run = lambda: FP.flash_prefill(q, *dirty, table, lens,  # noqa: E731
+                                   window=window, k_scale=ks, v_scale=vs)
+    eager = run()
+    torch.cuda.synchronize()
+    want = FP.flash_prefill_ref(q, clean[0], clean[1], table, lens,
+                                window=window, k_scale=clean[2],
+                                v_scale=clean[3])
+    torch.testing.assert_close(eager, want, atol=TOL, rtol=TOL)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
 
 
 def _paged_check(kind, q, pools, table, lens, window):
@@ -199,7 +264,7 @@ def test_paged_kernels_never_read_the_trash_page(cuda, dtype):
 @pytest.mark.gpu
 def test_prefill_tensor_core_route_raises_on_a_misaligned_view(cuda):
     """A bf16 q (or page pool) whose base is not 16-byte aligned is refused
-    on the tensor-core route: no launch, and no re-route to the CUDA-core
+    on the tensor-core route: no launch, and no re-route to the 3xTF32
     kernel or the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     B, kv, G, hd, psz, npg, C = 2, 2, 1, 64, 16, 4, 8
@@ -376,6 +441,100 @@ def test_ln_modulate_kernels(cuda, xdt, mdt, shape):
         _bf16_close(got, want)
 
 
+# (B, S, d, x dtype, mod dtype, scale offset, shift offset, extra head
+# columns): the ln-modulate forward at its edges. S = 1 and a ragged
+# S = 130; bf16 rows of a d that is not a multiple of 8 (8-byte vectors);
+# d = 384; d wider than 512 vectors (2 and 4 vectors a thread); scale and
+# shift slices off their vector alignment or with an odd row stride
+# (scalar loads); more examples than one launch's grid holds.
+LN_FWD_EDGES = [(8, 1, 2048, torch.bfloat16, torch.float32, 0, 0, 0),
+                (8, 130, 2048, torch.bfloat16, torch.float32, 0, 0, 0),
+                (8, 130, 2048, torch.float32, torch.bfloat16, 0, 0, 0),
+                (3, 130, 68, torch.bfloat16, torch.bfloat16, 0, 0, 8),
+                (5, 33, 68, torch.bfloat16, torch.float32, 1, 3, 0),
+                (4, 70, 384, torch.float32, torch.float32, 1, 1, 1),
+                (4, 70, 384, torch.bfloat16, torch.bfloat16, 0, 2, 0),
+                (2, 33, 6144, torch.bfloat16, torch.float32, 0, 0, 0),
+                (2, 17, 6144, torch.float32, torch.bfloat16, 2, 1, 8),
+                (2, 9, 8192, torch.float32, torch.float32, 0, 0, 0),
+                (65537, 1, 4, torch.float32, torch.float32, 0, 0, 0)]
+
+
+def _ln_fwd_case(dev, B, S, d, xdt, mdt, soff, hoff, extra, seed):
+    """(x, scale, shift) on the card: x off-centre, scale and shift column
+    slices of one (B, 6d + extra) head output at the given offsets."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (3.0 + torch.randn(B, S, d, generator=gen, device=dev)).to(xdt)
+    heads = (0.1 * torch.randn(B, 6 * d + extra, generator=gen, device=dev)
+             ).to(mdt)
+    return x, heads[:, d + soff:2 * d + soff], heads[:, hoff:d + hoff]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,d,xdt,mdt,soff,hoff,extra", LN_FWD_EDGES)
+def test_ln_modulate_forward_at_its_edges(cuda, B, S, d, xdt, mdt, soff,
+                                          hoff, extra):
+    x, scale, shift = _ln_fwd_case(cuda, B, S, d, xdt, mdt, soff, hoff,
+                                   extra, d + S + soff)
+    n0 = AD.ln_modulate_fwd.launches
+    out = AD.ln_modulate_fwd(x, scale, shift)
+    torch.cuda.synchronize()
+    assert AD.ln_modulate_fwd.launches == n0 + 1
+    assert out.dtype == xdt and torch.isfinite(out).all()
+    _bf16_close(out, AD.ln_modulate_ref(x, scale, shift))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,d,dt", [(8, 2048, torch.bfloat16),
+                                    (8, 2048, torch.float32),
+                                    (3, 384, torch.bfloat16)])
+def test_ln_modulate_forward_at_one_tile_and_a_row_either_side(cuda, B, d,
+                                                              dt):
+    """S at the tile the forward's plan picks for S = 512, one row less and
+    one row more, each against the plain version."""
+    rows = AD.launch_plan("ln_modulate_fwd", B, 512, d, dt, torch.float32,
+                          cuda)["tile_rows"]
+    for S in (rows - 1, rows, rows + 1):
+        x, scale, shift = _ln_fwd_case(cuda, B, S, d, dt, torch.float32, 0,
+                                       0, 0, S)
+        _bf16_close(AD.ln_modulate_fwd(x, scale, shift),
+                    AD.ln_modulate_ref(x, scale, shift))
+
+
+@pytest.mark.gpu
+def test_ln_modulate_forward_is_deterministic_and_replays_in_a_graph(cuda):
+    """Two calls give bit-equal outputs, and calls captured in one CUDA
+    graph give the eager outputs on every replay."""
+    cases = [_ln_fwd_case(cuda, 8, S, 2048, torch.bfloat16, torch.float32,
+                          0, 0, 0, S) for S in (512, 130)]
+    cases.append(_ln_fwd_case(cuda, 4, 70, 384, torch.float32,
+                              torch.float32, 1, 1, 1, 7))
+
+    def run():
+        return [AD.ln_modulate_fwd(*c) for c in cases]
+
+    eager = run()
+    again = run()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, again):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(captured, eager):
+            assert torch.equal(got, want)
+
+
 # (B, S, d, x dtype, vector dtype, vector column offset, extra head
 # columns): the redesigned AdaLN backwards at their edges. The two-pass
 # main case and DiT-S/2's fp32 step; S = 1, 2 and 130 (a ragged last tile);
@@ -443,7 +602,7 @@ def test_adaln_backward_at_one_tile_and_a_row_either_side(cuda, name, B, d,
                                                          dt):
     """S at the tile the kernel's plan picks for S = 512, one row less and
     one row more, each against the plain version."""
-    rows = AD.backward_plan(name, B, 512, d, dt, torch.float32,
+    rows = AD.launch_plan(name, B, 512, d, dt, torch.float32,
                             cuda)["tile_rows"]
     kern, ref = getattr(AD, name), getattr(AD, name + "_ref")
     for S in (rows - 1, rows, rows + 1):

@@ -4,7 +4,9 @@ The kernels (``paged_decode_kernel`` in ``kernels/csrc/flash_decode.cu``,
 ``prefill_tc_kernel`` in ``kernels/csrc/flash_prefill.cu``) run only on the
 card. Here:
 
-(a) the plain functions around them: ``prefill_route`` (dtypes -> kernel),
+(a) the plain functions around them: ``prefill_route`` (dtypes -> kernel:
+    ``"tc"``, or ``"tf32"`` for ``prefill_tf32_kernel``, whose arithmetic
+    ``tests/test_torch_prefill_tf32.py`` emulates),
     and the dtypes the serving path hands ``flash_prefill`` under each
     policy; decode's launch sizing (``decode_splits``, ``max_tiles``) and
     the warps a block ``decode_launch`` picks from its shared memory;
@@ -70,10 +72,10 @@ DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8, "fp32": torch.float32}
 @pytest.mark.parametrize("q_dtype,page_dtype,route", [
     (torch.bfloat16, torch.bfloat16, "tc"),
     (torch.bfloat16, torch.int8, "tc"),
-    (torch.bfloat16, torch.float32, "simt"),
-    (torch.float32, torch.bfloat16, "simt"),
-    (torch.float32, torch.int8, "simt"),
-    (torch.float32, torch.float32, "simt"),
+    (torch.bfloat16, torch.float32, "tf32"),
+    (torch.float32, torch.bfloat16, "tf32"),
+    (torch.float32, torch.int8, "tf32"),
+    (torch.float32, torch.float32, "tf32"),
 ])
 def test_prefill_route_is_a_function_of_the_dtypes(q_dtype, page_dtype,
                                                    route):
@@ -81,13 +83,14 @@ def test_prefill_route_is_a_function_of_the_dtypes(q_dtype, page_dtype,
 
 
 @pytest.mark.parametrize("precision,route", [
-    ("bf16", "tc"), ("bf16_kvint8", "tc"), ("fp32", "simt"),
-    ("fp32_kvint8", "simt")])
+    ("bf16", "tc"), ("bf16_kvint8", "tc"), ("fp32", "tf32"),
+    ("fp32_kvint8", "tf32")])
 def test_serving_prefill_takes_its_policys_route(monkeypatch, precision,
                                                  route):
     """The chunked prefill of ``generate`` hands ``flash_prefill`` q and
     pages whose dtypes route every bf16 policy (the serving default among
-    them) to the tensor-core kernel and the fp32 ones to the CUDA cores."""
+    them) to the bf16 tensor-core kernel and the fp32 ones to the 3xTF32
+    kernel."""
     seen = []
     orig = KVC.flash_prefill
 
