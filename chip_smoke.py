@@ -44,8 +44,12 @@ Phases, each fatal on failure:
      ``fused_euler`` (the backward kernel must run); the kernels of the
      DiT-S/2 step at its shapes (attention ``full`` B=256 H=6 S=256 hd 64,
      gate-residual forward and backward (256, 256, 384), EDM loss
-     (256, 256, 16), fp32) and Huginn's attention (causal and db_concat,
-     B=8 H=8 hd 64, fp32);
+     (256, 256, 16), fp32), Huginn's attention (causal and db_concat,
+     B=8 H=8 hd 64, fp32), ViT's (attention ``full`` B=128 H=4 S=66 at
+     hd 32, the fp32 kernels' hd-32 instantiations; the Euler step at
+     predict's (128, 1, 128) with F the label row of the stream) and the
+     MDM's (attention ``full`` B=64 H=12 S=256 hd 64, gate-residual forward
+     and backward (64, 256, 768), fp32);
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -111,10 +115,29 @@ Phases, each fatal on failure:
      ``impl="ref"`` within 1e-3 (loss, grad norm, the first core layer's
      moments), then ``db_generate_logits`` with 32 Euler steps (132
      attention forward, 32 Euler), its logits within 1e-3 of the plain
-     versions'.
+     versions';
+ 12. ViT (paper §5.1) at full width (``VIT_CIFAR``: 12 layers, d=128, 4
+     heads of 32, ff 512, 100 classes; ``VIT_DB``: 3 blocks of 4), fp32,
+     ``GaussianMixtureImages`` batches of 128 32x32x3 images (patch 4: 66
+     tokens): one DB step per block (4 attention launches of each kind, no
+     AdaLN kernel: the label token's ``cond_mask``) and one e2e step (12
+     each), wall, device busy and peak memory; ``predict`` of the 128
+     images in 8 Euler steps (32 attention forwards, 8 Euler) with its
+     logits within 1e-3 of ``impl="ref"``'s, and ``predict_e2e`` (12);
+     accuracy printed (untrained: sanity only); one fp32 DB step on block
+     0 through the kernels against ``impl="ref"`` within 1e-3;
+ 13. the masked-diffusion LM (paper §5.3) at full width (``MDM``: 12
+     layers, d=768, 12 heads of 64, ff 3072, vocab 32 with [MASK] = 31;
+     ``MDM_DB``: 3 blocks), fp32, ``MarkovLM`` batches of 64 x 256: one DB
+     step per block (4 attention launches of each kind, 8 gate-residual
+     forward and backward) and one e2e step (12, 24); ``nelbo_bpc`` with 2
+     samples; ``generate`` of 8 x 256 in 50 steps and the final fill (51
+     forwards of a 4-layer block: 204 attention and 408 gate-residual
+     forwards); one fp32 DB step on block 0 through the kernels against
+     ``impl="ref"`` within 1e-3.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
-"device": {...}}``. The Euler backward runs on no main path (both samplers
+"device": {...}}``. The Euler backward runs on no main path (the samplers
 run under ``no_grad``): it is checked in phase 3 only and reports 0
 launches. Exits non-zero without a CUDA device or without the
 repository's ``src`` beside it.
@@ -151,6 +174,8 @@ ATTN = ("flash_attention_fwd", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv")
 DIT_TOKENS, DIT_DIM, DIT_BATCH = 256, 16, 256   # DiT-S/2: 32x32x4, patch 2
 DIT_SAMPLES, DIT_STEPS = 256, 18
+VIT_BATCH, VIT_STEPS = 128, 8                   # predict as Table 1 calls it
+MDM_BATCH, MDM_SEQ, MDM_GEN = 64, 256, 8        # 256: MD4's text8 context
 HUGINN_BPTT = 8
 TC_KERNELS = ("fwd_tc_kernel", "fwd_tf32_kernel", "dq_tc_kernel",
               "dkv_tc_kernel", "dq_tf32_kernel", "dkv_tf32_kernel")
@@ -567,7 +592,8 @@ def phase_rowwise(dev) -> dict:
     the first case of each being its main case; plus an fp32-stream case,
     a ragged one (S not a multiple of the kernels' tiles) and, for the
     gate backward and the loss, the DiT-S/2 step's (256, 256, 384) and
-    (256, 256, 16) fp32. Bytes: each
+    (256, 256, 16) fp32 (and the gate backward at the MDM step's (64, 256,
+    768) fp32). Bytes: each
     input read once, each output written once; flops per element: ln
     forward 8, ln backward 16, gate backward 3, loss forward 6, loss
     backward 9."""
@@ -620,6 +646,16 @@ def phase_rowwise(dev) -> dict:
         label, lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
         lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
         sets, 3 * n * 4 + 2 * B * d * 4, 3 * n, PRIOR_GATE_BWD_MS["dit"]))
+    B, S, d = 64, 256, 768             # the MDM layer's σ-gates
+    sets, n = adaln_sets(gen, dev, B, S, d, f32), B * S * d
+    label = (f"(q) gate_residual bwd ({B},{S},{d}) fp32 (MDM step), fp32 "
+             "slices")
+    say(f"[kernels] {label}: "
+        f"{adaln_plan('gate_residual_bwd', sets[0][0], sets[0][1])}")
+    rows["gate_residual_bwd"].append(rowwise_case(
+        label, lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
+        lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
+        sets, 3 * n * 4 + 2 * B * d * 4, 3 * n))
     for B, S, d, tag in ((8, 512, 2048, "(two-pass l2 path)"),
                          (8, 300, 2048, "ragged S=300"),
                          (256, 256, 16, "(DiT-S/2 l2 path)")):
@@ -653,7 +689,9 @@ def phase_euler(dev) -> dict:
     """The Euler step's kernels: the DiT sampler's (256, 256, 16) fp32 (the
     main case), the recurrent sampler's (8, 512, 512) fp32 with F the
     strided noisy half of a (8, 1024, 512) stream (read in place: no copy,
-    so the bytes are those of the half), a bf16 case and a ragged S. Bytes:
+    so the bytes are those of the half), a bf16 case, a ragged S and ViT's
+    predict (128, 1, 128) with F the label row of a (128, 66, 128) stream.
+    Bytes:
     z, F (or g) read once, outputs written once, a and b (B,) fp32; flops 3
     per element forward, 2 backward. Then one ``torch.autograd.grad``
     through ``fused_euler`` on the card: the backward kernel must run and
@@ -669,24 +707,26 @@ def phase_euler(dev) -> dict:
         sigma_to[0] = 0.0                     # the chain's last step
         return sigma, sigma_to
 
-    def stream(B, S, d, dt, strided):
-        if strided:
-            return torch.randn(B, 2 * S, d, generator=gen,
-                               device=dev).to(dt)[:, S:]
-        return torch.randn(B, S, d, generator=gen, device=dev).to(dt)
+    def stream(B, S, d, dt, span):
+        """F: the last S of ``span`` rows of each example (strided where
+        span > S)."""
+        return torch.randn(B, span, d, generator=gen,
+                           device=dev).to(dt)[:, span - S:]
 
-    for (B, S, d), dt, strided, tag in (
-            ((256, 256, 16), f32, False, "DiT-S/2 sampler, 256 samples"),
-            ((8, 512, 512), f32, True, "Huginn sampler, F strided"),
-            ((8, 512, 512), bf16, True, "bf16, F strided"),
-            ((8, 333, 512), f32, False, "ragged S=333")):
+    for (B, S, d), dt, span, tag in (
+            ((256, 256, 16), f32, 256, "DiT-S/2 sampler, 256 samples"),
+            ((8, 512, 512), f32, 1024, "Huginn sampler, F strided"),
+            ((8, 512, 512), bf16, 1024, "bf16, F strided"),
+            ((8, 333, 512), f32, 333, "ragged S=333"),
+            ((128, 1, 128), f32, 66, "ViT predict, F the label token of "
+             "66")):
         n, elt = B * S * d, torch.tensor([], dtype=dt).element_size()
         sets = []
         for _ in range(rotations(3 * n * elt)):
             z = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
             a, b = AD.euler_coeffs(*coeffs(B), 0.5)
             g = torch.randn(B, S, d, generator=gen, device=dev).to(dt)
-            sets.append((z, stream(B, S, d, dt, strided), a, b, g))
+            sets.append((z, stream(B, S, d, dt, span), a, b, g))
         shape = f"({B},{S},{d}) {str(dt)[6:]} {tag}"
         rows["euler_fwd"].append(rowwise_case(
             f"(l) euler fwd {shape}",
@@ -832,7 +872,8 @@ def phase_attention(dev) -> dict:
     512, in bf16 (the path's policy) and fp32, one GQA G=4 window case at hd
     128, the two calls of an olmo-1b two-pass layer (hd 128), the DiT-S/2
     layer's ``full`` attention and Huginn's causal and db_concat ones (fp32,
-    hd 64). The first case of each kernel is its main case."""
+    hd 64), ViT's (fp32, hd 32) and the MDM's (fp32, hd 64) ``full`` ones.
+    The first case of each kernel is its main case."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {n: [] for n in ATTN}
     bf16, f32 = torch.bfloat16, torch.float32
@@ -880,6 +921,12 @@ def phase_attention(dev) -> dict:
         ("(n) db_concat B=8 H=8 S=2x512 hd=64 fp32 (Huginn db core)",
          "db_concat", dict(B=8, H=8, KV=8, S=1024, hd=64, dtype=f32,
                            mask_seq=512)),
+        # ViT's layers (phase 12: hd 32, 66 tokens, so the second 64-row
+        # tile of each side holds 2 rows) and the MDM's (phase 13)
+        ("(p) full B=128 H=4 S=66 hd=32 fp32 (ViT step)", "full",
+         dict(B=128, H=4, KV=4, S=66, hd=32, dtype=f32)),
+        ("(q) full B=64 H=12 S=256 hd=64 fp32 (MDM step)", "full",
+         dict(B=64, H=12, KV=12, S=256, hd=64, dtype=f32)),
     ]
     for label, kind, kw in cases:
         pr16 = kw.pop("pr16", None)
@@ -986,6 +1033,10 @@ def phase_kernels(dev) -> dict:
     rows["gate_residual"].append(gate_case(
         "(m) gate_residual (256,256,384) fp32, fp32 gate slice (DiT-S/2)",
         (256, 256, 384), f32, f32, dev, gen, prior=0.1013))
+    # (q) the MDM layer's two σ-gates (phase 13: batch 64 x 256, d 768)
+    rows["gate_residual"].append(gate_case(
+        "(q) gate_residual (64,256,768) fp32, fp32 gate slice (MDM)",
+        (64, 256, 768), f32, f32, dev, gen))
     return rows
 
 
@@ -1776,6 +1827,85 @@ def phase_two_pass(dev) -> dict:
 # 10. DiT-S/2, 11. Huginn at full width
 # ---------------------------------------------------------------------------
 
+def adapter_steps(label, params, ranges, n_layers, make_db, make_e2e, batch,
+                  counts) -> dict:
+    """A warm-up DB step on block 0, one timed DB step on each block (its
+    own AdamW state made before the step, freed after it), one more under
+    the profiler; then a warm-up, a timed and a profiled e2e step (every
+    param's state resident). ``make_db(b)`` / ``make_e2e()`` give (init,
+    step) pairs, ``batch()`` a step's positional arguments, ``counts(size)``
+    the launches of a step over ``size`` layers. Each timed step's launches
+    must equal that arithmetic and its loss be finite; a DB step may change
+    only its block's layers and the periphery."""
+    out = {"db": [], "launches": {}}
+
+    def db_run(b, args):
+        init, step = make_db(b)
+        state = init(params)
+        return lambda: step(params, state, *args)[2:]
+
+    loss, _ = db_run(0, batch())()
+    say(f"[{label}] warm-up DB step on block 0: loss {float(loss):.4f}")
+    for b, (start, size) in enumerate(ranges):
+        before = unit_digests(params)
+        run = db_run(b, batch())
+        (res, wall, dev_ms, peak, base, got) = timed_step(run)
+        loss, m = res
+        del run, res
+        changed = (unit_digests(params) != before).tolist()
+        say(f"[{label}] DB step block {b} (layers {start}-{start + size - 1})"
+            f": loss {float(loss):.4f} | grad norm "
+            f"{float(m['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | "
+            f"device {dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB "
+            f"(resident before {base / 2**30:.2f}) | launches {got}")
+        check_counts(f"{label} DB step block {b}", got, counts(size))
+        if not math.isfinite(float(loss)):
+            raise SmokeError(f"{label} DB step block {b}: loss {float(loss)}")
+        want = [start <= u < start + size for u in range(n_layers)] + [True]
+        if changed != want:
+            raise SmokeError(f"{label} DB step block {b} changed layers "
+                             f"{changed} (expected {want})")
+        add_counts(out["launches"], got)
+        out["db"].append({"block": b, "loss": float(loss), "wall_s": wall,
+                          "device_ms": dev_ms, "peak_bytes": peak})
+    out["db_profile"] = profile_step(f"{label}: DB step block 0",
+                                     db_run(0, batch()))
+
+    init, step = make_e2e()
+    opt = init(params)
+    step(params, opt, *batch())
+    args = batch()
+    (res, wall, dev_ms, peak, base, got) = timed_step(
+        lambda: step(params, opt, *args)[2:])
+    loss, m = res
+    say(f"[{label}] e2e step (all {n_layers} layers): loss {float(loss):.4f}"
+        f" | grad norm {float(m['grad_norm']):.3f} | wall {wall * 1e3:.1f} "
+        f"ms | device {dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB "
+        f"(resident before {base / 2**30:.2f}) | launches {got}")
+    check_counts(f"{label} e2e step", got, counts(n_layers))
+    if not math.isfinite(float(loss)):
+        raise SmokeError(f"{label} e2e step: loss {float(loss)}")
+    add_counts(out["launches"], got)
+    out["e2e"] = {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
+                  "peak_bytes": peak}
+    out["e2e_profile"] = profile_step(f"{label}: e2e step",
+                                      lambda: step(params, opt, *args))
+    del opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def logits_gap(label, got, ref) -> float:
+    """max |got - ref| / max |ref|; raises past 1e-3."""
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    say(f"[crosscheck] {label}, kernels vs plain versions: logits rel "
+        f"max|diff| {rel:.2e} (limit 1e-3)")
+    if not (rel <= 1e-3 and math.isfinite(rel)):
+        raise SmokeError(f"{label}: kernels and plain versions differ by "
+                         f"{rel:.2e}")
+    return rel
+
+
 def dit_step_counts(size: int) -> dict:
     """Launches of one DiT training step over ``size`` layers: per layer one
     attention forward, dq and dk/dv (``full`` mask), two gate-residual
@@ -1796,7 +1926,6 @@ def sample_counts(evals: int, steps: int) -> dict:
 
 def phase_dit(dev) -> dict:
     """Phase 10: DiT-S/2 at full width, fp32, batch 256 of 256 tokens."""
-    import numpy as np
     from repro_torch.configs import paper
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import dit as DIT
@@ -1818,7 +1947,9 @@ def phase_dit(dev) -> dict:
     mix = MixtureImagesContinuous(n_tokens=DIT_TOKENS, dim=DIT_DIM,
                                   n_modes=4)
     data = mix.iterator(DIT_BATCH)
-    batch = lambda: torch.as_tensor(next(data)[0], device=dev)  # noqa: E731
+
+    def batch():
+        return (torch.as_tensor(next(data)[0], device=dev), gen)
     tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
     say(f"[dit] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
         f"heads={cfg.n_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
@@ -1828,62 +1959,10 @@ def phase_dit(dev) -> dict:
         f"{time.perf_counter() - t0:.1f} s; fp32, MixtureImagesContinuous "
         f"batches of {DIT_BATCH}")
 
-    def db_run(b, y):
-        init, step = DIT.make_db_step(dit, b, tcfg)
-        state = init(params)
-        return lambda: step(params, state, y, gen)[2:]
-
-    loss, _ = db_run(0, batch())()
-    say(f"[dit] warm-up DB step on block 0: loss {float(loss):.4f}")
-    out = {"db": [], "launches": {}}
-    for b, (start, size) in enumerate(dit.ranges):
-        before = unit_digests(params)
-        run = db_run(b, batch())
-        (res, wall, dev_ms, peak, base, counts) = timed_step(run)
-        loss, m = res
-        del run, res
-        changed = (unit_digests(params) != before).tolist()
-        say(f"[dit] DB step block {b} (layers {start}-{start + size - 1}): "
-            f"loss {float(loss):.4f} | grad norm {float(m['grad_norm']):.3f}"
-            f" | wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) "
-            f"| peak {peak / 2**30:.2f} GiB (resident before "
-            f"{base / 2**30:.2f}) | launches {counts}")
-        check_counts(f"DiT DB step block {b}", counts, dit_step_counts(size))
-        if not math.isfinite(float(loss)):
-            raise SmokeError(f"DiT DB step block {b}: loss {float(loss)}")
-        want = [start <= u < start + size for u in range(cfg.n_layers)] \
-            + [True]
-        if changed != want:
-            raise SmokeError(f"DiT DB step block {b} changed layers "
-                             f"{changed} (expected {want})")
-        add_counts(out["launches"], counts)
-        out["db"].append({"block": b, "loss": float(loss), "wall_s": wall,
-                          "device_ms": dev_ms, "peak_bytes": peak})
-    out["db_profile"] = profile_step("DiT-S/2: DB step block 0",
-                                     db_run(0, batch()))
-
-    init, step = DIT.make_e2e_step(dit, tcfg)
-    opt = init(params)
-    step(params, opt, batch(), gen)
-    y = batch()
-    (res, wall, dev_ms, peak, base, counts) = timed_step(
-        lambda: step(params, opt, y, gen)[2:])
-    loss, m = res
-    say(f"[dit] e2e step (all {cfg.n_layers} layers): loss "
-        f"{float(loss):.4f} | grad norm {float(m['grad_norm']):.3f} | wall "
-        f"{wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
-        f"{peak / 2**30:.2f} GiB (resident before {base / 2**30:.2f}) | "
-        f"launches {counts}")
-    check_counts("DiT e2e step", counts, dit_step_counts(cfg.n_layers))
-    if not math.isfinite(float(loss)):
-        raise SmokeError(f"DiT e2e step: loss {float(loss)}")
-    add_counts(out["launches"], counts)
-    out["e2e"] = {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
-                  "peak_bytes": peak}
-    out["e2e_profile"] = profile_step("DiT-S/2: e2e step",
-                                      lambda: step(params, opt, y, gen))
-    del opt
-    torch.cuda.empty_cache()
+    out = adapter_steps("dit", params, dit.ranges, cfg.n_layers,
+                        lambda b: DIT.make_db_step(dit, b, tcfg),
+                        lambda: DIT.make_e2e_step(dit, tcfg), batch,
+                        dit_step_counts)
 
     sched = PT.sampling_schedule(dit.db, DIT_STEPS)[:-1]
     per_block = [sum(PT.block_of_sigma(dit.db, float(s)) == b for s in sched)
@@ -1925,7 +2004,7 @@ def phase_dit(dev) -> dict:
 
     # fp32 cross-check: one DB step on block 0 at the steps' batch, σ from
     # block 0's range as its steps draw it, kernels against impl="ref"
-    y = batch()
+    y, _ = batch()
     sigma = edm.sample_sigma_in_qrange(gen, (DIT_BATCH, 1, 1), dit.db,
                                        *PT.block_qrange(dit.db, 0),
                                        device=dev)
@@ -2043,19 +2122,228 @@ def phase_huginn(dev) -> dict:
     logp = torch.log_softmax(logits.float(), -1)
     ce = -torch.gather(logp, -1, tokens[..., None])[..., 0].mean().item()
     add_counts(out["launches"], counts)
-    ref = m.db_generate_logits(params, tokens, z0=z0, impl="ref")
-    rel = ((logits - ref).abs().max() / ref.abs().max()).item()
     say(f"[huginn] db_generate_logits, {K_} Euler steps: wall "
         f"{wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
         f"{peak / 2**30:.2f} GiB | teacher-forced CE (untrained) {ce:.4f} | "
-        f"launches {counts} | kernels vs plain versions: logits rel "
-        f"max|diff| {rel:.2e} (limit 1e-3)")
-    if not (rel <= 1e-3 and math.isfinite(rel)):
-        raise SmokeError(f"Huginn generation: kernels and plain versions "
-                         f"differ by {rel:.2e}")
+        f"launches {counts}")
+    ref = m.db_generate_logits(params, tokens, z0=z0, impl="ref")
+    rel = logits_gap(f"Huginn db_generate_logits, {K_} steps", logits, ref)
     out["generate"] = {"wall_s": wall, "device_ms": dev_ms, "ce": ce,
                        "logits_rel": rel}
     del params, logits, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 12. ViT, 13. masked diffusion at full width
+# ---------------------------------------------------------------------------
+
+def vit_step_counts(size: int) -> dict:
+    """Launches of one ViT training step over ``size`` layers: per layer
+    one attention forward, dq and dk/dv (``full``, hd 32); the σ embedding
+    modulates the label token only (``cond_mask``), so no AdaLN kernel."""
+    return expected_counts(**{n: size for n in ATTN})
+
+
+def phase_vit(dev) -> dict:
+    """Phase 12: the ViT classifier (paper §5.1) at full width, fp32,
+    ``GaussianMixtureImages`` batches of 128 32x32x3 images (100 classes,
+    patch 4: 66 tokens)."""
+    from repro_torch.configs import paper
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import edm
+    from repro_torch.core import partition as PT
+    from repro_torch.core import vit as VIT
+    from repro_torch.data import GaussianMixtureImages
+    t0 = time.perf_counter()
+    vit = VIT.ViTDiffusionBlocks(paper.VIT_CIFAR, paper.VIT_DB)
+    cfg = vit.cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = vit.init(gen)
+    # AdaLN heads are zero at init: randomise them so the σ conditioning of
+    # the label token does real work
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    n_params = sum(p.numel() for _, p in _leaves(params))
+    data = GaussianMixtureImages(num_classes=vit.num_classes,
+                                 image_size=vit.image_size).iterator(
+        VIT_BATCH)
+
+    def batch():
+        x, y = next(data)
+        return (torch.as_tensor(x, device=dev),
+                torch.as_tensor(y, device=dev), gen)
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    S = vit.n_patches + 2
+    say(f"[vit] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+        f"heads={cfg.n_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
+        f"classes={vit.num_classes} norm={cfg.norm} mlp={cfg.mlp}, "
+        f"{vit.db.num_blocks} blocks {vit.ranges}; {vit.image_size}x"
+        f"{vit.image_size}x{vit.channels} images, patch {vit.patch}: {S} "
+        f"tokens; {n_params / 1e6:.2f} M params fp32 made in "
+        f"{time.perf_counter() - t0:.1f} s; fp32, GaussianMixtureImages "
+        f"batches of {VIT_BATCH}")
+    out = adapter_steps("vit", params, vit.ranges, cfg.n_layers,
+                        lambda b: VIT.make_db_step(vit, b, tcfg),
+                        lambda: VIT.make_e2e_step(vit, tcfg), batch,
+                        vit_step_counts)
+
+    x, y, _ = batch()
+    vit.predict(params, x, 2, generator=gen)
+    z0 = vit.db.sigma_max * torch.randn(VIT_BATCH, 1, cfg.d_model,
+                                        generator=gen, device=dev)
+    sched = PT.sampling_schedule(vit.db, VIT_STEPS)[:-1]
+    evals = sum(vit.ranges[PT.block_of_sigma(vit.db, float(s))][1]
+                for s in sched)
+    ((pred, logits), wall, dev_ms, peak, base, got) = timed_step(
+        lambda: vit.predict(params, x, VIT_STEPS, z0=z0))
+    check_counts("ViT predict", got, expected_counts(
+        flash_attention_fwd=evals, euler_fwd=VIT_STEPS))
+    if tuple(logits.shape) != (VIT_BATCH, vit.num_classes) \
+            or not torch.isfinite(logits).all():
+        raise SmokeError("ViT predict: logits not finite or of shape "
+                         f"{tuple(logits.shape)}")
+    add_counts(out["launches"], got)
+    acc = VIT.accuracy(pred, y.cpu())
+    say(f"[vit] predict, {VIT_BATCH} images, {VIT_STEPS} Euler steps "
+        f"({evals} layer evaluations): wall {wall * 1e3:.1f} ms | device "
+        f"{dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB | accuracy "
+        f"after {vit.db.num_blocks + 2} DB and 3 e2e steps (sanity only) "
+        f"{acc:.4f} | launches {got}")
+    out["predict_profile"] = profile_step(
+        "vit: predict", lambda: vit.predict(params, x, VIT_STEPS, z0=z0))
+    ref = vit.predict(params, x, VIT_STEPS, z0=z0, impl="ref")[1]
+    rel = logits_gap(f"ViT predict, {VIT_STEPS} steps", logits, ref)
+    ((pred_e, logits_e), wall_e, dev_e, _, _, got) = timed_step(
+        lambda: vit.predict_e2e(params, x))
+    check_counts("ViT predict_e2e", got, expected_counts(
+        flash_attention_fwd=cfg.n_layers))
+    if not torch.isfinite(logits_e).all():
+        raise SmokeError("ViT predict_e2e: logits not finite")
+    add_counts(out["launches"], got)
+    acc_e = VIT.accuracy(pred_e, y.cpu())
+    say(f"[vit] predict_e2e, {VIT_BATCH} images ({cfg.n_layers} layers): "
+        f"wall {wall_e * 1e3:.1f} ms | device {dev_e:.1f} ms (events) | "
+        f"accuracy (sanity only) {acc_e:.4f} | launches {got}")
+    out["predict"] = {"wall_s": wall, "device_ms": dev_ms, "evals": evals,
+                      "accuracy": acc, "logits_rel": rel,
+                      "e2e_accuracy": acc_e}
+
+    # fp32 cross-check: one DB step on block 0, σ from block 0's range
+    sigma = edm.sample_sigma_in_qrange(gen, (VIT_BATCH, 1, 1), vit.db,
+                                       *PT.block_qrange(vit.db, 0),
+                                       device=dev)
+    eps = torch.randn(VIT_BATCH, 1, cfg.d_model, generator=gen, device=dev)
+    out["crosscheck"] = block_crosscheck(
+        params, vit.ranges[0], lambda impl: VIT.make_db_step(vit, 0, tcfg,
+                                                             impl=impl),
+        (x, y), {"sigma": sigma, "eps": eps},
+        vit_step_counts(vit.ranges[0][1]), "ViT",
+        [("attn", "wq"), ("mlp", "wi"), ("adaln", "w")])
+    say(f"[vit] phase 12 took {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def mdm_step_counts(size: int) -> dict:
+    """Launches of one MDM training step over ``size`` layers: per layer one
+    attention forward, dq and dk/dv (``full``, hd 64) and two gate-residual
+    forwards and backwards (the t embedding on every position, no
+    ``cond_mask``; the LayerNorm is parametric, so no ln-modulate)."""
+    return expected_counts(**{n: size for n in ATTN},
+                           gate_residual=2 * size,
+                           gate_residual_bwd=2 * size)
+
+
+def phase_mdm(dev) -> dict:
+    """Phase 13: the masked-diffusion LM (paper §5.3) at full width, fp32,
+    ``MarkovLM`` (31 symbols + [MASK]) batches of 64 x 256."""
+    from repro_torch.configs import paper
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import masked as MASK
+    from repro_torch.data import MarkovLM
+    t0 = time.perf_counter()
+    mdm = MASK.MaskedDiffusionBlocks(paper.MDM, paper.MDM_DB)
+    cfg = mdm.cfg
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = mdm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    n_params = sum(p.numel() for _, p in _leaves(params))
+    lm = MarkovLM(vocab_size=mdm.mask_id, seed=4)
+    data = lm.iterator(MDM_BATCH, MDM_SEQ)
+
+    def batch():
+        return (torch.as_tensor(next(data), device=dev), gen)
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    say(f"[mdm] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} "
+        f"heads={cfg.n_heads} hd={cfg.head_dim} ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} ([MASK] {mdm.mask_id}) norm={cfg.norm} "
+        f"mlp={cfg.mlp}, {mdm.db.num_blocks} blocks {mdm.ranges}; "
+        f"{n_params / 1e6:.2f} M params fp32 made in "
+        f"{time.perf_counter() - t0:.1f} s; MarkovLM batches "
+        f"{MDM_BATCH}x{MDM_SEQ}")
+    out = adapter_steps("mdm", params, mdm.ranges, cfg.n_layers,
+                        lambda b: MASK.make_db_step(mdm, b, tcfg),
+                        lambda: MASK.make_e2e_step(mdm, tcfg), batch,
+                        mdm_step_counts)
+
+    tokens, _ = batch()
+    evals = sum(size for _, size in mdm.ranges)
+    (bpc, wall, dev_ms, _, _, got) = timed_step(
+        lambda: mdm.nelbo_bpc(params, tokens, gen, n_samples=2))
+    check_counts("MDM nelbo_bpc", got, expected_counts(
+        flash_attention_fwd=2 * evals, gate_residual=4 * evals))
+    bpc = float(bpc)
+    if not math.isfinite(bpc):
+        raise SmokeError(f"MDM nelbo_bpc: {bpc}")
+    add_counts(out["launches"], got)
+    floor = -lm.log_likelihood(tokens.cpu().numpy())
+    say(f"[mdm] nelbo_bpc, 2 samples x {mdm.db.num_blocks} blocks over "
+        f"{MDM_BATCH}x{MDM_SEQ}: {bpc:.4f} bits/char after "
+        f"{mdm.db.num_blocks + 2} DB and 3 e2e steps (sanity only; the "
+        f"chain's entropy floor {floor:.4f}) | wall {wall * 1e3:.1f} ms | "
+        f"device {dev_ms:.1f} ms (events) | launches {got}")
+
+    n = mdm.db.num_sampling_steps
+    times = MASK.sampler_times(n)
+    gen_evals = sum(mdm.ranges[mdm.block_of_t(max(float(t), 1e-3))][1]
+                    for t in times[:-1]) + mdm.ranges[-1][1]
+    mdm.generate(params, MDM_GEN, MDM_SEQ, 2, generator=gen)
+    (x, wall, dev_ms, peak, _, got) = timed_step(
+        lambda: mdm.generate(params, MDM_GEN, MDM_SEQ, generator=gen))
+    check_counts("MDM generate", got, expected_counts(
+        flash_attention_fwd=gen_evals, gate_residual=2 * gen_evals))
+    if tuple(x.shape) != (MDM_GEN, MDM_SEQ):
+        raise SmokeError(f"MDM generate: tokens of shape {tuple(x.shape)}")
+    add_counts(out["launches"], got)
+    xs = x.cpu().numpy()
+    left = int((xs == mdm.mask_id).sum())
+    legal = (f"{lm.transition_accuracy(xs):.4f}" if left == 0
+             else f"n/a ({left} [MASK] tokens sampled)")
+    say(f"[mdm] generate {MDM_GEN}x{MDM_SEQ}, {n} steps + the final fill "
+        f"({gen_evals} layer evaluations): wall {wall * 1e3:.1f} ms | device "
+        f"{dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB | legal "
+        f"transitions (sanity only) {legal} | launches {got}")
+    out["eval"] = {"bpc": bpc, "entropy_floor": floor,
+                   "generate_wall_s": wall, "generate_device_ms": dev_ms}
+    out["generate_profile"] = profile_step(
+        "mdm: generate", lambda: mdm.generate(params, MDM_GEN, MDM_SEQ,
+                                              generator=gen))
+
+    # fp32 cross-check: one DB step on block 0, t from block 0's range
+    lo, hi = mdm.t_range(0)
+    t = lo + (hi - lo) * torch.rand(MDM_BATCH, 1, generator=gen, device=dev)
+    u = torch.rand(MDM_BATCH, MDM_SEQ, generator=gen, device=dev)
+    out["crosscheck"] = block_crosscheck(
+        params, mdm.ranges[0], lambda impl: MASK.make_db_step(mdm, 0, tcfg,
+                                                              impl=impl),
+        (tokens,), {"t": t, "u": u}, mdm_step_counts(mdm.ranges[0][1]),
+        "MDM", [("attn", "wq"), ("mlp", "wi"), ("adaln", "w")])
+    say(f"[mdm] phase 13 took {time.perf_counter() - t0:.1f} s")
+    del params
     torch.cuda.empty_cache()
     return out
 
@@ -2135,10 +2423,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     dit = phase_dit(dev)
     huginn = phase_huginn(dev)
+    vit = phase_vit(dev)
+    mdm = phase_mdm(dev)
     launches = {}
     for counts in (serve["counts"], train["launches"],
                    two_pass["launches"], dit["launches"],
-                   huginn["launches"]):
+                   huginn["launches"], vit["launches"], mdm["launches"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

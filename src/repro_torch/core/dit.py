@@ -195,21 +195,10 @@ def train(dit: DiTDiffusionBlocks, tcfg: TrainConfig, data_iter,
     dev = generator.device
     if params is None:
         params = dit.init(generator)
-    if blockwise:
-        steps = [make_db_step(dit, b, tcfg, impl)
-                 for b in range(dit.db.num_blocks)]
-    else:
-        steps = [make_e2e_step(dit, tcfg, impl)]
-    states = [init(params) for init, _ in steps]
-    history = []
-    for it in range(tcfg.steps):
-        y = torch.as_tensor(np.asarray(next(data_iter)),
-                            dtype=torch.float32).to(dev)
-        k = int(torch.randint(0, len(steps), (), generator=generator,
-                              device=dev)) if blockwise else 0
-        params, states[k], loss, _ = steps[k][1](params, states[k], y,
-                                                 generator)
-        history.append((it, k if blockwise else -1, float(loss)))
-        if tcfg.log_every and it % tcfg.log_every == 0:
-            log(f"[dit] it={it} block={history[-1][1]} loss={float(loss):.4f}")
-    return params, history
+    steps = ([make_db_step(dit, b, tcfg, impl)
+              for b in range(dit.db.num_blocks)] if blockwise
+             else [make_e2e_step(dit, tcfg, impl)])
+    batches = ((torch.as_tensor(np.asarray(y), dtype=torch.float32).to(dev),)
+               for y in data_iter)
+    return T.train_views(steps, params, batches, generator, tcfg, blockwise,
+                         "dit", log)

@@ -9,10 +9,11 @@ graph, and gradients and AdamW moments exist for the view alone. AdamW then
 updates the view, and so the masters, in place.
 
 ``make_e2e_train_step`` is the end-to-end backprop baseline over every
-param. Both are ``make_view_train_step`` over a loss, which the DiT and
-recurrent-depth adapters' steps use too. Every step returns ``(params,
-opt_state, loss, metrics)`` with ``params`` updated in place (the same
-dict).
+param. Both are ``make_view_train_step`` over a loss, which the DiT, ViT,
+masked-diffusion and recurrent-depth adapters' steps use too;
+``train_views`` is the DiT, ViT and masked-diffusion training loop. Every
+step returns ``(params, opt_state, loss, metrics)`` with ``params`` updated
+in place (the same dict).
 """
 from __future__ import annotations
 
@@ -114,6 +115,30 @@ def make_view_train_step(loss_fn, tcfg: TrainConfig, unit_range=None):
         return params, opt_state, loss.detach(), {**metrics, **om}
 
     return init_opt, step
+
+
+def train_views(steps, params, batches, generator: torch.Generator,
+                tcfg: TrainConfig, blockwise: bool, tag: str, log=print):
+    """The adapters' training loop over ``make_view_train_step`` pairs
+    ``steps``: one per block, each with its own AdamW state, of which
+    ``blockwise`` takes one drawn uniformly from ``generator`` each
+    iteration; else the one full-stack step. ``batches`` yields tuples of
+    the steps' arguments, to which ``generator`` is appended. Returns
+    (params, history [(it, block, loss)]), block -1 for the full stack."""
+    dev = generator.device
+    states = [init(params) for init, _ in steps]
+    history = []
+    for it in range(tcfg.steps):
+        args = next(batches)
+        k = int(torch.randint(0, len(steps), (), generator=generator,
+                              device=dev)) if blockwise else 0
+        params, states[k], loss, _ = steps[k][1](params, states[k], *args,
+                                                 generator)
+        history.append((it, k if blockwise else -1, float(loss)))
+        if tcfg.log_every and it % tcfg.log_every == 0:
+            log(f"[{tag}] it={it} block={history[-1][1]} "
+                f"loss={float(loss):.4f}")
+    return params, history
 
 
 def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,

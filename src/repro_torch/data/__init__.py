@@ -1,1 +1,2 @@
-from repro_torch.data.synthetic import MarkovLM, MixtureImagesContinuous
+from repro_torch.data.synthetic import (GaussianMixtureImages, MarkovLM,
+                                        MixtureImagesContinuous)

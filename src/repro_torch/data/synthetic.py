@@ -1,8 +1,10 @@
-"""Synthetic data (copies of ``MarkovLM`` and ``MixtureImagesContinuous``
-from ``repro.data.synthetic``, numpy only): a Zipf-weighted order-1 Markov
-chain with learnable structure, so CE demonstrably falls, and a Gaussian
-mixture of continuous 'images' for the DiT adapter. Same seed, same batches
-as the JAX package."""
+"""Synthetic data (copies of ``MarkovLM``, ``GaussianMixtureImages`` and
+``MixtureImagesContinuous`` from ``repro.data.synthetic``, numpy only): a
+Zipf-weighted order-1 Markov chain with learnable structure, so CE
+demonstrably falls (with its true log-likelihood and transition legality for
+the masked-diffusion evaluation), class-conditional Gaussian images for the
+ViT classifier, and a Gaussian mixture of continuous 'images' for the DiT
+adapter. Same seed, same batches as the JAX package."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,6 +42,52 @@ class MarkovLM:
         rng = np.random.RandomState(seed)
         while True:
             yield self.sample(rng, batch, seq_len)
+
+    def log_likelihood(self, x: np.ndarray) -> float:
+        """Average log2-likelihood per transition under the true chain
+        (entropy floor for BPC-style metrics)."""
+        V, K = self.vocab_size, self.branching
+        probs = np.zeros((V, V))
+        for k in range(K):
+            np.add.at(probs, (np.arange(V), self.next_tokens[:, k]),
+                      self.next_probs[k])
+        p = probs[x[:, :-1], x[:, 1:]]
+        return float(np.mean(np.log2(np.maximum(p, 1e-12))))
+
+    def transition_accuracy(self, x: np.ndarray) -> float:
+        """Fraction of transitions that are legal under the chain — the
+        generation-quality proxy (MAUVE stand-in)."""
+        legal = (self.next_tokens[x[:, :-1]] == x[:, 1:, None]).any(-1)
+        return float(legal.mean())
+
+
+@dataclasses.dataclass
+class GaussianMixtureImages:
+    """Class-conditional images: class c has a fixed random mean image +
+    noise. Linearly separable at high SNR; difficulty via noise_scale."""
+    num_classes: int = 10
+    image_size: int = 32
+    channels: int = 3
+    noise_scale: float = 0.5
+    seed: int = 0
+
+    def __post_init__(self):
+        r = np.random.RandomState(self.seed)
+        self.means = r.randn(self.num_classes, self.image_size,
+                             self.image_size, self.channels).astype(np.float32)
+
+    def sample(self, rng: np.random.RandomState,
+               batch: int) -> Tuple[np.ndarray, np.ndarray]:
+        y = rng.randint(0, self.num_classes, batch)
+        x = self.means[y] + self.noise_scale * rng.randn(
+            batch, self.image_size, self.image_size,
+            self.channels).astype(np.float32)
+        return x.astype(np.float32), y
+
+    def iterator(self, batch: int, seed: int = 1):
+        rng = np.random.RandomState(seed)
+        while True:
+            yield self.sample(rng, batch)
 
 
 @dataclasses.dataclass

@@ -455,8 +455,8 @@ cudaError_t dq_tc(const FlashArgs& a, cudaStream_t st) {
 // Loads: the fixed side (K, V in dk/dv; Q, dO in dq) once, the streamed
 // side through a 2-stage cp.async ring that prefetches the next visible
 // tile, one barrier a tile, as in the bf16 kernels. Shared memory: 6 tiles
-// of 64 x (HD + 8) floats, 108 KB at hd 64 (2 blocks an SM) and 204 KB at
-// hd 128 (1). A warp takes its 64-row streamed tile in passes of
+// of 64 x (HD + 8) floats, 61 KB at hd 32 (3 blocks an SM), 108 KB at hd 64
+// (2) and 204 KB at hd 128 (1). A warp takes its 64-row streamed tile in passes of
 // kTf32Pass rows (a loop not unrolled). Copies are 16 bytes where q, k, v,
 // dO and the outputs pass copies16(), else the same kernel is instantiated
 // with 4-byte copies and scalar stores: every fp32 view with a contiguous
@@ -471,6 +471,11 @@ constexpr int kBwdPitch = HD + 8;
 // at hd 128 passes of 16 made dk/dv 11% slower and dq 3% faster.
 template <int HD>
 constexpr int kTf32Pass = 32;
+// Blocks an SM that dq_tf32_kernel and dkv_tf32_kernel ask
+// __launch_bounds__ for: as many as their shared memory allows (61 KB a
+// block at hd 32, 108 KB at hd 64, 204 KB at hd 128).
+template <int HD>
+constexpr int kTf32MinBlocks = HD == 32 ? 3 : HD == 64 ? 2 : 1;
 
 // The row of an 8-row score tile that n-index g stands for.
 __device__ __forceinline__ int score_row(int g) { return g ^ (g >> 2); }
@@ -582,7 +587,7 @@ __device__ __forceinline__ void store_row(float* row, const float (&d)[ND][4],
 // the tile's 64 lse and delta values (4-byte cp.async, indices clamped to
 // Sq - 1) go through the ring.
 template <int HD, bool V16>
-__global__ void __launch_bounds__(kTcThreads, HD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kTcThreads, kTf32MinBlocks<HD>)
     dkv_tf32_kernel(const FlashArgs a) {
   constexpr int P = kBwdPitch<HD>, TILE = kB * P;
   constexpr int ND = HD / 8;               // n8 tiles of dk, dv
@@ -737,7 +742,7 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 2 : 1)
 // operands, K, V the B), masked through row_keys(), then dQ += dS K. Q and
 // dO are loaded once; K and V go through the ring.
 template <int HD, bool V16>
-__global__ void __launch_bounds__(kTcThreads, HD == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kTcThreads, kTf32MinBlocks<HD>)
     dq_tf32_kernel(const FlashArgs a) {
   constexpr int P = kBwdPitch<HD>, TILE = kB * P;
   constexpr int ND = HD / 8;               // n8 tiles of dq
@@ -876,12 +881,14 @@ cudaError_t dq_tf32(const FlashArgs& a, cudaStream_t st) {
 
 }  // namespace rtfa
 
-// Writes a->dq from q, k, v, dout, lse, delta. hd must be 64 or 128.
+// Writes a->dq from q, k, v, dout, lse, delta. hd must be 64 or 128, or
+// 32 in fp32.
 extern "C" int rt_flash_attention_bwd_dq(const rtfa::FlashArgs* a,
                                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (a->hd * 2 + a->bf16) {
+    case 64: e = rtfa::dq_tf32<32>(*a, st); break;
     case 128: e = rtfa::dq_tf32<64>(*a, st); break;
     case 129: e = rtfa::dq_tc<64>(*a, st); break;
     case 256: e = rtfa::dq_tf32<128>(*a, st); break;
@@ -897,6 +904,7 @@ extern "C" int rt_flash_attention_bwd_dkv(const rtfa::FlashArgs* a,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (a->hd * 2 + a->bf16) {
+    case 64: e = rtfa::dkv_tf32<32>(*a, st); break;
     case 128: e = rtfa::dkv_tf32<64>(*a, st); break;
     case 129: e = rtfa::dkv_tc<64>(*a, st); break;
     case 256: e = rtfa::dkv_tf32<128>(*a, st); break;

@@ -321,9 +321,9 @@ constexpr int kVPitch = HD + 4;
 // this tile's products; 1: they wait for them). The kernel asks for 2
 // blocks an SM, which at hd 128 leaves shared memory for one stage only
 // (103 KB a block against 168 KB with two): a trade that measured faster
-// (tune_attention_fwd.py).
+// (tune_attention_fwd.py). At hd 32 two stages take 48 KB a block.
 template <int HD>
-constexpr int kTf32Stages = HD == 64 ? 2 : 1;
+constexpr int kTf32Stages = HD == 128 ? 1 : 2;
 
 template <int HD, bool V16>
 __global__ void __launch_bounds__(kTcThreads, 2)
@@ -467,12 +467,14 @@ cudaError_t fwd_tf32(const FlashArgs& a, cudaStream_t st) {
 
 }  // namespace rtfa
 
-// Writes a->o and a->lse from a->q, a->k, a->v. hd must be 64 or 128; bf16
-// tensors must be 16-byte aligned with strides that are multiples of 8.
+// Writes a->o and a->lse from a->q, a->k, a->v. hd must be 64 or 128, or 32
+// in fp32; bf16 tensors must be 16-byte aligned with strides that are
+// multiples of 8.
 extern "C" int rt_flash_attention_fwd(const rtfa::FlashArgs* a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (a->hd * 2 + a->bf16) {
+    case 64: e = rtfa::fwd_tf32<32>(*a, st); break;
     case 128: e = rtfa::fwd_tf32<64>(*a, st); break;
     case 129: e = rtfa::fwd_tc<64>(*a, st); break;
     case 256: e = rtfa::fwd_tf32<128>(*a, st); break;

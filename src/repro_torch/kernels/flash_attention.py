@@ -48,8 +48,11 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 MASK_KINDS = ("full", "causal", "window", "db_concat", "two_pass")
-HEAD_DIMS = (64, 128)
-_DTYPES = (torch.float32, torch.bfloat16)
+# head dims the kernels are instantiated for, by dtype: the fp32 kernels
+# also at 32 (ViT); a 32-wide bf16 row is 4 16-byte chunks, which the
+# tensor-core tiles' swizzle (``csrc/mma.cuh`` ``swizzle``) does not take
+HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: (64, 128)}
+_DTYPES = tuple(HEAD_DIMS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,9 +228,9 @@ def _check(name, q, k, v, *more):
     if k.shape[0] != B or k.shape[3] != hd or H % KV:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)} (H must be a multiple of KV)")
-    if hd not in HEAD_DIMS:
-        raise NotImplementedError(f"{name}: head dim {hd}; the kernels take "
-                                  f"{HEAD_DIMS}")
+    if hd not in HEAD_DIMS[q.dtype]:
+        raise NotImplementedError(f"{name}: head dim {hd}; the {q.dtype} "
+                                  f"kernels take {HEAD_DIMS[q.dtype]}")
     if any(t.stride(3) != 1 for t in tensors):
         raise ValueError(f"{name}: the head dim must be contiguous")
     if any(t.shape[2] == 0 for t in (q, k)):

@@ -72,3 +72,11 @@ class BaseModel:
         if self.cfg.tie_embeddings:
             return h @ self.embedding_table(params).T.to(h.dtype)
         return L.readout(params["head"], h)
+
+
+def build_model(cfg: ModelConfig, db: Optional[DBConfig] = None) -> BaseModel:
+    """The model of ``cfg.family`` (port of ``repro.models.build_model``).
+    The port has the dense decoder only: ``DecoderModel`` raises for any
+    other family."""
+    from repro_torch.models.transformer import DecoderModel  # import cycle
+    return DecoderModel(cfg, db)

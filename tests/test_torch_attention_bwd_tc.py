@@ -185,7 +185,7 @@ def test_cut_keys_case_has_a_row_that_sees_no_key():
     assert not keep[0].any() and keep[1:].any(-1).all()
 
 
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_backward_arithmetic_meets_the_card_bound(name, hd):
     cfg, q, k, v, do, lse, delta = _inputs(name, hd, seed=hd)
@@ -231,7 +231,7 @@ def test_backward_arithmetic_matches_pallas(name):
 UNSPLIT = {"P": ("dv",), "dS": ("dk", "dq")}
 
 
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(CASES))
 @pytest.mark.parametrize("operand", sorted(UNSPLIT))
 def test_unsplit_operands_against_the_card_bound(operand, name, hd):

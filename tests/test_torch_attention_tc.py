@@ -170,7 +170,7 @@ def _inputs(kind, hd, seed):
     return cfg, mk(KV * G, Sq), mk(KV, Sk), mk(KV, Sk)
 
 
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.bfloat16])
 @pytest.mark.parametrize("kind", sorted(CASES))
 def test_split_p_arithmetic_meets_the_card_bound(kind, hd):
     cfg, q, k, v = _inputs(kind, hd, seed=hd)

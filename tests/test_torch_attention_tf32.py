@@ -111,7 +111,7 @@ def c_frag(D: np.ndarray, lane: int):
     return D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t], D[g + 8, 2 * t + 1]
 
 
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 def test_fragment_layouts_compute_the_tile_products(hd):
     rs = np.random.RandomState(hd)
     Q, K, V = rs.randn(16, hd), rs.randn(64, hd), rs.randn(64, hd)
@@ -199,7 +199,7 @@ def _inputs(name, hd, seed, scale):
     return cfg, mk(KV * G, Sq), mk(KV, Sk), mk(KV, Sk)
 
 
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 @pytest.mark.parametrize("name", sorted(TC_BWD_CASES))
 def test_3xtf32_arithmetic_meets_the_card_bound(name, hd):
     cfg, q, k, v = _inputs(name, hd, seed=hd, scale=3.0)
@@ -227,6 +227,34 @@ def test_3xtf32_arithmetic_matches_pallas(name):
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), 1e-4, 1e-4)
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[..., :Sq],
                                1e-4, 1e-4)
+
+
+def _vit_inputs(seed: int):
+    """fp32 q, k, v at ViT's shape, reduced in batch: hd 32, 4 heads, S =
+    66 (1 + 64 patches + 1 label token), so the second 64-row tile of Q and
+    of K holds 2 rows; ``full`` mask."""
+    rs = np.random.RandomState(seed)
+    mk = lambda: torch.from_numpy(  # noqa: E731
+        rs.randn(2, 4, 66, 32).astype(np.float32))
+    return FA.FlashConfig("full"), mk(), mk(), mk()
+
+
+def test_hd32_vit_sequence_matches_pallas():
+    """The plain fp32 forward and the emulation of ``fwd_tf32_kernel<32>``
+    against the Pallas kernel (interpret mode, 64-row tiles) at hd 32, S =
+    66: within 1e-4; the emulation also under the card bound."""
+    cfg, q, k, v = _vit_inputs(32)
+    jcfg = JFA.FlashConfig(mask_kind="full", block_q=TILE, block_k=TILE,
+                           interpret=True)
+    jout, jlse = JFA._fwd_impl(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                               jcfg)
+    want = (np.asarray(jout), np.asarray(jlse)[..., :66])
+    ref = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    emu = emulate(q, k, v, cfg)
+    SMOKE.compare("emulated fp32 tensor-core forward, hd 32, S 66", emu, ref)
+    for got in (ref, emu):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), w, 1e-4, 1e-4)
 
 
 @pytest.mark.parametrize("plain", ["Q K^T", "P V"])

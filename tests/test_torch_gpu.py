@@ -903,11 +903,11 @@ FA_CASES = {"full": (100, 190, None, None), "causal": (200, 200, None, None),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
 @pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,hd", [(dt, hd) for dt, dims in
+                                      FA.HEAD_DIMS.items() for hd in dims])
 @pytest.mark.parametrize("kind", sorted(FA_CASES))
-def test_flash_attention_kernels(cuda, kind, dtype, G, hd):
+def test_flash_attention_kernels(cuda, kind, dtype, hd, G):
     """Forward (out, lse), dq and dk/dv against the plain versions, on
     (B, S, H, hd) tensors passed as transposed views, as the model does."""
     Sq, Sk, window, mseq = FA_CASES[kind]
@@ -1030,7 +1030,7 @@ def test_flash_attention_bf16_refuses_unaligned_views(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("name", sorted(TF32_FWD_CASES))
 def test_flash_attention_tf32_forward(cuda, name, G, hd):
@@ -1066,7 +1066,7 @@ def _shifted(x: torch.Tensor, floats: int = 1) -> torch.Tensor:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 @pytest.mark.parametrize("layout", ["q shifted", "k, v shifted",
                                     "sequence stride hd + 2"])
 def test_flash_attention_tf32_forward_4_byte_copies(cuda, layout, hd):
@@ -1112,7 +1112,7 @@ def _within_fp32_bound(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("name", sorted(TF32_FWD_CASES))
 def test_flash_attention_tf32_backward(cuda, name, G, hd):
@@ -1145,7 +1145,7 @@ def test_flash_attention_tf32_backward(cuda, name, G, hd):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 @pytest.mark.parametrize("layout", ["q shifted", "k, v shifted",
                                     "dO sequence stride hd + 2",
                                     "dq shifted", "dk shifted",
@@ -1235,6 +1235,58 @@ def test_flash_attention_rejects_what_the_kernels_do_not_take(cuda):
                                cfg)
 
 
+@pytest.mark.gpu
+def test_flash_attention_bf16_hd32_is_refused(cuda):
+    """hd 32 is instantiated for fp32 only: bf16 raises, with no fallback
+    and no launch."""
+    cfg = FA.FlashConfig("full")
+    x = torch.randn(1, 2, 66, 32, device=cuda, dtype=torch.bfloat16)
+    n0 = K.launch_counts()
+    for call in (lambda: FA.flash_attention_fwd(x, x, x, cfg),
+                 lambda: FA.flash_attention_bwd_dq(
+                     x, x, x, x, torch.zeros(1, 2, 66, device=cuda),
+                     torch.zeros(1, 2, 66, device=cuda), cfg)):
+        with pytest.raises(NotImplementedError, match="head dim 32"):
+            call()
+    assert K.launch_counts() == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV", [(4, 4, 4), (2, 4, 2)])
+def test_flash_attention_tf32_hd32_vit_shape(cuda, B, H, KV):
+    """fwd_tf32_kernel<32>, dq_tf32_kernel<32> and dkv_tf32_kernel<32> at
+    ViT's sequence (1 + 64 patches + 1 label token = 66: the second 64-row
+    tile of Q and of K holds 2 rows), ``full`` mask, against the plain
+    versions under the card check's fp32 bound, and through autograd."""
+    cfg = FA.FlashConfig("full")
+    gen = torch.Generator(device=cuda).manual_seed(32 + KV)
+    mk = lambda n: TF32_BWD_SCALE * torch.randn(  # noqa: E731
+        B, 66, n, 32, generator=gen, device=cuda).transpose(1, 2)
+    q, k, v, do = mk(H), mk(KV), mk(KV), mk(H)
+    n0 = K.launch_counts()
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        assert n1[n] == n0[n] + 1
+    for got, want in zip((out, lse), FA.flash_attention_fwd_ref(q, k, v,
+                                                                cfg)):
+        _within_fp32_bound(got, want)
+    _within_fp32_bound(dq, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg))
+    for got, want in zip((dk, dv), FA._bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                   cfg)):
+        _within_fp32_bound(got, want)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = FA.flash_attention(*leaves, mask_kind="full")
+    grads = torch.autograd.grad(o, leaves, do)
+    for got, want in zip(grads, (dq, dk, dv)):
+        assert torch.equal(got, want)
+
+
 def _within_card_bound(got, want):
     """chip_smoke.compare's bound for bf16 outputs: |err| <= 2e-4 +
     2^-7 |ref| (fp32 sums in another order, one final rounding)."""
@@ -1245,7 +1297,7 @@ def _within_card_bound(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.bfloat16])
 @pytest.mark.parametrize("G", [1, 2])
 @pytest.mark.parametrize("name", sorted(TC_BWD_CASES))
 def test_flash_attention_tc_backward(cuda, name, G, hd):

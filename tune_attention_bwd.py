@@ -7,12 +7,13 @@ Each variant is the committed source with its tuning constants replaced as
 text: for bf16 the width of a pass over the streamed tile (32 or 64 rows),
 the minimum blocks an SM that ``__launch_bounds__`` asks for at hd 64, and
 whether the pass loop is unrolled; for fp32 the width of a pass at each
-head dim (``kTf32Pass``). All variants are built at once (one ``nvcc``
+head dim (``kTf32Pass``) and the minimum blocks an SM
+(``kTf32MinBlocks``). All variants are built at once (one ``nvcc``
 each) into ``build/tune_attention_bwd/``; for each, the script prints
-registers and spills of the four kernels at hd 64 and 128 (``-Xptxas -v``),
-then checks dq and dk/dv against their plain versions under
-``chip_smoke.compare``'s bound and times them by CUDA-graph replay at six
-of ``chip_smoke.py``'s phase-3 cases (three bf16, three fp32), in two
+registers and spills of the four kernels at each head dim (``-Xptxas
+-v``), then checks dq and dk/dv against their plain versions under
+``chip_smoke.compare``'s bound and times them by CUDA-graph replay at seven
+of ``chip_smoke.py``'s phase-3 cases (three bf16, four fp32), in two
 rounds (the second in reverse order). The committed choice is "chosen".
 Last, the committed fp32 kernels' accuracy: dq, dk and dv at a causal
 S = 1000, G = 4 case (keys that 4000 query rows see) against the plain
@@ -37,16 +38,21 @@ import chip_smoke as CS
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "tune_attention_bwd"
 # name -> (bf16 rows a pass, bf16 min blocks an SM at hd 64 or None, bf16
-# pass loop unrolled, fp32 rows a pass as a C++ expression of HD)
+# pass loop unrolled, fp32 rows a pass and fp32 min blocks an SM, each a
+# C++ expression of HD)
 TF32_PASS = "32"                     # the committed fp32 pass width
-VARIANTS = {"chosen": (32, 3, False, TF32_PASS),
-            "p32_minb2": (32, 2, False, TF32_PASS),
-            "p32_minb3_unrolled": (32, 3, True, TF32_PASS),
-            "p32_nominb": (32, None, False, TF32_PASS),
-            "p64_minb2": (64, 2, False, TF32_PASS),
-            "p64_nominb": (64, None, False, TF32_PASS),
-            "tf32_p64_hd64": (32, 3, False, "HD == 64 ? 64 : 32"),
-            "tf32_p16_hd128": (32, 3, False, "HD == 64 ? 32 : 16")}
+TF32_MINB = "HD == 32 ? 3 : HD == 64 ? 2 : 1"   # the committed minimum
+VARIANTS = {"chosen": (32, 3, False, TF32_PASS, TF32_MINB),
+            "p32_minb2": (32, 2, False, TF32_PASS, TF32_MINB),
+            "p32_minb3_unrolled": (32, 3, True, TF32_PASS, TF32_MINB),
+            "p32_nominb": (32, None, False, TF32_PASS, TF32_MINB),
+            "p64_minb2": (64, 2, False, TF32_PASS, TF32_MINB),
+            "p64_nominb": (64, None, False, TF32_PASS, TF32_MINB),
+            "tf32_p64_hd64": (32, 3, False, "HD == 64 ? 64 : 32", TF32_MINB),
+            "tf32_p16_hd128": (32, 3, False, "HD == 64 ? 32 : 16",
+                               TF32_MINB),
+            "tf32_minb2_hd32": (32, 3, False, TF32_PASS,
+                                "HD == 128 ? 1 : 2")}
 BF16, F32 = torch.bfloat16, torch.float32
 CASES = [  # (label, kind, B, H, KV, S, Sk, hd, window, mask_seq, dtype)
     ("(e) db_concat B=8 H=32 S=2x512 hd=64", "db_concat", 8, 32, 32, 1024,
@@ -60,7 +66,9 @@ CASES = [  # (label, kind, B, H, KV, S, Sk, hd, window, mask_seq, dtype)
     ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128 fp32", "window", 4, 32, 8,
      1024, 1024, 128, 256, None, F32),
     ("(n) db_concat B=8 H=8 S=2x512 hd=64 fp32", "db_concat", 8, 8, 8, 1024,
-     1024, 64, None, 512, F32)]
+     1024, 64, None, 512, F32),
+    ("(p) full B=128 H=4 S=66 hd=32 fp32", "full", 128, 4, 4, 66, 66, 32,
+     None, None, F32)]
 
 
 def subst(text: str, old: str, new: str, count: int) -> str:
@@ -70,7 +78,7 @@ def subst(text: str, old: str, new: str, count: int) -> str:
 
 
 def variant_source(src: str, width: int, minb, unrolled: bool,
-                   tf32_pass: str) -> str:
+                   tf32_pass: str, tf32_minb: str) -> str:
     for c in ("QP", "KP"):
         src = subst(src, f"constexpr int {c} = 32;",
                     f"constexpr int {c} = {width};", 1)
@@ -82,6 +90,8 @@ def variant_source(src: str, width: int, minb, unrolled: bool,
         for v in ("qb", "kb"):
             src = subst(src, f"#pragma unroll 1\n    for (int {v} = 0;",
                         f"#pragma unroll\n    for (int {v} = 0;", 1)
+    src = subst(src, f"constexpr int kTf32MinBlocks = {TF32_MINB};",
+                f"constexpr int kTf32MinBlocks = {tf32_minb};", 1)
     return subst(src, f"constexpr int kTf32Pass = {TF32_PASS};",
                  f"constexpr int kTf32Pass = {tf32_pass};", 1)
 

@@ -33,11 +33,11 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "tune_attention_fwd"
 # name -> (K/V stages, min blocks an SM, Q's split fragments in registers),
 # the first two as C++ expressions of HD
-VARIANTS = {"chosen": ("HD == 64 ? 2 : 1", "2", False),
+VARIANTS = {"chosen": ("HD == 128 ? 1 : 2", "2", False),
             "two_stages_hd128": ("2", "HD == 64 ? 2 : 1", False),
             "one_stage_hd64": ("1", "2", False),
             "one_stage_hd64_3_blocks": ("1", "HD == 64 ? 3 : 2", False),
-            "q_in_registers": ("HD == 64 ? 2 : 1", "2", True)}
+            "q_in_registers": ("HD == 128 ? 1 : 2", "2", True)}
 CASES = [  # (label, kind, B, H, KV, S, hd, window, mask_seq)
     ("(m) full B=256 H=6 S=256 hd=64", "full", 256, 6, 6, 256, 64, None,
      None),
@@ -81,7 +81,7 @@ def subst(text: str, old: str, new: str) -> str:
 
 def variant_source(src: str, stages: str, min_blocks: str,
                    q_regs: bool) -> str:
-    src = subst(src, "constexpr int kTf32Stages = HD == 64 ? 2 : 1;",
+    src = subst(src, "constexpr int kTf32Stages = HD == 128 ? 1 : 2;",
                 f"constexpr int kTf32Stages = {stages};")
     src = subst(src, "__launch_bounds__(kTcThreads, 2)\n    fwd_tf32_kernel",
                 f"__launch_bounds__(kTcThreads, {min_blocks})\n"
