@@ -68,6 +68,30 @@ Phases, each fatal on failure:
      first-step logits within 5e-2 x max|ref| (the bound
      tests/test_torch_serve.py holds bf16 first-step logits to), greedy
      agreement printed;
+ 5b. continuous: the same model served by ``ContinuousBatcher`` (bf16,
+     greedy, 8 slots, page 16, chunk 64, seg_len 16, prefix cache on): 32
+     ``MarkovLM`` prompts from seed 1, ragged over 128-512 tokens, the even
+     ones behind one shared 256-token prefix, all submitted before the
+     first step, 64 new tokens each; the decode segments replayed from one
+     CUDA graph (captured before the clock). Wall, tok/s, TTFT median and
+     max (host clock), ms per segment step and per chunk dispatch (CUDA
+     events) and the share of the wall spent inside a dispatch, dispatches,
+     prefix hits, shared tokens, CoW copies, pool MB by dtype; the
+     device-busy share under the profiler over a window, the graphed run
+     of the graph-against-eager check below. Fatal:
+     a request short of its 64 tokens, a page not back on the free list
+     (beyond the prefix cache's own refs), launch counts other than 2 · 24
+     paged decodes and gate-residuals a segment step and 24 prefills a
+     chunk dispatch; the first 4 segments replayed from the graph and run
+     eagerly (same schedule and draws) not giving identical tokens and
+     bit-equal pools; the same queue on a pool at 60% of the worst case
+     (the 8 interactive requests submitted after 2 steps) without a
+     preemption and a restore, or with a request short or a page leaked;
+     8 requests under the fp32 policy for 2 segments through the kernels
+     and through ``impl="ref"`` with the first segment's logits (steps up
+     to the first token that differs) past 1e-3 relative. Prints the
+     greedy agreement, and the bf16 and int8-pool top-1 agreement with
+     fp32 on the same schedule and draws;
   6. train: the same model, bf16 policy, MarkovLM batches of 8 x 512: one
      DiffusionBlocks step on each of the 4 blocks (each block with its own
      AdamW state, freed after its step), one iteration of ``train_db``
@@ -194,6 +218,9 @@ PRIOR_PREFILL_C_FP32_MS = 0.2593
 # the bf16-P control
 BF16_CROSS_SEEDS = (0, 1, 2)
 BF16_LOGITS_LIMIT, BF16_PAGES_LIMIT = 4.5e-5, 1.5e-3
+# the continuous phase (5b): traffic and its graph-against-eager window
+CB_SLOTS, CB_REQUESTS, CB_NEW, CB_SEG = 8, 32, 64, 16
+CB_MIN, CB_MAX, CB_SHARED, CB_CHECK_SEGMENTS = 128, 512, 256, 4
 
 
 class SmokeError(RuntimeError):
@@ -1183,34 +1210,41 @@ def phase_serve(dev) -> dict:
             "clocks": clocks, "bounds": lb, "model": (dbm, params, gen)}
 
 
-def device_busy(fn, top: int = 6):
+def device_busy(fn, top: int = 6, host: bool = False):
     """Run fn() under torch.profiler: (wall ms under the profiler, summed
-    device-kernel ms, the ``top`` kernels by device time). One stream, so
-    the kernel sum is the device's busy time."""
+    device ms, the ``top`` kernels by device time as (ms, count, name)).
+    One stream, so the sum is the device's busy time. Only the card's
+    activity is traced unless ``host``: tracing the host's ops too slows
+    the host, and so lengthens the wall that a busy share divides by. The
+    raw events are summed as they come: ``key_averages`` would first build
+    a Python event tree over all of them, minutes for a run of a million
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                  reverse=True)
     return wall, sum(r[0] for r in rows), rows[:top]
 
 
 def phase_profile(dev, model) -> dict:
     """Where a full-width bf16 step's time goes: device busy share of the
-    prefill (8 chunks) and of 4 decode steps, and the top kernels."""
+    prefill (8 chunks) and of 4 decode steps, and the top kernels. The
+    decode is measured again with the host's ops traced too, as every
+    busy share before PR 24 was, to relate the two denominators."""
     from repro_torch.launch.serve import get_engine
     from repro_torch.nn import cache as KVC
     dbm, params, gen = model
@@ -1233,9 +1267,10 @@ def phase_profile(dev, model) -> dict:
                    generator=gen)
 
     out = {}
-    for name, fn in (("prefill, 8 chunks", prefill),
-                     ("decode, 4 steps", decode)):
-        wall, busy, top = device_busy(fn)
+    for name, fn, host in (("prefill, 8 chunks", prefill, False),
+                           ("decode, 4 steps", decode, False),
+                           ("decode, 4 steps, host traced", decode, True)):
+        wall, busy, top = device_busy(fn, host=host)
         out[name] = {"wall_ms": wall, "device_ms": busy}
         if busy == 0:
             say(f"[profile] {name}: device time not measured (the profiler "
@@ -1512,6 +1547,342 @@ def phase_crosscheck_bf16(dev, model) -> dict:
                              f"{control[key]:.3e} is within the limit "
                              f"{limit:.2e}; the check cannot see that fault")
     return {"sound": sound, "control": control}
+
+
+# ---------------------------------------------------------------------------
+# 5b. continuous batching
+# ---------------------------------------------------------------------------
+
+def cb_queue(vocab: int):
+    """The continuous phase's traffic: CB_REQUESTS ``MarkovLM`` prompts
+    from seed 1, ragged over CB_MIN-CB_MAX tokens, the even ones opening
+    with one shared CB_SHARED-token prefix (a system prompt). Returns
+    (prompts, lm)."""
+    import numpy as np
+    from repro_torch.data import MarkovLM
+    lm = MarkovLM(vocab_size=vocab, seed=7)
+    rs = np.random.RandomState(1)
+    shared = lm.sample(rs, 1, CB_SHARED)[0]
+    prompts = []
+    for i in range(CB_REQUESTS):
+        if i % 2 == 0:
+            n = rs.randint(CB_SHARED + 1, CB_MAX + 1)
+            prompts.append(np.concatenate(
+                [shared, lm.sample(rs, 1, n - CB_SHARED)[0]]))
+        else:
+            prompts.append(lm.sample(rs, 1, rs.randint(CB_MIN,
+                                                       CB_MAX + 1))[0])
+    return prompts, lm
+
+
+def cb_batcher(dev, model, *, precision="bf16", impl="kernels", graphs=True,
+               total_pages=None, seed=0):
+    from repro_torch.launch.serve import ContinuousBatcher
+    dbm, params, _ = model
+    return ContinuousBatcher(
+        dbm, params, num_slots=CB_SLOTS, page_size=PSZ, max_prompt=CB_MAX,
+        max_len=CB_MAX + CB_NEW, seg_len=CB_SEG, chunk_size=CHUNK,
+        precision=precision, impl=impl, prefix_cache=True,
+        total_pages=total_pages, graphs=graphs,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def trie_holds(prefix) -> dict:
+    """The page refs the prefix cache holds."""
+    held = {}
+
+    def walk(node):
+        for child in node.children.values():
+            held[child.page] = held.get(child.page, 0) + 1
+            walk(child)
+        for page, _ in node.tails:
+            held[page] = held.get(page, 0) + 1
+
+    for root in prefix.roots.values():
+        walk(root)
+    return held
+
+
+def cb_drained(tag: str, cb, done, n: int) -> None:
+    """Every request served in full, every page back: free pages and the
+    prefix cache's own refs make the whole pool, and no slot holds one."""
+    bad = [r.rid for r in done if len(r.out) != CB_NEW or r.error]
+    if len(done) != n or bad:
+        raise SmokeError(f"{tag}: {len(done)} of {n} requests finished, "
+                         f"short or failed: {bad}")
+    if cb.page_refs != trie_holds(cb.prefix) or (
+            len(cb.free_pages) + len(cb.page_refs) != cb.total_pages - 1):
+        raise SmokeError(f"{tag}: pages leaked: {len(cb.free_pages)} free, "
+                         f"{len(cb.page_refs)} referenced of "
+                         f"{cb.total_pages - 1}")
+
+
+def cb_counts(dbm, cb) -> dict:
+    """Launches of a continuous run from its counters: per segment step a
+    paged decode per layer in the probes and in the commit, and the probes'
+    two gate-residuals per layer; per chunk dispatch a prefill per layer."""
+    L = dbm.cfg.n_layers
+    return expected_counts(flash_decode=2 * L * cb.steps,
+                           gate_residual=2 * L * cb.steps,
+                           flash_prefill=L * cb.ingest_dispatches)
+
+
+def cb_timed(cb) -> dict:
+    """CUDA events around each decode segment and chunk dispatch of
+    ``cb``."""
+    events = {"segment": [], "chunk": []}
+
+    def timed(kind, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events[kind].append((start, end))
+            return out
+        return run
+
+    cb._decode_segment = timed("segment", cb._decode_segment)
+    cb._chunk = timed("chunk", cb._chunk)
+    return events
+
+
+def cb_first_segments(dev, model, prompts, graphs: bool, n_seg: int,
+                      profiled: bool = False):
+    """Step a fresh batcher (graphs captured first) over the queue until
+    ``n_seg`` segments ran, under the profiler if ``profiled``: (batcher,
+    each request's tokens so far, the ms of its chunk dispatches,
+    ``device_busy``'s result or None)."""
+    cb = cb_batcher(dev, model, graphs=graphs)
+    if graphs:
+        cb.capture()
+    events = cb_timed(cb)
+    for p in prompts:
+        cb.submit(p, CB_NEW)
+    reqs = list(cb.queue)
+
+    def steps():
+        while cb.decode_dispatches < n_seg:
+            cb.step()
+
+    busy = device_busy(steps) if profiled else steps()
+    torch.cuda.synchronize()
+    return (cb, [list(r.out) for r in reqs],
+            [s.elapsed_time(e) for s, e in events["chunk"]], busy)
+
+
+def cb_logged(dev, model, prompts, precision, impl, n_seg=2):
+    """Eager run of ``prompts`` until ``n_seg`` segments ran, recording the
+    readout's logits: (batcher, logits of each step (num_slots, vocab),
+    emitted tokens (segments, num_slots, seg_len))."""
+    import numpy as np
+    dbm = model[0]
+    cb = cb_batcher(dev, model, precision=precision, impl=impl,
+                    graphs=False)
+    logits, emitted = [], []
+    plain, collect = dbm.model.logits, cb._collect
+
+    def readout(p, h):
+        logits.append(plain(p, h))
+        return logits[-1]
+
+    def collected(e):
+        emitted.append(e.copy())
+        collect(e)
+
+    dbm.model.logits, cb._collect = readout, collected
+    try:
+        for p in prompts:
+            cb.submit(p, CB_NEW)
+        while cb.decode_dispatches < n_seg:
+            cb.step()
+    finally:
+        del dbm.model.logits
+    return cb, [x[:, 0].float() for x in logits], np.stack(emitted)
+
+
+def phase_continuous(dev, model) -> dict:
+    """Phase 5b: continuous batching of stablelm at full width (see the
+    module docstring): the timed run, the graph against eager (its graphed
+    run profiled), a pool under pressure, fp32 through the kernels against the
+    plain versions, and bf16 / int8-pool agreement with fp32."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import _ragged_transition_accuracy
+    dbm, params, _ = model
+    t_phase = time.perf_counter()
+    prompts, lm = cb_queue(dbm.cfg.vocab_size)
+    cb = cb_batcher(dev, model)
+    t0 = time.perf_counter()
+    cb.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    events = cb_timed(cb)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for p in prompts:
+        cb.submit(p, CB_NEW)
+    done = cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    clocks = gpu_query("clocks.sm,power.draw,power.limit,temperature.gpu")
+    cb_drained("continuous", cb, done, CB_REQUESTS)
+    check_counts("continuous", counts, cb_counts(dbm, cb))
+    seg_ms = [s.elapsed_time(e) for s, e in events["segment"]]
+    seg_step_ms = sum(seg_ms) / cb.steps
+    chunk_ms = [s.elapsed_time(e) for s, e in events["chunk"]]
+    # the share of the wall the card spent inside a dispatch (between its
+    # events): an upper bound on the busy share, gaps inside a graph
+    # included
+    in_dispatch = (sum(seg_ms) + sum(chunk_ms)) / (wall * 1e3)
+    ttft = sorted(r.ttft for r in done)
+    n_tok = sum(len(r.out) for r in done)
+    pool_mb = {k: round(v / 1e6, 1)
+               for k, v in cb.kv_stats()["kv_bytes_by_dtype"].items()}
+    rate = _ragged_transition_accuracy(
+        lm, [np.concatenate([r.prompt, np.asarray(r.out)]) for r in done])
+    say(f"[continuous] {CB_REQUESTS} requests on {CB_SLOTS} slots, bf16, "
+        f"greedy, page {PSZ}, chunk {CHUNK}, seg_len {CB_SEG}, prefix cache "
+        f"on, {CB_NEW} new tokens each; MarkovLM prompts {CB_MIN}-{CB_MAX} "
+        f"tokens, half behind one {CB_SHARED}-token prefix; graph capture "
+        f"{capture_s:.2f} s before the clock")
+    say(f"[continuous] wall {wall:.3f} s | {n_tok / wall:.1f} tok/s | TTFT "
+        f"median {statistics.median(ttft) * 1e3:.1f} ms, max "
+        f"{ttft[-1] * 1e3:.1f} ms | decode {seg_step_ms:.3f} ms "
+        f"per segment step ({len(seg_ms)} segments, median "
+        f"{statistics.median(seg_ms) / CB_SEG:.3f}) | chunk dispatch "
+        f"{statistics.median(chunk_ms):.2f} ms median, "
+        f"{sum(chunk_ms) / len(chunk_ms):.2f} mean ({len(chunk_ms)}) | "
+        f"inside a dispatch {100 * in_dispatch:.1f}% of the wall (CUDA "
+        f"events) | nvidia-smi (sm MHz, W, limit, C): {clocks}")
+    say(f"[continuous] dispatches {cb.ingest_dispatches} chunk + "
+        f"{cb.decode_dispatches} segment ({cb.steps} segment steps) | "
+        f"prefix hits {cb.prefix.hits}, shared tokens "
+        f"{cb.prefix.tokens_shared} | CoW copies {cb.cow_copies} | pool "
+        f"{cb.total_pages} pages, MB by dtype {pool_mb}"
+        f" | legal-transition rate {rate:.4f} | launches {counts}")
+    del cb, done
+    torch.cuda.empty_cache()
+
+    # the graph against eager: the first CB_CHECK_SEGMENTS segments of the
+    # same schedule with the same draws; the graphed run is the profiled
+    # window of the device-busy share
+    runs = [cb_first_segments(dev, model, prompts, g, CB_CHECK_SEGMENTS,
+                              profiled=g) for g in (True, False)]
+    outs = [out for _, out, _, _ in runs]
+    pools_equal = all(torch.equal(a[:, 1:], b[:, 1:]) for a, b in zip(
+        *(pool_tensors(c.kv) for c, _, _, _ in runs)))
+    say(f"[continuous] graph vs eager, first {CB_CHECK_SEGMENTS} segments: "
+        f"emitted tokens {'identical' if outs[0] == outs[1] else 'DIFFER'} "
+        f"({sum(map(len, outs[0]))} tokens), pools (pages 1 and up) "
+        f"{'bit-equal' if pools_equal else 'DIFFER'} | chunk dispatch "
+        f"median {statistics.median(runs[0][2]):.2f} ms graphed, "
+        f"{statistics.median(runs[1][2]):.2f} ms eager "
+        f"({len(runs[0][2])} each)")
+    pwall, busy, top = runs[0][3]
+    if busy == 0:
+        say("[continuous] device busy: not measured (the profiler saw no "
+            "kernels)")
+    else:
+        say(f"[continuous] profiled window (the graphed run's "
+            f"{len(runs[0][2])} chunk and {CB_CHECK_SEGMENTS} segment "
+            f"dispatches, admission included): wall {pwall:.1f} ms under "
+            f"the profiler, device busy {busy:.1f} ms "
+            f"({100 * busy / pwall:.1f}%)")
+        for ms, count, key in top:
+            say(f"[continuous]   {ms:8.2f} ms  x{count:<6d} {key[:90]}")
+    if outs[0] != outs[1] or not pools_equal or not sum(map(len, outs[0])):
+        raise SmokeError("continuous: the graph's segments differ from the "
+                         "eager ones")
+    del runs
+    torch.cuda.empty_cache()
+
+    # a pool at about 60% of the worst case, one request in four
+    # interactive, submitted once the standard ones fill the slots
+    worst = 1 + CB_SLOTS * (-(-(CB_MAX + CB_NEW) // PSZ)) + CB_SLOTS
+    cb = cb_batcher(dev, model, total_pages=round(0.6 * worst))
+    cb.capture()
+    K.reset_launch_counts()
+    late = [p for i, p in enumerate(prompts) if i % 4 == 3]
+    for i, p in enumerate(prompts):
+        if i % 4 != 3:
+            cb.submit(p, CB_NEW)
+    done = cb.step() + cb.step()
+    for p in late:
+        cb.submit(p, CB_NEW, priority="interactive")
+    t0 = time.perf_counter()
+    done += cb.run()
+    torch.cuda.synchronize()
+    pwall = time.perf_counter() - t0
+    p_counts = K.launch_counts()
+    cb_drained("pool under pressure", cb, done, CB_REQUESTS)
+    check_counts("pool under pressure", p_counts, cb_counts(dbm, cb))
+    inter = [r.ttft for r in done if r.priority == 2]
+    say(f"[continuous] pool under pressure: {cb.total_pages} pages of "
+        f"{worst} worst case, {len(late)} interactive submitted after 2 "
+        f"steps: preemptions {cb.preemptions}, restores {cb.restores}, CoW "
+        f"copies {cb.cow_copies}, every request complete, no page leaked | "
+        f"wall {pwall:.2f} s after the arrivals, interactive TTFT median "
+        f"{statistics.median(inter) * 1e3:.1f} ms")
+    if cb.preemptions < 1 or cb.restores < 1:
+        raise SmokeError("pool under pressure: no preemption and restore")
+    add_counts(counts, p_counts)
+    del cb, done
+    torch.cuda.empty_cache()
+
+    # fp32 through the kernels against the plain versions; bf16 and the
+    # int8 pool against fp32, on the same schedule and draws
+    few = prompts[:CB_SLOTS]
+    K.reset_launch_counts()
+    ck, lk, ek = cb_logged(dev, model, few, "fp32", "kernels")
+    add_counts(counts, K.launch_counts())
+    _, lr, er = cb_logged(dev, model, few, "fp32", "ref")
+    first = ek[0] >= 0                          # (slots, seg_len) emitting
+    diverged = [t for t in range(CB_SEG)
+                if not np.array_equal(ek[0][:, t], er[0][:, t])]
+    upto = diverged[0] + 1 if diverged else CB_SEG
+    rel = max(((lk[t] - lr[t])[first[:, t]].abs().max()
+               / lr[t][first[:, t]].abs().max()).item()
+              for t in range(upto) if first[:, t].any())
+    agree = float((ek == er)[ek >= 0].mean())
+    say(f"[continuous] fp32, {len(few)} requests, 2 segments, kernels vs "
+        f"plain versions: first segment's logits rel max|diff| {rel:.2e} "
+        f"(limit 1e-3; steps 1-{upto}) | greedy tokens equal {agree:.4f} "
+        f"over {int((ek >= 0).sum())}")
+    if not (rel <= 1e-3 and math.isfinite(rel)):
+        raise SmokeError(f"continuous fp32 cross-check: logits differ by "
+                         f"{rel:.2e}")
+    # each slot's first generated token follows its prompt alone, so it is
+    # compared with fp32 on the same history; later tokens run free
+    on = np.concatenate(list(ek >= 0), axis=1)          # (slots, steps)
+    firsts = [(s, int(np.argmax(on[s]))) for s in range(len(on))
+              if on[s].any()]
+    agreement = {}
+    for pol in ("bf16", "bf16_kvint8"):
+        _, _, eq = cb_logged(dev, model, few, pol, "kernels")
+        a, b = (np.concatenate(list(x), axis=1) for x in (eq, ek))
+        agreement[pol] = {
+            "first_token": float(np.mean([a[s, t] == b[s, t]
+                                          for s, t in firsts])),
+            "all": float((a == b)[on].mean())}
+        say(f"[continuous] {pol} vs fp32, same schedule and draws: top-1 "
+            f"agreement {agreement[pol]['first_token']:.4f} on each "
+            f"request's first token ({len(firsts)} requests), "
+            f"{agreement[pol]['all']:.4f} over 2 free-running segments "
+            f"({int(on.sum())} tokens)")
+    say(f"[continuous] phase 5b took {time.perf_counter() - t_phase:.1f} s")
+    return {"counts": counts, "wall_s": wall, "tok_s": n_tok / wall,
+            "ttft_median_s": statistics.median(ttft), "ttft_max_s": ttft[-1],
+            "segment_step_ms": seg_step_ms, "in_dispatch": in_dispatch,
+            "chunk_ms_median": statistics.median(chunk_ms),
+            "logits_rel": rel, "agreement": agreement}
+
+
+def pool_tensors(pkv):
+    return [t for t in (pkv.k, pkv.v, pkv.k_scale, pkv.v_scale)
+            if t is not None]
 
 
 # ---------------------------------------------------------------------------
@@ -2409,6 +2780,7 @@ def main() -> int:
     phase_profile(dev, model)
     phase_crosscheck(dev, model)
     phase_crosscheck_bf16(dev, model)
+    continuous = phase_continuous(dev, model)
     train = phase_train(dev, model)
     db_crosscheck(dev, model, "concat ce", [("attn", "wq")])
     del model                      # stablelm's masters and caches
@@ -2426,7 +2798,7 @@ def main() -> int:
     vit = phase_vit(dev)
     mdm = phase_mdm(dev)
     launches = {}
-    for counts in (serve["counts"], train["launches"],
+    for counts in (serve["counts"], continuous["counts"], train["launches"],
                    two_pass["launches"], dit["launches"],
                    huginn["launches"], vit["launches"], mdm["launches"]):
         add_counts(launches, counts)

@@ -24,9 +24,10 @@ the commit passes (``commit_token``, ``commit_prompt_chunk``) run in the
 policy's compute dtype, with a compute-dtype copy of the layer weights made
 once (``params_for``).
 
-Random draws are injectable: ``z0`` is the chain's initial z (JAX draws it
-as ``σ_max · normal``), ``generator`` feeds z when ``z0`` is None and the
-temperature sampler.
+The sampler's random draws are arguments: ``z0`` is the chain's initial z
+(JAX draws it as ``σ_max · normal``) and ``noise`` the sampler's Gumbel
+noise (JAX's ``jax.random.categorical`` is argmax(logits + gumbel));
+``launch.serve.DecodeEngine.draw`` makes them from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -78,6 +79,15 @@ def chunked_ce(model, params, h: torch.Tensor, targets: torch.Tensor,
 # leaves that stay fp32 in the compute-dtype copy: norm gains are read in
 # fp32, and the AdaLN heads run only in the fp32 probe
 _KEEP_FP32 = ("ln1", "ln2", "adaln")
+
+
+def gumbel(generator: Optional[torch.Generator], shape,
+           device) -> torch.Tensor:
+    """Standard Gumbel noise −log(−log u), u ~ U[tiny, 1) in fp32 (as
+    ``jax.random.gumbel`` draws it)."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=device).clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
 
 
 class DiffusionBlocksModel:
@@ -253,22 +263,15 @@ class DiffusionBlocksModel:
         return h
 
     def denoise_next_token(self, params, cache, ctx_base: LayerCtx,
-                           steps_per_block: int = 1,
-                           z0: Optional[torch.Tensor] = None,
-                           generator: Optional[torch.Generator] = None
-                           ) -> torch.Tensor:
+                           steps_per_block: int = 1, *,
+                           z0: torch.Tensor) -> torch.Tensor:
         """Full Euler chain (σ_max → 0) for the token at each slot's
-        ``ctx_base.lengths``. ``z0`` (B, 1, d) is the initial z; when None it
-        is drawn as σ_max · N(0, 1) from ``generator``. Returns D (B, 1, d)."""
+        ``ctx_base.lengths`` from the initial z ``z0`` (B, 1, d). Returns
+        D (B, 1, d)."""
         lengths = ctx_base.lengths
         shape = (lengths.shape[0], 1, self.cfg.d_model)
-        if z0 is None:
-            z = self.db.sigma_max * torch.randn(
-                shape, generator=generator, dtype=torch.float32,
-                device=lengths.device)
-        else:
-            z = torch.as_tensor(z0, dtype=torch.float32,
-                                device=lengths.device).reshape(shape)
+        z = torch.as_tensor(z0, dtype=torch.float32,
+                            device=lengths.device).reshape(shape)
         for b, s_from, s_to in self.denoise_schedule(steps_per_block):
             f = self._probe_block(params, b, z, s_from, cache, ctx_base)
             # a 0-dim CPU tensor: fp32 preconditioning without a device copy
@@ -301,21 +304,24 @@ class DiffusionBlocksModel:
             starts[start] = True
         return starts
 
-    def sample_token(self, logits, generator: Optional[torch.Generator] = None,
-                     temperature: float = 0.0, top_k: int = 0):
-        """Greedy (``temperature == 0``) or temperature / top-k sampling from
-        ``generator``."""
+    def sample_token(self, logits, temperature: float = 0.0, top_k: int = 0,
+                     noise: Optional[torch.Tensor] = None):
+        """Greedy (``temperature == 0``) or temperature / top-k sampling as
+        ``jax.random.categorical`` samples: argmax(logits / T + ``noise``),
+        the Gumbel noise of the logits' shape (``gumbel``)."""
         logits = logits.float()
         if temperature == 0.0:
             return torch.argmax(logits, dim=-1)
+        if noise is None:
+            raise ValueError("sampling at temperature > 0 needs its Gumbel "
+                             "noise")
         logits = logits / temperature
         if top_k and top_k < logits.shape[-1]:
             kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
             logits = torch.where(logits < kth,
                                  torch.full_like(logits, float("-inf")),
                                  logits)
-        probs = torch.softmax(logits, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[..., 0]
+        return torch.argmax(logits + noise, dim=-1)
 
     # ------------------------------------------------------------------
     # Paged serving steps (used by launch.serve)
@@ -327,26 +333,43 @@ class DiffusionBlocksModel:
                         impl=impl, lengths=lengths, page_table=page_table,
                         active=active)
 
-    def serve_step_paged(self, params, kv, page_table, lengths, *,
-                         z0=None, generator=None, active=None,
+    def serve_step_paged(self, params, kv, page_table, lengths, *, z0,
+                         noise=None, forced=None, active=None,
                          steps_per_block: int = 1, temperature: float = 0.0,
                          top_k: int = 0, precision=None,
                          impl: str = "kernels", return_logits: bool = False):
-        """One generation step over the paged cache: each slot denoises and
-        commits at its own position ``lengths[b]``; inactive slots compute but
-        their appends go to the trash page. Returns (token (B,), kv,
-        new_lengths), plus the step's logits (B, V) with ``return_logits``."""
+        """One generation step over the paged cache: each slot denoises from
+        ``z0`` (B, 1, d) and commits at its own position ``lengths[b]``;
+        inactive slots compute but their appends go to the trash page.
+        ``noise`` (B, V) is the sampler's Gumbel noise (temperature > 0).
+        Where ``forced`` (B,) is >= 0 the slot commits that token instead of
+        its sample (a prompt token of a continuous-batching segment).
+        Returns (token (B,), kv, new_lengths), plus the step's logits (B, V)
+        with ``return_logits``."""
         ctx = self._paged_ctx(lengths, page_table, active, precision, impl)
         d_final = self.denoise_next_token(params, kv, ctx, steps_per_block,
-                                          z0=z0, generator=generator)
+                                          z0=z0)
         logits = self.model.logits(params, d_final)[:, 0]
-        token = self.sample_token(logits, generator, temperature, top_k)
+        token = self.sample_token(logits, temperature, top_k, noise)
+        if forced is not None:
+            token = torch.where(forced >= 0, forced, token)
         kv = self.commit_token(params, kv, token[:, None], ctx)
         new_lengths = lengths + (active.to(lengths.dtype)
                                  if active is not None else 1)
         if return_logits:
             return token, kv, new_lengths, logits
         return token, kv, new_lengths
+
+    def commit_prompt_token(self, params, kv, page_table, lengths, token, *,
+                            active=None, precision=None,
+                            impl: str = "kernels"):
+        """Commit a known (prompt) token (B, 1) at each slot's
+        ``lengths[b]`` without the denoising probe: ``commit_token`` in the
+        decode mode. Returns (kv, new_lengths)."""
+        ctx = self._paged_ctx(lengths, page_table, active, precision, impl)
+        kv = self.commit_token(params, kv, token, ctx)
+        return kv, lengths + (active.to(lengths.dtype)
+                              if active is not None else 1)
 
     def commit_prompt_chunk(self, params, kv, page_table, lengths, tokens, *,
                             n_valid, precision=None, impl: str = "kernels"):

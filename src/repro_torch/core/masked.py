@@ -34,6 +34,7 @@ import torch
 from repro_torch.configs.base import DBConfig, ModelConfig, TrainConfig
 from repro_torch.core import partition as P
 from repro_torch.core import training as T
+from repro_torch.core.blocks import gumbel
 from repro_torch.models import build_model
 from repro_torch.models.common import LayerCtx
 from repro_torch.nn import adaln
@@ -47,15 +48,6 @@ def sampler_times(n: int) -> np.ndarray:
     reciprocal), so that the block and unmask rates match it bit for bit."""
     i = np.arange(n, dtype=np.float32) * (np.float32(1) / np.float32(n))
     return np.concatenate([np.float32(1) - i, np.zeros(1, np.float32)])
-
-
-def gumbel(generator: Optional[torch.Generator], shape,
-           device) -> torch.Tensor:
-    """Standard Gumbel noise −log(−log u), u ~ U[tiny, 1) in fp32 (as
-    ``jax.random.gumbel`` draws it)."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=device).clamp_min(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
 
 
 class MaskedDiffusionBlocks:

@@ -4,7 +4,8 @@ One module per TPU kernel module (``flash_decode``, ``flash_prefill``,
 ``fused_adaln``, ``flash_attention``, ``edm_loss``; ``ops`` routes the
 model's calls onto them). Each wrapper launches its CUDA kernel on CUDA
 tensors and runs its plain version on CPU tensors; it counts its launches in
-``<wrapper>.launches``. Importing builds and loads nothing: a kernel is
+``<wrapper>.launches`` (a CUDA-graph replay adds its capture's launches
+with ``add_launch_counts``). Importing builds and loads nothing: a kernel is
 compiled by ``_build`` at its first launch (or ahead with ``_build.build()``).
 """
 from repro_torch.kernels import edm_loss as _edm
@@ -35,3 +36,11 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` ({wrapper name: launches}) to the wrappers' counts: a
+    CUDA-graph replay launches the kernels its capture recorded without
+    calling a wrapper."""
+    for name, n in counts.items():
+        WRAPPERS[name].launches += n

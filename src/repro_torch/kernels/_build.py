@@ -6,11 +6,14 @@ so a build takes seconds, not minutes). Libraries go to
 ``build/repro_torch_kernels/`` at the repository root (override with
 ``REPRO_TORCH_BUILD_DIR``) under a name that hashes the sources and flags,
 so an edited kernel is rebuilt and never loaded stale. ``build()`` starts one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once. ``graph_kernel_names`` lists the kernels a
+captured CUDA graph holds (read through libcuda), so a capture can check
+that every launch went into it.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -110,3 +113,67 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{rc}")
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """libcuda's ``CUDA_KERNEL_NODE_PARAMS_v2``."""
+    _fields_ = [("func", ctypes.c_void_p)]
+    _fields_ += [(f"{a}{x}", ctypes.c_uint) for a in ("grid", "block")
+                 for x in "XYZ"]
+    _fields_ += [("shared_mem", ctypes.c_uint),
+                 ("kernel_params", ctypes.c_void_p),
+                 ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                 ("ctx", ctypes.c_void_p)]
+
+
+def _cu(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUresult {rc}")
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda() -> ctypes.CDLL:
+    """libcuda with the graph-reading calls declared."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    P, R = ctypes.c_void_p, ctypes.POINTER
+    for name, args in (
+            ("cuGraphGetNodes", [P, P, R(ctypes.c_size_t)]),
+            ("cuGraphNodeGetType", [P, R(ctypes.c_int)]),
+            ("cuGraphKernelNodeGetParams_v2", [P, R(_KernelNodeParams)]),
+            ("cuFuncGetName", [R(ctypes.c_char_p), P]),
+            ("cuKernelGetName", [R(ctypes.c_char_p), P])):
+        fn = getattr(cu, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
+    return cu
+
+
+def graph_kernel_names(cuda_graph) -> list:
+    """The (mangled) names of the kernel nodes of a captured
+    ``torch.cuda.CUDAGraph`` made with ``keep_graph=True`` and not yet
+    instantiated, read through libcuda (kernels of every CUDA runtime
+    in the process, ours linked statically included)."""
+    cu = _libcuda()
+    graph = cuda_graph.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    _cu(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _cu(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _cu(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+            "cuGraphNodeGetType")
+        if kind.value != 0:                    # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = _KernelNodeParams()
+        _cu(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)),
+            "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if p.func:
+            _cu(cu.cuFuncGetName(ctypes.byref(name), p.func),
+                "cuFuncGetName")
+        else:
+            _cu(cu.cuKernelGetName(ctypes.byref(name), p.kern),
+                "cuKernelGetName")
+        names.append(name.value.decode())
+    return names

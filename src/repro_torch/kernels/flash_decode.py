@@ -208,6 +208,8 @@ def flash_decode(q, k_pages, v_pages, page_table, lengths, *,
 
 
 flash_decode.launches = 0
+# the kernel a launch runs once, by name (what a CUDA-graph capture checks)
+flash_decode.kernel_names = ("paged_decode_kernel",)
 
 
 def combine_self(out, lse, s_self, v_self):

@@ -1,5 +1,6 @@
 """Uniform model API (port of ``repro.models.model_api.BaseModel``, the part
-the serving path needs: specs, init, embedding, σ conditioning, logits).
+the serving path needs: specs, init, embedding, σ conditioning, logits, and
+the continuous batcher's hooks on per-slot state).
 
 A model is partitioned into ``n_units`` units (for the dense family one
 unit is one transformer layer), the granularity at which DiffusionBlocks
@@ -66,6 +67,26 @@ class BaseModel:
         assert self.db is not None
         return adaln.sigma_embedding(params["cond"], log_sigma / 4.0,
                                      self.db.cond_dim, dtype)
+
+    def reset_paged_slots(self, cache, slot_mask):
+        """Reset the per-slot state of slots recycled for a new request.
+        Paged KV needs none (length masking hides stale pages), so a purely
+        paged family returns the cache as it is."""
+        return cache
+
+    @property
+    def paged_state_axes(self) -> dict:
+        """Slot axis of every dense per-slot subtree of the paged cache, by
+        top-level cache key: what ``cache.spill_slot``/``restore_slot``
+        need. Purely paged families have none."""
+        return {}
+
+    @property
+    def kv_carries_all_state(self) -> bool:
+        """True when a sequence's whole history lives in paged KV, so two
+        slots mapping the same prefix pages share the same computation: the
+        precondition of the shared-prefix page cache."""
+        return False
 
     def logits(self, params, h):
         h = L.apply_norm(params["final_norm"], h, self.cfg.norm)

@@ -29,6 +29,10 @@ class DecoderModel(BaseModel):
     def n_units(self) -> int:
         return self.cfg.n_layers
 
+    @property
+    def kv_carries_all_state(self) -> bool:
+        return True
+
     def build_spec(self):
         spec = self.common_spec()
         spec["layers"] = stack_specs(C.tlayer_spec(self.cfg,

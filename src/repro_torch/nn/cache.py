@@ -23,8 +23,10 @@ are the kernels' plain versions (``flash_decode_ref``, ``flash_prefill_ref``):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import io
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.flash_decode import (combine_self, flash_decode,
@@ -329,3 +331,374 @@ def paged_prefill_attention(params, x, dims: A.AttnDims, pkv: PagedKV, *,
                          impl=impl)
     out = out.reshape(B, C, dims.n_heads * hd).to(x.dtype)
     return out @ as_dtype(params["wo"], x.dtype), pkv
+
+
+# ---------------------------------------------------------------------------
+# Page sharing and preemption: the device half (copy, reset, spill, restore)
+# ---------------------------------------------------------------------------
+#
+# A decode segment on the card replays a CUDA graph that holds the pool's
+# pointers, so every function here writes INTO the pool's storage (index
+# copies, never a new tensor in its place).
+
+# the page axis of a PagedKV tensor counted from the end: (*units, P, psz,
+# KV, hd), and the scales (*units, P, 1, 1, 1) line up with it
+PAGE_AXIS = -4
+
+
+def _flatten(cache, path=()):
+    """[(path, leaf)] of a model cache: PagedKV leaves and dense per-slot
+    tensors, dict keys in sorted order (JAX's flatten order)."""
+    if isinstance(cache, PagedKV) or torch.is_tensor(cache):
+        return [(path, cache)]
+    return [item for k in sorted(cache) for item in
+            _flatten(cache[k], path + (k,))]
+
+
+def _tensors(pkv: PagedKV) -> list:
+    return [t for t in (pkv.k, pkv.v, pkv.k_scale, pkv.v_scale)
+            if t is not None]
+
+
+def pool_ptrs(cache) -> tuple:
+    """The storage address of every tensor of a cache: a captured decode
+    segment stays valid only while these do not change."""
+    return tuple(t.data_ptr() for _, leaf in _flatten(cache)
+                 for t in (_tensors(leaf) if isinstance(leaf, PagedKV)
+                           else [leaf]))
+
+
+def cache_bytes_by_dtype(cache) -> dict:
+    """{dtype name: bytes} over a cache's tensors: an int8 pool reports its
+    fp32 scales beside its pages."""
+    out: dict = {}
+    for _, leaf in _flatten(cache):
+        for t in (_tensors(leaf) if isinstance(leaf, PagedKV) else [leaf]):
+            name = str(t.dtype).replace("torch.", "")
+            out[name] = out.get(name, 0) + t.numel() * t.element_size()
+    return out
+
+
+def reset_slots(tree, init_tree, slot_mask: torch.Tensor, batch_axis: int):
+    """Restore the masked slots' entries (along ``batch_axis``) of every
+    tensor of ``tree`` to their values in ``init_tree``, in place (not to
+    zero: an init value may be -1e30). For the per-slot dense state of a
+    recycled slot; paged KV needs no reset."""
+    for (_, cur), (_, init) in zip(_flatten(tree), _flatten(init_tree)):
+        shape = [1] * cur.ndim
+        shape[batch_axis] = slot_mask.shape[0]
+        mask = slot_mask.to(cur.device).reshape(shape)
+        cur.copy_(torch.where(mask, init.to(cur.device, cur.dtype), cur))
+    return tree
+
+
+def copy_pool_pages(cache, src: int, dst: int):
+    """Copy physical page ``src`` onto ``dst`` in every PagedKV leaf of a
+    cache, in place; a quantized pool moves each page's scale with it. The
+    device half of copy-on-write. Dense leaves are untouched."""
+    for _, leaf in _flatten(cache):
+        if isinstance(leaf, PagedKV):
+            for t in _tensors(leaf):
+                t.select(t.ndim + PAGE_AXIS, dst).copy_(
+                    t.select(t.ndim + PAGE_AXIS, src))
+    return cache
+
+
+_BF16 = "bfloat16"
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as numpy; bf16 (which numpy lacks) as raw 2-byte void
+    data, the layout ``np.savez`` gives JAX's bf16 arrays."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).view("V2")
+    return t.numpy()
+
+
+def _from_numpy(a: np.ndarray, name: str) -> torch.Tensor:
+    if name == _BF16:
+        return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(a.view(np.dtype(name)).copy())
+
+
+@dataclasses.dataclass
+class SpilledSlot:
+    """Host snapshot of one slot's cache state: ``data[i]`` belongs to
+    flattened leaf i, a tuple (k, v) of gathered pages for a PagedKV leaf
+    (plus (k_scale, v_scale) for a quantized pool), or the slot's row of a
+    dense leaf; CPU tensors. ``n_pages`` is the number of pages it covers.
+
+    ``to_bytes``/``from_bytes`` are the wire format of
+    ``repro.nn.cache.SpilledSlot``: an ``np.savez`` container (no pickle)
+    with kinds and dtype names beside the arrays, bf16 as raw 2-byte data,
+    so a snapshot crosses between the two packages."""
+    data: list
+    n_pages: int
+
+    def to_bytes(self) -> bytes:
+        arrays = {"n_pages": np.asarray(self.n_pages, np.int64)}
+        kinds, dtypes = [], []
+        for i, entry in enumerate(self.data):
+            if isinstance(entry, tuple):
+                kinds.append(2 if len(entry) == 4 else 1)
+                dtypes.append(str(entry[0].dtype).replace("torch.", ""))
+                arrays[f"k{i}"] = _to_numpy(entry[0])
+                arrays[f"v{i}"] = _to_numpy(entry[1])
+                if len(entry) == 4:
+                    arrays[f"ks{i}"] = _to_numpy(entry[2])
+                    arrays[f"vs{i}"] = _to_numpy(entry[3])
+            else:
+                kinds.append(0)
+                dtypes.append(str(entry.dtype).replace("torch.", ""))
+                arrays[f"d{i}"] = _to_numpy(entry)
+        arrays["kinds"] = np.asarray(kinds, np.int8)
+        arrays["dtypes"] = np.asarray(dtypes)
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        return buf.getvalue()
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "SpilledSlot":
+        with np.load(io.BytesIO(raw), allow_pickle=False) as z:
+            kinds, dtypes = z["kinds"], z["dtypes"]
+            data = []
+            for i, kind in enumerate(kinds):
+                name = str(dtypes[i])
+                if kind == 0:
+                    data.append(_from_numpy(z[f"d{i}"], name))
+                    continue
+                entry = (_from_numpy(z[f"k{i}"], name),
+                         _from_numpy(z[f"v{i}"], name))
+                if kind == 2:
+                    entry += (_from_numpy(z[f"ks{i}"], "float32"),
+                              _from_numpy(z[f"vs{i}"], "float32"))
+                data.append(entry)
+            return cls(data=data, n_pages=int(z["n_pages"]))
+
+
+def _dense_slot_axis(path, dense_axes) -> int:
+    for p in path:
+        if p in dense_axes:
+            return dense_axes[p]
+    raise KeyError(
+        f"dense cache leaf at {path} has no slot axis in paged_state_axes "
+        f"{dense_axes}: the family must declare where its per-slot state "
+        "lives before it can be spilled")
+
+
+def spill_slot(cache, slot: int, page_ids, dense_axes=None) -> SpilledSlot:
+    """Snapshot slot ``slot`` to host memory: its ``page_ids`` pages of every
+    PagedKV leaf and its row of every dense leaf (at the axis
+    ``dense_axes`` names). The cache is not modified."""
+    dense_axes = dense_axes or {}
+    data = []
+    for path, leaf in _flatten(cache):
+        if isinstance(leaf, PagedKV):
+            ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                                  device=leaf.k.device)
+            data.append(tuple(t.index_select(t.ndim + PAGE_AXIS, ids).cpu()
+                              for t in _tensors(leaf)))
+        else:
+            ax = _dense_slot_axis(path, dense_axes)
+            data.append(leaf.select(ax, slot).cpu())
+    return SpilledSlot(data=data, n_pages=len(page_ids))
+
+
+def restore_slot(cache, slot: int, page_ids, spilled: SpilledSlot,
+                 dense_axes=None):
+    """Write a ``spill_slot`` snapshot back, in place: its pages land in
+    ``page_ids`` (ids may differ from the spill-time ones; the logical
+    order is what matters) and its dense rows in slot ``slot``."""
+    dense_axes = dense_axes or {}
+    if len(page_ids) != spilled.n_pages:
+        raise ValueError(f"restore got {len(page_ids)} pages for a "
+                         f"{spilled.n_pages}-page spill")
+    leaves = _flatten(cache)
+    if len(leaves) != len(spilled.data):
+        raise ValueError("cache structure changed between spill and restore")
+    for (path, leaf), saved in zip(leaves, spilled.data):
+        if isinstance(leaf, PagedKV):
+            if not isinstance(saved, tuple):
+                raise ValueError(
+                    f"cache-state snapshot mismatch at {path}: the snapshot "
+                    "holds a dense row where the target pool has a paged "
+                    "leaf; spill and restore caches come from different "
+                    "model families")
+            _check_restore_dtypes(path, leaf, saved)
+            if spilled.n_pages == 0:
+                continue
+            ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                                  device=leaf.k.device)
+            for t, s in zip(_tensors(leaf), saved):
+                t.index_copy_(t.ndim + PAGE_AXIS, ids, s.to(t.device))
+        else:
+            ax = _dense_slot_axis(path, dense_axes)
+            leaf.select(ax, slot).copy_(saved.to(leaf.device, leaf.dtype))
+    return cache
+
+
+def _check_restore_dtypes(path, leaf: PagedKV, saved: tuple) -> None:
+    """Refuse a snapshot whose pages have another storage dtype or
+    quantization layout than the pool: reinterpreting its bytes would serve
+    garbage KV."""
+    have_scales = len(saved) == 4
+    if saved[0].dtype != leaf.k.dtype or have_scales != leaf.quantized:
+        def desc(dt, scaled):
+            return (f"{str(dt).replace('torch.', '')} pages "
+                    f"{'WITH' if scaled else 'without'} per-page scales")
+        raise ValueError(
+            f"cache-state dtype mismatch at {path}: snapshot carries "
+            f"{desc(saved[0].dtype, have_scales)} but the target pool stores "
+            f"{desc(leaf.k.dtype, leaf.quantized)}. The spilling and "
+            "restoring pools must be built with the same --kv-dtype.")
+
+
+# ---------------------------------------------------------------------------
+# Shared-prefix page cache (host-side allocator metadata)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _PrefixNode:
+    """One cached page of prompt-prefix KV. Full-page nodes chain into a trie
+    keyed by their page's token ids; a node may also carry TAIL candidates:
+    partially filled pages whose leading tokens continue the chain."""
+    page: int
+    children: Dict[tuple, "_PrefixNode"] = dataclasses.field(
+        default_factory=dict)
+    tails: List[Tuple[int, np.ndarray]] = dataclasses.field(
+        default_factory=list)
+
+
+@dataclasses.dataclass
+class PrefixMatch:
+    """A prefix-cache lookup: the shared physical ``pages`` (full pages,
+    plus at most one partial tail page) and the prompt tokens they cover.
+    ``tail_tokens`` > 0 means the last page is partial: the slot's first
+    write lands inside it, so the scheduler copies it first."""
+    pages: List[int]
+    n_tokens: int
+    tail_tokens: int
+
+
+class PrefixPageCache:
+    """Host-side shared-prefix registry over the physical page pool.
+
+    Prompt prefixes are hashed at page granularity by token content: a trie
+    node per full page (chained, so equal pages in other contexts never
+    collide) plus partial-tail candidates for the page after a chain. The
+    cache holds one refcount on every registered page, so it outlives its
+    owner; the scheduler adds one ref per slot that maps it and frees a page
+    when its count reaches zero. A page with refcount > 1 is read-only: a
+    slot about to write into one gets a private copy first
+    (``copy_pool_pages``).
+
+    Each conditioning fingerprint owns its own trie root; 0 is the root of
+    unconditioned requests (the port serves no conditioned request yet).
+    """
+
+    def __init__(self, page_size: int):
+        self.page_size = page_size
+        self.roots: Dict[int, _PrefixNode] = {}
+        self.hits = 0            # lookups that shared at least one page
+        self.tokens_shared = 0   # prompt tokens served from shared pages
+
+    def _root(self, cond_fp: int) -> _PrefixNode:
+        if cond_fp not in self.roots:
+            self.roots[cond_fp] = _PrefixNode(page=-1)
+        return self.roots[cond_fp]
+
+    def match(self, tokens, cond_fp: int = 0) -> PrefixMatch:
+        """Longest shared prefix of ``tokens`` under ``cond_fp``. A pure
+        lookup: no refcount is taken and no statistic moves (the caller
+        counts ``hits``/``tokens_shared`` when it admits the match)."""
+        node = self.roots.get(cond_fp)
+        if node is None:
+            return PrefixMatch(pages=[], n_tokens=0, tail_tokens=0)
+        tokens = np.asarray(tokens)
+        psz = self.page_size
+        pages, n = [], 0
+        while n + psz <= tokens.size:
+            child = node.children.get(tuple(int(t)
+                                            for t in tokens[n:n + psz]))
+            if child is None:
+                break
+            node, n = child, n + psz
+            pages.append(child.page)
+        tail_tokens, best = 0, None
+        rest = tokens[n:]
+        for page, ttoks in node.tails:
+            m = 0
+            lim = min(ttoks.size, rest.size)
+            while m < lim and int(ttoks[m]) == int(rest[m]):
+                m += 1
+            if m > tail_tokens:
+                tail_tokens, best = m, page
+        if best is not None and tail_tokens > 0:
+            pages.append(best)
+            n += tail_tokens
+        return PrefixMatch(pages=pages, n_tokens=n, tail_tokens=tail_tokens)
+
+    def insert(self, tokens, pages: List[int], refcount: Dict[int, int],
+               cond_fp: int = 0) -> None:
+        """Register a prefilled prompt's pages (``pages[i]`` backs tokens
+        [i*psz, (i+1)*psz)): full pages extend the trie, a non-empty partial
+        last page becomes a tail candidate; every newly registered page
+        gains one cache-held ref. Pages already in the trie are left
+        alone, and a root left empty is dropped again."""
+        tokens = np.asarray(tokens)
+        psz = self.page_size
+        node, n, i = self._root(cond_fp), 0, 0
+        while n + psz <= tokens.size:
+            key = tuple(int(t) for t in tokens[n:n + psz])
+            child = node.children.get(key)
+            if child is None:
+                child = _PrefixNode(page=pages[i])
+                node.children[key] = child
+                refcount[pages[i]] = refcount.get(pages[i], 0) + 1
+            node, n, i = child, n + psz, i + 1
+        tail = tokens[n:]
+        if tail.size and i < len(pages):
+            if not any(np.array_equal(t, tail) for _, t in node.tails):
+                node.tails.append((pages[i], tail.copy()))
+                refcount[pages[i]] = refcount.get(pages[i], 0) + 1
+        root = self.roots.get(cond_fp)
+        if root is not None and not root.children and not root.tails:
+            del self.roots[cond_fp]
+
+    def evict(self, refcount: Dict[int, int], free_pages: List[int],
+              need: int) -> int:
+        """Drop cache-held refs until ``need`` pages are free, deepest trie
+        nodes and tails first (roots in insertion order); pages whose count
+        reaches zero go back on the free list, and emptied roots are
+        pruned. Returns the pages freed."""
+        freed = 0
+
+        def drop(page):
+            nonlocal freed
+            refcount[page] -= 1
+            if refcount[page] == 0:
+                del refcount[page]
+                free_pages.append(page)
+                freed += 1
+
+        def walk(node):
+            for key in list(node.children):
+                if len(free_pages) >= need:
+                    return
+                walk(node.children[key])
+                child = node.children[key]
+                if not child.children and not child.tails:
+                    drop(child.page)
+                    del node.children[key]
+            while node.tails and len(free_pages) < need:
+                page, _ = node.tails.pop()
+                drop(page)
+
+        for fp in list(self.roots):
+            root = self.roots[fp]
+            if len(free_pages) < need:
+                walk(root)
+            if not root.children and not root.tails:
+                del self.roots[fp]
+        return freed

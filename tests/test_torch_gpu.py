@@ -895,6 +895,125 @@ def test_serving_through_kernels_matches_plain_versions(cuda, arch):
     assert torch.equal(outs["ref"], outs["kernels"])
 
 
+def _serving_model(cuda):
+    cfg = reduced(get_config("stablelm-1.6b"), n_layers=4, d_model=512,
+                  n_heads=8)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, params
+
+
+def _continuous(dbm, params, cuda, graphs, precision, **kw):
+    """A drained continuous run: 6 ragged requests (3 opening with one
+    shared 20-token prefix) on 3 slots; returns the batcher, its finished
+    requests and its launch counts."""
+    cb = S.ContinuousBatcher(
+        dbm, params, num_slots=3, page_size=16, max_prompt=48, max_len=64,
+        seg_len=4, chunk_size=16, precision=precision, prefix_cache=True,
+        graphs=graphs, generator=torch.Generator(device=cuda).manual_seed(3),
+        **kw)
+    gen = torch.Generator().manual_seed(1)
+    sys_p = torch.randint(0, dbm.cfg.vocab_size, (20,), generator=gen)
+    for i, n in enumerate((40, 9, 23, 31, 12, 17)):
+        p = torch.randint(0, dbm.cfg.vocab_size, (n,), generator=gen)
+        cb.submit((torch.cat([sys_p, p])[:48] if i % 2 else p).numpy(), 12)
+    K.reset_launch_counts()
+    done = cb.run()
+    torch.cuda.synchronize()
+    return cb, done, K.launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["bf16", "bf16_kvint8", "fp32"])
+def test_continuous_graph_segments_bit_equal_to_eager(cuda, precision):
+    """The batcher's chunk steps and decode segments replayed from their
+    CUDA graphs give the eager dispatches' tokens and a bit-equal pool
+    (page 0, the trash page, takes racing writes of idle slots), and the
+    launch counts equal the path's arithmetic with graphs on: a capture's
+    launches are counted at each replay, its eager warm-up once."""
+    dbm, params = _serving_model(cuda)
+    L = dbm.cfg.n_layers
+    runs = {g: _continuous(dbm, params, cuda, g, precision)
+            for g in (False, True)}
+    (ce, de, ne), (cg, dg, ng) = runs[False], runs[True]
+    assert [r.out for r in dg] == [r.out for r in de]
+    assert all(len(r.out) == 12 for r in dg)
+    assert cg.prefix.hits >= 1 and cg.cow_copies >= 1
+    for a, b in zip(_pool_tensors(cg.kv), _pool_tensors(ce.kv)):
+        assert torch.equal(a[:, 1:], b[:, 1:])
+    for cb, counts in ((ce, ne), (cg, ng)):
+        decode = 2 * L * (cb.steps + cb.graph_warmups["segment"])
+        prefill = L * (cb.ingest_dispatches + cb.graph_warmups["chunk"])
+        assert counts == {**{k: 0 for k in counts}, "flash_decode": decode,
+                          "gate_residual": decode, "flash_prefill": prefill}
+    assert cg.graph_warmups == {"chunk": 1, "segment": 1}
+    assert ce.graph_warmups == {"chunk": 0, "segment": 0}
+
+
+def _pool_tensors(pkv):
+    return [t for t in (pkv.k, pkv.v, pkv.k_scale, pkv.v_scale)
+            if t is not None]
+
+
+@pytest.mark.gpu
+def test_continuous_pool_storage_survives_cow_restore_reset(cuda):
+    """Copy-on-write, spill and restore (forced and under pool pressure)
+    and the slot reset write into the pool's own storage: its tensors'
+    addresses never change, so the captured segment stays valid, and the
+    run still matches the eager one."""
+    from repro_torch.nn import cache as KVC
+    dbm, params = _serving_model(cuda)
+    outs = {}
+    for graphs in (False, True):
+        cb = S.ContinuousBatcher(
+            dbm, params, num_slots=3, page_size=16, max_prompt=48,
+            max_len=64, seg_len=4, chunk_size=16, prefix_cache=True,
+            total_pages=10, graphs=graphs,
+            generator=torch.Generator(device=cuda).manual_seed(5))
+        ptrs = KVC.pool_ptrs(cb.kv)
+        gen = torch.Generator().manual_seed(2)
+        sys_p = torch.randint(0, dbm.cfg.vocab_size, (24,), generator=gen)
+        for i in range(5):
+            p = torch.randint(0, dbm.cfg.vocab_size, (6,), generator=gen)
+            cb.submit(torch.cat([sys_p, p]).numpy(), 16,
+                      priority="interactive" if i == 3 else "batch")
+        done, step = [], 0
+        while cb.has_work():
+            if step == 3 and cb.slot_req[0] is not None:
+                cb.preempt(cb.slot_req[0].rid)
+            done.extend(cb.step())
+            cb.kv = dbm.model.reset_paged_slots(
+                cb.kv, torch.ones(3, dtype=torch.bool))
+            assert KVC.pool_ptrs(cb.kv) == ptrs
+            step += 1
+        assert cb.preemptions >= 1 and cb.restores == cb.preemptions
+        assert cb.cow_copies >= 1
+        assert len(cb.free_pages) + len(cb.page_refs) == cb.total_pages - 1
+        outs[graphs] = sorted((r.rid, r.out) for r in done)
+    assert outs[True] == outs[False]
+
+
+@pytest.mark.gpu
+def test_capture_of_a_launch_on_another_stream_raises(cuda, monkeypatch):
+    """A launcher that put its kernel on the legacy default stream instead
+    of the current one would run it once, outside the capture, and CUDA
+    raises nothing (the capture stream does not synchronise with that
+    one): the batcher's capture finds the kernel missing from the graph
+    and raises."""
+    dbm, params = _serving_model(cuda)
+    real = FD._kernel()
+    monkeypatch.setattr(FD, "_kernel", lambda: lambda *a: real(*a[:-1], 0))
+    cb = S.ContinuousBatcher(dbm, params, num_slots=2, page_size=16,
+                             max_prompt=32, max_len=48, seg_len=2,
+                             chunk_size=16)
+    with pytest.raises(RuntimeError, match="outside the capture stream"):
+        cb.capture()
+    torch.cuda.synchronize()
+
+
 # kind -> (Sq, Sk, window, mask_seq); lengths that are not multiples of the
 # kernels' 64-row tiles
 FA_CASES = {"full": (100, 190, None, None), "causal": (200, 200, None, None),

@@ -83,6 +83,18 @@ def jax_z_draws(n, d, sigma_max):
     return np.stack(zs)
 
 
+def jax_gumbel_draws(n, vocab):
+    """The categorical's Gumbel noise of each of the JAX engine's n decode
+    steps (``jax.random.categorical`` is argmax(logits + gumbel))."""
+    rng, gs = jax.random.PRNGKey(SEED_RNG), []
+    for _ in range(n):
+        rng, rs = jax.random.split(rng)             # serve.py decode body
+        _, r_samp = jax.random.split(rs)            # blocks.py serve_step
+        gs.append(np.asarray(jax.random.gumbel(r_samp, (B, vocab),
+                                               jnp.float32)))
+    return np.stack(gs)
+
+
 def _prompts(cfg, ragged):
     rs = np.random.RandomState(11)
     prompts = rs.randint(0, cfg.vocab_size, size=(B, S0)).astype(np.int32)
@@ -140,6 +152,23 @@ def test_generate_fp32_matches_jax(pair, ragged):
                                    atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("top_k", [0, 8])
+def test_generate_sampled_matches_jax(pair, top_k):
+    """Temperature 0.8: the static engine samples as JAX's categorical does,
+    on JAX's Gumbel noise."""
+    cfg, jdbm, jparams, tdbm, tparams = pair
+    prompts, plens = _prompts(cfg, ragged=True)
+    kw = dict(prompt_lengths=plens, temperature=0.8, top_k=top_k,
+              precision="fp32", chunk_size=CHUNK)
+    out_j = JS.generate(jdbm, jparams, jnp.asarray(prompts), MAX_NEW,
+                        rng=jax.random.PRNGKey(SEED_RNG), **kw)
+    out_t = TS.generate(
+        tdbm, tparams, prompts, MAX_NEW,
+        z0=jax_z_draws(MAX_NEW, cfg.d_model, jdbm.db.sigma_max),
+        noise=jax_gumbel_draws(MAX_NEW, cfg.vocab_size), **kw)
+    np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
+
+
 def test_first_step_logits_bf16(pair):
     cfg, jdbm, jparams, tdbm, tparams = pair
     prompts, plens = _prompts(cfg, ragged=True)
@@ -164,6 +193,14 @@ def test_serve_cli_runs_on_cpu(capsys):
              "--max-new", "2", "--ragged"])
     out = capsys.readouterr().out
     assert "generated 2x2 tokens" in out and "dispatches=2" in out
+
+
+def test_sampling_without_noise_raises(pair):
+    tdbm = pair[3]
+    logits = torch.zeros((B, tdbm.cfg.vocab_size))
+    assert tdbm.sample_token(logits).tolist() == [0] * B
+    with pytest.raises(ValueError, match="Gumbel"):
+        tdbm.sample_token(logits, temperature=0.8)
 
 
 def test_engine_rejects_unknown_impl(pair):
