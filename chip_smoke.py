@@ -158,7 +158,32 @@ Phases, each fatal on failure:
      samples; ``generate`` of 8 x 256 in 50 steps and the final fill (51
      forwards of a 4-layer block: 204 attention and 408 gate-residual
      forwards); one fp32 DB step on block 0 through the kernels against
-     ``impl="ref"`` within 1e-3.
+     ``impl="ref"`` within 1e-3;
+ 14. the fault-tolerant training system. 14a: stablelm-1.6b at full width
+     and depth again (``DEFAULT_DB``: 4 blocks of 6 layers, random weights
+     from seed 0, AdaLN heads randomised) through the round-robin
+     ``BlockParallelTrainer``, bf16 policy with fp32 masters,
+     replicate+psum-mean, ``MarkovStream`` batches of 8 x 512 through
+     ``HostDataLoader``: a warm-up batch, a timed batch (wall, CUDA-event
+     ms, peak memory beside phase 6's ``train_db`` and e2e peaks), a
+     profiled batch (device-busy share), and a batch with a NaN injected
+     into block 2's loss, whose stack, moments and step counter must stay
+     bit-unchanged while the other blocks and the periphery move; each
+     block update launches one DB step's kernels; then one fp32 batch at
+     stablelm's widths with 4 layers (4 blocks of 1) through the kernels
+     against ``impl="ref"`` (losses within 1e-3 relative, params within
+     1e-3, first moments within 1e-3 of their largest). 14b:
+     ``TrainRunner`` at stablelm's widths and vocabulary with 4 layers,
+     bf16, checkpoints in a temporary directory on the machine's disk
+     (bytes, seconds and sha256 seconds of each save and load printed;
+     deleted at the end): block-parallel (4 blocks of 1, 6 batches,
+     checkpoints every 2, 2 kept) under ``RUNNER_FAULTS`` (a NaN block,
+     a pod death and re-adoption, a torn generation) with its counters
+     equal to ``RUNNER_COUNTERS``; the same run killed after batch 5 and
+     resumed, which must fall back past the torn generation and end
+     bit-equal to the uninterrupted run (params, moments, step counters,
+     history, heartbeats, guard state); and db mode (2 blocks of 2
+     layers) with one ``pod_die`` restart, killed after step 3 of 4.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -170,6 +195,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2752,6 +2778,356 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention.py:228"),
 }
+# ---------------------------------------------------------------------------
+# 14. the fault-tolerant training system: the block-parallel engine at full
+#     width (14a), the TrainRunner with checkpoints and faults (14b)
+# ---------------------------------------------------------------------------
+
+def _clone(tree):
+    from repro_torch.nn.init import tree_map
+    return tree_map(lambda _, x: x.clone(), tree)
+
+
+def _equal(a, b) -> bool:
+    from repro_torch.nn.init import tree_items
+    return all(torch.equal(x, y) for (_, x), (_, y) in
+               zip(tree_items(a), tree_items(b)))
+
+
+def _bits(tree) -> int:
+    """An exact integer sum of a tree's bits (any changed element changes
+    it, short of a cancellation)."""
+    from repro_torch.nn.init import tree_items
+    return int(sum(x.detach().view(torch.int32).sum(dtype=torch.int64)
+                   for _, x in tree_items(tree)
+                   if x.dtype == torch.float32))
+
+
+def bp_batch_counts(dbm, active: int) -> dict:
+    """Launches of one engine batch: each active block update is one DB
+    step of its block (the engine's blocks are equal-sized)."""
+    one = db_step_counts(dbm, dbm.ranges[0][1])
+    return {n: c * active for n, c in one.items()}
+
+
+def phase_block_parallel(dev, train) -> dict:
+    """Phase 14a: ``BlockParallelTrainer`` (round-robin) at stablelm-1.6b
+    full width and depth, 4 blocks of 6 layers, bf16 policy with fp32
+    masters, ``MarkovStream`` 8 x 512 through ``HostDataLoader``,
+    replicate+psum-mean: a warm-up batch, a timed batch (CUDA events, peak
+    memory), a profiled batch (device-busy share) and a batch with a NaN
+    injected into block 2's loss; launch counts of each block update equal
+    to one DB step's."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import HostDataLoader, MarkovLM
+    from repro_torch.parallel import BlockParallelTrainer
+    t0 = time.perf_counter()
+    cfg, dbm, params, gen = build_model(dev)
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    tr = BlockParallelTrainer(dbm, tcfg, precision="bf16")
+    B, u = tr.B, tr.u
+    state = tr.init_state(params)
+    data = HostDataLoader(MarkovLM(vocab_size=cfg.vocab_size, seed=7).stream(
+        TRAIN_BATCH, TRAIN_SEQ), device=dev)
+    torch.cuda.synchronize()
+    say(f"[block-parallel] {cfg.name} full width, {B} blocks of {u} layers, "
+        f"bf16 policy, {tr.policy}, MarkovStream {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"through HostDataLoader; masters + every block's and the "
+        f"periphery's AdamW state resident: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (made in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    expect = bp_batch_counts(dbm, B)
+    out = {"launches": {}}
+    try:
+        state, losses, _ = tr.step(state, next(data), gen)
+        say(f"[block-parallel] warm-up batch: losses "
+            f"{[round(float(x), 4) for x in losses]}")
+        tokens = next(data)
+        (res, wall, dev_ms, peak, base, counts) = timed_step(
+            lambda: tr.step(state, tokens, gen))
+        state, losses, gnorms = res
+        check_counts("block-parallel batch", counts, expect)
+        if not torch.isfinite(losses).all():
+            raise SmokeError(f"block-parallel batch: losses {losses}")
+        add_counts(out["launches"], counts)
+        db_wall = statistics.median(r["wall_s"] for r in train["db"]) * 1e3
+        say(f"[block-parallel] batch ({B} block updates): losses "
+            f"{[round(float(x), 4) for x in losses]} | grad norms "
+            f"{[round(float(x), 3) for x in gnorms]} | wall "
+            f"{wall * 1e3:.1f} ms ({wall * 1e3 / B:.1f} ms per block update;"
+            f" phase 6's DB step {db_wall:.1f} ms) | device {dev_ms:.1f} ms "
+            f"(events) | peak {peak / 2**30:.2f} GiB (resident before "
+            f"{base / 2**30:.2f}) | launches {counts}")
+        tokens = next(data)
+        wall_p, busy, top = device_busy(lambda: tr.step(state, tokens, gen),
+                                        top=8)
+        say(f"[profile] block-parallel batch: wall {wall_p:.1f} ms under the "
+            f"profiler, device busy {busy:.1f} ms "
+            f"({100 * busy / wall_p:.1f}%)")
+        for ms, count, key in top:
+            say(f"[profile]   {ms:8.2f} ms  x{count:<5d} {key[:90]}")
+
+        # grad_nan on block 2: its stack, moments and step counter stay
+        # bit-unchanged, the others and the periphery move
+        victim = 2
+        stack_v, opt_v = tr.block_trees(state, victim)
+        kept = (_clone(stack_v), _clone(opt_v.mu), _clone(opt_v.nu),
+                int(opt_v.step))
+        others = [_bits(tr.block_trees(state, b)[0]) for b in range(B)]
+        steps0 = state.stack_opt.step.tolist()
+        periph0, pstep0 = _bits(state.periph), int(state.periph_opt.step)
+        mult = [1.0] * B
+        mult[victim] = float("nan")
+        tokens = next(data)
+        K.reset_launch_counts()
+        state, losses, _ = tr.step(state, tokens, gen, loss_mult=mult)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        check_counts("block-parallel grad_nan batch", counts, expect)
+        add_counts(out["launches"], counts)
+        stack_v, opt_v = tr.block_trees(state, victim)
+        moved = [_bits(tr.block_trees(state, b)[0]) != others[b]
+                 for b in range(B)]
+        ok = (tr.last_ok.tolist() == [b != victim for b in range(B)]
+              and _equal(stack_v, kept[0]) and _equal(opt_v.mu, kept[1])
+              and _equal(opt_v.nu, kept[2]) and int(opt_v.step) == kept[3]
+              and moved == [b != victim for b in range(B)]
+              and state.stack_opt.step.tolist()
+              == [s + (b != victim) for b, s in enumerate(steps0)]
+              and _bits(state.periph) != periph0
+              and int(state.periph_opt.step) == pstep0 + 1)
+        say(f"[block-parallel] grad_nan on block {victim}: losses "
+            f"{[round(float(x), 4) for x in losses]} | last_ok "
+            f"{tr.last_ok.tolist()} | block {victim} stack, moments and step "
+            f"counter bit-unchanged: {_equal(stack_v, kept[0])}, "
+            f"{_equal(opt_v.mu, kept[1]) and _equal(opt_v.nu, kept[2])}, "
+            f"{int(opt_v.step)} == {kept[3]} | blocks moved {moved} | step "
+            f"counters {state.stack_opt.step.tolist()} | periphery moved: "
+            f"{_bits(state.periph) != periph0} (step {pstep0} -> "
+            f"{int(state.periph_opt.step)})")
+        if not ok:
+            raise SmokeError("block-parallel grad_nan: the guard did not "
+                             "skip exactly the victim block")
+        del kept
+    finally:
+        data.close()
+    say(f"[block-parallel] peak memory: engine batch {peak / 2**30:.2f} GiB "
+        f"vs phase 6's train_db {train['train_db']['peak_bytes'] / 2**30:.2f}"
+        f" GiB and e2e step {train['e2e']['peak_bytes'] / 2**30:.2f} GiB; "
+        f"nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    out.update(wall_s=wall, device_ms=dev_ms, peak_bytes=peak,
+               busy_share=busy / wall_p)
+    del state, tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def runner_model(dev, n_layers: int, blocks: int):
+    """stablelm-1.6b's widths and vocabulary with ``n_layers`` layers in
+    ``blocks`` blocks, random weights from seed 0 (AdaLN heads
+    randomised)."""
+    from repro_torch.configs import DBConfig, get_config
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=n_layers)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=blocks,
+                                             overlap_gamma=0.1))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, params
+
+
+def phase_block_parallel_crosscheck(dev) -> dict:
+    """Phase 14a's fp32 batch at reduced depth (stablelm widths, 4 layers,
+    4 blocks of 1) through the kernels against ``impl="ref"``, from the same
+    params and draws: per-block losses within 1e-3 relative, every updated
+    param within 1e-3, the first block's attention first moments within
+    1e-3 of their largest."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.nn.init import tree_items
+    from repro_torch.parallel import BlockParallelTrainer
+    dbm, master = runner_model(dev, 4, 4)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    Bsz = TRAIN_BATCH // 2
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (Bsz, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    draws = [(dbm.sample_block_sigma(gen, (Bsz, 1, 1), b, device=dev),
+              torch.randn(Bsz, TRAIN_SEQ, dbm.cfg.d_model, generator=gen,
+                          device=dev)) for b in range(dbm.num_blocks)]
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    res = {}
+    for impl in ("kernels", "ref"):
+        params = _clone(master)
+        tr = BlockParallelTrainer(dbm, tcfg, impl=impl, precision="fp32")
+        K.reset_launch_counts()
+        state, losses, _ = tr.step(tr.init_state(params), tokens,
+                                   draws=draws)
+        torch.cuda.synchronize()
+        check_counts(f"block-parallel cross-check impl={impl}",
+                     K.launch_counts(), bp_batch_counts(dbm, dbm.num_blocks)
+                     if impl == "kernels" else expected_counts())
+        res[impl] = (losses, params,
+                     {k: v[0].clone() for k, v in
+                      state.stack_opt.mu["layers"]["attn"].items()})
+        del state, tr
+    (lk, pk, mk), (lr_, pr, mr) = res["kernels"], res["ref"]
+    loss_rel = ((lk - lr_).abs() / lr_.abs()).max().item()
+    param_diff = max((a - b).abs().max().item() for (_, a), (_, b) in
+                     zip(tree_items(pk), tree_items(pr)))
+    mom_rel = max(((mk[k] - mr[k]).abs().max() / mr[k].abs().max()).item()
+                  for k in mr)
+    say(f"[crosscheck] block-parallel fp32 batch (stablelm widths, 4 blocks "
+        f"of 1 layer), kernels vs plain versions: losses "
+        f"{[round(float(x), 6) for x in lk]} vs "
+        f"{[round(float(x), 6) for x in lr_]} (rel max {loss_rel:.2e}) | "
+        f"params max|diff| {param_diff:.2e} | block 0 attention first "
+        f"moments rel {mom_rel:.2e}; limit 1e-3")
+    del res, pk, pr, master
+    torch.cuda.empty_cache()
+    if not (loss_rel <= 1e-3 and param_diff <= 1e-3 and mom_rel <= 1e-3):
+        raise SmokeError("block-parallel fp32 cross-check: kernels and plain "
+                         "versions disagree")
+    return {"loss_rel": loss_rel, "param_diff": param_diff,
+            "moment_rel": mom_rel}
+
+
+# phase 14b's fault spec (block-parallel, 6 batches of 4 block updates,
+# checkpoints every 2 batches, 2 kept): a NaN loss on block 0 in batch 0,
+# block 0's pod dead in batch 1 (rewound to generation 1, back in batch 2)
+# and the third save (batch 4) torn; the kill after batch 5 then resumes
+# past that generation from batch 2's
+RUNNER_FAULTS = {"grad_nan": {"at": [1]}, "pod_die": {"at": [2]},
+                 "ckpt_corrupt": {"at": [3]}}
+RUNNER_COUNTERS = {"pod_deaths": 1, "readoptions": 1, "rewinds": 0,
+                   "restarts": 0, "data_stalls": 0, "nan_injected": 1,
+                   "degraded_batches": 1, "ckpt_saves": 4}
+RUNNER_BATCHES, RUNNER_HALT = 6, 5
+
+
+def _ckpt_lines(tag, mgr) -> list:
+    rows = []
+    for t in mgr.timings:
+        rows.append(t)
+        say(f"[runner] {tag} {t['op']} generation {t['generation']}: "
+            f"{t['bytes'] / 1e9:.2f} GB in {t['seconds']:.1f} s "
+            f"({t['bytes'] / 1e9 / t['seconds']:.2f} GB/s; sha256 "
+            f"{t['sha256_s']:.1f} s)")
+    return rows
+
+
+def phase_runner(dev) -> dict:
+    """Phase 14b: ``TrainRunner`` at stablelm's widths and vocabulary with 4
+    layers, bf16 policy, ``MarkovStream`` through ``HostDataLoader``,
+    checkpoints in a temporary directory on the machine's disk (deleted at
+    the end). block-parallel (4 blocks of 1): the uninterrupted run under
+    ``RUNNER_FAULTS`` (its counters must be ``RUNNER_COUNTERS``), the same
+    run killed after batch 5, and its resume, which must fall back past the
+    torn generation and end bit-equal to the uninterrupted run (params,
+    every moment and step counter, history, heartbeats, guard state). db
+    (2 blocks of 2 layers): one ``pod_die`` restart from generation 1, then
+    a kill after step 3."""
+    import shutil
+    import tempfile
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import HostDataLoader, MarkovLM, MarkovStream
+    from repro_torch.launch.faults import make_injector
+    from repro_torch.launch.trainrunner import TrainRunner
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    say(f"[runner] checkpoints under {root} (free "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB)")
+    out = {"launches": {}, "ckpt": []}
+    try:
+        dbm, master = runner_model(dev, 4, 4)
+        lm = MarkovLM(vocab_size=dbm.cfg.vocab_size, seed=7)
+
+        def make_data(cur):
+            src = (lm.stream(TRAIN_BATCH, TRAIN_SEQ) if cur is None
+                   else MarkovStream.from_cursor(cur))
+            return HostDataLoader(src, device=dev)
+
+        def run(tag, d, faults, mode="block-parallel", model=None, steps=None,
+                **kw):
+            dbm_, master_ = model or (dbm, master)
+            params = _clone(master_)
+            tcfg = TrainConfig(
+                steps=steps or RUNNER_BATCHES * dbm_.num_blocks,
+                warmup_steps=2, lr=1e-4, log_every=0)
+            r = TrainRunner(dbm_, tcfg, mode=mode, precision="bf16",
+                            ckpt_dir=os.path.join(root, d),
+                            ckpt_every=kw.pop("ckpt_every", 2), keep=2,
+                            faults=make_injector(faults),
+                            pod_restart_after=1, max_restarts=1, log=say)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, hist = r.train(make_data, gen, params=params, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            add_counts(out["launches"], K.launch_counts())
+            out["ckpt"] += _ckpt_lines(tag, r.manager)
+            say(f"[runner] {tag}: {len(hist)} block updates in {wall:.1f} s "
+                f"| counters {r.counters} | heartbeats {r.heartbeats}")
+            if not all(math.isfinite(x) or i == 0 for i, (_, _, x)
+                       in enumerate(hist)):
+                raise SmokeError(f"runner {tag}: a non-finite loss past the "
+                                 f"injected one: {hist}")
+            return r, params, hist
+
+        a, pa, ha = run("uninterrupted", "a", RUNNER_FAULTS)
+        if a.counters != RUNNER_COUNTERS:
+            raise SmokeError(f"runner counters {a.counters} != the fault "
+                             f"spec's {RUNNER_COUNTERS}")
+        shutil.rmtree(os.path.join(root, "a"))
+        run("killed", "b", RUNNER_FAULTS, halt_after=RUNNER_HALT)
+        c, pc, hc = run("resumed", "b", None, resume=True)
+        B = dbm.num_blocks
+        checks = {
+            "params": _equal(pa, pc),
+            "stack moments": _equal(a.state.stack_opt.mu, c.state.stack_opt.mu)
+            and _equal(a.state.stack_opt.nu, c.state.stack_opt.nu),
+            "step counters": torch.equal(a.state.stack_opt.step,
+                                         c.state.stack_opt.step),
+            "periphery moments": _equal(a.state.periph_opt.mu,
+                                        c.state.periph_opt.mu)
+            and _equal(a.state.periph_opt.nu, c.state.periph_opt.nu)
+            and int(a.state.periph_opt.step) == int(c.state.periph_opt.step),
+            "history": hc == ha[2 * B:],
+            "heartbeats": a.heartbeats == c.heartbeats,
+            "guard": a.trainer.guard_state() == c.trainer.guard_state(),
+            "fell back past the torn generation":
+                c.manager.timings[0]["generation"] == 2}
+        say(f"[runner] kill after batch {RUNNER_HALT} + resume vs "
+            f"uninterrupted, bit-equal: {checks}")
+        if not all(checks.values()):
+            raise SmokeError(f"runner resume is not bit-identical: {checks}")
+        out["resume"] = checks
+        del a, c, pa, pc, master
+        shutil.rmtree(os.path.join(root, "b"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # db: generation 1, a restart from it at step 1, then a kill after
+        # step 3 of 4 (no final save: one save and one load of 13.7 GB)
+        model = runner_model(dev, 4, 2)
+        r, _, hist = run("db", "db", {"pod_die": {"at": [2]}}, mode="db",
+                         model=model, steps=4, ckpt_every=100, halt_after=3)
+        if r.counters["restarts"] != 1 or len(hist) != 4:
+            raise SmokeError(f"runner db: restarts {r.counters['restarts']},"
+                             f" {len(hist)} steps (expected 1 and 4)")
+        del r, model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # kernels no main path launches: the samplers run under no_grad, so the
 # Euler backward is held against its plain version in phase 3 only
 OFF_PATH = {"euler_bwd"}
@@ -2797,10 +3173,14 @@ def main() -> int:
     huginn = phase_huginn(dev)
     vit = phase_vit(dev)
     mdm = phase_mdm(dev)
+    block_parallel = phase_block_parallel(dev, train)
+    phase_block_parallel_crosscheck(dev)
+    runner = phase_runner(dev)
     launches = {}
     for counts in (serve["counts"], continuous["counts"], train["launches"],
                    two_pass["launches"], dit["launches"],
-                   huginn["launches"], vit["launches"], mdm["launches"]):
+                   huginn["launches"], vit["launches"], mdm["launches"],
+                   block_parallel["launches"], runner["launches"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

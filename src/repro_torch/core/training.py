@@ -1,4 +1,4 @@
-"""Train-step builders (port of ``repro.core.training``, unguarded).
+"""Train-step builders (port of ``repro.core.training``).
 
 ``make_db_train_step(dbm, b, ...)`` returns a step that computes the paper's
 block-local loss (Eq. 6) and takes gradients ONLY for block b's unit slice
@@ -14,10 +14,16 @@ masked-diffusion and recurrent-depth adapters' steps use too;
 ``train_views`` is the DiT, ViT and masked-diffusion training loop. Every
 step returns ``(params, opt_state, loss, metrics)`` with ``params`` updated
 in place (the same dict).
+
+``GuardConfig`` is the per-block anomaly guard: ``make_db_train_step(...,
+guard=...)`` returns the guarded step, which skips a non-finite or spiking
+update entirely (params, moments and step counter untouched); the
+block-parallel engine (``repro_torch.parallel``) applies it per block.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 
@@ -25,9 +31,44 @@ from repro_torch import precision as precision_mod
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.blocks import DiffusionBlocksModel
 from repro_torch.nn.init import tree_items, tree_map
-from repro_torch.optim import adamw, warmup_cosine
+from repro_torch.optim import adamw, global_norm, warmup_cosine
 
 STACK_KEYS = ("layers", "units")
+
+
+@dataclasses.dataclass(frozen=True)
+class GuardConfig:
+    """Per-block anomaly guard (paper §3 independence as a FAULT boundary):
+    a non-finite loss/grad-norm or a loss spike skips ONLY the offending
+    block's update — its params, AdamW moments, and step counter stay put,
+    and (in the block-parallel engine) its periphery gradient contribution
+    is left out of the periphery mean. A spike is ``loss > spike_factor *
+    ewma + margin`` once the block's loss EWMA is initialized (first clean
+    step); ``rewind_after`` consecutive anomalies tell the supervisor
+    (``repro_torch.launch.trainrunner``) to rewind that block alone to its
+    last checkpoint generation."""
+    spike_factor: float = 8.0
+    margin: float = 2.0
+    ewma_decay: float = 0.9
+    rewind_after: int = 3
+
+    def classify(self, loss, gnorm, ewma, active=True):
+        """(ok, new_ewma) as 0-dim tensors (bool, fp32) on ``loss``'s
+        device. ``ewma < 0`` means uninitialized (spike check disarmed); the
+        EWMA only advances on clean steps so an anomaly can't drag the
+        baseline toward itself. ``active=False`` (a dead pod / masked block)
+        forces not-ok without touching the EWMA."""
+        loss = torch.as_tensor(loss, dtype=torch.float32)
+        dev = loss.device
+        gnorm = torch.as_tensor(gnorm, dtype=torch.float32, device=dev)
+        ewma = torch.as_tensor(ewma, dtype=torch.float32, device=dev)
+        finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+        spike = (ewma > 0) & (loss > self.spike_factor * ewma + self.margin)
+        ok = finite & ~spike & torch.as_tensor(active, device=dev)
+        d = self.ewma_decay
+        new_ewma = torch.where(
+            ok, torch.where(ewma < 0, loss, d * ewma + (1 - d) * loss), ewma)
+        return ok, new_ewma
 
 
 def extract_block_view(params: Dict, start: int, size: int) -> Dict:
@@ -85,7 +126,8 @@ def _as_leaves(view):
                     view)
 
 
-def make_view_train_step(loss_fn, tcfg: TrainConfig, unit_range=None):
+def make_view_train_step(loss_fn, tcfg: TrainConfig, unit_range=None,
+                         guard: Optional[GuardConfig] = None):
     """(init_opt_state_fn, step_fn) training one view of the params with
     AdamW: block b's slice ``unit_range = (start, size)`` of every stack in
     ``STACK_KEYS`` plus the periphery, or every param when ``unit_range`` is
@@ -94,7 +136,19 @@ def make_view_train_step(loss_fn, tcfg: TrainConfig, unit_range=None):
     lands in the masters in place.
 
     step_fn(params, opt_state, *args, **kw) -> (params, opt_state, loss,
-    metrics)"""
+    metrics)
+
+    With ``guard`` the step is the anomaly-guarded one:
+
+    step_fn(params, opt_state, ewma, *args, loss_mult=1.0, **kw)
+        -> (params, opt_state, ewma, loss, metrics)
+
+    ``ewma`` is the block's loss EWMA (-1.0 to start). The verdict is read
+    on the host before the update (one sync per step), so a non-finite or
+    spiking step calls no update at all: params, moments and step counter
+    stay as they were, and ``metrics["ok"]`` is False. ``loss_mult`` scales
+    the loss inside the grad (the ``grad_nan`` fault's injection point; the
+    usual 1.0 is bit-exact)."""
     opt_init, opt_update = make_optimizer(tcfg)
 
     def view_of(params):
@@ -114,7 +168,22 @@ def make_view_train_step(loss_fn, tcfg: TrainConfig, unit_range=None):
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, loss.detach(), {**metrics, **om}
 
-    return init_opt, step
+    def guarded_step(params, opt_state, ewma, *args, loss_mult=1.0, **kw):
+        view = _as_leaves(view_of(params))
+        loss, metrics = loss_fn(view, *args, **kw)
+        loss = loss * loss_mult
+        grads = _grads(loss, view)
+        gnorm = global_norm(grads)
+        ok, ewma = guard.classify(loss.detach(), gnorm, ewma)
+        if bool(ok):
+            opt_state, om = opt_update(grads, opt_state, view)
+        else:
+            om = {"grad_norm": gnorm}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return (params, opt_state, ewma, loss.detach(),
+                {**metrics, **om, "ok": ok})
+
+    return init_opt, (step if guard is None else guarded_step)
 
 
 def train_views(steps, params, batches, generator: torch.Generator,
@@ -142,7 +211,8 @@ def train_views(steps, params, batches, generator: torch.Generator,
 
 
 def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
-                       impl: str = "kernels", precision=None, guard=None):
+                       impl: str = "kernels", precision=None,
+                       guard: Optional[GuardConfig] = None):
     """Returns (init_opt_state_fn, step_fn).
 
     step_fn(params, opt_state_b, tokens, generator=None, *, sigma=None,
@@ -150,11 +220,14 @@ def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
 
     σ (B, 1, 1) and ε (B, S, d) are drawn from ``generator`` unless given.
     ``precision`` keeps fp32 masters and moments while the loss sees
-    compute-dtype copies; the cast's backward brings the grads to fp32."""
-    if guard is not None:
-        raise NotImplementedError(
-            "guard (GuardConfig) belongs to the fault-tolerant training "
-            "slice of the port")
+    compute-dtype copies; the cast's backward brings the grads to fp32.
+
+    ``guard`` (a ``GuardConfig``) switches to the anomaly-guarded signature
+    of ``make_view_train_step``:
+
+    step_fn(params, opt_state_b, ewma, tokens, generator=None, *,
+            sigma=None, eps=None, loss_mult=1.0)
+        -> (params, opt_state_b, ewma, loss, metrics)"""
     start, size = dbm.ranges[b]
     pol = precision_mod.get_policy(precision)
 
@@ -163,7 +236,7 @@ def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
         return dbm.block_loss(vc, b, tokens, generator, sigma=sigma, eps=eps,
                               impl=impl, unit_range=(0, size), precision=pol)
 
-    return make_view_train_step(loss_fn, tcfg, (start, size))
+    return make_view_train_step(loss_fn, tcfg, (start, size), guard)
 
 
 def make_e2e_train_step(dbm: DiffusionBlocksModel, tcfg: TrainConfig,

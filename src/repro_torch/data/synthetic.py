@@ -1,10 +1,14 @@
-"""Synthetic data (copies of ``MarkovLM``, ``GaussianMixtureImages`` and
+"""Synthetic data (copies of ``MarkovLM``, ``MarkovStream``,
+``arithmetic_stream``, ``GaussianMixtureImages`` and
 ``MixtureImagesContinuous`` from ``repro.data.synthetic``, numpy only): a
 Zipf-weighted order-1 Markov chain with learnable structure, so CE
 demonstrably falls (with its true log-likelihood and transition legality for
-the masked-diffusion evaluation), class-conditional Gaussian images for the
-ViT classifier, and a Gaussian mixture of continuous 'images' for the DiT
-adapter. Same seed, same batches as the JAX package."""
+the masked-diffusion evaluation), its cursor-able stream for fault-tolerant
+training, a deterministic arithmetic stream, class-conditional Gaussian
+images for the ViT classifier, and a Gaussian mixture of continuous 'images'
+for the DiT adapter. Same seed, same batches as the JAX package, and the
+same cursor dict, so a cursor written by either package resumes in the
+other."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,6 +47,12 @@ class MarkovLM:
         while True:
             yield self.sample(rng, batch, seq_len)
 
+    def stream(self, batch: int, seq_len: int, seed: int = 1,
+               start_batch: int = 0) -> "MarkovStream":
+        """Cursor-able version of ``iterator`` (fault-tolerant training)."""
+        return MarkovStream(self, batch, seq_len, seed=seed,
+                            start_batch=start_batch)
+
     def log_likelihood(self, x: np.ndarray) -> float:
         """Average log2-likelihood per transition under the true chain
         (entropy floor for BPC-style metrics)."""
@@ -59,6 +69,57 @@ class MarkovLM:
         generation-quality proxy (MAUVE stand-in)."""
         legal = (self.next_tokens[x[:, :-1]] == x[:, 1:, None]).any(-1)
         return float(legal.mean())
+
+
+class MarkovStream:
+    """Deterministic, CURSOR-able batch stream over a ``MarkovLM``.
+
+    Batch i depends only on (lm, seed, i), so a resumed run that fast-forwards
+    to the delivered-batch count consumes the SAME batches the uninterrupted
+    run would have — the property the training resume-parity gate needs. The
+    cursor is a small JSON dict (no RandomState pickling), so it lives in the
+    checkpoint manifest.
+    """
+
+    def __init__(self, lm: "MarkovLM", batch: int, seq_len: int,
+                 seed: int = 1, start_batch: int = 0):
+        self.lm, self.batch, self.seq_len, self.seed = lm, batch, seq_len, seed
+        self.rng = np.random.RandomState(seed)
+        self.batches = 0
+        for _ in range(start_batch):
+            next(self)                   # replay-to-cursor fast-forward
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> np.ndarray:
+        x = self.lm.sample(self.rng, self.batch, self.seq_len)
+        self.batches += 1
+        return x
+
+    def cursor(self) -> dict:
+        return {"kind": "markov", "vocab_size": self.lm.vocab_size,
+                "branching": self.lm.branching, "lm_seed": self.lm.seed,
+                "batch": self.batch, "seq_len": self.seq_len,
+                "seed": self.seed, "batches": self.batches}
+
+    @classmethod
+    def from_cursor(cls, cur: dict) -> "MarkovStream":
+        lm = MarkovLM(vocab_size=cur["vocab_size"],
+                      branching=cur["branching"], seed=cur["lm_seed"])
+        return cls(lm, cur["batch"], cur["seq_len"], seed=cur["seed"],
+                   start_batch=cur["batches"])
+
+
+def arithmetic_stream(batch: int, seq_len: int, vocab: int,
+                      seed: int) -> np.ndarray:
+    """Deterministic x_{t+1} = (3 x_t + 1) mod V — exactness checks."""
+    r = np.random.RandomState(seed)
+    x = np.empty((batch, seq_len), np.int64)
+    x[:, 0] = r.randint(0, vocab, batch)
+    for t in range(1, seq_len):
+        x[:, t] = (3 * x[:, t - 1] + 1) % vocab
+    return x
 
 
 @dataclasses.dataclass

@@ -45,6 +45,7 @@ from repro_torch import precision as precision_mod
 from repro_torch.configs import DBConfig, get_config, reduced
 from repro_torch.core.blocks import DiffusionBlocksModel, gumbel
 from repro_torch.data import MarkovLM
+from repro_torch.launch.faults import WorkerDied
 from repro_torch.nn import cache as KVC
 
 DEFAULT_CHUNK = 64
@@ -424,10 +425,18 @@ class ContinuousBatcher:
     checks). ``graphs=False`` runs both eagerly on the card too. The
     segment's draws come from ``draw_segment`` (``generator``).
 
+    ``faults`` (a ``repro_torch.launch.faults.FaultInjector``) is consulted
+    at JAX's four serving hook points: ``alloc_exhaust`` in page allocation
+    (the pool pretends to be empty), ``token_stall`` in token delivery (a
+    sleep), and ``engine_crash`` / ``worker_die`` at the top of ``step``
+    (``InjectedFault`` / ``WorkerDied``, raised before any bookkeeping
+    mutates). The supervisor that restarts a crashed engine and the router
+    that fails a dead worker over are not ported (ROADMAP A7).
+
     ``submit``/``cancel``/``pause``/``resume``/``preempt`` may be called from
     any thread; they take effect at the next ``step``. Not ported yet, and
-    refused: conditioned requests (ROADMAP A6), fault injection (A4), SLO
-    deadlines, admission shedding, shared pools and recovery (A7).
+    refused: conditioned requests (ROADMAP A6), SLO deadlines, admission
+    shedding, shared pools and recovery (A7).
     """
 
     def __init__(self, dbm, params, *, num_slots: int = 8,
@@ -446,11 +455,10 @@ class ContinuousBatcher:
         if max_queue is not None or shed_below_pages:
             _not_ported("admission shedding (max_queue, shed_below_pages)",
                         "A7")
-        if faults is not None:
-            _not_ported("fault injection (faults)", "A4")
         if shared_pool is not None:
             _not_ported("a SharedPagePool and page handoff", "A7")
         self.dbm, self.params = dbm, params
+        self.faults = faults
         self.device = params["embed"]["table"].device
         if graphs is None:
             graphs = self.device.type == "cuda"
@@ -609,6 +617,8 @@ class ContinuousBatcher:
     # ---- page accounting ---------------------------------------------
     def _alloc_page(self) -> Optional[int]:
         """Pop a free page, evicting prefix-cache entries under pressure."""
+        if self.faults is not None and self.faults.fire("alloc_exhaust"):
+            return None              # injected exhaustion: pretend pool empty
         if not self.free_pages and self.prefix is not None:
             self.prefix.evict(self.page_refs, self.free_pages, need=1)
         if not self.free_pages:
@@ -907,6 +917,8 @@ class ContinuousBatcher:
             if toks and req.first_token_t is None:
                 req.first_token_t = now
             req.out.extend(toks)
+            if toks and self.faults is not None:
+                self.faults.maybe_sleep("token_stall")
 
     def _paused_mask(self) -> np.ndarray:
         with self._lock:
@@ -1056,6 +1068,14 @@ class ContinuousBatcher:
         return finished
 
     def _step(self, *, strict: bool = True) -> List[Request]:
+        if self.faults is not None:
+            # injected BEFORE any bookkeeping mutates; worker_die is the
+            # harder failure (simulated process death, no restart)
+            self.faults.maybe_raise("engine_crash")
+            if self.faults.fire("worker_die"):
+                raise WorkerDied(
+                    f"injected worker_die "
+                    f"(call {self.faults.calls['worker_die']})")
         finished = self._apply_cancellations()
         self._apply_preemptions()
         if not (self.queue or self.active.any()):

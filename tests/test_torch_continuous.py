@@ -78,16 +78,23 @@ def state(cb, fin):
 
 
 def run_both(pair, reqs, *, seed=3, num_slots=3, preempt_at=None,
-             late=None, sampled=False, **kw):
+             late=None, sampled=False, faults=None, **kw):
     """Serve ``reqs`` [(prompt, max_new, priority)] through both batchers
     step by step (``late``: {step: reqs} submitted before that step;
-    ``preempt_at``: {step: slot} forced preemptions of the slot's request);
-    assert equal per-step logs and tokens. Returns the port's batcher and
-    its finished requests."""
+    ``preempt_at``: {step: slot} forced preemptions of the slot's request;
+    ``faults``: a fault spec, one injector per batcher from seed 1); assert
+    equal per-step logs and tokens. Returns the port's batcher and its
+    finished requests."""
+    from repro.launch.faults import FaultInjector as JFaults
+    from repro_torch.launch.faults import FaultInjector as TFaults
     jdbm, jparams, tdbm, tparams = pair
     kw = {**CB_KW, "precision": "fp32", **kw}
-    jcb = JS.ContinuousBatcher(jdbm, jparams, num_slots=num_slots, **kw)
-    tcb = TS.ContinuousBatcher(tdbm, tparams, num_slots=num_slots, **kw)
+    jcb = JS.ContinuousBatcher(
+        jdbm, jparams, num_slots=num_slots,
+        faults=faults and JFaults(faults, seed=1), **kw)
+    tcb = TS.ContinuousBatcher(
+        tdbm, tparams, num_slots=num_slots,
+        faults=faults and TFaults(faults, seed=1), **kw)
     tcb.draw_segment = JaxDraws(seed, num_slots, tdbm.cfg,
                                 tdbm.db.sigma_max, sampled)
     late = {0: reqs, **(late or {})}
@@ -118,6 +125,8 @@ def run_both(pair, reqs, *, seed=3, num_slots=3, preempt_at=None,
     if jcb.prefix is not None:
         assert (tcb.prefix.hits, tcb.prefix.tokens_shared) == (
             jcb.prefix.hits, jcb.prefix.tokens_shared)
+    if faults:
+        assert tcb.faults.stats() == jcb.faults.stats()
     return tcb, sorted(done[1], key=lambda r: r.rid)
 
 
@@ -179,6 +188,18 @@ def test_tokens_match_jax_preemption(tiny):
         total_pages=16, preempt_at={4: 0})
     assert cb.preemptions >= 2 and cb.restores == cb.preemptions
     assert sum(r.preempt_count for r in done) == cb.preemptions
+
+
+def test_tokens_match_jax_alloc_exhaust(tiny):
+    """Under an ``alloc_exhaust`` schedule (p 0.3) the same allocations are
+    refused in both packages, so admission unwinds, copy-on-write relief and
+    self-preemption happen at the same steps: equal scheduling logs and
+    tokens, and equal injector counts."""
+    sys_p = np.random.RandomState(11).randint(0, TINY.vocab_size, size=8)
+    cb, _ = run_both(tiny, queue(TINY, 6, hi=12, seed=10, prefix=sys_p),
+                     num_slots=2, prefix_cache=True, total_pages=24,
+                     faults={"alloc_exhaust": {"p": 0.3}})
+    assert cb.faults.fired["alloc_exhaust"] > 0
 
 
 def test_tokens_match_jax_sampled(tiny):
@@ -509,9 +530,19 @@ def test_continuous_rejects_oversized_and_bad_requests(tiny):
 @pytest.mark.parametrize("what", ["aux", "slo", "faults", "shed", "shared",
                                   "recover"])
 def test_unported_options_raise(tiny, what):
+    if what == "faults":
+        # ported: the batcher takes an injector, and engine_crash raises at
+        # the top of step; the supervisor that restarts it is still A7's
+        from repro_torch.launch.faults import InjectedFault, make_injector
+        cb = _cb(tiny, faults=make_injector({"engine_crash": {"at": [1]}}))
+        cb.submit([1], 2)
+        with pytest.raises(InjectedFault, match="engine_crash"):
+            cb.step()
+        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+            cb.recover()
+        return
     calls = {"aux": lambda: _cb(tiny).submit([1], 2, aux_inputs={"x": 1}),
              "slo": lambda: _cb(tiny).submit([1], 2, ttft_slo_s=1.0),
-             "faults": lambda: _cb(tiny, faults=object()),
              "shed": lambda: _cb(tiny, max_queue=4),
              "shared": lambda: _cb(tiny, shared_pool=object()),
              "recover": lambda: _cb(tiny).recover()}

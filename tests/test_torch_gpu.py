@@ -1697,3 +1697,171 @@ def test_recurrent_through_kernels_matches_plain_versions(cuda):
     for got, want in ((dk, dr), (bk, br)):
         assert abs(got - want) <= 1e-4 * abs(want)
     torch.testing.assert_close(lk, lr_, atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# block-parallel engine, guard, checkpoints and the supervisor on the card
+# ---------------------------------------------------------------------------
+
+def _bp_model(cuda, n_layers=4, blocks=2):
+    cfg = reduced(get_config("stablelm-1.6b"), n_layers=n_layers,
+                  d_model=512, n_heads=8)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=blocks,
+                                             overlap_gamma=0.1))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, params, gen
+
+
+def _bp_draws(dbm, gen, cuda, Bsz=2, S=96):
+    return [(dbm.sample_block_sigma(gen, (Bsz, 1, 1), b, device=cuda),
+             torch.randn(Bsz, S, dbm.cfg.d_model, generator=gen,
+                         device=cuda)) for b in range(dbm.num_blocks)]
+
+
+@pytest.mark.gpu
+def test_block_parallel_batch_through_kernels_matches_plain_versions(cuda):
+    """One fp32 engine batch (2 blocks of 2 layers) through the kernels and
+    through the plain versions from the same params and draws: per-block
+    losses, the updated params and the first moments agree; each block
+    update launches one DB step's attention kernels."""
+    from repro_torch.parallel import BlockParallelTrainer
+    dbm, master, gen = _bp_model(cuda)
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (2, 96), generator=gen,
+                           device=cuda)
+    draws = _bp_draws(dbm, gen, cuda)
+    tcfg = TrainConfig(steps=10, warmup_steps=2, lr=1e-3)
+    res = {}
+    for impl in ("ref", "kernels"):
+        params = tree_map(lambda _, x: x.clone(), master)
+        tr = BlockParallelTrainer(dbm, tcfg, impl=impl)
+        K.reset_launch_counts()
+        state, losses, _ = tr.step(tr.init_state(params), tokens,
+                                   draws=draws)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        expect = 0 if impl == "ref" else sum(s for _, s in dbm.ranges)
+        assert {k: counts[k] for k in counts if k.startswith("flash_att")} \
+            == {k: expect for k in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")}
+        res[impl] = (losses, params, state.stack_opt.mu["layers"]["attn"])
+    (lr_, pr, mr), (lk, pk, mk) = res["ref"], res["kernels"]
+    assert torch.isfinite(lk).all()
+    torch.testing.assert_close(lk, lr_, atol=0, rtol=1e-4)
+    for (_, a), (_, b) in zip(T.tree_items(pk), T.tree_items(pr)):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=0)
+    for name in ("wq", "wk", "wv"):
+        scale = mr[name].abs().max().item()
+        torch.testing.assert_close(mk[name], mr[name], atol=1e-3 * scale,
+                                   rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_block_parallel_guard_skips_on_the_card(cuda):
+    """A NaN loss_mult on block 0 of a bf16 batch: its stack, moments and
+    step counter stay bit-unchanged on the card, block 1 and the periphery
+    move."""
+    from repro_torch.parallel import BlockParallelTrainer
+    dbm, params, gen = _bp_model(cuda)
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (2, 96), generator=gen,
+                           device=cuda)
+    tr = BlockParallelTrainer(dbm, TrainConfig(steps=10, warmup_steps=2),
+                              precision="bf16")
+    state = tr.init_state(params)
+    before = [tree_map(lambda _, x: x.clone(), t)
+              for t in tr.block_trees(state, 0)[:1]] + [
+        tree_map(lambda _, x: x.clone(), state.stack_opt.mu)]
+    b1 = params["layers"]["attn"]["wq"][2:].clone()
+    emb = params["embed"]["table"].clone()
+    state, losses, _ = tr.step(state, tokens, gen,
+                               loss_mult=[float("nan"), 1.0])
+    assert not torch.isfinite(losses[0]) and torch.isfinite(losses[1])
+    assert tr.last_ok.tolist() == [False, True]
+    assert state.stack_opt.step.tolist() == [0, 1]
+    stack0 = tr.block_trees(state, 0)[0]
+    for (_, a), (_, b) in zip(T.tree_items(stack0), T.tree_items(before[0])):
+        assert torch.equal(a, b)
+    pairs = list(zip(T.tree_items(state.stack_opt.mu),
+                     T.tree_items(before[1])))
+    assert all(torch.equal(a[0], b[0]) for (_, a), (_, b) in pairs)
+    assert any(not torch.equal(a[1], b[1]) for (_, a), (_, b) in pairs)
+    assert not torch.equal(params["layers"]["attn"]["wq"][2:], b1)
+    assert not torch.equal(params["embed"]["table"], emb)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_of_cuda_state(cuda, tmp_path):
+    """A generation of CUDA trees (fp32, bf16, int32, AdamW state) saves
+    and loads back bit-equal, on the card and on the host."""
+    from repro_torch.checkpoint import CheckpointManager, tree_digest
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tree = {"w": torch.randn(33, 17, generator=gen, device=cuda),
+            "h": torch.randn(8, 5, generator=gen, device=cuda).bfloat16(),
+            "i": torch.arange(7, device=cuda, dtype=torch.int32)}
+    opt = adamw(1e-3)[0]({"w": tree["w"]})
+    opt.mu["w"].normal_(generator=gen)
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    g = mgr.save({"t": tree, "t.opt": opt}, {"it": 3})
+    assert mgr.timings[-1]["op"] == "save" and mgr.timings[-1]["bytes"] > 0
+    zeros = {"t": tree_map(lambda _, x: torch.zeros_like(x), tree),
+             "t.opt": type(opt)(torch.zeros_like(opt.step),
+                                {"w": torch.zeros_like(opt.mu["w"])},
+                                {"w": torch.zeros_like(opt.nu["w"])})}
+    for device in (None, "cpu"):
+        trees, manifest = mgr.load_latest(zeros, device=device)
+        assert manifest["generation"] == g
+        assert trees["t"]["w"].device.type == (device or "cuda")
+        assert trees["t"]["h"].dtype == torch.bfloat16
+        assert tree_digest(trees["t"]) == tree_digest(tree)
+        assert tree_digest(trees["t.opt"]) == tree_digest(opt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["block-parallel", "db"])
+def test_kill_then_resume_is_bit_identical_on_the_card(cuda, tmp_path, mode):
+    """TrainRunner at a small size on the card (bf16 policy, draws from a
+    CUDA generator, batches through HostDataLoader): a run killed after
+    step/batch 3 and resumed from its checkpoints ends bit-equal to the
+    uninterrupted run."""
+    from repro_torch.checkpoint import tree_digest
+    from repro_torch.data import HostDataLoader, MarkovLM, MarkovStream
+    from repro_torch.launch.faults import make_injector
+    from repro_torch.launch.trainrunner import TrainRunner
+    dbm, master, _ = _bp_model(cuda)
+    lm = MarkovLM(vocab_size=dbm.cfg.vocab_size, seed=7)
+    steps = 8 if mode == "block-parallel" else 6
+
+    def make_data(cur):
+        src = lm.stream(2, 96) if cur is None else \
+            MarkovStream.from_cursor(cur)
+        return HostDataLoader(src, device=cuda)
+
+    def run(d, faults, **kw):
+        params = tree_map(lambda _, x: x.clone(), master)
+        r = TrainRunner(dbm, TrainConfig(steps=steps, warmup_steps=2),
+                        mode=mode, precision="bf16", ckpt_dir=str(d),
+                        ckpt_every=2, log=lambda *a: None,
+                        faults=make_injector(faults))
+        _, hist = r.train(make_data,
+                          torch.Generator(device=cuda).manual_seed(1),
+                          params=params, **kw)
+        return r, params, hist
+
+    spec = {"grad_nan": {"at": [1]}}
+    a, pa, ha = run(tmp_path / "a", spec)
+    run(tmp_path / "b", spec, halt_after=3)
+    c, pc, hc = run(tmp_path / "b", None, resume=True)
+    assert tree_digest(pa) == tree_digest(pc)
+    if mode == "block-parallel":
+        assert tree_digest(a.state.stack_opt) == tree_digest(c.state.stack_opt)
+        assert tree_digest(a.state.periph_opt) == \
+            tree_digest(c.state.periph_opt)
+        assert hc == ha[2 * dbm.num_blocks:]
+    else:
+        assert tree_digest(a.opt_states) == tree_digest(c.opt_states)
+        assert hc == ha[2:]
+    assert a.heartbeats == c.heartbeats

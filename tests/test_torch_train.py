@@ -338,9 +338,20 @@ def test_bf16_step_loss_close_to_jax(setup):
 
 
 def test_guard_is_not_ported(setup):
-    _, _, tdbm, _ = setup
-    with pytest.raises(NotImplementedError, match="fault-tolerant"):
-        TT.make_db_train_step(tdbm, 0, TCFG, guard=object())
+    """The guard is ported now: ``guard=`` gives the guarded signature, and
+    a NaN step leaves params, moments and step counter as they were."""
+    _, tree, tdbm, tokens = setup
+    params = tparams(tdbm, tree)
+    init, step = TT.make_db_train_step(tdbm, 0, TCFG, guard=TT.GuardConfig())
+    opt = init(params)
+    before = [x.clone() for _, x in tree_items(params)]
+    _, opt, ewma, loss, m = step(params, opt, -1.0, t(tokens),
+                                 torch.Generator().manual_seed(0),
+                                 loss_mult=float("nan"))
+    assert not bool(m["ok"]) and float(ewma) == -1.0
+    assert int(opt.step) == 0
+    assert all(torch.equal(a, b) for (_, a), b in zip(tree_items(params),
+                                                       before))
 
 
 def test_block_view_round_trip(setup):
