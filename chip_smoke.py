@@ -92,7 +92,36 @@ Phases, each fatal on failure:
      to the first token that differs) past 1e-3 relative. Prints the
      greedy agreement, and the bf16 and int8-pool top-1 agreement with
      fp32 on the same schedule and draws;
-  6. train: the same model, bf16 policy, MarkovLM batches of 8 x 512: one
+ 5c. the serving system: ``InferenceServer`` (HTTP/SSE on 127.0.0.1, an
+     ephemeral port) over ``ContinuousBatcher``s whose graphs its engine
+     thread captures before it listens and replays; clients are the port's
+     ``stream_generate`` on an event loop in the main thread. Parity: two
+     requests one at a time through a one-slot fp32 server at stablelm's
+     widths with 4 layers, bit-equal to a direct graphed ``step()`` loop
+     under the same generator seed, and a ``"stream": false`` twin equal to
+     its SSE stream. Then phase 5b's model, bf16, 8 slots, seg_len 16,
+     prefix cache on: trace A, 48 requests arriving Poisson at 60% of the
+     requests/s phase 5b finished; trace B, the same shape in geometric
+     bursts (mean 4) at 150%, with ``max_queue`` 8 and a shed below an
+     eighth of the pool's pages; prompts clipped-lognormal in 128-512
+     tokens (median 256), a quarter behind one 256-token prefix, 16-64 new
+     tokens (median 32), 20% interactive (TTFT SLO 2 s, TPOT 100 ms), 60%
+     standard, 20% batch. Per trace and class: TTFT and TPOT p50 and p99
+     (client clock), sheds (each 429 must carry ``Retry-After``), deadline
+     cancels, preemptions, SLO attainment, tok/s and the wall's share
+     inside a dispatch (CUDA events). Faults: a mid-stream cancel, a
+     closed connection, a slow consumer of the bridge (paused at least
+     once, its 64 tokens complete) and an injected ``engine_crash`` while
+     four requests stream (one restart; each request exactly its tokens,
+     what it streamed a prefix of its output). Drain: the requests in
+     flight complete, a new one gets 503, the pool ends whole (free pages
+     and the prefix cache's refs make it); launch counts equal the
+     dispatches' arithmetic (each capture's warm-up step included); with
+     the servers dropped and no gc pass, memory allocated within 0.5 GiB
+     of its value before the phase;
+  6. train: the same model, bf16 policy, MarkovLM batches of 8 x 512 (the
+     memory resident at its start beside the fp32 masters; fatal if the
+     serving phases left more than 1 GiB or a batcher behind): one
      DiffusionBlocks step on each of the 4 blocks (each block with its own
      AdamW state, freed after its step), one iteration of ``train_db``
      (every block's state resident), then one end-to-end step; loss,
@@ -201,6 +230,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import torch
@@ -247,6 +277,15 @@ BF16_LOGITS_LIMIT, BF16_PAGES_LIMIT = 4.5e-5, 1.5e-3
 # the continuous phase (5b): traffic and its graph-against-eager window
 CB_SLOTS, CB_REQUESTS, CB_NEW, CB_SEG = 8, 32, 64, 16
 CB_MIN, CB_MAX, CB_SHARED, CB_CHECK_SEGMENTS = 128, 512, 256, 4
+# the serving system (5c): each trace's requests, prompt median, new tokens
+# (median 32), arrival rates as shares of the requests/s phase 5b finished,
+# trace B's mean burst, the class mix and the interactive SLOs; the memory
+# the dropped servers may leave allocated
+SRV_REQUESTS, SRV_PROMPT, SRV_NEW = 48, 256, (16, 64)
+SRV_RATE_A, SRV_RATE_B, SRV_BURST = 0.6, 1.5, 4
+SRV_MIX = (("interactive", 0.2), ("standard", 0.6), ("batch", 0.2))
+SRV_TTFT_SLO_MS, SRV_TPOT_SLO_MS = 2000, 100
+SRV_HOST, SRV_MEM_SLACK = "127.0.0.1", 0.5 * 2**30
 
 
 class SmokeError(RuntimeError):
@@ -1602,11 +1641,11 @@ def cb_queue(vocab: int):
 
 
 def cb_batcher(dev, model, *, precision="bf16", impl="kernels", graphs=True,
-               total_pages=None, seed=0):
+               total_pages=None, seed=0, num_slots=CB_SLOTS):
     from repro_torch.launch.serve import ContinuousBatcher
     dbm, params, _ = model
     return ContinuousBatcher(
-        dbm, params, num_slots=CB_SLOTS, page_size=PSZ, max_prompt=CB_MAX,
+        dbm, params, num_slots=num_slots, page_size=PSZ, max_prompt=CB_MAX,
         max_len=CB_MAX + CB_NEW, seg_len=CB_SEG, chunk_size=CHUNK,
         precision=precision, impl=impl, prefix_cache=True,
         total_pages=total_pages, graphs=graphs,
@@ -1655,22 +1694,27 @@ def cb_counts(dbm, cb) -> dict:
 
 def cb_timed(cb) -> dict:
     """CUDA events around each decode segment and chunk dispatch of
-    ``cb``."""
+    ``cb``, recorded on the stepping thread's stream. The wrappers reach
+    ``cb`` through a weak reference: a bound method stored on the instance
+    would make a cycle that keeps the batcher (its pool, graphs and their
+    weight copy) allocated until a gc pass."""
     events = {"segment": [], "chunk": []}
+    ref = weakref.ref(cb)
 
     def timed(kind, fn):
         def run(*args, **kw):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn(*args, **kw)
+            out = fn(ref(), *args, **kw)
             end.record()
             events[kind].append((start, end))
             return out
         return run
 
-    cb._decode_segment = timed("segment", cb._decode_segment)
-    cb._chunk = timed("chunk", cb._chunk)
+    cls = type(cb)
+    cb._decode_segment = timed("segment", cls._decode_segment)
+    cb._chunk = timed("chunk", cls._chunk)
     return events
 
 
@@ -1707,15 +1751,15 @@ def cb_logged(dev, model, prompts, precision, impl, n_seg=2):
     cb = cb_batcher(dev, model, precision=precision, impl=impl,
                     graphs=False)
     logits, emitted = [], []
-    plain, collect = dbm.model.logits, cb._collect
+    plain, collect, ref = dbm.model.logits, type(cb)._collect, weakref.ref(cb)
 
     def readout(p, h):
         logits.append(plain(p, h))
         return logits[-1]
 
-    def collected(e):
+    def collected(e):             # ``cb`` weakly: no cycle (see cb_timed)
         emitted.append(e.copy())
-        collect(e)
+        collect(ref(), e)
 
     dbm.model.logits, cb._collect = readout, collected
     try:
@@ -1912,6 +1956,495 @@ def pool_tensors(pkv):
 
 
 # ---------------------------------------------------------------------------
+# 5c. the serving system: InferenceServer over the graphed batcher
+# ---------------------------------------------------------------------------
+
+def srv_trace(vocab: int, rate: float, bursty: bool, seed: int) -> list:
+    """SRV_REQUESTS requests [(arrival s, prompt, max_new, class)]: Poisson
+    arrivals at ``rate`` requests/s, or bursts of geometric size (mean
+    SRV_BURST) arriving at rate / SRV_BURST; prompts clipped-lognormal in
+    CB_MIN-CB_MAX tokens (median SRV_PROMPT), every fourth one behind the
+    shared CB_SHARED-token prefix; new tokens clipped-lognormal in
+    SRV_NEW (median 32); classes drawn from SRV_MIX."""
+    import numpy as np
+    from repro_torch.data import MarkovLM
+    lm = MarkovLM(vocab_size=vocab, seed=7)
+    rs = np.random.RandomState(seed)
+    shared = lm.sample(rs, 1, CB_SHARED)[0]
+    names, probs = zip(*SRV_MIX)
+    out, t = [], 0.0
+    while len(out) < SRV_REQUESTS:
+        if bursty:
+            t += rs.exponential(SRV_BURST / rate)
+            k = int(rs.geometric(1.0 / SRV_BURST))
+        else:
+            t += rs.exponential(1.0 / rate)
+            k = 1
+        for _ in range(min(k, SRV_REQUESTS - len(out))):
+            n = int(np.clip(round(SRV_PROMPT * np.exp(0.35 * rs.randn())),
+                            CB_MIN, CB_MAX))
+            new = int(np.clip(round(32 * np.exp(0.35 * rs.randn())),
+                              *SRV_NEW))
+            if len(out) % 4 == 0:
+                n = max(n, CB_SHARED + 16)
+                p = np.concatenate([shared,
+                                    lm.sample(rs, 1, n - CB_SHARED)[0]])
+            else:
+                p = lm.sample(rs, 1, n)[0]
+            out.append((t, p, new, str(rs.choice(names, p=probs))))
+    return out
+
+
+def srv_ledger(cb) -> tuple:
+    """What a batcher's launches must be, from its counters: (layers,
+    segment steps and segment warm-ups, chunk dispatches and chunk
+    warm-ups)."""
+    return (cb.dbm.cfg.n_layers, cb.steps + cb.graph_warmups["segment"],
+            cb.ingest_dispatches + cb.graph_warmups["chunk"])
+
+
+def srv_counts(ledger) -> dict:
+    """Launches of the batchers in ``ledger`` (see ``cb_counts``; a
+    capture's eager warm-up step counts once)."""
+    dec = sum(2 * L * seg for L, seg, _ in ledger)
+    return expected_counts(flash_decode=dec, gate_residual=dec,
+                           flash_prefill=sum(L * ch for L, _, ch in ledger))
+
+
+async def srv_poll(want, what: str, timeout: float = 60.0) -> None:
+    """Wait until ``want()`` holds (host state only)."""
+    import asyncio
+    t0 = time.monotonic()
+    while not want():
+        if time.monotonic() - t0 > timeout:
+            raise SmokeError(f"server: {what} did not happen in {timeout} s")
+        await asyncio.sleep(0.005)
+
+
+async def srv_replay(port: int, trace) -> tuple:
+    """Replay ``trace`` against the server on ``port`` with the port's
+    client, each request at its arrival time: (results, wall s)."""
+    import asyncio
+    from repro_torch.launch.server import stream_generate
+    t0 = time.monotonic()
+
+    async def one(at, prompt, new, cls):
+        await asyncio.sleep(max(0.0, t0 + at - time.monotonic()))
+        slo = ({"ttft_slo_ms": SRV_TTFT_SLO_MS, "tpot_slo_ms": SRV_TPOT_SLO_MS}
+               if cls == "interactive" else {})
+        r = await stream_generate(SRV_HOST, port, prompt, new, priority=cls,
+                                  **slo)
+        r.update(cls=cls, max_new=new)
+        return r
+
+    results = await asyncio.gather(*(one(*x) for x in trace))
+    return results, time.monotonic() - t0
+
+
+def srv_report(tag: str, results, wall: float, counters: dict,
+               in_dispatch: float) -> dict:
+    """Print a trace's percentiles per class (client clock: TTFT from the
+    request's send to its first token event; TPOT as the time from the
+    first token event to the last over the tokens after the first event),
+    sheds, deadline cancels, preemptions, SLO attainment per class (an
+    interactive request attains when it finishes with TTFT and TPOT within
+    its SLOs; a standard or batch one when it finishes), tok/s and the
+    wall's share inside a dispatch."""
+    import numpy as np
+    no_hint = [r for r in results if r["status"] == 429
+               and r["retry_after"] is None]
+    bad = [r["status"] for r in results if r["status"] not in (200, 429)]
+    if no_hint or bad:
+        raise SmokeError(f"{tag}: {len(no_hint)} sheds without Retry-After, "
+                         f"statuses {bad}")
+    srv_complete(tag, [r for r in results if r["status"] == 200])
+    out = {"classes": {}}
+    for cls, _ in SRV_MIX:
+        rows = [r for r in results if r["cls"] == cls]
+        ttft, tpot, ok = [], [], 0
+        for r in rows:
+            if r["status"] != 200:
+                continue
+            times, counts = r["token_times"], r["token_counts"]
+            t_ms = (times[0] - r["submit_t"]) * 1e3 if times else None
+            p_ms = ((times[-1] - times[0]) * 1e3
+                    / (len(r["ids"]) - counts[0])
+                    if counts and len(r["ids"]) > counts[0] else None)
+            if t_ms is not None:
+                ttft.append(t_ms)
+            if p_ms is not None:
+                tpot.append(p_ms)
+            done = "error" not in (r["final"] or {"error": 1})
+            if done and (cls != "interactive" or (
+                    t_ms <= SRV_TTFT_SLO_MS
+                    and (p_ms is None or p_ms <= SRV_TPOT_SLO_MS))):
+                ok += 1
+
+        def pct(v, q):
+            return f"{np.percentile(v, q):.1f}" if v else "n/a"
+        shed = sum(r["status"] == 429 for r in rows)
+        blown = sum(bool((r["final"] or {}).get("deadline_blown"))
+                    for r in rows)
+        out["classes"][cls] = {
+            "n": len(rows), "attained": ok / max(len(rows), 1),
+            "shed": shed, "deadline": blown,
+            "ttft_p50": float(np.percentile(ttft, 50)) if ttft else None,
+            "ttft_p99": float(np.percentile(ttft, 99)) if ttft else None}
+        say(f"[server] {tag} {cls:11s}: {len(rows):2d} requests, SLO "
+            f"attained {ok}/{len(rows)} | TTFT p50 {pct(ttft, 50)} p99 "
+            f"{pct(ttft, 99)} ms | TPOT p50 {pct(tpot, 50)} p99 "
+            f"{pct(tpot, 99)} ms ({len(tpot)} with 2+ token events) | "
+            f"shed {shed}, deadline-cancelled {blown}")
+    n_tok = sum(len(r["ids"]) for r in results)
+    out.update(wall_s=wall, tok_s=n_tok / wall, in_dispatch=in_dispatch,
+               **counters)
+    say(f"[server] {tag}: wall {wall:.2f} s | {n_tok} tokens, "
+        f"{n_tok / wall:.1f} tok/s | 429s {counters['shed']} (each with "
+        f"Retry-After) | deadline cancels {counters['deadline_cancels']} | "
+        f"preemptions {counters['preemptions']} | inside a dispatch "
+        f"{100 * in_dispatch:.1f}% of the wall (CUDA events)")
+    return out
+
+
+def srv_complete(tag: str, results) -> None:
+    """Each admitted request ended in a ``done`` event with its streamed
+    tokens equal to the final output and exactly ``max_new`` of them, or
+    in the ``error`` event of a deadline cancel (its partial output): any
+    other end is a server or engine error."""
+    for r in results:
+        fin = r["final"] or {"error": "the stream ended with no final event"}
+        if fin.get("deadline_blown") and r["ids"] == fin["ids"]:
+            continue
+        if ("error" in fin or r["ids"] != fin["ids"]
+                or len(r["ids"]) != r["max_new"]):
+            raise SmokeError(f"{tag}: a request ended with {len(r['ids'])} "
+                             f"of {r['max_new']} tokens streamed, final "
+                             f"{fin}")
+
+
+def srv_runner(what: str, runner, crashes: int) -> None:
+    """The engine thread's supervisor caught exactly ``crashes`` exceptions
+    (the injected ``engine_crash`` the last of them) and is still serving:
+    a recovered crash of any other kind fails the phase."""
+    injected = "InjectedFault: injected fault 'engine_crash'"
+    if (runner.crashes != crashes or runner.gave_up or runner.died
+            or (crashes and not (runner.last_error or "").startswith(
+                injected))):
+        raise SmokeError(f"server, {what}: the engine thread caught "
+                         f"{runner.crashes} exceptions (want {crashes}), "
+                         f"last {runner.last_error!r}, gave up "
+                         f"{runner.gave_up}, died {runner.died}")
+
+
+def srv_crashed(results, new: int) -> None:
+    """After the injected crash: each request finished with exactly its
+    tokens, the streamed tokens equal to the final output (so what it had
+    streamed before the crash is a prefix of it), and one of them spilled
+    by the recovery."""
+    for r in results:
+        fin = r["final"] or {}
+        if (r["status"] != 200 or "error" in fin or r["ids"] != fin["ids"]
+                or len(r["ids"]) != new):
+            raise SmokeError(f"crash recovery: a request lost or repeated "
+                             f"tokens: status {r['status']}, streamed "
+                             f"{len(r['ids'])}, final {fin}")
+    if not any(r["final"]["preempted"] for r in results):
+        raise SmokeError("crash recovery: no request was in a slot at the "
+                         "crash")
+
+
+async def srv_parity(make_cb, reqs) -> tuple:
+    """The parity requests, one at a time, through a server over
+    ``make_cb()`` (SSE), then the first one again as ``"stream": false``
+    through a fresh one: (SSE tokens, the JSON ids, the batchers' launch
+    ledgers, the first server's start s, its graph capture included)."""
+    from repro_torch.launch.server import (InferenceServer, request_json,
+                                           stream_generate)
+    ledger, sse = [], []
+    server = InferenceServer(make_cb())
+    t0 = time.perf_counter()
+    await server.start()
+    start_s = time.perf_counter() - t0
+    try:
+        for p, n in reqs:
+            r = await stream_generate(SRV_HOST, server.port, p, n)
+            if r["status"] != 200:
+                raise SmokeError(f"server parity: status {r['status']}, "
+                                 f"final {r['final']}")
+            srv_complete("server parity", [dict(r, max_new=n)])
+            sse.append(r["ids"])
+    finally:
+        await server.aclose()
+    srv_runner("parity", server.runner, 0)
+    ledger.append(srv_ledger(server.cb))
+    server = InferenceServer(make_cb())
+    await server.start()
+    try:
+        code, obj = await request_json(
+            SRV_HOST, server.port, "POST", "/v1/generate",
+            {"prompt": [int(t) for t in reqs[0][0]], "max_new": reqs[0][1],
+             "stream": False})
+    finally:
+        await server.aclose()
+    srv_runner("parity", server.runner, 0)
+    ledger.append(srv_ledger(server.cb))
+    if code != 200:
+        raise SmokeError(f"server parity: stream false answered {code}")
+    return sse, obj["ids"], ledger, start_s
+
+
+async def srv_load(cb, trace_a, trace_b, extra) -> dict:
+    """Phase 5c's run on the full-width server over ``cb``: traces A and B,
+    the faults, the drain. Returns the clients' results and the batcher's
+    counters at each point (no device object)."""
+    import asyncio
+    from repro_torch.launch.faults import FaultInjector
+    from repro_torch.launch.server import (InferenceServer, TokenStream,
+                                           request_json, stream_generate)
+    server = InferenceServer(cb)
+    t0 = time.perf_counter()
+    await server.start()
+    out = {"capture_s": time.perf_counter() - t0, "marks": {}}
+    port = server.port
+
+    def mark(name):
+        out["marks"][name] = (time.perf_counter(),
+                              {k: getattr(cb, k) for k in (
+                                  "shed_count", "deadline_cancels",
+                                  "preemptions", "restores",
+                                  "cancelled_count", "decode_dispatches",
+                                  "ingest_dispatches")})
+
+    def idle():
+        return not cb.queue and not cb.active.any()
+
+    try:
+        mark("a0")
+        out["a"] = await srv_replay(port, trace_a)
+        await srv_poll(idle, "trace A's drain")
+        mark("a1")
+        cb.max_queue, cb.shed_below_pages = 8, cb.total_pages // 8
+        out["b"] = await srv_replay(port, trace_b)
+        await srv_poll(idle, "trace B's drain")
+        mark("b1")
+        cb.max_queue, cb.shed_below_pages = None, 0
+
+        # faults: a mid-stream cancel, a closed connection, a slow consumer
+        # of the bridge (cap 8 tokens: each 16-token segment pauses it)
+        (p0, n0), (p1, n1), (p2, n2) = extra[:3]
+        c0 = cb.cancelled_count
+        r_cancel, r_abort = await asyncio.gather(
+            stream_generate(SRV_HOST, port, p0, CB_NEW, cancel_after=16),
+            stream_generate(SRV_HOST, port, p1, CB_NEW, abort_after=16))
+        await srv_poll(lambda: cb.cancelled_count >= c0 + 2 and idle(),
+                       "the cancel and the disconnect")
+        pauses0 = server.backpressure_pauses
+        rid = cb.submit(p2, CB_NEW)
+        stream = TokenStream(asyncio.get_running_loop(), rid, 8,
+                             on_pause=server._on_pause,
+                             on_resume=server._on_resume)
+        server.runner.attach(rid, stream)
+        slow, done = [], False
+        while not done:
+            toks, done = await stream.next_batch()
+            slow.extend(toks)
+            await asyncio.sleep(0.2)
+        out["faults"] = {"cancel": r_cancel, "abort": r_abort,
+                         "slow": slow, "slow_req": stream.req.error,
+                         "pauses": server.backpressure_pauses - pauses0}
+
+        # an engine_crash while four requests stream, the first exception
+        # the engine thread meets
+        srv_runner("before the injected crash", server.runner, 0)
+        restarts0 = server.runner.restarts
+        d0 = cb.decode_dispatches
+        tasks = [asyncio.ensure_future(stream_generate(
+            SRV_HOST, port, p, CB_NEW)) for p, _ in extra[3:7]]
+        await srv_poll(lambda: cb.decode_dispatches > d0,
+                       "the crash requests' first segment")
+        cb.faults = FaultInjector({"engine_crash": {"at": [2]}})
+        crashed = await asyncio.gather(*tasks)
+        cb.faults = None
+        out["crash"] = {"results": crashed,
+                        "restarts": server.runner.restarts - restarts0}
+
+        # drain with requests in flight, then 503
+        tasks = [asyncio.ensure_future(stream_generate(
+            SRV_HOST, port, p, CB_NEW)) for p, _ in extra[7:13]]
+        await srv_poll(lambda: cb.active.sum() + len(cb.queue) >= 6,
+                       "the drain requests' admission")
+        await server.drain()
+        out["drained"] = await asyncio.gather(*tasks)
+        out["after_drain"] = await request_json(
+            SRV_HOST, port, "POST", "/v1/generate",
+            {"prompt": [1, 2, 3], "max_new": 2}, return_headers=True)
+        mark("end")
+    finally:
+        await server.aclose()
+    srv_runner("after the drain", server.runner, 1)
+    out["pool"] = (len(cb.free_pages), len(cb.page_refs),
+                   cb.page_refs == trie_holds(cb.prefix), cb.total_pages,
+                   bool(cb.active.any()))
+    out["ledger"] = [srv_ledger(cb)]
+    return out
+
+
+def srv_share(events, lo, hi, wall: float) -> float:
+    """The share of ``wall`` s spent inside the segment and chunk
+    dispatches numbered ``lo`` to ``hi`` ((segments, chunks) each; CUDA
+    events, read once the engine thread is gone)."""
+    ms = sum(s.elapsed_time(e) for i, kind in enumerate(("segment", "chunk"))
+             for s, e in events[kind][lo[i]:hi[i]])
+    return ms / (wall * 1e3)
+
+
+def clear_cublas_workspaces() -> None:
+    """Free the cuBLAS workspaces PyTorch keeps per (handle, stream): each
+    batcher's own stream and each engine thread's handle get one, which
+    would count as allocated memory left behind."""
+    getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+
+
+def phase_server(dev, model, continuous: dict) -> dict:
+    """Phase 5c: the serving system (see the module docstring)."""
+    import asyncio
+    from repro_torch import kernels as K
+    t_phase = time.perf_counter()
+    clear_cublas_workspaces()
+    base = torch.cuda.memory_allocated()
+    K.reset_launch_counts()
+    dbm = model[0]
+    rate = CB_REQUESTS / continuous["wall_s"]
+    trace_a = srv_trace(dbm.cfg.vocab_size, SRV_RATE_A * rate, False, 21)
+    trace_b = srv_trace(dbm.cfg.vocab_size, SRV_RATE_B * rate, True, 22)
+    extra = [(p, n) for _, p, n, _ in srv_trace(dbm.cfg.vocab_size, 1.0,
+                                                 False, 23)]
+
+    # 1. parity: a one-slot fp32 server at stablelm's widths, 4 layers,
+    # against the direct step loop under the same generator seed
+    small = (*runner_model(dev, 4, 4), None)
+    reqs = [(extra[0][0], 24), (extra[1][0], 40)]
+
+    def make_cb():
+        return cb_batcher(dev, small, precision="fp32", seed=5, num_slots=1)
+
+    cb = make_cb()
+    t0 = time.perf_counter()
+    cb.capture()
+    capture_s = time.perf_counter() - t0
+    direct = []
+    for p, n in reqs:
+        cb.submit(p, n)
+        direct.append(cb.run()[0].out)
+    ledger = [srv_ledger(cb)]
+    del cb
+    sse, json_ids, more, start_s = asyncio.run(srv_parity(make_cb, reqs))
+    ledger += more
+    del small
+    say(f"[server] parity (one slot, fp32, stablelm widths with 4 layers, "
+        f"graphs captured on the engine thread): SSE tokens of 2 requests "
+        f"{'equal' if sse == direct else 'DIFFER from'} the direct step "
+        f"loop's, bit for bit ({sum(map(len, sse))} tokens); stream false "
+        f"{'equals' if json_ids == sse[0] else 'DIFFERS from'} its SSE twin"
+        f" | capture {capture_s:.2f} s on the main thread, server start "
+        f"{start_s:.2f} s (its capture on the engine thread)")
+    if sse != direct or json_ids != sse[0]:
+        raise SmokeError(f"server parity: SSE {sse} vs direct {direct}, "
+                         f"JSON {json_ids}")
+
+    # 2-4. the full-width server: traces A and B, faults, drain
+    cb = cb_batcher(dev, model)
+    events = cb_timed(cb)
+    say(f"[server] {dbm.cfg.name} full width, bf16, {CB_SLOTS} slots, "
+        f"seg_len {CB_SEG}, prefix cache on, graphs; phase 5b finished "
+        f"{rate:.3f} requests/s: trace A Poisson at {SRV_RATE_A:.0%} "
+        f"({SRV_RATE_A * rate:.3f}/s), trace B bursts of mean {SRV_BURST} "
+        f"at {SRV_RATE_B:.0%} ({SRV_RATE_B * rate:.3f}/s, max_queue 8, "
+        f"shed below {cb.total_pages // 8} free pages); {SRV_REQUESTS} "
+        f"requests each, prompts {CB_MIN}-{CB_MAX} (median {SRV_PROMPT}), a "
+        f"quarter behind one {CB_SHARED}-token prefix, {SRV_NEW[0]}-"
+        f"{SRV_NEW[1]} new tokens (median 32), classes {dict(SRV_MIX)}, "
+        f"interactive SLOs TTFT {SRV_TTFT_SLO_MS} ms, TPOT "
+        f"{SRV_TPOT_SLO_MS} ms")
+    run = asyncio.run(srv_load(cb, trace_a, trace_b, extra))
+    ledger += run.pop("ledger")
+    del cb
+    torch.cuda.synchronize()
+    marks = run["marks"]
+    n_ev = {}          # dispatch index at each mark, per kind
+    for k, (_, c) in marks.items():
+        n_ev[k] = (c["decode_dispatches"], c["ingest_dispatches"])
+    traces = {}
+    for tag, lo, hi in (("trace A", "a0", "a1"), ("trace B", "a1", "b1")):
+        results, wall = run["a" if tag == "trace A" else "b"]
+        c0, c1 = marks[lo][1], marks[hi][1]
+        counters = {k: c1[k] - c0[k] for k in (
+            "shed_count", "deadline_cancels", "preemptions")}
+        counters["shed"] = counters.pop("shed_count")
+        share = srv_share(events, n_ev[lo], n_ev[hi],
+                          marks[hi][0] - marks[lo][0])
+        traces[tag] = srv_report(tag, results, wall, counters, share)
+        if counters["shed"] != sum(r["status"] == 429 for r in results):
+            raise SmokeError(f"{tag}: the batcher shed {counters['shed']}, "
+                             "the clients saw another count of 429s")
+    say(f"[server] graph capture on the engine thread {run['capture_s']:.2f}"
+        f" s (before the server listened)")
+
+    f = run["faults"]
+    cancel, abort = f["cancel"], f["abort"]
+    say(f"[server] faults: cancel after {len(cancel['ids'])} tokens "
+        f"(cancelled {cancel['final']['cancelled']}), connection closed "
+        f"after {len(abort['ids'])} tokens, slow consumer {len(f['slow'])} "
+        f"of {CB_NEW} tokens with {f['pauses']} backpressure pauses | "
+        f"engine_crash: restarts {run['crash']['restarts']}, "
+        f"{len(run['crash']['results'])} requests streaming, preempted "
+        f"{[r['final']['preempted'] for r in run['crash']['results']]}")
+    if not (cancel["final"]["cancelled"] and len(cancel["ids"]) < CB_NEW
+            and abort["aborted"]):
+        raise SmokeError(f"server: cancel {cancel['final']}, abort "
+                         f"{abort['aborted']}")
+    if len(f["slow"]) != CB_NEW or f["slow_req"] or f["pauses"] < 1:
+        raise SmokeError(f"server: slow consumer got {len(f['slow'])} "
+                         f"tokens, {f['pauses']} pauses")
+    if run["crash"]["restarts"] != 1:
+        raise SmokeError(f"server: {run['crash']['restarts']} restarts "
+                         "after one injected crash")
+    srv_crashed(run["crash"]["results"], CB_NEW)
+
+    code, obj, hdrs = run["after_drain"]
+    free, held, trie_ok, total, active = run["pool"]
+    short = [len(r["ids"]) for r in run["drained"] if len(r["ids"]) != CB_NEW]
+    say(f"[server] drain: {len(run['drained'])} requests in flight all "
+        f"complete ({'none short' if not short else short}), then "
+        f"{code} ({obj.get('error')}, retry-after "
+        f"{hdrs.get('retry-after')}) | pool: {free} free + {held} held by "
+        f"the prefix cache = {free + held} of {total - 1}")
+    if short or code != 503 or "retry-after" not in hdrs:
+        raise SmokeError(f"server drain: short {short}, then {code}")
+    srv_complete("server drain", [dict(r, max_new=CB_NEW)
+                                  for r in run["drained"]])
+    if free + held != total - 1 or not trie_ok or active:
+        raise SmokeError(f"server: pool not whole after the drain: {free} "
+                         f"free, {held} held, trie {trie_ok}")
+    counts = K.launch_counts()
+    check_counts("server", counts, srv_counts(ledger))
+    clear_cublas_workspaces()
+    after = torch.cuda.memory_allocated()
+    say(f"[server] launches {counts} (the dispatches' arithmetic; per "
+        f"batcher (layers, segment steps, chunk dispatches), warm-ups "
+        f"included: {ledger}) | "
+        f"memory allocated {base / 2**30:.2f} GiB before phase 5c, "
+        f"{after / 2**30:.2f} GiB after its servers were dropped (no gc "
+        f"pass; limit +0.5) | phase 5c took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if after > base + SRV_MEM_SLACK:
+        raise SmokeError(f"server: {(after - base) / 2**30:.2f} GiB still "
+                         "allocated after the servers were dropped")
+    return {"counts": counts, "traces": traces, "base_bytes": base,
+            "after_bytes": after}
+
+
+# ---------------------------------------------------------------------------
 # 6. full-width training steps, 7. fp32 cross-check
 # ---------------------------------------------------------------------------
 
@@ -2054,6 +2587,7 @@ def phase_train(dev, model) -> dict:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import training as T
     from repro_torch.data import MarkovLM
+    from repro_torch.launch.serve import ContinuousBatcher
     dbm, params, gen = model
     dbm.__dict__.pop("_compute_copies", None)     # serving's bf16 copy
     dbm.model.__dict__.pop("_unit_memo", None)
@@ -2063,9 +2597,22 @@ def phase_train(dev, model) -> dict:
     data = MarkovLM(vocab_size=cfg.vocab_size, seed=7).iterator(
         TRAIN_BATCH, TRAIN_SEQ)
     batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    # what the serving phases left allocated: batchers kept only by
+    # reference cycles (freed by no refcount, only by a gc pass) and
+    # anything beyond the fp32 masters
+    masters = sum(p.numel() * p.element_size() for _, p in _leaves(params))
+    resident = torch.cuda.memory_allocated()
+    stray = sum(isinstance(o, ContinuousBatcher) for o in gc.get_objects())
     say(f"[train] {cfg.name} full width, bf16 policy, MarkovLM batches "
-        f"{TRAIN_BATCH}x{TRAIN_SEQ}; fp32 masters resident: "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"{TRAIN_BATCH}x{TRAIN_SEQ}; resident at the start "
+        f"{resident / 2**30:.2f} GiB: fp32 masters "
+        f"{masters / 2**30:.2f} GiB + {(resident - masters) / 2**30:.2f} "
+        f"left by the serving phases ({stray} batchers still in memory; "
+        f"phase 6 alone: 8.40 GiB, PR 25's p14.txt)")
+    if resident - masters > 2**30 or stray:
+        raise SmokeError(f"phase 6 starts with {(resident - masters) / 2**30:.2f}"
+                         f" GiB beyond the masters and {stray} batchers "
+                         "left by the serving phases")
 
     out = db_steps(dbm, params, gen, tcfg, data, "train")
 
@@ -3157,6 +3704,7 @@ def main() -> int:
     phase_crosscheck(dev, model)
     phase_crosscheck_bf16(dev, model)
     continuous = phase_continuous(dev, model)
+    server = phase_server(dev, model, continuous)
     train = phase_train(dev, model)
     db_crosscheck(dev, model, "concat ce", [("attn", "wq")])
     del model                      # stablelm's masters and caches
@@ -3177,7 +3725,8 @@ def main() -> int:
     phase_block_parallel_crosscheck(dev)
     runner = phase_runner(dev)
     launches = {}
-    for counts in (serve["counts"], continuous["counts"], train["launches"],
+    for counts in (serve["counts"], continuous["counts"], server["counts"],
+                   train["launches"],
                    two_pass["launches"], dit["launches"],
                    huginn["launches"], vit["launches"], mdm["launches"],
                    block_parallel["launches"], runner["launches"]):

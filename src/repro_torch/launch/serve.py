@@ -3,7 +3,9 @@
 and one segment of denoise → sample → commit steps that both the static
 decode and the continuous batcher run),
 ``get_engine``, ``generate``, the continuous batcher ``ContinuousBatcher``
-with its ``Request`` and ``PRIORITY_CLASSES``, and ``main``.
+with its ``Request``, ``PRIORITY_CLASSES`` and ``AdmissionError``, and
+``main``. ``repro_torch.launch.server`` puts an HTTP/SSE frontend over the
+batcher.
 
 JAX fuses each phase into one jitted ``lax.scan``; here the static engine's
 phases are Python loops over eager PyTorch calls, with the attention and
@@ -28,6 +30,7 @@ Run (defaults: the reduced stablelm-1.6b on the card, bf16 policy):
     python -m repro_torch.launch.serve --scheduler continuous --ragged \
         --prefix-cache
     python -m repro_torch.launch.serve --device cpu --scheduler continuous
+    python -m repro_torch.launch.serve --ckpt-dir CKPT   # saved blocks
 """
 from __future__ import annotations
 
@@ -36,12 +39,14 @@ import collections
 import dataclasses
 import threading
 import time
-from typing import List, Optional
+import weakref
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import precision as precision_mod
+from repro_torch.checkpoint import load_blocks
 from repro_torch.configs import DBConfig, get_config, reduced
 from repro_torch.core.blocks import DiffusionBlocksModel, gumbel
 from repro_torch.data import MarkovLM
@@ -108,7 +113,10 @@ class DecodeEngine:
         if prefill not in ("chunked", "per-token"):
             raise ValueError(f"prefill must be 'chunked' or 'per-token', "
                              f"got {prefill!r}")
-        self.dbm = dbm
+        # the model memoizes its engines (``get_engine``): a weak reference
+        # back keeps that from being a cycle, so dropping the model frees
+        # its engines and their last pools at once, without a gc pass
+        self.dbm = weakref.proxy(dbm)
         self.pol = precision_mod.get_policy(precision)
         self.impl = impl
         self.prefill_mode = prefill
@@ -326,6 +334,17 @@ def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what}: not ported yet (ROADMAP {item})")
 
 
+class AdmissionError(RuntimeError):
+    """Raised by ``submit`` when admission control sheds the request (queue
+    depth or pool pressure over its threshold). ``retry_after`` is the
+    backoff hint in seconds, from the smoothed service time (the HTTP
+    frontend sends it as the 429's ``Retry-After``)."""
+
+    def __init__(self, msg: str, retry_after: float):
+        super().__init__(msg)
+        self.retry_after = float(retry_after)
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -341,6 +360,9 @@ class Request:
     cancelled: bool = False       # retired early via ``cancel(rid)``
     error: Optional[str] = None   # rejection reason (non-strict scheduling)
     priority: int = PRIORITY_CLASSES["standard"]
+    ttft_deadline: Optional[float] = None    # absolute wall-clock deadline
+    tpot_deadline_s: Optional[float] = None  # most seconds per output token
+    deadline_blown: bool = False  # retired by the deadline enforcer
     # preemption: the host snapshot while queued, and its scheduling row
     spilled: Optional[KVC.SpilledSlot] = None
     spill_meta: Optional[dict] = None
@@ -425,18 +447,29 @@ class ContinuousBatcher:
     checks). ``graphs=False`` runs both eagerly on the card too. The
     segment's draws come from ``draw_segment`` (``generator``).
 
+    SLOs and admission control: ``submit`` takes a ``priority`` and
+    relative ``ttft_slo_s`` / ``tpot_slo_s``; a request that misses one is
+    retired with its partial output and ``error`` set (``deadline_blown``).
+    ``max_queue`` sheds a submit when as many requests at or above its
+    priority are queued, ``shed_below_pages`` sheds batch-class submits
+    while fewer pages are free: ``submit`` raises ``AdmissionError`` with a
+    ``retry_after`` hint from the smoothed service time.
+
     ``faults`` (a ``repro_torch.launch.faults.FaultInjector``) is consulted
     at JAX's four serving hook points: ``alloc_exhaust`` in page allocation
     (the pool pretends to be empty), ``token_stall`` in token delivery (a
     sleep), and ``engine_crash`` / ``worker_die`` at the top of ``step``
     (``InjectedFault`` / ``WorkerDied``, raised before any bookkeeping
-    mutates). The supervisor that restarts a crashed engine and the router
-    that fails a dead worker over are not ported (ROADMAP A7).
+    mutates). ``recover`` spills every active slot back to the queue after
+    a crash, ``abort_all`` errors out all work, ``extract_all`` pops it
+    (``repro_torch.launch.server.EngineRunner`` is the supervisor).
 
-    ``submit``/``cancel``/``pause``/``resume``/``preempt`` may be called from
-    any thread; they take effect at the next ``step``. Not ported yet, and
-    refused: conditioned requests (ROADMAP A6), SLO deadlines, admission
-    shedding, shared pools and recovery (A7).
+    ``token_cb``, when set, is called from the stepping thread with each
+    request and the tokens a segment emitted for it. ``submit``/``cancel``/
+    ``pause``/``resume``/``preempt`` may be called from any thread; they
+    touch only host state and take effect at the next ``step``. Not ported
+    yet, and refused: conditioned requests (ROADMAP A6), shared pools and
+    page handoff (A7).
     """
 
     def __init__(self, dbm, params, *, num_slots: int = 8,
@@ -452,9 +485,6 @@ class ContinuousBatcher:
                  graphs: Optional[bool] = None,
                  max_queue: Optional[int] = None,
                  shed_below_pages: int = 0, faults=None, shared_pool=None):
-        if max_queue is not None or shed_below_pages:
-            _not_ported("admission shedding (max_queue, shed_below_pages)",
-                        "A7")
         if shared_pool is not None:
             _not_ported("a SharedPagePool and page handoff", "A7")
         self.dbm, self.params = dbm, params
@@ -519,9 +549,19 @@ class ContinuousBatcher:
         self.generator = (generator if generator is not None else
                           torch.Generator(device=self.device).manual_seed(0))
         self._graphs: dict = {}      # "chunk" / "segment" -> _Graphed
+        # the stream the graphs are captured and replayed on, whichever
+        # thread steps the batcher
+        self.stream = torch.cuda.Stream(self.device) if graphs else None
         # eager dispatches run before each capture (one chunk step, one
         # segment step), counted in the launch arithmetic
         self.graph_warmups = {"chunk": 0, "segment": 0}
+        self.token_cb: Optional[Callable[[Request, List[int]], None]] = None
+        # admission control, SLO deadlines, recovery
+        self.max_queue = max_queue           # class-aware queue-depth shed
+        self.shed_below_pages = shed_below_pages  # pool-pressure shed
+        self.shed_count = 0                  # submissions refused
+        self.deadline_cancels = 0            # requests retired by SLO misses
+        self._svc_ewma: Optional[float] = None   # submit -> finish seconds
 
     # ---- submission and flow control (any thread) --------------------
     def submit(self, prompt, max_new: int, aux_inputs=None, *,
@@ -529,11 +569,13 @@ class ContinuousBatcher:
                tpot_slo_s: Optional[float] = None) -> int:
         """Queue a request; returns its rid. ``priority`` (a
         ``PRIORITY_CLASSES`` name or an int) orders admission and picks
-        preemption victims."""
+        preemption victims; ``ttft_slo_s`` / ``tpot_slo_s`` are relative
+        SLOs in seconds. Raises ``AdmissionError`` when admission control
+        sheds the request: the backlog counted against ``max_queue`` is
+        the queued work at or above this priority, so under mixed overload
+        the low classes shed first."""
         if aux_inputs:
             _not_ported("conditioned requests (aux_inputs)", "A6")
-        if ttft_slo_s is not None or tpot_slo_s is not None:
-            _not_ported("SLO deadlines (ttft_slo_s, tpot_slo_s)", "A7")
         if isinstance(priority, str):
             if priority not in PRIORITY_CLASSES:
                 raise ValueError(f"unknown priority class {priority!r}: "
@@ -551,11 +593,30 @@ class ContinuousBatcher:
         if prompt.size + max_new > self.max_len:
             raise ValueError(f"request of {prompt.size} + {max_new} tokens "
                              f"exceeds max_len {self.max_len}")
+        priority = int(priority)
         with self._lock:
+            if self.max_queue is not None:
+                backlog = sum(1 for r in self.queue if r.priority >= priority)
+                if backlog >= self.max_queue:
+                    self.shed_count += 1
+                    raise AdmissionError(
+                        f"queue depth {backlog} at priority >= {priority} "
+                        f"over threshold {self.max_queue}",
+                        self.retry_after_hint())
+            if (self.shed_below_pages and priority <= 0
+                    and len(self.free_pages) < self.shed_below_pages):
+                self.shed_count += 1
+                raise AdmissionError(
+                    f"pool pressure: {len(self.free_pages)} free pages below "
+                    f"threshold {self.shed_below_pages} (batch class shed)",
+                    self.retry_after_hint())
             rid = self._next_rid
             self._next_rid += 1
-        req = Request(rid, prompt, max_new, priority=int(priority))
+        req = Request(rid, prompt, max_new, priority=priority,
+                      tpot_deadline_s=tpot_slo_s)
         req.submit_t = time.time()
+        if ttft_slo_s is not None:
+            req.ttft_deadline = req.submit_t + float(ttft_slo_s)
         with self._lock:
             self.queue.append(req)
         return rid
@@ -605,14 +666,52 @@ class ContinuousBatcher:
                 self._preempt_pending.add(rid)
         return known
 
-    def recover(self):
-        _not_ported("crash recovery (recover)", "A7")
+    def retry_after_hint(self) -> float:
+        """Backoff hint for shed requests: the smoothed submit-to-finish
+        service time, clipped to [0.1 s, 5 s] (0.5 s before any request
+        finished)."""
+        return float(min(5.0, max(0.1, self._svc_ewma or 0.5)))
 
-    def abort_all(self, msg: str):
-        _not_ported("abort_all", "A7")
+    def _note_service(self, dt: float) -> None:
+        a = 0.2
+        self._svc_ewma = (dt if self._svc_ewma is None
+                          else a * dt + (1 - a) * self._svc_ewma)
 
-    def extract_all(self, detach: bool = False):
-        _not_ported("failover harvest (extract_all)", "A7")
+    # ---- recovery (the supervisor's side) ------------------------------
+    def recover(self) -> None:
+        """After a crash in ``step``: spill every active slot back to the
+        queue, so the next steps re-admit and resume them with no token
+        lost or repeated (``out`` persists; ``_collect`` only appends)."""
+        for s in range(self.num_slots):
+            if self.active[s]:
+                self._preempt_slot(s)
+
+    def abort_all(self, msg: str) -> List[Request]:
+        """Error out every queued and active request (the supervisor giving
+        up): slots retire, pages return to the pool, and each request
+        carries ``error`` (``msg`` unless it had one). Returns them."""
+        reqs = self.extract_all()
+        for r in reqs:
+            self._drop_payload(r)
+            r.error = r.error or msg
+        return reqs
+
+    def extract_all(self, detach: bool = False) -> List[Request]:
+        """Pop every queued and active request without erroring it (the
+        failover harvest): active slots release their pages, partial output
+        and queued snapshots survive on the host, and the pool ends whole.
+        ``detach=True`` (hand the pages over on a shared pool) is not ported
+        (ROADMAP A7)."""
+        if detach:
+            _not_ported("a page handoff on a shared pool (detach=True)",
+                        "A7")
+        with self._lock:
+            reqs = list(self.queue)
+            self.queue.clear()
+        for s in range(self.num_slots):
+            if self.slot_req[s] is not None and self.active[s]:
+                reqs.append(self._retire_slot(s))
+        return reqs
 
     # ---- page accounting ---------------------------------------------
     def _alloc_page(self) -> Optional[int]:
@@ -680,12 +779,15 @@ class ContinuousBatcher:
 
     # ---- scheduling between dispatches -------------------------------
     def _order_key(self, r: Request):
-        return (-r.priority, r.rid)
+        return (-r.priority,
+                r.ttft_deadline if r.ttft_deadline is not None
+                else float("inf"),
+                r.rid)
 
     def _pop_best(self) -> Optional[Request]:
-        """Pop the best queued request: highest priority, then oldest rid (a
-        preempted request keeps its rid, so it restores ahead of newer
-        peers)."""
+        """Pop the best queued request: highest priority, then earliest TTFT
+        deadline, then oldest rid (a preempted request keeps its rid, so it
+        restores ahead of newer peers)."""
         with self._lock:
             if not self.queue:
                 return None
@@ -877,9 +979,54 @@ class ContinuousBatcher:
         return req
 
     def _retire(self) -> List[Request]:
-        return [self._retire_slot(s) for s in range(self.num_slots)
-                if self.slot_req[s] is not None and self.active[s]
-                and self.lengths[s] >= self.stop_at[s]]
+        out = []
+        for s in range(self.num_slots):
+            req = self.slot_req[s]
+            if (req is not None and self.active[s]
+                    and self.lengths[s] >= self.stop_at[s]):
+                self._note_service(time.time() - req.submit_t)
+                out.append(self._retire_slot(s))
+        return out
+
+    def _enforce_deadlines(self) -> List[Request]:
+        """Retire deadline-blown requests with their partial output: queued
+        requests past their TTFT deadline are dropped before admission;
+        active slots retire when the first token is late or the output pace
+        falls behind ``tpot_deadline_s`` (over the emitted tokens; a paused
+        slot is its consumer's stall and is exempt while paused)."""
+        now = time.time()
+        out: List[Request] = []
+        with self._lock:
+            kept: collections.deque = collections.deque()
+            for r in self.queue:
+                if (r.ttft_deadline is not None and r.first_token_t is None
+                        and now > r.ttft_deadline):
+                    r.deadline_blown = True
+                    r.error = "ttft deadline exceeded"
+                    self._drop_payload(r)
+                    out.append(r)
+                else:
+                    kept.append(r)
+            self.queue = kept
+            paused = set(self._paused)
+        for s in range(self.num_slots):
+            req = self.slot_req[s]
+            if req is None or not self.active[s] or req.rid in paused:
+                continue
+            blown = None
+            if (req.ttft_deadline is not None and req.first_token_t is None
+                    and now > req.ttft_deadline):
+                blown = "ttft deadline exceeded"
+            elif (req.tpot_deadline_s is not None and len(req.out) >= 2
+                  and ((now - req.first_token_t) / (len(req.out) - 1)
+                       > req.tpot_deadline_s)):
+                blown = "tpot deadline exceeded"
+            if blown:
+                req.deadline_blown = True
+                req.error = blown
+                out.append(self._retire_slot(s))
+        self.deadline_cancels += len(out)
+        return out
 
     def _apply_cancellations(self) -> List[Request]:
         """Drop cancelled queued requests and retire cancelled slots.
@@ -919,6 +1066,8 @@ class ContinuousBatcher:
             req.out.extend(toks)
             if toks and self.faults is not None:
                 self.faults.maybe_sleep("token_stall")
+            if toks and self.token_cb is not None:
+                self.token_cb(req, toks)
 
     def _paused_mask(self) -> np.ndarray:
         with self._lock:
@@ -949,20 +1098,22 @@ class ContinuousBatcher:
     @torch.no_grad()
     def capture(self) -> None:
         """Capture the dispatches this batcher replays: the decode segment,
-        and the chunk step in chunked mode. A graph's slots, ``seg_len``,
-        page-table width, policy and impl are the batcher's, so each is
-        captured once."""
+        and the chunk step in chunked mode (nothing when it runs them
+        eagerly). A graph's slots, ``seg_len``, page-table width, policy and
+        impl are the batcher's, so each is captured once."""
+        if not self.graphs:
+            return
         for name in (("chunk", "segment") if self.chunked else ("segment",)):
             self._graph(name)
 
     def _graph(self, name: str) -> _Graphed:
         """The CUDA graph of dispatch ``name``, captured at first use over
-        zeroed static buffers. One eager step runs first with every slot
-        idle (its writes reach only the trash page): it makes the cuBLAS
-        workspaces and the compute-dtype weight copy outside the graph's
-        memory pool. The launches the capture recorded are taken back off
-        the counters, checked against the graph's kernels, and added again
-        at each replay."""
+        zeroed static buffers on the batcher's ``stream``. One eager step
+        runs first with every slot idle (its writes reach only the trash
+        page): it makes the cuBLAS workspaces and the compute-dtype weight
+        copy outside the graph's memory pool. The launches the capture
+        recorded are taken back off the counters, checked against the
+        graph's kernels, and added again at each replay."""
         from repro_torch import kernels as K
         if name in self._graphs:
             return self._graphs[name]
@@ -988,16 +1139,16 @@ class ContinuousBatcher:
                     self.params, self.kv, *(inputs[k] for k in _INPUTS[name]),
                     inputs["z"][:steps], None if g is None else g[:steps])
 
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        cur = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
             call(1)
-        torch.cuda.current_stream(dev).wait_stream(side)
         self.graph_warmups[name] += 1
         before = K.launch_counts()
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=self.stream):
             outputs = call(self.seg_len)
+        cur.wait_stream(self.stream)
         launches = {k: c - before[k] for k, c in K.launch_counts().items()
                     if c != before[k]}
         K.add_launch_counts({k: -c for k, c in launches.items()})
@@ -1010,8 +1161,9 @@ class ContinuousBatcher:
 
     def _dispatch(self, name: str, host: dict, z=None, noise=None):
         """Run dispatch ``name`` on the ``host`` arrays: a graph replay on
-        the card, else the engine's call. Returns its outputs after the
-        pool: (lengths,) or (lengths, emitted)."""
+        the batcher's ``stream`` (ordered after the caller's stream, which
+        then waits for it), else the engine's call. Returns its outputs
+        after the pool: (lengths,) or (lengths, emitted)."""
         from repro_torch import kernels as K
         if not self.graphs:
             args = [self._device(host[k]) for k in _INPUTS[name]]
@@ -1024,15 +1176,20 @@ class ContinuousBatcher:
                 None if noise is None else torch.as_tensor(
                     noise, dtype=torch.float32, device=self.device))[1:]
         g = self._graph(name)
-        for k in _INPUTS[name]:
-            g.inputs[k].copy_(torch.from_numpy(host[k]))
-        if name == "segment":
-            g.inputs["z"].copy_(z)
-            if noise is not None:
-                g.inputs["noise"].copy_(noise)
-        g.graph.replay()
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            for k in _INPUTS[name]:
+                g.inputs[k].copy_(torch.from_numpy(host[k]))
+            if name == "segment":
+                g.inputs["z"].copy_(z)
+                if noise is not None:
+                    g.inputs["noise"].copy_(noise)
+            g.graph.replay()
+            out = [_host(t) for t in g.outputs[1:]]
+        cur.wait_stream(self.stream)
         K.add_launch_counts(g.launches)
-        return g.outputs[1:]
+        return out
 
     def _chunk(self) -> np.ndarray:
         """One prefill-chunk dispatch; returns the host lengths."""
@@ -1078,6 +1235,7 @@ class ContinuousBatcher:
                     f"(call {self.faults.calls['worker_die']})")
         finished = self._apply_cancellations()
         self._apply_preemptions()
+        finished.extend(self._enforce_deadlines())
         if not (self.queue or self.active.any()):
             return finished
         if not self._admit() and not self.active.any():
@@ -1151,12 +1309,50 @@ class ContinuousBatcher:
 # Command line
 # ---------------------------------------------------------------------------
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def cli_device(name: str) -> torch.device:
+    """The device a serving CLI runs on: the card unless the caller asks
+    for the CPU (the plain versions)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the port serves on the card "
+                         "(pass --device cpu to run its plain versions)")
+    return device
+
+
+def load_model(args, device: torch.device):
+    """(cfg, dbm, params, generator) for a serving CLI: ``args.arch``
+    (reduced unless ``args.full``) in ``args.blocks`` blocks, random
+    weights from ``args.seed``, then the blocks saved in ``args.ckpt_dir``
+    (``block_XX.npz``, JAX's layout) where given. The generator goes on to
+    make the serving draws."""
+    cfg = get_config(args.arch)
+    cfg = cfg if args.full else reduced(cfg)
+    db = DBConfig(num_blocks=min(args.blocks, cfg.n_layers),
+                  overlap_gamma=0.1)
+    dbm = DiffusionBlocksModel(cfg, db)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = dbm.init(gen)
+    if args.ckpt_dir:
+        load_blocks(args.ckpt_dir, params, dbm.ranges)
+    return cfg, dbm, params, gen
+
+
+def add_model_args(ap: argparse.ArgumentParser) -> None:
+    """The model arguments both serving CLIs take (see ``load_model``)."""
     ap.add_argument("--arch", default="stablelm-1.6b")
     ap.add_argument("--full", action="store_true",
                     help="serve the published widths (default: reduced)")
     ap.add_argument("--blocks", type=int, default=4)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="serve the blocks saved here (block_XX.npz)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and noise")
+    ap.add_argument("--device", default="cuda")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_model_args(ap)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=32)
@@ -1188,22 +1384,10 @@ def main(argv=None):
                     help="continuous: queued requests")
     ap.add_argument("--ragged", action="store_true",
                     help="vary prompt lengths across the batch/queue")
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and noise")
-    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: the port serves on the card "
-                         "(pass --device cpu to run its plain versions)")
-    cfg = get_config(args.arch)
-    cfg = cfg if args.full else reduced(cfg)
-    db = DBConfig(num_blocks=min(args.blocks, cfg.n_layers),
-                  overlap_gamma=0.1)
-    dbm = DiffusionBlocksModel(cfg, db)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = dbm.init(gen)
+    device = cli_device(args.device)
+    cfg, dbm, params, gen = load_model(args, device)
 
     lm = MarkovLM(vocab_size=cfg.vocab_size, seed=7)
     rs = np.random.RandomState(1)

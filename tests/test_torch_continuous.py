@@ -9,13 +9,19 @@ into the port's ``draw_segment``.
 
 Under fp32 the greedy tokens are identical, and so are the per-step
 scheduling logs (slots, preemptions, restores, retirements, free list and
-refcounts): uniform and ragged queues, chunked and per-token prefill, the
-prefix cache with a copy-on-write tail page, an int8 pool, and a tight pool
-that preempts. The host scheduler alone runs seeded traces through both
-batchers with their dispatches replaced by fakes. ``SpilledSlot`` bytes
-cross between the packages both ways. The rest ports the JAX tests of page
-reclaim, slot reuse, cancellation and prefix sharing at tiny sizes.
+refcounts, deadline cancels and sheds): uniform and ragged queues, chunked
+and per-token prefill, the prefix cache with a copy-on-write tail page, an
+int8 pool, a tight pool that preempts, SLO deadlines and admission
+shedding, and ``recover`` / ``abort_all`` / ``extract_all`` mid-run. Both
+serve modules read one fake clock (``clock``), so deadline decisions and
+service times agree exactly. The host scheduler alone runs seeded traces
+through both batchers with their dispatches replaced by fakes, with SLOs
+and shed limits. ``SpilledSlot`` bytes cross between the packages both
+ways. The rest ports the JAX tests of page reclaim, slot reuse,
+cancellation and prefix sharing at tiny sizes.
 """
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,24 +73,58 @@ class JaxDraws:
                 torch.from_numpy(np.stack(gs)) if gs else None)
 
 
+class Clock:
+    """The ``time`` both serve modules read: ``time()`` returns ``t``,
+    which the tests advance by hand."""
+
+    def __init__(self):
+        self.t = 0.0
+        self.perf_counter, self.sleep = time.perf_counter, time.sleep
+
+    def time(self):
+        return self.t
+
+
+@pytest.fixture
+def clock(monkeypatch):
+    c = Clock()
+    for mod in (JS, TS):
+        monkeypatch.setattr(mod, "time", c)
+    return c
+
+
 def state(cb, fin):
     """What one step of a batcher decided: slot occupants, counters, the
     free list and the refcounts, and the requests it finished."""
     return (tuple(None if r is None else r.rid for r in cb.slot_req),
             cb.preemptions, cb.restores, cb.cow_copies,
             cb.ingest_dispatches, cb.decode_dispatches, cb.steps,
+            cb.deadline_cancels, cb.shed_count,
             tuple(cb.free_pages), tuple(sorted(cb.page_refs.items())),
-            tuple((r.rid, r.cancelled, r.error) for r in fin))
+            tuple((r.rid, r.cancelled, r.error, r.deadline_blown)
+                  for r in fin))
+
+
+def submit(cb, jax_side, p, n, prio, slo=None):
+    """``cb.submit``; a shed returns ("shed", retry_after)."""
+    try:
+        return cb.submit(np.asarray(p, np.int32) if jax_side else p, n,
+                         priority=prio, **(slo or {}))
+    except (JS.AdmissionError, TS.AdmissionError) as e:
+        return ("shed", str(e), e.retry_after)
 
 
 def run_both(pair, reqs, *, seed=3, num_slots=3, preempt_at=None,
-             late=None, sampled=False, faults=None, **kw):
-    """Serve ``reqs`` [(prompt, max_new, priority)] through both batchers
-    step by step (``late``: {step: reqs} submitted before that step;
-    ``preempt_at``: {step: slot} forced preemptions of the slot's request;
-    ``faults``: a fault spec, one injector per batcher from seed 1); assert
-    equal per-step logs and tokens. Returns the port's batcher and its
-    finished requests."""
+             late=None, sampled=False, faults=None, clock=None, tick=0.0,
+             ops=None, **kw):
+    """Serve ``reqs`` [(prompt, max_new, priority[, slo kwargs])] through
+    both batchers step by step (``late``: {step: reqs} submitted before
+    that step; ``preempt_at``: {step: slot} forced preemptions of the
+    slot's request; ``ops``: {step: fn(batcher)} called before that step,
+    its result logged; ``faults``: a fault spec, one injector per batcher
+    from seed 1; ``clock``: the fake clock, started at 0 for each package
+    and advanced by ``tick`` after each step); assert equal per-step logs
+    and tokens. Returns the port's batcher and its finished requests."""
     from repro.launch.faults import FaultInjector as JFaults
     from repro_torch.launch.faults import FaultInjector as TFaults
     jdbm, jparams, tdbm, tparams = pair
@@ -101,13 +141,16 @@ def run_both(pair, reqs, *, seed=3, num_slots=3, preempt_at=None,
     rng, logs, done = jax.random.PRNGKey(seed), ([], []), ([], [])
     for i, cb in enumerate((jcb, tcb)):
         step = 0
+        if clock is not None:
+            clock.t = 0.0
         while cb.has_work() or step <= max(late):
-            for p, n, prio in late.get(step, ()):
-                cb.submit(np.asarray(p, np.int32) if i == 0 else p, n,
-                          priority=prio)
+            for r in late.get(step, ()):
+                logs[i].append(submit(cb, i == 0, *r))
             victim = cb.slot_req[(preempt_at or {}).get(step, 0)]
             if step in (preempt_at or {}) and victim is not None:
                 cb.preempt(victim.rid)
+            if step in (ops or {}):
+                logs[i].append(ops[step](cb))
             if i == 0:
                 rng, fin = cb.step(rng)
             else:
@@ -115,12 +158,15 @@ def run_both(pair, reqs, *, seed=3, num_slots=3, preempt_at=None,
             logs[i].append(state(cb, fin))
             done[i].extend(fin)
             step += 1
+            if clock is not None:
+                clock.t += tick
             assert step < 400, "scheduler failed to converge"
     assert logs[0] == logs[1]
     jout = {r.rid: r.out for r in done[0]}
     tout = {r.rid: r.out for r in done[1]}
     assert tout == jout
-    assert all(len(r.out) == r.max_new for r in done[1])
+    assert all(len(r.out) == r.max_new for r in done[1] if r.error is None
+               and not r.cancelled)
     assert len(tcb.free_pages) + len(tcb.page_refs) == tcb.total_pages - 1
     if jcb.prefix is not None:
         assert (tcb.prefix.hits, tcb.prefix.tokens_shared) == (
@@ -213,6 +259,128 @@ def test_tokens_match_jax_reduced_stablelm():
 
 
 # ---------------------------------------------------------------------------
+# SLO deadlines, admission shedding and recovery against JAX (the
+# behaviours of tests/test_preempt.py)
+# ---------------------------------------------------------------------------
+
+def _reqs(seed, *spec):
+    """[(prompt, max_new, priority, slo)] from (prompt length, max_new,
+    priority, slo) specs."""
+    rs = np.random.RandomState(seed)
+    return [(rs.randint(0, TINY.vocab_size, size=n).astype(np.int64), m, p,
+             slo) for n, m, p, slo in spec]
+
+
+def _pool_whole(cb):
+    return (len(cb.free_pages) == cb.total_pages - 1 and not cb.page_refs
+            and not cb.active.any())
+
+
+def test_ttft_deadline_drops_queued_request(tiny, clock):
+    """A queued request whose TTFT deadline passes while it waits is
+    dropped before admission: a deadline error, no output, no pages."""
+    a, b = _reqs(2, (8, 10, "standard", None),
+                 (8, 4, "standard", {"ttft_slo_s": 0.001}))
+    cb, done = run_both(tiny, [a], late={1: [b]}, num_slots=1, clock=clock,
+                        tick=0.01)
+    fin = {r.rid: r for r in done}
+    assert fin[0].error is None and len(fin[0].out) == 10
+    assert fin[1].deadline_blown and "ttft" in fin[1].error
+    assert fin[1].out == [] and fin[1].pages == []
+    assert cb.deadline_cancels == 1 and _pool_whole(cb)
+
+
+def test_tpot_deadline_retires_active_with_partial_output(tiny, clock):
+    """An active request behind its TPOT pace is retired with the tokens it
+    already has; its slot and pages are recycled."""
+    reqs = _reqs(3, (8, 12, "standard", {"tpot_slo_s": 1e-9}))
+    cb, done = run_both(tiny, reqs, num_slots=1, clock=clock, tick=0.01)
+    (req,) = done
+    assert req.deadline_blown and "tpot" in req.error
+    assert 2 <= len(req.out) < 12
+    assert cb.deadline_cancels == 1 and _pool_whole(cb)
+
+
+def test_queue_depth_shed_is_class_aware(tiny, clock):
+    """``max_queue`` sheds by the backlog at or above the submit's priority:
+    a standard submit is refused behind one queued standard request, an
+    interactive one is admitted first; the shed carries a positive
+    ``retry_after``."""
+    reqs = _reqs(4, (6, 3, "standard", None), (6, 3, "standard", None),
+                 (6, 3, "interactive", None))
+    cb, done = run_both(tiny, reqs, num_slots=1, max_queue=1, clock=clock,
+                        tick=0.01)
+    assert cb.shed_count == 1 and cb.retry_after_hint() > 0
+    first, second = sorted(done, key=lambda r: r.first_token_t)
+    assert (first.rid, first.priority, second.priority) == (1, 2, 1)
+    assert all(r.error is None for r in done) and _pool_whole(cb)
+
+
+def test_pool_pressure_sheds_batch_only(tiny, clock):
+    """``shed_below_pages`` refuses batch work while the free pool is thin;
+    standard and interactive work is admitted. An unknown class raises in
+    both packages."""
+    reqs = _reqs(5, (4, 2, "batch", None), (4, 2, "standard", None),
+                 (4, 2, "interactive", None))
+    cb, done = run_both(tiny, reqs, num_slots=1, shed_below_pages=10_000,
+                        clock=clock)
+    assert cb.shed_count == 1 and len(done) == 2
+    for side in (JS, TS):
+        with pytest.raises(ValueError):
+            side.ContinuousBatcher(*tiny[2 * (side is TS):][:2], num_slots=1,
+                                   **CB_KW).submit(np.arange(4), 2,
+                                                   priority="vip")
+
+
+def test_slo_mixed_traffic_matches_jax(tiny, clock):
+    """Mixed classes with TTFT and TPOT SLOs, arrivals over time and a
+    queue-depth limit on a tight pool: the same sheds, deadline cancels,
+    preemptions and tokens at the same steps."""
+    rs = np.random.RandomState(14)
+    late = {}
+    for i in range(10):
+        prio = ["batch", "standard", "interactive"][i % 3]
+        slo = {"ttft_slo_s": 0.03} if prio == "interactive" else {}
+        if i % 4 == 1:
+            slo["tpot_slo_s"] = 0.003
+        late.setdefault(i // 2, []).append(
+            (rs.randint(0, TINY.vocab_size, size=rs.randint(3, 16)),
+             int(rs.randint(3, 12)), prio, slo))
+    cb, done = run_both(tiny, late.pop(0), late=late, num_slots=2,
+                        max_queue=2, total_pages=14, prefix_cache=True,
+                        clock=clock, tick=0.01)
+    assert cb.shed_count >= 1 and cb.deadline_cancels >= 1
+    assert any(r.error is None for r in done)
+
+
+@pytest.mark.parametrize("op", ["recover", "abort_all", "extract_all"])
+def test_recovery_matches_jax(tiny, op):
+    """Mid-run, with slots active and requests queued: ``recover`` spills
+    every active slot back to the queue and the run finishes with the same
+    tokens; ``abort_all`` errors out everything and ``extract_all`` pops it
+    unharmed. Equal results and logs in both packages; the pool ends
+    whole."""
+    def call(cb):
+        if op == "recover":
+            cb.recover()
+            return ("recovered", cb.preemptions)
+        reqs = cb.abort_all("stop") if op == "abort_all" else (
+            cb.extract_all())
+        return tuple(sorted((r.rid, tuple(r.out), r.error,
+                             r.spilled is not None, r.pages == [])
+                            for r in reqs))
+
+    cb, done = run_both(tiny, queue(TINY, 6, seed=12, max_new=8),
+                        num_slots=2, ops={3: call})
+    assert _pool_whole(cb)
+    if op == "recover":
+        assert cb.preemptions >= 1 and cb.restores == cb.preemptions
+        assert len(done) == 6
+    else:
+        assert len(done) < 6 and not cb.queue
+
+
+# ---------------------------------------------------------------------------
 # The host scheduler alone: seeded traces through both batchers
 # ---------------------------------------------------------------------------
 
@@ -292,15 +460,24 @@ def check_invariants(cb):
     assert cb.restores <= cb.preemptions
 
 
-def run_trace(pair, seed):
+def run_trace(pair, seed, clock):
+    """A seeded trace through both batchers in lockstep: submission waves
+    (some with TTFT / TPOT SLOs, under random shed limits; the clock
+    advances 10 ms a step) and random cancels, preemptions, pauses and
+    resumes; equal logs after every step."""
     jdbm, jparams, tdbm, tparams = pair
     rs = np.random.RandomState(seed)
     num_slots = int(rs.randint(1, 4))
     pps = TKVC.pages_for(T_PROMPT + T_NEW, T_PSZ)
+    total = 1 + int(rs.randint(pps + 2, num_slots * pps + 4))
     kw = dict(num_slots=num_slots, page_size=T_PSZ, max_prompt=T_PROMPT,
               max_len=T_PROMPT + T_NEW, seg_len=3, chunk_size=T_CHUNK,
               precision="fp32", prefix_cache=bool(rs.rand() < 0.8),
-              total_pages=1 + int(rs.randint(pps + 2, num_slots * pps + 4)))
+              total_pages=total,
+              max_queue=None if rs.rand() < 0.5 else int(rs.randint(1, 5)),
+              shed_below_pages=(0 if rs.rand() < 0.6
+                                else int(rs.randint(1, total))))
+    clock.t = 0.0
     cbs = (JS.ContinuousBatcher(jdbm, jparams, **kw),
            TS.ContinuousBatcher(tdbm, tparams, **kw))
     for side, cb in enumerate(cbs):
@@ -314,13 +491,21 @@ def run_trace(pair, seed):
                                 rs.randint(0, 32, size=rs.randint(0, 5))])
             p, n = p[:T_PROMPT], int(rs.randint(1, T_NEW + 1))
             prio = ["batch", "standard", "interactive"][rs.randint(3)]
-            rids.append(cbs[0].submit(p.astype(np.int32), n, priority=prio))
-            assert cbs[1].submit(p, n, priority=prio) == rids[-1]
+            slo = {}
+            if rs.rand() < 0.3:
+                slo["ttft_slo_s"] = float(rs.choice([0.02, 0.05, 0.2]))
+            if rs.rand() < 0.3:
+                slo["tpot_slo_s"] = float(rs.choice([0.002, 0.005, 0.02]))
+            got = [submit(cb, side == 0, p, n, prio, slo)
+                   for side, cb in enumerate(cbs)]
+            assert got[0] == got[1], (seed, got)
+            if not isinstance(got[0], tuple):
+                rids.append(got[0])
         while cbs[0].has_work() or cbs[1].has_work():
             acts = [(op, rids[rs.randint(len(rids))])
                     for op, pr in (("cancel", 0.2), ("preempt", 0.2),
                                    ("pause", 0.1), ("resume", 0.3))
-                    if rs.rand() < pr]
+                    if rs.rand() < pr and rids]
             for side, cb in enumerate(cbs):
                 for op, rid in acts:
                     getattr(cb, op)(rid)
@@ -338,16 +523,20 @@ def run_trace(pair, seed):
                 check_invariants(cb)
             assert logs[0][-1] == logs[1][-1], (seed, len(logs[0]))
             assert len(logs[0]) < 400, "scheduler failed to converge"
+            clock.t += 0.01
     return cbs
 
 
-def test_scheduler_traces_match_jax(tiny):
-    preempted = 0
+def test_scheduler_traces_match_jax(tiny, clock):
+    preempted = shed = blown = 0
     for seed in range(50):
-        jcb, tcb = run_trace(tiny, seed)
+        jcb, tcb = run_trace(tiny, seed, clock)
         assert tcb.cancelled_count == jcb.cancelled_count
+        assert tcb.retry_after_hint() == jcb.retry_after_hint()
         preempted += tcb.preemptions
-    assert preempted > 0
+        shed += tcb.shed_count
+        blown += tcb.deadline_cancels
+    assert preempted > 0 and shed > 0 and blown > 0
 
 
 # ---------------------------------------------------------------------------
@@ -530,22 +719,48 @@ def test_continuous_rejects_oversized_and_bad_requests(tiny):
 @pytest.mark.parametrize("what", ["aux", "slo", "faults", "shed", "shared",
                                   "recover"])
 def test_unported_options_raise(tiny, what):
+    """Conditioned requests (A6), shared pools and the page handoff of
+    ``extract_all(detach=True)`` (A7) raise naming their ROADMAP item. SLOs,
+    shedding and recovery are ported: each is accepted and works (an
+    ``engine_crash`` raised by ``step`` is recovered from)."""
     if what == "faults":
-        # ported: the batcher takes an injector, and engine_crash raises at
-        # the top of step; the supervisor that restarts it is still A7's
         from repro_torch.launch.faults import InjectedFault, make_injector
-        cb = _cb(tiny, faults=make_injector({"engine_crash": {"at": [1]}}))
-        cb.submit([1], 2)
+        cb = _cb(tiny, faults=make_injector({"engine_crash": {"at": [2]}}))
+        cb.submit([1, 2, 3], 6)
+        cb.step()
         with pytest.raises(InjectedFault, match="engine_crash"):
             cb.step()
+        cb.recover()
+        assert cb.preemptions == 1
+        assert len(cb.run()[0].out) == 6 and cb.restores == 1
+        return
+    if what == "slo":
+        cb = _cb(tiny)
+        rid = cb.submit([1], 2, ttft_slo_s=1.0, tpot_slo_s=0.5)
+        req = cb.queue[0]
+        assert req.rid == rid and req.tpot_deadline_s == 0.5
+        assert req.ttft_deadline == pytest.approx(req.submit_t + 1.0)
+        assert cb.run()[0].error is None
+        return
+    if what == "shed":
+        cb = _cb(tiny, max_queue=1)
+        cb.submit([1], 2)
+        with pytest.raises(TS.AdmissionError):
+            cb.submit([1], 2)
+        assert cb.shed_count == 1
+        return
+    if what == "recover":
+        cb = _cb(tiny)
+        cb.submit([1, 2], 12)
+        cb.step()
         with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            cb.recover()
+            cb.extract_all(detach=True)
+        (req,) = cb.extract_all()
+        assert req.error is None and not cb.active.any()
+        assert len(cb.free_pages) == cb.total_pages - 1
         return
     calls = {"aux": lambda: _cb(tiny).submit([1], 2, aux_inputs={"x": 1}),
-             "slo": lambda: _cb(tiny).submit([1], 2, ttft_slo_s=1.0),
-             "shed": lambda: _cb(tiny, max_queue=4),
-             "shared": lambda: _cb(tiny, shared_pool=object()),
-             "recover": lambda: _cb(tiny).recover()}
+             "shared": lambda: _cb(tiny, shared_pool=object())}
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         calls[what]()
 

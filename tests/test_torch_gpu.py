@@ -1865,3 +1865,158 @@ def test_kill_then_resume_is_bit_identical_on_the_card(cuda, tmp_path, mode):
         assert tree_digest(a.opt_states) == tree_digest(c.opt_states)
         assert hc == ha[2:]
     assert a.heartbeats == c.heartbeats
+
+
+# ---------------------------------------------------------------------------
+# The serving system on the card: the engine thread's graphs, and memory
+# ---------------------------------------------------------------------------
+
+def _server_batcher(dbm, params, cuda, seed, **kw):
+    return S.ContinuousBatcher(
+        dbm, params, **{**dict(num_slots=1, page_size=16, max_prompt=48,
+                               max_len=64, seg_len=4, chunk_size=16,
+                               precision="fp32", prefix_cache=True), **kw},
+        generator=torch.Generator(device=cuda).manual_seed(seed))
+
+
+@pytest.mark.gpu
+def test_server_replays_graphs_captured_on_the_engine_thread(cuda,
+                                                             monkeypatch):
+    """The server's engine thread captures the batcher's two graphs (each
+    capture checked against its counted launches) before ``start``
+    returns, and replays them there; the streamed tokens equal a direct
+    graphed ``step()`` loop's under the same generator seed."""
+    import asyncio
+    import threading
+    from repro_torch.launch import server as SV
+    dbm, params = _serving_model(cuda)
+    seen = []
+    for name in ("capture", "_dispatch"):
+        real = getattr(S.ContinuousBatcher, name)
+
+        def spy(self, *a, _real=real, _name=name, **k):
+            seen.append((id(self), _name, threading.current_thread().name))
+            return _real(self, *a, **k)
+        monkeypatch.setattr(S.ContinuousBatcher, name, spy)
+    gen = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, dbm.cfg.vocab_size, (n,), generator=gen)
+               .tolist() for n in (37, 9)]
+    cb = _server_batcher(dbm, params, cuda, 6)
+    cb.capture()
+    direct = []
+    for p in prompts:
+        cb.submit(p, 12)
+        direct.append(cb.run()[0].out)
+
+    async def main():
+        cb = _server_batcher(dbm, params, cuda, 6)
+        server = SV.InferenceServer(cb)
+        await server.start()
+        assert cb.graph_warmups == {"chunk": 1, "segment": 1}
+        try:
+            got = [(await SV.stream_generate("127.0.0.1", server.port, p,
+                                             12))["ids"] for p in prompts]
+        finally:
+            await server.aclose()
+        return id(cb), got
+
+    sid, got = asyncio.run(main())
+    assert got == direct and all(len(g) == 12 for g in got)
+    mine = [(n, t) for i, n, t in seen if i == sid]
+    assert mine[0] == ("capture", "engine") and len(mine) > 4
+    assert {t for _, t in mine} == {"engine"}
+
+
+@pytest.mark.gpu
+def test_dropping_a_batcher_and_its_engines_frees_their_memory(cuda):
+    """A graphed batcher that served, and a static ``generate`` (whose
+    engine, memoized on the model, keeps its last pool), leave nothing
+    allocated once their model and batcher are dropped: no reference cycle
+    holds them, so no gc pass is needed (gc is off here). PyTorch's cuBLAS
+    workspaces, one per (handle, stream), are freed before each reading."""
+    import gc
+
+    def served():
+        dbm, params = _serving_model(cuda)
+        cb = _server_batcher(dbm, params, cuda, 1, num_slots=2,
+                             precision="bf16")
+        for n in (30, 12):
+            cb.submit(list(range(n)), 8)
+        assert all(len(r.out) == 8 for r in cb.run())
+        S.generate(dbm, params, [[1, 2, 3]], 4, page_size=16)
+
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        before = torch.cuda.memory_allocated()
+        served()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        after = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    assert after == before, (after - before) / 2**20
+
+
+def _capture_race(cuda) -> None:
+    """A CUDA call from another thread while the engine thread captures
+    (here a device synchronize) raises in that thread, and the capture it
+    would have broken fails too, so ``start`` raises."""
+    import threading
+    from repro_torch.launch import server as SV
+    dbm, params = _serving_model(cuda)
+    capturing, go = threading.Event(), threading.Event()
+    serve = S.DecodeEngine._serve
+
+    def held(self, *a, **k):
+        if torch.cuda.is_current_stream_capturing():
+            capturing.set()
+            go.wait(60)
+        return serve(self, *a, **k)
+
+    S.DecodeEngine._serve = held
+    runner = SV.EngineRunner(_server_batcher(dbm, params, cuda, 0))
+    started = []
+
+    def start():
+        try:
+            runner.start()
+            started.append(None)
+        except RuntimeError as e:
+            started.append(e)
+
+    t = threading.Thread(target=start)
+    t.start()
+    try:
+        assert capturing.wait(120)
+        with pytest.raises(RuntimeError):
+            torch.cuda.synchronize()
+    finally:
+        go.set()
+        t.join(120)
+    assert not t.is_alive() and isinstance(started[0], RuntimeError)
+
+
+@pytest.mark.gpu
+def test_torch_call_during_the_engine_capture_fails_loudly(cuda):
+    """Nothing escapes the engine's graph silently: see ``_capture_race``.
+    The race runs in a process of its own, since the capture it breaks
+    leaves its stream unusable for whatever would run after it here."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = [os.path.join(here, os.pardir, "src"), here,
+            os.environ.get("PYTHONPATH", "")]
+    child = ("import os, sys, torch, test_torch_gpu as T\n"
+             "torch.backends.cuda.matmul.allow_tf32 = False\n"
+             "T._capture_race(torch.device('cuda'))\n"
+             "print('capture race: failed loudly', flush=True)\n"
+             "os._exit(0)  # no teardown over the broken capture\n")
+    r = subprocess.run([sys.executable, "-c", child], capture_output=True,
+                       text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=os.pathsep.join(path)))
+    assert r.returncode == 0 and "failed loudly" in r.stdout, (
+        r.stdout[-4000:] + r.stderr[-4000:])
