@@ -119,6 +119,26 @@ Phases, each fatal on failure:
      dispatches' arithmetic (each capture's warm-up step included); with
      the servers dropped and no gc pass, memory allocated within 0.5 GiB
      of its value before the phase;
+ 5d. disaggregated serving: ``InferenceServer`` over a ``DisaggRouter``.
+     Parity: two requests one at a time through one-slot fp32 routers (1
+     prefill + 1 decode worker, stablelm's widths with 4 layers), in
+     ``copy`` and ``pages`` modes, bit-equal to a direct graphed step loop
+     under the same generator seed (decode0's). Then phase 5b's model,
+     bf16: 1 prefill worker (prefix cache on) and 2 decode workers of 8
+     slots, seg_len 16, chunk 64, page-handle migration on one shared
+     pool, every worker's graphs captured in the router's start; 5c's
+     trace A (same seed and rate) over HTTP, per class TTFT and TPOT p50
+     and p99, tok/s, migrations and the wall's share inside a dispatch,
+     beside 5c's unified numbers; then trace A again without SLOs, with
+     decode0 killed (``worker_die``) mid-trace and restarted after 1 s, one
+     handoff dropped and one stalled past the handoff timeout: every
+     request must end with all its tokens, failovers >= 1, drops 1,
+     retries >= 1, one restart and no capture after the start. A short
+     full-width ``copy`` run (1 + 1 workers, separate pools, 4 requests at
+     once). Pools whole after each router, launch counts equal to the
+     dispatches' arithmetic, peak memory printed, and with the routers
+     dropped and no gc pass memory allocated within 0.1 GiB of its value
+     before the phase;
   6. train: the same model, bf16 policy, MarkovLM batches of 8 x 512 (the
      memory resident at its start beside the fp32 masters; fatal if the
      serving phases left more than 1 GiB or a batcher behind): one
@@ -286,6 +306,14 @@ SRV_RATE_A, SRV_RATE_B, SRV_BURST = 0.6, 1.5, 4
 SRV_MIX = (("interactive", 0.2), ("standard", 0.6), ("batch", 0.2))
 SRV_TTFT_SLO_MS, SRV_TPOT_SLO_MS = 2000, 100
 SRV_HOST, SRV_MEM_SLACK = "127.0.0.1", 0.5 * 2**30
+# disaggregated serving (5d): decode workers beside the one prefill worker;
+# the fault run's restart delay of the killed decode0, its handoff
+# drop and stall (the router's send count) and the stall's excess over the
+# handoff timeout; the full-width copy run's requests; the memory the
+# dropped routers may leave allocated
+DG_DECODE, DG_RESTART_S = 2, 1.0
+DG_DROP_AT, DG_STALL_AT, DG_STALL_OVER_S = 3, 6, 0.1
+DG_COPY_REQUESTS, DG_MEM_SLACK = 4, 0.1 * 2**30
 
 
 class SmokeError(RuntimeError):
@@ -2021,9 +2049,10 @@ async def srv_poll(want, what: str, timeout: float = 60.0) -> None:
         await asyncio.sleep(0.005)
 
 
-async def srv_replay(port: int, trace) -> tuple:
+async def srv_replay(port: int, trace, slos: bool = True) -> tuple:
     """Replay ``trace`` against the server on ``port`` with the port's
-    client, each request at its arrival time: (results, wall s)."""
+    client, each request at its arrival time (the interactive ones with
+    their SLOs unless ``slos`` is off): (results, wall s)."""
     import asyncio
     from repro_torch.launch.server import stream_generate
     t0 = time.monotonic()
@@ -2031,7 +2060,7 @@ async def srv_replay(port: int, trace) -> tuple:
     async def one(at, prompt, new, cls):
         await asyncio.sleep(max(0.0, t0 + at - time.monotonic()))
         slo = ({"ttft_slo_ms": SRV_TTFT_SLO_MS, "tpot_slo_ms": SRV_TPOT_SLO_MS}
-               if cls == "interactive" else {})
+               if slos and cls == "interactive" else {})
         r = await stream_generate(SRV_HOST, port, prompt, new, priority=cls,
                                   **slo)
         r.update(cls=cls, max_new=new)
@@ -2442,6 +2471,338 @@ def phase_server(dev, model, continuous: dict) -> dict:
                          "allocated after the servers were dropped")
     return {"counts": counts, "traces": traces, "base_bytes": base,
             "after_bytes": after}
+
+
+# ---------------------------------------------------------------------------
+# 5d. disaggregated serving: InferenceServer over DisaggRouter
+# ---------------------------------------------------------------------------
+
+def dg_router(model, handoff, *, precision="bf16", num_slots=CB_SLOTS,
+              n_decode=DG_DECODE, **kw):
+    """A ``DisaggRouter`` of one prefill worker (prefix cache on) and
+    ``n_decode`` decode workers over phase 5b's batcher shape."""
+    from repro_torch.launch.router import DisaggRouter
+    dbm, params, _ = model
+    return DisaggRouter(
+        dbm, params, n_prefill=1, n_decode=n_decode, handoff=handoff,
+        num_slots=num_slots, page_size=PSZ, max_prompt=CB_MAX,
+        max_len=CB_MAX + CB_NEW, seg_len=CB_SEG, chunk_size=CHUNK,
+        precision=precision, prefix_cache=True, **kw)
+
+
+def dg_collect(router) -> dict:
+    """{rid: finished RoutedRequest}, filled by the router's finish
+    callback."""
+    done = {}
+    router.finish_cb = lambda r: done.setdefault(r.rid, r)
+    return done
+
+
+def dg_wait(done: dict, rids, what: str, timeout: float = 120.0) -> None:
+    t0 = time.monotonic()
+    while not all(rid in done for rid in rids):
+        if time.monotonic() - t0 > timeout:
+            raise SmokeError(f"disagg: {what} did not finish in {timeout} s")
+        time.sleep(0.002)
+
+
+def dg_sequential(router, reqs) -> list:
+    """``reqs`` [(prompt, max_new)] one at a time through ``router``
+    (started here, stopped after): each request's tokens."""
+    done = dg_collect(router)
+    router.start()
+    outs = []
+    try:
+        for p, n in reqs:
+            rid = router.submit(p, n)
+            dg_wait(done, [rid], f"parity request {rid}")
+            r = done[rid]
+            if r.error or len(r.out) != n:
+                raise SmokeError(f"disagg parity: request {rid} ended with "
+                                 f"{len(r.out)} of {n} tokens, {r.error}")
+            outs.append(list(r.out))
+    finally:
+        router.stop(60)
+    return outs
+
+
+def dg_whole(tag: str, router) -> str:
+    """Every page of every pool free or held by a prefix cache, no slot
+    active, no queue and no handoff left; one line saying so."""
+    pools = ([(router.pool, router.workers)] if router.pool is not None
+             else [(w.cb, [w]) for w in router.workers])
+    lines = []
+    for pool, workers in pools:
+        held = {}
+        for w in workers:
+            if w.cb.prefix is not None:
+                for page, n in trie_holds(w.cb.prefix).items():
+                    held[page] = held.get(page, 0) + n
+        free, refs = len(pool.free_pages), len(pool.page_refs)
+        if (pool.page_refs != held or free + refs != pool.total_pages - 1
+                or any(w.cb.active.any() or w.cb.queue for w in workers)):
+            raise SmokeError(f"{tag}: pool not whole: {free} free, {refs} "
+                             f"held of {pool.total_pages - 1}")
+        lines.append(f"{free} free + {refs} held by the prefix cache = "
+                     f"{free + refs} of {pool.total_pages - 1}")
+    if router._handoffs:
+        raise SmokeError(f"{tag}: {len(router._handoffs)} handoffs stranded")
+    return "; ".join(lines)
+
+
+def dg_share(events, lo, hi, wall: float) -> float:
+    """The share of ``wall`` s inside the dispatches of every worker
+    between two marks (``lo``, ``hi``: each worker's event counts by
+    kind; CUDA events, read once the engine threads are gone). The pool
+    lock serializes the workers, so the sum stays within the wall."""
+    ms = sum(s.elapsed_time(e) for ev, a, b in zip(events, lo, hi)
+             for kind in ("segment", "chunk")
+             for s, e in ev[kind][a[kind]:b[kind]])
+    return ms / (wall * 1e3)
+
+
+async def dg_load(router, trace, events) -> dict:
+    """Phase 5d's full-width run: trace A through ``InferenceServer`` over
+    ``router``, then again with a decode worker's death, a dropped handoff
+    and a stalled one injected and no SLOs (so every request must end with
+    all its tokens). Returns the results and the counters at each mark."""
+    import asyncio
+    from repro_torch.launch.faults import FaultInjector
+    from repro_torch.launch.server import InferenceServer
+    server = InferenceServer(router)
+    t0 = time.perf_counter()
+    await server.start()
+    out = {"start_s": time.perf_counter() - t0, "marks": {},
+           "capture_s": list(router.capture_s)}
+    names = ("migrations", "failovers", "handoff_retries", "handoff_drops",
+             "re_prefills", "degradations", "resplits", "shed_count")
+
+    def mark(name):
+        per = [{k: getattr(w.cb, k) for k in (
+            "deadline_cancels", "preemptions")} for w in router.workers]
+        out["marks"][name] = (
+            time.perf_counter(),
+            [{k: len(v) for k, v in ev.items()} for ev in events],
+            {**{k: getattr(router, k) for k in names},
+             **{k: sum(c[k] for c in per) for k in per[0]}})
+
+    def idle():
+        st = router.stats()
+        return not st["inflight"] and not st["pending_handoffs"]
+
+    decode0 = router.decode_workers[0]
+    out["warmups"] = [dict(w.cb.graph_warmups) for w in router.workers]
+    try:
+        mark("a0")
+        out["a"] = await srv_replay(server.port, trace)
+        await srv_poll(idle, "trace A's drain on the router")
+        mark("a1")
+        router.faults = FaultInjector({
+            "handoff_drop": {"at": [DG_DROP_AT]},
+            "handoff_stall": {"at": [DG_STALL_AT],
+                              "sleep": (router.handoff_timeout_s
+                                        + DG_STALL_OVER_S)}})
+        # decode0 dies at its first step once half the run has finished
+        half = router.completed + len(trace) // 2
+        task = asyncio.ensure_future(srv_replay(server.port, trace,
+                                                slos=False))
+        await srv_poll(lambda: router.completed >= half or task.done(),
+                       "half the fault run", timeout=300.0)
+        decode0.cb.faults = FaultInjector({"worker_die": {"at": [1]}})
+        out["f"] = await task
+        await srv_poll(idle, "the fault run's drain on the router")
+        await srv_poll(lambda: decode0.alive, "decode0's restart")
+        mark("f1")
+        router.faults = decode0.cb.faults = None
+        out["decode0"] = (decode0.restarts, decode0.runner.died)
+        out["health"] = server.stats()
+    finally:
+        await server.aclose()
+    return out
+
+
+def phase_disagg(dev, model, continuous: dict, server: dict) -> dict:
+    """Phase 5d: disaggregated serving (see the module docstring)."""
+    import asyncio
+    from repro_torch import kernels as K
+    from repro_torch.nn.cache import cache_bytes
+    t_phase = time.perf_counter()
+    clear_cublas_workspaces()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    dbm = model[0]
+    rate = CB_REQUESTS / continuous["wall_s"]
+    trace_a = srv_trace(dbm.cfg.vocab_size, SRV_RATE_A * rate, False, 21)
+    extra = [(p, n) for _, p, n, _ in srv_trace(dbm.cfg.vocab_size, 1.0,
+                                                 False, 23)]
+    ledger = []
+
+    # 1. parity: one-slot fp32 routers at stablelm's widths, 4 layers,
+    # against the direct step loop under the same generator seed
+    small = (*runner_model(dev, 4, 4), None)
+    reqs = [(extra[0][0], 24), (extra[1][0], 40)]
+    cb = cb_batcher(dev, small, precision="fp32", seed=5, num_slots=1)
+    cb.capture()
+    direct = []
+    for p, n in reqs:
+        cb.submit(p, n)
+        direct.append(cb.run()[0].out)
+    ledger.append(srv_ledger(cb))
+    del cb
+    parity = {}
+    for handoff in ("copy", "pages"):
+        router = dg_router(small, handoff, precision="fp32", num_slots=1,
+                           n_decode=1)
+        router.decode_workers[0].cb.generator.manual_seed(5)
+        parity[handoff] = (dg_sequential(router, reqs), router.migrations)
+        whole = dg_whole(f"disagg parity ({handoff})", router)
+        ledger += [srv_ledger(w.cb) for w in router.workers]
+        del router
+    del small
+    fp32 = srv_counts(ledger)
+    say(f"[disagg] parity (one slot a worker, 1 prefill + 1 decode, fp32, "
+        f"stablelm widths with 4 layers, graphs captured in the router's "
+        f"start): copy {'equals' if parity['copy'][0] == direct else 'DIFFERS from'}"
+        f" and pages {'equals' if parity['pages'][0] == direct else 'DIFFERS from'}"
+        f" the direct step loop's tokens, bit for bit "
+        f"({sum(map(len, direct))} tokens; migrations "
+        f"{parity['copy'][1]}, {parity['pages'][1]}) | pool {whole} | fp32 "
+        f"launches (direct loop and routers): prefill "
+        f"{fp32['flash_prefill']}, decode {fp32['flash_decode']}")
+    if any(parity[h][0] != direct for h in parity):
+        raise SmokeError(f"disagg parity: copy {parity['copy'][0]}, pages "
+                         f"{parity['pages'][0]}, direct {direct}")
+
+    # 2-3. the full-width fleet over HTTP: trace A, then its fault run
+    router = dg_router(model, "pages", restart_dead_after_s=DG_RESTART_S)
+    events = [cb_timed(w.cb) for w in router.workers]
+    say(f"[disagg] {dbm.cfg.name} full width, bf16, 1 prefill + "
+        f"{DG_DECODE} decode workers of {CB_SLOTS} slots, handoff pages "
+        f"on one shared pool of {router.pool.total_pages} pages "
+        f"({cache_bytes(router.pool.kv) / 2**30:.2f} GiB), seg_len {CB_SEG}, "
+        f"chunk {CHUNK}, prefix cache on the prefill worker; trace A as in "
+        f"5c ({SRV_REQUESTS} requests, Poisson at {SRV_RATE_A * rate:.3f}/s,"
+        f" seed 21)")
+    run = asyncio.run(dg_load(router, trace_a, events))
+    torch.cuda.synchronize()
+    marks = run["marks"]
+    shares = {(a, b): dg_share(events, marks[a][1], marks[b][1],
+                               marks[b][0] - marks[a][0])
+              for a, b in (("a0", "a1"), ("a1", "f1"))}
+    whole = dg_whole("disagg", router)
+    warmups = [dict(w.cb.graph_warmups) for w in router.workers]
+    graphs = router.workers[0].cb.graphs
+    ledger += [srv_ledger(w.cb) for w in router.workers]
+    del router, events
+    c0, c1 = marks["a0"][2], marks["a1"][2]
+    results, wall = run["a"]
+    rep = srv_report("disagg trace A", results, wall, {
+        "shed": c1["shed_count"] - c0["shed_count"],
+        "deadline_cancels": c1["deadline_cancels"] - c0["deadline_cancels"],
+        "preemptions": c1["preemptions"] - c0["preemptions"]},
+        shares["a0", "a1"])
+    unified = server["traces"]["trace A"]
+    say(f"[disagg] trace A beside 5c's unified server in this call: "
+        + " | ".join(
+            f"{cls} TTFT p50 {rep['classes'][cls]['ttft_p50'] or 0:.1f} "
+            f"(unified {unified['classes'][cls]['ttft_p50'] or 0:.1f}) p99 "
+            f"{rep['classes'][cls]['ttft_p99'] or 0:.1f} (unified "
+            f"{unified['classes'][cls]['ttft_p99'] or 0:.1f}) ms"
+            for cls, _ in SRV_MIX)
+        + f" | tok/s {rep['tok_s']:.1f} (unified {unified['tok_s']:.1f}) | "
+        f"inside a dispatch {100 * rep['in_dispatch']:.1f}% (unified "
+        f"{100 * unified['in_dispatch']:.1f}%) | migrations "
+        f"{c1['migrations'] - c0['migrations']} | server start "
+        f"{run['start_s']:.2f} s (the workers' graphs captured on its "
+        f"starting thread, one worker after another: "
+        f"{', '.join(f'{s:.2f}' for s in run['capture_s'])} s)")
+    # in split mode a request's tokens come from a decode worker: each
+    # that streamed one migrated at least once
+    streamed = sum(bool(r["ids"]) for r in results)
+    if c1["migrations"] - c0["migrations"] < streamed:
+        raise SmokeError(f"disagg: {c1['migrations'] - c0['migrations']} "
+                         f"migrations for {streamed} requests that streamed")
+
+    f1 = marks["f1"][2]
+    got = {k: f1[k] - c1[k] for k in ("failovers", "handoff_drops",
+                                      "handoff_retries", "re_prefills",
+                                      "migrations")}
+    fres, fwall = run["f"]
+    bad = [(r["status"], len(r["ids"]), r["max_new"], (r["final"] or {})
+            .get("error")) for r in fres
+           if r["status"] != 200 or "error" in (r["final"] or {"error": 1})
+           or r["ids"] != r["final"]["ids"] or len(r["ids"]) != r["max_new"]]
+    n_tok = sum(len(r["ids"]) for r in fres)
+    restarts, died = run["decode0"]
+    say(f"[disagg] fault run (trace A again, no SLOs): decode0 killed at "
+        f"its first step after half the run finished and restarted after "
+        f"{DG_RESTART_S} s "
+        f"(restarts {restarts}), handoff {DG_DROP_AT} dropped, handoff "
+        f"{DG_STALL_AT} stalled {DG_STALL_OVER_S} s past the handoff "
+        f"timeout | counters {got} | {len(fres) - len(bad)} of "
+        f"{len(fres)} requests complete with all their tokens, {n_tok} "
+        f"tokens in {fwall:.2f} s ({n_tok / fwall:.1f} tok/s) | inside a "
+        f"dispatch {100 * shares['a1', 'f1']:.1f}% | pool "
+        f"{whole} | graph warm-ups per worker {warmups} (one capture each, "
+        f"none after the restart)")
+    if (bad or got["failovers"] < 1 or got["handoff_drops"] != 1
+            or got["handoff_retries"] < 1 or got["re_prefills"] < 1
+            or restarts != 1 or died):
+        raise SmokeError(f"disagg fault run: counters {got}, decode0 "
+                         f"restarts {restarts} died {died}, short or failed "
+                         f"requests {bad[:4]}")
+    if warmups != run["warmups"] or any(
+            w != {"chunk": 1, "segment": 1} for w in warmups if graphs):
+        raise SmokeError(f"disagg: captures per worker {warmups}, "
+                         f"{run['warmups']} at the start; want one chunk "
+                         "and one segment graph each, none after the start")
+
+    # 4. a short full-width copy run: separate pools, byte-copy migration
+    router = dg_router(model, "copy", n_decode=1)
+    done = dg_collect(router)
+    t0 = time.perf_counter()
+    router.start()
+    start_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        rids = [router.submit(p, n) for p, n in extra[:DG_COPY_REQUESTS]]
+        dg_wait(done, rids, "the copy run")
+        copy_s = time.perf_counter() - t0
+    finally:
+        router.stop(60)
+    short = [(rid, len(done[rid].out), n, done[rid].error)
+             for rid, (_, n) in zip(rids, extra) if done[rid].error
+             or len(done[rid].out) != n]
+    copy_whole = dg_whole("disagg copy", router)
+    ledger += [srv_ledger(w.cb) for w in router.workers]
+    copied = router.migrations
+    del router, done
+    say(f"[disagg] copy run (full width, 1 prefill + 1 decode, separate "
+        f"pools): {DG_COPY_REQUESTS} requests at once, "
+        f"{DG_COPY_REQUESTS - len(short)} complete, {copied} byte-copy "
+        f"migrations, {copy_s:.2f} s (start {start_s:.2f} s) | pools "
+        f"{copy_whole}")
+    if short or copied != DG_COPY_REQUESTS:
+        raise SmokeError(f"disagg copy run: short {short}, {copied} "
+                         "migrations")
+
+    counts = K.launch_counts()
+    check_counts("disagg", counts, srv_counts(ledger))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    clear_cublas_workspaces()
+    after = torch.cuda.memory_allocated()
+    say(f"[disagg] launches {counts} (the dispatches' arithmetic over "
+        f"{len(ledger)} batchers, warm-ups included) | memory allocated "
+        f"{base / 2**30:.2f} GiB before phase 5d, peak "
+        f"{peak / 2**30:.2f} GiB, {after / 2**30:.2f} GiB after its routers "
+        f"were dropped (no gc pass; limit +0.1) | phase 5d took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if after > base + DG_MEM_SLACK:
+        raise SmokeError(f"disagg: {(after - base) / 2**30:.2f} GiB still "
+                         "allocated after the routers were dropped")
+    return {"counts": counts, "trace": rep, "peak_bytes": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -3705,6 +4066,7 @@ def main() -> int:
     phase_crosscheck_bf16(dev, model)
     continuous = phase_continuous(dev, model)
     server = phase_server(dev, model, continuous)
+    disagg = phase_disagg(dev, model, continuous, server)
     train = phase_train(dev, model)
     db_crosscheck(dev, model, "concat ce", [("attn", "wq")])
     del model                      # stablelm's masters and caches
@@ -3726,7 +4088,7 @@ def main() -> int:
     runner = phase_runner(dev)
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
-                   train["launches"],
+                   disagg["counts"], train["launches"],
                    two_pass["launches"], dit["launches"],
                    huginn["launches"], vit["launches"], mdm["launches"],
                    block_parallel["launches"], runner["launches"]):

@@ -8,6 +8,8 @@ tensors and runs its plain version on CPU tensors; it counts its launches in
 with ``add_launch_counts``). Importing builds and loads nothing: a kernel is
 compiled by ``_build`` at its first launch (or ahead with ``_build.build()``).
 """
+import threading
+
 from repro_torch.kernels import edm_loss as _edm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
@@ -38,9 +40,15 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+# replays on several engine threads at once (disaggregated workers on
+# separate pools) add to the same counts
+_COUNTS_LOCK = threading.Lock()
+
+
 def add_launch_counts(counts: dict) -> None:
     """Add ``counts`` ({wrapper name: launches}) to the wrappers' counts: a
     CUDA-graph replay launches the kernels its capture recorded without
     calling a wrapper."""
-    for name, n in counts.items():
-        WRAPPERS[name].launches += n
+    with _COUNTS_LOCK:
+        for name, n in counts.items():
+            WRAPPERS[name].launches += n

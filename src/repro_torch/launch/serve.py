@@ -367,6 +367,12 @@ class Request:
     spilled: Optional[KVC.SpilledSlot] = None
     spill_meta: Optional[dict] = None
     preempt_count: int = 0
+    # disaggregated prefill/decode migration (``launch.router``): on a
+    # shared pool, the physical pages of the committed KV with their refs,
+    # travelling with the request; admission maps them instead of copying
+    handoff_pages: Optional[List[int]] = None
+    migrations: int = 0           # completed prefill -> decode handoffs
+    failovers: int = 0            # re-routed off a dead worker
 
     @property
     def done(self) -> bool:
@@ -421,6 +427,54 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
+class SharedPagePool:
+    """ONE physical page pool shared by several batchers (disaggregated
+    prefill/decode with page-handle migration): the free list, the refcount
+    map, the pool's tensors and one lock are common; each batcher keeps its
+    own page table and slots. A page a prefill worker hands to a decode
+    worker is visible there without a byte copied: the request carries only
+    the physical page ids (``Request.handoff_pages``).
+
+    JAX pulls and publishes the pool's leaves around every step; here the
+    tensors are written in place, so the first batcher makes them and every
+    later one takes the same tensors at construction, before any capture.
+    ``lock`` serializes the sharers' steps on the host. On the card every
+    dispatch ends in a readback on the batcher's stream and starts by
+    waiting for the default stream (where copy-on-write, restore and spill
+    run, whichever thread calls them), so a page one sharer wrote is
+    complete before another's dispatch reads it."""
+
+    def __init__(self, total_pages: int):
+        self.total_pages = int(total_pages)
+        self.free_pages: List[int] = list(range(1, self.total_pages))
+        self.page_refs: dict = {}
+        self.lock = threading.RLock()
+        self.kv = None               # the pool's tensors, made by the first
+        self._spec = None            # (cfg, page size, kv dtype, device)
+
+    def join(self, dbm, policy, page_size: int, device) -> "KVC.PagedKV":
+        """The pool's tensors for one more batcher: made by the first, the
+        same tensors for every later one, which must serve the same model
+        with the same page size, KV dtype and device."""
+        if not dbm.model.kv_carries_all_state:
+            raise ValueError(
+                f"a SharedPagePool shares paged KV only; family "
+                f"{dbm.cfg.family!r} keeps per-slot state outside the pages")
+        spec = (dbm.cfg, page_size, KVC.resolve_kv_dtype(policy.kv),
+                torch.device(device))
+        if self.kv is None:
+            self.kv = dbm.model.init_paged_cache(0, self.total_pages,
+                                                 page_size, policy,
+                                                 device=device)
+            self._spec = spec
+        elif spec != self._spec:
+            raise ValueError(
+                "batchers sharing a pool must serve the same model with the "
+                f"same page_size, kv dtype and device: {spec[1:]} against "
+                f"{self._spec[1:]}")
+        return self.kv
+
+
 class ContinuousBatcher:
     """Slot-based continuous batching over a shared page pool (port of
     ``repro.launch.serve.ContinuousBatcher``).
@@ -467,9 +521,13 @@ class ContinuousBatcher:
     ``token_cb``, when set, is called from the stepping thread with each
     request and the tokens a segment emitted for it. ``submit``/``cancel``/
     ``pause``/``resume``/``preempt`` may be called from any thread; they
-    touch only host state and take effect at the next ``step``. Not ported
-    yet, and refused: conditioned requests (ROADMAP A6), shared pools and
-    page handoff (A7).
+    touch only host state and take effect at the next ``step``.
+
+    ``shared_pool`` (a ``SharedPagePool``) puts several batchers on one
+    pool: ``_detach_slot`` hands a slot's pages to its request
+    (``handoff_pages``) and the admission of another sharer maps them (the
+    page-handle migration of ``launch.router``). Not ported yet, and
+    refused: conditioned requests (ROADMAP A6).
     """
 
     def __init__(self, dbm, params, *, num_slots: int = 8,
@@ -484,9 +542,8 @@ class ContinuousBatcher:
                  generator: Optional[torch.Generator] = None,
                  graphs: Optional[bool] = None,
                  max_queue: Optional[int] = None,
-                 shed_below_pages: int = 0, faults=None, shared_pool=None):
-        if shared_pool is not None:
-            _not_ported("a SharedPagePool and page handoff", "A7")
+                 shed_below_pages: int = 0, faults=None,
+                 shared_pool: Optional[SharedPagePool] = None):
         self.dbm, self.params = dbm, params
         self.faults = faults
         self.device = params["embed"]["table"].device
@@ -518,12 +575,25 @@ class ContinuousBatcher:
         cow_spare = num_slots if prefix_cache else 0
         self.total_pages = (1 + num_slots * pps + cow_spare
                             if total_pages is None else total_pages)
-        self.kv = dbm.model.init_paged_cache(num_slots, self.total_pages,
-                                             page_size, self.eng.pol,
-                                             device=self.device)
+        self._shared = shared_pool
+        if shared_pool is None:
+            self.kv = dbm.model.init_paged_cache(num_slots, self.total_pages,
+                                                 page_size, self.eng.pol,
+                                                 device=self.device)
+            self.free_pages = list(range(1, self.total_pages))
+            self.page_refs = {}      # phys page -> refcount (slots + cache)
+            # serializes step, recover, abort_all and extract_all (the
+            # router's failover calls the last from its own thread)
+            self._pool_lock = threading.RLock()
+        else:
+            # one free list, refcount map, pool and lock for every sharer
+            self.total_pages = shared_pool.total_pages
+            self.kv = shared_pool.join(dbm, self.eng.pol, page_size,
+                                       self.device)
+            self.free_pages = shared_pool.free_pages
+            self.page_refs = shared_pool.page_refs
+            self._pool_lock = shared_pool.lock
         self._pool_ptrs = KVC.pool_ptrs(self.kv)
-        self.free_pages = list(range(1, self.total_pages))
-        self.page_refs = {}          # phys page -> refcount (slots + cache)
         self.num_slots = num_slots
         self.table = np.zeros((num_slots, pps), np.int32)   # 0 = trash page
         self.lengths = np.zeros(num_slots, np.int32)
@@ -682,35 +752,41 @@ class ContinuousBatcher:
         """After a crash in ``step``: spill every active slot back to the
         queue, so the next steps re-admit and resume them with no token
         lost or repeated (``out`` persists; ``_collect`` only appends)."""
-        for s in range(self.num_slots):
-            if self.active[s]:
-                self._preempt_slot(s)
+        with self._pool_lock:
+            for s in range(self.num_slots):
+                if self.active[s]:
+                    self._preempt_slot(s)
 
     def abort_all(self, msg: str) -> List[Request]:
         """Error out every queued and active request (the supervisor giving
-        up): slots retire, pages return to the pool, and each request
-        carries ``error`` (``msg`` unless it had one). Returns them."""
-        reqs = self.extract_all()
-        for r in reqs:
-            self._drop_payload(r)
-            r.error = r.error or msg
+        up): slots retire, pages (handed ones too) return to the pool, and
+        each request carries ``error`` (``msg`` unless it had one). Returns
+        them."""
+        with self._pool_lock:
+            reqs = self.extract_all()
+            for r in reqs:
+                self._drop_payload(r)
+                r.error = r.error or msg
         return reqs
 
     def extract_all(self, detach: bool = False) -> List[Request]:
         """Pop every queued and active request without erroring it (the
-        failover harvest): active slots release their pages, partial output
-        and queued snapshots survive on the host, and the pool ends whole.
-        ``detach=True`` (hand the pages over on a shared pool) is not ported
-        (ROADMAP A7)."""
-        if detach:
-            _not_ported("a page handoff on a shared pool (detach=True)",
-                        "A7")
-        with self._lock:
-            reqs = list(self.queue)
-            self.queue.clear()
-        for s in range(self.num_slots):
-            if self.slot_req[s] is not None and self.active[s]:
-                reqs.append(self._retire_slot(s))
+        failover harvest after this batcher's worker died). By default
+        active slots release their pages: their KV died with the worker,
+        partial output and queued payloads survive on the host, and the
+        router re-prefills. ``detach=True`` (a shared pool, where the KV
+        survives the worker) hands each active slot's used pages to its
+        request (``handoff_pages``) so the router can migrate it again
+        without a replay. Queued requests pop with their payloads."""
+        with self._pool_lock:
+            with self._lock:
+                reqs = list(self.queue)
+                self.queue.clear()
+                self._paused.clear()     # every request leaves this batcher
+            for s in range(self.num_slots):
+                if self.slot_req[s] is not None and self.active[s]:
+                    reqs.append(self._detach_slot(s) if detach
+                                else self._retire_slot(s))
         return reqs
 
     # ---- page accounting ---------------------------------------------
@@ -822,9 +898,12 @@ class ContinuousBatcher:
                 self.page_refs[p] += 1
             total = KVC.pages_for(len(req.prompt) + req.max_new,
                                   self.page_size)
-            # fresh pages: past the shared prefix, plus a copy destination
-            # for a matched partial tail page
-            need = (total - len(match.pages)
+            # a page-handle migration arrives holding refs on the pages of
+            # its committed KV: they map as they are, only the rest allocates
+            handed = req.handoff_pages or []
+            # fresh pages: past the shared prefix and the handed pages, plus
+            # a copy destination for a matched partial tail page
+            need = (total - len(match.pages) - len(handed)
                     + (1 if match.tail_tokens else 0))
             if need > len(self.free_pages) and self.prefix is not None:
                 self.prefix.evict(self.page_refs, self.free_pages, need)
@@ -858,6 +937,7 @@ class ContinuousBatcher:
                     self._release_pages(pinned_tail)   # unpin the source
                     pinned_tail = []
                     row.append(dst)
+            row.extend(handed)         # their refs travelled with the request
             while ok and len(row) < total:
                 p = self._alloc_page()
                 if p is None:
@@ -865,8 +945,11 @@ class ContinuousBatcher:
                 else:
                     row.append(p)
             if not ok:
-                # unwind every ref this admission took; retry next step
-                self._release_pages(row + pinned_tail)
+                # unwind every ref this admission took (not the handed
+                # pages': they stay with the request); retry next step
+                keep = set(handed)
+                self._release_pages([p for p in row if p not in keep]
+                                    + pinned_tail)
                 self._requeue(req)
                 break
             req.pages = row
@@ -933,6 +1016,23 @@ class ContinuousBatcher:
         self._clear_slot_row(s)
         return req
 
+    def _detach_slot(self, s: int) -> Request:
+        """The page-handle twin of ``_spill_slot`` on a shared pool: hand
+        slot ``s``'s used pages to its request (``handoff_pages``, their
+        refs with them; the scratch tail releases) and free the slot. The
+        receiving batcher maps those pages, so the migration moves the page
+        table, not the KV bytes; shared prefix pages keep their refcounts,
+        and copy-on-write still guards a divergent write there."""
+        req = self.slot_req[s]
+        n_used = KVC.pages_for(int(self.lengths[s]), self.page_size)
+        req.handoff_pages = [int(self.table[s, i]) for i in range(n_used)]
+        req.spilled = KVC.spill_slot(self.kv, s, [], self._axes)
+        req.spill_meta = dict(length=int(self.lengths[s]))
+        self._release_pages(req.pages[n_used:])
+        req.pages = []
+        self._clear_slot_row(s)
+        return req
+
     def _preempt_slot(self, s: int) -> Request:
         """Spill slot ``s`` and requeue its request at the front with its
         rid and partial output."""
@@ -943,16 +1043,23 @@ class ContinuousBatcher:
         return req
 
     def _drop_payload(self, req: Request) -> None:
-        """Discard an unrestored snapshot of a request that dies queued."""
+        """Discard the unrestored payload of a request that dies queued:
+        the host snapshot drops, and handed pages return their refs to the
+        pool."""
+        if req.handoff_pages:
+            self._release_pages(req.handoff_pages)
+        req.handoff_pages = None
         req.spilled = req.spill_meta = None
 
     def _restore_into_slot(self, s: int, req: Request) -> None:
-        """Write a spilled request's snapshot into its new private pages and
+        """Write a spilled request's snapshot into its new private pages
+        (none for a page-handle migration: the handed pages hold it) and
         resume its row at the spilled length."""
         n = req.spilled.n_pages
         KVC.restore_slot(self.kv, s, req.pages[:n], req.spilled, self._axes)
         self.lengths[s] = req.spill_meta["length"]
         req.spilled = req.spill_meta = None
+        req.handoff_pages = None
         self.restores += 1
 
     def _apply_preemptions(self) -> None:
@@ -1217,8 +1324,11 @@ class ContinuousBatcher:
         ``strict=True`` raises when the head of the queue can never be
         admitted (it needs more pages than the pool holds); ``strict=False``
         pops it with ``error`` set instead. Pool exhaustion during
-        copy-on-write never raises: the lowest-priority slot spills."""
-        finished = self._step(strict=strict)
+        copy-on-write never raises: the lowest-priority slot spills. On a
+        ``SharedPagePool`` the step holds the pool's lock, so the sharers
+        step one at a time."""
+        with self._pool_lock:
+            finished = self._step(strict=strict)
         if KVC.pool_ptrs(self.kv) != self._pool_ptrs:
             raise RuntimeError("the page pool's storage moved: a captured "
                                "decode segment would read freed memory")

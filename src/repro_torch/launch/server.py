@@ -26,8 +26,10 @@ graphs before ``start`` returns, and replays them on the stream it captured
 on (``ContinuousBatcher.stream``); no torch call runs on the event loop's
 thread, which reaches the engine only through host-side calls (``submit``,
 ``cancel``, ``pause``, ``resume``) and the per-request ``TokenStream``
-bridges. The HTTP layer is stdlib only (HTTP/1.1, ``connection: close``);
-``docs/api.md`` gives the wire format.
+bridges. Over a ``launch.router.DisaggRouter`` each worker runs an engine
+thread of its own and ``RouterRunner`` keeps the streams. The HTTP layer is
+stdlib only (HTTP/1.1, ``connection: close``); ``docs/api.md`` gives the
+wire format.
 
 Run (the reduced stablelm-1.6b on the card; ``--full`` for its published
 widths, ``--device cpu`` for the plain versions):
@@ -36,6 +38,8 @@ widths, ``--device cpu`` for the plain versions):
     python -m repro_torch.launch.server --full --prompt-len 512 \\
         --num-slots 8 --seg-len 16 --prefix-cache
     python -m repro_torch.launch.server --device cpu --ckpt-dir CKPT
+    python -m repro_torch.launch.server --device cpu --disagg \\
+        --handoff pages --decode-workers 2
 """
 from __future__ import annotations
 
@@ -183,6 +187,7 @@ class EngineRunner:
         self.last_error: Optional[str] = None
         self.gave_up = False         # crash budget exhausted; engine dead
         self.died = False            # fatal exception: the worker is dead
+        self.last_beat = time.time()  # heartbeat: each turn of the loop
         batcher.token_cb = _weak_method(self._on_tokens)
 
     def start(self) -> None:
@@ -269,13 +274,16 @@ class EngineRunner:
         finally:
             self._ready.set()
         while True:
+            self.last_beat = time.time()
             if not self.cb.has_work():
                 if self._stop.is_set():
                     break
                 self._work.wait(0.05)
                 self._work.clear()
                 continue
-            d0 = self.cb.eng.dispatches
+            # this batcher's own dispatches: batchers of one model and
+            # config share their engine and its counters
+            d0 = self.cb.ingest_dispatches + self.cb.decode_dispatches
             try:
                 finished = self.cb.step(strict=False)
             except Exception as e:   # noqa: BLE001 -- supervisor boundary
@@ -294,7 +302,8 @@ class EngineRunner:
                 continue
             for req in finished:
                 self._finish(req)
-            if not finished and self.cb.eng.dispatches == d0:
+            if not finished and (self.cb.ingest_dispatches
+                                 + self.cb.decode_dispatches) == d0:
                 # every active slot paused (backpressure): wait for a
                 # resume or a cancel instead of spinning on empty steps
                 self._work.wait(0.005)
@@ -349,7 +358,9 @@ def _sse_event(event: str, obj) -> bytes:
 # ---------------------------------------------------------------------------
 
 class InferenceServer:
-    """Asyncio HTTP/SSE frontend over one ``ContinuousBatcher``.
+    """Asyncio HTTP/SSE frontend over one ``ContinuousBatcher``, or over a
+    ``launch.router.DisaggRouter`` (its prefill and decode workers run
+    their own engine threads; ``RouterRunner`` keeps the streams).
 
     Sampler settings are static per engine: a request may state
     ``temperature`` / ``top_k``, but values other than the engine's are
@@ -360,10 +371,12 @@ class InferenceServer:
     def __init__(self, batcher: ContinuousBatcher, *, host: str = "127.0.0.1",
                  port: int = 0, queue_cap: int = DEFAULT_QUEUE_CAP,
                  max_restarts: int = 3):
-        if getattr(batcher, "is_router", False):
-            _not_ported("serving through the disaggregation router", "A7")
         self.cb = batcher
-        self.runner = EngineRunner(batcher, max_restarts=max_restarts)
+        if getattr(batcher, "is_router", False):
+            from repro_torch.launch.router import RouterRunner
+            self.runner = RouterRunner(batcher)
+        else:
+            self.runner = EngineRunner(batcher, max_restarts=max_restarts)
         self.host, self._want_port = host, port
         self.queue_cap = queue_cap
         self.backpressure_pauses = 0     # slow-consumer pause events
@@ -437,8 +450,21 @@ class InferenceServer:
     def stats(self) -> dict:
         """``GET /v1/health``: queue depth, slot and page headroom, pool
         bytes, drain state and the robustness counters (preemptions, SLO
-        cancels, sheds, supervisor crashes and restarts)."""
+        cancels, sheds, supervisor crashes and restarts). Over a router:
+        its mode, migration, failover and handoff counters and one entry a
+        worker (role, liveness, heartbeat age, pool headroom, in flight)."""
         cb = self.cb
+        if getattr(cb, "is_router", False):
+            out = cb.stats()
+            out.update({
+                "served": self.runner.served,
+                "shed": cb.shed_count,
+                "max_queue": cb.max_queue,
+                "backpressure_pauses": self.backpressure_pauses,
+                "draining": self.draining,
+                "engine_alive": any(w["alive"] for w in out["workers"]),
+            })
+            return out
         active = int(cb.active.sum())
         return {
             "active_slots": active,
@@ -774,22 +800,30 @@ async def stream_generate(host: str, port: int, prompt, max_new: int, *,
 def build_batcher_from_args(args):
     """(dbm, params, batcher) from ``add_server_args``'s arguments: the
     model of ``serve.load_model`` (its blocks from ``--ckpt-dir`` where
-    given) behind a ``ContinuousBatcher`` on ``args.device``."""
-    if args.disagg:
-        _not_ported("disaggregated serving (--disagg)", "A7")
+    given) behind a ``ContinuousBatcher`` on ``args.device``, or with
+    ``--disagg`` behind a ``DisaggRouter`` over ``--prefill-workers`` +
+    ``--decode-workers`` batchers (their draws seeded from ``--seed``)."""
     if args.conditioned:
         _not_ported("conditioned requests (--conditioned)", "A6")
     device = cli_device(args.device)
     _, dbm, params, gen = load_model(args, device)
-    cb = ContinuousBatcher(
-        dbm, params, num_slots=args.num_slots, page_size=args.page_size,
+    cb_kw = dict(
+        num_slots=args.num_slots, page_size=args.page_size,
         max_prompt=args.prompt_len, max_len=args.prompt_len + args.max_new,
         seg_len=args.seg_len, temperature=args.temperature, top_k=args.top_k,
         precision=args.precision, kv_dtype=args.kv_dtype, impl=args.impl,
         prefill=args.prefill,
         chunk_size=min(args.chunk_size, max(args.prompt_len, 1)),
         prefix_cache=args.prefix_cache, max_queue=args.max_queue,
-        shed_below_pages=args.shed_below_pages, generator=gen)
+        shed_below_pages=args.shed_below_pages)
+    if args.disagg:
+        from repro_torch.launch.router import DisaggRouter
+        cb = DisaggRouter(dbm, params, n_prefill=args.prefill_workers,
+                          n_decode=args.decode_workers, handoff=args.handoff,
+                          restart_dead_after_s=args.restart_dead_after,
+                          seed=args.seed, **cb_kw)
+    else:
+        cb = ContinuousBatcher(dbm, params, generator=gen, **cb_kw)
     return dbm, params, cb
 
 
@@ -825,7 +859,19 @@ def add_server_args(ap: argparse.ArgumentParser) -> None:
                     help="admission control: shed batch-class requests "
                          "while free pages are below this threshold")
     ap.add_argument("--disagg", action="store_true",
-                    help="disaggregated serving (not ported: ROADMAP A7)")
+                    help="disaggregated serving: prefill and decode on "
+                         "separate supervised workers behind a migrating "
+                         "router (see repro_torch.launch.router)")
+    ap.add_argument("--prefill-workers", type=int, default=1)
+    ap.add_argument("--decode-workers", type=int, default=1)
+    ap.add_argument("--handoff", choices=("copy", "pages"), default="copy",
+                    help="migration payload: 'copy' snapshots the KV to the "
+                         "host and restores it into the decode worker's "
+                         "pool; 'pages' moves page handles on one shared "
+                         "pool")
+    ap.add_argument("--restart-dead-after", type=float, default=None,
+                    help="seconds before a dead worker is restarted "
+                         "(default: never; the survivors take its load)")
     ap.add_argument("--conditioned", action="store_true",
                     help="named conditioning inputs (not ported: ROADMAP "
                          "A6)")
@@ -836,9 +882,14 @@ async def _serve_forever(args):
     server = InferenceServer(cb, host=args.host, port=args.port,
                              queue_cap=args.queue_cap)
     await server.start()
+    if getattr(cb, "is_router", False):
+        shape = (f"disagg {len(cb.prefill_workers)}p+"
+                 f"{len(cb.decode_workers)}d, handoff={cb.handoff}")
+    else:
+        shape = f"slots={cb.num_slots}, pool={cb.total_pages} pages"
     print(f"serving on http://{server.host}:{server.port}  "
-          f"(slots={cb.num_slots}, pool={cb.total_pages} pages, "
-          f"{cb.device}; POST /v1/generate, GET /v1/health)", flush=True)
+          f"({shape}, {cb.device}; POST /v1/generate, GET /v1/health)",
+          flush=True)
     try:
         while True:
             await asyncio.sleep(3600)

@@ -551,7 +551,9 @@ def _check_restore_dtypes(path, leaf: PagedKV, saved: tuple) -> None:
             f"cache-state dtype mismatch at {path}: snapshot carries "
             f"{desc(saved[0].dtype, have_scales)} but the target pool stores "
             f"{desc(leaf.k.dtype, leaf.quantized)}. The spilling and "
-            "restoring pools must be built with the same --kv-dtype.")
+            "restoring pools must be built with the same --kv-dtype; "
+            "re-prefill the request on the destination worker instead of "
+            "migrating its cache state.")
 
 
 # ---------------------------------------------------------------------------

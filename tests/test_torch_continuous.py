@@ -719,10 +719,12 @@ def test_continuous_rejects_oversized_and_bad_requests(tiny):
 @pytest.mark.parametrize("what", ["aux", "slo", "faults", "shed", "shared",
                                   "recover"])
 def test_unported_options_raise(tiny, what):
-    """Conditioned requests (A6), shared pools and the page handoff of
-    ``extract_all(detach=True)`` (A7) raise naming their ROADMAP item. SLOs,
-    shedding and recovery are ported: each is accepted and works (an
-    ``engine_crash`` raised by ``step`` is recovered from)."""
+    """Conditioned requests (A6) raise naming their ROADMAP item. SLOs,
+    shedding, recovery, shared pools and the page handoff of
+    ``extract_all(detach=True)`` are ported: each is accepted and works (an
+    ``engine_crash`` raised by ``step`` is recovered from; two batchers on
+    one ``SharedPagePool`` hold the same pool tensors and free list, and a
+    detached slot's pages travel with its request until it is dropped)."""
     if what == "faults":
         from repro_torch.launch.faults import InjectedFault, make_injector
         cb = _cb(tiny, faults=make_injector({"engine_crash": {"at": [2]}}))
@@ -753,16 +755,27 @@ def test_unported_options_raise(tiny, what):
         cb = _cb(tiny)
         cb.submit([1, 2], 12)
         cb.step()
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            cb.extract_all(detach=True)
+        (req,) = cb.extract_all(detach=True)
+        assert req.error is None and not cb.active.any()
+        assert req.handoff_pages and req.spilled.n_pages == 0
+        assert sorted(cb.page_refs) == sorted(req.handoff_pages)
+        cb._drop_payload(req)
+        cb.submit([1, 2], 12)
+        cb.step()
         (req,) = cb.extract_all()
         assert req.error is None and not cb.active.any()
         assert len(cb.free_pages) == cb.total_pages - 1
         return
-    calls = {"aux": lambda: _cb(tiny).submit([1], 2, aux_inputs={"x": 1}),
-             "shared": lambda: _cb(tiny, shared_pool=object())}
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        calls[what]()
+    if what == "shared":
+        pool = TS.SharedPagePool(9)
+        a, b = (_cb(tiny, shared_pool=pool) for _ in range(2))
+        assert a.kv is b.kv is pool.kv and a.free_pages is pool.free_pages
+        assert a.total_pages == b.total_pages == 9
+        with pytest.raises(ValueError, match="same model"):
+            _cb(tiny, shared_pool=pool, page_size=2)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        _cb(tiny).submit([1], 2, aux_inputs={"x": 1})
 
 
 def test_cancel_queued_and_active(tiny):

@@ -2020,3 +2020,208 @@ def test_torch_call_during_the_engine_capture_fails_loudly(cuda):
                        env=dict(os.environ, PYTHONPATH=os.pathsep.join(path)))
     assert r.returncode == 0 and "failed loudly" in r.stdout, (
         r.stdout[-4000:] + r.stderr[-4000:])
+
+
+# ---------------------------------------------------------------------------
+# Disaggregated serving on the card: a shared pool across engine threads
+# ---------------------------------------------------------------------------
+
+DG_KW = dict(num_slots=4, page_size=16, max_prompt=80, max_len=80,
+             seg_len=4, chunk_size=16, precision="bf16")
+
+
+def _keyed_draws(batcher):
+    """Draws keyed by (request, position), so a request's tokens do not
+    depend on which batcher, slot or step commits each of them. The draw
+    reaches its batcher weakly: a cycle would leave the batcher's graphs to
+    a gc pass, which can land in a later capture and break it."""
+    import weakref
+    ref = weakref.ref(batcher)
+    d, sigma = batcher.dbm.cfg.d_model, batcher.dbm.db.sigma_max
+
+    def draw(n):
+        cb = ref()
+        z = torch.zeros(n, cb.num_slots, 1, d)
+        for s, req in enumerate(cb.slot_req):
+            if req is None:
+                continue
+            for t in range(n):
+                g = torch.Generator().manual_seed(
+                    req.rid * 4096 + int(cb.lengths[s]) + t)
+                z[t, s, 0] = torch.randn(d, generator=g)
+        return (sigma * z).to(cb.device), None
+    return draw
+
+
+def _dg_prompts(dbm, n):
+    gen = torch.Generator().manual_seed(7)
+    return [torch.randint(0, dbm.cfg.vocab_size, (int(k),), generator=gen)
+            .tolist() for k in torch.randint(9, 49, (n,), generator=gen)]
+
+
+def _dg_unified(dbm, params, cuda, prompts, max_new):
+    """Every request at once on one graphed batcher of ``DG_KW``'s shape:
+    {rid: tokens}."""
+    cb = S.ContinuousBatcher(dbm, params, **DG_KW)
+    cb.draw_segment = _keyed_draws(cb)
+    for p in prompts:
+        cb.submit(p, max_new)
+    out = {r.rid: r.out for r in cb.run()}
+    assert all(len(o) == max_new for o in out.values())
+    return out
+
+
+def _dg_wait(cond, timeout=120.0):
+    import time
+    t0 = time.time()
+    while not cond():
+        assert time.time() - t0 < timeout, "timed out"
+        time.sleep(0.005)
+
+
+@pytest.mark.gpu
+def test_disagg_page_handoff_bf16_busy_workers_match_unified(cuda):
+    """bf16 page-handle migration while both workers are busy (the prefill
+    worker's chunk graph writes pages on its stream while the decode
+    worker's segment graph reads handed pages on its own): every request's
+    tokens equal a unified batcher's under draws keyed by request and
+    position, so no handed or recycled page was read before its writes
+    landed. The first request stays paused on the decode worker until the
+    others have been prefilled, so every later chunk runs while the decode
+    worker holds a slot."""
+    import weakref
+    from repro_torch.launch.router import DisaggRouter
+    dbm, params = _serving_model(cuda)
+    prompts = _dg_prompts(dbm, 12)
+    want = _dg_unified(dbm, params, cuda, prompts, 24)
+    router = DisaggRouter(dbm, params, n_prefill=1, n_decode=1,
+                          handoff="pages", **DG_KW)
+    for w in router.workers:
+        w.cb.draw_segment = _keyed_draws(w.cb)
+    pf, dc = router.prefill_workers[0].cb, router.decode_workers[0].cb
+    overlap, refs = [], (weakref.ref(pf), weakref.ref(dc))
+
+    def spy():
+        overlap.append(bool(refs[1]().active.any()))
+        return S.ContinuousBatcher._chunk(refs[0]())
+    pf._chunk = spy
+    del pf, dc
+    done = {}
+    router.finish_cb = lambda r: done.setdefault(r.rid, r)
+    router.start()
+    try:
+        rids = [router.submit(prompts[0], 24)]
+        router.pause(rids[0])
+        _dg_wait(lambda: any(r is not None and r.rid == rids[0]
+                             for r in refs[1]().slot_req))
+        rids += [router.submit(p, 24) for p in prompts[1:]]
+        _dg_wait(lambda: refs[0]().migrated_out == len(prompts))
+        router.resume(rids[0])
+        _dg_wait(lambda: all(r in done for r in rids))
+    finally:
+        router.stop(60)
+    assert {r: done[r].out for r in rids} == want
+    # the first request's own chunks ran before the decode worker held it
+    assert any(overlap) and all(overlap[overlap.index(True):])
+    assert router.migrations == len(prompts)
+    pool = router.pool
+    assert len(pool.free_pages) + len(pool.page_refs) == pool.total_pages - 1
+
+
+@pytest.mark.gpu
+def test_extract_all_detach_from_another_thread_while_a_sibling_replays(
+        cuda):
+    """On a shared pool, a third thread detaches a batcher's active slots
+    (``extract_all(detach=True)``: page handles, no copy) while its sibling
+    replays its graphs on its engine thread; the sibling then serves the
+    detached requests from the handed pages, and every request's tokens
+    equal a unified run's under keyed draws."""
+    import threading
+    from repro_torch.launch import server as SV
+    dbm, params = _serving_model(cuda)
+    prompts = _dg_prompts(dbm, 8)
+    want = _dg_unified(dbm, params, cuda, prompts, 24)
+    pool = S.SharedPagePool(1 + 2 * 4 * 5)
+    a, b = (S.ContinuousBatcher(dbm, params, shared_pool=pool, **DG_KW)
+            for _ in range(2))
+    for cb in (a, b):
+        cb.draw_segment = _keyed_draws(cb)
+        cb.capture()
+    for p in prompts[:4]:
+        a.submit(p, 24)
+    for _ in range(4):
+        a.step()
+    assert a.active.all() and a.decode_dispatches >= 1
+    b._next_rid = 4
+    for p in prompts[4:]:
+        b.submit(p, 24)
+    runner = SV.EngineRunner(b)
+    finished = []
+    runner._finish = finished.append
+    runner.start()
+    try:
+        _dg_wait(lambda: b.decode_dispatches >= 1)
+        harvested = []
+        t = threading.Thread(target=lambda: harvested.extend(
+            a.extract_all(detach=True)))
+        t.start()
+        t.join(60)
+        assert not t.is_alive() and len(harvested) == 4
+        assert all(r.handoff_pages and r.spilled.n_pages == 0
+                   for r in harvested)
+        assert not a.active.any()
+        for r in harvested:
+            b.submit_request(r)
+        runner.wake()
+        _dg_wait(lambda: len(finished) == 8)
+    finally:
+        runner.stop(60)
+    assert not runner._thread.is_alive() and not runner.crashes
+    assert {r.rid: r.out for r in finished} == want
+    assert b.restores == 4 and b.graph_warmups == {"chunk": 1, "segment": 1}
+    assert len(pool.free_pages) == pool.total_pages - 1 and not pool.page_refs
+
+
+@pytest.mark.gpu
+def test_no_capture_after_router_start_across_a_worker_restart(
+        cuda, monkeypatch):
+    """The router's start captures every worker's two graphs, one worker
+    after another; a decode worker killed mid-run (``worker_die``) and
+    restarted serves again from the graphs it had: no capture happens after
+    ``start``, and every request completes."""
+    import threading
+    from repro_torch.launch.faults import FaultInjector
+    from repro_torch.launch.router import DisaggRouter
+    dbm, params = _serving_model(cuda)
+    captures, real = [], S.ContinuousBatcher._graph
+
+    def spy(self, name):
+        if name not in self._graphs:
+            captures.append((id(self), name,
+                             threading.current_thread().name))
+        return real(self, name)
+    monkeypatch.setattr(S.ContinuousBatcher, "_graph", spy)
+    router = DisaggRouter(dbm, params, n_prefill=1, n_decode=2,
+                          handoff="pages", restart_dead_after_s=0.1,
+                          **DG_KW)
+    decode0 = router.decode_workers[0]
+    done = {}
+    router.finish_cb = lambda r: done.setdefault(r.rid, r)
+    router.start()
+    at_start = list(captures)
+    try:
+        decode0.cb.faults = FaultInjector({"worker_die": {"at": [2]}})
+        rids = [router.submit(p, 16) for p in _dg_prompts(dbm, 8)]
+        _dg_wait(lambda: all(r in done for r in rids))
+        _dg_wait(lambda: decode0.restarts == 1 and decode0.alive)
+        served = decode0.cb.decode_dispatches
+        rids += [router.submit(p, 16) for p in _dg_prompts(dbm, 8)]
+        _dg_wait(lambda: all(r in done for r in rids))
+    finally:
+        router.stop(60)
+    assert len(at_start) == 6 and captures == at_start
+    assert all(w.cb.graph_warmups == {"chunk": 1, "segment": 1}
+               for w in router.workers)
+    assert router.failovers >= 1 and decode0.cb.decode_dispatches > served
+    assert all(done[r].error is None and len(done[r].out) == 16
+               for r in rids)

@@ -286,11 +286,14 @@ def test_cancel_and_disconnect_free_pages(pair, how):
 
 
 def test_slow_consumer_backpressure_pauses_without_corruption(pair):
-    """A consumer slower than the engine trips the bounded bridge: the slot
+    """A consumer behind the engine trips the bounded bridge: the slot
     pauses until the consumer drains (paused steps dispatch and draw
-    nothing), and the tokens still equal the direct step loop's."""
+    nothing), and the tokens still equal the direct step loop's. The cap
+    is one segment's tokens, so the first segment's push engages the pause
+    whatever the relative speeds of engine and consumer."""
     prompt = make_prompts(4, 1)[0]
     max_new = 15
+    cap = CB_KW["seg_len"]
 
     async def main():
         cb = port_batcher(pair, 17)
@@ -304,7 +307,7 @@ def test_slow_consumer_backpressure_pauses_without_corruption(pair):
 
         rid = cb.submit(prompt, max_new)
         stream = TSV.TokenStream(
-            asyncio.get_running_loop(), rid, cap=4, on_pause=on_pause,
+            asyncio.get_running_loop(), rid, cap=cap, on_pause=on_pause,
             on_resume=lambda r: (cb.resume(r), runner.wake()))
         runner.attach(rid, stream)
         ids, done = [], False
@@ -609,11 +612,13 @@ def test_ckpt_dir_serves_jax_saved_blocks(pair, tmp_path):
     assert asyncio.run(main())["ids"] == want
 
 
-@pytest.mark.parametrize("flag,item", [("--disagg", "A7"),
-                                       ("--conditioned", "A6")])
-def test_server_cli_refuses_what_is_not_ported(flag, item):
+@pytest.mark.parametrize("flags,item", [(["--disagg", "--conditioned"],
+                                         "A6"),
+                                        (["--conditioned"], "A6")])
+def test_server_cli_refuses_what_is_not_ported(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        TSV.build_batcher_from_args(_server_args(["--device", "cpu", flag]))
+        TSV.build_batcher_from_args(_server_args(["--device", "cpu",
+                                                  *flags]))
 
 
 def test_server_cli_serves_on_cpu(capsys):
