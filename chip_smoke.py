@@ -49,7 +49,10 @@ Phases, each fatal on failure:
      hd 32, the fp32 kernels' hd-32 instantiations; the Euler step at
      predict's (128, 1, 128) with F the label row of the stream) and the
      MDM's (attention ``full`` B=64 H=12 S=256 hd 64, gate-residual forward
-     and backward (64, 256, 768), fp32);
+     and backward (64, 256, 768), fp32), and llama-3.2-vision-11b's (r):
+     decode KV=8 G=4 hd 128 with the probe's fp32 q over bf16 pages at
+     phase 4's lengths, the bf16 prefill chunk on the tensor cores, the
+     gate-residual forward (8, 1, 4096) fp32;
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -232,7 +235,37 @@ Phases, each fatal on failure:
      resumed, which must fall back past the torn generation and end
      bit-equal to the uninterrupted run (params, moments, step counters,
      history, heartbeats, guard state); and db mode (2 blocks of 2
-     layers) with one ``pod_die`` restart, killed after step 3 of 4.
+     layers) with one ``pod_die`` restart, killed after step 3 of 4;
+ 15. the VLM, last (fatal if more than 1 GiB is still allocated at its
+     start): llama-3.2-vision-11b at full width (40 layers: 8 superblocks
+     of 4 self layers and one tanh-gated cross-attention layer; d=4096,
+     32 heads of 128 on 8 KV heads; 1601 image tokens), ``DEFAULT_DB`` (4
+     blocks of 2 superblocks), random fp32 weights from seed 0 with the
+     AdaLN heads randomised and the cross gates opened (tanh(2)), bf16
+     serving; a registry of 3 images (1601, 4096) fp32 from seed 1.
+     ``cross_attend`` (plain torch) timed at the step's shapes and
+     profiled; the static engine over 8 requests each with an image
+     (prompts as phase 4's, 32 new tokens; wall, TTFT, ms a step, the
+     bound from the shapes; launches 2 x 32 paged decodes and 2 x 40
+     gate-residuals a step, 32 prefills a chunk) and again without images
+     under the same draws (tokens must differ); ``ContinuousBatcher`` on 8
+     slots (page 16, chunk 64, seg_len 16, prefix cache on, graphs): 32
+     ``MarkovLM`` requests of 128-512 tokens, 64 new, 10 with an image
+     (30%), three of them twins submitted once their originals' prompts
+     are in the prefix cache (request 0's text under another image must
+     share no page, request 3's text and image must share, request 0's
+     text without an image shares none); every request complete, no page
+     or image row leaked, launch counts equal to the dispatches'
+     arithmetic, the first 4 segments graphed and eager identical (tokens,
+     pages, image blocks); 4 conditioned requests one at a time through a
+     one-slot ``pages`` router (1 prefill + 1 decode worker, one shared
+     pool) bit-equal to a graphed batcher under the same draws; peak
+     memory printed; then, the full model dropped, 2 superblocks (10
+     layers) at full width in 2 blocks, fp32: 8 requests (5 with an
+     image) for one segment through the kernels and through
+     ``impl="ref"``, logits within 1e-3 relative, greedy tokens equal;
+     memory allocated back within 0.5 GiB of the phase's start with no
+     gc pass.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -314,6 +347,17 @@ SRV_HOST, SRV_MEM_SLACK = "127.0.0.1", 0.5 * 2**30
 DG_DECODE, DG_RESTART_S = 2, 1.0
 DG_DROP_AT, DG_STALL_AT, DG_STALL_OVER_S = 3, 6, 0.1
 DG_COPY_REQUESTS, DG_MEM_SLACK = 4, 0.1 * 2**30
+# the VLM (15): the arch, its cross gates (opened: tanh(2) = 0.96), the
+# image registry (JAX's --cond-pool 3), the conditioned requests of the
+# continuous queue (30%: JAX's cond_frac in table18_load) and its three
+# twins (see vlm_queue), the migrated requests and their new tokens, the
+# layers of a superblock (the fp32 check keeps 2), and the memory the
+# phase may find allocated at its start and leave behind
+VLM_ARCH, VLM_XGATE, VLM_POOL = "llama-3.2-vision-11b", 2.0, 3
+VLM_COND = (0, 3, 6, 10, 13, 16, 20, 23)
+VLM_TWINS = ("other image", "same image", "no image")
+VLM_MIGRATE, VLM_MIGRATE_NEW, VLM_CUT_EVERY = 4, 32, 5
+VLM_MEM_START, VLM_MEM_SLACK = 2**30, 0.5 * 2**30
 
 
 class SmokeError(RuntimeError):
@@ -1125,6 +1169,17 @@ def phase_kernels(dev) -> dict:
     rows["flash_decode"].append(row)
     say(f"[kernels] (o) decode split: {row['ms']:.4f} ms against one block "
         f"a pair {one['ms']:.4f} ms, this run")
+    # (r) llama-3.2-vision-11b's paged shapes (KV=8 G=4 hd 128, phase 15):
+    # the probe's fp32 q over bf16 pages at phase 4's lengths, and the
+    # commit's chunk on the tensor cores
+    rows["flash_decode"].append(paged_case(
+        "(r) decode B=8 KV=8 G=4 hd=128 bf16 pages, fp32 q (VLM probe)",
+        "flash_decode", KV=8, G=4, hd=128, page_dtype=bf16, q_dtype=f32,
+        window=None, lengths=ragged, dev=dev, gen=gen))
+    rows["flash_prefill"].append(paged_case(
+        "(r) prefill C=64 B=8 KV=8 G=4 hd=128 bf16 pages, bf16 q (VLM)",
+        "flash_prefill", KV=8, G=4, hd=128, page_dtype=bf16, q_dtype=bf16,
+        window=None, lengths=starts, dev=dev, gen=gen, C=CHUNK))
     # (c) prefill at stablelm widths (commit_prompt_chunk: bf16 q)
     rows["flash_prefill"].insert(0, paged_case(
         "(c) prefill C=64 B=8 KV=32 G=1 hd=64 bf16 pages, bf16 q",
@@ -1157,6 +1212,10 @@ def phase_kernels(dev) -> dict:
     rows["gate_residual"].append(gate_case(
         "(q) gate_residual (64,256,768) fp32, fp32 gate slice (MDM)",
         (64, 256, 768), f32, f32, dev, gen))
+    # (r) the VLM probe's gates (phase 15: d 4096)
+    rows["gate_residual"].append(gate_case(
+        "(r) gate_residual (8,1,4096) fp32, fp32 gate slice (VLM probe)",
+        (8, 1, 4096), f32, f32, dev, gen))
     return rows
 
 
@@ -1710,14 +1769,24 @@ def cb_drained(tag: str, cb, done, n: int) -> None:
                          f"{cb.total_pages - 1}")
 
 
+def paged_layers(dbm) -> tuple:
+    """(layers over the paged pool, all layers): every layer of a dense
+    model; the VLM's self layers only, its cross layers attending their
+    image blocks in plain torch (``cross_attend``)."""
+    m = dbm.model
+    A = m.n_units * m.k_self if hasattr(m, "k_self") else dbm.cfg.n_layers
+    return A, dbm.cfg.n_layers
+
+
 def cb_counts(dbm, cb) -> dict:
     """Launches of a continuous run from its counters: per segment step a
-    paged decode per layer in the probes and in the commit, and the probes'
-    two gate-residuals per layer; per chunk dispatch a prefill per layer."""
-    L = dbm.cfg.n_layers
-    return expected_counts(flash_decode=2 * L * cb.steps,
+    paged decode per self-attention layer in the probes and in the commit,
+    and the probes' two gate-residuals per layer; per chunk dispatch a
+    prefill per self-attention layer."""
+    A, L = paged_layers(dbm)
+    return expected_counts(flash_decode=2 * A * cb.steps,
                            gate_residual=2 * L * cb.steps,
-                           flash_prefill=L * cb.ingest_dispatches)
+                           flash_prefill=A * cb.ingest_dispatches)
 
 
 def cb_timed(cb) -> dict:
@@ -1770,10 +1839,11 @@ def cb_first_segments(dev, model, prompts, graphs: bool, n_seg: int,
             [s.elapsed_time(e) for s, e in events["chunk"]], busy)
 
 
-def cb_logged(dev, model, prompts, precision, impl, n_seg=2):
-    """Eager run of ``prompts`` until ``n_seg`` segments ran, recording the
-    readout's logits: (batcher, logits of each step (num_slots, vocab),
-    emitted tokens (segments, num_slots, seg_len))."""
+def cb_logged(dev, model, prompts, precision, impl, n_seg=2, auxes=None):
+    """Eager run of ``prompts`` (each with its ``auxes`` entry, where
+    given) until ``n_seg`` segments ran, recording the readout's logits:
+    (batcher, logits of each step (num_slots, vocab), emitted tokens
+    (segments, num_slots, seg_len))."""
     import numpy as np
     dbm = model[0]
     cb = cb_batcher(dev, model, precision=precision, impl=impl,
@@ -1791,8 +1861,8 @@ def cb_logged(dev, model, prompts, precision, impl, n_seg=2):
 
     dbm.model.logits, cb._collect = readout, collected
     try:
-        for p in prompts:
-            cb.submit(p, CB_NEW)
+        for p, aux in zip(prompts, auxes or [None] * len(prompts)):
+            cb.submit(p, CB_NEW, aux_inputs=aux)
         while cb.decode_dispatches < n_seg:
             cb.step()
     finally:
@@ -2024,19 +2094,20 @@ def srv_trace(vocab: int, rate: float, bursty: bool, seed: int) -> list:
 
 
 def srv_ledger(cb) -> tuple:
-    """What a batcher's launches must be, from its counters: (layers,
-    segment steps and segment warm-ups, chunk dispatches and chunk
-    warm-ups)."""
-    return (cb.dbm.cfg.n_layers, cb.steps + cb.graph_warmups["segment"],
+    """What a batcher's launches must be, from its counters: (paged
+    layers, all layers, segment steps and segment warm-ups, chunk
+    dispatches and chunk warm-ups)."""
+    return (*paged_layers(cb.dbm), cb.steps + cb.graph_warmups["segment"],
             cb.ingest_dispatches + cb.graph_warmups["chunk"])
 
 
 def srv_counts(ledger) -> dict:
     """Launches of the batchers in ``ledger`` (see ``cb_counts``; a
     capture's eager warm-up step counts once)."""
-    dec = sum(2 * L * seg for L, seg, _ in ledger)
-    return expected_counts(flash_decode=dec, gate_residual=dec,
-                           flash_prefill=sum(L * ch for L, _, ch in ledger))
+    return expected_counts(
+        flash_decode=sum(2 * A * seg for A, _, seg, _ in ledger),
+        gate_residual=sum(2 * L * seg for _, L, seg, _ in ledger),
+        flash_prefill=sum(A * ch for A, _, _, ch in ledger))
 
 
 async def srv_poll(want, what: str, timeout: float = 60.0) -> None:
@@ -2507,14 +2578,14 @@ def dg_wait(done: dict, rids, what: str, timeout: float = 120.0) -> None:
 
 
 def dg_sequential(router, reqs) -> list:
-    """``reqs`` [(prompt, max_new)] one at a time through ``router``
-    (started here, stopped after): each request's tokens."""
+    """``reqs`` [(prompt, max_new[, aux_inputs])] one at a time through
+    ``router`` (started here, stopped after): each request's tokens."""
     done = dg_collect(router)
     router.start()
     outs = []
     try:
-        for p, n in reqs:
-            rid = router.submit(p, n)
+        for p, n, *aux in reqs:
+            rid = router.submit(p, n, aux_inputs=aux[0] if aux else None)
             dg_wait(done, [rid], f"parity request {rid}")
             r = done[rid]
             if r.error or len(r.out) != n:
@@ -4038,6 +4109,467 @@ def phase_runner(dev) -> dict:
 
 # kernels no main path launches: the samplers run under no_grad, so the
 # Euler backward is held against its plain version in phase 3 only
+# ---------------------------------------------------------------------------
+# 15. the VLM: llama-3.2-vision-11b at full width, conditioned serving
+# ---------------------------------------------------------------------------
+
+def vlm_model(dev, n_layers=None, blocks=None):
+    """llama-3.2-vision-11b (cut to ``n_layers`` in whole superblocks where
+    given) in DEFAULT_DB's blocks (or ``blocks``), random fp32 weights from
+    seed 0, the AdaLN heads randomised and the cross gates opened (``xgate``
+    is zero at init, and tanh(0) = 0 would make every cross layer add
+    nothing). Returns (dbm, params, gen)."""
+    from repro_torch.configs import DEFAULT_DB, get_config
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    cfg = get_config(VLM_ARCH)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    db = (DEFAULT_DB if blocks is None
+          else dataclasses.replace(DEFAULT_DB, num_blocks=blocks))
+    dbm = DiffusionBlocksModel(cfg, db)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dbm.init(gen)
+    for part in ("self", "cross"):
+        for k in ("w", "b"):
+            params["units"][part]["adaln"][k].normal_(0.0, 0.02,
+                                                      generator=gen)
+    params["units"]["cross"]["xgate"].fill_(VLM_XGATE)
+    return dbm, params, gen
+
+
+def vlm_queue(vocab: int, n_images: int):
+    """Phase 15's continuous traffic: CB_REQUESTS ``MarkovLM`` prompts from
+    seed 1 (CB_MIN-CB_MAX tokens), the ones in VLM_COND (30%, JAX's
+    ``cond_frac``) each with an image, round robin over the registry;
+    then VLM_TWINS, submitted once their originals' prompts are in the
+    prefix cache: request 0's text under another image, request 3's text
+    and image, request 0's text with none. Returns ([(prompt, image index
+    or None)] of the first CB_REQUESTS - 3, the three twins)."""
+    import numpy as np
+    from repro_torch.data import MarkovLM
+    lm = MarkovLM(vocab_size=vocab, seed=7)
+    rs = np.random.RandomState(1)
+    n = CB_REQUESTS - len(VLM_TWINS)
+    prompts = [lm.sample(rs, 1, rs.randint(CB_MIN, CB_MAX + 1))[0]
+               for _ in range(n)]
+    cond = {i: j % n_images for j, i in enumerate(VLM_COND)}
+    first = [(p, cond.get(i)) for i, p in enumerate(prompts)]
+    twins = [(prompts[0], (cond[0] + 1) % n_images), (prompts[3], cond[3]),
+             (prompts[0], None)]
+    return first, twins
+
+
+def vlm_bounds(dbm, params, plens, images: int) -> dict:
+    """Least device time of the static run from its shapes (as
+    ``serve_bounds``): a decode step's 4 probes read every unit weight in
+    fp32 plus the fp32 head and σ-MLP, the commit reads the bf16
+    attention+MLP copy; each pass over the 32 self layers reads the
+    slots' committed K/V and each of the 2 passes (probes, commit) every
+    slot's image block (bf16); a prefill chunk reads the bf16 copy, every
+    padded token's K/V row and the image blocks once."""
+    cfg, B = dbm.cfg, BATCH
+    A, _ = paged_layers(dbm)
+    m = dbm.model
+    unit_all = sum(t.numel() for _, t in _leaves(params["units"]))
+    commit = sum(t.numel() for p, t in _leaves(params["units"])
+                 if p[1] in ("attn", "mlp"))
+    head = params["head"]["w"].numel()
+    cond = sum(t.numel() for _, t in _leaves(params["cond"]))
+    kv_row = 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    cross = m.n_units * images * cfg.n_image_tokens * kv_row
+    x_flops = (2 * m.n_units * images * cfg.n_image_tokens * cfg.n_heads
+               * cfg.head_dim * 4)
+    n_chunks = -(-PROMPT // CHUNK)
+    pre = bound(n_chunks * (commit * 2 + cross) + A * B * PROMPT * kv_row,
+                2 * commit * B * n_chunks * CHUNK
+                + n_chunks * CHUNK * x_flops / 2, PEAK_BF16)
+    mean_len = float(sum(plens)) / B + (MAX_NEW - 1) / 2
+    attn_flops = 2 * A * B * mean_len * cfg.n_heads * cfg.head_dim * 4
+    dec = bound(unit_all * 4 + dbm.num_blocks * cond * 4 + head * 4
+                + commit * 2 + 2 * A * B * mean_len * kv_row + 2 * cross,
+                2 * B * (unit_all + head + commit) + attn_flops + x_flops,
+                PEAK_FP32)
+    return {"prefill_ms": pre[0], "prefill_by": pre[1],
+            "decode_step_ms": dec[0], "decode_step_by": dec[1]}
+
+
+def vlm_cross_attend(dev, dbm) -> dict:
+    """``cross_attend`` (plain torch, as JAX's is plain jnp) at the
+    probe's and the commit's shapes: 8 slots, one query a slot, over full
+    1601-token bf16 image blocks; device ms per call by CUDA-graph replay
+    (16 calls, one decode step's: 8 units, probes and commit), its bound
+    (each block read once), and one step's calls under the profiler."""
+    from repro_torch.nn.cache import cross_attend
+    cfg = dbm.cfg
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k, v = (torch.randn((BATCH, cfg.n_image_tokens, cfg.n_kv_heads,
+                         cfg.head_dim), generator=gen, device=dev
+                        ).to(torch.bfloat16) for _ in range(2))
+    lens = torch.full((BATCH,), cfg.n_image_tokens, dtype=torch.int32,
+                      device=dev)
+    out = {}
+    for name, dt in (("probe", torch.float32), ("commit", torch.bfloat16)):
+        q = torch.randn((BATCH, 1, cfg.n_heads, cfg.head_dim),
+                        generator=gen, device=dev).to(dt)
+        ms = device_ms(lambda i: cross_attend(q, k.to(dt), v.to(dt), lens),
+                       1)
+        out[name] = ms
+    nbytes = 2 * k.numel() * k.element_size()
+    b_ms, by = bound(nbytes, 4 * BATCH * cfg.n_heads * cfg.n_image_tokens
+                     * cfg.head_dim, PEAK_FP32)
+    q = torch.randn((BATCH, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                    device=dev)
+    pwall, busy, top = device_busy(lambda: [
+        cross_attend(q, k.float(), v.float(), lens)
+        for _ in range(2 * dbm.model.n_units)], top=6)
+    units = dbm.model.n_units
+    say(f"[vlm] cross_attend (plain torch) at {BATCH} slots x "
+        f"{cfg.n_image_tokens} bf16 image tokens, KV={cfg.n_kv_heads} "
+        f"G={cfg.n_heads // cfg.n_kv_heads} hd {cfg.head_dim}: probe (fp32 "
+        f"q, the block upcast as "
+        f"the layer casts it) {out['probe']:.4f} ms, commit (bf16 q) "
+        f"{out['commit']:.4f} ms a call (CUDA-graph replay) against a "
+        f"bound of {b_ms:.4f} ms ({by}; the block read once); "
+        f"{2 * units} calls a decode step: "
+        f"{units * (out['probe'] + out['commit']):.3f} ms")
+    say(f"[vlm] one step's {2 * units} probe calls under the profiler: "
+        f"device busy {busy:.2f} ms of {pwall:.1f} ms")
+    for ms, count, key in top:
+        say(f"[vlm]   {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+    out.update(bound_ms=b_ms, step_ms=units * (out["probe"] + out["commit"]),
+               profiled_busy_ms=busy)
+    return out
+
+
+def vlm_static(dev, model, pool) -> dict:
+    """The static engine over 8 requests, each with its image (prompts
+    padded to 512, ragged 128-512, chunk 64, 32 new tokens), and the same
+    prompts and draws without images: the tokens must differ."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    dbm, params, gen = model
+    cfg = dbm.cfg
+    A, L = paged_layers(dbm)
+    prompts, plens = prompts_np(cfg.vocab_size)
+    key, images = pool
+    aux = {key: np.stack([images[i % len(images)] for i in range(BATCH)])}
+    eng = get_engine(dbm, precision="bf16", chunk_size=CHUNK)
+    # warm-up at the same shapes, 2 tokens (cuBLAS heuristics, allocator)
+    eng.generate(params, prompts, 2, prompt_lengths=plens, generator=gen,
+                 aux_inputs=aux)
+    eng.last_kv = None
+    z, _ = eng.draw(MAX_NEW, BATCH, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(params, prompts, MAX_NEW, prompt_lengths=plens,
+                       z0=z, aux_inputs=aux)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tim = eng.last_timing
+    expect = expected_counts(flash_decode=MAX_NEW * 2 * A,
+                             gate_residual=MAX_NEW * 2 * L,
+                             flash_prefill=-(-PROMPT // CHUNK) * A)
+    check_counts("vlm static", counts, expect)
+    kv = eng.last_kv
+    for name, t in (("self k", kv["self"].k), ("self v", kv["self"].v),
+                    ("cross k", kv["cross"]["k"]),
+                    ("cross v", kv["cross"]["v"])):
+        if not torch.isfinite(t.float()).all():
+            raise SmokeError(f"vlm static: non-finite {name} after serving")
+    eng.last_kv = kv = None
+    K.reset_launch_counts()
+    bare = eng.generate(params, prompts, MAX_NEW, prompt_lengths=plens,
+                        z0=z)
+    check_counts("vlm static, no images", K.launch_counts(), expect)
+    add_counts(counts, K.launch_counts())
+    eng.last_kv = None
+    got, ref = _generated(out, plens), _generated(bare, plens)
+    if not ((got >= 0) & (got < cfg.vocab_size)).all():
+        raise SmokeError("vlm static: generated token outside the vocabulary")
+    differ = (got != ref).any(dim=1)
+    decode_ms = tim["total_ms"] - tim["prefill_ms"]
+    lb = vlm_bounds(dbm, params, plens, BATCH)
+    say(f"[vlm] static: bf16, greedy, {BATCH} requests each with an image "
+        f"({len(images)} in the registry), prompts padded to {PROMPT} "
+        f"(lengths {plens.tolist()}), chunk {CHUNK}, {MAX_NEW} new tokens")
+    say(f"[vlm] static: wall {wall:.3f} s | {BATCH * MAX_NEW / wall:.1f} "
+        f"tok/s | ttft {tim['ttft_ms']:.1f} ms (conditioning write and "
+        f"prefill {tim['prefill_ms']:.1f} ms) | decode "
+        f"{decode_ms / MAX_NEW:.2f} ms/step | peak memory "
+        f"{peak / 2**30:.2f} GiB | bound from the shapes: prefill "
+        f"{lb['prefill_ms']:.2f} ms ({lb['prefill_by']}), decode "
+        f"{lb['decode_step_ms']:.2f} ms/step ({lb['decode_step_by']})")
+    say(f"[vlm] static: launches {counts} (each run: 2 x {A} paged decodes "
+        f"and 2 x {L} gate-residuals a step, {A} prefills a chunk)")
+    say(f"[vlm] static: the same prompts and draws without images: tokens "
+        f"differ in {int(differ.sum())} of {BATCH} requests")
+    if not differ.any():
+        raise SmokeError("vlm static: conditioning did not change a token")
+    return {"counts": counts, "wall_s": wall, "ttft_ms": tim["ttft_ms"],
+            "prefill_ms": tim["prefill_ms"],
+            "decode_ms_per_step": decode_ms / MAX_NEW, "peak": peak,
+            "bounds": lb}
+
+
+def vlm_batcher_run(dev, model, pool, first, twins, *, graphs=True,
+                    n_seg=None):
+    """A fresh 8-slot batcher (graphs captured first) over ``first``, the
+    twins submitted as interactive requests once requests 0 and 3 have
+    their prompts in the prefix cache; to the end, or until ``n_seg``
+    segments ran. Returns (batcher, requests, capture s, events)."""
+    dbm, params, _ = model
+    key, images = pool
+    cb = cb_batcher(dev, model, graphs=graphs)
+    t0 = time.perf_counter()
+    cb.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    events = cb_timed(cb)
+
+    def aux(i):
+        return None if i is None else {key: images[i]}
+    for p, i in first:
+        cb.submit(p, CB_NEW, aux_inputs=aux(i))
+    reqs = list(cb.queue)
+    pending = list(twins)
+    while cb.has_work() or pending:
+        if pending and reqs[0].registered and reqs[3].registered:
+            for p, i in pending:
+                cb.submit(p, CB_NEW, aux_inputs=aux(i),
+                          priority="interactive")
+            reqs += list(cb.queue)[-len(pending):]
+            pending = []
+        cb.step()
+        if n_seg is not None and cb.decode_dispatches >= n_seg:
+            break
+    torch.cuda.synchronize()
+    return cb, reqs, capture_s, events
+
+
+def vlm_continuous(dev, model, pool) -> dict:
+    """The continuous batcher: the timed run over ``vlm_queue``, then the
+    graph against eager over the first CB_CHECK_SEGMENTS segments."""
+    from repro_torch import kernels as K
+    dbm = model[0]
+    first, twins = vlm_queue(dbm.cfg.vocab_size, len(pool[1]))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cb, reqs, capture_s, events = vlm_batcher_run(dev, model, pool, first,
+                                                  twins)
+    wall = time.perf_counter() - t0 - capture_s
+    counts = K.launch_counts()
+    ledger = [srv_ledger(cb)]
+    check_counts("vlm continuous", counts, srv_counts(ledger))
+    cb_drained("vlm continuous", cb, reqs, CB_REQUESTS)
+    if cb.cond_lengths.any():
+        raise SmokeError(f"vlm continuous: image rows left set "
+                         f"{cb.cond_lengths.tolist()}")
+    other, same, bare = reqs[-3:]
+    say(f"[vlm] continuous: the prefix cache keeps images apart: request "
+        f"0's text under another image shared {other.shared_tokens} "
+        f"tokens, request 3's text and image {same.shared_tokens} (of "
+        f"{len(same.prompt)}), request 0's text without an image "
+        f"{bare.shared_tokens}")
+    if other.shared_tokens or bare.shared_tokens or not same.shared_tokens:
+        raise SmokeError("vlm continuous: prefix pages shared across images, "
+                         "or none for the same text and image")
+    seg_ms = [s.elapsed_time(e) for s, e in events["segment"]]
+    chunk_ms = [s.elapsed_time(e) for s, e in events["chunk"]]
+    in_dispatch = (sum(seg_ms) + sum(chunk_ms)) / (wall * 1e3)
+    ttft = sorted(r.ttft for r in reqs)
+    n_tok = sum(len(r.out) for r in reqs)
+    n_cond = sum(r.aux_inputs is not None for r in reqs)
+    pool_mb = {k: round(v / 1e6, 1)
+               for k, v in cb.kv_stats()["kv_bytes_by_dtype"].items()}
+    say(f"[vlm] continuous: {CB_REQUESTS} requests ({n_cond} with an "
+        f"image) on {CB_SLOTS} slots, bf16, greedy, page {PSZ}, chunk "
+        f"{CHUNK}, seg_len {CB_SEG}, prefix cache on, {CB_NEW} new tokens "
+        f"each; segments replayed from the graph captured in "
+        f"{capture_s:.2f} s (warm-ups {cb.graph_warmups})")
+    say(f"[vlm] continuous: wall {wall:.3f} s | {n_tok / wall:.1f} tok/s | "
+        f"TTFT median {statistics.median(ttft) * 1e3:.1f} ms, max "
+        f"{ttft[-1] * 1e3:.1f} ms | decode {sum(seg_ms) / cb.steps:.3f} ms "
+        f"per segment step ({len(seg_ms)} segments) | chunk dispatch "
+        f"{statistics.median(chunk_ms):.2f} ms median ({len(chunk_ms)}) | "
+        f"inside a dispatch {100 * in_dispatch:.1f}% of the wall (CUDA "
+        f"events) | prefix hits {cb.prefix.hits}, CoW copies "
+        f"{cb.cow_copies} | pool and image blocks MB {pool_mb}")
+    del cb, reqs, events
+    torch.cuda.empty_cache()
+
+    K.reset_launch_counts()
+    runs = [vlm_batcher_run(dev, model, pool, first, [], graphs=g,
+                            n_seg=CB_CHECK_SEGMENTS) for g in (True, False)]
+    outs = [[list(r.out) for r in reqs] for _, reqs, _, _ in runs]
+    add_counts(counts, K.launch_counts())
+    ledger += [srv_ledger(c) for c, _, _, _ in runs]
+    # pages 1 and up (idle slots write the trash page 0) and the blocks
+    pools = [[t.narrow(2, 1, t.shape[2] - 1) for t in
+              (c.kv["self"].k, c.kv["self"].v)] + [c.kv["cross"]["k"],
+                                                  c.kv["cross"]["v"]]
+             for c, _, _, _ in runs]
+    equal = all(torch.equal(a, b) for a, b in zip(*pools))
+    say(f"[vlm] continuous: graph vs eager, first {CB_CHECK_SEGMENTS} "
+        f"segments: tokens {'identical' if outs[0] == outs[1] else 'DIFFER'}"
+        f" ({sum(map(len, outs[0]))} tokens), pools and image blocks "
+        f"{'bit-equal' if equal else 'DIFFER'}")
+    if outs[0] != outs[1] or not equal or not sum(map(len, outs[0])):
+        raise SmokeError("vlm continuous: the graph's segments differ from "
+                         "the eager ones")
+    del runs
+    torch.cuda.empty_cache()
+    check_counts("vlm continuous, all runs", counts, srv_counts(ledger))
+    return {"counts": counts, "wall_s": wall, "tok_s": n_tok / wall,
+            "ttft_median_s": statistics.median(ttft),
+            "segment_step_ms": sum(seg_ms) / max(1, len(seg_ms)) / CB_SEG,
+            "chunk_ms_median": statistics.median(chunk_ms),
+            "in_dispatch": in_dispatch, "capture_s": capture_s}
+
+
+def vlm_migration(dev, model, pool) -> dict:
+    """VLM_MIGRATE conditioned requests one at a time through a
+    one-slot ``pages`` router (1 prefill + 1 decode worker on one shared
+    pool) and through a one-slot graphed batcher under the same generator
+    seed: each request's tokens equal, bit for bit."""
+    from repro_torch import kernels as K
+    key, images = pool
+    first, _ = vlm_queue(model[0].cfg.vocab_size, len(images))
+    reqs = [(p, VLM_MIGRATE_NEW, {key: images[j % len(images)]})
+            for j, (p, _) in enumerate(first[:VLM_MIGRATE])]
+    K.reset_launch_counts()
+    cb = cb_batcher(dev, model, seed=5, num_slots=1)
+    cb.capture()
+    direct = []
+    for p, n, aux in reqs:
+        cb.submit(p, n, aux_inputs=aux)
+        direct.append(cb.run()[0].out)
+    ledger = [srv_ledger(cb)]
+    del cb
+    router = dg_router(model, "pages", num_slots=1, n_decode=1)
+    router.decode_workers[0].cb.generator.manual_seed(5)
+    routed = dg_sequential(router, reqs)
+    whole = dg_whole("vlm migration", router)
+    ledger += [srv_ledger(w.cb) for w in router.workers]
+    migrations = router.migrations
+    del router
+    counts = K.launch_counts()
+    check_counts("vlm migration", counts, srv_counts(ledger))
+    say(f"[vlm] migration: {VLM_MIGRATE} conditioned requests one at a "
+        f"time through a pages router (1 prefill + 1 decode worker, one "
+        f"slot each, one shared pool) "
+        f"{'equal' if routed == direct else 'DIFFER FROM'} a graphed "
+        f"batcher's under the same draws, bit for bit "
+        f"({sum(map(len, direct))} tokens, {migrations} migrations) | pool "
+        f"{whole}")
+    if routed != direct or migrations < VLM_MIGRATE:
+        raise SmokeError(f"vlm migration: routed {routed}, direct {direct}")
+    return {"counts": counts}
+
+
+def vlm_fp32_check(dev, pool) -> dict:
+    """2 superblocks (10 layers) at full width in 2 blocks, fp32: 8 requests
+    (5 with an image) for one segment through the kernels and through
+    ``impl="ref"``; the logits within 1e-3 relative and the greedy tokens
+    equal."""
+    import numpy as np
+    from repro_torch import kernels as K
+    model = vlm_model(dev, n_layers=2 * VLM_CUT_EVERY, blocks=2)
+    key, images = pool
+    first, _ = vlm_queue(model[0].cfg.vocab_size, len(images))
+    few = [p for p, _ in first[:CB_SLOTS]]
+    auxes = [None if j % 3 == 1 else {key: images[j % len(images)]}
+             for j in range(CB_SLOTS)]
+    K.reset_launch_counts()
+    ck, lk, ek = cb_logged(dev, model, few, "fp32", "kernels", n_seg=1,
+                           auxes=auxes)
+    counts = K.launch_counts()
+    check_counts("vlm fp32", counts, cb_counts(model[0], ck))
+    _, lr, er = cb_logged(dev, model, few, "fp32", "ref", n_seg=1,
+                          auxes=auxes)
+    on = ek[0] >= 0
+    rel = max(((lk[t] - lr[t])[on[:, t]].abs().max()
+               / lr[t][on[:, t]].abs().max()).item()
+              for t in range(CB_SEG) if on[:, t].any())
+    equal = bool(np.array_equal(ek, er))
+    say(f"[vlm] fp32 depth cut ({2 * VLM_CUT_EVERY} layers, 2 blocks, full "
+        f"width), {CB_SLOTS} requests ({sum(a is not None for a in auxes)} "
+        f"with an image), one segment, kernels vs plain versions: logits "
+        f"rel max|diff| {rel:.2e} (limit 1e-3) | greedy tokens "
+        f"{'equal' if equal else 'DIFFER'} ({int(on.sum())})")
+    if not (rel <= 1e-3 and math.isfinite(rel)) or not equal:
+        raise SmokeError(f"vlm fp32 cross-check: logits {rel:.2e}, tokens "
+                         f"equal {equal}")
+    return {"counts": counts, "logits_rel": rel}
+
+
+def phase_vlm(dev) -> dict:
+    """Phase 15: llama-3.2-vision-11b at full width (see the module
+    docstring). Runs last: the fp32 masters and their bf16 copy take
+    about 68 GiB."""
+    from repro_torch.launch.serve import conditioning_pool
+    import numpy as np
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    base = torch.cuda.memory_allocated()
+    say(f"[vlm] memory allocated at the phase's start: "
+        f"{base / 2**30:.3f} GiB")
+    if base > VLM_MEM_START:
+        raise SmokeError(f"vlm: {base / 2**30:.2f} GiB still allocated from "
+                         "earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = vlm_model(dev)
+    dbm, params, _ = model
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    cfg = dbm.cfg
+    pool = conditioning_pool(dbm, VLM_POOL, np.random.RandomState(1))
+    say(f"[vlm] {cfg.name}: {cfg.n_layers} layers ({dbm.model.n_units} "
+        f"superblocks of {dbm.model.k_self} self + 1 cross) d={cfg.d_model} "
+        f"heads={cfg.n_heads} kv={cfg.n_kv_heads} hd={cfg.head_dim} "
+        f"ff={cfg.d_ff} vocab={cfg.vocab_size}, {cfg.n_image_tokens} image "
+        f"tokens, {dbm.num_blocks} blocks {dbm.ranges}; {n_params / 1e9:.3f}"
+        f" B params fp32 made in {time.perf_counter() - t0:.1f} s; cross "
+        f"gates tanh({VLM_XGATE}); {VLM_POOL} images ({cfg.n_image_tokens}"
+        f", {cfg.d_model}) fp32 from seed 1")
+    counts = {}
+    xa = vlm_cross_attend(dev, dbm)
+    static = vlm_static(dev, model, pool)
+    add_counts(counts, static["counts"])
+    cont = vlm_continuous(dev, model, pool)
+    add_counts(counts, cont["counts"])
+    mig = vlm_migration(dev, model, pool)
+    add_counts(counts, mig["counts"])
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[vlm] peak memory at full width {peak / 2**30:.2f} GiB (reckoned: "
+        f"55.3 GB fp32 masters + 17.4 GB bf16 copy = 67.7 GiB, plus pools, "
+        f"image blocks and transients) of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}")
+    del model, dbm, params
+    torch.cuda.empty_cache()
+    fp32 = vlm_fp32_check(dev, pool)
+    add_counts(counts, fp32["counts"])
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    left = torch.cuda.memory_allocated()
+    say(f"[vlm] with everything dropped (no gc pass): {left / 2**30:.3f} GiB"
+        f" allocated against {base / 2**30:.3f} GiB at the start")
+    if left - base > VLM_MEM_SLACK:
+        raise SmokeError(f"vlm: {(left - base) / 2**30:.2f} GiB left "
+                         "allocated after the phase")
+    took = time.perf_counter() - t_phase
+    say(f"[vlm] phase 15 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "static": static, "continuous": cont,
+            "cross_attend": xa, "peak": peak, "fp32_rel": fp32["logits_rel"],
+            "seconds": took}
+
+
 OFF_PATH = {"euler_bwd"}
 
 
@@ -4086,12 +4618,14 @@ def main() -> int:
     block_parallel = phase_block_parallel(dev, train)
     phase_block_parallel_crosscheck(dev)
     runner = phase_runner(dev)
+    vlm = phase_vlm(dev)
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
                    two_pass["launches"], dit["launches"],
                    huginn["launches"], vit["launches"], mdm["launches"],
-                   block_parallel["launches"], runner["launches"]):
+                   block_parallel["launches"], runner["launches"],
+                   vlm["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

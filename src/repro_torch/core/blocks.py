@@ -1,7 +1,9 @@
-"""DiffusionBlocks over the dense decoder (port of
+"""DiffusionBlocks over the dense decoder and the VLM (port of
 ``repro.core.blocks``): the block-local training loss of the AR adapter in
-concat or two-pass mode with the CE or l2 loss (``block_loss``), the
-end-to-end baseline (``e2e_loss``), and the sampler over the paged cache.
+concat or two-pass mode with the CE or l2 loss (``block_loss``, dense
+only), the end-to-end baseline (``e2e_loss``), and the sampler over the
+paged cache (both families; the VLM's slots read their image blocks under
+``cond_lengths``).
 
 Training. ``block_loss`` runs block b's units over the clean‖noisy stream
 of length 2S under ``db_concat_mask`` (concat) or over paired clean and
@@ -44,8 +46,9 @@ from repro_torch.configs.base import DBConfig, ModelConfig
 from repro_torch.core import edm
 from repro_torch.core import partition as P
 from repro_torch.models.common import LayerCtx
-from repro_torch.models.transformer import DecoderModel
+from repro_torch.models.model_api import build_model
 from repro_torch.nn import attention as A
+from repro_torch.nn import cache as KVC
 from repro_torch.nn.init import cast_floating
 
 
@@ -95,7 +98,7 @@ class DiffusionBlocksModel:
                  distribution: Optional[Sequence[int]] = None):
         self.cfg = cfg
         self.db = db
-        self.model = DecoderModel(cfg, db)
+        self.model = build_model(cfg, db)
         self.edges = P.sigma_edges(db)                     # descending, B+1
         self.ranges = P.unit_ranges(self.model.n_units, db.num_blocks,
                                     distribution)
@@ -108,16 +111,19 @@ class DiffusionBlocksModel:
         return self.model.init(generator, dtype)
 
     def params_for(self, params, dtype: torch.dtype):
-        """``params`` with the layer weights in ``dtype``: the fp32 masters
-        themselves for fp32, else a copy made on first use and kept while the
-        same master tree is passed (JAX casts inside every matmul)."""
+        """``params`` with the layer weights (the dense ``layers`` or the
+        VLM's ``units``) in ``dtype``: the fp32 masters themselves for fp32,
+        else a copy made on first use and kept while the same master tree is
+        passed (JAX casts inside every matmul)."""
         if dtype == torch.float32:
             return params
         memo = self.__dict__.setdefault("_compute_copies", {})
         hit = memo.get(dtype)
         if hit is None or hit[0] is not params:
-            copy = dict(params, layers=cast_floating(params["layers"], dtype,
-                                                     keep=_KEEP_FP32))
+            copy = dict(params, **{k: cast_floating(params[k], dtype,
+                                                    keep=_KEEP_FP32)
+                                   for k in ("layers", "units")
+                                   if k in params})
             hit = memo[dtype] = (params, copy)
         return hit[1]
 
@@ -259,7 +265,7 @@ class DiffusionBlocksModel:
         h = (c_in * z).to(z.dtype)
         h, _ = self.model.apply_units(self.params_for(params, z.dtype), h,
                                       start, size, ctx,
-                                      cache.units(start, size))
+                                      KVC.cache_units(cache, start, size))
         return h
 
     def denoise_next_token(self, params, cache, ctx_base: LayerCtx,
@@ -326,27 +332,31 @@ class DiffusionBlocksModel:
     # ------------------------------------------------------------------
     # Paged serving steps (used by launch.serve)
     # ------------------------------------------------------------------
-    def _paged_ctx(self, lengths, page_table, active, precision,
-                   impl) -> LayerCtx:
+    def _paged_ctx(self, lengths, page_table, active, precision, impl,
+                   cond_lengths=None) -> LayerCtx:
         return LayerCtx(cfg=self.cfg, mode="decode",
                         precision=precision_mod.get_policy(precision),
                         impl=impl, lengths=lengths, page_table=page_table,
-                        active=active)
+                        active=active, cond_lengths=cond_lengths)
 
     def serve_step_paged(self, params, kv, page_table, lengths, *, z0,
                          noise=None, forced=None, active=None,
                          steps_per_block: int = 1, temperature: float = 0.0,
                          top_k: int = 0, precision=None,
-                         impl: str = "kernels", return_logits: bool = False):
+                         impl: str = "kernels", return_logits: bool = False,
+                         cond_lengths=None):
         """One generation step over the paged cache: each slot denoises from
         ``z0`` (B, 1, d) and commits at its own position ``lengths[b]``;
         inactive slots compute but their appends go to the trash page.
         ``noise`` (B, V) is the sampler's Gumbel noise (temperature > 0).
         Where ``forced`` (B,) is >= 0 the slot commits that token instead of
         its sample (a prompt token of a continuous-batching segment).
-        Returns (token (B,), kv, new_lengths), plus the step's logits (B, V)
-        with ``return_logits``."""
-        ctx = self._paged_ctx(lengths, page_table, active, precision, impl)
+        Conditioned slots read their image block from the cache under
+        ``cond_lengths`` (B,) (written once at admission). Returns (token
+        (B,), kv, new_lengths), plus the step's logits (B, V) with
+        ``return_logits``."""
+        ctx = self._paged_ctx(lengths, page_table, active, precision, impl,
+                              cond_lengths)
         d_final = self.denoise_next_token(params, kv, ctx, steps_per_block,
                                           z0=z0)
         logits = self.model.logits(params, d_final)[:, 0]
@@ -362,22 +372,25 @@ class DiffusionBlocksModel:
 
     def commit_prompt_token(self, params, kv, page_table, lengths, token, *,
                             active=None, precision=None,
-                            impl: str = "kernels"):
+                            impl: str = "kernels", cond_lengths=None):
         """Commit a known (prompt) token (B, 1) at each slot's
         ``lengths[b]`` without the denoising probe: ``commit_token`` in the
         decode mode. Returns (kv, new_lengths)."""
-        ctx = self._paged_ctx(lengths, page_table, active, precision, impl)
+        ctx = self._paged_ctx(lengths, page_table, active, precision, impl,
+                              cond_lengths)
         kv = self.commit_token(params, kv, token, ctx)
         return kv, lengths + (active.to(lengths.dtype)
                               if active is not None else 1)
 
     def commit_prompt_chunk(self, params, kv, page_table, lengths, tokens, *,
-                            n_valid, precision=None, impl: str = "kernels"):
+                            n_valid, precision=None, impl: str = "kernels",
+                            cond_lengths=None):
         """Commit up to C known prompt tokens per slot in one pass: tokens
         (B, C) start at each slot's own ``lengths[b]``; entries past
         ``n_valid[b]`` are padding whose k/v go to the trash page. Returns
         (kv, lengths + n_valid)."""
-        ctx = self._paged_ctx(lengths, page_table, None, precision, impl)
+        ctx = self._paged_ctx(lengths, page_table, None, precision, impl,
+                              cond_lengths)
         ctx.mode = "prefill_chunk"
         ctx.n_valid = n_valid
         cd = precision_mod.get_policy(ctx.precision).compute_for(

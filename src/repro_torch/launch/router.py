@@ -74,7 +74,7 @@ import torch
 from repro_torch.launch.faults import FaultInjector
 from repro_torch.launch.serve import (PRIORITY_CLASSES, AdmissionError,
                                       ContinuousBatcher, Request,
-                                      SharedPagePool, _not_ported)
+                                      SharedPagePool)
 from repro_torch.launch.server import EngineRunner, _weak_method
 from repro_torch.launch.workers import PrefillBatcher, Worker
 from repro_torch.nn import cache as KVC
@@ -90,6 +90,8 @@ class RoutedRequest:
     rid: int
     prompt: np.ndarray
     max_new: int
+    aux_inputs: Optional[dict] = None   # {"image_embs": (Sk, d) fp32}
+    cond_fp: int = 0                    # its conditioning fingerprint
     priority: int = PRIORITY_CLASSES["standard"]
     ttft_deadline: Optional[float] = None
     tpot_deadline_s: Optional[float] = None
@@ -334,9 +336,11 @@ class DisaggRouter:
                tpot_slo_s: Optional[float] = None) -> int:
         """Route a request to a prefill worker; returns its rid. Raises
         ``ValueError`` for a request the workers cannot take and
-        ``AdmissionError`` when admission control sheds it."""
-        if aux_inputs:
-            _not_ported("conditioned requests (aux_inputs)", "A6")
+        ``AdmissionError`` when admission control sheds it. ``aux_inputs``
+        conditions the request as ``ContinuousBatcher.submit``'s do; it
+        travels with every re-prefill, and the image block with every
+        migration (the dense row of the payload)."""
+        aux_inputs = ContinuousBatcher.check_aux(self.dbm, aux_inputs)
         if isinstance(priority, str):
             if priority not in PRIORITY_CLASSES:
                 raise ValueError(f"unknown priority class {priority!r}: "
@@ -376,9 +380,10 @@ class DisaggRouter:
                         self.retry_after_hint())
             rid = self._next_rid
             self._next_rid += 1
-            routed = RoutedRequest(rid, prompt, int(max_new),
-                                   priority=priority,
-                                   tpot_deadline_s=tpot_slo_s)
+            routed = RoutedRequest(
+                rid, prompt, int(max_new), aux_inputs=aux_inputs,
+                cond_fp=KVC.conditioning_fingerprint(aux_inputs),
+                priority=priority, tpot_deadline_s=tpot_slo_s)
             routed.submit_t = time.time()
             if ttft_slo_s is not None:
                 routed.ttft_deadline = routed.submit_t + float(ttft_slo_s)
@@ -394,6 +399,7 @@ class DisaggRouter:
     def _make_inner(self, routed: RoutedRequest, prompt,
                     max_new: int) -> Request:
         inner = Request(routed.rid, np.asarray(prompt, np.int64), max_new,
+                        aux_inputs=routed.aux_inputs, cond_fp=routed.cond_fp,
                         priority=routed.priority,
                         tpot_deadline_s=routed.tpot_deadline_s)
         inner.submit_t = routed.submit_t

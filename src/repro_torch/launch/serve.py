@@ -31,6 +31,9 @@ Run (defaults: the reduced stablelm-1.6b on the card, bf16 policy):
         --prefix-cache
     python -m repro_torch.launch.serve --device cpu --scheduler continuous
     python -m repro_torch.launch.serve --ckpt-dir CKPT   # saved blocks
+    python -m repro_torch.launch.serve --device cpu \
+        --arch llama-3.2-vision-11b --blocks 1 --conditioned \
+        --scheduler continuous           # the VLM, image-conditioned
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from repro_torch.configs import DBConfig, get_config, reduced
 from repro_torch.core.blocks import DiffusionBlocksModel, gumbel
 from repro_torch.data import MarkovLM
 from repro_torch.launch.faults import WorkerDied
+from repro_torch.models.model_api import build_model
 from repro_torch.nn import cache as KVC
 
 DEFAULT_CHUNK = 64
@@ -129,9 +133,11 @@ class DecodeEngine:
         self.last_kv = None       # the paged pool the last generate filled
 
     # ------------------------------------------------------------------
-    def _prefill_chunk1(self, params, kv, table, lengths, prompt_buf, plens):
-        """Commit each slot's next chunk, starting at its own offset.
-        Returns (kv, lengths)."""
+    def _prefill_chunk1(self, params, kv, table, lengths, prompt_buf, plens,
+                        cond_lengths=None):
+        """Commit each slot's next chunk, starting at its own offset; a
+        conditioned family's slots read their image blocks under
+        ``cond_lengths``. Returns (kv, lengths)."""
         Ck = self.chunk_size
         idx = lengths[:, None].long() + torch.arange(Ck, device=lengths.device)
         tok = torch.gather(prompt_buf, 1,
@@ -139,18 +145,21 @@ class DecodeEngine:
         n_valid = torch.clamp(plens - lengths, 0, Ck)
         return self.dbm.commit_prompt_chunk(
             params, kv, table, lengths, tok, n_valid=n_valid,
-            precision=self.pol, impl=self.impl)
+            precision=self.pol, impl=self.impl, cond_lengths=cond_lengths)
 
-    def prefill_scan(self, params, kv, table, lengths, prompts, plens):
+    def prefill_scan(self, params, kv, table, lengths, prompts, plens,
+                     cond_lengths=None):
         """Per-token prefill: one commit per prompt position t, for the
         slots with t < plens[b]. Returns (kv, lengths)."""
         for t in range(prompts.shape[1]):
             kv, lengths = self.dbm.commit_prompt_token(
                 params, kv, table, lengths, prompts[:, t:t + 1],
-                active=t < plens, precision=self.pol, impl=self.impl)
+                active=t < plens, precision=self.pol, impl=self.impl,
+                cond_lengths=cond_lengths)
         return kv, lengths
 
-    def run_prefill(self, params, kv, table, lengths, prompts, plens):
+    def run_prefill(self, params, kv, table, lengths, prompts, plens,
+                    cond_lengths=None):
         """The configured prefill of a whole (padded) prompt buffer:
         ceil(S0 / C) chunk steps, or S0 per-token steps. Returns (kv,
         lengths)."""
@@ -159,11 +168,12 @@ class DecodeEngine:
             n_chunks = -(-S0 // self.chunk_size)
             for _ in range(n_chunks):
                 kv, lengths = self._prefill_chunk1(params, kv, table, lengths,
-                                                   prompts, plens)
+                                                   prompts, plens,
+                                                   cond_lengths)
             self.prefill_steps += n_chunks
         else:
             kv, lengths = self.prefill_scan(params, kv, table, lengths,
-                                            prompts, plens)
+                                            prompts, plens, cond_lengths)
             self.prefill_steps += S0
         self.dispatches += 1
         return kv, lengths
@@ -185,15 +195,16 @@ class DecodeEngine:
         return z, noise
 
     def _serve(self, params, kv, table, lengths, prompt_buf, plens, stop_at,
-               active, z, noise=None):
+               active, z, noise=None, cond_lengths=None):
         """A segment of n = ``z.shape[0]`` serve steps. A slot takes a step
         while ``active`` and lengths < stop_at; it commits its next prompt
         token while lengths < plens, else the token it samples. ``z`` (n, B,
         1, d) holds each step's initial z; ``noise`` (n, B, vocab) the
-        sampling noise, needed when temperature > 0. Makes no random draw
-        and no host sync, so a CUDA graph can capture it. Returns (kv,
-        lengths, emitted (B, n): the generated tokens, -1 where a slot
-        emitted nothing)."""
+        sampling noise, needed when temperature > 0; ``cond_lengths`` (B,)
+        the valid tokens of each slot's image block (conditioned families).
+        Makes no random draw and no host sync, so a CUDA graph can capture
+        it. Returns (kv, lengths, emitted (B, n): the generated tokens, -1
+        where a slot emitted nothing)."""
         last = prompt_buf.shape[1] - 1
         emitted = []
         for t in range(z.shape[0]):
@@ -207,13 +218,14 @@ class DecodeEngine:
                 forced=torch.where(in_prompt, ptok[:, 0], -1), active=act,
                 steps_per_block=self.steps_per_block,
                 temperature=self.temperature, top_k=self.top_k,
-                precision=self.pol, impl=self.impl)
+                precision=self.pol, impl=self.impl,
+                cond_lengths=cond_lengths)
             emitted.append(torch.where(act & ~in_prompt, tok, -1))
         return kv, lengths, torch.stack(emitted, dim=1)
 
     def decode(self, params, kv, table, lengths, stop_at, n: int, *,
                z0=None, noise=None, generator=None,
-               marks: Optional[_Marks] = None):
+               marks: Optional[_Marks] = None, cond_lengths=None):
         """n serve steps past the prompt: ``_serve`` with every slot active;
         slot b commits while lengths[b] < stop_at[b]. ``z0`` (n, B, 1, d)
         and ``noise`` (n, B, vocab) inject the draws, else ``draw`` makes
@@ -233,7 +245,8 @@ class DecodeEngine:
                 continue
             kv, lengths, tok = self._serve(
                 params, kv, table, lengths, no_prompt, plens, stop_at, active,
-                z[steps], None if noise is None else noise[steps])
+                z[steps], None if noise is None else noise[steps],
+                cond_lengths)
             toks.append(tok)
             if steps.start == 0 and marks is not None:
                 marks.mark("first_token")
@@ -243,13 +256,19 @@ class DecodeEngine:
     def generate(self, params, prompts, max_new: int, *,
                  prompt_lengths=None, page_size: int = KVC.DEFAULT_PAGE_SIZE,
                  z0=None, noise=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 aux_inputs=None, cond_lengths=None):
         """prompts: (B, S0) token ids, right-padded when ``prompt_lengths``
         is ragged -> (B, S0 + max_new) int64 on the CPU; row b holds its
         prompt, then its ``max_new`` tokens from ``prompt_lengths[b]`` on.
         Runs on the device of ``params``. ``z0`` (max_new, B, 1, d) injects
         each step's initial z and ``noise`` (max_new, B, vocab) its
-        sampling noise; else they come from ``generator``."""
+        sampling noise; else they come from ``generator``.
+
+        ``aux_inputs`` ({"image_embs": (B, Sk, d)}) is encoded once and
+        written into every slot's image block before prefill; the steps read
+        it under ``cond_lengths`` (B,) (default: Sk for every row; a
+        conditioned family without aux inputs reads none)."""
         device = params["embed"]["table"].device
         pr = np.asarray(prompts)
         B, S0 = pr.shape
@@ -264,13 +283,14 @@ class DecodeEngine:
         lengths = torch.zeros((B,), dtype=torch.int32, device=device)
         marks = _Marks(device)
         marks.mark("start")
+        clens = self._conditioning(params, kv, B, aux_inputs, cond_lengths)
         kv, lengths = self.run_prefill(params, kv, table, lengths, prompt_buf,
-                                       plens)
+                                       plens, clens)
         marks.mark("prefilled")
         kv, lengths, gen = self.decode(params, kv, table, lengths,
                                        plens + max_new, max_new, z0=z0,
                                        noise=noise, generator=generator,
-                                       marks=marks)
+                                       marks=marks, cond_lengths=clens)
         marks.mark("end")
         gen = gen.cpu().numpy()          # waits for the device
         self.last_timing = {"prefill_ms": marks.ms("start", "prefilled"),
@@ -282,6 +302,39 @@ class DecodeEngine:
             out[b, :pl[b]] = pr[b, :pl[b]]
             out[b, pl[b]:pl[b] + max_new] = gen[b]
         return torch.from_numpy(out)
+
+    def _conditioning(self, params, kv, B: int, aux_inputs, cond_lengths):
+        """Write every slot's image block from ``aux_inputs`` (B, Sk, d)
+        before prefill, as JAX's engine does. Returns the steps'
+        ``cond_lengths``: None for an unconditioned family, zeros for a
+        conditioned one served without aux inputs."""
+        model = self.dbm.model
+        device = params["embed"]["table"].device
+        if not aux_inputs:
+            return (torch.zeros((B,), dtype=torch.int32, device=device)
+                    if model.max_cond_tokens else None)
+        aux = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+               for k, v in aux_inputs.items()}
+        cond = model.encode_conditioning(params, aux)
+        if cond is None:
+            spec = model.aux_input_specs(B)
+            raise ValueError(
+                f"aux_inputs {sorted(aux_inputs)} not understood by family "
+                f"{self.dbm.cfg.family!r}: expected "
+                f"{sorted(spec) if spec else 'no aux inputs'}")
+        if cond_lengths is not None and not model.cond_padding_safe:
+            raise ValueError(
+                "ragged cond_lengths through the static batch is unsound for "
+                f"family {self.dbm.cfg.family!r}: its frontend mixes padded "
+                "rows into every row. Serve ragged conditioning through "
+                "ContinuousBatcher.submit, which encodes each request at its "
+                "true length.")
+        model.set_conditioning(params, kv, cond)
+        if cond_lengths is None:
+            return torch.full((B,), cond.shape[1], dtype=torch.int32,
+                              device=device)
+        return torch.as_tensor(np.asarray(cond_lengths), dtype=torch.int32,
+                               device=device)
 
 
 _ENGINE_DEFAULTS = dict(steps_per_block=1, temperature=0.0, top_k=0,
@@ -307,17 +360,20 @@ def generate(dbm, params, prompts, max_new: int, steps_per_block: int = 1,
              top_k: int = 0, precision="bf16", kv_dtype=None,
              impl: str = "kernels", page_size: int = KVC.DEFAULT_PAGE_SIZE,
              prefill: str = "chunked", chunk_size: int = DEFAULT_CHUNK,
-             z0=None, noise=None, generator=None):
+             z0=None, noise=None, generator=None, aux_inputs=None,
+             cond_lengths=None):
     """prompts: (B, S0) -> (B, S0 + max_new): prefill (chunked, or the
     per-token reference), then the denoise → sample → commit loop over the
-    paged cache (see ``DecodeEngine.generate``)."""
+    paged cache, conditioned on ``aux_inputs`` where given (see
+    ``DecodeEngine.generate``)."""
     eng = get_engine(dbm, steps_per_block=steps_per_block,
                      temperature=temperature, top_k=top_k,
                      precision=precision, kv_dtype=kv_dtype, impl=impl,
                      prefill=prefill, chunk_size=chunk_size)
     return eng.generate(params, prompts, max_new,
                         prompt_lengths=prompt_lengths, page_size=page_size,
-                        z0=z0, noise=noise, generator=generator)
+                        z0=z0, noise=noise, generator=generator,
+                        aux_inputs=aux_inputs, cond_lengths=cond_lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -328,10 +384,6 @@ def generate(dbm, params, prompts, max_new: int, steps_per_block: int = 1,
 # queued request; preemption for an admission spills only strictly
 # lower-priority work.
 PRIORITY_CLASSES = {"batch": 0, "standard": 1, "interactive": 2}
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what}: not ported yet (ROADMAP {item})")
 
 
 class AdmissionError(RuntimeError):
@@ -350,6 +402,7 @@ class Request:
     rid: int
     prompt: np.ndarray
     max_new: int
+    aux_inputs: Optional[dict] = None   # {"image_embs": (Sk, d) fp32}
     cond_fp: int = 0              # conditioning fingerprint (0 = none)
     out: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
@@ -430,14 +483,16 @@ def _host(x) -> np.ndarray:
 class SharedPagePool:
     """ONE physical page pool shared by several batchers (disaggregated
     prefill/decode with page-handle migration): the free list, the refcount
-    map, the pool's tensors and one lock are common; each batcher keeps its
-    own page table and slots. A page a prefill worker hands to a decode
-    worker is visible there without a byte copied: the request carries only
-    the physical page ids (``Request.handoff_pages``).
+    map, the pool's paged tensors and one lock are common; each batcher
+    keeps its own page table, slots and dense per-slot state (the VLM's
+    image blocks). A page a prefill worker hands to a decode worker is
+    visible there without a byte copied: the request carries only the
+    physical page ids (``Request.handoff_pages``) and its dense rows.
 
     JAX pulls and publishes the pool's leaves around every step; here the
     tensors are written in place, so the first batcher makes them and every
-    later one takes the same tensors at construction, before any capture.
+    later one grafts the same PagedKV leaves into its own cache tree at
+    construction (JAX's graft), before any capture.
     ``lock`` serializes the sharers' steps on the host. On the card every
     dispatch ends in a readback on the batcher's stream and starts by
     waiting for the default stream (where copy-on-write, restore and spill
@@ -449,30 +504,40 @@ class SharedPagePool:
         self.free_pages: List[int] = list(range(1, self.total_pages))
         self.page_refs: dict = {}
         self.lock = threading.RLock()
-        self.kv = None               # the pool's tensors, made by the first
+        # the shared part of the first sharer's cache: its PagedKV leaves
+        # (the whole cache of a purely paged family)
+        self.kv = None
         self._spec = None            # (cfg, page size, kv dtype, device)
 
-    def join(self, dbm, policy, page_size: int, device) -> "KVC.PagedKV":
-        """The pool's tensors for one more batcher: made by the first, the
-        same tensors for every later one, which must serve the same model
-        with the same page size, KV dtype and device."""
+    def join(self, dbm, policy, page_size: int, device,
+             num_slots: int):
+        """One more batcher's cache: the first makes the pool, every later
+        one builds its own dense per-slot leaves (over a one-page pool of
+        its own, dropped at once) and takes the pool's PagedKV leaves in
+        place of its pages. All must serve the same model with the same
+        page size, KV dtype and device."""
         if not dbm.model.kv_carries_all_state:
             raise ValueError(
                 f"a SharedPagePool shares paged KV only; family "
-                f"{dbm.cfg.family!r} keeps per-slot state outside the pages")
+                f"{dbm.cfg.family!r} keeps sequence state outside the pages")
         spec = (dbm.cfg, page_size, KVC.resolve_kv_dtype(policy.kv),
                 torch.device(device))
         if self.kv is None:
-            self.kv = dbm.model.init_paged_cache(0, self.total_pages,
-                                                 page_size, policy,
-                                                 device=device)
+            kv = dbm.model.init_paged_cache(num_slots, self.total_pages,
+                                            page_size, policy, device=device)
+            dense = dbm.model.paged_state_axes
+            self.kv = kv if isinstance(kv, KVC.PagedKV) else {
+                k: v for k, v in kv.items() if k not in dense}
             self._spec = spec
-        elif spec != self._spec:
+            return kv
+        if spec != self._spec:
             raise ValueError(
                 "batchers sharing a pool must serve the same model with the "
                 f"same page_size, kv dtype and device: {spec[1:]} against "
                 f"{self._spec[1:]}")
-        return self.kv
+        own = dbm.model.init_paged_cache(num_slots, 1, page_size, policy,
+                                         device=device)
+        return KVC.graft_paged(own, KVC.paged_leaves(self.kv))
 
 
 class ContinuousBatcher:
@@ -526,8 +591,16 @@ class ContinuousBatcher:
     ``shared_pool`` (a ``SharedPagePool``) puts several batchers on one
     pool: ``_detach_slot`` hands a slot's pages to its request
     (``handoff_pages``) and the admission of another sharer maps them (the
-    page-handle migration of ``launch.router``). Not ported yet, and
-    refused: conditioned requests (ROADMAP A6).
+    page-handle migration of ``launch.router``).
+
+    Conditioned requests (a family with ``max_cond_tokens``, the VLM):
+    ``submit(aux_inputs={"image_embs": (Sk, d)})`` fingerprints the image
+    for the prefix cache; admission writes the slot's image block once
+    (``_write_conditioning``, in place, on the stepping thread's stream,
+    which every dispatch waits for) and every dispatch reads it under
+    ``cond_lengths`` (0 for an unconditioned slot, whose cross term is
+    exactly 0). The block travels with a spilled or migrated request as
+    the dense row of its snapshot.
     """
 
     def __init__(self, dbm, params, *, num_slots: int = 8,
@@ -576,6 +649,9 @@ class ContinuousBatcher:
         self.total_pages = (1 + num_slots * pps + cow_spare
                             if total_pages is None else total_pages)
         self._shared = shared_pool
+        # a family with per-slot image blocks: every dispatch reads them
+        # under ``cond_lengths``
+        self.conditioned = dbm.model.max_cond_tokens > 0
         if shared_pool is None:
             self.kv = dbm.model.init_paged_cache(num_slots, self.total_pages,
                                                  page_size, self.eng.pol,
@@ -589,7 +665,7 @@ class ContinuousBatcher:
             # one free list, refcount map, pool and lock for every sharer
             self.total_pages = shared_pool.total_pages
             self.kv = shared_pool.join(dbm, self.eng.pol, page_size,
-                                       self.device)
+                                       self.device, num_slots)
             self.free_pages = shared_pool.free_pages
             self.page_refs = shared_pool.page_refs
             self._pool_lock = shared_pool.lock
@@ -601,6 +677,7 @@ class ContinuousBatcher:
         self.stop_at = np.zeros(num_slots, np.int32)
         self.active = np.zeros(num_slots, bool)
         self.prompt_buf = np.zeros((num_slots, max_prompt), np.int64)
+        self.cond_lengths = np.zeros(num_slots, np.int32)   # image tokens
         self.slot_req: List[Optional[Request]] = [None] * num_slots
         self.queue: collections.deque = collections.deque()
         self._next_rid = 0
@@ -643,9 +720,10 @@ class ContinuousBatcher:
         SLOs in seconds. Raises ``AdmissionError`` when admission control
         sheds the request: the backlog counted against ``max_queue`` is
         the queued work at or above this priority, so under mixed overload
-        the low classes shed first."""
-        if aux_inputs:
-            _not_ported("conditioned requests (aux_inputs)", "A6")
+        the low classes shed first. ``aux_inputs`` ({"image_embs": (Sk,
+        d)}, no batch axis) conditions the request; the family must take
+        conditioning and Sk fit its block."""
+        aux_inputs = self.check_aux(self.dbm, aux_inputs)
         if isinstance(priority, str):
             if priority not in PRIORITY_CLASSES:
                 raise ValueError(f"unknown priority class {priority!r}: "
@@ -682,14 +760,38 @@ class ContinuousBatcher:
                     self.retry_after_hint())
             rid = self._next_rid
             self._next_rid += 1
-        req = Request(rid, prompt, max_new, priority=priority,
-                      tpot_deadline_s=tpot_slo_s)
+        req = Request(rid, prompt, max_new, aux_inputs=aux_inputs,
+                      cond_fp=KVC.conditioning_fingerprint(aux_inputs),
+                      priority=priority, tpot_deadline_s=tpot_slo_s)
         req.submit_t = time.time()
         if ttft_slo_s is not None:
             req.ttft_deadline = req.submit_t + float(ttft_slo_s)
         with self._lock:
             self.queue.append(req)
         return rid
+
+    @staticmethod
+    def check_aux(dbm, aux_inputs) -> Optional[dict]:
+        """``aux_inputs`` as fp32 numpy arrays, or None for none; raises
+        ``ValueError`` for an unconditioned family, a shape other than (Sk,
+        d_model) or Sk over the block's capacity."""
+        if not aux_inputs:
+            return None
+        cap = dbm.model.max_cond_tokens
+        if cap == 0:
+            raise ValueError(f"family {dbm.cfg.family!r} takes no aux "
+                             "conditioning inputs")
+        out = {}
+        for k, v in aux_inputs.items():
+            v = np.asarray(v.cpu() if torch.is_tensor(v) else v, np.float32)
+            if v.ndim != 2 or v.shape[1] != dbm.cfg.d_model:
+                raise ValueError(f"{k}: expected (Sk, {dbm.cfg.d_model}), "
+                                 f"got {v.shape}")
+            if v.shape[0] > cap:
+                raise ValueError(f"{k}: {v.shape[0]} tokens exceed the "
+                                 f"conditioning block capacity {cap}")
+            out[k] = v
+        return out
 
     def submit_request(self, req: Request) -> None:
         """Enqueue a pre-built ``Request`` untouched (a spilled one restores
@@ -700,8 +802,9 @@ class ContinuousBatcher:
     def kv_stats(self) -> dict:
         """The pool's storage dtype and bytes, in total and by dtype (an
         int8 pool reports its fp32 scales)."""
-        return {"kv_dtype": str(self.kv.k.dtype).replace("torch.", ""),
-                "kv_quantized": self.kv.quantized,
+        pages = KVC.paged_leaves(self.kv)[0]
+        return {"kv_dtype": str(pages.k.dtype).replace("torch.", ""),
+                "kv_quantized": pages.quantized,
                 "kv_bytes": KVC.cache_bytes(self.kv),
                 "kv_bytes_by_dtype": KVC.cache_bytes_by_dtype(self.kv)}
 
@@ -976,7 +1079,25 @@ class ContinuousBatcher:
         for s, req, restoring in admitted:    # after the reset
             if restoring:
                 self._restore_into_slot(s, req)
+            else:
+                self._write_conditioning(s, req)
         return int(new_slots.sum())
+
+    def _write_conditioning(self, slot: int, req: Request) -> None:
+        """Write a newly admitted request's image block into ``slot``'s row
+        once, in place, on this thread's stream (every dispatch waits for
+        it), and set the slot's ``cond_lengths``."""
+        if req.aux_inputs is None:
+            self.cond_lengths[slot] = 0
+            return
+        aux = {k: torch.from_numpy(v)[None].to(self.device)
+               for k, v in req.aux_inputs.items()}
+        model = self.dbm.model
+        model.set_conditioning(self.params, self.kv,
+                               model.encode_conditioning(self.params, aux),
+                               slot)
+        self.cond_lengths[slot] = next(iter(req.aux_inputs.values())
+                                       ).shape[0]
 
     def _register_prefixes(self) -> None:
         """Insert freshly prefilled prompts' pages into the prefix cache
@@ -1000,6 +1121,7 @@ class ContinuousBatcher:
         self.table[s, :] = KVC.TRASH_PAGE
         self.active[s] = False
         self.lengths[s] = self.plens[s] = self.stop_at[s] = 0
+        self.cond_lengths[s] = 0
         self.slot_req[s] = None
 
     def _spill_slot(self, s: int) -> Request:
@@ -1010,7 +1132,8 @@ class ContinuousBatcher:
         n_used = KVC.pages_for(int(self.lengths[s]), self.page_size)
         used = [int(self.table[s, i]) for i in range(n_used)]
         req.spilled = KVC.spill_slot(self.kv, s, used, self._axes)
-        req.spill_meta = dict(length=int(self.lengths[s]))
+        req.spill_meta = dict(length=int(self.lengths[s]),
+                              cond_length=int(self.cond_lengths[s]))
         self._release_pages(req.pages)
         req.pages = []
         self._clear_slot_row(s)
@@ -1027,7 +1150,8 @@ class ContinuousBatcher:
         n_used = KVC.pages_for(int(self.lengths[s]), self.page_size)
         req.handoff_pages = [int(self.table[s, i]) for i in range(n_used)]
         req.spilled = KVC.spill_slot(self.kv, s, [], self._axes)
-        req.spill_meta = dict(length=int(self.lengths[s]))
+        req.spill_meta = dict(length=int(self.lengths[s]),
+                              cond_length=int(self.cond_lengths[s]))
         self._release_pages(req.pages[n_used:])
         req.pages = []
         self._clear_slot_row(s)
@@ -1058,6 +1182,7 @@ class ContinuousBatcher:
         n = req.spilled.n_pages
         KVC.restore_slot(self.kv, s, req.pages[:n], req.spilled, self._axes)
         self.lengths[s] = req.spill_meta["length"]
+        self.cond_lengths[s] = req.spill_meta.get("cond_length", 0)
         req.spilled = req.spill_meta = None
         req.handoff_pages = None
         self.restores += 1
@@ -1226,11 +1351,14 @@ class ContinuousBatcher:
             return self._graphs[name]
         S, dev = self.num_slots, self.device
         inputs = {k: torch.zeros_like(self._device(getattr(self, k)))
-                  for k in _INPUTS[name] if k != "active"}
+                  for k in _INPUTS[name] + self._cond_inputs
+                  if k != "active"}
+        cond = {k: inputs[k] for k in self._cond_inputs}
         if name == "chunk":
             def call(_):
                 return self.eng._prefill_chunk1(
-                    self.params, self.kv, *(inputs[k] for k in _INPUTS[name]))
+                    self.params, self.kv, *(inputs[k] for k in _INPUTS[name]),
+                    **cond)
         else:
             inputs["active"] = torch.zeros(S, dtype=torch.bool, device=dev)
             inputs["z"] = torch.zeros(
@@ -1244,7 +1372,8 @@ class ContinuousBatcher:
                 g = inputs["noise"]
                 return self.eng._serve(
                     self.params, self.kv, *(inputs[k] for k in _INPUTS[name]),
-                    inputs["z"][:steps], None if g is None else g[:steps])
+                    inputs["z"][:steps], None if g is None else g[:steps],
+                    **cond)
 
         cur = torch.cuda.current_stream(dev)
         self.stream.wait_stream(cur)
@@ -1274,19 +1403,21 @@ class ContinuousBatcher:
         from repro_torch import kernels as K
         if not self.graphs:
             args = [self._device(host[k]) for k in _INPUTS[name]]
+            cond = {k: self._device(host[k]) for k in self._cond_inputs}
             if name == "chunk":
                 return self.eng._prefill_chunk1(self.params, self.kv,
-                                                 *args)[1:]
+                                                 *args, **cond)[1:]
             return self.eng._serve(
                 self.params, self.kv, *args,
                 torch.as_tensor(z, dtype=torch.float32, device=self.device),
                 None if noise is None else torch.as_tensor(
-                    noise, dtype=torch.float32, device=self.device))[1:]
+                    noise, dtype=torch.float32, device=self.device),
+                **cond)[1:]
         g = self._graph(name)
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
-            for k in _INPUTS[name]:
+            for k in _INPUTS[name] + self._cond_inputs:
                 g.inputs[k].copy_(torch.from_numpy(host[k]))
             if name == "segment":
                 g.inputs["z"].copy_(z)
@@ -1298,11 +1429,18 @@ class ContinuousBatcher:
         K.add_launch_counts(g.launches)
         return out
 
+    @property
+    def _cond_inputs(self) -> tuple:
+        """The host array a conditioned family's dispatches also read (a
+        keyword argument of the engine's calls)."""
+        return ("cond_lengths",) if self.conditioned else ()
+
     def _chunk(self) -> np.ndarray:
         """One prefill-chunk dispatch; returns the host lengths."""
         lengths, = self._dispatch("chunk", dict(
             table=self.table, lengths=self.lengths,
-            prompt_buf=self.prompt_buf, plens=self.plens))
+            prompt_buf=self.prompt_buf, plens=self.plens,
+            cond_lengths=self.cond_lengths))
         return _host(lengths).astype(np.int32)
 
     def _decode_segment(self, active: np.ndarray):
@@ -1312,7 +1450,8 @@ class ContinuousBatcher:
         lengths, emitted = self._dispatch("segment", dict(
             table=self.table, lengths=self.lengths,
             prompt_buf=self.prompt_buf, plens=self.plens,
-            stop_at=self.stop_at, active=active), z, noise)
+            stop_at=self.stop_at, active=active,
+            cond_lengths=self.cond_lengths), z, noise)
         return _host(lengths).astype(np.int32), _host(emitted)
 
     # ---- the loop ------------------------------------------------------
@@ -1437,7 +1576,7 @@ def load_model(args, device: torch.device):
     make the serving draws."""
     cfg = get_config(args.arch)
     cfg = cfg if args.full else reduced(cfg)
-    db = DBConfig(num_blocks=min(args.blocks, cfg.n_layers),
+    db = DBConfig(num_blocks=min(args.blocks, build_model(cfg).n_units),
                   overlap_gamma=0.1)
     dbm = DiffusionBlocksModel(cfg, db)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -1445,6 +1584,19 @@ def load_model(args, device: torch.device):
     if args.ckpt_dir:
         load_blocks(args.ckpt_dir, params, dbm.ranges)
     return cfg, dbm, params, gen
+
+
+def conditioning_pool(dbm, n: int, rs: np.random.RandomState):
+    """(aux key, ``n`` conditioning inputs (Sk, d) fp32 from ``rs``) for
+    ``--conditioned``, as JAX's CLIs draw them; exits for a family that
+    takes no aux inputs."""
+    specs = dbm.model.aux_input_specs(1)
+    if not specs:
+        raise SystemExit(f"--conditioned: family {dbm.cfg.family!r} takes "
+                         "no aux inputs (pick a vlm arch)")
+    Sk = dbm.model.max_cond_tokens
+    return next(iter(specs)), [rs.randn(Sk, dbm.cfg.d_model).astype(
+        np.float32) for _ in range(n)]
 
 
 def add_model_args(ap: argparse.ArgumentParser) -> None:
@@ -1494,6 +1646,12 @@ def main(argv=None):
                     help="continuous: queued requests")
     ap.add_argument("--ragged", action="store_true",
                     help="vary prompt lengths across the batch/queue")
+    ap.add_argument("--conditioned", action="store_true",
+                    help="attach image conditioning (vlm archs): random "
+                         "embeddings from a small pool, so the "
+                         "conditioning-aware prefix cache can hit")
+    ap.add_argument("--cond-pool", type=int, default=3,
+                    help="distinct conditioning inputs in the pool")
     args = ap.parse_args(argv)
 
     device = cli_device(args.device)
@@ -1501,6 +1659,8 @@ def main(argv=None):
 
     lm = MarkovLM(vocab_size=cfg.vocab_size, seed=7)
     rs = np.random.RandomState(1)
+    aux_key, pool = (conditioning_pool(dbm, args.cond_pool, rs)
+                     if args.conditioned else (None, []))
     kw = dict(steps_per_block=args.steps_per_block,
               temperature=args.temperature, top_k=args.top_k,
               precision=args.precision, kv_dtype=args.kv_dtype,
@@ -1513,11 +1673,13 @@ def main(argv=None):
         if args.ragged:
             plens = rs.randint(max(2, args.prompt_len // 2),
                                args.prompt_len + 1, size=args.batch)
+        aux = (None if aux_key is None else
+               {aux_key: np.stack([pool[0]] * args.batch)})
         eng = get_engine(dbm, **kw)
         t0 = time.perf_counter()
         out = eng.generate(params, prompts, args.max_new,
                            prompt_lengths=plens, page_size=args.page_size,
-                           generator=gen)
+                           generator=gen, aux_inputs=aux)
         dt = time.perf_counter() - t0
         n_tok = args.batch * args.max_new
         print(f"[static] {cfg.name} on {device}: generated {args.batch}x"
@@ -1539,11 +1701,13 @@ def main(argv=None):
                                seg_len=args.seg_len,
                                prefix_cache=args.prefix_cache,
                                generator=gen, **kw)
-        for _ in range(args.requests):
+        for i in range(args.requests):
             plen = (rs.randint(max(2, args.prompt_len // 2),
                                args.prompt_len + 1)
                     if args.ragged else args.prompt_len)
-            cb.submit(lm.sample(rs, 1, plen)[0], args.max_new)
+            aux = None if aux_key is None else {aux_key: pool[i % len(pool)]}
+            cb.submit(lm.sample(rs, 1, plen)[0], args.max_new,
+                      aux_inputs=aux)
         t0 = time.perf_counter()
         done = cb.run()
         dt = time.perf_counter() - t0

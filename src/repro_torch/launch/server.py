@@ -2,7 +2,8 @@
 ``repro.launch.server``; same routes, wire format and client helpers).
 
   * ``POST /v1/generate``: a JSON request (prompt token ids, ``max_new``,
-    optional ``priority``, ``ttft_slo_ms``, ``tpot_slo_ms``) answered as a
+    optional ``priority``, ``ttft_slo_ms``, ``tpot_slo_ms``, and ``aux``,
+    the name of a registered conditioning input) answered as a
     Server-Sent Events stream: one ``token`` event per decode segment, then
     a ``done`` event with the whole output, or an ``error`` event. With
     ``"stream": false`` one JSON response instead.
@@ -40,6 +41,8 @@ widths, ``--device cpu`` for the plain versions):
     python -m repro_torch.launch.server --device cpu --ckpt-dir CKPT
     python -m repro_torch.launch.server --device cpu --disagg \\
         --handoff pages --decode-workers 2
+    python -m repro_torch.launch.server --device cpu \\
+        --arch llama-3.2-vision-11b --blocks 1 --conditioned
 """
 from __future__ import annotations
 
@@ -56,8 +59,9 @@ import numpy as np
 import torch
 
 from repro_torch.launch.serve import (PRIORITY_CLASSES, AdmissionError,
-                                      ContinuousBatcher, Request, _not_ported,
-                                      add_model_args, cli_device, load_model)
+                                      ContinuousBatcher, Request,
+                                      add_model_args, cli_device,
+                                      conditioning_pool, load_model)
 from repro_torch.nn import cache as KVC
 
 DEFAULT_QUEUE_CAP = 256      # tokens a consumer may fall behind before pause
@@ -364,14 +368,16 @@ class InferenceServer:
 
     Sampler settings are static per engine: a request may state
     ``temperature`` / ``top_k``, but values other than the engine's are
-    rejected with 400. Requests may name an ``aux`` conditioning input as
-    in JAX; the port registers none yet (ROADMAP A6), so any name is
-    unknown and rejected."""
+    rejected with 400. ``aux_registry`` maps names to conditioning inputs
+    (``{"image_embs": (Sk, d)}``); a request names one as ``{"aux":
+    "<name>"}`` (embeddings never travel over the wire), and an unknown
+    name is a 400 that lists the registered ones."""
 
     def __init__(self, batcher: ContinuousBatcher, *, host: str = "127.0.0.1",
                  port: int = 0, queue_cap: int = DEFAULT_QUEUE_CAP,
-                 max_restarts: int = 3):
+                 max_restarts: int = 3, aux_registry: Optional[dict] = None):
         self.cb = batcher
+        self.aux_registry = dict(aux_registry or {})
         if getattr(batcher, "is_router", False):
             from repro_torch.launch.router import RouterRunner
             self.runner = RouterRunner(batcher)
@@ -526,8 +532,9 @@ class InferenceServer:
                         "compiled engine — restart the server to change "
                         "them")
         aux = payload.get("aux")
-        if aux is not None:
-            return f"unknown aux reference {aux!r} (registered: [])"
+        if aux is not None and aux not in self.aux_registry:
+            return (f"unknown aux reference {aux!r} (registered: "
+                    f"{sorted(self.aux_registry)})")
         prio = payload.get("priority")
         if prio is not None and not (
                 isinstance(prio, int) and not isinstance(prio, bool)
@@ -563,9 +570,11 @@ class InferenceServer:
         ttft = payload.get("ttft_slo_ms")
         tpot = payload.get("tpot_slo_ms")
         try:
+            aux = payload.get("aux")
             rid = self.cb.submit(
                 np.asarray(payload["prompt"], np.int64),
                 payload.get("max_new", 16),
+                aux_inputs=None if aux is None else self.aux_registry[aux],
                 priority=payload.get("priority", "standard"),
                 ttft_slo_s=ttft / 1e3 if ttft is not None else None,
                 tpot_slo_s=tpot / 1e3 if tpot is not None else None)
@@ -798,15 +807,21 @@ async def stream_generate(host: str, port: int, prompt, max_new: int, *,
 # ---------------------------------------------------------------------------
 
 def build_batcher_from_args(args):
-    """(dbm, params, batcher) from ``add_server_args``'s arguments: the
-    model of ``serve.load_model`` (its blocks from ``--ckpt-dir`` where
-    given) behind a ``ContinuousBatcher`` on ``args.device``, or with
-    ``--disagg`` behind a ``DisaggRouter`` over ``--prefill-workers`` +
-    ``--decode-workers`` batchers (their draws seeded from ``--seed``)."""
-    if args.conditioned:
-        _not_ported("conditioned requests (--conditioned)", "A6")
+    """(dbm, params, batcher, aux_registry) from ``add_server_args``'s
+    arguments: the model of ``serve.load_model`` (its blocks from
+    ``--ckpt-dir`` where given) behind a ``ContinuousBatcher`` on
+    ``args.device``, or with ``--disagg`` behind a ``DisaggRouter`` over
+    ``--prefill-workers`` + ``--decode-workers`` batchers (their draws
+    seeded from ``--seed``). ``--conditioned`` registers ``--cond-pool``
+    images as ``cond0``, ``cond1``, ... (drawn as JAX's CLI draws them;
+    a family without conditioning exits)."""
     device = cli_device(args.device)
     _, dbm, params, gen = load_model(args, device)
+    aux_registry = {}
+    if args.conditioned:
+        key, pool = conditioning_pool(dbm, args.cond_pool,
+                                      np.random.RandomState(1))
+        aux_registry = {f"cond{i}": {key: x} for i, x in enumerate(pool)}
     cb_kw = dict(
         num_slots=args.num_slots, page_size=args.page_size,
         max_prompt=args.prompt_len, max_len=args.prompt_len + args.max_new,
@@ -824,7 +839,7 @@ def build_batcher_from_args(args):
                           seed=args.seed, **cb_kw)
     else:
         cb = ContinuousBatcher(dbm, params, generator=gen, **cb_kw)
-    return dbm, params, cb
+    return dbm, params, cb, aux_registry
 
 
 def add_server_args(ap: argparse.ArgumentParser) -> None:
@@ -873,14 +888,17 @@ def add_server_args(ap: argparse.ArgumentParser) -> None:
                     help="seconds before a dead worker is restarted "
                          "(default: never; the survivors take its load)")
     ap.add_argument("--conditioned", action="store_true",
-                    help="named conditioning inputs (not ported: ROADMAP "
-                         "A6)")
+                    help="register a pool of named conditioning inputs "
+                         "(vlm archs); requests reference them as "
+                         '{"aux": "cond<i>"}')
+    ap.add_argument("--cond-pool", type=int, default=3)
 
 
 async def _serve_forever(args):
-    _, _, cb = build_batcher_from_args(args)
+    _, _, cb, aux_registry = build_batcher_from_args(args)
     server = InferenceServer(cb, host=args.host, port=args.port,
-                             queue_cap=args.queue_cap)
+                             queue_cap=args.queue_cap,
+                             aux_registry=aux_registry)
     await server.start()
     if getattr(cb, "is_router", False):
         shape = (f"disagg {len(cb.prefill_workers)}p+"

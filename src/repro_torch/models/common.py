@@ -10,6 +10,11 @@ cache, the denoising probe when ``commit`` is False) and ``prefill_chunk``
 call). ``tlayer_two_pass`` is the DB two-pass training layer: a clean
 stream under the causal mask and a σ-conditioned noisy stream that attends
 to the clean past and to itself.
+
+Cross layers (``tlayer_spec(cross=True)``: the VLM's tanh-gated image
+attention) run in the cached modes only: their queries attend the slot's
+precomputed (k, v) image block (``write_cross_block`` projects it once at
+admission) under ``ctx.cond_lengths`` (``cross_cached_attn``).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch.nn import adaln
 from repro_torch.nn import attention as A
 from repro_torch.nn import cache as KVC
 from repro_torch.nn import layers as L
+from repro_torch.nn.init import ParamSpec
 
 
 @dataclasses.dataclass
@@ -42,6 +48,9 @@ class LayerCtx:
     page_table: Optional[torch.Tensor] = None   # (B, n_logical_pages) int32
     active: Optional[torch.Tensor] = None       # (B,) bool: slots that commit
     n_valid: Optional[torch.Tensor] = None      # (B,) prefill_chunk real toks
+    # (B,) int32 valid tokens of each slot's cross (image) block; 0 =
+    # unconditioned (the cross term is exactly 0); None reads the whole block
+    cond_lengths: Optional[torch.Tensor] = None
     commit: bool = True                         # False = denoise probe
 
     def dims(self) -> A.AttnDims:
@@ -57,7 +66,82 @@ def default_mask(cfg: ModelConfig, bidirectional: bool = False):
     return A.causal_mask
 
 
-def tlayer_spec(cfg: ModelConfig, db: bool):
+# ---------------------------------------------------------------------------
+# Cross-attention over per-slot conditioning blocks (VLM image memory)
+# ---------------------------------------------------------------------------
+
+def cross_cached_attn(p, x, ctx: LayerCtx, cache):
+    """Cross-attention of x (B, S, d) over the slot's precomputed (k, v)
+    block ``cache`` (B, Sk, KV, hd), masked to ``ctx.cond_lengths`` (None:
+    the whole block). Only q is projected: JAX's ``project_qkv`` also
+    computes k and v from x and drops them. Returns (B, S, d)."""
+    dims = ctx.dims()
+    B, S, _ = x.shape
+    dt = x.dtype
+    q = x @ L.as_dtype(p["wq"], dt)
+    if "bq" in p:
+        q = q + L.as_dtype(p["bq"], dt)
+    q = q.reshape(B, S, dims.n_heads, dims.head_dim)
+    lens = ctx.cond_lengths
+    if lens is None:
+        lens = torch.full((B,), cache["k"].shape[1], dtype=torch.int32,
+                          device=x.device)
+    out = KVC.cross_attend(q, cache["k"].to(dt), cache["v"].to(dt), lens)
+    out = out.reshape(B, S, dims.n_heads * dims.head_dim)
+    return out @ L.as_dtype(p["wo"], dt)
+
+
+def project_cross_kv(p, cond, dims: A.AttnDims):
+    """Project conditioning embeddings (B, Sk, d) into a cross block's
+    (k, v) (B, Sk, KV, hd): the admission-time half of
+    ``cross_cached_attn``, in cond's dtype."""
+    B, Sk, _ = cond.shape
+    k = cond @ L.as_dtype(p["wk"], cond.dtype)
+    v = cond @ L.as_dtype(p["wv"], cond.dtype)
+    if "bk" in p:
+        k = k + L.as_dtype(p["bk"], cond.dtype)
+        v = v + L.as_dtype(p["bv"], cond.dtype)
+    return (k.reshape(B, Sk, dims.n_kv_heads, dims.head_dim),
+            v.reshape(B, Sk, dims.n_kv_heads, dims.head_dim))
+
+
+@torch.no_grad()
+def write_cross_block(cross_cache, cross_params, cond, dims: A.AttnDims,
+                      slot=None):
+    """Write projected conditioning into the per-slot cross blocks, IN
+    PLACE (a captured decode segment holds their addresses).
+
+    cross_cache: {"k", "v"} (n_units, num_slots, block, KV, hd);
+    cross_params: the stacked per-unit cross-attention params (leading
+    n_units axis); cond: (B, Sk, d) with Sk <= block. ``slot=None`` needs
+    B == num_slots and writes every slot; an int ``slot`` writes that
+    slot's row, B == 1. The whole row is written (zeros past Sk), so a
+    recycled slot never sees its previous occupant's tail. Unit by unit,
+    so the fp32 projection of one unit is the largest transient."""
+    n_units, num_slots, cap = cross_cache["k"].shape[:3]
+    B, Sk = cond.shape[:2]
+    if Sk > cap:
+        raise ValueError(f"conditioning length {Sk} exceeds the block "
+                         f"capacity {cap}")
+    if slot is None and B != num_slots:
+        raise ValueError(
+            f"set_conditioning(slot=None) writes every slot: cond batch {B} "
+            f"!= num_slots {num_slots}")
+    if slot is not None and B != 1:
+        raise ValueError(f"set_conditioning(slot={slot}) writes one slot: "
+                         f"cond batch {B} != 1")
+    rows = slice(None) if slot is None else slice(int(slot), int(slot) + 1)
+    for u in range(n_units):
+        p = {k: t[u] for k, t in cross_params.items()}
+        k, v = project_cross_kv(p, cond, dims)
+        for name, new in (("k", k), ("v", v)):
+            dst = cross_cache[name][u, rows]
+            dst[:, :Sk].copy_(new)
+            dst[:, Sk:].zero_()
+    return cross_cache
+
+
+def tlayer_spec(cfg: ModelConfig, db: bool, *, cross: bool = False):
     d = cfg.d_model
     dims = A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                       cfg.rope_theta)
@@ -69,6 +153,10 @@ def tlayer_spec(cfg: ModelConfig, db: bool):
     }
     if db:
         spec["adaln"] = adaln.adaln_spec(d, n_mods=6)
+    if cross:
+        # the tanh gate of the cross-attention output (llama-3.2-vision),
+        # zero at init: a fresh cross layer contributes nothing
+        spec["xgate"] = ParamSpec((1,), (None,), "zeros")
     return spec
 
 
@@ -93,17 +181,29 @@ def _norm_modulate(p_ln, h, ctx: LayerCtx, shift, scale, cond_mask):
                           cond_mask)
 
 
-def tlayer_apply(params, h, ctx: LayerCtx, *,
-                 cache: Optional[KVC.PagedKV] = None):
+def tlayer_apply(params, h, ctx: LayerCtx, *, cross: bool = False,
+                 cache=None):
     """One transformer layer: over the paged ``cache`` in the serving modes,
-    over the whole sequence (no cache) in ``train``. Returns (h, cache)."""
+    over the whole sequence (no cache) in ``train``. A ``cross`` layer
+    attends the slot's image block ``cache`` ({"k", "v"}) in the serving
+    modes, its output through the tanh gate ``xgate``. Returns (h,
+    cache)."""
     cfg = ctx.cfg
     dims = ctx.dims()
     s1, c1, g1, s2, c2, g2 = _mods(params, ctx)
     cm = ctx.cond_mask
 
     x = _norm_modulate(params["ln1"], h, ctx, s1, c1, cm)
-    if ctx.mode == "train":
+    if cross:
+        if cache is None or ctx.mode not in ("decode", "prefill_chunk"):
+            raise NotImplementedError(
+                f"cross-attention layer in mode {ctx.mode!r}: the port runs "
+                "cross layers over the serving cache only; training the VLM "
+                "(attention over kv_x) is ROADMAP A6.6")
+        attn_out = cross_cached_attn(params["attn"], x, ctx, cache)
+        attn_out = attn_out * torch.tanh(L.as_dtype(params["xgate"],
+                                                    attn_out.dtype))
+    elif ctx.mode == "train":
         attn_out, _ = A.attention_fwd(
             params["attn"], x, dims, positions=ctx.positions,
             mask_mod=ctx.mask_mod or default_mask(cfg),

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import DBConfig, ModelConfig
 from repro_torch.nn import adaln
+from repro_torch.nn import cache as KVC
 from repro_torch.nn import layers as L
 from repro_torch.nn.init import init_params
 
@@ -81,6 +82,48 @@ class BaseModel:
         need. Purely paged families have none."""
         return {}
 
+    def cache_batch(self, cache) -> int:
+        """Dim 1 of the cache's first tensor, as JAX reads it (the layout
+        is the family's: the VLM overrides with its blocks' slot axis)."""
+        return KVC.cache_tensors(cache)[0].shape[1]
+
+    # ---- conditioning (aux image inputs) ----------------------------------
+    # The serving engines feature-test these instead of switching on the
+    # family: the static engine writes every slot's block before prefill,
+    # the continuous batcher one slot's at admission. Unconditioned
+    # families keep these defaults.
+
+    @property
+    def max_cond_tokens(self) -> int:
+        """Capacity of the per-slot conditioning block (0: the family takes
+        no aux conditioning inputs)."""
+        return 0
+
+    def aux_input_specs(self, batch: int, dtype=torch.bfloat16):
+        """{name: a meta tensor of the aux input's shape and dtype} (no
+        allocation), or None for an unconditioned family."""
+        return None
+
+    @property
+    def cond_padding_safe(self) -> bool:
+        """True when ``encode_conditioning`` is position-local, so a
+        zero-padded aux batch with per-row valid lengths encodes each row
+        as its unpadded self would (the VLM's passthrough)."""
+        return True
+
+    def encode_conditioning(self, params, aux_inputs, ctx=None):
+        """The cross-attention memory (B, Sk, d) of the aux inputs, or None
+        when the family is unconditioned or none was given."""
+        return None
+
+    def set_conditioning(self, params, cache, cond, slot=None):
+        """Project ``cond`` (B, Sk, d) through every unit's cross-attention
+        (k, v) into the cache's per-slot blocks, in place: every slot when
+        ``slot`` is None (B == slots), else slot ``slot`` (B == 1). The
+        valid length travels separately (``LayerCtx.cond_lengths``)."""
+        raise ValueError(
+            f"family {self.cfg.family!r} has no conditioning inputs")
+
     @property
     def kv_carries_all_state(self) -> bool:
         """True when a sequence's whole history lives in paged KV, so two
@@ -96,8 +139,9 @@ class BaseModel:
 
 
 def build_model(cfg: ModelConfig, db: Optional[DBConfig] = None) -> BaseModel:
-    """The model of ``cfg.family`` (port of ``repro.models.build_model``).
-    The port has the dense decoder only: ``DecoderModel`` raises for any
-    other family."""
-    from repro_torch.models.transformer import DecoderModel  # import cycle
-    return DecoderModel(cfg, db)
+    """The model of ``cfg.family`` (port of ``repro.models.build_model``):
+    ``VLMModel`` for the vlm family, else ``DecoderModel``, which raises
+    for any family but dense."""
+    from repro_torch.configs.base import VLM
+    from repro_torch.models import transformer as T    # import cycle
+    return (T.VLMModel if cfg.family == VLM else T.DecoderModel)(cfg, db)

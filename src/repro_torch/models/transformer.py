@@ -1,10 +1,14 @@
-"""Dense decoder (port of ``repro.models.transformer.DecoderModel``, dense
-family: the training passes, concat and two-pass, and the paged-serving
-paths). The JAX ``lax.scan`` over units is a Python loop over the stacked
-``layers`` axis."""
+"""Dense decoder and VLM (port of ``repro.models.transformer``):
+``DecoderModel`` for the dense family (the training passes, concat and
+two-pass, and the paged-serving paths) and ``VLMModel``, llama-3.2-vision's
+superblocks of self layers and one tanh-gated cross-attention layer over
+per-slot image blocks (the paged-serving paths). The JAX ``lax.scan`` over
+units is a Python loop over the stacked unit axis."""
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from repro_torch import precision as precision_mod
 from repro_torch.configs.base import DENSE
@@ -21,8 +25,8 @@ class DecoderModel(BaseModel):
     def __init__(self, cfg, db=None):
         if cfg.family != DENSE:
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port has the dense decoder only "
-                "so far")
+                f"family {cfg.family!r}: the port has the dense decoder and "
+                "the VLM (VLMModel) only so far")
         super().__init__(cfg, db)
 
     @property
@@ -63,7 +67,7 @@ class DecoderModel(BaseModel):
             if reset_mask is not None and reset_mask[i]:
                 h = h0
             h, _ = C.tlayer_apply(units[start + i], h, ctx,
-                                  cache=cache.unit(i))
+                                  cache=KVC.cache_unit(cache, i))
         return h, cache
 
     def apply_units_two_pass(self, params, h_clean, h_noisy, start: int,
@@ -76,18 +80,10 @@ class DecoderModel(BaseModel):
         return h_clean, h_noisy
 
     def unit_params(self, params) -> list:
-        """Per-unit views of the stacked ``layers`` tree, made once per param
-        tree (the fp32 masters and a compute-dtype copy alternate within a
-        step, so the last few trees are remembered by identity)."""
-        layers = params["layers"]
-        memo = self.__dict__.setdefault("_unit_memo", {})
-        hit = memo.get(id(layers))
-        if hit is None or hit[0] is not layers:
-            if len(memo) >= 4:
-                memo.pop(next(iter(memo)))
-            hit = (layers, [_index(layers, u) for u in range(self.n_units)])
-            memo[id(layers)] = hit
-        return hit[1]
+        """Per-unit views of the stacked ``layers`` tree (``_unit_views``)."""
+        return _unit_views(self, params["layers"],
+                           lambda t: [_index(t, u)
+                                      for u in range(self.n_units)])
 
     def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
                          policy=None, device="cuda") -> KVC.PagedKV:
@@ -100,6 +96,156 @@ class DecoderModel(BaseModel):
                           cfg.rope_theta)
         return KVC.init_paged_kv(n_pages, page_size, dims, pol.kv,
                                  n_units=self.n_units, device=device)
+
+
+class VLMModel(BaseModel):
+    """Llama-3.2-vision-style decoder: ``n_units`` superblocks of
+    ``k_self`` self layers and one tanh-gated cross-attention layer over
+    the slot's image block (the vision encoder is stubbed: requests carry
+    patch embeddings, ``image_embs`` (n_image_tokens, d)).
+
+    Params: ``units/self`` stacked twice, (n_units, k_self, ...), and
+    ``units/cross`` once, (n_units, ...), as JAX has them. The serving
+    cache is ``{"self": PagedKV (n_units, k_self, P, psz, KV, hd), "cross":
+    {"k", "v"} (n_units, num_slots, n_image_tokens, KV, hd)}``: the self
+    layers' history is paged, the image block is fixed per slot (written
+    once at admission by ``set_conditioning``, read under
+    ``ctx.cond_lengths``; 0 makes the cross term exactly 0). Serving only:
+    training the VLM is ROADMAP A6.6."""
+
+    @property
+    def k_self(self) -> int:
+        return self.cfg.cross_attn_every - 1
+
+    @property
+    def n_units(self) -> int:
+        return self.cfg.n_layers // self.cfg.cross_attn_every
+
+    @property
+    def kv_carries_all_state(self) -> bool:
+        # the sequence's history is all in the paged self-attention KV; the
+        # image block is per-request conditioning, so the same text under
+        # the same image (the prefix cache's fingerprint) shares soundly
+        return True
+
+    def build_spec(self):
+        db = self.db is not None
+        spec = self.common_spec()
+        spec["units"] = {
+            "self": stack_specs(stack_specs(C.tlayer_spec(self.cfg, db),
+                                            self.k_self, "inner"),
+                                self.n_units),
+            "cross": stack_specs(C.tlayer_spec(self.cfg, db, cross=True),
+                                 self.n_units),
+        }
+        return spec
+
+    def unit_params(self, params) -> list:
+        """[(self layers' views, cross layer's view)] per unit of the
+        ``units`` tree (``_unit_views``)."""
+        def views(units):
+            return [([_index(_index(units["self"], u), j)
+                      for j in range(self.k_self)],
+                     _index(units["cross"], u))
+                    for u in range(self.n_units)]
+        return _unit_views(self, params["units"], views)
+
+    def apply_units(self, params, h, start: int, size: int, ctx, cache=None,
+                    reset_mask=None):
+        """Run units [start, start + size) over the serving ``cache``
+        (sliced to those units, ``cache_units``); ``reset_mask`` restarts
+        the hidden stream from the input ``h`` before each flagged unit.
+        Returns (h, cache)."""
+        if cache is None:
+            raise NotImplementedError(
+                "VLMModel runs over the serving cache only: training the "
+                "VLM (cross-attention over kv_x through the flash kernels) "
+                "is ROADMAP A6.6")
+        h0 = h
+        units = self.unit_params(params)
+        for i in range(size):
+            if reset_mask is not None and reset_mask[i]:
+                h = h0
+            selfs, cross = units[start + i]
+            c = KVC.cache_unit(cache, i)
+            for j, p in enumerate(selfs):
+                h, _ = C.tlayer_apply(p, h, ctx,
+                                      cache=KVC.cache_unit(c["self"], j))
+            h, _ = C.tlayer_apply(cross, h, ctx, cross=True,
+                                  cache=c["cross"])
+        return h, cache
+
+    def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
+                         policy=None, device="cuda") -> dict:
+        """The paged self-attention pool (n_units, k_self, n_pages,
+        page_size, KV, hd) in the policy's KV dtype and zeroed image blocks
+        (n_units, num_slots, n_image_tokens, KV, hd) in ``kv_dense`` (never
+        int8: they have no per-page scales)."""
+        pol = precision_mod.get_policy(policy)
+        cfg = self.cfg
+        dims = A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.rope_theta)
+        shape = (self.n_units, num_slots, cfg.n_image_tokens,
+                 cfg.n_kv_heads, cfg.head_dim)
+        return {
+            "self": KVC.init_paged_kv(n_pages, page_size, dims, pol.kv,
+                                      n_units=(self.n_units, self.k_self),
+                                      device=device),
+            "cross": {k: torch.zeros(shape, dtype=pol.kv_dense,
+                                     device=device) for k in ("k", "v")},
+        }
+
+    def reset_paged_slots(self, cache, slot_mask):
+        """Zero the image blocks of the masked slots, in place."""
+        idx = torch.nonzero(torch.as_tensor(slot_mask))[:, 0]
+        if idx.numel():
+            for t in cache["cross"].values():
+                t.index_fill_(1, idx.to(t.device), 0)
+        return cache
+
+    @property
+    def paged_state_axes(self) -> dict:
+        # image blocks are (units, slots, n_image_tokens, KV, hd): axis 1
+        return {"cross": 1}
+
+    def cache_batch(self, cache) -> int:
+        return cache["cross"]["k"].shape[1]
+
+    # ---- conditioning (stubbed vision frontend) --------------------------
+    @property
+    def max_cond_tokens(self) -> int:
+        return self.cfg.n_image_tokens
+
+    def aux_input_specs(self, batch: int, dtype=torch.bfloat16):
+        return {"image_embs": torch.empty(
+            (batch, self.cfg.n_image_tokens, self.cfg.d_model), dtype=dtype,
+            device="meta")}
+
+    def encode_conditioning(self, params, aux_inputs, ctx=None):
+        if not aux_inputs or "image_embs" not in aux_inputs:
+            return None
+        return aux_inputs["image_embs"]
+
+    def set_conditioning(self, params, cache, cond, slot=None):
+        cfg = self.cfg
+        dims = A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                          cfg.rope_theta)
+        C.write_cross_block(cache["cross"], params["units"]["cross"]["attn"],
+                            cond, dims, slot)
+        return cache
+
+
+def _unit_views(model, tree, make) -> list:
+    """``make(tree)``, the per-unit views of a stacked param tree, made once
+    per tree (the fp32 masters and a compute-dtype copy alternate within a
+    step, so the last few trees are remembered by identity)."""
+    memo = model.__dict__.setdefault("_unit_memo", {})
+    hit = memo.get(id(tree))
+    if hit is None or hit[0] is not tree:
+        if len(memo) >= 4:
+            memo.pop(next(iter(memo)))
+        hit = memo[id(tree)] = (tree, make(tree))
+    return hit[1]
 
 
 def _unbind(tree, start: int, size: int) -> list:

@@ -170,8 +170,9 @@ def attention_fwd(params, x, dims: AttnDims, *, positions, mask_mod,
     rope position i."""
     if kv_x is not None:
         raise NotImplementedError(
-            "cross-attention (kv_x) is not ported yet: it belongs to the "
-            "VLM / audio slice of the port")
+            "cross-attention over kv_x (VLM / audio training) is not ported "
+            "yet: ROADMAP A6.6. Serving attends the per-slot image blocks "
+            "instead (models.common.cross_cached_attn)")
     q, k, v = project_qkv(params, x, dims)
     rpos = positions if rope_positions is None else rope_positions
     q = apply_rope(q, rpos, dims.rope_theta)

@@ -19,6 +19,13 @@ need the old pool (tests, the kernel cross-check) clone it first.
 The gather references of JAX's ``_attend_pages_ref``/``_attend_prefill_ref``
 are the kernels' plain versions (``flash_decode_ref``, ``flash_prefill_ref``):
 ``impl="ref"`` routes the attends through them on any device.
+
+A model's serving cache is a PagedKV or a dict tree of PagedKV leaves and
+dense per-slot tensors: the VLM keeps ``{"self": PagedKV (units, k_self,
+P, psz, KV, hd), "cross": {"k", "v"} (units, slots, n_image_tokens, KV,
+hd)}``, its fixed per-slot image blocks beside the pages (``cross_attend``
+reads them under per-slot valid lengths). ``cache_unit``/``cache_units``
+slice any such tree by units.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ class PagedKV:
     """A paged key/value pool. ``k``/``v`` are (*units, P, psz, KV, hd);
     ``k_scale``/``v_scale`` are present only for quantized (int8) pools:
     one fp32 scale per physical page, shaped (*units, P, 1, 1, 1) so the
-    page axis lines up with the pages'. ``unit(u)``/``units(start, size)``
+    page axis lines up with the pages'. ``cache_unit``/``cache_units``
     give views that share storage with the pool."""
     k: torch.Tensor
     v: torch.Tensor
@@ -67,14 +74,29 @@ class PagedKV:
                          for t in (self.k, self.v, self.k_scale,
                                    self.v_scale)))
 
-    def unit(self, u: int) -> "PagedKV":
-        return self._map(lambda t: t[u])
-
-    def units(self, start: int, size: int) -> "PagedKV":
-        return self._map(lambda t: t[start:start + size])
-
     def clone(self) -> "PagedKV":
         return self._map(torch.clone)
+
+
+def _map_cache(cache, fn):
+    """``fn`` over every tensor of a cache tree (PagedKV leaves mapped
+    tensor by tensor)."""
+    if isinstance(cache, PagedKV):
+        return cache._map(fn)
+    if torch.is_tensor(cache):
+        return fn(cache)
+    return {k: _map_cache(v, fn) for k, v in cache.items()}
+
+
+def cache_unit(cache, u: int):
+    """Unit ``u`` of a cache tree whose every tensor leads with the unit
+    axis: views sharing storage with the cache."""
+    return _map_cache(cache, lambda t: t[u])
+
+
+def cache_units(cache, start: int, size: int):
+    """Units [start, start + size) of a cache tree, as views."""
+    return _map_cache(cache, lambda t: t[start:start + size])
 
 
 def resolve_kv_dtype(dtype) -> torch.dtype:
@@ -116,11 +138,13 @@ def dequantize_pages(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def init_paged_kv(n_pages: int, page_size: int, dims: A.AttnDims,
-                  dtype=torch.bfloat16, n_units: Optional[int] = None,
+                  dtype=torch.bfloat16, n_units=None,
                   device="cuda") -> PagedKV:
-    """A zeroed pool; ``n_units`` prepends the stacked unit axis."""
+    """A zeroed pool; ``n_units`` (an int, or a tuple for nested stacks)
+    prepends the stacked unit axes."""
     dtype = resolve_kv_dtype(dtype)
-    lead = () if n_units is None else (n_units,)
+    lead = (() if n_units is None else
+            tuple(n_units) if isinstance(n_units, tuple) else (n_units,))
     shape = lead + (n_pages, page_size, dims.n_kv_heads, dims.head_dim)
     k = torch.zeros(shape, dtype=dtype, device=device)
     v = torch.zeros(shape, dtype=dtype, device=device)
@@ -146,12 +170,11 @@ def identity_page_table(batch: int, pages_per_slot: int,
                              device=device)).reshape(batch, pages_per_slot)
 
 
-def cache_bytes(pkv: PagedKV) -> int:
-    """Total bytes of a pool: page bytes plus, for int8 pools, the fp32
-    scales (each tensor at its own dtype's size)."""
-    return sum(t.numel() * t.element_size()
-               for t in (pkv.k, pkv.v, pkv.k_scale, pkv.v_scale)
-               if t is not None)
+def cache_bytes(cache) -> int:
+    """Total bytes of a cache: page bytes plus, for int8 pools, the fp32
+    scales, plus any dense per-slot blocks (each tensor at its own dtype's
+    size)."""
+    return sum(cache_bytes_by_dtype(cache).values())
 
 
 def append_paged(pkv: PagedKV, k_new, v_new, page_table, lengths,
@@ -360,22 +383,49 @@ def _tensors(pkv: PagedKV) -> list:
             if t is not None]
 
 
+def cache_tensors(cache) -> list:
+    """Every tensor of a cache in flatten order (a PagedKV's k, v and
+    scales in turn)."""
+    return [t for _, leaf in _flatten(cache)
+            for t in (_tensors(leaf) if isinstance(leaf, PagedKV)
+                      else [leaf])]
+
+
 def pool_ptrs(cache) -> tuple:
-    """The storage address of every tensor of a cache: a captured decode
-    segment stays valid only while these do not change."""
-    return tuple(t.data_ptr() for _, leaf in _flatten(cache)
-                 for t in (_tensors(leaf) if isinstance(leaf, PagedKV)
-                           else [leaf]))
+    """The storage address of every tensor of a cache (pages and cross
+    blocks): a captured decode segment stays valid only while these do not
+    change."""
+    return tuple(t.data_ptr() for t in cache_tensors(cache))
+
+
+def paged_leaves(cache) -> list:
+    """The PagedKV leaves of a cache in flatten order: what a
+    ``SharedPagePool`` makes common (the dense per-slot leaves stay each
+    batcher's own)."""
+    return [leaf for _, leaf in _flatten(cache) if isinstance(leaf, PagedKV)]
+
+
+def graft_paged(cache, leaves: list):
+    """``cache`` with its PagedKV leaves replaced by ``leaves`` (same
+    order), its dense leaves untouched: a reference swap, no copy."""
+    it = iter(leaves)
+
+    def walk(node):
+        if isinstance(node, PagedKV):
+            return next(it)
+        if torch.is_tensor(node):
+            return node
+        return {k: walk(node[k]) for k in sorted(node)}
+    return walk(cache)
 
 
 def cache_bytes_by_dtype(cache) -> dict:
     """{dtype name: bytes} over a cache's tensors: an int8 pool reports its
     fp32 scales beside its pages."""
     out: dict = {}
-    for _, leaf in _flatten(cache):
-        for t in (_tensors(leaf) if isinstance(leaf, PagedKV) else [leaf]):
-            name = str(t.dtype).replace("torch.", "")
-            out[name] = out.get(name, 0) + t.numel() * t.element_size()
+    for t in cache_tensors(cache):
+        name = str(t.dtype).replace("torch.", "")
+        out[name] = out.get(name, 0) + t.numel() * t.element_size()
     return out
 
 
@@ -501,7 +551,9 @@ def spill_slot(cache, slot: int, page_ids, dense_axes=None) -> SpilledSlot:
                               for t in _tensors(leaf)))
         else:
             ax = _dense_slot_axis(path, dense_axes)
-            data.append(leaf.select(ax, slot).cpu())
+            # a copy even on the CPU: the slot's row is reset in place at
+            # the next admission, and a view would be reset with it
+            data.append(leaf.select(ax, slot).to("cpu", copy=True))
     return SpilledSlot(data=data, n_pages=len(page_ids))
 
 
@@ -557,6 +609,59 @@ def _check_restore_dtypes(path, leaf: PagedKV, saved: tuple) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Conditioning memory (fixed per-slot cross-attention blocks)
+# ---------------------------------------------------------------------------
+
+def cross_attend(q, k, v, cond_lengths):
+    """Cross-attention over a fixed per-slot conditioning block under a
+    per-slot VALID length. q: (B, S, H, hd) un-roped queries; k/v: (B, Sk,
+    KV, hd) the slot's memory, zero past ``cond_lengths[b]``. Padding is
+    masked, not attended (zero keys would dilute the softmax), and a slot
+    with ``cond_lengths[b] == 0`` (unconditioned) gets exactly 0 with no
+    NaN: the row's max is floored at NEG_INF / 2, its masked weights
+    zeroed and its sum floored at 1e-30, as JAX does (``torch.softmax``
+    over an all-masked row would give NaN). fp32 inside; returns (B, S, H,
+    hd) in q's dtype. Plain torch, as JAX's is plain jnp."""
+    B, S, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / (hd ** 0.5)
+    qg = q.reshape(B, S, KV, G, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    valid = (torch.arange(Sk, device=q.device)[None, :]
+             < cond_lengths.to(q.device)[:, None])[:, None, None, None, :]
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
+    m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF / 2)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros((), device=q.device))
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p / l, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def conditioning_fingerprint(aux_inputs) -> int:
+    """Content hash of a request's aux conditioning inputs, folded into
+    ``PrefixPageCache`` keys: the same text under different conditioning
+    never shares prefix pages (every token's paged K/V passes through
+    cross-attention to it), the same text and conditioning shares as text
+    alone does. sha256 over each key in sorted order, ``str(shape)`` and
+    the float32 bytes: the same int as JAX's for the same inputs. 0 for
+    an unconditioned request (``None`` or an empty dict)."""
+    import hashlib
+    if not aux_inputs:
+        return 0
+    h = hashlib.sha256()
+    for key in sorted(aux_inputs):
+        x = aux_inputs[key]
+        if torch.is_tensor(x):
+            x = x.detach().cpu().float().numpy()
+        arr = np.ascontiguousarray(np.asarray(x, np.float32))
+        h.update(key.encode())
+        h.update(str(arr.shape).encode())
+        h.update(arr.tobytes())
+    return int.from_bytes(h.digest()[:8], "big") or 1
+
+
+# ---------------------------------------------------------------------------
 # Shared-prefix page cache (host-side allocator metadata)
 # ---------------------------------------------------------------------------
 
@@ -595,8 +700,9 @@ class PrefixPageCache:
     slot about to write into one gets a private copy first
     (``copy_pool_pages``).
 
-    Each conditioning fingerprint owns its own trie root; 0 is the root of
-    unconditioned requests (the port serves no conditioned request yet).
+    Each conditioning fingerprint (``conditioning_fingerprint``) owns its
+    own trie root, so the same text under different images never shares a
+    page; 0 is the root of unconditioned requests.
     """
 
     def __init__(self, page_size: int):

@@ -4,7 +4,8 @@ One frozen, hashable ``Policy`` names the dtype roles of the serving path:
 ``param_dtype`` (fp32 masters), ``compute_dtype`` (the streamed activations
 and the weight copies the matmuls see: bf16 under ``bf16``) and ``kv_dtype``
 (the paged KV pool; ``None`` follows the compute dtype, ``torch.int8``
-stores quantized pages with per-page fp32 scales). Softmax and norm
+stores quantized pages with per-page fp32 scales; ``kv_dense``, the dense
+per-slot cross blocks, never quantizes). Softmax and norm
 statistics are fp32 under every policy. Recurrent families keep fp32
 compute under ``bf16`` (``fp32_families``).
 
@@ -45,6 +46,14 @@ class Policy:
     def kv_quantized(self) -> bool:
         """True when the paged pool stores integer pages + per-page scales."""
         return not (self.kv.is_floating_point or self.kv.is_complex)
+
+    @property
+    def kv_dense(self) -> torch.dtype:
+        """Storage dtype of the dense per-slot KV blocks (the fixed
+        cross-attention conditioning memories). They have no per-page
+        scales, so they never quantize: under an int8 paged policy they
+        stay in the compute dtype."""
+        return self.compute_dtype if self.kv_quantized else self.kv
 
 
 FP32 = Policy("fp32")

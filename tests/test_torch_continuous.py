@@ -719,8 +719,9 @@ def test_continuous_rejects_oversized_and_bad_requests(tiny):
 @pytest.mark.parametrize("what", ["aux", "slo", "faults", "shed", "shared",
                                   "recover"])
 def test_unported_options_raise(tiny, what):
-    """Conditioned requests (A6) raise naming their ROADMAP item. SLOs,
-    shedding, recovery, shared pools and the page handoff of
+    """Conditioned requests are refused by the dense family ("no aux", as
+    JAX refuses them; the VLM takes them). SLOs, shedding, recovery,
+    shared pools and the page handoff of
     ``extract_all(detach=True)`` are ported: each is accepted and works (an
     ``engine_crash`` raised by ``step`` is recovered from; two batchers on
     one ``SharedPagePool`` hold the same pool tensors and free list, and a
@@ -774,8 +775,11 @@ def test_unported_options_raise(tiny, what):
         with pytest.raises(ValueError, match="same model"):
             _cb(tiny, shared_pool=pool, page_size=2)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        _cb(tiny).submit([1], 2, aux_inputs={"x": 1})
+    # conditioned requests are ported (tests/test_torch_vlm.py); the dense
+    # family takes none, as in JAX
+    with pytest.raises(ValueError, match="no aux"):
+        _cb(tiny).submit([1], 2, aux_inputs={
+            "image_embs": np.zeros((4, TINY.d_model), np.float32)})
 
 
 def test_cancel_queued_and_active(tiny):

@@ -2225,3 +2225,118 @@ def test_no_capture_after_router_start_across_a_worker_restart(
     assert router.failovers >= 1 and decode0.cb.decode_dispatches > served
     assert all(done[r].error is None and len(done[r].out) == 16
                for r in rids)
+
+
+# ---------------------------------------------------------------------------
+# The VLM: per-slot image blocks under the batcher's CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _vlm_model(cuda):
+    """llama-3.2-vision-11b's structure at 6 layers (2 superblocks of 2
+    self + 1 cross), d 512, 8 heads of 64 on 2 KV heads (G = 4), 16 image
+    tokens; the AdaLN heads randomised and the cross gates opened."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        reduced(get_config("llama-3.2-vision-11b"), d_model=512, n_heads=8),
+        n_layers=6, cross_attn_every=3)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dbm.init(gen)
+    for part in ("self", "cross"):
+        for k in ("w", "b"):
+            params["units"][part]["adaln"][k].normal_(0.0, 0.02,
+                                                      generator=gen)
+    params["units"]["cross"]["xgate"].fill_(2.0)
+    return dbm, params
+
+
+def _vlm_images(dbm, n):
+    gen = torch.Generator().manual_seed(7)
+    return [{"image_embs": torch.randn(dbm.cfg.n_image_tokens - i,
+                                       dbm.cfg.d_model, generator=gen)
+                                 .numpy()} for i in range(n)]
+
+
+def _vlm_run(dbm, params, cuda, graphs, image_b, preempt=False):
+    """Two slots: request A with an image decodes; between two replays
+    request B is admitted into the other slot with ``image_b`` (its block
+    written in place, its ``cond_lengths`` set); A is preempted and
+    restored once when ``preempt``. The pool's and blocks' addresses are
+    checked after every step. Returns ({rid: tokens}, batcher)."""
+    from repro_torch.nn import cache as KVC
+    cb = S.ContinuousBatcher(
+        dbm, params, num_slots=2, page_size=16, max_prompt=32, max_len=64,
+        seg_len=4, chunk_size=16, prefix_cache=True, graphs=graphs,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+    ptrs = KVC.pool_ptrs(cb.kv)
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, dbm.cfg.vocab_size, (n,), generator=gen)
+               .numpy() for n in (20, 13)]
+    image_a = _vlm_images(dbm, 1)[0]
+    cb.submit(prompts[0], 16, aux_inputs=image_a)
+    done, step = [], 0
+    while cb.has_work() or step < 3:
+        if step == 2:
+            assert cb.decode_dispatches >= 1
+            cb.submit(prompts[1], 16, aux_inputs=image_b)
+        if preempt and step == 3:
+            cb.preempt(cb.slot_req[0].rid)
+        done.extend(cb.step())
+        assert KVC.pool_ptrs(cb.kv) == ptrs
+        step += 1
+    assert not cb.cond_lengths.any()
+    return {r.rid: r.out for r in done}, cb
+
+
+@pytest.mark.gpu
+def test_vlm_image_admitted_between_replays_is_read(cuda):
+    """A slot admitted with a new image between two graph replays reads it
+    on the next replay: bf16 tokens equal the eager run's, and differ from
+    the same schedule without the image; the pool's and image blocks'
+    addresses hold across the conditioning writes, the resets and a
+    preemption's restore."""
+    dbm, params = _vlm_model(cuda)
+    image_b = _vlm_images(dbm, 2)[1]
+    graphed, cg = _vlm_run(dbm, params, cuda, True, image_b, preempt=True)
+    eager, _ = _vlm_run(dbm, params, cuda, False, image_b, preempt=True)
+    assert graphed == eager
+    assert cg.preemptions == 1 and cg.restores == 1
+    assert cg.graph_warmups == {"chunk": 1, "segment": 1}
+    bare, _ = _vlm_run(dbm, params, cuda, True, None, preempt=True)
+    assert bare[0] == graphed[0] and bare[1] != graphed[1]
+    assert all(len(t) == 16 for t in graphed.values())
+
+
+@pytest.mark.gpu
+def test_vlm_unconditioned_rows_are_zero_under_a_graph(cuda):
+    """``cross_attend`` captured in a CUDA graph over static buffers: rows
+    whose ``cond_lengths`` is 0 give exactly 0 (no NaN), and a length
+    written into the buffer between replays is read by the next replay
+    (the plain call's values, within 2e-4)."""
+    from repro_torch.nn.cache import cross_attend
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, H, KV, hd, Sk = 4, 8, 2, 64, 37
+    q = torch.randn(B, 1, H, hd, generator=gen, device=cuda)
+    k, v = (torch.randn(B, Sk, KV, hd, generator=gen, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([Sk, 0, 5, 0], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cross_attend(q, k.float(), v.float(), lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cross_attend(q, k.float(), v.float(), lens)
+    for want in ([Sk, 0, 5, 0], [0, 9, 0, Sk]):
+        lens.copy_(torch.tensor(want, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        for b, n in enumerate(want):
+            if n == 0:
+                assert (out[b] == 0).all()
+            else:
+                assert out[b].abs().max() > 0
+        ref = cross_attend(q, k.float(), v.float(), lens.clone())
+        assert (out - ref).abs().max() <= 2e-4 * (1 + ref.abs().max())

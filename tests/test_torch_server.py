@@ -598,7 +598,7 @@ def test_ckpt_dir_serves_jax_saved_blocks(pair, tmp_path):
                       page_size=4, chunk_size=4, z0=z)[0, 9:].tolist()
     assert got == want
 
-    _, _, cb = TSV.build_batcher_from_args(args)
+    _, _, cb, _ = TSV.build_batcher_from_args(args)
     cb.draw_segment = JaxDraws(7, 1, cfg, dbm.db.sigma_max)
 
     async def main():
@@ -616,9 +616,33 @@ def test_ckpt_dir_serves_jax_saved_blocks(pair, tmp_path):
                                          "A6"),
                                         (["--conditioned"], "A6")])
 def test_server_cli_refuses_what_is_not_ported(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    """``--conditioned`` (ROADMAP ``item``, now ported): the dense default
+    arch takes no aux inputs and exits, as JAX's CLI does; the VLM
+    registers ``--cond-pool`` images and serves a request naming one,
+    unified and with ``--disagg``."""
+    with pytest.raises(SystemExit, match="takes no aux inputs"):
         TSV.build_batcher_from_args(_server_args(["--device", "cpu",
                                                   *flags]))
+    args = _server_args(["--device", "cpu", "--arch",
+                         "llama-3.2-vision-11b", "--blocks", "1",
+                         "--prompt-len", "8", "--max-new", "3",
+                         "--num-slots", "2", "--seg-len", "2",
+                         "--page-size", "4", "--cond-pool", "2", *flags])
+    _, _, cb, registry = TSV.build_batcher_from_args(args)
+    assert sorted(registry) == ["cond0", "cond1"]
+    assert getattr(cb, "is_router", False) == ("--disagg" in flags)
+
+    async def main():
+        srv = TSV.InferenceServer(cb, aux_registry=registry)
+        await srv.start()
+        try:
+            return await asyncio.wait_for(TSV.stream_generate(
+                HOST, srv.port, [1, 2, 3, 4, 5], 3, aux="cond1"), 60)
+        finally:
+            await srv.aclose()
+
+    got = asyncio.run(main())
+    assert got["status"] == 200 and len(got["ids"]) == 3, got
 
 
 def test_server_cli_serves_on_cpu(capsys):
