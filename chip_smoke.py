@@ -52,7 +52,13 @@ Phases, each fatal on failure:
      and backward (64, 256, 768), fp32), and llama-3.2-vision-11b's (r):
      decode KV=8 G=4 hd 128 with the probe's fp32 q over bf16 pages at
      phase 4's lengths, the bf16 prefill chunk on the tensor cores, the
-     gate-residual forward (8, 1, 4096) fp32;
+     gate-residual forward (8, 1, 4096) fp32; and zamba2-7b's (z) at hd
+     112: decode B=8 KV=32 G=1 with fp32 q over bf16 pages under the 4096
+     window at phase 4's lengths (the hybrid's probe and commit), the
+     prefill chunk the same on the 3xTF32 route, decode and prefill with
+     fp32 q over int8 pages under a 64-key window the lengths pass, the
+     bf16 prefill on the tensor cores, the gate-residual forward (8, 1,
+     3584) fp32;
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -236,7 +242,7 @@ Phases, each fatal on failure:
      bit-equal to the uninterrupted run (params, moments, step counters,
      history, heartbeats, guard state); and db mode (2 blocks of 2
      layers) with one ``pod_die`` restart, killed after step 3 of 4;
- 15. the VLM, last (fatal if more than 1 GiB is still allocated at its
+ 15. the VLM (fatal if more than 1 GiB is still allocated at its
      start): llama-3.2-vision-11b at full width (40 layers: 8 superblocks
      of 4 self layers and one tanh-gated cross-attention layer; d=4096,
      32 heads of 128 on 8 KV heads; 1601 image tokens), ``DEFAULT_DB`` (4
@@ -265,7 +271,30 @@ Phases, each fatal on failure:
      image) for one segment through the kernels and through
      ``impl="ref"``, logits within 1e-3 relative, greedy tokens equal;
      memory allocated back within 0.5 GiB of the phase's start with no
-     gc pass.
+     gc pass;
+ 16. the hybrid, after phase 15 and under the same memory checks:
+     zamba2-7b at full width (81 Mamba2 layers in 27 units of 3, each
+     followed by one application of the shared attention + MLP block;
+     d=3584, 32 heads of 112, window 4096; 9.964 B params), ``DEFAULT_DB``
+     (4 blocks), random fp32 weights from seed 0 with the AdaLN heads
+     randomised, the bf16 policy (fp32 compute over the masters, bf16
+     pages, fp32 Mamba rows): the static engine over 8 ``MarkovLM``
+     requests (prompts padded to 512, ragged 128-512, 32 new; wall, TTFT,
+     chunk and decode-step ms beside the bound from the shapes, 4 more
+     steps profiled for the busy share); the graphed ``ContinuousBatcher``
+     on 8 slots over 32 ``MarkovLM`` requests of 128-512 tokens, 32 new,
+     draws keyed by prompt and position (tok/s, ms a segment step, chunk
+     ms, TTFT, the share inside a dispatch, capture s); the first 8 again
+     on it for 2 segments against an eager batcher (tokens, committed K/V
+     and Mamba rows bit-equal), one of them then spilled mid-decode
+     through ``SpilledSlot.to_bytes``/``from_bytes`` and restored, all 8
+     finishing with the first run's tokens; request 8 (the first in a
+     recycled slot) alone through the static engine, the same tokens;
+     peak memory; then, the model dropped, 2 units at full width in 2
+     blocks, fp32: one 4160-token prompt (the window bites) and 8 new
+     tokens through the kernels and through ``impl="ref"``, logits within
+     1e-3 relative, tokens equal; memory back within 0.5 GiB with no gc
+     pass.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -358,6 +387,13 @@ VLM_COND = (0, 3, 6, 10, 13, 16, 20, 23)
 VLM_TWINS = ("other image", "same image", "no image")
 VLM_MIGRATE, VLM_MIGRATE_NEW, VLM_CUT_EVERY = 4, 32, 5
 VLM_MEM_START, VLM_MEM_SLACK = 2**30, 0.5 * 2**30
+# the hybrid (16): the arch, the new tokens of its static and continuous
+# runs, the fp32 check's depth cut (units of 3 Mamba layers and the shared
+# block), prompt (past the 4096-token window) and decode steps, and the
+# memory the phase may find allocated at its start and leave behind
+HYB_ARCH, HYB_NEW, HYB_CHECK_SEGMENTS = "zamba2-7b", 32, 2
+HYB_CUT_UNITS, HYB_LONG, HYB_LONG_NEW = 2, 4160, 8
+HYB_MEM_START, HYB_MEM_SLACK = 2**30, 0.5 * 2**30
 
 
 class SmokeError(RuntimeError):
@@ -1180,6 +1216,32 @@ def phase_kernels(dev) -> dict:
         "(r) prefill C=64 B=8 KV=8 G=4 hd=128 bf16 pages, bf16 q (VLM)",
         "flash_prefill", KV=8, G=4, hd=128, page_dtype=bf16, q_dtype=bf16,
         window=None, lengths=starts, dev=dev, gen=gen, C=CHUNK))
+    # (z) zamba2-7b's paged shapes (KV=32 G=1 hd 112, phase 16): the
+    # hybrid computes in fp32 over the bf16 policy's pages, so its probe
+    # and its commit send fp32 q to decode and its chunk takes the 3xTF32
+    # route; then int8 pages under a 64-key window the lengths pass, and
+    # the tensor-core route at hd 112 (bf16 q, off the hybrid's path)
+    zamba = dict(KV=32, G=1, hd=112, dev=dev, gen=gen)
+    rows["flash_decode"].append(paged_case(
+        "(z) decode B=8 KV=32 G=1 hd=112 window=4096 bf16 pages, fp32 q "
+        "(hybrid probe and commit)", "flash_decode", page_dtype=bf16,
+        q_dtype=f32, window=4096, lengths=ragged, **zamba))
+    rows["flash_prefill"].append(paged_case(
+        "(z) prefill C=64 B=8 KV=32 G=1 hd=112 window=4096 bf16 pages, "
+        "fp32 q (hybrid)", "flash_prefill", page_dtype=bf16, q_dtype=f32,
+        window=4096, lengths=starts, C=CHUNK, **zamba))
+    rows["flash_decode"].append(paged_case(
+        "(z) decode B=8 KV=32 G=1 hd=112 window=64 int8 pages, fp32 q",
+        "flash_decode", page_dtype=i8, q_dtype=f32, window=64,
+        lengths=ragged, **zamba))
+    rows["flash_prefill"].append(paged_case(
+        "(z) prefill C=64 B=8 KV=32 G=1 hd=112 window=64 int8 pages, fp32 q",
+        "flash_prefill", page_dtype=i8, q_dtype=f32, window=64,
+        lengths=starts, C=CHUNK, **zamba))
+    rows["flash_prefill"].append(paged_case(
+        "(z) prefill C=64 B=8 KV=32 G=1 hd=112 bf16 pages, bf16 q "
+        "(tensor cores)", "flash_prefill", page_dtype=bf16, q_dtype=bf16,
+        window=None, lengths=starts, C=CHUNK, **zamba))
     # (c) prefill at stablelm widths (commit_prompt_chunk: bf16 q)
     rows["flash_prefill"].insert(0, paged_case(
         "(c) prefill C=64 B=8 KV=32 G=1 hd=64 bf16 pages, bf16 q",
@@ -1216,6 +1278,10 @@ def phase_kernels(dev) -> dict:
     rows["gate_residual"].append(gate_case(
         "(r) gate_residual (8,1,4096) fp32, fp32 gate slice (VLM probe)",
         (8, 1, 4096), f32, f32, dev, gen))
+    # (z) the hybrid probe's gates (phase 16: d 3584)
+    rows["gate_residual"].append(gate_case(
+        "(z) gate_residual (8,1,3584) fp32, fp32 gate slice (hybrid probe)",
+        (8, 1, 3584), f32, f32, dev, gen))
     return rows
 
 
@@ -1728,13 +1794,14 @@ def cb_queue(vocab: int):
 
 
 def cb_batcher(dev, model, *, precision="bf16", impl="kernels", graphs=True,
-               total_pages=None, seed=0, num_slots=CB_SLOTS):
+               total_pages=None, seed=0, num_slots=CB_SLOTS,
+               prefix_cache=True):
     from repro_torch.launch.serve import ContinuousBatcher
     dbm, params, _ = model
     return ContinuousBatcher(
         dbm, params, num_slots=num_slots, page_size=PSZ, max_prompt=CB_MAX,
         max_len=CB_MAX + CB_NEW, seg_len=CB_SEG, chunk_size=CHUNK,
-        precision=precision, impl=impl, prefix_cache=True,
+        precision=precision, impl=impl, prefix_cache=prefix_cache,
         total_pages=total_pages, graphs=graphs,
         generator=torch.Generator(device=dev).manual_seed(seed))
 
@@ -1770,22 +1837,27 @@ def cb_drained(tag: str, cb, done, n: int) -> None:
 
 
 def paged_layers(dbm) -> tuple:
-    """(layers over the paged pool, all layers): every layer of a dense
-    model; the VLM's self layers only, its cross layers attending their
-    image blocks in plain torch (``cross_attend``)."""
+    """(layers over the paged pool, gate-residual launches of a probe
+    pass): a dense model's every layer and its two σ-gates; the VLM's self
+    layers only (its cross layers attend their image blocks in plain torch,
+    ``cross_attend``) and two gates for each of its layers; the hybrid's
+    shared-block applications (one a unit) and a gate for each Mamba layer
+    and two for each application."""
     m = dbm.model
+    if hasattr(m, "inner"):                           # the hybrid
+        return m.n_units, m.n_units * (m.inner + 2)
     A = m.n_units * m.k_self if hasattr(m, "k_self") else dbm.cfg.n_layers
-    return A, dbm.cfg.n_layers
+    return A, 2 * dbm.cfg.n_layers
 
 
 def cb_counts(dbm, cb) -> dict:
     """Launches of a continuous run from its counters: per segment step a
     paged decode per self-attention layer in the probes and in the commit,
-    and the probes' two gate-residuals per layer; per chunk dispatch a
+    and the probes' gate-residuals (``paged_layers``); per chunk dispatch a
     prefill per self-attention layer."""
-    A, L = paged_layers(dbm)
+    A, G = paged_layers(dbm)
     return expected_counts(flash_decode=2 * A * cb.steps,
-                           gate_residual=2 * L * cb.steps,
+                           gate_residual=G * cb.steps,
                            flash_prefill=A * cb.ingest_dispatches)
 
 
@@ -2095,7 +2167,7 @@ def srv_trace(vocab: int, rate: float, bursty: bool, seed: int) -> list:
 
 def srv_ledger(cb) -> tuple:
     """What a batcher's launches must be, from its counters: (paged
-    layers, all layers, segment steps and segment warm-ups, chunk
+    layers, a probe pass's gates, segment steps and segment warm-ups, chunk
     dispatches and chunk warm-ups)."""
     return (*paged_layers(cb.dbm), cb.steps + cb.graph_warmups["segment"],
             cb.ingest_dispatches + cb.graph_warmups["chunk"])
@@ -2106,7 +2178,7 @@ def srv_counts(ledger) -> dict:
     capture's eager warm-up step counts once)."""
     return expected_counts(
         flash_decode=sum(2 * A * seg for A, _, seg, _ in ledger),
-        gate_residual=sum(2 * L * seg for _, L, seg, _ in ledger),
+        gate_residual=sum(G * seg for _, G, seg, _ in ledger),
         flash_prefill=sum(A * ch for A, _, _, ch in ledger))
 
 
@@ -4250,7 +4322,7 @@ def vlm_static(dev, model, pool) -> dict:
     from repro_torch.launch.serve import get_engine
     dbm, params, gen = model
     cfg = dbm.cfg
-    A, L = paged_layers(dbm)
+    A, G = paged_layers(dbm)
     prompts, plens = prompts_np(cfg.vocab_size)
     key, images = pool
     aux = {key: np.stack([images[i % len(images)] for i in range(BATCH)])}
@@ -4271,7 +4343,7 @@ def vlm_static(dev, model, pool) -> dict:
     peak = torch.cuda.max_memory_allocated()
     tim = eng.last_timing
     expect = expected_counts(flash_decode=MAX_NEW * 2 * A,
-                             gate_residual=MAX_NEW * 2 * L,
+                             gate_residual=MAX_NEW * G,
                              flash_prefill=-(-PROMPT // CHUNK) * A)
     check_counts("vlm static", counts, expect)
     kv = eng.last_kv
@@ -4304,7 +4376,7 @@ def vlm_static(dev, model, pool) -> dict:
         f"{lb['prefill_ms']:.2f} ms ({lb['prefill_by']}), decode "
         f"{lb['decode_step_ms']:.2f} ms/step ({lb['decode_step_by']})")
     say(f"[vlm] static: launches {counts} (each run: 2 x {A} paged decodes "
-        f"and 2 x {L} gate-residuals a step, {A} prefills a chunk)")
+        f"and {G} gate-residuals a step, {A} prefills a chunk)")
     say(f"[vlm] static: the same prompts and draws without images: tokens "
         f"differ in {int(differ.sum())} of {BATCH} requests")
     if not differ.any():
@@ -4508,8 +4580,8 @@ def vlm_fp32_check(dev, pool) -> dict:
 
 def phase_vlm(dev) -> dict:
     """Phase 15: llama-3.2-vision-11b at full width (see the module
-    docstring). Runs last: the fp32 masters and their bf16 copy take
-    about 68 GiB."""
+    docstring). The fp32 masters and their bf16 copy take about 68 GiB,
+    so nothing else may be resident."""
     from repro_torch.launch.serve import conditioning_pool
     import numpy as np
     t_phase = time.perf_counter()
@@ -4570,6 +4642,500 @@ def phase_vlm(dev) -> dict:
             "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# 16. the hybrid: zamba2-7b at full width
+# ---------------------------------------------------------------------------
+
+def hyb_model(dev, n_units=None, blocks=None):
+    """zamba2-7b (cut to ``n_units`` units of 3 Mamba layers and the shared
+    block where given) in DEFAULT_DB's blocks (or ``blocks``), random fp32
+    weights from seed 0, the AdaLN heads randomised (zero at init: identity
+    modulation, gates of 1). Returns (dbm, params, gen)."""
+    from repro_torch.configs import DEFAULT_DB, get_config
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    cfg = get_config(HYB_ARCH)
+    if n_units is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_units * cfg.attn_every)
+    db = (DEFAULT_DB if blocks is None
+          else dataclasses.replace(DEFAULT_DB, num_blocks=blocks))
+    dbm = DiffusionBlocksModel(cfg, db)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dbm.init(gen)
+    for part in (params["units"]["mamba"], params["shared"]):
+        for k in ("w", "b"):
+            part["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, params, gen
+
+
+def hyb_prompts(vocab: int, n: int, lo: int, hi: int, seed: int) -> list:
+    """``n`` ``MarkovLM`` prompts of lo-hi tokens from ``seed``."""
+    import numpy as np
+    from repro_torch.data import MarkovLM
+    lm = MarkovLM(vocab_size=vocab, seed=7)
+    rs = np.random.RandomState(seed)
+    return [lm.sample(rs, 1, rs.randint(lo, hi + 1))[0] for _ in range(n)]
+
+
+def hyb_key(prompt) -> int:
+    import numpy as np
+    import zlib
+    return zlib.crc32(np.asarray(prompt, np.int64).tobytes())
+
+
+def hyb_z(dbm, prompt, positions, device) -> torch.Tensor:
+    """The initial z of the steps that commit ``prompt``'s request at
+    ``positions``: σ_max · N(0, 1) seeded by (prompt, position), so a
+    request's tokens do not depend on its slot, batcher or schedule."""
+    d = dbm.cfg.d_model
+    z = torch.stack([torch.randn(d, generator=torch.Generator().manual_seed(
+        hyb_key(prompt) * 8192 + int(p))) for p in positions])
+    return (dbm.db.sigma_max * z).to(device)
+
+
+def hyb_keyed_draws(cb):
+    """A batcher's ``draw_segment`` with ``hyb_z``'s draws. It reaches the
+    batcher weakly (see ``cb_timed``)."""
+    ref = weakref.ref(cb)
+
+    def draw(n):
+        b = ref()
+        z = torch.zeros((n, b.num_slots, 1, b.dbm.cfg.d_model),
+                        device=b.device)
+        for s, req in enumerate(b.slot_req):
+            if req is not None:
+                at = int(b.lengths[s])
+                z[:, s, 0] = hyb_z(b.dbm, req.prompt, range(at, at + n),
+                                   b.device)
+        return z, None
+    return draw
+
+
+def hyb_bounds(dbm, params, plens) -> dict:
+    """Least device time of the static run from its shapes (larger of bytes
+    over 3.35 TB/s and flops over the fp32 peak: the hybrid computes in
+    fp32 under the bf16 policy). A decode step: the probes (every block
+    once, so every unit once) read the Mamba layers' fp32 weights with
+    their AdaLN heads and the shared block's at each of its n_units
+    applications, the commit reads them again without the AdaLN heads,
+    plus the head once and the σ-MLP once a block; the Mamba h rows are
+    read by the probes and read and written by the commit (conv rows
+    beside them); both passes read every slot's committed K/V (bf16) at
+    every application. A prefill chunk reads the commit's weights once and
+    computes every padded token; the rows are read and written."""
+    cfg, B, m = dbm.cfg, BATCH, dbm.model
+    mamba = params["units"]["mamba"]
+    n_mamba = sum(t.numel() for _, t in _leaves(mamba))
+    m_adaln = sum(t.numel() for _, t in _leaves(mamba["adaln"]))
+    shared = sum(t.numel() for _, t in _leaves(params["shared"]))
+    s_adaln = sum(t.numel() for _, t in _leaves(params["shared"]["adaln"]))
+    head = params["head"]["w"].numel()
+    cond = sum(t.numel() for _, t in _leaves(params["cond"]))
+    probe_w = (n_mamba + m.n_units * shared) * 4
+    commit_w = (n_mamba - m_adaln + m.n_units * (shared - s_adaln)) * 4
+    d_in = cfg.ssm.expand * cfg.d_model
+    H = d_in // cfg.ssm.head_dim
+    rows = cfg.n_layers * B * (H * cfg.ssm.head_dim * cfg.ssm.d_state
+                               + (cfg.ssm.d_conv - 1)
+                               * (d_in + 2 * cfg.ssm.d_state)) * 4
+    kv_row = 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    mean_len = float(sum(plens)) / B + (HYB_NEW - 1) / 2
+    keys = min(mean_len, cfg.sliding_window)
+    attn_bytes = 2 * m.n_units * B * keys * kv_row
+    attn_flops = 2 * m.n_units * B * keys * cfg.n_heads * cfg.head_dim * 4
+    dec_bytes = (probe_w + commit_w + head * 4 + dbm.num_blocks * cond * 4
+                 + 3 * rows + attn_bytes)
+    dec = bound(dec_bytes, 2 * B * (probe_w + commit_w + head * 4) / 4
+                + attn_flops, PEAK_FP32)
+    n_chunks = -(-PROMPT // CHUNK)
+    pre = bound(n_chunks * (commit_w + 2 * rows)
+                + m.n_units * B * PROMPT * kv_row,
+                2 * (commit_w / 4) * B * n_chunks * CHUNK, PEAK_FP32)
+    return {"prefill_ms": pre[0], "prefill_by": pre[1],
+            "decode_step_ms": dec[0], "decode_step_by": dec[1],
+            "decode_bytes": {"probe weights": probe_w,
+                             "commit weights": commit_w,
+                             "state rows": 3 * rows, "pages": attn_bytes,
+                             "head and sigma-MLP": head * 4
+                             + dbm.num_blocks * cond * 4}}
+
+
+def hyb_finite(tag: str, kv) -> None:
+    for name, t in (("mamba h", kv["mamba"]["h"]),
+                    ("mamba conv", kv["mamba"]["conv"]),
+                    ("shared k", kv["shared_kv"].k),
+                    ("shared v", kv["shared_kv"].v)):
+        if not torch.isfinite(t.float()).all():
+            raise SmokeError(f"{tag}: non-finite {name} after serving")
+
+
+def hyb_static(dev, model) -> dict:
+    """The static engine over 8 ``MarkovLM`` requests (prompts padded to
+    512, ragged 128-512), chunk 64, HYB_NEW new tokens: wall, TTFT, chunk
+    and decode-step ms beside the bound; then 4 more decode steps from a
+    fresh prefill under the profiler, for the device's busy share."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    from repro_torch.nn import cache as KVC
+    dbm, params, gen = model
+    cfg = dbm.cfg
+    A, G = paged_layers(dbm)
+    prompts = np.stack([hyb_prompts(cfg.vocab_size, 1, PROMPT, PROMPT,
+                                    seed)[0] for seed in range(BATCH)])
+    _, plens = prompts_np(cfg.vocab_size)
+    eng = get_engine(dbm, precision="bf16", chunk_size=CHUNK)
+    # warm-up at the same shapes, 2 tokens (cuBLAS heuristics, allocator)
+    eng.generate(params, prompts, 2, prompt_lengths=plens, generator=gen)
+    eng.last_kv = None
+    z, _ = eng.draw(HYB_NEW, BATCH, gen, dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(params, prompts, HYB_NEW, prompt_lengths=plens, z0=z)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    tim = eng.last_timing
+    n_chunks = -(-PROMPT // CHUNK)
+    check_counts("hybrid static", counts, expected_counts(
+        flash_decode=HYB_NEW * 2 * A, gate_residual=HYB_NEW * G,
+        flash_prefill=n_chunks * A))
+    hyb_finite("hybrid static", eng.last_kv)
+    eng.last_kv = None
+    got = torch.stack([out[b, p:p + HYB_NEW] for b, p in enumerate(plens)])
+    if not ((got >= 0) & (got < cfg.vocab_size)).all():
+        raise SmokeError("hybrid static: token outside the vocabulary")
+    # the device's busy share of 4 decode steps past a fresh prefill
+    pps = KVC.pages_for(PROMPT + HYB_NEW, PSZ)
+    kv = dbm.model.init_paged_cache(BATCH, 1 + BATCH * pps, PSZ, eng.pol,
+                                    device=dev)
+    table = KVC.identity_page_table(BATCH, pps, device=dev)
+    pl = torch.as_tensor(plens, dtype=torch.int32, device=dev)
+    K.reset_launch_counts()
+    _, lens = eng.run_prefill(params, kv, table,
+                              torch.zeros(BATCH, dtype=torch.int32,
+                                          device=dev),
+                              torch.as_tensor(prompts, device=dev), pl)
+    pwall, busy, top = device_busy(lambda: eng.decode(
+        params, kv, table, lens, pl + HYB_NEW, 4, generator=gen), top=8)
+    more = K.launch_counts()
+    check_counts("hybrid static, profiled", more, expected_counts(
+        flash_decode=4 * 2 * A, gate_residual=4 * G,
+        flash_prefill=n_chunks * A))
+    add_counts(counts, more)
+    del kv
+    decode_ms = (tim["total_ms"] - tim["prefill_ms"]) / HYB_NEW
+    lb = hyb_bounds(dbm, params, plens)
+    say(f"[hybrid] static: bf16 policy (fp32 compute, bf16 pages, fp32 "
+        f"Mamba rows), greedy, {BATCH} MarkovLM requests, prompts padded to "
+        f"{PROMPT} (lengths {plens.tolist()}), chunk {CHUNK}, {HYB_NEW} new "
+        "tokens")
+    say(f"[hybrid] static: wall {wall:.3f} s | {BATCH * HYB_NEW / wall:.1f} "
+        f"tok/s | ttft {tim['ttft_ms']:.1f} ms (prefill "
+        f"{tim['prefill_ms']:.1f} ms: {tim['prefill_ms'] / n_chunks:.1f} ms "
+        f"a chunk) | decode {decode_ms:.2f} ms/step | bound from the "
+        f"shapes: chunk {lb['prefill_ms'] / n_chunks:.2f} ms "
+        f"({lb['prefill_by']}), decode {lb['decode_step_ms']:.2f} ms/step "
+        f"({lb['decode_step_by']}; "
+        + ", ".join(f"{k} {v / 1e9:.2f} GB"
+                    for k, v in lb["decode_bytes"].items()) + ")")
+    say(f"[hybrid] static: 4 decode steps under the profiler: device busy "
+        f"{busy:.1f} ms of {pwall:.1f} ms ({100 * busy / pwall:.1f}%)")
+    for ms, count, key in top:
+        say(f"[hybrid]   {ms:8.2f} ms  x{count:<6d} {key[:90]}")
+    say(f"[hybrid] static: launches {counts} (each run: 2 x {A} paged "
+        f"decodes and {G} gate-residuals a step, {A} prefills a chunk)")
+    return {"counts": counts, "wall_s": wall, "ttft_ms": tim["ttft_ms"],
+            "chunk_ms": tim["prefill_ms"] / n_chunks,
+            "decode_ms_per_step": decode_ms, "busy": busy / pwall,
+            "bounds": lb}
+
+
+def hyb_snapshot(cb, reqs) -> tuple:
+    """(each request's tokens so far, each slot's committed K/V rows of
+    every unit in logical order, the Mamba rows): what the graph-against-
+    eager check holds bit-equal. K/V by table and length: the batchers'
+    free lists differ, and a page's tail past the length holds whatever
+    the page held before."""
+    from repro_torch.nn import cache as KVC
+    sk = cb.kv["shared_kv"]
+    pages = []
+    for s in range(cb.num_slots):
+        n = int(cb.lengths[s])
+        ids = torch.as_tensor(cb.table[s, :KVC.pages_for(n, PSZ)],
+                              dtype=torch.long, device=sk.k.device)
+        for t in (sk.k, sk.v):
+            rows = t.index_select(1, ids)
+            pages.append(rows.reshape(rows.shape[0], -1,
+                                      *rows.shape[3:])[:, :n])
+    return ([list(r.out) for r in reqs], pages,
+            [t.clone() for t in cb.kv["mamba"].values()])
+
+
+def hyb_continuous(dev, model) -> dict:
+    """The graphed batcher on 8 slots over CB_REQUESTS ``MarkovLM`` prompts
+    of CB_MIN-CB_MAX tokens, HYB_NEW new each (draws keyed by prompt and
+    position, ``hyb_z``); then on the same batcher the first 8 prompts
+    again for HYB_CHECK_SEGMENTS segments against an eager batcher (tokens,
+    pages, Mamba rows bit-equal), one of them spilled through the wire
+    bytes and restored, all 8 finishing with the first run's tokens; and
+    request CB_SLOTS (the first in a recycled slot) served alone by the
+    static engine under its draws, with the same tokens."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    from repro_torch.nn import cache as KVC
+    dbm, params, _ = model
+    prompts = hyb_prompts(dbm.cfg.vocab_size, CB_REQUESTS, CB_MIN, CB_MAX, 1)
+    K.reset_launch_counts()
+    cb = cb_batcher(dev, model, prefix_cache=False)
+    cb.draw_segment = hyb_keyed_draws(cb)
+    t0 = time.perf_counter()
+    cb.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    events = cb_timed(cb)
+    for p in prompts:
+        cb.submit(p, HYB_NEW)
+    reqs = list(cb.queue)
+    t0 = time.perf_counter()
+    cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [r.rid for r in reqs if len(r.out) != HYB_NEW or r.error]
+    if bad or cb.page_refs or len(cb.free_pages) != cb.total_pages - 1:
+        raise SmokeError(f"hybrid continuous: short or failed {bad}, pages "
+                         f"{len(cb.free_pages)} free of {cb.total_pages - 1}")
+    first = [list(r.out) for r in reqs]
+    seg_ms = [s.elapsed_time(e) for s, e in events["segment"]]
+    chunk_ms = [s.elapsed_time(e) for s, e in events["chunk"]]
+    in_dispatch = (sum(seg_ms) + sum(chunk_ms)) / (wall * 1e3)
+    ttft = sorted(r.ttft for r in reqs)
+    n_tok = sum(len(r.out) for r in reqs)
+    state_mb = sum(t.numel() * t.element_size()
+                   for t in cb.kv["mamba"].values()) / 1e6
+    pool_mb = sum(t.numel() * t.element_size()
+                  for t in pool_tensors(cb.kv["shared_kv"])) / 1e6
+    say(f"[hybrid] continuous: {CB_REQUESTS} requests of {CB_MIN}-{CB_MAX} "
+        f"tokens on {CB_SLOTS} slots, bf16 policy, greedy, page {PSZ}, "
+        f"chunk {CHUNK}, seg_len {CB_SEG}, {HYB_NEW} new tokens each, no "
+        f"prefix cache (refused for the family); both dispatches replayed "
+        f"from graphs captured in {capture_s:.2f} s (warm-ups "
+        f"{cb.graph_warmups}); Mamba rows {state_mb:.1f} MB, pages "
+        f"{pool_mb:.1f} MB")
+    say(f"[hybrid] continuous: wall {wall:.3f} s | {n_tok / wall:.1f} tok/s "
+        f"| TTFT median {statistics.median(ttft) * 1e3:.1f} ms, max "
+        f"{ttft[-1] * 1e3:.1f} ms | decode {sum(seg_ms) / cb.steps:.3f} ms "
+        f"per segment step ({len(seg_ms)} segments) | chunk dispatch "
+        f"{statistics.median(chunk_ms):.2f} ms median ({len(chunk_ms)}) | "
+        f"inside a dispatch {100 * in_dispatch:.1f}% of the wall (CUDA "
+        f"events)")
+    stats = {"wall_s": wall, "tok_s": n_tok / wall,
+             "ttft_median_s": statistics.median(ttft),
+             "segment_step_ms": sum(seg_ms) / max(1, cb.steps),
+             "chunk_ms_median": statistics.median(chunk_ms),
+             "in_dispatch": in_dispatch, "capture_s": capture_s}
+    del events, cb._decode_segment, cb._chunk     # cb_timed's wrappers
+
+    # graph against eager over the first segments of the first 8 prompts
+    eager = cb_batcher(dev, model, prefix_cache=False, graphs=False)
+    eager.draw_segment = hyb_keyed_draws(eager)
+    snaps, again = [], None
+    for b in (cb, eager):
+        d0 = b.decode_dispatches
+        for p in prompts[:CB_SLOTS]:
+            b.submit(p, HYB_NEW)
+        sub = list(b.queue)
+        again = again or sub
+        while b.decode_dispatches < d0 + HYB_CHECK_SEGMENTS:
+            b.step()
+        torch.cuda.synchronize()
+        snaps.append(hyb_snapshot(b, sub))
+    (tg, pg, rg), (te, pe, re_) = snaps
+    equal = (tg == te and all(torch.equal(a, b) for a, b in zip(pg, pe))
+             and all(torch.equal(a, b) for a, b in zip(rg, re_)))
+    say(f"[hybrid] continuous: graph vs eager, first {HYB_CHECK_SEGMENTS} "
+        f"segments of {CB_SLOTS} requests: tokens "
+        f"{'identical' if tg == te else 'DIFFER'} ({sum(map(len, tg))} "
+        f"tokens), pages and Mamba rows "
+        f"{'bit-equal' if equal else 'DIFFER'}")
+    if not equal or not sum(map(len, tg)):
+        raise SmokeError("hybrid continuous: the graphs' dispatches differ "
+                         "from the eager ones")
+    ledger = [srv_ledger(eager)]
+    del eager, snaps, pg, pe, rg, re_
+
+    # preemption through the wire bytes, then to the end
+    s = next((s for s in range(cb.num_slots) if cb.active[s]
+              and cb.lengths[s] >= cb.plens[s]), None)
+    if s is None:
+        raise SmokeError("hybrid continuous: no slot decoding to preempt")
+    with cb._pool_lock:
+        req = cb._preempt_slot(s)
+    raw = req.spilled.to_bytes()
+    req.spilled = KVC.SpilledSlot.from_bytes(raw)
+    rows_mb = sum(e.numel() * e.element_size() for e in req.spilled.data
+                  if not isinstance(e, tuple)) / 1e6
+    n_pages = req.spilled.n_pages
+    cb.run()
+    torch.cuda.synchronize()
+    ledger.append(srv_ledger(cb))
+    resumed = [list(r.out) for r in again]
+    say(f"[hybrid] continuous: request {req.rid} spilled from slot {s} "
+        f"mid-decode ({len(raw) / 1e6:.1f} MB of wire bytes: "
+        f"{n_pages} pages of {dbm.model.n_units} units and "
+        f"{rows_mb:.1f} MB of Mamba rows) and restored; the 8 requests "
+        f"{'equal' if resumed == first[:CB_SLOTS] else 'DIFFER FROM'} the "
+        f"first run's tokens (preemptions {cb.preemptions}, restores "
+        f"{cb.restores})")
+    if resumed != first[:CB_SLOTS] or cb.restores != 1:
+        raise SmokeError("hybrid continuous: the restored run's tokens "
+                         "differ from the uninterrupted run's")
+    counts = K.launch_counts()
+    check_counts("hybrid continuous", counts, srv_counts(ledger))
+    del cb, req, raw
+    torch.cuda.empty_cache()
+
+    # request CB_SLOTS (admitted into a recycled slot) alone
+    p = prompts[CB_SLOTS]
+    eng = get_engine(dbm, precision="bf16", chunk_size=CHUNK)
+    z = hyb_z(dbm, p, range(len(p), len(p) + HYB_NEW), dev)
+    K.reset_launch_counts()
+    solo = eng.generate(params, np.asarray(p)[None], HYB_NEW,
+                        z0=z[:, None, None])
+    eng.last_kv = None
+    A, G = paged_layers(dbm)
+    more = K.launch_counts()
+    check_counts("hybrid solo", more, expected_counts(
+        flash_decode=HYB_NEW * 2 * A, gate_residual=HYB_NEW * G,
+        flash_prefill=-(-len(p) // CHUNK) * A))
+    add_counts(counts, more)
+    solo_out = solo[0, len(p):].tolist()
+    say(f"[hybrid] continuous: request {CB_SLOTS} (a recycled slot's "
+        f"second request, {len(p)} prompt tokens) served alone by the "
+        f"static engine under its draws: tokens "
+        f"{'equal' if solo_out == first[CB_SLOTS] else 'DIFFER'}")
+    if solo_out != first[CB_SLOTS]:
+        raise SmokeError("hybrid continuous: a recycled slot's request "
+                         "differs from its solo run")
+    return {"counts": counts, **stats}
+
+
+def hyb_fp32_check(dev) -> dict:
+    """HYB_CUT_UNITS units (6 Mamba layers, 2 applications of the shared
+    block) at full width in 2 blocks, fp32 policy: one MarkovLM prompt of
+    HYB_LONG tokens (the 4096-token window bites in the last chunks and in
+    every decode step) through the static engine, through the kernels and
+    through ``impl="ref"`` under the same draws; every step's logits within
+    1e-3 relative and the greedy tokens equal."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    model = hyb_model(dev, n_units=HYB_CUT_UNITS, blocks=2)
+    dbm, params, gen = model
+    A, G = paged_layers(dbm)
+    prompt = np.asarray(hyb_prompts(dbm.cfg.vocab_size, 1, HYB_LONG,
+                                    HYB_LONG, 2)[0])[None]
+    z, _ = get_engine(dbm, precision="fp32", chunk_size=CHUNK).draw(
+        HYB_LONG_NEW, 1, gen, dev)
+    plain = dbm.model.logits
+    runs = {}
+    for impl in ("kernels", "ref"):
+        logits = []
+
+        def readout(p, h, logits=logits):
+            logits.append(plain(p, h))
+            return logits[-1]
+        dbm.model.logits = readout
+        K.reset_launch_counts()
+        try:
+            eng = get_engine(dbm, precision="fp32", impl=impl,
+                             chunk_size=CHUNK)
+            out = eng.generate(params, prompt, HYB_LONG_NEW, z0=z)
+            eng.last_kv = None
+        finally:
+            del dbm.model.logits
+        runs[impl] = (out, torch.stack([x[:, 0].float() for x in logits]),
+                      K.launch_counts())
+    counts = runs["kernels"][2]
+    check_counts("hybrid fp32", counts, expected_counts(
+        flash_decode=HYB_LONG_NEW * 2 * A, gate_residual=HYB_LONG_NEW * G,
+        flash_prefill=-(-HYB_LONG // CHUNK) * A))
+    check_counts("hybrid fp32, plain", runs["ref"][2], expected_counts())
+    lk, lr = runs["kernels"][1], runs["ref"][1]
+    rel = ((lk - lr).abs().max() / lr.abs().max()).item()
+    equal = torch.equal(runs["kernels"][0], runs["ref"][0])
+    say(f"[hybrid] fp32 depth cut ({HYB_CUT_UNITS} units: "
+        f"{dbm.cfg.n_layers} Mamba layers and {HYB_CUT_UNITS} applications "
+        f"of the shared block, 2 blocks, full width), one prompt of "
+        f"{HYB_LONG} tokens (window {dbm.cfg.sliding_window}), "
+        f"{HYB_LONG_NEW} new tokens, kernels vs plain versions: logits rel "
+        f"max|diff| {rel:.2e} (limit 1e-3) | greedy tokens "
+        f"{'equal' if equal else 'DIFFER'}")
+    if not (rel <= 1e-3 and math.isfinite(rel)) or not equal:
+        raise SmokeError(f"hybrid fp32 cross-check: logits {rel:.2e}, "
+                         f"tokens equal {equal}")
+    return {"counts": counts, "logits_rel": rel}
+
+
+def phase_hybrid(dev) -> dict:
+    """Phase 16: zamba2-7b at full width (see the module docstring). Runs
+    after phase 15 under its memory checks: the fp32 masters alone are
+    39.86 GB."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    base = torch.cuda.memory_allocated()
+    say(f"[hybrid] memory allocated at the phase's start: "
+        f"{base / 2**30:.3f} GiB")
+    if base > HYB_MEM_START:
+        raise SmokeError(f"hybrid: {base / 2**30:.2f} GiB still allocated "
+                         "from earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = hyb_model(dev)
+    dbm, params, _ = model
+    torch.cuda.synchronize()
+    cfg, m = dbm.cfg, dbm.model
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    say(f"[hybrid] {cfg.name}: {cfg.n_layers} Mamba2 layers in {m.n_units} "
+        f"units of {m.inner}, each followed by the shared attention + MLP "
+        f"block; d={cfg.d_model} heads={cfg.n_heads} kv={cfg.n_kv_heads} "
+        f"hd={cfg.head_dim} ff={cfg.d_ff} window={cfg.sliding_window} "
+        f"vocab={cfg.vocab_size}, SSM d_state {cfg.ssm.d_state} head_dim "
+        f"{cfg.ssm.head_dim} expand {cfg.ssm.expand}; {dbm.num_blocks} "
+        f"blocks {dbm.ranges}; {n_params / 1e9:.3f} B params fp32 (reckoned "
+        f"9.964 B) made in {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    static = hyb_static(dev, model)
+    add_counts(counts, static["counts"])
+    cont = hyb_continuous(dev, model)
+    add_counts(counts, cont["counts"])
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[hybrid] peak memory at full width {peak / 2**30:.2f} GiB "
+        f"(reckoned: 39.86 GB fp32 masters served as they are, about 1.25 "
+        f"GB of Mamba rows and 1.7 GB of pages a batcher, plus transients: "
+        f"near 44 GiB) of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}")
+    del model, dbm, params, m
+    torch.cuda.empty_cache()
+    fp32 = hyb_fp32_check(dev)
+    add_counts(counts, fp32["counts"])
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    left = torch.cuda.memory_allocated()
+    say(f"[hybrid] with everything dropped (no gc pass): "
+        f"{left / 2**30:.3f} GiB allocated against {base / 2**30:.3f} GiB "
+        "at the start")
+    if left - base > HYB_MEM_SLACK:
+        raise SmokeError(f"hybrid: {(left - base) / 2**30:.2f} GiB left "
+                         "allocated after the phase")
+    took = time.perf_counter() - t_phase
+    say(f"[hybrid] phase 16 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "static": static, "continuous": cont,
+            "peak": peak, "fp32_rel": fp32["logits_rel"], "seconds": took}
+
+
 OFF_PATH = {"euler_bwd"}
 
 
@@ -4619,13 +5185,14 @@ def main() -> int:
     phase_block_parallel_crosscheck(dev)
     runner = phase_runner(dev)
     vlm = phase_vlm(dev)
+    hybrid = phase_hybrid(dev)
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
                    two_pass["launches"], dit["launches"],
                    huginn["launches"], vit["launches"], mdm["launches"],
                    block_parallel["launches"], runner["launches"],
-                   vlm["counts"]):
+                   vlm["counts"], hybrid["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

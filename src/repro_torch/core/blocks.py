@@ -1,9 +1,10 @@
-"""DiffusionBlocks over the dense decoder and the VLM (port of
+"""DiffusionBlocks over the dense decoder, the VLM and the hybrid (port of
 ``repro.core.blocks``): the block-local training loss of the AR adapter in
 concat or two-pass mode with the CE or l2 loss (``block_loss``, dense
-only), the end-to-end baseline (``e2e_loss``), and the sampler over the
-paged cache (both families; the VLM's slots read their image blocks under
-``cond_lengths``).
+only; the hybrid is routed to two-pass, which raises until its training
+slice), the end-to-end baseline (``e2e_loss``), and the sampler over the
+paged cache (all three families; the VLM's slots read their image blocks
+under ``cond_lengths``, the hybrid's Mamba rows advance in place).
 
 Training. ``block_loss`` runs block b's units over the clean‖noisy stream
 of length 2S under ``db_concat_mask`` (concat) or over paired clean and
@@ -42,7 +43,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import precision as precision_mod
-from repro_torch.configs.base import DBConfig, ModelConfig
+from repro_torch.configs.base import HYBRID, SSM, DBConfig, ModelConfig
 from repro_torch.core import edm
 from repro_torch.core import partition as P
 from repro_torch.models.common import LayerCtx
@@ -93,6 +94,12 @@ def gumbel(generator: Optional[torch.Generator], shape,
     return -torch.log(-torch.log(u))
 
 
+def _needs_two_pass(cfg: ModelConfig) -> bool:
+    """SSM recurrences have no attention mask: the concat trick does not
+    apply."""
+    return cfg.family in (HYBRID, SSM)
+
+
 class DiffusionBlocksModel:
     def __init__(self, cfg: ModelConfig, db: DBConfig,
                  distribution: Optional[Sequence[int]] = None):
@@ -102,6 +109,8 @@ class DiffusionBlocksModel:
         self.edges = P.sigma_edges(db)                     # descending, B+1
         self.ranges = P.unit_ranges(self.model.n_units, db.num_blocks,
                                     distribution)
+        self.causal_mode = ("two_pass" if _needs_two_pass(cfg)
+                            else db.causal_mode)
 
     @property
     def num_blocks(self) -> int:
@@ -159,9 +168,11 @@ class DiffusionBlocksModel:
         range, one per example; ε (B, S, d) is standard normal. Both come
         from ``generator`` unless given.
 
-        ``DBConfig.causal_mode``: ``concat`` runs one clean‖noisy stream of
-        length 2S under ``db_concat_mask``; ``two_pass`` runs the clean and
-        noisy streams side by side through ``apply_units_two_pass``.
+        ``causal_mode`` (``DBConfig.causal_mode``, or ``two_pass`` for
+        the recurrent families, which have no mask): ``concat`` runs one
+        clean‖noisy stream of length 2S under ``db_concat_mask``;
+        ``two_pass`` runs the clean and noisy streams side by side through
+        ``apply_units_two_pass``.
         ``DBConfig.loss``: ``ce`` takes CE of the denoiser output through
         the readout; ``l2`` is the score-matching loss in F-space (under
         ``impl="kernels"`` the EDM-loss kernels, which never store the
@@ -185,7 +196,7 @@ class DiffusionBlocksModel:
         z_in = (c_in * z).to(cd)
 
         ar = torch.arange(S, device=dev)
-        if self.db.causal_mode == "concat":
+        if self.causal_mode == "concat":
             stream = torch.cat([emb_clean.to(cd), z_in], dim=1)
             ctx = self.make_ctx(params, 2 * S, "train", sigma, impl=impl,
                                 precision=pol)

@@ -10,13 +10,15 @@
 // enough bytes in flight: about 25 KB an SM by Little's law.
 //
 // paged_decode_kernel. One block of 4 warps (2 where 4 warps' shared memory
-// would pass an SM's 227 KB: fp32 pages at hd 120 and 128; decode_launch
-// picks) per (slot, kv head, split): the slot's visible 32-key tiles are shared
-// out among gridDim.y blocks (the split, from the lengths read in the
-// kernel), and within a block the warps take interleaved tiles.
+// would pass an SM's 227 KB: fp32 pages at hd 112, 120 and 128;
+// decode_launch picks) per (slot, kv head, split): the slot's visible
+// 32-key tiles are shared out among gridDim.y blocks (the split, from the
+// lengths read in the kernel), and within a block the warps take
+// interleaved tiles.
 //   * Each warp stages its tiles' K and V rows in its own 2-stage ring in
 //     shared memory by cp.async: 16-byte copies (8 for int8 at hd 120, whose
-//     rows are 120 bytes), neighbouring lanes on neighbouring copies of one
+//     rows are 120 bytes; zamba2's int8 rows at hd 112 are 7 copies of 16),
+//     neighbouring lanes on neighbouring copies of one
 //     row (8 lanes a 128-byte row at hd 64 bf16), each row's physical page
 //     from the page table. Tile t + 1's copies are in flight while tile t is
 //     scored and summed; no barrier wider than the warp.
@@ -415,6 +417,7 @@ cudaError_t decode_hd(const PagedArgs& a, int hd, int R, dim3 grid,
                       cudaStream_t st) {
   switch (hd) {
     case 64: return decode_r<T, 64>(a, R, grid, st);
+    case 112: return decode_r<T, 112>(a, R, grid, st);
     case 120: return decode_r<T, 120>(a, R, grid, st);
     case 128: return decode_r<T, 128>(a, R, grid, st);
     default: return cudaErrorInvalidValue;

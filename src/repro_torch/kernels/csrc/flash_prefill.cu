@@ -44,9 +44,10 @@
 //   Q K^T, the V scale is folded into p (fp32) before the hi/lo split, and
 //   l sums the unscaled p: the plain version's dequantized arithmetic, up
 //   to fp32 reordering.
-//   hd 120 (h2o-danube3): rows are padded to 128 dims in shared memory;
-//   chunk 15 of every row and Q's columns 120-127 are zero-filled, so the
-//   scores are unchanged, and output columns past 120 are not written.
+//   hd 120 (h2o-danube3) and 112 (zamba2): rows are padded to 128 dims in
+//   shared memory (the swizzle wants whole 128-byte lines); the chunks past
+//   HD / 8 of every row and Q's columns past HD are zero-filled, so the
+//   scores are unchanged, and output columns past HD are not written.
 //   Shared memory: Q + 2 x (K, V) bf16 tiles, 40 KB at hd 64, 80 KB at
 //   hd 120/128; int8: Q + (K, V) bf16 + 2 x (K, V) raw + scales, 41/81 KB.
 #include <type_traits>
@@ -61,7 +62,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int HD>
 struct PrefillTc {
-  static constexpr int HP = (HD + 15) / 16 * 16;  // dims, padded to k16
+  // dims, padded to whole 128-byte lines (8 chunks) for the swizzle
+  static constexpr int HP = (HD + 63) / 64 * 64;
   static constexpr int CH = HP / 8;      // 16-byte bf16 chunks of a row
   static constexpr int VCH = HD / 8;     // chunks that hold data
   static constexpr int TILE = kPB * HP;  // bf16 elements of a tile
@@ -402,8 +404,8 @@ __global__ void __launch_bounds__(kPThreads, HD == 64 ? 3 : 2)
 //   tile is visible to every row). int8: the K scale multiplies the score
 //   columns, the V scale is folded into p before the split, l sums the
 //   unscaled p.
-//   hd 120: 15 k8 steps, so rows need no padding (the pitches are those of
-//   hd 128); output columns stop at 120.
+//   hd 120 and 112: 15 and 14 k8 steps, so rows need no padding (the
+//   pitches are those of hd 128); output columns stop at HD.
 //   Shared memory: hd 64 fp32 pages 88 KB (2 blocks an SM), hd 120/128
 //   101 KB; bf16 or int8 pages: Q, one K and V tile and the raw ring, 85 /
 //   70 KB at hd 64, 165 / 134 KB at hd 128.
@@ -772,6 +774,7 @@ cudaError_t prefill_tc_hd(const PagedArgs& a, int B, int hd,
                           cudaStream_t st) {
   switch (hd) {
     case 64: return prefill_tc<T, 64>(a, B, st);
+    case 112: return prefill_tc<T, 112>(a, B, st);
     case 120: return prefill_tc<T, 120>(a, B, st);
     case 128: return prefill_tc<T, 128>(a, B, st);
     default: return cudaErrorInvalidValue;
@@ -790,6 +793,7 @@ cudaError_t prefill_tf32_hd(const PagedArgs& a, int B, int hd,
                             cudaStream_t st) {
   switch (hd) {
     case 64: return prefill_tf32<TQ, TP, 64>(a, B, st);
+    case 112: return prefill_tf32<TQ, TP, 112>(a, B, st);
     case 120: return prefill_tf32<TQ, TP, 120>(a, B, st);
     case 128: return prefill_tf32<TQ, TP, 128>(a, B, st);
     default: return cudaErrorInvalidValue;

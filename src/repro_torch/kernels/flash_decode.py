@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-SUPPORTED_HD = (64, 120, 128)       # stablelm; h2o-danube3; olmo, qwen
+SUPPORTED_HD = (64, 112, 120, 128)  # stablelm; zamba2; h2o-danube3; olmo, qwen
 MAX_GROUP = 8
 PAGE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 TILE_KEYS = 32           # keys of a warp's tile: one a lane

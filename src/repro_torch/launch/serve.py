@@ -34,6 +34,8 @@ Run (defaults: the reduced stablelm-1.6b on the card, bf16 policy):
     python -m repro_torch.launch.serve --device cpu \
         --arch llama-3.2-vision-11b --blocks 1 --conditioned \
         --scheduler continuous           # the VLM, image-conditioned
+    python -m repro_torch.launch.serve --arch zamba2-7b --full \
+        --scheduler continuous           # the hybrid (no --prefix-cache)
 """
 from __future__ import annotations
 

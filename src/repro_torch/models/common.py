@@ -11,6 +11,12 @@ call). ``tlayer_two_pass`` is the DB two-pass training layer: a clean
 stream under the causal mask and a σ-conditioned noisy stream that attends
 to the clean past and to itself.
 
+Recurrent layers (the hybrid's Mamba2) keep a per-slot state beside the
+pages: ``chunk_token_scan`` advances one over a chunk a token at a time
+(the plain version of the hybrid's chunk mode), ``masked_state_update``
+holds the inactive slots' state and ``write_state`` writes a new state
+into the cache's storage in place.
+
 Cross layers (``tlayer_spec(cross=True)``: the VLM's tanh-gated image
 attention) run in the cached modes only: their queries attend the slot's
 precomputed (k, v) image block (``write_cross_block`` projects it once at
@@ -56,6 +62,47 @@ class LayerCtx:
     def dims(self) -> A.AttnDims:
         c = self.cfg
         return A.AttnDims(c.n_heads, c.n_kv_heads, c.head_dim, c.rope_theta)
+
+
+def chunk_token_scan(step_fn, x, state, n_valid):
+    """Advance a recurrent layer over a prefill chunk one token at a time,
+    as JAX's ``lax.scan`` does: ``step_fn(x_t (B, 1, d), state) -> (y_t
+    (B, 1, d), new_state)``; slots whose valid tokens ran out (t >=
+    ``n_valid[b]``) hold their state. Functional: ``state`` is not
+    modified. Returns (y (B, C, d), final state). The plain version of
+    ``nn.ssm.mamba2_chunk_step`` (the hybrid's chunk mode), kept for the
+    tests and for recurrences without a closed chunk form."""
+    ys = []
+    for t in range(x.shape[1]):
+        y_t, new = step_fn(x[:, t:t + 1], state)
+        state = masked_state_update(new, state, t < n_valid)
+        ys.append(y_t[:, 0])
+    return torch.stack(ys, dim=1), state
+
+
+def masked_state_update(new_state, old_state, active):
+    """Per-slot recurrent-state commit mask for ragged and continuous
+    batching: inactive slots keep their old state. Leaves lead with the
+    slot axis (B, ...). Functional; paged KV needs no such mask (inactive
+    appends go to the trash page)."""
+    if active is None or old_state is None:
+        return new_state
+    return {k: (masked_state_update(n, old_state[k], active)
+                if isinstance(n, dict) else
+                torch.where(active.reshape((-1,) + (1,) * (n.ndim - 1)),
+                            n, old_state[k]))
+            for k, n in new_state.items()}
+
+
+def write_state(dst, new) -> None:
+    """Copy a new per-slot state tree into ``dst``'s storage, in place: a
+    captured CUDA graph holds the state's addresses, as it holds the
+    pool's pages."""
+    for k, t in dst.items():
+        if isinstance(t, dict):
+            write_state(t, new[k])
+        else:
+            t.copy_(new[k])
 
 
 def default_mask(cfg: ModelConfig, bidirectional: bool = False):

@@ -140,8 +140,12 @@ class BaseModel:
 
 def build_model(cfg: ModelConfig, db: Optional[DBConfig] = None) -> BaseModel:
     """The model of ``cfg.family`` (port of ``repro.models.build_model``):
-    ``VLMModel`` for the vlm family, else ``DecoderModel``, which raises
-    for any family but dense."""
-    from repro_torch.configs.base import VLM
-    from repro_torch.models import transformer as T    # import cycle
-    return (T.VLMModel if cfg.family == VLM else T.DecoderModel)(cfg, db)
+    ``VLMModel`` for the vlm family, ``HybridModel`` for the hybrid
+    (zamba2), else ``DecoderModel``, which raises for any family but dense
+    (MoE, xLSTM and audio are not ported yet)."""
+    from repro_torch.configs.base import HYBRID, VLM
+    from repro_torch.models import hybrid as H         # import cycle
+    from repro_torch.models import transformer as T
+    cls = {VLM: T.VLMModel, HYBRID: H.HybridModel}.get(cfg.family,
+                                                       T.DecoderModel)
+    return cls(cfg, db)

@@ -25,8 +25,9 @@ class DecoderModel(BaseModel):
     def __init__(self, cfg, db=None):
         if cfg.family != DENSE:
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port has the dense decoder and "
-                "the VLM (VLMModel) only so far")
+                f"family {cfg.family!r}: the port has the dense decoder, "
+                "the VLM (VLMModel) and the hybrid (models.hybrid."
+                "HybridModel) only so far")
         super().__init__(cfg, db)
 
     @property

@@ -24,8 +24,12 @@ A model's serving cache is a PagedKV or a dict tree of PagedKV leaves and
 dense per-slot tensors: the VLM keeps ``{"self": PagedKV (units, k_self,
 P, psz, KV, hd), "cross": {"k", "v"} (units, slots, n_image_tokens, KV,
 hd)}``, its fixed per-slot image blocks beside the pages (``cross_attend``
-reads them under per-slot valid lengths). ``cache_unit``/``cache_units``
-slice any such tree by units.
+reads them under per-slot valid lengths), and the hybrid keeps
+``{"mamba": {"h", "conv"} (units, inner, slots, ...), "shared_kv": PagedKV
+(units, P, psz, KV, hd)}``, its per-slot Mamba rows beside the shared
+block's pages. ``cache_unit``/``cache_units`` slice any such tree by
+units (every leaf leads with the unit axis); the dense leaves' slot axis
+is the family's ``paged_state_axes``.
 """
 from __future__ import annotations
 

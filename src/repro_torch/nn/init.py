@@ -22,7 +22,7 @@ Axes = Tuple[Optional[str], ...]
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Axes                       # logical axis names; len == len(shape)
-    init: str = "normal"             # normal | zeros | ones | embed
+    init: str = "normal"             # normal | zeros | ones | embed | uniform
     scale: float = 1.0               # multiplier on the fan-in init std
 
     def __post_init__(self):
@@ -66,6 +66,9 @@ def init_params(spec_tree: Any, generator: torch.Generator,
         elif spec.init == "embed":
             p = torch.randn(spec.shape, generator=generator, dtype=dtype,
                             device=device) * spec.scale
+        elif spec.init == "uniform":    # U[-1, 1) (the Mamba2 a_log)
+            p = (torch.rand(spec.shape, generator=generator, dtype=dtype,
+                            device=device) * 2.0 - 1.0) * spec.scale
         else:  # normal: fan-in scaled
             std = _fan_in_std(spec.shape) * spec.scale
             p = torch.randn(spec.shape, generator=generator, dtype=dtype,

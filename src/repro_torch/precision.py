@@ -7,7 +7,8 @@ and the weight copies the matmuls see: bf16 under ``bf16``) and ``kv_dtype``
 stores quantized pages with per-page fp32 scales; ``kv_dense``, the dense
 per-slot cross blocks, never quantizes). Softmax and norm
 statistics are fp32 under every policy. Recurrent families keep fp32
-compute under ``bf16`` (``fp32_families``).
+compute under ``bf16`` (``fp32_families``), and their per-slot states are
+stored in ``state_for`` (fp32 under every shipped policy).
 
 ``cast_params_for_compute`` is the training cast: a differentiable copy of
 every floating leaf in the compute dtype, so gradients flow back to the fp32
@@ -54,6 +55,12 @@ class Policy:
         scales, so they never quantize: under an int8 paged policy they
         stay in the compute dtype."""
         return self.compute_dtype if self.kv_quantized else self.kv
+
+    def state_for(self, family: Optional[str] = None) -> torch.dtype:
+        """Recurrent-state storage dtype (the hybrid's Mamba rows):
+        compounded rounding over the sequence keeps these fp32 under the
+        bf16 policy."""
+        return self.compute_for(family)
 
 
 FP32 = Policy("fp32")
@@ -115,3 +122,9 @@ def cast_params_for_compute(policy: PolicyLike, params,
     from repro_torch.nn.init import tree_map
     return tree_map(lambda _, x: x.to(cd) if x.is_floating_point() else x,
                     params)
+
+
+def cast_stream(policy: PolicyLike, x: torch.Tensor,
+                family: Optional[str] = None) -> torch.Tensor:
+    """Cast an activation stream to the policy's compute dtype."""
+    return x.to(get_policy(policy).compute_for(family))

@@ -2340,3 +2340,79 @@ def test_vlm_unconditioned_rows_are_zero_under_a_graph(cuda):
                 assert out[b].abs().max() > 0
         ref = cross_attend(q, k.float(), v.float(), lens.clone())
         assert (out - ref).abs().max() <= 2e-4 * (1 + ref.abs().max())
+
+
+def _hybrid_model(cuda):
+    """zamba2-7b's structure at 6 Mamba layers (2 units of 3 and the
+    shared block), d 896, 8 heads of 112 (the paged kernels' hd 112), a
+    64-key window; the AdaLN heads randomised."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        reduced(get_config("zamba2-7b"), d_model=896, n_heads=8),
+        n_layers=6, attn_every=3)
+    assert cfg.head_dim == 112
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dbm.init(gen)
+    for part in (params["units"]["mamba"], params["shared"]):
+        for k in ("w", "b"):
+            part["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, params
+
+
+def _hybrid_run(dbm, params, cuda, graphs, precision):
+    """Five ragged requests on 2 slots (recycled: each admission resets
+    the slot's Mamba rows), the first preempted once mid-decode (pages and
+    Mamba rows spilled and restored); the state's and pool's addresses are
+    checked after every step. Returns (batcher, {rid: tokens}, counts)."""
+    from repro_torch.nn import cache as KVC
+    cb = S.ContinuousBatcher(
+        dbm, params, num_slots=2, page_size=16, max_prompt=80, max_len=112,
+        seg_len=4, chunk_size=16, precision=precision, graphs=graphs,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+    ptrs = KVC.pool_ptrs(cb.kv)
+    gen = torch.Generator().manual_seed(1)
+    for n in (70, 9, 33, 51, 12):
+        cb.submit(torch.randint(0, dbm.cfg.vocab_size, (n,), generator=gen)
+                  .numpy(), 24)
+    K.reset_launch_counts()
+    done, step = [], 0
+    while cb.has_work():
+        if step == 6 and cb.slot_req[0] is not None:
+            cb.preempt(cb.slot_req[0].rid)
+        done.extend(cb.step())
+        assert KVC.pool_ptrs(cb.kv) == ptrs
+        step += 1
+    torch.cuda.synchronize()
+    return cb, {r.rid: r.out for r in done}, K.launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["bf16", "bf16_kvint8", "fp32"])
+def test_hybrid_graph_segments_bit_equal_to_eager(cuda, precision):
+    """The hybrid through the batcher's CUDA graphs (the Mamba rows static
+    buffers written in place, the shared block's paged attends at hd 112
+    past the window): tokens, pages and Mamba rows bit-equal to the eager
+    dispatches, a preemption restored, and the launch counts equal the
+    path's arithmetic (per step, one decode launch per unit in the probes
+    and one in the commit, and a gate per Mamba layer and two per shared
+    application in the probes; per chunk, one prefill launch per unit)."""
+    dbm, params = _hybrid_model(cuda)
+    (ce, de, ne), (cg, dg, ng) = (_hybrid_run(dbm, params, cuda, g, precision)
+                                  for g in (False, True))
+    assert dg == de and all(len(t) == 24 for t in dg.values())
+    assert cg.preemptions == 1 and cg.restores == 1
+    for k in ("h", "conv"):
+        assert torch.equal(cg.kv["mamba"][k], ce.kv["mamba"][k])
+    for a, b in zip(_pool_tensors(cg.kv["shared_kv"]),
+                    _pool_tensors(ce.kv["shared_kv"])):
+        assert torch.equal(a[:, 1:], b[:, 1:])      # page 0: the trash page
+    n_units, inner = dbm.model.n_units, dbm.model.inner
+    for cb, counts in ((ce, ne), (cg, ng)):
+        steps = cb.steps + cb.graph_warmups["segment"]
+        want = {"flash_decode": 2 * n_units * steps,
+                "gate_residual": n_units * (inner + 2) * steps,
+                "flash_prefill": n_units * (cb.ingest_dispatches
+                                            + cb.graph_warmups["chunk"])}
+        assert counts == {**{k: 0 for k in counts}, **want}
+    assert cg.graph_warmups == {"chunk": 1, "segment": 1}

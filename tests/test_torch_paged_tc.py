@@ -21,8 +21,9 @@ card. Here:
     through a shuffled page table, per 64-row tile over only the tiles its
     rows see, p times the key's page V scale, then P split into bf16
     hi + lo. Held against ``flash_prefill_ref`` under ``chip_smoke.compare``'s
-    fp32 bound (2e-4 + 2e-4 |ref|) for G in {1, 4}, hd in {64, 120}, window
-    None / 5, C in {17, 64}, bf16 and int8 pages, with an empty slot and
+    fp32 bound (2e-4 + 2e-4 |ref|) for G in {1, 4}, hd in {64, 120} (and
+    112 at G 1, C 64), window None / 5, C in {17, 64}, bf16 and int8
+    pages, with an empty slot and
     chunks that cross pages; its output against the Pallas kernel
     (``repro.kernels.flash_prefill``, interpret mode) at 1e-4; and with
     bf16 P alone (no lo term) past the bound: the reason P is split;
@@ -140,11 +141,13 @@ def test_decode_pitch_is_an_odd_number_of_copies():
             assert cb * ch == hd * elt and pch % 2 == 1 and pch - ch <= 1
             assert cb == (16 if hd * elt % 16 == 0 else 8)
     assert decode_pitch(120, 1) == (8, 15, 15)     # int8 rows: 120 bytes
+    assert decode_pitch(112, 1) == (16, 7, 7)      # int8 rows: 7 x 16 bytes
 
 
 @pytest.mark.parametrize("hd,elt,warps", [
     (64, 2, 4), (120, 2, 4), (128, 2, 4), (64, 1, 4), (120, 1, 4),
-    (64, 4, 4), (120, 4, 2), (128, 4, 2)])
+    (64, 4, 4), (120, 4, 2), (128, 4, 2), (112, 2, 4), (112, 1, 4),
+    (112, 4, 2)])
 def test_decode_warps_keep_the_block_in_shared_memory(hd, elt, warps):
     """decode_launch takes 4 warps where their shared memory fits an SM at
     the largest group (R = 8), else 2, which always fit."""
@@ -331,7 +334,9 @@ def emulate_prefill(q, k, v, ks, vs, table, lengths, window,
 
 PREFILL_CASES = [(G, hd, w, C, page) for G in (1, 4) for hd in (64, 120)
                  for w in (None, 5) for C in (17, 64)
-                 for page in ("bf16", "int8")]
+                 for page in ("bf16", "int8")] + [
+    # zamba2's head dim: rows padded to 128 dims in shared memory
+    (1, 112, w, 64, page) for w in (None, 5) for page in ("bf16", "int8")]
 
 
 def _prefill_inputs(G, hd, C, page, seed):

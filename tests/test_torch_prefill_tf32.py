@@ -11,10 +11,11 @@ operand is exact in tf32, its small term zero), scaled by the key's page K
 scale and 1/sqrt(hd) in base 2, masked per row, an online softmax in base 2,
 p times the key's page V scale, then O += P V by 3xTF32 in the kernel's key
 order. Held against ``flash_prefill_ref`` under ``chip_smoke.compare``'s
-fp32 bound (2e-4 + 2e-4 |ref|) for G in {1, 4}, hd in {64, 120, 128},
-window None / 5, C in {17, 64}, fp32 and int8 pages under fp32 q (the fp32
-and fp32_kvint8 policies), the route's two other pairs (fp32 q over bf16
-pages, bf16 q over fp32 pages), with an empty slot and chunks that cross
+fp32 bound (2e-4 + 2e-4 |ref|) for G in {1, 4}, hd in {64, 120, 128}
+(and 112 at G 1, C 64), window None / 5, C in {17, 64}, fp32 and int8
+pages under fp32 q (the fp32 and fp32_kvint8 policies), the route's two
+other pairs (fp32 q over bf16 pages, the hybrid's under the bf16 policy,
+and bf16 q over fp32 pages), with an empty slot and chunks that cross
 pages; against the Pallas kernel (``repro.kernels.flash_prefill``,
 interpret mode) at 1e-4; and with either product in plain tf32 (1xTF32)
 past the bound: the reason every fp32 operand is split.
@@ -105,7 +106,9 @@ def _check(q, k, v, ks, vs, table, lens, window, label):
 
 POLICY_CASES = [(G, hd, w, C, page) for G in (1, 4) for hd in (64, 120, 128)
                 for w in (None, 5) for C in (17, 64)
-                for page in ("fp32", "int8")]
+                for page in ("fp32", "int8")] + [
+    # zamba2's head dim: 14 k8 steps
+    (1, 112, w, 64, page) for w in (None, 5) for page in ("fp32", "int8")]
 
 
 @pytest.mark.parametrize("G,hd,window,C,page", POLICY_CASES)
@@ -121,11 +124,13 @@ def test_prefill_tf32_arithmetic_meets_the_card_bound(G, hd, window, C,
 
 @pytest.mark.parametrize("q_dtype,page", [("fp32", "bf16"),
                                           ("bf16", "fp32")])
-@pytest.mark.parametrize("hd,window", [(64, None), (120, 5)])
+@pytest.mark.parametrize("hd,window", [(64, None), (120, 5), (112, 5)])
 def test_prefill_tf32_other_pairs_meet_the_card_bound(q_dtype, page, hd,
                                                       window):
-    """The route's pairs no policy produces: fp32 q over bf16 pages, bf16 q
-    over fp32 pages (the bf16 operand exact, its product dropped)."""
+    """The route's other pairs: fp32 q over bf16 pages (the hybrid's
+    fp32 compute over the bf16 policy's pages, at zamba2's hd 112) and bf16
+    q over fp32 pages, which no policy produces (the bf16 operand exact,
+    its product dropped)."""
     q, k, v, ks, vs, table, lens = _inputs(4, hd, 17, page, seed=hd,
                                            q_dtype=q_dtype)
     assert FP.prefill_route(q.dtype, k.dtype) == "tf32"

@@ -210,10 +210,10 @@ def test_conditioning_fingerprint_matches_jax():
 
 
 def test_families_still_refused_and_training_raises(tiny):
-    """MoE, hybrid, xLSTM and audio still raise; the VLM serves only (its
+    """MoE, xLSTM and audio still raise (the hybrid is built since its
+    serving port: ``tests/test_torch_hybrid.py``); the VLM serves only (its
     training mode, attention over ``kv_x``, raises naming ROADMAP A6.6)."""
-    for arch in ("phi3.5-moe-42b-a6.6b", "zamba2-7b", "xlstm-125m",
-                 "whisper-small"):
+    for arch in ("phi3.5-moe-42b-a6.6b", "xlstm-125m", "whisper-small"):
         cfg = TC.reduced(TC.get_config(arch))
         with pytest.raises(NotImplementedError, match="dense decoder"):
             TDBM(cfg, TC.DBConfig(num_blocks=1))
