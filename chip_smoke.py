@@ -58,7 +58,9 @@ Phases, each fatal on failure:
      prefill chunk the same on the 3xTF32 route, decode and prefill with
      fp32 q over int8 pages under a 64-key window the lengths pass, the
      bf16 prefill on the tensor cores, the gate-residual forward (8, 1,
-     3584) fp32;
+     3584) fp32, and the fp32 attention kernels' hd-112 instantiations at
+     its training shapes (window 4096 B=4 H=32 S=512, and two_pass with
+     512 queries over 2 x 512 keys);
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -294,7 +296,23 @@ Phases, each fatal on failure:
      blocks, fp32: one 4160-token prompt (the window bites) and 8 new
      tokens through the kernels and through ``impl="ref"``, logits within
      1e-3 relative, tokens equal; memory back within 0.5 GiB with no gc
-     pass.
+     pass;
+ 17. the hybrid's training, after phase 16 and under its memory check:
+     zamba2-7b at full width cut to 8 units (24 Mamba2 layers, 8
+     applications of the shared block; 3.322 B params) in 4 blocks of 2
+     units, random fp32 weights from seed 0 with the AdaLN heads
+     randomised, the bf16 policy (fp32 compute for the family): every
+     block's AdamW state made up front (as ``train_db`` keeps them), a
+     warm-up DB step, one DB step of each block at 4 x 512 ``MarkovLM``
+     tokens (two-pass: the noisy stream through ``mamba2_two_pass`` and
+     the shared block's two_pass attention; wall, device ms, peak,
+     launches against the path's arithmetic, only the block's units and
+     the rest changed), one under the profiler (busy share); then one AdamW
+     state over every param and the end-to-end step at 2 x 512 (warm-up,
+     timed, profiled); then, the model dropped, 2 units at full width in
+     one block, fp32: one DB step through the kernels against
+     ``impl="ref"`` within 1e-3 on the loss, the grad norm and the moments
+     of the block's leaves; memory back within 1 GiB of the phase's start.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -394,6 +412,14 @@ VLM_MEM_START, VLM_MEM_SLACK = 2**30, 0.5 * 2**30
 HYB_ARCH, HYB_NEW, HYB_CHECK_SEGMENTS = "zamba2-7b", 32, 2
 HYB_CUT_UNITS, HYB_LONG, HYB_LONG_NEW = 2, 4160, 8
 HYB_MEM_START, HYB_MEM_SLACK = 2**30, 0.5 * 2**30
+# the hybrid's training (17): the depth cut in whole units (the fp32
+# masters, every block's AdamW state and one block's gradients must fit one
+# card: at full depth the masters alone are 39.86 GB), its blocks, the DB
+# and e2e batches (x TRAIN_SEQ tokens), the depth of the kernels-vs-plain
+# check, and the memory the phase may leave behind
+HYB_TRAIN_UNITS, HYB_TRAIN_BLOCKS = 8, 4
+HYB_DB_BATCH, HYB_E2E_BATCH, HYB_CHECK_UNITS = 4, 2, 2
+HYB_TRAIN_SLACK = 2**30
 
 
 class SmokeError(RuntimeError):
@@ -1072,8 +1098,9 @@ def phase_attention(dev) -> dict:
     512, in bf16 (the path's policy) and fp32, one GQA G=4 window case at hd
     128, the two calls of an olmo-1b two-pass layer (hd 128), the DiT-S/2
     layer's ``full`` attention and Huginn's causal and db_concat ones (fp32,
-    hd 64), ViT's (fp32, hd 32) and the MDM's (fp32, hd 64) ``full`` ones.
-    The first case of each kernel is its main case."""
+    hd 64), ViT's (fp32, hd 32) and the MDM's (fp32, hd 64) ``full`` ones,
+    and the hybrid's window and two_pass ones (fp32, hd 112). The first
+    case of each kernel is its main case."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {n: [] for n in ATTN}
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1127,6 +1154,16 @@ def phase_attention(dev) -> dict:
          dict(B=128, H=4, KV=4, S=66, hd=32, dtype=f32)),
         ("(q) full B=64 H=12 S=256 hd=64 fp32 (MDM step)", "full",
          dict(B=64, H=12, KV=12, S=256, hd=64, dtype=f32)),
+        # the hybrid's shared block in training (phase 17: zamba2-7b, fp32
+        # under every policy, hd 112, window 4096): the DB step's clean
+        # stream (and the e2e step's one stream) and its noisy stream
+        ("(z) window=4096 B=4 H=32 S=512 hd=112 fp32 (hybrid DB clean "
+         "stream, e2e)", "window",
+         dict(B=4, H=32, KV=32, S=512, hd=112, dtype=f32, window=4096)),
+        ("(z) two_pass B=4 H=32 Sq=512 Sk=2x512 hd=112 fp32 (hybrid DB "
+         "noisy stream)", "two_pass",
+         dict(B=4, H=32, KV=32, S=512, Sk=1024, hd=112, dtype=f32,
+              mask_seq=512)),
     ]
     for label, kind, kw in cases:
         pr16 = kw.pop("pr16", None)
@@ -1305,23 +1342,26 @@ def check_counts(tag: str, counts: dict, expect: dict) -> None:
 
 
 def db_step_counts(dbm, size: int) -> dict:
-    """Launches of one DB step over a block of ``size`` layers. concat: one
-    attention forward, dq and dk/dv per layer (the clean||noisy stream
-    carries a cond_mask, so no AdaLN kernel). two_pass: per layer a causal
-    clean call and a two_pass noisy call, whose backward runs for all but
-    the last layer's clean call (its output reaches no loss); on the noisy
-    stream two gate-residual calls and, for a non-parametric LayerNorm, two
-    ln-modulate calls, forward and backward. l2: one EDM loss forward and
-    backward."""
+    """Launches of one DB step over a block of ``size`` units (a dense
+    layer, or the hybrid's Mamba layers and one application of its shared
+    block). concat: one attention forward, dq and dk/dv per layer (the
+    clean||noisy stream carries a cond_mask, so no AdaLN kernel). two_pass:
+    per unit's attention a causal (the hybrid: window) clean call and a
+    two_pass noisy call, whose backward runs for all but the last unit's
+    clean call (its output reaches no loss); on the noisy stream two
+    gate-residual calls a transformer layer and one a Mamba layer and, for
+    a non-parametric LayerNorm, two ln-modulate calls, forward and
+    backward. l2: one EDM loss forward and backward."""
     l2 = int(dbm.db.loss == "l2")
-    if dbm.db.causal_mode == "concat":
+    if dbm.causal_mode == "concat":
         return expected_counts(**{n: size for n in ATTN}, edm_loss_fwd=l2,
                                edm_loss_bwd=l2)
     ln = 2 * size if dbm.cfg.norm == "nonparam_ln" else 0
+    gates = (2 + getattr(dbm.model, "inner", 0)) * size
     return expected_counts(
         flash_attention_fwd=2 * size, flash_attention_bwd_dq=2 * size - 1,
-        flash_attention_bwd_dkv=2 * size - 1, gate_residual=2 * size,
-        gate_residual_bwd=2 * size, ln_modulate_fwd=ln, ln_modulate_bwd=ln,
+        flash_attention_bwd_dkv=2 * size - 1, gate_residual=gates,
+        gate_residual_bwd=gates, ln_modulate_fwd=ln, ln_modulate_bwd=ln,
         edm_loss_fwd=l2, edm_loss_bwd=l2)
 
 
@@ -2952,18 +2992,20 @@ def phase_disagg(dev, model, continuous: dict, server: dict) -> dict:
 # 6. full-width training steps, 7. fp32 cross-check
 # ---------------------------------------------------------------------------
 
-def unit_digests(params) -> torch.Tensor:
+def unit_digests(params, stack: str = "layers") -> torch.Tensor:
     """(n_units + 1,) int64: per unit an exact integer sum of the bits of
-    its layer params (any changed element changes it, short of a
-    cancellation), and last the same over the periphery."""
+    its params in ``stack`` (any changed element changes it, short of a
+    cancellation), and last the same over the rest (the periphery, and the
+    hybrid's shared block)."""
     from repro_torch.nn.init import tree_items
-    wq = params["layers"]["attn"]["wq"]
-    L = wq.shape[0]
-    per_unit = torch.zeros(L, dtype=torch.int64, device=wq.device)
-    periphery = torch.zeros((), dtype=torch.int64, device=wq.device)
-    for path, x in tree_items(params):
+    leaves = dict(tree_items(params))
+    first = next(x for path, x in leaves.items() if path[0] == stack)
+    L = first.shape[0]
+    per_unit = torch.zeros(L, dtype=torch.int64, device=first.device)
+    periphery = torch.zeros((), dtype=torch.int64, device=first.device)
+    for path, x in leaves.items():
         bits = x.detach().view(torch.int32)
-        if path[0] == "layers":
+        if path[0] == stack:
             per_unit += bits.reshape(L, -1).sum(1, dtype=torch.int64)
         else:
             periphery += bits.sum(dtype=torch.int64)
@@ -3159,17 +3201,25 @@ def phase_train(dev, model) -> dict:
     return out
 
 
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
-                     grads, stack: str = "layers") -> dict:
+                     grads, stack: str = "layers", whole=()) -> dict:
     """One fp32 step from the same params and draws (``step(params, state,
     *args, **kw)``), through the kernels and through their plain versions
     (``make_step(impl)`` for impl "kernels" and "ref"), on ``view`` =
     (start, size), the block of layers [start, start + size) and the
     periphery, or on every param when ``view`` is None; the trained params
     are restored between the two. Loss, grad norm and the first moments
-    (0.1 x the clipped gradients) of the ``grads`` leaves of the first
-    trained layer of ``stack`` must agree to 1e-3 relative, and the
-    launches equal ``expect`` (none for the plain path)."""
+    (0.1 x the clipped gradients) of the ``grads`` leaves (paths below
+    ``stack``) of the first trained unit of ``stack`` and of the ``whole``
+    leaves (paths from the root: an unstacked shared block) must agree to
+    1e-3 relative, and the launches equal ``expect`` (none for the plain
+    path)."""
     from repro_torch import kernels as K
     from repro_torch.core import training as T
     from repro_torch.nn.init import tree_map
@@ -3184,17 +3234,18 @@ def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
         check_counts(f"{tag} cross-check impl={impl}", K.launch_counts(),
                      expect if impl == "kernels" else expected_counts())
         res[impl] = (float(loss), float(m["grad_norm"]),
-                     {g: opt.mu[stack][g[0]][g[1]][0].clone()
-                      for g in grads})
+                     {**{g: _at(opt.mu[stack], g)[0].clone() for g in grads},
+                      **{g: _at(opt.mu, g).clone() for g in whole}})
         del opt
         T.write_back_block_view(params, saved, start)
         torch.cuda.empty_cache()
     (lk, gk, mk), (lr, gr, mr) = res["kernels"], res["ref"]
     loss_rel, gn_rel = abs(lk - lr) / abs(lr), abs(gk - gr) / abs(gr)
     grad_rel = {"/".join(g): ((mk[g] - mr[g]).abs().max()
-                              / mr[g].abs().max()).item() for g in grads}
+                              / mr[g].abs().max()).item() for g in mk}
     what = ("every param" if view is None
-            else f"layers {start}-{start + size - 1}")
+            else f"{'layers' if stack == 'core' else stack} {start}-"
+            f"{start + size - 1}")
     say(f"[crosscheck] {tag}: fp32 step on {what}, kernels vs plain "
         f"versions: loss {lk:.7f} vs {lr:.7f} (rel {loss_rel:.2e}) | grad "
         f"norm {gk:.7f} vs {gr:.7f} (rel {gn_rel:.2e}) | {stack}[{start}] "
@@ -3209,17 +3260,19 @@ def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
             "grad_rel": grad_rel}
 
 
-def db_crosscheck(dev, model, tag: str, grads) -> dict:
+def db_crosscheck(dev, model, tag: str, grads, stack: str = "layers",
+                  whole=(), batch: int = TRAIN_BATCH) -> dict:
     """``block_crosscheck`` of one DB step on block 0 of a
-    ``DiffusionBlocksModel`` (random tokens, σ and ε from the generator)."""
+    ``DiffusionBlocksModel`` (``batch`` x TRAIN_SEQ random tokens, σ and ε
+    from the generator)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import training as T
     dbm, params, gen = model
     start, size = dbm.ranges[0]
-    tokens = torch.randint(0, dbm.cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (batch, TRAIN_SEQ),
                            generator=gen, device=dev)
-    sigma = dbm.sample_block_sigma(gen, (TRAIN_BATCH, 1, 1), 0, device=dev)
-    eps = torch.randn(TRAIN_BATCH, TRAIN_SEQ, dbm.cfg.d_model, generator=gen,
+    sigma = dbm.sample_block_sigma(gen, (batch, 1, 1), 0, device=dev)
+    eps = torch.randn(batch, TRAIN_SEQ, dbm.cfg.d_model, generator=gen,
                       device=dev)
     tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
     return block_crosscheck(
@@ -3227,7 +3280,7 @@ def db_crosscheck(dev, model, tag: str, grads) -> dict:
         lambda impl: T.make_db_train_step(dbm, 0, tcfg, impl=impl,
                                           precision="fp32"),
         (tokens,), {"sigma": sigma, "eps": eps}, db_step_counts(dbm, size),
-        tag, grads)
+        tag, grads, stack, whole)
 
 
 def phase_two_pass(dev) -> dict:
@@ -5136,6 +5189,201 @@ def phase_hybrid(dev) -> dict:
             "peak": peak, "fp32_rel": fp32["logits_rel"], "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# 17. the hybrid's training: zamba2-7b at full width
+# ---------------------------------------------------------------------------
+
+def hyb_train_db(dbm, params, gen, tcfg, data) -> dict:
+    """Every block's AdamW state made up front and kept, as ``train_db``
+    keeps them; a warm-up step on the last block (first-call costs), then
+    one timed DB step on each block, bf16 policy (fp32 compute for the
+    family), and one more on block 0 under the profiler. Each step's
+    launches must equal the path's arithmetic, its loss and grad norm be
+    finite, and only its block's units and the rest (periphery, shared
+    block) change."""
+    from repro_torch.core import training as T
+    dev = params["embed"]["table"].device
+    batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    t0 = time.perf_counter()
+    steps = [T.make_db_train_step(dbm, b, tcfg, precision="bf16")
+             for b in range(dbm.num_blocks)]
+    states = [init(params) for init, _ in steps]
+    torch.cuda.synchronize()
+    state_bytes = sum(x.numel() * x.element_size() for st in states
+                      for tree in (st.mu, st.nu) for _, x in _leaves(tree))
+    say(f"[hybrid-train] {dbm.num_blocks} AdamW states made in "
+        f"{time.perf_counter() - t0:.1f} s: {state_bytes / 2**30:.2f} GiB; "
+        f"resident "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def finite(tag, loss, m):
+        if not (math.isfinite(float(loss))
+                and math.isfinite(float(m["grad_norm"]))):
+            raise SmokeError(f"{tag}: loss {float(loss)}, grad norm "
+                             f"{float(m['grad_norm'])}")
+
+    last = dbm.num_blocks - 1
+    _, states[last], loss, m = steps[last][1](params, states[last], batch(),
+                                              gen)
+    finite("hybrid warm-up DB step", loss, m)
+    say(f"[hybrid-train] warm-up DB step on block {last}: loss "
+        f"{float(loss):.4f}")
+    out = {"db": [], "launches": {}}
+    for b, (start, size) in enumerate(dbm.ranges):
+        before = unit_digests(params, "units")
+        tokens = batch()
+        (res, wall, dev_ms, peak, base, counts) = timed_step(
+            lambda: steps[b][1](params, states[b], tokens, gen))
+        _, states[b], loss, m = res
+        del res
+        changed = (unit_digests(params, "units") != before).tolist()
+        expect = db_step_counts(dbm, size)
+        say(f"[hybrid-train] DB step block {b} (units {start}-"
+            f"{start + size - 1}): loss {float(loss):.4f} | grad norm "
+            f"{float(m['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | "
+            f"device {dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB "
+            f"(resident before {base / 2**30:.2f}: masters + every block's "
+            f"AdamW state) | launches {counts}")
+        check_counts(f"hybrid DB step block {b}", counts, expect)
+        finite(f"hybrid DB step block {b}", loss, m)
+        want = [start <= u < start + size
+                for u in range(dbm.model.n_units)] + [True]
+        if changed != want:
+            raise SmokeError(f"hybrid DB step block {b} changed units "
+                             f"{changed} (expected {want})")
+        add_counts(out["launches"], counts)
+        out["db"].append({"block": b, "loss": float(loss), "wall_s": wall,
+                          "device_ms": dev_ms, "peak_bytes": peak,
+                          "resident_bytes": base})
+    walls = [r["wall_s"] * 1e3 for r in out["db"]]
+    say(f"[hybrid-train] DB step wall over the {len(walls)} blocks: median "
+        f"{statistics.median(walls):.1f} ms, min-max {min(walls):.1f}-"
+        f"{max(walls):.1f} ms")
+    tokens = batch()
+    out["db_profile"] = profile_step(
+        "hybrid-train: DB step block 0",
+        lambda: steps[0][1](params, states[0], tokens, gen))
+    del states, steps
+    return out
+
+
+def hyb_train_e2e(dbm, params, tcfg, data) -> dict:
+    """The end-to-end step over every unit (one AdamW state over every
+    param), bf16 policy: a warm-up step, a timed one, one under the
+    profiler."""
+    from repro_torch.core import training as T
+    dev = params["embed"]["table"].device
+    batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    init, step = T.make_e2e_train_step(dbm, tcfg, precision="bf16")
+    opt = init(params)
+    loss = step(params, opt, batch())[2]
+    say(f"[hybrid-train] warm-up e2e step: loss {float(loss):.4f}")
+    tokens = batch()
+    (res, wall, dev_ms, peak, base, counts) = timed_step(
+        lambda: step(params, opt, tokens)[2:])
+    loss, m = res
+    n = dbm.model.n_units
+    say(f"[hybrid-train] e2e step ({n} units, batch {HYB_E2E_BATCH}x"
+        f"{TRAIN_SEQ}): loss {float(loss):.4f} | grad norm "
+        f"{float(m['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | device "
+        f"{dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB (resident "
+        f"before {base / 2**30:.2f}: masters + AdamW state of every param) "
+        f"| launches {counts}")
+    check_counts("hybrid e2e step", counts,
+                 expected_counts(**{k: n for k in ATTN}))
+    if not (math.isfinite(float(loss))
+            and math.isfinite(float(m["grad_norm"]))):
+        raise SmokeError(f"hybrid e2e step: loss {float(loss)}, grad norm "
+                         f"{float(m['grad_norm'])}")
+    tokens = batch()
+    prof = profile_step("hybrid-train: e2e step",
+                        lambda: step(params, opt, tokens))
+    del opt
+    return {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
+            "peak_bytes": peak, "resident_bytes": base, "launches": counts,
+            "profile": prof}
+
+
+def phase_hybrid_train(dev) -> dict:
+    """Phase 17: zamba2-7b trained at full width, after phase 16 under its
+    memory checks. The depth is cut in whole units to HYB_TRAIN_UNITS (24
+    Mamba layers, 8 applications of the shared block) in HYB_TRAIN_BLOCKS
+    blocks; random fp32 weights from seed 0 with the AdaLN heads
+    randomised. ``hyb_train_db`` at HYB_DB_BATCH x 512 ``MarkovLM`` tokens
+    (``block_loss`` takes the two-pass route for the family), then
+    ``hyb_train_e2e`` at HYB_E2E_BATCH x 512; then, the model dropped, one
+    fp32 DB step of HYB_CHECK_UNITS units through the kernels against
+    ``impl="ref"``; memory back within HYB_TRAIN_SLACK."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import MarkovLM
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    base = torch.cuda.memory_allocated()
+    say(f"[hybrid-train] memory allocated at the phase's start: "
+        f"{base / 2**30:.3f} GiB")
+    if base > HYB_MEM_START:
+        raise SmokeError(f"hybrid training: {base / 2**30:.2f} GiB still "
+                         "allocated from earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dbm, params, gen = hyb_model(dev, n_units=HYB_TRAIN_UNITS,
+                                 blocks=HYB_TRAIN_BLOCKS)
+    torch.cuda.synchronize()
+    cfg, m = dbm.cfg, dbm.model
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    say(f"[hybrid-train] {cfg.name} at full width, depth cut to "
+        f"{m.n_units} units ({cfg.n_layers} Mamba2 layers, {m.n_units} "
+        f"applications of the shared block; hd {cfg.head_dim}, window "
+        f"{cfg.sliding_window}, SSM chunk {cfg.ssm.chunk_size}), "
+        f"{dbm.num_blocks} blocks {dbm.ranges}, causal_mode "
+        f"{dbm.causal_mode}, loss {dbm.db.loss}; {n_params / 1e9:.3f} B "
+        f"params fp32 made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    lm = MarkovLM(vocab_size=cfg.vocab_size, seed=7)
+    db = hyb_train_db(dbm, params, gen, tcfg,
+                      lm.iterator(HYB_DB_BATCH, TRAIN_SEQ))
+    torch.cuda.empty_cache()
+    db_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    e2e = hyb_train_e2e(dbm, params, tcfg,
+                        lm.iterator(HYB_E2E_BATCH, TRAIN_SEQ))
+    e2e_peak = torch.cuda.max_memory_allocated()
+    counts = dict(db["launches"])
+    add_counts(counts, e2e["launches"])
+    say(f"[hybrid-train] peak memory: DB steps with all "
+        f"{dbm.num_blocks} AdamW states {db_peak / 2**30:.2f} GiB, e2e step "
+        f"{e2e_peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}; "
+        f"nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del dbm, params, gen, m
+    torch.cuda.empty_cache()
+    check = hyb_model(dev, n_units=HYB_CHECK_UNITS, blocks=1)
+    cross = db_crosscheck(
+        dev, check, "hybrid two-pass ce",
+        [("mamba", "mixer", "in_proj", "w"), ("mamba", "mixer", "a_log"),
+         ("mamba", "adaln", "w")], stack="units",
+        whole=[("shared", "attn", "wq"), ("shared", "adaln", "w")],
+        batch=HYB_DB_BATCH)
+    del check
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    left = torch.cuda.memory_allocated()
+    say(f"[hybrid-train] with everything dropped (no gc pass): "
+        f"{left / 2**30:.3f} GiB allocated against {base / 2**30:.3f} GiB "
+        "at the start")
+    if left - base > HYB_TRAIN_SLACK:
+        raise SmokeError(f"hybrid training: {(left - base) / 2**30:.2f} GiB "
+                         "left allocated after the phase")
+    took = time.perf_counter() - t_phase
+    say(f"[hybrid-train] phase 17 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "db": db, "e2e": e2e, "db_peak": db_peak,
+            "e2e_peak": e2e_peak, "crosscheck": cross, "seconds": took}
+
+
 OFF_PATH = {"euler_bwd"}
 
 
@@ -5186,13 +5434,15 @@ def main() -> int:
     runner = phase_runner(dev)
     vlm = phase_vlm(dev)
     hybrid = phase_hybrid(dev)
+    hybrid_train = phase_hybrid_train(dev)
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
                    two_pass["launches"], dit["launches"],
                    huginn["launches"], vit["launches"], mdm["launches"],
                    block_parallel["launches"], runner["launches"],
-                   vlm["counts"], hybrid["counts"]):
+                   vlm["counts"], hybrid["counts"],
+                   hybrid_train["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

@@ -1,8 +1,9 @@
 """DiffusionBlocks over the dense decoder, the VLM and the hybrid (port of
 ``repro.core.blocks``): the block-local training loss of the AR adapter in
-concat or two-pass mode with the CE or l2 loss (``block_loss``, dense
-only; the hybrid is routed to two-pass, which raises until its training
-slice), the end-to-end baseline (``e2e_loss``), and the sampler over the
+concat or two-pass mode with the CE or l2 loss (``block_loss``: the
+dense decoder in either mode, the hybrid always in two-pass, its Mamba
+layers having no mask), the end-to-end baseline (``e2e_loss``; the dense
+decoder and the hybrid, not the VLM), and the sampler over the
 paged cache (all three families; the VLM's slots read their image blocks
 under ``cond_lengths``, the hybrid's Mamba rows advance in place).
 

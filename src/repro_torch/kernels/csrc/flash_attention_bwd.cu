@@ -439,7 +439,8 @@ cudaError_t dq_tc(const FlashArgs& a, cudaStream_t st) {
 // g ^ (g >> 2) of the 8 (rows 4-7 swapped in pairs): the second pattern
 // then reads rows {0, 2, 5, 7} and {1, 3, 4, 6}, which fall on distinct
 // banks too, and a thread's two score columns 2t, 2t + 1 are rows
-// 2t + (e ^ (t >> 1)) (e = 0, 1): the pair swapped for t >= 2.
+// 2t + (e ^ (t >> 1)) (e = 0, 1): the pair swapped for t >= 2. Both hold
+// for a pitch of 8 or 24 (mod 32): hd 32, 64 and 128, and hd 112 (120).
 // (tests/test_torch_attention_bwd_tf32.py checks the fragments against the
 // PTX tables and counts the banks.)
 // Flushes. The tensor cores add each mma's products into its fp32
@@ -456,9 +457,10 @@ cudaError_t dq_tc(const FlashArgs& a, cudaStream_t st) {
 // side through a 2-stage cp.async ring that prefetches the next visible
 // tile, one barrier a tile, as in the bf16 kernels. Shared memory: 6 tiles
 // of 64 x (HD + 8) floats, 61 KB at hd 32 (3 blocks an SM), 108 KB at hd 64
-// (2) and 204 KB at hd 128 (1). A warp takes its 64-row streamed tile in passes of
-// kTf32Pass rows (a loop not unrolled). Copies are 16 bytes where q, k, v,
-// dO and the outputs pass copies16(), else the same kernel is instantiated
+// (2), 181 KB at hd 112 (1) and 204 KB at hd 128 (1). A warp takes its
+// 64-row streamed tile in passes of kTf32Pass rows (a loop not unrolled).
+// Copies are 16 bytes where q, k, v, dO and the outputs pass copies16(),
+// else the same kernel is instantiated
 // with 4-byte copies and scalar stores: every fp32 view with a contiguous
 // head dim is taken.
 
@@ -468,12 +470,14 @@ constexpr int kBwdPitch = HD + 8;
 // keys in dq): the pass's two score tiles take kTf32Pass floats a thread
 // beside the accumulators. tune_attention_bwd.py builds other widths: at hd
 // 64 passes of 64 made dk/dv 12% slower (255 registers) and dq 4% faster;
-// at hd 128 passes of 16 made dk/dv 11% slower and dq 3% faster.
+// at hd 128 passes of 16 made dk/dv 11% slower and dq 3% faster. At hd 112
+// passes of 16 made dq 5-6% faster with no spill (8 B at 32) and left
+// dk/dv within 1% (its spills 24 B -> 12 B), so hd 112 takes 16.
 template <int HD>
-constexpr int kTf32Pass = 32;
+constexpr int kTf32Pass = HD == 112 ? 16 : 32;
 // Blocks an SM that dq_tf32_kernel and dkv_tf32_kernel ask
 // __launch_bounds__ for: as many as their shared memory allows (61 KB a
-// block at hd 32, 108 KB at hd 64, 204 KB at hd 128).
+// block at hd 32, 108 KB at hd 64, 181 KB at hd 112, 204 KB at hd 128).
 template <int HD>
 constexpr int kTf32MinBlocks = HD == 32 ? 3 : HD == 64 ? 2 : 1;
 
@@ -882,7 +886,7 @@ cudaError_t dq_tf32(const FlashArgs& a, cudaStream_t st) {
 }  // namespace rtfa
 
 // Writes a->dq from q, k, v, dout, lse, delta. hd must be 64 or 128, or
-// 32 in fp32.
+// 32 or 112 in fp32.
 extern "C" int rt_flash_attention_bwd_dq(const rtfa::FlashArgs* a,
                                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -891,6 +895,7 @@ extern "C" int rt_flash_attention_bwd_dq(const rtfa::FlashArgs* a,
     case 64: e = rtfa::dq_tf32<32>(*a, st); break;
     case 128: e = rtfa::dq_tf32<64>(*a, st); break;
     case 129: e = rtfa::dq_tc<64>(*a, st); break;
+    case 224: e = rtfa::dq_tf32<112>(*a, st); break;
     case 256: e = rtfa::dq_tf32<128>(*a, st); break;
     case 257: e = rtfa::dq_tc<128>(*a, st); break;
     default: e = cudaErrorInvalidValue;
@@ -907,6 +912,7 @@ extern "C" int rt_flash_attention_bwd_dkv(const rtfa::FlashArgs* a,
     case 64: e = rtfa::dkv_tf32<32>(*a, st); break;
     case 128: e = rtfa::dkv_tf32<64>(*a, st); break;
     case 129: e = rtfa::dkv_tc<64>(*a, st); break;
+    case 224: e = rtfa::dkv_tf32<112>(*a, st); break;
     case 256: e = rtfa::dkv_tf32<128>(*a, st); break;
     case 257: e = rtfa::dkv_tc<128>(*a, st); break;
     default: e = cudaErrorInvalidValue;

@@ -311,8 +311,10 @@ cudaError_t fwd_tc(const FlashArgs& a, cudaStream_t st) {
 }
 
 // Row pitches of fwd_tf32_kernel's fp32 tiles, in floats: Q and K rows are
-// read as float2 at words 8g + 2t (mod 32) of a half-warp, V's as floats
-// at words 8t + g and 8t + 4 + g: every bank once a request.
+// read as float2 at words 8g + 2t (mod 32) of a half-warp (24g + 2t at hd
+// 112, whose pitch 120 is 24 mod 32), V's as floats at words 8t + g and
+// 8t + 4 + g (8t + g and 8t + 20 + g at hd 112, pitch 116): every bank
+// once a request (tests/test_torch_attention_tf32.py counts them).
 template <int HD>
 constexpr int kQKPitch = HD + 8;
 template <int HD>
@@ -321,9 +323,12 @@ constexpr int kVPitch = HD + 4;
 // this tile's products; 1: they wait for them). The kernel asks for 2
 // blocks an SM, which at hd 128 leaves shared memory for one stage only
 // (103 KB a block against 168 KB with two): a trade that measured faster
-// (tune_attention_fwd.py). At hd 32 two stages take 48 KB a block.
+// (tune_attention_fwd.py). hd 112 (zamba2-7b) is in the same place: two
+// stages take 148 KB a block, one block an SM; one stage 89 KB, two, and
+// measured 7-9% faster at its training shapes. At hd 32 two stages take
+// 48 KB a block.
 template <int HD>
-constexpr int kTf32Stages = HD == 128 ? 1 : 2;
+constexpr int kTf32Stages = HD >= 112 ? 1 : 2;
 
 template <int HD, bool V16>
 __global__ void __launch_bounds__(kTcThreads, 2)
@@ -468,8 +473,8 @@ cudaError_t fwd_tf32(const FlashArgs& a, cudaStream_t st) {
 }  // namespace rtfa
 
 // Writes a->o and a->lse from a->q, a->k, a->v. hd must be 64 or 128, or 32
-// in fp32; bf16 tensors must be 16-byte aligned with strides that are
-// multiples of 8.
+// or 112 in fp32; bf16 tensors must be 16-byte aligned with strides that
+// are multiples of 8.
 extern "C" int rt_flash_attention_fwd(const rtfa::FlashArgs* a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -477,6 +482,7 @@ extern "C" int rt_flash_attention_fwd(const rtfa::FlashArgs* a, void* stream) {
     case 64: e = rtfa::fwd_tf32<32>(*a, st); break;
     case 128: e = rtfa::fwd_tf32<64>(*a, st); break;
     case 129: e = rtfa::fwd_tc<64>(*a, st); break;
+    case 224: e = rtfa::fwd_tf32<112>(*a, st); break;
     case 256: e = rtfa::fwd_tf32<128>(*a, st); break;
     case 257: e = rtfa::fwd_tc<128>(*a, st); break;
     default: e = cudaErrorInvalidValue;

@@ -49,9 +49,10 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MASK_KINDS = ("full", "causal", "window", "db_concat", "two_pass")
 # head dims the kernels are instantiated for, by dtype: the fp32 kernels
-# also at 32 (ViT); a 32-wide bf16 row is 4 16-byte chunks, which the
-# tensor-core tiles' swizzle (``csrc/mma.cuh`` ``swizzle``) does not take
-HEAD_DIMS = {torch.float32: (32, 64, 128), torch.bfloat16: (64, 128)}
+# also at 32 (ViT) and 112 (zamba2-7b, which computes in fp32 under every
+# policy); a 32-wide bf16 row is 4 16-byte chunks, which the tensor-core
+# tiles' swizzle (``csrc/mma.cuh`` ``swizzle``) does not take
+HEAD_DIMS = {torch.float32: (32, 64, 112, 128), torch.bfloat16: (64, 128)}
 _DTYPES = tuple(HEAD_DIMS)
 
 

@@ -1,6 +1,6 @@
-"""Zamba2-style hybrid (port of ``repro.models.hybrid``, the serving
-half): a Mamba2 backbone with one SHARED-weight attention + MLP block
-applied after every ``attn_every`` Mamba layers.
+"""Zamba2-style hybrid (port of ``repro.models.hybrid``): a Mamba2
+backbone with one SHARED-weight attention + MLP block applied after every
+``attn_every`` Mamba layers.
 
 A unit is ``attn_every`` Mamba layers and one application of the shared
 block. The shared block's weights are the same for every unit; each
@@ -17,12 +17,18 @@ their addresses as they hold the pages'; a denoising probe
 (``ctx.commit=False``) leaves them bit-unchanged, and inactive slots hold
 theirs.
 
+Training: the uncached ``apply_units`` in the ``train`` mode (each Mamba
+layer through ``mamba2_fwd``, the shared block over the whole sequence
+under the sliding-window mask: the end-to-end baseline) and
+``apply_units_two_pass`` (DiffusionBlocks' block loss, which routes the
+recurrent families to two-pass: each Mamba layer through
+``mamba2_two_pass``, the shared block through ``tlayer_two_pass``). The
+family computes in fp32 under every policy (``Policy.fp32_families``).
+
 JAX scans over units and over the inner Mamba layers with ``uscan``
 (``nn/scan_util.py``: ``lax.scan`` with XLA's unroll and remat knobs); the
 port loops over them in Python, as ``VLMModel.apply_units`` does, so that
-module has no port. Serving only: the uncached ``apply_units``, the train
-mode of ``mamba_layer_apply`` and ``apply_units_two_pass`` raise until the
-hybrid-training slice (ROADMAP A6.2, hybrid training).
+module has no port.
 
 Conditioning: none (``max_cond_tokens`` 0). ``kv_carries_all_state`` is
 False (the Mamba state is per slot, not paged), so the prefix cache and a
@@ -30,24 +36,21 @@ False (the Mamba state is per slot, not paged), so the prefix cache and a
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch import precision as precision_mod
 from repro_torch.configs.base import HYBRID
 from repro_torch.models import common as C
 from repro_torch.models.model_api import BaseModel
-from repro_torch.models.transformer import _index, _unit_views
+from repro_torch.models.transformer import _index, _unbind, _unit_views
 from repro_torch.nn import adaln
 from repro_torch.nn import attention as A
 from repro_torch.nn import cache as KVC
 from repro_torch.nn import layers as L
 from repro_torch.nn import ssm as SSM
 from repro_torch.nn.init import stack_specs
-
-TRAINING = ("the hybrid serves only: training it (the two-pass SSD scan and "
-            "the flash-attention kernels at hd 112) is ROADMAP A6.2, hybrid "
-            "training")
-
 
 def mamba_layer_spec(cfg, db: bool):
     spec = {
@@ -59,18 +62,25 @@ def mamba_layer_spec(cfg, db: bool):
     return spec
 
 
-def mamba_layer_apply(p, h, ctx: C.LayerCtx, state: dict):
-    """One pre-norm Mamba2 layer over the slot's ``state`` ({"h", "conv"},
-    slot-leading views into the cache), σ-modulated and gated in the
-    probes. ``decode``: one token; the new state is written in place when
-    ``ctx.commit`` (inactive slots hold theirs), never in a probe.
-    ``prefill_chunk``: C tokens, slot b's first ``ctx.n_valid[b]`` advance
-    its state (``mamba2_chunk_step``). Returns h."""
+def _mods(p, ctx: C.LayerCtx):
+    """(shift, scale, gate) from the layer's AdaLN head where ``ctx.cond``
+    is set, else Nones."""
+    if ctx.cond is None or "adaln" not in p:
+        return None, None, None
+    return adaln.adaln_mods(p["adaln"], ctx.cond, ctx.cfg.d_model, 3)
+
+
+def mamba_layer_apply(p, h, ctx: C.LayerCtx, state: Optional[dict] = None):
+    """One pre-norm Mamba2 layer, σ-modulated and gated where ``ctx.cond``
+    is set. ``train``: the whole sequence from a zero state
+    (``mamba2_fwd``), no ``state``. The serving modes run over the slot's
+    ``state`` ({"h", "conv"}, slot-leading views into the cache):
+    ``decode``, one token, the new state written in place when
+    ``ctx.commit`` (inactive slots hold theirs), never in a probe;
+    ``prefill_chunk``, C tokens, slot b's first ``ctx.n_valid[b]``
+    advancing its state (``mamba2_chunk_step``). Returns h."""
     cfg = ctx.cfg
-    if ctx.cond is not None and "adaln" in p:
-        s, c, g = adaln.adaln_mods(p["adaln"], ctx.cond, cfg.d_model, 3)
-    else:
-        s = c = g = None
+    s, c, g = _mods(p, ctx)
     x = adaln.modulate(L.apply_norm(p["ln"], h, cfg.norm), s, c)
     if ctx.mode == "decode":
         y, new = SSM.mamba2_decode_step(p["mixer"], x, cfg.ssm, cfg.d_model,
@@ -82,10 +92,24 @@ def mamba_layer_apply(p, h, ctx: C.LayerCtx, state: dict):
         y, new = SSM.mamba2_chunk_step(p["mixer"], x, cfg.ssm, cfg.d_model,
                                        state, ctx.n_valid)
         C.write_state(state, new)
+    elif ctx.mode == "train":
+        y, _ = SSM.mamba2_fwd(p["mixer"], x, cfg.ssm, cfg.d_model)
     else:
-        raise NotImplementedError(f"mamba layer in mode {ctx.mode!r}: "
-                                  f"{TRAINING}")
+        raise NotImplementedError(f"mamba layer in mode {ctx.mode!r}: the "
+                                  "port has train, decode and prefill_chunk")
     return adaln.gate(h, y, g, impl=ctx.impl)
+
+
+def mamba_layer_two_pass(p, hc, hn, ctx: C.LayerCtx):
+    """DB two-pass for a Mamba2 layer: the clean stream unmodulated with a
+    plain residual, the noisy stream σ-modulated and gated. Returns (hc,
+    hn)."""
+    cfg = ctx.cfg
+    s, c, g = _mods(p, ctx)
+    xc = L.apply_norm(p["ln"], hc, cfg.norm)
+    xn = adaln.modulate(L.apply_norm(p["ln"], hn, cfg.norm), s, c)
+    yc, yn = SSM.mamba2_two_pass(p["mixer"], xc, xn, cfg.ssm, cfg.d_model)
+    return hc + yc, adaln.gate(hn, yn, g, impl=ctx.impl)
 
 
 class HybridModel(BaseModel):
@@ -118,19 +142,31 @@ class HybridModel(BaseModel):
                     for u in range(self.n_units)]
         return _unit_views(self, params["units"], views)
 
+    def _train_units(self, params, start: int, size: int) -> list:
+        """[the unit's Mamba layers' trees] for units [start, start +
+        size), one unbind per leaf and axis (``_unbind``: the backward
+        stacks each leaf's grads in one pass)."""
+        return [_unbind(u, 0, self.inner)
+                for u in _unbind(params["units"]["mamba"], start, size)]
+
     def apply_units(self, params, h, start: int, size: int, ctx, cache=None,
                     reset_mask=None):
-        """Run units [start, start + size) over the serving ``cache``
+        """Run units [start, start + size): with no cache over the whole
+        sequence (``ctx.mode == "train"``), else over the serving ``cache``
         (sliced to those units, ``cache_units``): each unit's Mamba layers
         over their state rows, then the shared block over the unit's paged
         KV. ``reset_mask`` restarts the hidden stream from the input ``h``
         before each flagged unit. Returns (h, cache)."""
+        shared = params["shared"]
         if cache is None:
-            raise NotImplementedError(f"HybridModel without a cache: "
-                                      f"{TRAINING}")
+            assert reset_mask is None
+            for layers in self._train_units(params, start, size):
+                for p in layers:
+                    h = mamba_layer_apply(p, h, ctx)
+                h, _ = C.tlayer_apply(shared, h, ctx)
+            return h, None
         h0 = h
         units = self.unit_params(params)
-        shared = params["shared"]
         for i in range(size):
             if reset_mask is not None and reset_mask[i]:
                 h = h0
@@ -143,8 +179,17 @@ class HybridModel(BaseModel):
 
     def apply_units_two_pass(self, params, h_clean, h_noisy, start: int,
                              size: int, ctx):
-        raise NotImplementedError(f"HybridModel.apply_units_two_pass: "
-                                  f"{TRAINING}")
+        """DB two-pass training over units [start, start + size): per unit
+        its Mamba layers through ``mamba_layer_two_pass``, then the shared
+        block through ``tlayer_two_pass``. Returns (h_clean, h_noisy)."""
+        shared = params["shared"]
+        for layers in self._train_units(params, start, size):
+            for p in layers:
+                h_clean, h_noisy = mamba_layer_two_pass(p, h_clean, h_noisy,
+                                                        ctx)
+            h_clean, h_noisy = C.tlayer_two_pass(shared, h_clean, h_noisy,
+                                                 ctx)
+        return h_clean, h_noisy
 
     def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
                          policy=None, device="cuda") -> dict:

@@ -1,16 +1,36 @@
-"""Mamba2 layer, the serving half (port of ``repro.nn.ssm``: ``mamba2_spec``,
-``_split_proj``, ``_causal_conv``, ``mamba2_init_state`` and
-``mamba2_decode_step``), plus ``mamba2_chunk_step``, the chunked-prefill
-form of the decode step.
+"""Mamba2 layer (port of ``repro.nn.ssm``): ``mamba2_spec``,
+``_split_proj``, ``_causal_conv``, ``_chunk_scan``, ``mamba2_fwd`` and
+``mamba2_two_pass`` (training), ``mamba2_init_state`` and
+``mamba2_decode_step`` (serving), plus ``mamba2_chunk_step``, the
+chunked-prefill form of the decode step.
 
 State-space recurrence (per head, diagonal A = -exp(a_log)):
     h_t = exp(dt_t * A) * h_{t-1} + dt_t * x_t ⊗ B_t        h: (P, N)
     y_t = C_t · h_t + D * x_t
 
 JAX's Mamba2 is plain XLA (no ``pallas_call``), so this module is plain
-torch. The training half, ``_chunk_scan``, ``mamba2_fwd`` and
-``mamba2_two_pass``, is the next hybrid slice (ROADMAP A6.2, hybrid
-training).
+torch.
+
+``_chunk_scan`` is the chunked SSD dual form: within a chunk of Q tokens
+the recurrence is a masked (Q, Q) decay tile times batched products,
+between chunks the state is carried by a Python loop over the chunks (JAX's
+``uscan``), so one (B, H, Q, Q) tile is live at a time in the forward.
+The forward formula is JAX's, the ``LOG_EPS`` clamp included. One
+deliberate difference: JAX builds the tile as ``where(mask,
+exp(max(diff, LOG_EPS)), 0)``, and above the diagonal ``diff`` is a
+positive sum of |dt A| that overflows ``exp`` to inf once a chunk is long
+enough (zamba2-7b's chunk of 128 is); the zero cotangent that ``where``
+sends there then meets inf in ``exp``'s VJP and the gradients of
+``a_log``, ``dt_bias`` and ``in_proj`` turn NaN while the forward stays
+finite. Here the entries off the mask are set to ``LOG_EPS`` before
+``exp`` and zeroed after it, so no masked entry reaches ``exp`` above 0:
+the kept entries, the forward and every gradient JAX gets finite are
+JAX's, and the gradients stay finite where JAX's are not.
+
+``mamba2_two_pass`` is the DiffusionBlocks two-pass adaptation (paper App.
+E.4): the clean stream runs the standard recurrence, and each noisy token i
+is one decode step from the clean state h_{i-1}, for all i at once through
+the strict scan with the noisy C as the output contraction.
 
 ``mamba2_chunk_step`` computes what JAX's ``chunk_token_scan`` around
 ``mamba2_decode_step`` computes for a prefill chunk, without running the
@@ -34,6 +54,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.nn.init import ParamSpec
 from repro_torch.nn.layers import as_dtype
+
+LOG_EPS = -30.0
 
 
 def mamba2_spec(d_model: int, cfg: SSMConfig):
@@ -122,6 +144,153 @@ def _project(params, u: torch.Tensor, cfg: SSMConfig, d_model: int):
     return torch.cat([x, Bm, Cm], dim=-1), z, dt
 
 
+def _decay_tile(cum_q: torch.Tensor, cum: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+    """exp(max(cum_q[i] - cum[j], LOG_EPS)) where ``mask`` keeps (i, j), 0
+    elsewhere: cum_q, cum (B, H, Q) -> (B, H, Q, Q). The entries off the
+    mask reach ``exp`` as LOG_EPS, so its VJP never multiplies by inf (the
+    module docstring)."""
+    diff = cum_q[..., :, None] - cum[..., None, :]
+    eps = torch.full((), LOG_EPS, device=diff.device)
+    tile = torch.exp(torch.where(mask, diff, eps).clamp_min(LOG_EPS))
+    return torch.where(mask, tile, torch.zeros((), device=diff.device))
+
+
+def _chunk_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                Bmat: torch.Tensor, Cmat: torch.Tensor, chunk: int,
+                h0: Optional[torch.Tensor] = None, *, strict: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD. x (B, S, H, P), dt (B, S, H), Bmat and Cmat (B, S, N);
+    S is padded with zeros to a multiple of ``chunk``. ``strict`` computes
+    y_i = C_i · h_{i-1} (the history without token i, decayed through i-1):
+    the two-pass adapter's query, with C from the noisy stream and x, dt, B
+    building the clean state. Returns (y (B, S, H, P) fp32, h_final (B, H,
+    P, N) fp32). Per chunk, with cum the in-chunk cumulative sum of dt A
+    (cum_q = cum, or cum less the token's own term when strict):
+        y_i = sum_j (C_i · B_j) exp(cum_q[i] - cum[j]) dt_j x_j     (j ⊴ i)
+              + exp(cum_q[i]) C_i · h_in
+        h_out = exp(cum[-1]) h_in + sum_j exp(cum[-1] - cum[j]) dt_j x_j ⊗ B_j
+    as (Q, Q), (Q, P) and (P, Q) x (Q, N) products batched over (B, H)."""
+    Bsz, S, H, P = x.shape
+    N = Bmat.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bmat = F.pad(Bmat, (0, 0, 0, pad))
+        Cmat = F.pad(Cmat, (0, 0, 0, pad))
+    dev = x.device
+    A = -torch.exp(a_log.float())                                 # (H,)
+    mask = torch.ones(chunk, chunk, dtype=torch.bool, device=dev).tril(
+        -1 if strict else 0)
+    h = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=dev)
+         if h0 is None else h0.float())
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc = x[:, sl].float().permute(0, 2, 1, 3)                 # (B,H,Q,P)
+        dtc = dt[:, sl].float().transpose(1, 2)                   # (B,H,Q)
+        Bc, Cc = Bmat[:, sl].float(), Cmat[:, sl].float()         # (B,Q,N)
+        dA = dtc * A[:, None]
+        cum = torch.cumsum(dA, dim=-1)
+        cum_q = cum - dA if strict else cum
+        xdt = xc * dtc[..., None]
+        CB = Cc @ Bc.transpose(1, 2)                              # (B,Q,Q)
+        y = (CB[:, None] * _decay_tile(cum_q, cum, mask)) @ xdt
+        decay_in = torch.exp(cum_q.clamp_min(LOG_EPS))
+        y = y + decay_in[..., None] * (Cc[:, None] @ h.transpose(2, 3))
+        total = cum[..., -1:]
+        to_end = torch.exp((total - cum).clamp_min(LOG_EPS))
+        s_c = (xdt * to_end[..., None]).transpose(2, 3) @ Bc[:, None]
+        h = torch.exp(total.clamp_min(LOG_EPS))[..., None] * h + s_c
+        ys.append(y)
+    y = torch.cat(ys, dim=2).permute(0, 2, 1, 3)[:, :S]          # (B,S,H,P)
+    return y, h
+
+
+def _conv_split(conv_out: torch.Tensor, d_in: int, N: int):
+    """The conv output [x ‖ B ‖ C] as (x, B, C)."""
+    return (conv_out[..., :d_in], conv_out[..., d_in:d_in + N],
+            conv_out[..., d_in + N:])
+
+
+def mamba2_fwd(params, u: torch.Tensor, cfg: SSMConfig, d_model: int
+               ) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence forward from a zero state (training; JAX's ``state``
+    argument, a prefill's starting state, has no caller here). u: (B, S,
+    d_model). Returns (out (B, S, d_model), final state {"h", "conv"})."""
+    d_in = cfg.expand * d_model
+    H = d_in // cfg.head_dim
+    P, N = cfg.head_dim, cfg.d_state
+    conv_in, z, dt = _project(params, u, cfg, d_model)
+    conv_out, conv_hist = _causal_conv(conv_in, params["conv_w"],
+                                       params["conv_b"])
+    x, Bm, Cm = _conv_split(conv_out, d_in, N)
+    dt = F.softplus(dt.float() + params["dt_bias"].float())
+    xh = x.reshape(*x.shape[:2], H, P)
+    y, h = _chunk_scan(xh, dt, params["a_log"], Bm, Cm, cfg.chunk_size)
+    y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
+    out = _gated_out(params, y.reshape(*x.shape[:2], d_in), z, u.dtype)
+    return out, {"h": h, "conv": conv_hist}
+
+
+def mamba2_two_pass(params, u_clean: torch.Tensor, u_noisy: torch.Tensor,
+                    cfg: SSMConfig, d_model: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DB two-pass adaptation of a Mamba2 layer (paper App. E.4): the clean
+    stream runs the standard recurrence; noisy token i is one decode step
+    from the clean state h_{i-1}:
+
+        h_i^n = exp(dt_i^n A) h_{i-1}^clean + dt_i^n x_i^n ⊗ B_i^n
+        y_i^n = C_i^n · h_i^n + D x_i^n
+
+    C_i^n · h_{i-1}^clean comes for every i at once from the strict scan
+    of the clean x, dt, B with the noisy C; the causal conv gives noisy
+    token i the clean history and its own input (the pre-activation conv
+    corrected by w_last (noisy_i - clean_i)). Returns (y_clean, y_noisy),
+    each (B, S, d_model)."""
+    d_in = cfg.expand * d_model
+    H = d_in // cfg.head_dim
+    P, N = cfg.head_dim, cfg.d_state
+    conv_c_in, zc, dtc = _project(params, u_clean, cfg, d_model)
+    conv_n_in, zn, dtn = _project(params, u_noisy, cfg, d_model)
+    K = params["conv_w"].shape[0]
+    S = conv_c_in.shape[1]
+    ext = torch.cat([conv_c_in.new_zeros((conv_c_in.shape[0], K - 1,
+                                          conv_c_in.shape[-1])),
+                     conv_c_in], dim=1)
+    lin_c = _conv_taps(ext, params["conv_w"], S) \
+        + as_dtype(params["conv_b"], conv_c_in.dtype)
+    w_last = as_dtype(params["conv_w"][K - 1], conv_c_in.dtype)
+    lin_n = lin_c - conv_c_in * w_last + conv_n_in * w_last
+    xc, Bc, Cc = _conv_split(F.silu(lin_c), d_in, N)
+    xn, Bn, Cn = _conv_split(F.silu(lin_n), d_in, N)
+    bias = params["dt_bias"].float()
+    dtc = F.softplus(dtc.float() + bias)
+    dtn = F.softplus(dtn.float() + bias)
+    A = -torch.exp(params["a_log"].float())
+    d_skip = params["d_skip"].float()[None, None, :, None]
+    xch = xc.reshape(*xc.shape[:2], H, P)
+    xnh = xn.reshape(*xn.shape[:2], H, P)
+
+    y_clean, _ = _chunk_scan(xch, dtc, params["a_log"], Bc, Cc,
+                             cfg.chunk_size)
+    y_clean = y_clean + d_skip * xch.float()
+    # history query: C_i^noisy · h_{i-1}^clean
+    u_hist, _ = _chunk_scan(xch, dtc, params["a_log"], Bc, Cn,
+                            cfg.chunk_size, strict=True)
+    decay_n = torch.exp((dtn * A).clamp_min(LOG_EPS))             # (B,S,H)
+    cb_self = (Cn.float() * Bn.float()).sum(-1)                   # (B,S)
+    y_noisy = (decay_n[..., None] * u_hist
+               + (dtn * cb_self[..., None])[..., None] * xnh.float())
+    y_noisy = y_noisy + d_skip * xnh.float()
+    dtype = u_clean.dtype
+    return (_gated_out(params, y_clean.reshape(*zc.shape[:2], d_in), zc,
+                       dtype),
+            _gated_out(params, y_noisy.reshape(*zn.shape[:2], d_in), zn,
+                       dtype))
+
+
 def mamba2_decode_step(params, u: torch.Tensor, cfg: SSMConfig, d_model: int,
                        state: dict) -> Tuple[torch.Tensor, dict]:
     """Single-token decode: O(1) state update. u: (B, 1, d_model). Returns
@@ -132,9 +301,7 @@ def mamba2_decode_step(params, u: torch.Tensor, cfg: SSMConfig, d_model: int,
     conv_in, z, dt = _project(params, u, cfg, d_model)
     conv_out, conv_hist = _causal_conv(conv_in, params["conv_w"],
                                        params["conv_b"], state["conv"])
-    x = conv_out[..., :d_in]
-    Bm = conv_out[..., d_in:d_in + N]
-    Cm = conv_out[..., d_in + N:]
+    x, Bm, Cm = _conv_split(conv_out, d_in, N)
     dt = F.softplus(dt.float() + params["dt_bias"].float())      # (B, 1, H)
     A = -torch.exp(params["a_log"].float())
     xh = x.reshape(-1, H, P).float()                              # (B, H, P)
@@ -178,9 +345,8 @@ def mamba2_chunk_step(params, u: torch.Tensor, cfg: SSMConfig, d_model: int,
            + torch.arange(K - 1, device=u.device)[None, :])
     conv_hist = torch.gather(ext, 1, idx[..., None].expand(-1, -1,
                                                            ext.shape[-1]))
-    x = conv_out[..., :d_in].float().reshape(Bsz, S, H, P)
-    Bm = conv_out[..., d_in:d_in + N].float()                     # (B, S, N)
-    Cm = conv_out[..., d_in + N:].float()
+    x, Bm, Cm = (t.float() for t in _conv_split(conv_out, d_in, N))
+    x = x.reshape(Bsz, S, H, P)                                   # Bm: (B,S,N)
     valid = (torch.arange(S, device=u.device)[None, :]
              < n_valid.to(u.device)[:, None])                     # (B, S)
     dt = F.softplus(dt.float() + params["dt_bias"].float())       # (B, S, H)

@@ -262,9 +262,11 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.nn.functional.pad(x.float(), pad)
 
 
-# the rows of a 64-row tile that each pass of the kernels takes (32 rows,
-# kTf32Pass)
-PASSES = [slice(c, c + 32) for c in range(0, TILE, 32)]
+def _passes(hd: int) -> list:
+    """The rows of a 64-row tile that each pass of the kernels takes
+    (``kTf32Pass``: 16 rows at hd 112, else 32)."""
+    width = 16 if hd == 112 else 32
+    return [slice(c, c + width) for c in range(0, TILE, width)]
 
 
 def emulate_dkv(q, k, v, do, lse, delta, cfg, plain=()):
@@ -301,7 +303,7 @@ def emulate_dkv(q, k, v, do, lse, delta, cfg, plain=()):
             dpT = product(vf, dot[..., dims].transpose(-1, -2),
                           "dP" not in plain)
             dsT = pT * (dpT - deltag[:, :, g, None, qs]) * scale
-            for c in PASSES:
+            for c in _passes(hd):
                 dv = dv + product(pT[..., rows[c]], dot[:, :, rows[c]],
                                   "dV" not in plain)
                 dk = dk + product(dsT[..., rows[c]], qt[:, :, rows[c]],
@@ -332,7 +334,7 @@ def emulate_dq(q, k, v, do, lse, delta, cfg, plain=()):
                         torch.exp2(s * scale2 - lse2), torch.zeros(()))
         dp = product(dof, vt[..., dims].transpose(-1, -2), "dP" not in plain)
         ds = p * (dp - delta[..., None]) * scale
-        for c in PASSES:
+        for c in _passes(hd):
             dq = dq + product(ds[..., rows[c]], kt[:, :, rows[c]],
                               "dQ" not in plain)
     return dq
@@ -373,12 +375,14 @@ def test_3xtf32_backward_meets_the_card_bound(name, hd):
         assert (outs["dq"][0][:, :, 0] == 0).all()
 
 
-@pytest.mark.parametrize("name", sorted(TC_BWD_CASES))
-def test_3xtf32_backward_matches_pallas(name):
+@pytest.mark.parametrize("name,hd", [pytest.param(n, 64, id=n)
+                                     for n in sorted(TC_BWD_CASES)] + [
+    pytest.param(n, 112, id=f"{n}-hd112") for n in ("window", "two_pass")])
+def test_3xtf32_backward_matches_pallas(name, hd):
     """dq, dk, dv of the emulation against the Pallas backward (interpret
     mode, 64-row tiles) on the same fp32 inputs, with JAX's own forward lse
-    and delta: within 1e-4."""
-    cfg, q, k, v, do, _, _ = _inputs(name, 64, seed=5, scale=1.0)
+    and delta: within 1e-4 (at hd 112, the hybrid's two kinds)."""
+    cfg, q, k, v, do, _, _ = _inputs(name, hd, seed=5, scale=1.0)
     jcfg = JFA.FlashConfig(mask_kind=cfg.mask_kind, window=cfg.window,
                            mask_seq=cfg.mask_seq, block_q=TILE,
                            block_k=TILE, interpret=True)
@@ -422,13 +426,15 @@ def test_hd32_vit_sequence_matches_pallas():
             np.testing.assert_allclose(g.numpy(), np.asarray(w), 1e-4, 1e-4)
 
 
-@pytest.mark.parametrize("name", sorted(TC_BWD_CASES))
+@pytest.mark.parametrize("name,hd", [pytest.param(n, 64, id=n)
+                                     for n in sorted(TC_BWD_CASES)] + [
+    pytest.param("two_pass", 112, id="two_pass-hd112")])
 @pytest.mark.parametrize("plain", PRODUCTS)
-def test_1xtf32_in_one_product_breaks_the_card_bound(plain, name):
+def test_1xtf32_in_one_product_breaks_the_card_bound(plain, name, hd):
     """Any one of the five products in plain tf32 puts the outputs it feeds
     past the card bound, and leaves the others inside it: the reason both
     kernels split all five."""
-    cfg, *args = _inputs(name, 64, seed=64, scale=SCALE)
+    cfg, *args = _inputs(name, hd, seed=hd, scale=SCALE)
     for out, (got, want) in _outputs(cfg, *args, plain=(plain,)).items():
         label = f"1xTF32 in {plain}: {out} {name}"
         if out in FEEDS[plain]:

@@ -25,7 +25,11 @@ runs only on the card. Here:
     ``tc_aligned`` admits, so the main paths take the fp32 kernels' 16-byte
     copies (the 4-byte ones are for other views);
 (e) ``tune_attention_fwd.py``'s variants still apply to the committed
-    source, and its "chosen" variant is that source.
+    source, and its "chosen" variant is that source;
+(f) every shared-memory read of the kernel's fragment loops touches each
+    bank once a request at the row pitches it uses (HD + 8 floats for Q
+    and K, HD + 4 for V: 120 and 116 at hd 112, the first head dim whose
+    pitches are 24 and 20 mod 32), and rows of HD floats would not.
 """
 import importlib.util
 import math
@@ -211,12 +215,15 @@ def test_3xtf32_arithmetic_meets_the_card_bound(name, hd):
         assert (out[:, :, 0] == 0).all() and (lse[:, :, 0] <= -1e29).all()
 
 
-@pytest.mark.parametrize("name", sorted(set(TC_BWD_CASES)
-                                        - {"two_pass, cut keys"}))
-def test_3xtf32_arithmetic_matches_pallas(name):
+@pytest.mark.parametrize("name,hd", [
+    pytest.param(n, 64, id=n)
+    for n in sorted(set(TC_BWD_CASES) - {"two_pass, cut keys"})] + [
+    pytest.param(n, 112, id=f"{n}-hd112") for n in ("window", "two_pass")])
+def test_3xtf32_arithmetic_matches_pallas(name, hd):
     """out and lse of the emulation against the Pallas kernel (interpret
-    mode, 64-row tiles) on the same fp32 inputs: within 1e-4."""
-    cfg, q, k, v = _inputs(name, 64, seed=3, scale=1.0)
+    mode, 64-row tiles) on the same fp32 inputs: within 1e-4 (at hd 112,
+    the hybrid's two kinds)."""
+    cfg, q, k, v = _inputs(name, hd, seed=3, scale=1.0)
     out, lse = emulate(q, k, v, cfg)
     jcfg = JFA.FlashConfig(mask_kind=cfg.mask_kind, window=cfg.window,
                            mask_seq=cfg.mask_seq, block_q=TILE,
@@ -258,10 +265,12 @@ def test_hd32_vit_sequence_matches_pallas():
 
 
 @pytest.mark.parametrize("plain", ["Q K^T", "P V"])
-@pytest.mark.parametrize("name", sorted(set(TC_BWD_CASES)
-                                        - {"two_pass, cut keys"}))
-def test_1xtf32_breaks_the_card_bound(name, plain):
-    cfg, q, k, v = _inputs(name, 64, seed=64, scale=3.0)
+@pytest.mark.parametrize("name,hd", [
+    pytest.param(n, 64, id=n)
+    for n in sorted(set(TC_BWD_CASES) - {"two_pass, cut keys"})] + [
+    pytest.param("two_pass", 112, id="two_pass-hd112")])
+def test_1xtf32_breaks_the_card_bound(name, hd, plain):
+    cfg, q, k, v = _inputs(name, hd, seed=hd, scale=3.0)
     out, lse = emulate(q, k, v, cfg, three_qk=plain != "Q K^T",
                        three_pv=plain != "P V")
     with pytest.raises(SMOKE.SmokeError, match="disagrees"):
@@ -360,3 +369,54 @@ def test_tuning_variants_apply_to_the_committed_source(monkeypatch):
     assert built.pop("chosen") == src
     assert len(set(built.values())) == len(built)
     assert all(text != src for text in built.values())
+
+
+# ---------------------------------------------------------------------------
+# (f) shared-memory banks
+# ---------------------------------------------------------------------------
+
+def _fwd_requests(hd: int, qk_pitch: int, v_pitch: int):
+    """Every shared-memory read of ``fwd_tf32_kernel``'s fragment loops, as
+    (bytes a lane, the word offset each of the 32 lanes reads): Q's float2
+    (rows 16w + g and + 8, dims 8kk + 2t), K's float2 (row 8j + g, dims
+    8kk + 2t) and V's floats (rows 8j + 2t and 8j + 2t + 1, dim 8d + g)."""
+    lanes = [divmod(lane, 4) for lane in range(32)]
+    reqs = []
+    for kk in range(hd // 8):
+        for w in range(4):
+            for half in (0, 8):
+                reqs.append((8, [(16 * w + g + half) * qk_pitch + 8 * kk
+                                 + 2 * t for g, t in lanes]))
+        for j in range(8):
+            reqs.append((8, [(8 * j + g) * qk_pitch + 8 * kk + 2 * t
+                             for g, t in lanes]))
+    for j in range(8):
+        for d in range(hd // 8):
+            for e in (0, 1):
+                reqs.append((4, [(8 * j + 2 * t + e) * v_pitch + 8 * d + g
+                                 for g, t in lanes]))
+    return reqs
+
+
+def _wavefronts(width: int, words) -> int:
+    """Shared-memory wavefronts of one warp read: a 64-bit read is served a
+    half-warp at a time, a 32-bit one whole, each in as many passes as the
+    most distinct words any one bank holds."""
+    groups = (words[:16], words[16:]) if width == 8 else (words,)
+    n = 0
+    for group in groups:
+        banks = {}
+        for word in group:
+            for w in range(word, word + width // 4):
+                banks.setdefault(w % 32, set()).add(w)
+        n += max(len(ws) for ws in banks.values())
+    return n
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
+def test_fragment_reads_are_free_of_bank_conflicts(hd):
+    reqs = _fwd_requests(hd, hd + 8, hd + 4)
+    assert all(_wavefronts(w, words) == w // 4 for w, words in reqs)
+    # rows of hd floats (no padding) put the lanes of a request on few banks
+    plain = _fwd_requests(hd, hd, hd)
+    assert max(_wavefronts(w, words) for w, words in plain) >= 4

@@ -2416,3 +2416,100 @@ def test_hybrid_graph_segments_bit_equal_to_eager(cuda, precision):
                                             + cb.graph_warmups["chunk"])}
         assert counts == {**{k: 0 for k in counts}, **want}
     assert cg.graph_warmups == {"chunk": 1, "segment": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,Sq,Sk,window,mseq", [
+    ("window", 512, 512, 4096, None), ("window", 300, 300, 64, None),
+    ("causal", 512, 512, None, None), ("two_pass", 512, 1024, None, 512),
+    ("two_pass", 130, 260, None, 130)])
+def test_flash_attention_tf32_hd112_training_shapes(cuda, kind, Sq, Sk,
+                                                    window, mseq):
+    """The fp32 kernels' hd-112 instantiations (zamba2-7b's shared block in
+    training) at its shapes, cut in batch and heads (the clean stream's
+    4096 window at S 512, the noisy stream's 512 queries over 2 x 512 keys)
+    and at ragged ones: forward, dq and dk/dv on (B, S, H, hd) views within
+    the fp32 bound of their plain versions, one launch each."""
+    cfg = FA.FlashConfig(kind, window=window, mask_seq=mseq)
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    mk = lambda S: torch.randn(1, S, 4, 112, generator=gen,  # noqa: E731
+                               device=cuda).transpose(1, 2)
+    q, k, v, do = mk(Sq), mk(Sk), mk(Sk), mk(Sq)
+    n0 = K.launch_counts()
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    assert all(n1[n] == n0[n] + 1 for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv"))
+    for got, want in zip((out, lse),
+                         FA.flash_attention_fwd_ref(q, k, v, cfg)):
+        _within_fp32_bound(got, want)
+    _within_fp32_bound(dq, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg))
+    for got, want in zip((dk, dv),
+                         FA._bwd_dkv_ref(q, k, v, do, lse, delta, cfg)):
+        _within_fp32_bound(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["db", "e2e"])
+def test_hybrid_step_through_kernels_matches_plain_versions(cuda, mode):
+    """The hybrid's training (``_hybrid_model``: 2 units of 3 Mamba layers
+    and the shared block, d 896, 8 heads of 112, window 64): one fp32 DB
+    step of each block (two-pass) and one e2e step, through the kernels and
+    through the plain versions from the same params and draws: loss, grad
+    norm and the first moments of the Mamba and shared leaves agree to
+    1e-3, and the launch counts are the path's arithmetic (DB: per unit a
+    window clean call and a two_pass noisy call, all but the last unit's
+    clean call differentiated, and a gate-residual call per Mamba layer and
+    two per shared application on the noisy stream, forward and backward;
+    e2e: one window call per unit, differentiated, no gate kernel)."""
+    dbm, master = _hybrid_model(cuda)
+    cfg, inner = dbm.cfg, dbm.model.inner
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 150), generator=gen,
+                           device=cuda)
+    sigma = torch.rand(2, 1, 1, generator=gen, device=cuda) + 0.1
+    eps = torch.randn(2, 150, cfg.d_model, generator=gen, device=cuda)
+    tcfg = TrainConfig(steps=10, warmup_steps=2, lr=1e-3)
+    blocks = range(dbm.num_blocks) if mode == "db" else [None]
+    for b in blocks:
+        res = {}
+        for impl in ("ref", "kernels"):
+            params = tree_map(lambda _, x: x.clone(), master)
+            if mode == "db":
+                init, step = T.make_db_train_step(dbm, b, tcfg, impl=impl)
+                args, kw = (tokens,), {"sigma": sigma, "eps": eps}
+                n = dbm.ranges[b][1]
+                want = {"flash_attention_fwd": 2 * n,
+                        "flash_attention_bwd_dq": 2 * n - 1,
+                        "flash_attention_bwd_dkv": 2 * n - 1,
+                        "gate_residual": (inner + 2) * n,
+                        "gate_residual_bwd": (inner + 2) * n}
+            else:
+                init, step = T.make_e2e_train_step(dbm, tcfg, impl=impl)
+                args, kw = (tokens,), {}
+                want = {k: dbm.model.n_units for k in (
+                    "flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv")}
+            K.reset_launch_counts()
+            params, opt, loss, m = step(params, init(params), *args, **kw)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            assert counts == {**{k: 0 for k in counts},
+                              **(want if impl == "kernels" else {})}
+            res[impl] = (loss, m["grad_norm"], opt.mu)
+        (lr_, gr, mr), (lk, gk, mk) = res["ref"], res["kernels"]
+        assert torch.isfinite(lk) and abs(lk - lr_) <= 1e-3 * abs(lr_)
+        assert torch.isfinite(gk) and abs(gk - gr) <= 1e-3 * abs(gr)
+        for path in (("units", "mamba", "mixer", "in_proj", "w"),
+                     ("units", "mamba", "mixer", "a_log"),
+                     ("shared", "attn", "wq"), ("shared", "mlp", "wg")):
+            a, r = mk, mr
+            for key in path:
+                a, r = a[key], r[key]
+            scale = r.abs().max().item()
+            torch.testing.assert_close(a, r, atol=1e-3 * scale, rtol=1e-3)

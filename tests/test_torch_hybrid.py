@@ -673,22 +673,6 @@ def test_router_copy_handoff_equals_unified(tiny):
     assert router.stats()["migrations"] >= 2
 
 
-def test_training_raises_naming_the_slice(tiny):
-    """Serving only: the uncached ``apply_units``, the two-pass units and
-    ``block_loss`` (routed to two-pass) raise, naming ROADMAP A6.2."""
-    _, _, tdbm, tparams = tiny
-    assert tdbm.causal_mode == "two_pass"
-    ctx = tdbm.make_ctx(tparams, 4, "train")
-    h = torch.zeros(1, 4, TINY_HYBRID.d_model)
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        tdbm.model.apply_units(tparams, h, 0, 1, ctx)
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        tdbm.model.apply_units_two_pass(tparams, h, h, 0, 1, ctx)
-    with pytest.raises(NotImplementedError, match="A6.2"):
-        tdbm.block_loss(tparams, 0, torch.zeros((1, 4), dtype=torch.int64),
-                        torch.Generator().manual_seed(0))
-
-
 def test_serve_cli_hybrid_continuous(capsys):
     """``python -m repro_torch.launch.serve --device cpu --arch zamba2-7b
     --scheduler continuous`` serves its queue; ``--prefix-cache`` is

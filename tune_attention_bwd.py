@@ -12,9 +12,10 @@ head dim (``kTf32Pass``) and the minimum blocks an SM
 each) into ``build/tune_attention_bwd/``; for each, the script prints
 registers and spills of the four kernels at each head dim (``-Xptxas
 -v``), then checks dq and dk/dv against their plain versions under
-``chip_smoke.compare``'s bound and times them by CUDA-graph replay at seven
-of ``chip_smoke.py``'s phase-3 cases (three bf16, four fp32), in two
-rounds (the second in reverse order). The committed choice is "chosen".
+``chip_smoke.compare``'s bound and times them by CUDA-graph replay at nine
+of ``chip_smoke.py``'s phase-3 cases (three bf16, six fp32, two of them
+zamba2-7b's at hd 112), in two rounds (the second in reverse order).
+The committed choice is "chosen".
 Last, the committed fp32 kernels' accuracy: dq, dk and dv at a causal
 S = 1000, G = 4 case (keys that 4000 query rows see) against the plain
 versions and against the plain versions' formulas in fp64, each max error
@@ -40,7 +41,7 @@ OUT = ROOT / "build" / "tune_attention_bwd"
 # name -> (bf16 rows a pass, bf16 min blocks an SM at hd 64 or None, bf16
 # pass loop unrolled, fp32 rows a pass and fp32 min blocks an SM, each a
 # C++ expression of HD)
-TF32_PASS = "32"                     # the committed fp32 pass width
+TF32_PASS = "HD == 112 ? 16 : 32"    # the committed fp32 pass width
 TF32_MINB = "HD == 32 ? 3 : HD == 64 ? 2 : 1"   # the committed minimum
 VARIANTS = {"chosen": (32, 3, False, TF32_PASS, TF32_MINB),
             "p32_minb2": (32, 2, False, TF32_PASS, TF32_MINB),
@@ -51,6 +52,7 @@ VARIANTS = {"chosen": (32, 3, False, TF32_PASS, TF32_MINB),
             "tf32_p64_hd64": (32, 3, False, "HD == 64 ? 64 : 32", TF32_MINB),
             "tf32_p16_hd128": (32, 3, False, "HD == 64 ? 32 : 16",
                                TF32_MINB),
+            "tf32_p32_hd112": (32, 3, False, "32", TF32_MINB),
             "tf32_minb2_hd32": (32, 3, False, TF32_PASS,
                                 "HD == 128 ? 1 : 2")}
 BF16, F32 = torch.bfloat16, torch.float32
@@ -68,7 +70,11 @@ CASES = [  # (label, kind, B, H, KV, S, Sk, hd, window, mask_seq, dtype)
     ("(n) db_concat B=8 H=8 S=2x512 hd=64 fp32", "db_concat", 8, 8, 8, 1024,
      1024, 64, None, 512, F32),
     ("(p) full B=128 H=4 S=66 hd=32 fp32", "full", 128, 4, 4, 66, 66, 32,
-     None, None, F32)]
+     None, None, F32),
+    ("(z) window=4096 B=4 H=32 S=512 hd=112 fp32", "window", 4, 32, 32,
+     512, 512, 112, 4096, None, F32),
+    ("(z) two_pass B=4 H=32 Sq=512 Sk=2x512 hd=112 fp32", "two_pass", 4,
+     32, 32, 512, 1024, 112, None, 512, F32)]
 
 
 def subst(text: str, old: str, new: str, count: int) -> str:

@@ -8,11 +8,12 @@ text: the stages of the K/V ring and the blocks an SM that
 fragments are held in registers across the key loop instead of re-read
 from shared memory each tile. All variants are built at once (one ``nvcc``
 each) into ``build/tune_attention_fwd/``; for each, the script prints
-registers and spills of the kernel at hd 64 and 128 (16-byte copies,
+registers and spills of the kernel at each head dim (16-byte copies,
 ``-Xptxas -v``), then checks the forward against its plain version under
-``chip_smoke.compare``'s bound and times it by CUDA-graph replay at four of
-``chip_smoke.py``'s phase-3 fp32 cases, in two rounds (the second in
-reverse order). The committed choice is "chosen".
+``chip_smoke.compare``'s bound and times it by CUDA-graph replay at six of
+``chip_smoke.py``'s phase-3 fp32 cases (two of them zamba2-7b's at hd 112),
+in two rounds (the second in reverse order). The committed choice is
+"chosen".
 
     python3 tune_attention_fwd.py
 
@@ -33,20 +34,25 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "tune_attention_fwd"
 # name -> (K/V stages, min blocks an SM, Q's split fragments in registers),
 # the first two as C++ expressions of HD
-VARIANTS = {"chosen": ("HD == 128 ? 1 : 2", "2", False),
+VARIANTS = {"chosen": ("HD >= 112 ? 1 : 2", "2", False),
+            "two_stages_hd112": ("HD == 128 ? 1 : 2", "2", False),
             "two_stages_hd128": ("2", "HD == 64 ? 2 : 1", False),
             "one_stage_hd64": ("1", "2", False),
             "one_stage_hd64_3_blocks": ("1", "HD == 64 ? 3 : 2", False),
-            "q_in_registers": ("HD == 128 ? 1 : 2", "2", True)}
-CASES = [  # (label, kind, B, H, KV, S, hd, window, mask_seq)
-    ("(m) full B=256 H=6 S=256 hd=64", "full", 256, 6, 6, 256, 64, None,
-     None),
+            "q_in_registers": ("HD >= 112 ? 1 : 2", "2", True)}
+CASES = [  # (label, kind, B, H, KV, S, Sk, hd, window, mask_seq)
+    ("(m) full B=256 H=6 S=256 hd=64", "full", 256, 6, 6, 256, 256, 64,
+     None, None),
     ("(e) db_concat B=8 H=32 S=2x512 hd=64", "db_concat", 8, 32, 32, 1024,
-     64, None, 512),
+     1024, 64, None, 512),
     ("(g) window=256 GQA H=32 KV=8 S=1024 hd=128", "window", 4, 32, 8,
-     1024, 128, 256, None),
-    ("(n) causal B=8 H=8 S=512 hd=64", "causal", 8, 8, 8, 512, 64, None,
-     None)]
+     1024, 1024, 128, 256, None),
+    ("(n) causal B=8 H=8 S=512 hd=64", "causal", 8, 8, 8, 512, 512, 64,
+     None, None),
+    ("(z) window=4096 B=4 H=32 S=512 hd=112", "window", 4, 32, 32, 512,
+     512, 112, 4096, None),
+    ("(z) two_pass B=4 H=32 Sq=512 Sk=2x512 hd=112", "two_pass", 4, 32, 32,
+     512, 1024, 112, None, 512)]
 # Q's split fragments loaded once, after Q's copies land (its own commit
 # group), and read from registers at each k8 step
 Q_REGS = [
@@ -81,7 +87,7 @@ def subst(text: str, old: str, new: str) -> str:
 
 def variant_source(src: str, stages: str, min_blocks: str,
                    q_regs: bool) -> str:
-    src = subst(src, "constexpr int kTf32Stages = HD == 128 ? 1 : 2;",
+    src = subst(src, "constexpr int kTf32Stages = HD >= 112 ? 1 : 2;",
                 f"constexpr int kTf32Stages = {stages};")
     src = subst(src, "__launch_bounds__(kTcThreads, 2)\n    fwd_tf32_kernel",
                 f"__launch_bounds__(kTcThreads, {min_blocks})\n"
@@ -127,11 +133,11 @@ def make_cases(dev) -> list:
     from repro_torch.kernels import flash_attention as FA
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
-    for label, kind, B, H, KV, S, hd, window, mseq in CASES:
+    for label, kind, B, H, KV, S, Sk, hd, window, mseq in CASES:
         cfg = FA.FlashConfig(kind, window=window, mask_seq=mseq)
-        mk = lambda n: torch.randn(  # noqa: E731
-            B, S, n, hd, generator=gen, device=dev).transpose(1, 2)
-        q, k, v = mk(H), mk(KV), mk(KV)
+        mk = lambda L, n: torch.randn(  # noqa: E731
+            B, L, n, hd, generator=gen, device=dev).transpose(1, 2)
+        q, k, v = mk(S, H), mk(Sk, KV), mk(Sk, KV)
         out.append((label, cfg, (q, k, v),
                     FA.flash_attention_fwd_ref(q, k, v, cfg)))
     return out
