@@ -60,7 +60,12 @@ Phases, each fatal on failure:
      bf16 prefill on the tensor cores, the gate-residual forward (8, 1,
      3584) fp32, and the fp32 attention kernels' hd-112 instantiations at
      its training shapes (window 4096 B=4 H=32 S=512, and two_pass with
-     512 queries over 2 x 512 keys);
+     512 queries over 2 x 512 keys); and h2o-danube3-4b's (s): the
+     attention kernels at hd 120 (hd 128's tiles, a zero pad) with 32 query
+     heads on 8 KV heads, bf16 db_concat B=8 S=2 x 512 (its DB step) and
+     the same in fp32 (its fp32 check), bf16 two_pass 512 over 2 x 512
+     keys, bf16 window 4096 at S=512 (its e2e step), and (g)'s window-256
+     shape at S=1024 in both dtypes, whose window binds;
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -312,7 +317,27 @@ Phases, each fatal on failure:
      timed, profiled); then, the model dropped, 2 units at full width in
      one block, fp32: one DB step through the kernels against
      ``impl="ref"`` within 1e-3 on the loss, the grad norm and the moments
-     of the block's leaves; memory back within 1 GiB of the phase's start.
+     of the block's leaves; memory back within 1 GiB of the phase's start;
+ 18. h2o-danube3-4b, after phase 17 and under its memory check: full width
+     (24 layers, d=3840, 32 query heads on 8 KV heads of 120, ff 10240,
+     window 4096; 6.101 B params with the AdaLN heads), ``DEFAULT_DB``,
+     random fp32 weights from seed 0 with the AdaLN heads randomised, bf16
+     policy. Served at full depth: phase 5b's queue (32 requests on 8
+     slots, 64 new tokens, CUDA-graph segments and chunk steps; tok/s, ms
+     a segment step, peak; every request complete, no page leaked, launches
+     equal to the dispatches' arithmetic; with the batcher and serving
+     copies dropped at most 1 GiB beyond the masters and no batcher left).
+     Trained cut to 12 layers (3.182 B params: at 24 the masters and four
+     AdamW states take 79.5 GB, the e2e step's masters, grads, moments and
+     bf16 copy 110 GB) in 4 blocks of 3, ``MarkovLM`` batches of 8 x 512:
+     every block's AdamW state made up front, a warm-up and one concat x
+     CE DB step on each block, one profiled; a two_pass x l2 DB step of
+     block 0 (warm-up, timed, profiled); the e2e step (warm-up, timed,
+     profiled); each step's wall, device ms, peak, busy share, finite loss
+     and grad norm, launches equal to the path's arithmetic; then, the
+     model dropped, 2 layers at full width in one block, fp32: one DB
+     step in concat x CE and one in two_pass x l2 through the kernels
+     against ``impl="ref"`` within 1e-3; memory back within 1 GiB.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -420,6 +445,14 @@ HYB_MEM_START, HYB_MEM_SLACK = 2**30, 0.5 * 2**30
 HYB_TRAIN_UNITS, HYB_TRAIN_BLOCKS = 8, 4
 HYB_DB_BATCH, HYB_E2E_BATCH, HYB_CHECK_UNITS = 4, 2, 2
 HYB_TRAIN_SLACK = 2**30
+# h2o-danube3-4b (18): the arch; the training depth cut (at 24 layers its
+# 6.10 B params take 24.4 GB of fp32 masters, its four AdamW states 55.1
+# GB more, and the e2e step's masters, grads, moments and bf16 copy 110 GB:
+# neither fits one card); the depth of the fp32 kernels-vs-plain checks;
+# the memory the phase may find allocated at its start, and the memory
+# beyond the masters that serving may leave behind
+H2O_ARCH, H2O_TRAIN_LAYERS, H2O_CHECK_LAYERS = "h2o-danube-3-4b", 12, 2
+H2O_MEM_START, H2O_SERVE_SLACK = 2**30, 2**30
 
 
 class SmokeError(RuntimeError):
@@ -1099,8 +1132,9 @@ def phase_attention(dev) -> dict:
     128, the two calls of an olmo-1b two-pass layer (hd 128), the DiT-S/2
     layer's ``full`` attention and Huginn's causal and db_concat ones (fp32,
     hd 64), ViT's (fp32, hd 32) and the MDM's (fp32, hd 64) ``full`` ones,
-    and the hybrid's window and two_pass ones (fp32, hd 112). The first
-    case of each kernel is its main case."""
+    the hybrid's window and two_pass ones (fp32, hd 112) and h2o-danube3's
+    (hd 120, G=4, both dtypes). The first case of each kernel is its main
+    case."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {n: [] for n in ATTN}
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1164,6 +1198,30 @@ def phase_attention(dev) -> dict:
          "noisy stream)", "two_pass",
          dict(B=4, H=32, KV=32, S=512, Sk=1024, hd=112, dtype=f32,
               mask_seq=512)),
+        # h2o-danube3-4b's training (phase 18: hd 120 in hd 128's tiles,
+        # 32 query heads on 8 KV heads): the concat DB step and its fp32
+        # check, the two-pass step's noisy stream, the e2e step's window
+        # (4096: it does not bind at 512), and (g)'s shape at hd 120, whose
+        # window binds, beside hd 128 there
+        ("(s) db_concat B=8 H=32 KV=8 S=2x512 hd=120 bf16 (h2o DB step)",
+         "db_concat", dict(B=8, H=32, KV=8, S=1024, hd=120, dtype=bf16,
+                           mask_seq=512)),
+        ("(s) db_concat B=8 H=32 KV=8 S=2x512 hd=120 fp32 (h2o fp32 check)",
+         "db_concat", dict(B=8, H=32, KV=8, S=1024, hd=120, dtype=f32,
+                           mask_seq=512)),
+        ("(s) two_pass B=8 H=32 KV=8 Sq=512 Sk=2x512 hd=120 bf16 (h2o "
+         "two-pass noisy stream)", "two_pass",
+         dict(B=8, H=32, KV=8, S=512, Sk=1024, hd=120, dtype=bf16,
+              mask_seq=512)),
+        ("(s) window=4096 B=8 H=32 KV=8 S=512 hd=120 bf16 (h2o e2e step)",
+         "window", dict(B=8, H=32, KV=8, S=512, hd=120, dtype=bf16,
+                        window=4096)),
+        ("(s) window=256 GQA H=32 KV=8 S=1024 hd=120 bf16 (as (g))",
+         "window", dict(B=4, H=32, KV=8, S=1024, hd=120, dtype=bf16,
+                        window=256)),
+        ("(s) window=256 GQA H=32 KV=8 S=1024 hd=120 fp32 (as (g))",
+         "window", dict(B=4, H=32, KV=8, S=1024, hd=120, dtype=f32,
+                        window=256)),
     ]
     for label, kind, kw in cases:
         pr16 = kw.pop("pr16", None)
@@ -5193,16 +5251,29 @@ def phase_hybrid(dev) -> dict:
 # 17. the hybrid's training: zamba2-7b at full width
 # ---------------------------------------------------------------------------
 
-def hyb_train_db(dbm, params, gen, tcfg, data) -> dict:
+def finite_step(tag, loss, m) -> None:
+    if not (math.isfinite(float(loss))
+            and math.isfinite(float(m["grad_norm"]))):
+        raise SmokeError(f"{tag}: loss {float(loss)}, grad norm "
+                         f"{float(m['grad_norm'])}")
+
+
+def unit_stack(dbm) -> str:
+    """The name of the params' stacked units: the hybrid's ``units``,
+    else ``layers``."""
+    return "units" if hasattr(dbm.model, "inner") else "layers"
+
+
+def resident_db_steps(dbm, params, gen, tcfg, data, tag: str) -> dict:
     """Every block's AdamW state made up front and kept, as ``train_db``
     keeps them; a warm-up step on the last block (first-call costs), then
-    one timed DB step on each block, bf16 policy (fp32 compute for the
-    family), and one more on block 0 under the profiler. Each step's
-    launches must equal the path's arithmetic, its loss and grad norm be
-    finite, and only its block's units and the rest (periphery, shared
-    block) change."""
+    one timed DB step on each block, bf16 policy, and one more on block 0
+    under the profiler. Each step's launches must equal the path's
+    arithmetic, its loss and grad norm be finite, and only its block's
+    units and the rest (periphery, the hybrid's shared block) change."""
     from repro_torch.core import training as T
     dev = params["embed"]["table"].device
+    stack = unit_stack(dbm)
     batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
     t0 = time.perf_counter()
     steps = [T.make_db_train_step(dbm, b, tcfg, precision="bf16")
@@ -5211,63 +5282,56 @@ def hyb_train_db(dbm, params, gen, tcfg, data) -> dict:
     torch.cuda.synchronize()
     state_bytes = sum(x.numel() * x.element_size() for st in states
                       for tree in (st.mu, st.nu) for _, x in _leaves(tree))
-    say(f"[hybrid-train] {dbm.num_blocks} AdamW states made in "
+    say(f"[{tag}] {dbm.num_blocks} AdamW states made in "
         f"{time.perf_counter() - t0:.1f} s: {state_bytes / 2**30:.2f} GiB; "
         f"resident "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
-    def finite(tag, loss, m):
-        if not (math.isfinite(float(loss))
-                and math.isfinite(float(m["grad_norm"]))):
-            raise SmokeError(f"{tag}: loss {float(loss)}, grad norm "
-                             f"{float(m['grad_norm'])}")
-
     last = dbm.num_blocks - 1
     _, states[last], loss, m = steps[last][1](params, states[last], batch(),
                                               gen)
-    finite("hybrid warm-up DB step", loss, m)
-    say(f"[hybrid-train] warm-up DB step on block {last}: loss "
-        f"{float(loss):.4f}")
+    finite_step(f"{tag} warm-up DB step", loss, m)
+    say(f"[{tag}] warm-up DB step on block {last}: loss {float(loss):.4f}")
     out = {"db": [], "launches": {}}
     for b, (start, size) in enumerate(dbm.ranges):
-        before = unit_digests(params, "units")
+        before = unit_digests(params, stack)
         tokens = batch()
         (res, wall, dev_ms, peak, base, counts) = timed_step(
             lambda: steps[b][1](params, states[b], tokens, gen))
         _, states[b], loss, m = res
         del res
-        changed = (unit_digests(params, "units") != before).tolist()
+        changed = (unit_digests(params, stack) != before).tolist()
         expect = db_step_counts(dbm, size)
-        say(f"[hybrid-train] DB step block {b} (units {start}-"
+        say(f"[{tag}] DB step block {b} ({stack} {start}-"
             f"{start + size - 1}): loss {float(loss):.4f} | grad norm "
             f"{float(m['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | "
             f"device {dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB "
             f"(resident before {base / 2**30:.2f}: masters + every block's "
             f"AdamW state) | launches {counts}")
-        check_counts(f"hybrid DB step block {b}", counts, expect)
-        finite(f"hybrid DB step block {b}", loss, m)
+        check_counts(f"{tag} DB step block {b}", counts, expect)
+        finite_step(f"{tag} DB step block {b}", loss, m)
         want = [start <= u < start + size
-                for u in range(dbm.model.n_units)] + [True]
+                for u in range(len(before) - 1)] + [True]
         if changed != want:
-            raise SmokeError(f"hybrid DB step block {b} changed units "
+            raise SmokeError(f"{tag} DB step block {b} changed units "
                              f"{changed} (expected {want})")
         add_counts(out["launches"], counts)
         out["db"].append({"block": b, "loss": float(loss), "wall_s": wall,
                           "device_ms": dev_ms, "peak_bytes": peak,
                           "resident_bytes": base})
     walls = [r["wall_s"] * 1e3 for r in out["db"]]
-    say(f"[hybrid-train] DB step wall over the {len(walls)} blocks: median "
+    say(f"[{tag}] DB step wall over the {len(walls)} blocks: median "
         f"{statistics.median(walls):.1f} ms, min-max {min(walls):.1f}-"
         f"{max(walls):.1f} ms")
     tokens = batch()
     out["db_profile"] = profile_step(
-        "hybrid-train: DB step block 0",
+        f"{tag}: DB step block 0",
         lambda: steps[0][1](params, states[0], tokens, gen))
     del states, steps
     return out
 
 
-def hyb_train_e2e(dbm, params, tcfg, data) -> dict:
+def e2e_steps(dbm, params, tcfg, data, tag: str) -> dict:
     """The end-to-end step over every unit (one AdamW state over every
     param), bf16 policy: a warm-up step, a timed one, one under the
     profiler."""
@@ -5277,26 +5341,24 @@ def hyb_train_e2e(dbm, params, tcfg, data) -> dict:
     init, step = T.make_e2e_train_step(dbm, tcfg, precision="bf16")
     opt = init(params)
     loss = step(params, opt, batch())[2]
-    say(f"[hybrid-train] warm-up e2e step: loss {float(loss):.4f}")
+    say(f"[{tag}] warm-up e2e step: loss {float(loss):.4f}")
     tokens = batch()
     (res, wall, dev_ms, peak, base, counts) = timed_step(
         lambda: step(params, opt, tokens)[2:])
     loss, m = res
-    n = dbm.model.n_units
-    say(f"[hybrid-train] e2e step ({n} units, batch {HYB_E2E_BATCH}x"
-        f"{TRAIN_SEQ}): loss {float(loss):.4f} | grad norm "
+    stack = unit_stack(dbm)
+    n = dbm.model.n_units if stack == "units" else dbm.cfg.n_layers
+    say(f"[{tag}] e2e step ({n} {stack}, batch {tokens.shape[0]}x"
+        f"{tokens.shape[1]}): loss {float(loss):.4f} | grad norm "
         f"{float(m['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | device "
         f"{dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB (resident "
         f"before {base / 2**30:.2f}: masters + AdamW state of every param) "
         f"| launches {counts}")
-    check_counts("hybrid e2e step", counts,
+    check_counts(f"{tag} e2e step", counts,
                  expected_counts(**{k: n for k in ATTN}))
-    if not (math.isfinite(float(loss))
-            and math.isfinite(float(m["grad_norm"]))):
-        raise SmokeError(f"hybrid e2e step: loss {float(loss)}, grad norm "
-                         f"{float(m['grad_norm'])}")
+    finite_step(f"{tag} e2e step", loss, m)
     tokens = batch()
-    prof = profile_step("hybrid-train: e2e step",
+    prof = profile_step(f"{tag}: e2e step",
                         lambda: step(params, opt, tokens))
     del opt
     return {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
@@ -5309,9 +5371,9 @@ def phase_hybrid_train(dev) -> dict:
     memory checks. The depth is cut in whole units to HYB_TRAIN_UNITS (24
     Mamba layers, 8 applications of the shared block) in HYB_TRAIN_BLOCKS
     blocks; random fp32 weights from seed 0 with the AdaLN heads
-    randomised. ``hyb_train_db`` at HYB_DB_BATCH x 512 ``MarkovLM`` tokens
-    (``block_loss`` takes the two-pass route for the family), then
-    ``hyb_train_e2e`` at HYB_E2E_BATCH x 512; then, the model dropped, one
+    randomised. ``resident_db_steps`` at HYB_DB_BATCH x 512 ``MarkovLM``
+    tokens (``block_loss`` takes the two-pass route for the family), then
+    ``e2e_steps`` at HYB_E2E_BATCH x 512; then, the model dropped, one
     fp32 DB step of HYB_CHECK_UNITS units through the kernels against
     ``impl="ref"``; memory back within HYB_TRAIN_SLACK."""
     from repro_torch.configs.base import TrainConfig
@@ -5343,13 +5405,14 @@ def phase_hybrid_train(dev) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
     lm = MarkovLM(vocab_size=cfg.vocab_size, seed=7)
-    db = hyb_train_db(dbm, params, gen, tcfg,
-                      lm.iterator(HYB_DB_BATCH, TRAIN_SEQ))
+    db = resident_db_steps(dbm, params, gen, tcfg,
+                           lm.iterator(HYB_DB_BATCH, TRAIN_SEQ),
+                           "hybrid-train")
     torch.cuda.empty_cache()
     db_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    e2e = hyb_train_e2e(dbm, params, tcfg,
-                        lm.iterator(HYB_E2E_BATCH, TRAIN_SEQ))
+    e2e = e2e_steps(dbm, params, tcfg,
+                    lm.iterator(HYB_E2E_BATCH, TRAIN_SEQ), "hybrid-train")
     e2e_peak = torch.cuda.max_memory_allocated()
     counts = dict(db["launches"])
     add_counts(counts, e2e["launches"])
@@ -5382,6 +5445,227 @@ def phase_hybrid_train(dev) -> dict:
     say(f"[hybrid-train] phase 17 took {took:.1f} s | launches {counts}")
     return {"counts": counts, "db": db, "e2e": e2e, "db_peak": db_peak,
             "e2e_peak": e2e_peak, "crosscheck": cross, "seconds": took}
+
+
+# ---------------------------------------------------------------------------
+# 18. h2o-danube3-4b: served and trained at full width
+# ---------------------------------------------------------------------------
+
+def h2o_model(dev, n_layers=None, blocks=None, **db):
+    """h2o-danube3-4b (cut to ``n_layers`` where given) in DEFAULT_DB's
+    blocks (or ``blocks``; ``db``: other DBConfig fields), random fp32
+    weights from seed 0, the AdaLN heads randomised. Returns (dbm, params,
+    gen)."""
+    from repro_torch.configs import DEFAULT_DB, get_config
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    cfg = get_config(H2O_ARCH)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dbm = DiffusionBlocksModel(cfg, dataclasses.replace(
+        DEFAULT_DB, num_blocks=blocks or DEFAULT_DB.num_blocks, **db))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, params, gen
+
+
+def two_pass_view(model):
+    """The same params under DBConfig(causal_mode="two_pass", loss="l2")."""
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    dbm, params, gen = model
+    return (DiffusionBlocksModel(dbm.cfg, dataclasses.replace(
+        dbm.db, causal_mode="two_pass", loss="l2")), params, gen)
+
+
+def h2o_serve(dev, model) -> dict:
+    """Phase 5b's queue (32 requests on 8 slots, 64 new tokens, the decode
+    segments and chunk steps replayed from CUDA graphs) at full width:
+    every request served, no page leaked, launches equal to the dispatches'
+    arithmetic; with the batcher and the serving copies dropped, at most
+    H2O_SERVE_SLACK allocated beyond the masters and no batcher left."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import ContinuousBatcher
+    dbm, params, _ = model
+    prompts, _ = cb_queue(dbm.cfg.vocab_size)
+    masters = sum(p.numel() * p.element_size() for _, p in _leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    cb = cb_batcher(dev, model)
+    t0 = time.perf_counter()
+    cb.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    events = cb_timed(cb)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for p in prompts:
+        cb.submit(p, CB_NEW)
+    done = cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cb_drained("h2o continuous", cb, done, CB_REQUESTS)
+    check_counts("h2o continuous", counts, cb_counts(dbm, cb))
+    seg_ms = [a.elapsed_time(b) for a, b in events["segment"]]
+    chunk_ms = [a.elapsed_time(b) for a, b in events["chunk"]]
+    seg_step_ms = sum(seg_ms) / cb.steps
+    in_dispatch = (sum(seg_ms) + sum(chunk_ms)) / (wall * 1e3)
+    ttft = sorted(r.ttft for r in done)
+    n_tok = sum(len(r.out) for r in done)
+    say(f"[h2o] continuous, {CB_REQUESTS} requests on {CB_SLOTS} slots "
+        f"(phase 5b's queue), bf16, graphs captured in {capture_s:.2f} s: "
+        f"wall {wall:.3f} s | {n_tok / wall:.1f} tok/s | TTFT median "
+        f"{statistics.median(ttft) * 1e3:.1f} ms, max "
+        f"{ttft[-1] * 1e3:.1f} ms | decode {seg_step_ms:.3f} ms per "
+        f"segment step ({len(seg_ms)} segments) | chunk dispatch "
+        f"{statistics.median(chunk_ms):.2f} ms median ({len(chunk_ms)}) | "
+        f"inside a dispatch {100 * in_dispatch:.1f}% of the wall | peak "
+        f"{peak / 2**30:.2f} GiB | launches {counts} | nvidia-smi (sm MHz, "
+        f"W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del cb, done
+    dbm.__dict__.pop("_compute_copies", None)     # serving's bf16 copy
+    dbm.model.__dict__.pop("_unit_memo", None)
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - masters
+    stray = sum(isinstance(o, ContinuousBatcher) for o in gc.get_objects())
+    say(f"[h2o] after serving: {left / 2**30:.3f} GiB allocated beyond the "
+        f"{masters / 2**30:.2f} GiB of masters, {stray} batchers in memory")
+    if left > H2O_SERVE_SLACK or stray:
+        raise SmokeError(f"h2o serving left {left / 2**30:.2f} GiB beyond "
+                         f"the masters and {stray} batchers")
+    return {"counts": counts, "wall_s": wall, "tok_s": n_tok / wall,
+            "segment_step_ms": seg_step_ms, "in_dispatch": in_dispatch,
+            "chunk_ms_median": statistics.median(chunk_ms),
+            "ttft_median_s": statistics.median(ttft), "peak_bytes": peak,
+            "capture_s": capture_s}
+
+
+def h2o_two_pass_step(model, tcfg, data) -> dict:
+    """One two_pass x l2 DB step of block 0 (its own AdamW state): a
+    warm-up, a timed step (launches against the path's arithmetic, finite
+    loss and grad norm) and one under the profiler."""
+    from repro_torch.core import training as T
+    dbm, params, gen = model
+    dev = params["embed"]["table"].device
+    batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    init, step = T.make_db_train_step(dbm, 0, tcfg, precision="bf16")
+    state = init(params)
+    loss = step(params, state, batch(), gen)[2]
+    say(f"[h2o-train] warm-up two_pass x l2 DB step on block 0: loss "
+        f"{float(loss):.4f}")
+    tokens = batch()
+    (res, wall, dev_ms, peak, base, counts) = timed_step(
+        lambda: step(params, state, tokens, gen)[2:])
+    loss, m = res
+    del res
+    size = dbm.ranges[0][1]
+    say(f"[h2o-train] two_pass x l2 DB step block 0 (layers 0-{size - 1}): "
+        f"loss {float(loss):.4f} | grad norm {float(m['grad_norm']):.3f} | "
+        f"wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
+        f"{peak / 2**30:.2f} GiB (resident before {base / 2**30:.2f}) | "
+        f"launches {counts}")
+    check_counts("h2o two_pass DB step", counts, db_step_counts(dbm, size))
+    finite_step("h2o two_pass DB step", loss, m)
+    tokens = batch()
+    prof = profile_step("h2o-train: two_pass x l2 DB step block 0",
+                        lambda: step(params, state, tokens, gen))
+    del state
+    return {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
+            "peak_bytes": peak, "launches": counts, "profile": prof}
+
+
+def phase_h2o(dev) -> dict:
+    """Phase 18: h2o-danube3-4b at full width (24 layers, d 3840, 32 query
+    heads on 8 KV heads of 120, d_ff 10240, window 4096), after phase 17
+    under its memory check. Served at full depth through ``h2o_serve``;
+    then trained cut to H2O_TRAIN_LAYERS layers in 4 blocks, the bf16
+    policy, ``MarkovLM`` batches of TRAIN_BATCH x 512: ``resident_db_steps``
+    (concat x CE, all four AdamW states resident), one two_pass x l2 DB
+    step of block 0, ``e2e_steps``; then, the model dropped, one fp32 DB
+    step of H2O_CHECK_LAYERS layers through the kernels against
+    ``impl="ref"`` in concat x CE and in two_pass x l2; memory back within
+    1 GiB of the phase's start."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import MarkovLM
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    base = torch.cuda.memory_allocated()
+    say(f"[h2o] memory allocated at the phase's start: {base / 2**30:.3f} "
+        "GiB")
+    if base > H2O_MEM_START:
+        raise SmokeError(f"h2o: {base / 2**30:.2f} GiB still allocated "
+                         "from earlier phases")
+    t0 = time.perf_counter()
+    model = h2o_model(dev)
+    torch.cuda.synchronize()
+    dbm = model[0]
+    cfg = dbm.cfg
+    say(f"[h2o] {cfg.name}: {cfg.n_layers} layers d={cfg.d_model} heads="
+        f"{cfg.n_heads} on {cfg.n_kv_heads} KV heads of {cfg.head_dim}, ff="
+        f"{cfg.d_ff}, window {cfg.sliding_window}, vocab {cfg.vocab_size}; "
+        f"{sum(p.numel() for _, p in _leaves(model[1])) / 1e9:.3f} B params"
+        f" fp32 made in {time.perf_counter() - t0:.1f} s")
+    serve = h2o_serve(dev, model)
+    counts = dict(serve["counts"])
+    del model, dbm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = h2o_model(dev, n_layers=H2O_TRAIN_LAYERS)
+    torch.cuda.synchronize()
+    dbm, params, gen = model
+    say(f"[h2o-train] depth cut to {H2O_TRAIN_LAYERS} layers, "
+        f"{dbm.num_blocks} blocks {dbm.ranges}: "
+        f"{sum(p.numel() for _, p in _leaves(params)) / 1e9:.3f} B params "
+        f"fp32 made in {time.perf_counter() - t0:.1f} s")
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    lm = MarkovLM(vocab_size=cfg.vocab_size, seed=7)
+    data = lm.iterator(TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    db = resident_db_steps(dbm, params, gen, tcfg, data, "h2o-train")
+    torch.cuda.empty_cache()
+    db_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    two_pass = h2o_two_pass_step(two_pass_view(model), tcfg, data)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e2e = e2e_steps(dbm, params, tcfg, data, "h2o-train")
+    e2e_peak = torch.cuda.max_memory_allocated()
+    for c in (db["launches"], two_pass["launches"], e2e["launches"]):
+        add_counts(counts, c)
+    say(f"[h2o-train] peak memory: DB steps with all {dbm.num_blocks} "
+        f"AdamW states {db_peak / 2**30:.2f} GiB, two_pass step "
+        f"{two_pass['peak_bytes'] / 2**30:.2f} GiB, e2e step "
+        f"{e2e_peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}; "
+        f"nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del model, dbm, params, gen
+    torch.cuda.empty_cache()
+    check = h2o_model(dev, n_layers=H2O_CHECK_LAYERS, blocks=1)
+    grads = [("attn", "wq"), ("attn", "wk"), ("mlp", "wg"), ("adaln", "w")]
+    cross = {"concat": db_crosscheck(dev, check, "h2o concat ce", grads),
+             "two_pass": db_crosscheck(dev, two_pass_view(check),
+                                       "h2o two-pass l2", grads)}
+    del check
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    left = torch.cuda.memory_allocated()
+    say(f"[h2o] with everything dropped (no gc pass): {left / 2**30:.3f} "
+        f"GiB allocated against {base / 2**30:.3f} GiB at the start")
+    if left - base > 2**30:
+        raise SmokeError(f"h2o: {(left - base) / 2**30:.2f} GiB left "
+                         "allocated after the phase")
+    took = time.perf_counter() - t_phase
+    say(f"[h2o] phase 18 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "serve": serve, "db": db, "two_pass": two_pass,
+            "e2e": e2e, "db_peak": db_peak, "e2e_peak": e2e_peak,
+            "crosscheck": cross, "seconds": took}
 
 
 OFF_PATH = {"euler_bwd"}
@@ -5435,6 +5719,7 @@ def main() -> int:
     vlm = phase_vlm(dev)
     hybrid = phase_hybrid(dev)
     hybrid_train = phase_hybrid_train(dev)
+    h2o = phase_h2o(dev)
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
@@ -5442,7 +5727,7 @@ def main() -> int:
                    huginn["launches"], vit["launches"], mdm["launches"],
                    block_parallel["launches"], runner["launches"],
                    vlm["counts"], hybrid["counts"],
-                   hybrid_train["counts"]):
+                   hybrid_train["counts"], h2o["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

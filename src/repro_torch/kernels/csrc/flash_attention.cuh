@@ -25,6 +25,16 @@
 // splitting each operand into two tf32 terms and taking each product three
 // times (3xTF32). Each block of 4 warps owns one 64-row tile.
 //
+// Head dim 120 (h2o-danube3-4b) is padded to tiles of 128 in shared
+// memory (kTileDim): its bf16 row is 15 16-byte chunks, which neither the
+// swizzle's whole 128-byte lines, the k16 steps nor the paired n8 output
+// tiles take. The tile shapes, MMA loops and shared-memory pitches are
+// those of hd 128; the loaders read 120 values a row and zero-fill the
+// rest of the row in every tile they fill, each time (shared memory is
+// never cleared, the products Q K^T and dO V^T reduce over the padded
+// width, and 0 x NaN is NaN); the epilogues store 120 values a row. The
+// padded dims cost 128/120 of the products (+6.7%).
+//
 // Edges. Masks are finite (-1e30) and the normaliser is max(l, 1e-30), so a
 // row that sees no key ends with out = 0 and lse ~ -1e30, as the TPU kernel
 // does; the backward computes P only where the mask admits the pair, so such
@@ -172,25 +182,31 @@ __device__ __forceinline__ bool tile_full(const FlashArgs& a, int q0,
   }
 }
 
+// The width in shared memory of a tile row of head dim HD: HD, but 128 for
+// hd 120 (see above).
+template <int HD>
+constexpr int kTileDim = HD == 120 ? 128 : HD;
+
 // The tensor-core kernels (fwd_tc_kernel, dq_tc_kernel, dkv_tc_kernel):
 // 4 warps, each owning 16 rows of a 64-row tile.
 constexpr int kTcThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Start the cp.async copies of rows [r0, r0 + 64) of (b, h) of the bf16
-// tensor t into the swizzled tile dst; rows at or past n are zero-filled.
+// tensor t (HD values a row) into the swizzled tile dst (kTileDim<HD>);
+// rows at or past n, and the chunks of a row past HD, are zero-filled.
 template <int HD>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
                                                 const TRef& t, int b, int h,
                                                 int r0, int n) {
-  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  constexpr int CH = kTileDim<HD> / 8;  // 16-byte chunks of a tile row
   const __nv_bfloat16* base = static_cast<const __nv_bfloat16*>(t.p) +
                               (long long)b * t.sb + (long long)h * t.sh;
 #pragma unroll
   for (int i = 0; i < kB * CH / kTcThreads; ++i) {
     const int e = threadIdx.x + i * kTcThreads;
     const int r = e / CH, c = e % CH;
-    const bool ok = r0 + r < n;
+    const bool ok = r0 + r < n && 8 * c < HD;
     const __nv_bfloat16* src =
         ok ? base + (long long)(r0 + r) * t.ss + c * 8 : base;
     rtmma::cp_async_16(rtmma::smem_addr(dst + rtmma::swizzle<CH>(r, c)), src,
@@ -199,21 +215,22 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
 }
 
 // Start the cp.async copies of rows [r0, r0 + 64) of (b, h) of the fp32
-// tensor t into the tile dst, PITCH floats a row; rows at or past n are
+// tensor t (HD values a row) into the tile dst, kTileDim<HD> floats used
+// of PITCH a row; rows at or past n, and the floats of a row past HD, are
 // zero-filled. V16: 16-byte chunks (t's base 16-byte aligned, its strides
 // multiples of 4 floats); else one float a copy.
 template <int HD, int PITCH, bool V16>
 __device__ __forceinline__ void load_tile_async(float* dst, const TRef& t,
                                                 int b, int h, int r0, int n) {
-  constexpr int W = V16 ? 4 : 1;  // floats a copy
-  constexpr int CH = HD / W;      // copies a row
+  constexpr int W = V16 ? 4 : 1;             // floats a copy
+  constexpr int CH = kTileDim<HD> / W;       // copies a tile row
   const float* base = static_cast<const float*>(t.p) + (long long)b * t.sb +
                       (long long)h * t.sh;
 #pragma unroll
   for (int i = 0; i < kB * CH / kTcThreads; ++i) {
     const int e = threadIdx.x + i * kTcThreads;
     const int r = e / CH, c = (e % CH) * W;
-    const bool ok = r0 + r < n;
+    const bool ok = r0 + r < n && c < HD;
     const float* src = ok ? base + (long long)(r0 + r) * t.ss + c : base;
     const uint32_t to = rtmma::smem_addr(dst + r * PITCH + c);
     if constexpr (V16)

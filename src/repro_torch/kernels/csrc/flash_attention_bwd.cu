@@ -61,22 +61,22 @@ namespace rtfa {
 // per block (neighbouring blocks of one head share it through L2).
 
 // A pass's two score products for one warp: s = A1 B1^T and dp = A2 B2^T
-// over HD, for the warp's 16 rows arow0 .. + 15 of the A tiles against the
-// NJ n8 tiles of rows brow0 .. + 8 NJ - 1 of the B tiles (all swizzled
-// shared tiles). dkv_tc_kernel passes (K, V; Q, dO) for S^T and dP^T,
-// dq_tc_kernel (Q, dO; K, V) for S and dP.
-template <int HD, int NJ>
+// over HT (a tile row's width), for the warp's 16 rows arow0 .. + 15 of
+// the A tiles against the NJ n8 tiles of rows brow0 .. + 8 NJ - 1 of the B
+// tiles (all swizzled shared tiles). dkv_tc_kernel passes (K, V; Q, dO)
+// for S^T and dP^T, dq_tc_kernel (Q, dO; K, V) for S and dP.
+template <int HT, int NJ>
 __device__ __forceinline__ void two_products(
     float (&s)[NJ][4], float (&dp)[NJ][4], const __nv_bfloat16* A1,
     const __nv_bfloat16* A2, int arow0, const __nv_bfloat16* B1,
     const __nv_bfloat16* B2, int brow0, int lane) {
-  constexpr int CH = HD / 8;
+  constexpr int CH = HT / 8;
 #pragma unroll
   for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < HT / 16; ++kk) {
     uint32_t a1[4], a2[4];  // A fragments: the warp's 16 rows
     const int arow = arow0 + (lane & 15), achunk = 2 * kk + lane / 16;
     rtmma::ldmatrix_x4(a1, rtmma::smem_addr(A1 + rtmma::swizzle<CH>(
@@ -116,15 +116,16 @@ __device__ __forceinline__ void two_products(
 // K and V are loaded once; Q, dO and the tile's 64 lse and delta values
 // (fp32, by 4-byte cp.async, indices clamped to Sq - 1) go through the
 // ring. Shared memory: K, V + 2 x (Q, dO) tiles + 2 x 2 x 64 floats,
-// 49 KB at hd 64 and 97 KB at hd 128.
+// 49 KB at hd 64 and 97 KB at hd 128 (and at hd 120, padded to 128).
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
     dkv_tc_kernel(const FlashArgs a) {
-  constexpr int CH = HD / 8;               // 16-byte chunks of a row
-  constexpr int ND = HD / 8;               // n8 tiles of dk, dv
+  constexpr int HT = kTileDim<HD>;         // a tile row (hd 120: 128)
+  constexpr int CH = HT / 8;               // 16-byte chunks of a tile row
+  constexpr int ND = HT / 8;               // n8 tiles of dk, dv
   constexpr int QP = 32;                   // queries a pass
   constexpr int NJ = QP / 8;               // n8 tiles of a pass's S^T
-  constexpr int TILE = kB * HD;
+  constexpr int TILE = kB * HT;
   static_assert(kTcThreads == 2 * kB, "one lse or delta value a thread");
   extern __shared__ uint4 tc_smem[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(tc_smem);
@@ -198,7 +199,7 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
     for (int qb = 0; qb < kB; qb += QP) {
       // S^T, dP^T: n8 tile j holds queries q0 + qb + 8j .. + 7
       float s[NJ][4], dp[NJ][4];
-      two_products<HD>(s, dp, Ks, Vs, warp * 16, Qt, dOt, qb, lane);
+      two_products<HT>(s, dp, Ks, Vs, warp * 16, Qt, dOt, qb, lane);
 
       // element e of s[j]: key key0 + 8 (e / 2), query column
       // c = qb + 8j + 2t + e % 2 of the tile; s becomes P^T, dp dS^T
@@ -257,6 +258,7 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
                           (long long)kp * a.dv.ss + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
+      if (8 * d >= HD) continue;  // the padded dims
       *reinterpret_cast<uint32_t*>(krow + 8 * d) =
           rtmma::pack_bf16(dk[d][2 * i], dk[d][2 * i + 1]);
       *reinterpret_cast<uint32_t*>(vrow + 8 * d) =
@@ -276,15 +278,16 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
 //   by ldmatrix.trans, as the forward reads V).
 // Q and dO are loaded once; K and V go through the ring, as in the
 // forward. Shared memory: Q, dO + 2 x (K, V) tiles, 48 KB at hd 64 and
-// 96 KB at hd 128.
+// 96 KB at hd 128 (and at hd 120, padded to 128).
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
     dq_tc_kernel(const FlashArgs a) {
-  constexpr int CH = HD / 8;               // 16-byte chunks of a row
-  constexpr int ND = HD / 8;               // n8 tiles of dq
+  constexpr int HT = kTileDim<HD>;         // a tile row (hd 120: 128)
+  constexpr int CH = HT / 8;               // 16-byte chunks of a tile row
+  constexpr int ND = HT / 8;               // n8 tiles of dq
   constexpr int KP = 32;                   // keys a pass
   constexpr int NJ = KP / 8;               // n8 tiles of a pass's S
-  constexpr int TILE = kB * HD;
+  constexpr int TILE = kB * HT;
   extern __shared__ uint4 tc_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   __nv_bfloat16* dOs = Qs + TILE;
@@ -343,7 +346,7 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
     for (int kb = 0; kb < kB; kb += KP) {
       // S, dP: n8 tile j holds keys k0 + kb + 8j .. + 7
       float s[NJ][4], dp[NJ][4];
-      two_products<HD>(s, dp, Qs, dOs, warp * 16, Kt, Vt, kb, lane);
+      two_products<HT>(s, dp, Qs, dOs, warp * 16, Kt, Vt, kb, lane);
 
       // element e of s[j]: row row0 + 8 (e / 2), key k0 + kb + 8j + 2t +
       // e % 2; dp becomes dS
@@ -385,15 +388,16 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
                           (long long)qp * a.dq.ss + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      *reinterpret_cast<uint32_t*>(qrow + 8 * d) =
-          rtmma::pack_bf16(dq[d][2 * i], dq[d][2 * i + 1]);
+      if (8 * d < HD)  // not the padded dims
+        *reinterpret_cast<uint32_t*>(qrow + 8 * d) =
+            rtmma::pack_bf16(dq[d][2 * i], dq[d][2 * i + 1]);
   }
 }
 
 template <int HD>
 cudaError_t dkv_tc(const FlashArgs& a, cudaStream_t st) {
   const dim3 grid((a.Sk + kB - 1) / kB, a.KV, a.B);
-  const size_t smem = 6 * kB * HD * sizeof(__nv_bfloat16) +
+  const size_t smem = 6 * kB * kTileDim<HD> * sizeof(__nv_bfloat16) +
                       4 * kB * sizeof(float);
   return launch<dkv_tc_kernel<HD>, kTcThreads>(grid, smem, a, st);
 }
@@ -401,7 +405,7 @@ cudaError_t dkv_tc(const FlashArgs& a, cudaStream_t st) {
 template <int HD>
 cudaError_t dq_tc(const FlashArgs& a, cudaStream_t st) {
   const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
-  const size_t smem = 6 * kB * HD * sizeof(__nv_bfloat16);
+  const size_t smem = 6 * kB * kTileDim<HD> * sizeof(__nv_bfloat16);
   return launch<dq_tc_kernel<HD>, kTcThreads>(grid, smem, a, st);
 }
 
@@ -440,7 +444,8 @@ cudaError_t dq_tc(const FlashArgs& a, cudaStream_t st) {
 // then reads rows {0, 2, 5, 7} and {1, 3, 4, 6}, which fall on distinct
 // banks too, and a thread's two score columns 2t, 2t + 1 are rows
 // 2t + (e ^ (t >> 1)) (e = 0, 1): the pair swapped for t >= 2. Both hold
-// for a pitch of 8 or 24 (mod 32): hd 32, 64 and 128, and hd 112 (120).
+// for a pitch of 8 or 24 (mod 32): hd 32, 64 and 128 (and hd 120, whose
+// tiles are hd 128's), and hd 112 (120).
 // (tests/test_torch_attention_bwd_tf32.py checks the fragments against the
 // PTX tables and counts the banks.)
 // Flushes. The tensor cores add each mma's products into its fp32
@@ -457,15 +462,16 @@ cudaError_t dq_tc(const FlashArgs& a, cudaStream_t st) {
 // side through a 2-stage cp.async ring that prefetches the next visible
 // tile, one barrier a tile, as in the bf16 kernels. Shared memory: 6 tiles
 // of 64 x (HD + 8) floats, 61 KB at hd 32 (3 blocks an SM), 108 KB at hd 64
-// (2), 181 KB at hd 112 (1) and 204 KB at hd 128 (1). A warp takes its
-// 64-row streamed tile in passes of kTf32Pass rows (a loop not unrolled).
+// (2), 181 KB at hd 112 (1) and 204 KB at hd 128 and 120 (1). A warp takes
+// its 64-row streamed tile in passes of kTf32Pass rows (a loop not
+// unrolled).
 // Copies are 16 bytes where q, k, v, dO and the outputs pass copies16(),
 // else the same kernel is instantiated
 // with 4-byte copies and scalar stores: every fp32 view with a contiguous
 // head dim is taken.
 
 template <int HD>
-constexpr int kBwdPitch = HD + 8;
+constexpr int kBwdPitch = kTileDim<HD> + 8;
 // Rows of the streamed tile a warp takes in one pass (queries in dk/dv,
 // keys in dq): the pass's two score tiles take kTf32Pass floats a thread
 // beside the accumulators. tune_attention_bwd.py builds other widths: at hd
@@ -485,10 +491,10 @@ constexpr int kTf32MinBlocks = HD == 32 ? 3 : HD == 64 ? 2 : 1;
 __device__ __forceinline__ int score_row(int g) { return g ^ (g >> 2); }
 
 // A pass's two score products for one warp: s = A1 B1^T and dp = A2 B2^T
-// over HD, for the warp's 16 rows of the A tiles (a1, a2 at row g, dim 2t)
-// against the NJ n8 tiles of the B tiles (b1, b2 at the pass's first row):
-// n8 tile j, n-index g is row 8j + score_row(g).
-template <int HD, int NJ, int P>
+// over HT (a tile row's width), for the warp's 16 rows of the A tiles (a1,
+// a2 at row g, dim 2t) against the NJ n8 tiles of the B tiles (b1, b2 at
+// the pass's first row): n8 tile j, n-index g is row 8j + score_row(g).
+template <int HT, int NJ, int P>
 __device__ __forceinline__ void score_products_tf32(
     float (&s)[NJ][4], float (&dp)[NJ][4], const float* a1, const float* a2,
     const float* b1, const float* b2, int g, int t) {
@@ -498,7 +504,7 @@ __device__ __forceinline__ void score_products_tf32(
     for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
   const int boff = score_row(g) * P + 2 * t;
 #pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk) {
+  for (int kk = 0; kk < HT / 8; ++kk) {
     uint32_t ab1[4], as1[4], ab2[4], as2[4];
     q_frag_tf32<P>(a1 + 8 * kk, ab1, as1);
     q_frag_tf32<P>(a2 + 8 * kk, ab2, as2);
@@ -569,15 +575,16 @@ __device__ __forceinline__ void store4(float* p, float x, float y, float z,
 
 // Row i (row g + 8i of the warp's 16) of a thread's output accumulators,
 // written at `row`: tiles 2dd and 2dd + 1 hold dims 16dd + 4t + {0, 2} and
-// 16dd + 4t + {1, 3}.
-template <int ND, bool V16>
+// 16dd + 4t + {1, 3}; dims at or past HD (the padding) are not stored.
+template <int HD, int ND, bool V16>
 __device__ __forceinline__ void store_row(float* row, const float (&d)[ND][4],
                                           int i, int t) {
 #pragma unroll
   for (int dd = 0; dd < ND / 2; ++dd)
-    store4<V16>(row + 16 * dd + 4 * t, d[2 * dd][2 * i],
-                d[2 * dd + 1][2 * i], d[2 * dd][2 * i + 1],
-                d[2 * dd + 1][2 * i + 1]);
+    if (16 * dd + 4 * t < HD)
+      store4<V16>(row + 16 * dd + 4 * t, d[2 * dd][2 * i],
+                  d[2 * dd + 1][2 * i], d[2 * dd][2 * i + 1],
+                  d[2 * dd + 1][2 * i + 1]);
 }
 
 // dkv_tf32_kernel: replaces _bwd_dkv_kernel
@@ -594,7 +601,8 @@ template <int HD, bool V16>
 __global__ void __launch_bounds__(kTcThreads, kTf32MinBlocks<HD>)
     dkv_tf32_kernel(const FlashArgs a) {
   constexpr int P = kBwdPitch<HD>, TILE = kB * P;
-  constexpr int ND = HD / 8;               // n8 tiles of dk, dv
+  constexpr int HT = kTileDim<HD>;         // a tile row (hd 120: 128)
+  constexpr int ND = HT / 8;               // n8 tiles of dk, dv
   constexpr int NQ = kTf32Pass<HD>;        // queries a pass
   constexpr int NJ = NQ / 8;               // n8 tiles of a pass's S^T
   static_assert(kTcThreads == 2 * kB, "one lse or delta value a thread");
@@ -672,7 +680,7 @@ __global__ void __launch_bounds__(kTcThreads, kTf32MinBlocks<HD>)
     for (int c0 = 0; c0 < kB; c0 += NQ) {
       // S^T, dP^T over the pass's queries c0 .. c0 + NQ - 1 of the tile
       float s[NJ][4], dp[NJ][4];
-      score_products_tf32<HD, NJ, P>(s, dp, krow, vrow, Qt + c0 * P,
+      score_products_tf32<HT, NJ, P>(s, dp, krow, vrow, Qt + c0 * P,
                                      dOt + c0 * P, g, t);
 
       // element e of s[j]: key key0 + 8 (e / 2), query c + (e % 2 ^ sw) of
@@ -728,12 +736,14 @@ __global__ void __launch_bounds__(kTcThreads, kTf32MinBlocks<HD>)
   for (int i = 0; i < 2; ++i) {
     const int kp = key0 + 8 * i;
     if (kp >= a.Sk) continue;
-    store_row<ND, V16>(static_cast<float*>(a.dk.p) + (long long)b * a.dk.sb +
-                           (long long)hk * a.dk.sh + (long long)kp * a.dk.ss,
-                       dk, i, t);
-    store_row<ND, V16>(static_cast<float*>(a.dv.p) + (long long)b * a.dv.sb +
-                           (long long)hk * a.dv.sh + (long long)kp * a.dv.ss,
-                       dv, i, t);
+    store_row<HD, ND, V16>(
+        static_cast<float*>(a.dk.p) + (long long)b * a.dk.sb +
+            (long long)hk * a.dk.sh + (long long)kp * a.dk.ss,
+        dk, i, t);
+    store_row<HD, ND, V16>(
+        static_cast<float*>(a.dv.p) + (long long)b * a.dv.sb +
+            (long long)hk * a.dv.sh + (long long)kp * a.dv.ss,
+        dv, i, t);
   }
 }
 
@@ -749,7 +759,8 @@ template <int HD, bool V16>
 __global__ void __launch_bounds__(kTcThreads, kTf32MinBlocks<HD>)
     dq_tf32_kernel(const FlashArgs a) {
   constexpr int P = kBwdPitch<HD>, TILE = kB * P;
-  constexpr int ND = HD / 8;               // n8 tiles of dq
+  constexpr int HT = kTileDim<HD>;         // a tile row (hd 120: 128)
+  constexpr int ND = HT / 8;               // n8 tiles of dq
   constexpr int NK = kTf32Pass<HD>;        // keys a pass
   constexpr int NJ = NK / 8;               // n8 tiles of a pass's S
   extern __shared__ float4 tf_smem[];
@@ -814,7 +825,7 @@ __global__ void __launch_bounds__(kTcThreads, kTf32MinBlocks<HD>)
     for (int c0 = 0; c0 < kB; c0 += NK) {
       // S, dP over the pass's keys c0 .. c0 + NK - 1 of the tile
       float s[NJ][4], dp[NJ][4];
-      score_products_tf32<HD, NJ, P>(s, dp, qrow, orow, Kt + c0 * P,
+      score_products_tf32<HT, NJ, P>(s, dp, qrow, orow, Kt + c0 * P,
                                      Vt + c0 * P, g, t);
 
       // element e of s[j]: row row0 + 8 (e / 2), key k0 + c0 + 8j + 2t +
@@ -857,9 +868,10 @@ __global__ void __launch_bounds__(kTcThreads, kTf32MinBlocks<HD>)
   for (int i = 0; i < 2; ++i) {
     const int qp = row0 + 8 * i;
     if (qp >= a.Sq) continue;
-    store_row<ND, V16>(static_cast<float*>(a.dq.p) + (long long)b * a.dq.sb +
-                           (long long)h * a.dq.sh + (long long)qp * a.dq.ss,
-                       dq, i, t);
+    store_row<HD, ND, V16>(
+        static_cast<float*>(a.dq.p) + (long long)b * a.dq.sb +
+            (long long)h * a.dq.sh + (long long)qp * a.dq.ss,
+        dq, i, t);
   }
 }
 
@@ -885,8 +897,8 @@ cudaError_t dq_tf32(const FlashArgs& a, cudaStream_t st) {
 
 }  // namespace rtfa
 
-// Writes a->dq from q, k, v, dout, lse, delta. hd must be 64 or 128, or
-// 32 or 112 in fp32.
+// Writes a->dq from q, k, v, dout, lse, delta. hd must be 64, 120 or 128,
+// or 32 or 112 in fp32.
 extern "C" int rt_flash_attention_bwd_dq(const rtfa::FlashArgs* a,
                                          void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -896,6 +908,8 @@ extern "C" int rt_flash_attention_bwd_dq(const rtfa::FlashArgs* a,
     case 128: e = rtfa::dq_tf32<64>(*a, st); break;
     case 129: e = rtfa::dq_tc<64>(*a, st); break;
     case 224: e = rtfa::dq_tf32<112>(*a, st); break;
+    case 240: e = rtfa::dq_tf32<120>(*a, st); break;
+    case 241: e = rtfa::dq_tc<120>(*a, st); break;
     case 256: e = rtfa::dq_tf32<128>(*a, st); break;
     case 257: e = rtfa::dq_tc<128>(*a, st); break;
     default: e = cudaErrorInvalidValue;
@@ -913,6 +927,8 @@ extern "C" int rt_flash_attention_bwd_dkv(const rtfa::FlashArgs* a,
     case 128: e = rtfa::dkv_tf32<64>(*a, st); break;
     case 129: e = rtfa::dkv_tc<64>(*a, st); break;
     case 224: e = rtfa::dkv_tf32<112>(*a, st); break;
+    case 240: e = rtfa::dkv_tf32<120>(*a, st); break;
+    case 241: e = rtfa::dkv_tc<120>(*a, st); break;
     case 256: e = rtfa::dkv_tf32<128>(*a, st); break;
     case 257: e = rtfa::dkv_tc<128>(*a, st); break;
     default: e = cudaErrorInvalidValue;

@@ -24,8 +24,8 @@
 //   mask; in the others each score is tested against its row's keys from
 //   row_keys() (the mask as an interval and one key: a few integer
 //   compares a score, where testing the mask kind for each pair was slow).
-//   Registers are capped for 3 blocks an SM at hd 64 and 2 at hd 128
-//   (__launch_bounds__), with no spills.
+//   Registers are capped for 3 blocks an SM at hd 64 and 2 at hd 128 and
+//   120 (__launch_bounds__), with no spills.
 //   Loads: cp.async 16-byte chunks into shared tiles swizzled by
 //   (chunk ^ row % 8) so ldmatrix reads are free of bank conflicts; rows
 //   past the sequence end are zero-filled. The Q tile is read from device
@@ -36,7 +36,8 @@
 //   the loads of the next VISIBLE tile (skipped tiles are never loaded) are
 //   started into the other stage, so they overlap tile i's products; one
 //   barrier per tile. Shared memory: Q + 2 x (K, V) = 5 x 64 x hd x 2 B,
-//   40 KB at hd 64 and 80 KB at hd 128 (above 48 KB through launch<>).
+//   40 KB at hd 64 and 80 KB at hd 128 and 120 (above 48 KB through
+//   launch<>).
 //   S = Q K^T: mma.sync m16n8k16 (bf16 in, fp32 accumulate; bf16 products
 //   are exact in fp32, as the reference's fp32 upcast), K fragments by
 //   ldmatrix (K's rows are the col-major B operand as stored). A warp's
@@ -197,10 +198,11 @@ __device__ __forceinline__ float finish_row(float& l, float m, float* lse,
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
     fwd_tc_kernel(const FlashArgs a) {
-  constexpr int CH = HD / 8;      // 16-byte chunks of a row
-  constexpr int KS = HD / 16;     // k16 steps of Q K^T
-  constexpr int ND = HD / 8;      // n8 tiles of a warp's output
-  constexpr int TILE = kB * HD;   // elements of one 64-row tile
+  constexpr int HT = kTileDim<HD>;  // a tile row (hd 120: 128)
+  constexpr int CH = HT / 8;        // 16-byte chunks of a tile row
+  constexpr int KS = HT / 16;       // k16 steps of Q K^T
+  constexpr int ND = HT / 8;        // n8 tiles of a warp's output
+  constexpr int TILE = kB * HT;     // elements of one 64-row tile
   extern __shared__ uint4 tc_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(tc_smem);
   __nv_bfloat16* Ks = Qs + TILE;      // 2 stages
@@ -298,15 +300,16 @@ __global__ void __launch_bounds__(kTcThreads, HD == 64 ? 3 : 2)
                           (long long)qp * a.o.ss + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      *reinterpret_cast<uint32_t*>(orow + 8 * d) =
-          rtmma::pack_bf16(o[d][2 * i] / lc, o[d][2 * i + 1] / lc);
+      if (8 * d < HD)  // not the padded dims
+        *reinterpret_cast<uint32_t*>(orow + 8 * d) =
+            rtmma::pack_bf16(o[d][2 * i] / lc, o[d][2 * i + 1] / lc);
   }
 }
 
 template <int HD>
 cudaError_t fwd_tc(const FlashArgs& a, cudaStream_t st) {
   const dim3 grid((a.Sq + kB - 1) / kB, a.H, a.B);
-  const size_t smem = 5 * kB * HD * sizeof(__nv_bfloat16);
+  const size_t smem = 5 * kB * kTileDim<HD> * sizeof(__nv_bfloat16);
   return launch<fwd_tc_kernel<HD>, kTcThreads>(grid, smem, a, st);
 }
 
@@ -314,11 +317,12 @@ cudaError_t fwd_tc(const FlashArgs& a, cudaStream_t st) {
 // read as float2 at words 8g + 2t (mod 32) of a half-warp (24g + 2t at hd
 // 112, whose pitch 120 is 24 mod 32), V's as floats at words 8t + g and
 // 8t + 4 + g (8t + g and 8t + 20 + g at hd 112, pitch 116): every bank
-// once a request (tests/test_torch_attention_tf32.py counts them).
+// once a request (tests/test_torch_attention_tf32.py counts them). hd 120
+// takes hd 128's tiles and pitches (136 and 132).
 template <int HD>
-constexpr int kQKPitch = HD + 8;
+constexpr int kQKPitch = kTileDim<HD> + 8;
 template <int HD>
-constexpr int kVPitch = HD + 4;
+constexpr int kVPitch = kTileDim<HD> + 4;
 // Stages of fwd_tf32_kernel's K/V ring (2: the next tile's loads overlap
 // this tile's products; 1: they wait for them). The kernel asks for 2
 // blocks an SM, which at hd 128 leaves shared memory for one stage only
@@ -334,8 +338,8 @@ template <int HD, bool V16>
 __global__ void __launch_bounds__(kTcThreads, 2)
     fwd_tf32_kernel(const FlashArgs a) {
   constexpr int QP = kQKPitch<HD>, VP = kVPitch<HD>, ST = kTf32Stages<HD>;
-  constexpr int KS = HD / 8;          // k8 steps of Q K^T
-  constexpr int ND = HD / 8;          // n8 tiles of a warp's output
+  constexpr int KS = kTileDim<HD> / 8;  // k8 steps of Q K^T
+  constexpr int ND = kTileDim<HD> / 8;  // n8 tiles of a warp's output
   extern __shared__ float4 tf_smem[];
   float* Qs = reinterpret_cast<float*>(tf_smem);
   float* Ks = Qs + kB * QP;           // ST stages
@@ -449,6 +453,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
                   (long long)h * a.o.sh + (long long)qp * a.o.ss + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
+      if (8 * d >= HD) continue;  // the padded dims
       const float x = o[d][2 * i] / lc, y = o[d][2 * i + 1] / lc;
       if constexpr (V16) {
         *reinterpret_cast<float2*>(orow + 8 * d) = make_float2(x, y);
@@ -472,9 +477,9 @@ cudaError_t fwd_tf32(const FlashArgs& a, cudaStream_t st) {
 
 }  // namespace rtfa
 
-// Writes a->o and a->lse from a->q, a->k, a->v. hd must be 64 or 128, or 32
-// or 112 in fp32; bf16 tensors must be 16-byte aligned with strides that
-// are multiples of 8.
+// Writes a->o and a->lse from a->q, a->k, a->v. hd must be 64, 120 or 128,
+// or 32 or 112 in fp32; bf16 tensors must be 16-byte aligned with strides
+// that are multiples of 8.
 extern "C" int rt_flash_attention_fwd(const rtfa::FlashArgs* a, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -483,6 +488,8 @@ extern "C" int rt_flash_attention_fwd(const rtfa::FlashArgs* a, void* stream) {
     case 128: e = rtfa::fwd_tf32<64>(*a, st); break;
     case 129: e = rtfa::fwd_tc<64>(*a, st); break;
     case 224: e = rtfa::fwd_tf32<112>(*a, st); break;
+    case 240: e = rtfa::fwd_tf32<120>(*a, st); break;
+    case 241: e = rtfa::fwd_tc<120>(*a, st); break;
     case 256: e = rtfa::fwd_tf32<128>(*a, st); break;
     case 257: e = rtfa::fwd_tc<128>(*a, st); break;
     default: e = cudaErrorInvalidValue;

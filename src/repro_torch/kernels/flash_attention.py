@@ -25,7 +25,9 @@ tensor cores too (``fwd_tf32_kernel``, ``dq_tf32_kernel``,
 ``dkv_tf32_kernel``: each operand split into two tf32 terms and each product
 taken three times, 3xTF32, which keeps fp32 accuracy); each copies 16-byte
 chunks where ``tc_aligned`` admits all of its tensors (inputs, dO and
-outputs), and single floats otherwise, so it takes every fp32 view.
+outputs), and single floats otherwise, so it takes every fp32 view. Head
+dim 120 runs in hd 128's tiles, its rows zero-padded in shared memory
+(``tile_dim``).
 
 Three wrappers, one per kernel, each counting its launches in
 ``.launches``: ``flash_attention_fwd`` -> (out, lse), ``flash_attention_bwd_dq``
@@ -51,9 +53,19 @@ MASK_KINDS = ("full", "causal", "window", "db_concat", "two_pass")
 # head dims the kernels are instantiated for, by dtype: the fp32 kernels
 # also at 32 (ViT) and 112 (zamba2-7b, which computes in fp32 under every
 # policy); a 32-wide bf16 row is 4 16-byte chunks, which the tensor-core
-# tiles' swizzle (``csrc/mma.cuh`` ``swizzle``) does not take
-HEAD_DIMS = {torch.float32: (32, 64, 112, 128), torch.bfloat16: (64, 128)}
+# tiles' swizzle (``csrc/mma.cuh`` ``swizzle``) does not take. 120
+# (h2o-danube3-4b) runs in hd 128's tiles (``tile_dim``)
+HEAD_DIMS = {torch.float32: (32, 64, 112, 120, 128),
+             torch.bfloat16: (64, 120, 128)}
 _DTYPES = tuple(HEAD_DIMS)
+
+
+def tile_dim(hd: int) -> int:
+    """The width of a head-dim-``hd`` row in the kernels' shared tiles
+    (``kTileDim`` in ``csrc/flash_attention.cuh``): hd itself, but 128 for
+    hd 120, whose rows the loaders zero-pad and the epilogues store 120
+    values of; the pitches, k steps and output tiles are then hd 128's."""
+    return 128 if hd == 120 else hd
 
 
 @dataclasses.dataclass(frozen=True)

@@ -99,16 +99,22 @@ def _lanes():
 # (a) the fragments
 # ---------------------------------------------------------------------------
 
+def _tile_rows(x: np.ndarray) -> np.ndarray:
+    """x (n, hd) with zero columns up to the kernels' tile width."""
+    return np.pad(x, ((0, 0), (0, FA.tile_dim(x.shape[1]) - x.shape[1])))
+
+
 def score_product(A: np.ndarray, Bt: np.ndarray, nj: int) -> np.ndarray:
     """A (16 x hd) times Bt^T (Bt: 8 nj x hd rows) as score_products_tf32
     computes it, returned as the accumulators hold it: (16, 8 nj), column
     8j + n is n-index n of n8 tile j. A by q_frag_tf32's float2 reads (rows
     g, g + 8, dims 8kk + 2t, 2t + 1), B by one float2 of row 8j +
-    score_row(g) at dims 8kk + 2t."""
-    hd = A.shape[1]
+    score_row(g) at dims 8kk + 2t; rows zero-padded to the kernel's tile
+    width (``FA.tile_dim``)."""
+    A, Bt = _tile_rows(A), _tile_rows(Bt)
     out = np.zeros((16, 8 * nj))
     for j in range(nj):
-        for kk in range(hd // 8):
+        for kk in range(A.shape[1] // 8):
             d = 8 * kk
             a = [(A[g, d + 2 * t], A[g + 8, d + 2 * t], A[g, d + 2 * t + 1],
                   A[g + 8, d + 2 * t + 1]) for g, t in _lanes()]
@@ -125,15 +131,18 @@ def gradient_product(acc: np.ndarray, Bm: np.ndarray) -> np.ndarray:
     writes it: the A fragment straight from each tile's accumulators
     (c_frag: (c0, c2, c1, c3)); for output tiles 2dd, 2dd + 1, B from one
     float2 of rows 8j + 2t + sw and 8j + 2t + 1 - sw (sw = t >> 1) at dims
-    16dd + 2g; each thread stores dims 16dd + 4t .. + 3 of rows g, g + 8."""
+    16dd + 2g; each thread stores dims 16dd + 4t .. + 3 of rows g, g + 8
+    (those below hd: Bm's rows are zero-padded to the tile width)."""
     nj, hd = acc.shape[1] // 8, Bm.shape[1]
-    tiles = np.zeros((hd // 8, 16, 8))          # output n8 tiles
+    Bm = _tile_rows(Bm)
+    ht = Bm.shape[1]
+    tiles = np.zeros((ht // 8, 16, 8))          # output n8 tiles
     for j in range(nj):
         a = []
         for lane in range(32):
             c = c_frag(acc[:, 8 * j:8 * j + 8], lane)
             a.append((c[0], c[2], c[1], c[3]))
-        for dd in range(hd // 16):
+        for dd in range(ht // 16):
             b0, b1 = [], []
             for g, t in _lanes():
                 sw = t >> 1
@@ -149,7 +158,9 @@ def gradient_product(acc: np.ndarray, Bm: np.ndarray) -> np.ndarray:
     for lane in range(32):
         g, t = divmod(lane, 4)
         for i in range(2):
-            for dd in range(hd // 16):
+            for dd in range(ht // 16):
+                if 16 * dd + 4 * t >= hd:       # the padded dims
+                    continue
                 d0, d1 = tiles[2 * dd], tiles[2 * dd + 1]
                 e0, e1 = c_frag(d0, lane), c_frag(d1, lane)
                 out[g + 8 * i, 16 * dd + 4 * t:16 * dd + 4 * t + 4] = (
@@ -196,23 +207,25 @@ def test_fragment_layouts_compute_the_five_products(hd):
 
 def _requests(hd: int, rows_of=SCORE_ROW):
     """Every float2 read of the kernels' fragment loops, as the word
-    offsets each lane reads (rows of HD + 8 floats), one list of 32 lanes a
-    warp instruction: A fragments (rows 16w + g and + 8, dims 8kk + 2t),
-    score B (rows 8j + rows_of[g], dims 8kk + 2t), gradient B (rows 8j + 2t
-    + sw and 8j + 2t + 1 - sw as rows_of[2t], rows_of[2t + 1] name them,
-    dims 16dd + 2g)."""
-    P = hd + 8
+    offsets each lane reads (tile rows of ``FA.tile_dim(hd)`` + 8 floats:
+    hd 120 runs in hd 128's tiles), one list of 32 lanes a warp
+    instruction: A fragments (rows 16w + g and + 8, dims 8kk + 2t), score B
+    (rows 8j + rows_of[g], dims 8kk + 2t), gradient B (rows 8j + 2t + sw and
+    8j + 2t + 1 - sw as rows_of[2t], rows_of[2t + 1] name them, dims 16dd +
+    2g)."""
+    ht = FA.tile_dim(hd)
+    P = ht + 8
     reqs = []
     for w in range(4):
-        for kk in range(hd // 8):
+        for kk in range(ht // 8):
             for half in (0, 8):
                 reqs.append([(16 * w + g + half) * P + 8 * kk + 2 * t
                              for g, t in _lanes()])
     for j in range(8):
-        for kk in range(hd // 8):
+        for kk in range(ht // 8):
             reqs.append([(8 * j + rows_of[g]) * P + 8 * kk + 2 * t
                          for g, t in _lanes()])
-        for dd in range(hd // 16):
+        for dd in range(ht // 16):
             for e in (0, 1):
                 reqs.append([(8 * j + rows_of[2 * t + e]) * P + 16 * dd
                              + 2 * g for g, t in _lanes()])

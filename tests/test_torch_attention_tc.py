@@ -16,7 +16,11 @@ runs only on the card. Here:
     out, 2e-4 + 2e-4 |ref| on lse) for all five mask kinds, and its fp32
     out and lse against the Pallas kernel (interpret mode) at 1e-4;
 (c) the same emulation with P rounded to bf16 alone breaks that bound in
-    every mask kind: the reason the kernel splits P.
+    every mask kind: the reason the kernel splits P;
+(d) shared memory at each bf16 head dim (hd 120 in hd 128's tiles, its 16th
+    chunk a zero pad): every ``ldmatrix`` of the three bf16 kernels reads
+    its swizzled tile free of bank conflicts, and one tile fill writes each
+    chunk once, zero-filling the pad and the rows past the sequence end.
 """
 import importlib.util
 import math
@@ -52,14 +56,20 @@ CASES = {"full": (100, 190, None, None), "causal": (200, 200, None, None),
 # (a) the layout the kernel takes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("mode", ["concat", "two_pass"])
-def test_model_views_are_tc_aligned(monkeypatch, mode):
+@pytest.mark.parametrize("mode,arch", [
+    pytest.param("concat", "stablelm-1.6b", id="concat"),
+    pytest.param("two_pass", "olmo-1b", id="two_pass"),
+    pytest.param("concat", "h2o-danube-3-4b", id="h2o-concat"),
+    pytest.param("two_pass", "h2o-danube-3-4b", id="h2o-two_pass")])
+def test_model_views_are_tc_aligned(monkeypatch, mode, arch):
     """Every q, k, v a bf16 DB step hands the attention kernels (the
     reshaped projections as transposed views, the two-pass noisy stream's
     ``torch.cat`` keys) is one the tensor-core forward takes; so is every
     dO the step's backward hands the attention backward, as it arrives
     (before any copy), and the dq, dk, dv buffers the backward wrappers
-    allocate (``torch.empty_like`` of q, k, v)."""
+    allocate (``torch.empty_like`` of q, k, v). h2o-danube3-4b at hd 120
+    (4 query heads on 1 KV head, window 64): rows of 240 bytes, 15 of the
+    kernels' 16-byte chunks."""
     seen, seen_bwd = [], []
     orig = FA.flash_attention
     orig_bwd = FA._Flash.backward
@@ -76,8 +86,10 @@ def test_model_views_are_tc_aligned(monkeypatch, mode):
 
     monkeypatch.setattr(FA, "flash_attention", record)
     monkeypatch.setattr(FA._Flash, "backward", staticmethod(record_bwd))
-    arch = "olmo-1b" if mode == "two_pass" else "stablelm-1.6b"
-    cfg = reduced(get_config(arch), n_layers=2, d_model=128, n_heads=2)
+    h2o = arch == "h2o-danube-3-4b"
+    cfg = reduced(get_config(arch), n_layers=2, d_model=480 if h2o else 128,
+                  n_heads=4 if h2o else 2)
+    hd = cfg.head_dim
     dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2,
                                              causal_mode=mode))
     gen = torch.Generator().manual_seed(0)
@@ -88,18 +100,20 @@ def test_model_views_are_tc_aligned(monkeypatch, mode):
                                            seed=7).iterator(2, 24)))
     step(params, init(params), tokens, gen)
     kinds = {k for k, *_ in seen}
-    assert kinds == ({"causal", "two_pass"} if mode == "two_pass"
+    clean = "window" if h2o else "causal"
+    assert kinds == ({clean, "two_pass"} if mode == "two_pass"
                      else {"db_concat"})
+    assert hd == (120 if h2o else 64)
     # the two-pass step's last clean call reaches no loss: no backward
     assert len(seen_bwd) == len(seen) - (mode == "two_pass")
     for kind, *tensors in seen:
         for name, x in zip("qkv", tensors):
-            assert x.dtype == torch.bfloat16 and x.shape[-1] == 64
+            assert x.dtype == torch.bfloat16 and x.shape[-1] == hd
             assert FA.tc_aligned(x.data_ptr(), x.stride(),
                                  x.element_size()), (kind, name, x.stride())
     for kind, *tensors in seen_bwd:
         for name, x in zip(("do", "dq", "dk", "dv"), tensors):
-            assert x.dtype == torch.bfloat16 and x.shape[-1] == 64
+            assert x.dtype == torch.bfloat16 and x.shape[-1] == hd
             assert FA.tc_aligned(x.data_ptr(), x.stride(),
                                  x.element_size()), (kind, name, x.stride())
 
@@ -207,3 +221,104 @@ def test_bf16_p_alone_breaks_the_card_bound(kind):
         SMOKE.compare(f"bf16 P {kind}", (out.bfloat16(), lse),
                       FA.flash_attention_fwd_ref(q, k, v, cfg),
                       bf16_rounding=True)
+
+
+# ---------------------------------------------------------------------------
+# (d) shared memory: the tiles' fills and ldmatrix reads
+# ---------------------------------------------------------------------------
+
+def _swizzle(chunks: int, row: int, chunk: int) -> int:
+    """Byte offset of 16-byte chunk ``chunk`` of tile row ``row``, as
+    ``rtmma::swizzle<CHUNKS>`` (``csrc/mma.cuh``) places it."""
+    return (row * chunks + (chunk ^ (row & 7))) * 16
+
+
+def _plain(chunks: int, row: int, chunk: int) -> int:
+    return (row * chunks + chunk) * 16
+
+
+def _ldmatrix_reads(kernel: str, ht: int):
+    """Every ``ldmatrix`` (x4, plain or .trans) of one warp in the three
+    bf16 kernels' loops, as (tile row, 16-byte chunk) for each of the 32
+    lanes: A fragments (rows r0 + lane % 16, chunk c0 + lane / 16), B
+    fragments (rows r0 + lane % 8 + 8 (lane / 16), chunk c0 + (lane / 8) %
+    2), and the transposed reads of V, dO, Q and K (as A). ``ht``: the tile
+    row in elements (``FA.tile_dim``)."""
+    a = lambda r0, c0: [(r0 + (ln & 15), c0 + ln // 16)  # noqa: E731
+                        for ln in range(32)]
+    b = lambda r0, c0: [(r0 + (ln & 7) + 8 * (ln // 16),  # noqa: E731
+                         c0 + (ln // 8) % 2) for ln in range(32)]
+    ks, nd = ht // 16, ht // 8
+    reads = []
+    for w in range(4):
+        for kk in range(ks):
+            if kernel == "fwd":
+                reads.append(a(16 * w, 2 * kk))                      # Q
+                reads += [b(16 * np_, 2 * kk) for np_ in range(4)]  # K
+            else:                 # two_products over both 32-row passes
+                reads += [a(16 * w, 2 * kk)] * 2                 # A1, A2
+                reads += [b(p0 + 16 * np_, 2 * kk) for p0 in (0, 32)
+                          for np_ in range(2)] * 2               # B1, B2
+        steps = [(0, kk) for kk in range(4)] if kernel == "fwd" else \
+            [(p0, kk) for p0 in (0, 32) for kk in range(2)]
+        for p0, kk in steps:      # V (fwd), dO and Q (dk/dv), K (dq)
+            reads += [a(p0 + 16 * kk, 2 * dp)
+                      for dp in range(nd // 2)] * (2 if kernel == "dkv"
+                                                    else 1)
+    return reads
+
+
+def _ldmatrix_wavefronts(lanes, place, chunks: int) -> int:
+    """Shared-memory wavefronts of one x4 ldmatrix: each 8-lane phase reads
+    eight 16-byte rows, in as many passes as the most distinct chunks any
+    one 16-byte bank group (4 banks) holds."""
+    n = 0
+    for phase in range(4):
+        groups = {}
+        for row, chunk in lanes[8 * phase:8 * phase + 8]:
+            byte = place(chunks, row, chunk)
+            groups.setdefault(byte // 16 % 8, set()).add(byte)
+        n += max(len(v) for v in groups.values())
+    return n
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_ldmatrix_reads_are_free_of_bank_conflicts(kernel, hd):
+    """Every ldmatrix of ``fwd_tc_kernel``, ``dq_tc_kernel`` and
+    ``dkv_tc_kernel`` reads its four 8 x 16-byte matrices in one wavefront
+    each from the swizzled tiles, at hd 120 in hd 128's 16-chunk rows too
+    (the 16th chunk, the zero pad, included: the k16 steps reach it); an
+    unswizzled tile would take eight a matrix (rows of 128 or 256 bytes
+    put a phase's eight rows on one bank group)."""
+    ht = FA.tile_dim(hd)
+    chunks = ht // 8
+    reads = _ldmatrix_reads(kernel, ht)
+    assert max(c for lanes in reads for _, c in lanes) == chunks - 1
+    assert all(_ldmatrix_wavefronts(r, _swizzle, chunks) == 4
+               for r in reads)
+    assert max(_ldmatrix_wavefronts(r, _plain, chunks) for r in reads) == 32
+
+
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.bfloat16])
+def test_tile_fill_covers_every_chunk_and_zeroes_the_pad(hd):
+    """``load_tile_async<HD>`` (bf16, ``csrc/flash_attention.cuh``): the
+    128 threads' copies of one fill land on every 16-byte chunk of the
+    64-row tile exactly once, and the chunks past the head dim (the 16th at
+    hd 120) are zero-fill copies on every fill, as are the rows past the
+    sequence end; nothing is left as a previous fill wrote it."""
+    ht = FA.tile_dim(hd)
+    chunks = ht // 8
+    rows_valid = 40                       # a ragged tile: rows 40-63 past n
+    seen = {}
+    for i in range(TILE * chunks // 128):
+        for thread in range(128):
+            e = thread + 128 * i
+            r, c = divmod(e, chunks)
+            ok = r < rows_valid and 8 * c < hd
+            seen.setdefault(_swizzle(chunks, r, c), []).append(ok)
+    assert sorted(seen) == [16 * j for j in range(TILE * chunks)]
+    assert all(len(v) == 1 for v in seen.values())
+    zero = sum(not v[0] for v in seen.values())
+    assert zero == (TILE - rows_valid) * chunks + rows_valid * (
+        chunks - hd // 8)

@@ -29,7 +29,8 @@ runs only on the card. Here:
 (f) every shared-memory read of the kernel's fragment loops touches each
     bank once a request at the row pitches it uses (HD + 8 floats for Q
     and K, HD + 4 for V: 120 and 116 at hd 112, the first head dim whose
-    pitches are 24 and 20 mod 32), and rows of HD floats would not.
+    pitches are 24 and 20 mod 32; hd 120 runs in hd 128's tiles, pitches
+    136 and 132, ``FA.tile_dim``), and rows of HD floats would not.
 """
 import importlib.util
 import math
@@ -415,8 +416,9 @@ def _wavefronts(width: int, words) -> int:
 
 @pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 def test_fragment_reads_are_free_of_bank_conflicts(hd):
-    reqs = _fwd_requests(hd, hd + 8, hd + 4)
+    ht = FA.tile_dim(hd)        # the tile row the kernel reads
+    reqs = _fwd_requests(ht, ht + 8, ht + 4)
     assert all(_wavefronts(w, words) == w // 4 for w, words in reqs)
-    # rows of hd floats (no padding) put the lanes of a request on few banks
-    plain = _fwd_requests(hd, hd, hd)
+    # rows of ht floats (no padding) put the lanes of a request on few banks
+    plain = _fwd_requests(ht, ht, ht)
     assert max(_wavefronts(w, words) for w, words in plain) >= 4

@@ -1149,6 +1149,103 @@ def test_flash_attention_bf16_refuses_unaligned_views(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(TF32_FWD_CASES))
+def test_flash_attention_bf16_hd120_gqa(cuda, name):
+    """fwd_tc_kernel, dq_tc_kernel and dkv_tc_kernel at hd 120
+    (h2o-danube3-4b's head dim, run in hd 128's tiles with a zero pad) and
+    4 query heads a KV head: ragged S = 1000 (the last key tile 40 long),
+    a window of 200 that binds, and a row that sees no key (out = 0, lse =
+    -1e30, dq = 0), against the plain versions on the kernel forward's lse
+    and delta (bf16 outputs: one rounding, as test_flash_attention_kernels
+    holds them)."""
+    kind, Sq, Sk, window, mseq = TF32_FWD_CASES[name]
+    cfg = FA.FlashConfig(kind, window=window, mask_seq=mseq)
+    gen = torch.Generator(device=cuda).manual_seed(120 + Sq + Sk)
+    B, KV, G = 2, 2, 4
+    mk = lambda S, H: torch.randn(B, S, H, 120, generator=gen,  # noqa: E731
+                                  device=cuda).bfloat16().transpose(1, 2)
+    q, k, v, do = mk(Sq, KV * G), mk(Sk, KV), mk(Sk, KV), mk(Sq, KV * G)
+    n0 = K.launch_counts()
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        assert n1[n] == n0[n] + 1
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    want = (ro, rl, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg)) + \
+        FA._bwd_dkv_ref(q, k, v, do, lse, delta, cfg)
+    for got, ref in zip((out, lse, dq, dk, dv), want):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=1e-2)
+    if name == "two_pass, cut keys":
+        assert (out[:, :, 0] == 0).all() and (lse[:, :, 0] <= -1e29).all()
+        assert (dq[:, :, 0] == 0).all()
+
+
+def _padded(gen, dev, dtype, B, S, H, fill):
+    """(B, H, S, 120) views of (B, S, H, 128) buffers whose columns 120-127
+    hold ``fill``, and the buffers."""
+    buf = torch.randn(B, S, H, 128, generator=gen, device=dev).to(dtype)
+    buf[..., 120:] = fill
+    return buf[..., :120].transpose(1, 2), buf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["window", "db_concat"])
+def test_flash_attention_hd120_never_touches_columns_past_120(cuda, dtype,
+                                                              kind):
+    """q, k, v and dO as [..., :120] views of 128-wide buffers whose
+    columns 120-127 hold NaN: the loaders must zero-fill the tiles' pad,
+    never read it. out, dq, dk and dv written (through the kernels' own C
+    entry points, as the wrappers launch them) into [..., :120] views of
+    128-wide buffers holding a sentinel there: the stores must stop at 120.
+    Results finite and equal to the plain versions', sentinels unchanged,
+    G = 4."""
+    cfg = FA.FlashConfig(kind, window=37 if kind == "window" else None,
+                         mask_seq=130 if kind == "db_concat" else None)
+    gen = torch.Generator(device=cuda).manual_seed(121)
+    B, KV, G, S = 2, 2, 4, 260
+    nan = float("nan")
+    q, _ = _padded(gen, cuda, dtype, B, S, KV * G, nan)
+    k, _ = _padded(gen, cuda, dtype, B, S, KV, nan)
+    v, _ = _padded(gen, cuda, dtype, B, S, KV, nan)
+    do, _ = _padded(gen, cuda, dtype, B, S, KV * G, nan)
+    sentinel = 7.0
+    (o, obuf), (dq, qbuf), (dk, kbuf), (dv, vbuf) = (
+        _padded(gen, cuda, dtype, B, S, H, sentinel)
+        for H in (KV * G, KV * G, KV, KV))
+    lse = torch.empty(B, KV * G, S, device=cuda)
+    FA._launch("flash_attention_fwd", "rt_flash_attention_fwd", q,
+               FA._args(cfg, q, k, v=v, o=o, lse=lse), "fwd")
+    delta = FA.attention_delta(o, do)
+    FA._launch("flash_attention_bwd", "rt_flash_attention_bwd_dq", q,
+               FA._args(cfg, q, k, v=v, dout=do, dq=dq, lse=lse,
+                        delta=delta), "dq")
+    FA._launch("flash_attention_bwd", "rt_flash_attention_bwd_dkv", q,
+               FA._args(cfg, q, k, v=v, dout=do, dk=dk, dv=dv, lse=lse,
+                        delta=delta), "dkv")
+    torch.cuda.synchronize()
+    for buf in (obuf, qbuf, kbuf, vbuf):
+        assert (buf[..., 120:] == sentinel).all()
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    want = (ro, rl, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg)) + \
+        FA._bwd_dkv_ref(q, k, v, do, lse, delta, cfg)
+    for got, ref in zip((o, lse, dq, dk, dv), want):
+        assert torch.isfinite(got).all()
+        if dtype == torch.float32:
+            _within_fp32_bound(got, ref)
+        else:
+            torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                       rtol=1e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("name", sorted(TF32_FWD_CASES))
@@ -1511,14 +1608,22 @@ def test_flash_attention_autograd_copies_an_unaligned_do(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["db", "e2e"])
-def test_train_step_through_kernels_matches_plain_versions(cuda, mode):
+@pytest.mark.parametrize("mode,arch", [
+    pytest.param("db", "stablelm-1.6b", id="db"),
+    pytest.param("e2e", "stablelm-1.6b", id="e2e"),
+    pytest.param("db", "h2o-danube-3-4b", id="h2o-db"),
+    pytest.param("e2e", "h2o-danube-3-4b", id="h2o-e2e")])
+def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
     """One fp32 training step through the kernels and through the plain
     versions from the same params and draws: loss, grad norm and the
     updated params agree, and the launch counts are the path's
-    arithmetic (one fwd, dq and dk/dv per layer)."""
-    cfg = reduced(get_config("stablelm-1.6b"), n_layers=4, d_model=512,
+    arithmetic (one fwd, dq and dk/dv per layer). h2o-danube3-4b at hd 120
+    with 8 query heads on 2 KV heads and its window cut to 64, which the
+    96 tokens pass."""
+    h2o = arch == "h2o-danube-3-4b"
+    cfg = reduced(get_config(arch), n_layers=4, d_model=960 if h2o else 512,
                   n_heads=8)
+    assert cfg.head_dim == (120 if h2o else 64)
     dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
     gen = torch.Generator(device=cuda).manual_seed(0)
     master = dbm.init(gen)
