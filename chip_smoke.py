@@ -65,7 +65,11 @@ Phases, each fatal on failure:
      heads on 8 KV heads, bf16 db_concat B=8 S=2 x 512 (its DB step) and
      the same in fp32 (its fp32 check), bf16 two_pass 512 over 2 x 512
      keys, bf16 window 4096 at S=512 (its e2e step), and (g)'s window-256
-     shape at S=1024 in both dtypes, whose window binds;
+     shape at S=1024 in both dtypes, whose window binds; and
+     whisper-small's (w): the ``full`` kind at hd 64, 12 heads, B=8, the
+     encoder at S=1500 (the last key tile 28 keys long) and the
+     cross-attention at 896 queries (the DB concat stream of 2 x 448) over
+     1500 keys, in both dtypes, each beside SDPA;
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -238,8 +242,10 @@ Phases, each fatal on failure:
      stablelm's widths with 4 layers (4 blocks of 1) through the kernels
      against ``impl="ref"`` (losses within 1e-3 relative, params within
      1e-3, first moments within 1e-3 of their largest). 14b:
-     ``TrainRunner`` at stablelm's widths and vocabulary with 4 layers,
-     bf16, checkpoints in a temporary directory on the machine's disk
+     ``TrainRunner`` on stablelm's layer cut to 4 layers at half its width
+     and a 32000-token vocabulary (``RUNNER_CUT``: 1.7 GB a generation
+     where the full width took about 7), bf16, checkpoints in a
+     temporary directory on the machine's disk
      (bytes, seconds and sha256 seconds of each save and load printed;
      deleted at the end): block-parallel (4 blocks of 1, 6 batches,
      checkpoints every 2, 2 kept) under ``RUNNER_FAULTS`` (a NaN block,
@@ -337,7 +343,36 @@ Phases, each fatal on failure:
      and grad norm, launches equal to the path's arithmetic; then, the
      model dropped, 2 layers at full width in one block, fp32: one DB
      step in concat x CE and one in two_pass x l2 through the kernels
-     against ``impl="ref"`` within 1e-3; memory back within 1 GiB.
+     against ``impl="ref"`` within 1e-3; memory back within 1 GiB;
+ 19. whisper-small, after phase 18 and under its memory check: full width
+     and depth (12 encoder and 12 decoder layers, d=768, 12 heads of 64,
+     d_ff 3072, vocab 51865, 1500 audio frames, LayerNorm, gelu,
+     sinusoidal positions; the encoder ``full`` and the decoder's
+     cross-attention over its memory through the attention kernels),
+     ``DEFAULT_DB`` (4 blocks of 3 decoder layers), random fp32 weights
+     from seed 0 with the AdaLN heads randomised. Served, bf16: the static
+     engine over 8 requests each with (1500, 768) fp32 audio from a seeded
+     generator (prompts up to 64 tokens, 32 new; then without audio: the
+     tokens must differ); phase 5b's graphed batcher over 32 requests on 8
+     slots, every one with audio of 600-1500 frames encoded alone at its
+     admission, the even ones behind one 256-token prefix with one shared
+     audio, prompts of 128-384 tokens and 64 new (whisper's 448-token
+     text context): tok/s, the segment step against its bound, the
+     encoder's ms per admission, peak; one audio request through a
+     one-slot ``pages`` router bit-equal to a graphed batcher under the
+     same draws; greedy fp32 decoding of 8 audio requests for one segment
+     through the kernels and through ``impl="ref"``, tokens identical and
+     logits within 1e-3; serving must leave at most 1 GiB beyond the
+     masters and no batcher. Trained, bf16 policy with bf16 audio,
+     ``MarkovLM`` batches of 8 x 448 with 8 x 1500 frames: a concat x CE
+     DB step on each block with all four AdamW states resident (the
+     encoder forward and backward in each), a two_pass x l2 step of block
+     0 (the EDM-loss kernels at d 768), the e2e step; wall, device ms,
+     busy share, peak, finite loss and grad norm, launches equal to the
+     path's arithmetic (the encoder's calls included); then 2 encoder + 2
+     decoder layers, fp32: a DB step in concat x CE and in two_pass x l2
+     through the kernels against ``impl="ref"`` within 1e-3; memory back
+     within 1 GiB.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -453,6 +488,15 @@ HYB_TRAIN_SLACK = 2**30
 # beyond the masters that serving may leave behind
 H2O_ARCH, H2O_TRAIN_LAYERS, H2O_CHECK_LAYERS = "h2o-danube-3-4b", 12, 2
 H2O_MEM_START, H2O_SERVE_SLACK = 2**30, 2**30
+# whisper-small (19): the arch; the static engine's prompts (ragged, up to
+# 64 tokens) and the batcher's (CB_MIN-384 tokens, so that a prompt and its
+# CB_NEW tokens stay within whisper's 448-token text context,
+# arXiv:2212.04356), the frames of the batcher's ragged audio, the training
+# sequence (that text context) and the depth of the fp32 check (encoder and
+# decoder layers each); the memory the phase may find allocated at its
+# start
+W_ARCH, W_PROMPT, W_CB_MAX, W_FRAMES = "whisper-small", 64, 384, (600, 1500)
+W_TRAIN_SEQ, W_CHECK_LAYERS, W_MEM_START = 448, 2, 2**30
 
 
 class SmokeError(RuntimeError):
@@ -1132,9 +1176,10 @@ def phase_attention(dev) -> dict:
     128, the two calls of an olmo-1b two-pass layer (hd 128), the DiT-S/2
     layer's ``full`` attention and Huginn's causal and db_concat ones (fp32,
     hd 64), ViT's (fp32, hd 32) and the MDM's (fp32, hd 64) ``full`` ones,
-    the hybrid's window and two_pass ones (fp32, hd 112) and h2o-danube3's
-    (hd 120, G=4, both dtypes). The first case of each kernel is its main
-    case."""
+    the hybrid's window and two_pass ones (fp32, hd 112), h2o-danube3's
+    (hd 120, G=4, both dtypes) and whisper-small's ``full`` ones (the
+    encoder at S=1500 and the cross-attention at 896 queries over 1500
+    keys, both dtypes). The first case of each kernel is its main case."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {n: [] for n in ATTN}
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1222,6 +1267,21 @@ def phase_attention(dev) -> dict:
         ("(s) window=256 GQA H=32 KV=8 S=1024 hd=120 fp32 (as (g))",
          "window", dict(B=4, H=32, KV=8, S=1024, hd=120, dtype=f32,
                         window=256)),
+        # whisper-small (phase 19: hd 64, 12 heads, 1500 audio frames, so
+        # the last key tile holds 28 keys): the encoder's self-attention
+        # (bf16 in the DB steps, fp32 at each serving admission and in the
+        # fp32 check) and the decoder's cross-attention over the memory
+        # from the DB concat stream's 2 x 448 queries, Sq != Sk
+        ("(w) full B=8 H=12 S=1500 hd=64 bf16 (whisper encoder)", "full",
+         dict(B=8, H=12, KV=12, S=1500, hd=64, dtype=bf16)),
+        ("(w) full B=8 H=12 S=1500 hd=64 fp32 (whisper encoder: serving, "
+         "fp32 check)", "full",
+         dict(B=8, H=12, KV=12, S=1500, hd=64, dtype=f32)),
+        ("(w) full B=8 H=12 Sq=896 Sk=1500 hd=64 bf16 (whisper cross, DB "
+         "concat stream)", "full",
+         dict(B=8, H=12, KV=12, S=896, Sk=1500, hd=64, dtype=bf16)),
+        ("(w) full B=8 H=12 Sq=896 Sk=1500 hd=64 fp32 (whisper cross)",
+         "full", dict(B=8, H=12, KV=12, S=896, Sk=1500, hd=64, dtype=f32)),
     ]
     for label, kind, kw in cases:
         pr16 = kw.pop("pr16", None)
@@ -1409,8 +1469,11 @@ def db_step_counts(dbm, size: int) -> dict:
     clean call (its output reaches no loss); on the noisy stream two
     gate-residual calls a transformer layer and one a Mamba layer and, for
     a non-parametric LayerNorm, two ln-modulate calls, forward and
-    backward. l2: one EDM loss forward and backward."""
+    backward. l2: one EDM loss forward and backward. The encoder-decoder
+    (``enc_decoder_counts``) adds its cross-attention and its encoder."""
     l2 = int(dbm.db.loss == "l2")
+    if dbm.cfg.n_encoder_layers:
+        return enc_decoder_counts(dbm, size, l2)
     if dbm.causal_mode == "concat":
         return expected_counts(**{n: size for n in ATTN}, edm_loss_fwd=l2,
                                edm_loss_bwd=l2)
@@ -1421,6 +1484,34 @@ def db_step_counts(dbm, size: int) -> dict:
         flash_attention_bwd_dkv=2 * size - 1, gate_residual=gates,
         gate_residual_bwd=gates, ln_modulate_fwd=ln, ln_modulate_bwd=ln,
         edm_loss_fwd=l2, edm_loss_bwd=l2)
+
+
+def enc_decoder_counts(dbm, size: int, l2: int = 0,
+                       e2e: bool = False) -> dict:
+    """Launches of an encoder-decoder step over ``size`` decoder layers:
+    the encoder's ``full`` attention once per encoder layer, forward and
+    backward (the encoder is periphery: every step trains it). Per decoder
+    layer, concat or e2e: a self and a cross call; two_pass: a clean and a
+    noisy self call and a clean and a noisy cross call, whose backward runs
+    for all but the last layer's clean ones (their outputs reach no loss).
+    No AdaLN kernel: the decoder gates in plain ops and its LayerNorm is
+    parametric, as in JAX. l2: one EDM loss forward and backward."""
+    enc = dbm.cfg.n_encoder_layers
+    if e2e or dbm.causal_mode == "concat":
+        calls = {n: 2 * size + enc for n in ATTN}
+    else:
+        calls = {ATTN[0]: 4 * size + enc, ATTN[1]: 4 * size - 2 + enc,
+                 ATTN[2]: 4 * size - 2 + enc}
+    return expected_counts(**calls, edm_loss_fwd=l2, edm_loss_bwd=l2)
+
+
+def e2e_counts(dbm) -> dict:
+    """Launches of an e2e step: one attention forward, dq and dk/dv per
+    unit (a dense layer, an application of the hybrid's shared block;
+    ``enc_decoder_counts`` for the encoder-decoder)."""
+    if dbm.cfg.n_encoder_layers:
+        return enc_decoder_counts(dbm, dbm.cfg.n_layers, e2e=True)
+    return expected_counts(**{k: dbm.model.n_units for k in ATTN})
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -1893,12 +1984,13 @@ def cb_queue(vocab: int):
 
 def cb_batcher(dev, model, *, precision="bf16", impl="kernels", graphs=True,
                total_pages=None, seed=0, num_slots=CB_SLOTS,
-               prefix_cache=True):
+               prefix_cache=True, max_prompt=CB_MAX):
     from repro_torch.launch.serve import ContinuousBatcher
     dbm, params, _ = model
     return ContinuousBatcher(
-        dbm, params, num_slots=num_slots, page_size=PSZ, max_prompt=CB_MAX,
-        max_len=CB_MAX + CB_NEW, seg_len=CB_SEG, chunk_size=CHUNK,
+        dbm, params, num_slots=num_slots, page_size=PSZ,
+        max_prompt=max_prompt, max_len=max_prompt + CB_NEW, seg_len=CB_SEG,
+        chunk_size=CHUNK,
         precision=precision, impl=impl, prefix_cache=prefix_cache,
         total_pages=total_pages, graphs=graphs,
         generator=torch.Generator(device=dev).manual_seed(seed))
@@ -1940,10 +2032,13 @@ def paged_layers(dbm) -> tuple:
     layers only (its cross layers attend their image blocks in plain torch,
     ``cross_attend``) and two gates for each of its layers; the hybrid's
     shared-block applications (one a unit) and a gate for each Mamba layer
-    and two for each application."""
+    and two for each application; the encoder-decoder's decoder layers and
+    no gate kernel (it gates in plain ops, as JAX's does)."""
     m = dbm.model
     if hasattr(m, "inner"):                           # the hybrid
         return m.n_units, m.n_units * (m.inner + 2)
+    if dbm.cfg.n_encoder_layers:                      # the encoder-decoder
+        return dbm.cfg.n_layers, 0
     A = m.n_units * m.k_self if hasattr(m, "k_self") else dbm.cfg.n_layers
     return A, 2 * dbm.cfg.n_layers
 
@@ -3319,26 +3414,29 @@ def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
 
 
 def db_crosscheck(dev, model, tag: str, grads, stack: str = "layers",
-                  whole=(), batch: int = TRAIN_BATCH) -> dict:
+                  whole=(), batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                  aux=None) -> dict:
     """``block_crosscheck`` of one DB step on block 0 of a
-    ``DiffusionBlocksModel`` (``batch`` x TRAIN_SEQ random tokens, σ and ε
-    from the generator)."""
+    ``DiffusionBlocksModel`` (``batch`` x ``seq`` random tokens, σ and ε
+    from the generator; ``aux`` the step's ``aux_inputs``, where given)."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import training as T
     dbm, params, gen = model
     start, size = dbm.ranges[0]
-    tokens = torch.randint(0, dbm.cfg.vocab_size, (batch, TRAIN_SEQ),
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (batch, seq),
                            generator=gen, device=dev)
     sigma = dbm.sample_block_sigma(gen, (batch, 1, 1), 0, device=dev)
-    eps = torch.randn(batch, TRAIN_SEQ, dbm.cfg.d_model, generator=gen,
+    eps = torch.randn(batch, seq, dbm.cfg.d_model, generator=gen,
                       device=dev)
     tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    kw = {"sigma": sigma, "eps": eps}
+    if aux is not None:
+        kw["aux_inputs"] = aux
     return block_crosscheck(
         params, (start, size),
         lambda impl: T.make_db_train_step(dbm, 0, tcfg, impl=impl,
                                           precision="fp32"),
-        (tokens,), {"sigma": sigma, "eps": eps}, db_step_counts(dbm, size),
-        tag, grads, stack, whole)
+        (tokens,), kw, db_step_counts(dbm, size), tag, grads, stack, whole)
 
 
 def phase_two_pass(dev) -> dict:
@@ -4087,13 +4185,14 @@ def phase_block_parallel(dev, train) -> dict:
     return out
 
 
-def runner_model(dev, n_layers: int, blocks: int):
-    """stablelm-1.6b's widths and vocabulary with ``n_layers`` layers in
-    ``blocks`` blocks, random weights from seed 0 (AdaLN heads
-    randomised)."""
+def runner_model(dev, n_layers: int, blocks: int, cut: bool = False):
+    """stablelm-1.6b's widths and vocabulary (``cut``: ``RUNNER_CUT``'s)
+    with ``n_layers`` layers in ``blocks`` blocks, random weights from seed
+    0 (AdaLN heads randomised)."""
     from repro_torch.configs import DBConfig, get_config
     from repro_torch.core.blocks import DiffusionBlocksModel
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=n_layers)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=n_layers,
+                              **(RUNNER_CUT if cut else {}))
     dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=blocks,
                                              overlap_gamma=0.1))
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4169,6 +4268,14 @@ RUNNER_COUNTERS = {"pod_deaths": 1, "readoptions": 1, "rewinds": 0,
                    "restarts": 0, "data_stalls": 0, "nan_injected": 1,
                    "degraded_batches": 1, "ckpt_saves": 4}
 RUNNER_BATCHES, RUNNER_HALT = 6, 5
+# phase 14b's model: stablelm's layer at half its width (16 heads of 64,
+# the same d_ff / d_model) and a 32000-token vocabulary. At stablelm's full
+# width and vocabulary a generation (masters and both moments) took about
+# 7 GB and the phase's saves and loads about 260 s of the script's 1200;
+# the runner's checks (counters, the torn generation, the bit-equal resume,
+# the restart) do not depend on the width
+RUNNER_CUT = dict(d_model=1024, n_heads=16, n_kv_heads=16, head_dim=64,
+                  d_ff=2816, vocab_size=32000)
 
 
 def _ckpt_lines(tag, mgr) -> list:
@@ -4183,7 +4290,7 @@ def _ckpt_lines(tag, mgr) -> list:
 
 
 def phase_runner(dev) -> dict:
-    """Phase 14b: ``TrainRunner`` at stablelm's widths and vocabulary with 4
+    """Phase 14b: ``TrainRunner`` on ``runner_model(cut=True)`` with 4
     layers, bf16 policy, ``MarkovStream`` through ``HostDataLoader``,
     checkpoints in a temporary directory on the machine's disk (deleted at
     the end). block-parallel (4 blocks of 1): the uninterrupted run under
@@ -4205,7 +4312,7 @@ def phase_runner(dev) -> dict:
         f"{shutil.disk_usage(root).free / 1e9:.1f} GB)")
     out = {"launches": {}, "ckpt": []}
     try:
-        dbm, master = runner_model(dev, 4, 4)
+        dbm, master = runner_model(dev, 4, 4, cut=True)
         lm = MarkovLM(vocab_size=dbm.cfg.vocab_size, seed=7)
 
         def make_data(cur):
@@ -4275,8 +4382,8 @@ def phase_runner(dev) -> dict:
         torch.cuda.empty_cache()
 
         # db: generation 1, a restart from it at step 1, then a kill after
-        # step 3 of 4 (no final save: one save and one load of 13.7 GB)
-        model = runner_model(dev, 4, 2)
+        # step 3 of 4 (no final save: one save and one load)
+        model = runner_model(dev, 4, 2, cut=True)
         r, _, hist = run("db", "db", {"pod_die": {"at": [2]}}, mode="db",
                          model=model, steps=4, ckpt_every=100, halt_after=3)
         if r.counters["restarts"] != 1 or len(hist) != 4:
@@ -5264,17 +5371,21 @@ def unit_stack(dbm) -> str:
     return "units" if hasattr(dbm.model, "inner") else "layers"
 
 
-def resident_db_steps(dbm, params, gen, tcfg, data, tag: str) -> dict:
+def resident_db_steps(dbm, params, gen, tcfg, data, tag: str,
+                      aux=None) -> dict:
     """Every block's AdamW state made up front and kept, as ``train_db``
     keeps them; a warm-up step on the last block (first-call costs), then
     one timed DB step on each block, bf16 policy, and one more on block 0
     under the profiler. Each step's launches must equal the path's
     arithmetic, its loss and grad norm be finite, and only its block's
-    units and the rest (periphery, the hybrid's shared block) change."""
+    units and the rest (periphery, the hybrid's shared block, the
+    encoder-decoder's encoder) change. ``aux()``, where given, makes each
+    step's ``aux_inputs``."""
     from repro_torch.core import training as T
     dev = params["embed"]["table"].device
     stack = unit_stack(dbm)
     batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    kw = lambda: {} if aux is None else {"aux_inputs": aux()}  # noqa: E731
     t0 = time.perf_counter()
     steps = [T.make_db_train_step(dbm, b, tcfg, precision="bf16")
              for b in range(dbm.num_blocks)]
@@ -5289,15 +5400,15 @@ def resident_db_steps(dbm, params, gen, tcfg, data, tag: str) -> dict:
 
     last = dbm.num_blocks - 1
     _, states[last], loss, m = steps[last][1](params, states[last], batch(),
-                                              gen)
+                                              gen, **kw())
     finite_step(f"{tag} warm-up DB step", loss, m)
     say(f"[{tag}] warm-up DB step on block {last}: loss {float(loss):.4f}")
     out = {"db": [], "launches": {}}
     for b, (start, size) in enumerate(dbm.ranges):
         before = unit_digests(params, stack)
-        tokens = batch()
+        tokens, extra = batch(), kw()
         (res, wall, dev_ms, peak, base, counts) = timed_step(
-            lambda: steps[b][1](params, states[b], tokens, gen))
+            lambda: steps[b][1](params, states[b], tokens, gen, **extra))
         _, states[b], loss, m = res
         del res
         changed = (unit_digests(params, stack) != before).tolist()
@@ -5323,28 +5434,29 @@ def resident_db_steps(dbm, params, gen, tcfg, data, tag: str) -> dict:
     say(f"[{tag}] DB step wall over the {len(walls)} blocks: median "
         f"{statistics.median(walls):.1f} ms, min-max {min(walls):.1f}-"
         f"{max(walls):.1f} ms")
-    tokens = batch()
+    tokens, extra = batch(), kw()
     out["db_profile"] = profile_step(
         f"{tag}: DB step block 0",
-        lambda: steps[0][1](params, states[0], tokens, gen))
+        lambda: steps[0][1](params, states[0], tokens, gen, **extra))
     del states, steps
     return out
 
 
-def e2e_steps(dbm, params, tcfg, data, tag: str) -> dict:
+def e2e_steps(dbm, params, tcfg, data, tag: str, aux=None) -> dict:
     """The end-to-end step over every unit (one AdamW state over every
     param), bf16 policy: a warm-up step, a timed one, one under the
-    profiler."""
+    profiler. ``aux()``, where given, makes each step's ``aux_inputs``."""
     from repro_torch.core import training as T
     dev = params["embed"]["table"].device
     batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    kw = lambda: {} if aux is None else {"aux_inputs": aux()}  # noqa: E731
     init, step = T.make_e2e_train_step(dbm, tcfg, precision="bf16")
     opt = init(params)
-    loss = step(params, opt, batch())[2]
+    loss = step(params, opt, batch(), **kw())[2]
     say(f"[{tag}] warm-up e2e step: loss {float(loss):.4f}")
-    tokens = batch()
+    tokens, extra = batch(), kw()
     (res, wall, dev_ms, peak, base, counts) = timed_step(
-        lambda: step(params, opt, tokens)[2:])
+        lambda: step(params, opt, tokens, **extra)[2:])
     loss, m = res
     stack = unit_stack(dbm)
     n = dbm.model.n_units if stack == "units" else dbm.cfg.n_layers
@@ -5354,12 +5466,11 @@ def e2e_steps(dbm, params, tcfg, data, tag: str) -> dict:
         f"{dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB (resident "
         f"before {base / 2**30:.2f}: masters + AdamW state of every param) "
         f"| launches {counts}")
-    check_counts(f"{tag} e2e step", counts,
-                 expected_counts(**{k: n for k in ATTN}))
+    check_counts(f"{tag} e2e step", counts, e2e_counts(dbm))
     finite_step(f"{tag} e2e step", loss, m)
-    tokens = batch()
+    tokens, extra = batch(), kw()
     prof = profile_step(f"{tag}: e2e step",
-                        lambda: step(params, opt, tokens))
+                        lambda: step(params, opt, tokens, **extra))
     del opt
     return {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
             "peak_bytes": peak, "resident_bytes": base, "launches": counts,
@@ -5542,35 +5653,38 @@ def h2o_serve(dev, model) -> dict:
             "capture_s": capture_s}
 
 
-def h2o_two_pass_step(model, tcfg, data) -> dict:
+def two_pass_step(model, tcfg, data, tag: str, aux=None) -> dict:
     """One two_pass x l2 DB step of block 0 (its own AdamW state): a
     warm-up, a timed step (launches against the path's arithmetic, finite
-    loss and grad norm) and one under the profiler."""
+    loss and grad norm) and one under the profiler. ``aux()``, where given,
+    makes each step's ``aux_inputs``."""
     from repro_torch.core import training as T
     dbm, params, gen = model
     dev = params["embed"]["table"].device
     batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
+    kw = lambda: {} if aux is None else {"aux_inputs": aux()}  # noqa: E731
     init, step = T.make_db_train_step(dbm, 0, tcfg, precision="bf16")
     state = init(params)
-    loss = step(params, state, batch(), gen)[2]
-    say(f"[h2o-train] warm-up two_pass x l2 DB step on block 0: loss "
+    loss = step(params, state, batch(), gen, **kw())[2]
+    say(f"[{tag}] warm-up two_pass x l2 DB step on block 0: loss "
         f"{float(loss):.4f}")
-    tokens = batch()
+    tokens, extra = batch(), kw()
     (res, wall, dev_ms, peak, base, counts) = timed_step(
-        lambda: step(params, state, tokens, gen)[2:])
+        lambda: step(params, state, tokens, gen, **extra)[2:])
     loss, m = res
     del res
     size = dbm.ranges[0][1]
-    say(f"[h2o-train] two_pass x l2 DB step block 0 (layers 0-{size - 1}): "
+    say(f"[{tag}] two_pass x l2 DB step block 0 (layers 0-{size - 1}): "
         f"loss {float(loss):.4f} | grad norm {float(m['grad_norm']):.3f} | "
         f"wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
         f"{peak / 2**30:.2f} GiB (resident before {base / 2**30:.2f}) | "
         f"launches {counts}")
-    check_counts("h2o two_pass DB step", counts, db_step_counts(dbm, size))
-    finite_step("h2o two_pass DB step", loss, m)
-    tokens = batch()
-    prof = profile_step("h2o-train: two_pass x l2 DB step block 0",
-                        lambda: step(params, state, tokens, gen))
+    check_counts(f"{tag} two_pass DB step", counts,
+                 db_step_counts(dbm, size))
+    finite_step(f"{tag} two_pass DB step", loss, m)
+    tokens, extra = batch(), kw()
+    prof = profile_step(f"{tag}: two_pass x l2 DB step block 0",
+                        lambda: step(params, state, tokens, gen, **extra))
     del state
     return {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
             "peak_bytes": peak, "launches": counts, "profile": prof}
@@ -5631,7 +5745,7 @@ def phase_h2o(dev) -> dict:
     torch.cuda.empty_cache()
     db_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    two_pass = h2o_two_pass_step(two_pass_view(model), tcfg, data)
+    two_pass = two_pass_step(two_pass_view(model), tcfg, data, "h2o-train")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     e2e = e2e_steps(dbm, params, tcfg, data, "h2o-train")
@@ -5668,6 +5782,469 @@ def phase_h2o(dev) -> dict:
             "crosscheck": cross, "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# 19. whisper-small: the audio family served and trained at full width
+# ---------------------------------------------------------------------------
+
+def w_model(dev, n_layers=None, n_encoder_layers=None, blocks=None, **db):
+    """whisper-small (cut to ``n_layers`` decoder and ``n_encoder_layers``
+    encoder layers where given) in DEFAULT_DB's blocks (or ``blocks``;
+    ``db``: other DBConfig fields), random fp32 weights from seed 0, the
+    AdaLN heads randomised. Returns (dbm, params, gen)."""
+    from repro_torch.configs import DEFAULT_DB, get_config
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    cfg = get_config(W_ARCH)
+    cut = {k: v for k, v in (("n_layers", n_layers),
+                             ("n_encoder_layers", n_encoder_layers))
+           if v is not None}
+    cfg = dataclasses.replace(cfg, **cut)
+    dbm = DiffusionBlocksModel(cfg, dataclasses.replace(
+        DEFAULT_DB, num_blocks=blocks or DEFAULT_DB.num_blocks, **db))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, params, gen
+
+
+def w_audio(rs, frames: int, d: int):
+    """(frames, d) fp32 frame embeddings from the numpy generator ``rs``."""
+    return rs.randn(frames, d).astype("float32")
+
+
+def w_encodes(dbm):
+    """Count and time (CUDA events) the model's ``encode_conditioning``
+    calls, the encoder's run at each admission: returns the list of
+    (start, end) events; ``del dbm.model.encode_conditioning`` restores the
+    method."""
+    m = dbm.model
+    plain, events = m.encode_conditioning, []
+
+    def encode(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+    m.encode_conditioning = encode
+    return events
+
+
+def w_serve_counts(dbm, ledger, encodes: int) -> dict:
+    """The batchers' launches (``srv_counts``) and the encoder's: one
+    ``full`` attention forward per encoder layer and admission."""
+    counts = srv_counts(ledger)
+    counts[ATTN[0]] += dbm.cfg.n_encoder_layers * encodes
+    return counts
+
+
+def w_bounds(dbm, params, mean_len: float, frames: int) -> dict:
+    """Least device time of a decode step of 8 slots from its shapes (as
+    ``vlm_bounds``): the 4 probes read every decoder layer's weights in
+    fp32 (each block its own) plus the σ-MLP each, the readout the fp32
+    head, the commit the bf16 copy of the attention, cross-attention and
+    MLP weights; the probes and the commit each read the slots' committed
+    K/V and their audio blocks (bf16, ``frames`` a slot) once."""
+    cfg, B = dbm.cfg, CB_SLOTS
+    L = cfg.n_layers
+    layers = sum(t.numel() for _, t in _leaves(params["layers"]))
+    commit = sum(t.numel() for p, t in _leaves(params["layers"])
+                 if p[0] in ("attn", "xattn", "mlp"))
+    head = params["head"]["w"].numel()
+    cond = sum(t.numel() for _, t in _leaves(params["cond"]))
+    kv_row = 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    hd_flops = cfg.n_heads * cfg.head_dim * 4
+    nbytes = (layers * 4 + dbm.num_blocks * cond * 4 + head * 4 + commit * 2
+              + 2 * L * B * (mean_len + frames) * kv_row)
+    flops = 2 * B * (layers + head + commit) + 2 * L * B * (
+        mean_len + frames) * hd_flops
+    ms, by = bound(nbytes, flops, PEAK_FP32)
+    return {"decode_step_ms": ms, "decode_step_by": by}
+
+
+def w_static(dev, model) -> dict:
+    """The static engine over BATCH requests, each with (1500, d) fp32
+    audio, prompts of W_PROMPT tokens at most (ragged), MAX_NEW new tokens,
+    bf16; then the same prompts and draws without audio: the tokens must
+    differ."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    dbm, params, gen = model
+    cfg = dbm.cfg
+    A, _ = paged_layers(dbm)
+    rs = np.random.RandomState(1)
+    prompts = rs.randint(0, cfg.vocab_size, size=(BATCH, W_PROMPT))
+    plens = rs.randint(W_PROMPT // 4, W_PROMPT + 1, size=BATCH)
+    plens[-1] = W_PROMPT
+    aux = {"audio_embs": np.stack([w_audio(rs, cfg.n_audio_frames,
+                                           cfg.d_model)
+                                   for _ in range(BATCH)])}
+    eng = get_engine(dbm, precision="bf16", chunk_size=CHUNK)
+    eng.generate(params, prompts, 2, prompt_lengths=plens, generator=gen,
+                 aux_inputs=aux)
+    eng.last_kv = None
+    z, _ = eng.draw(MAX_NEW, BATCH, gen, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(params, prompts, MAX_NEW, prompt_lengths=plens, z0=z,
+                       aux_inputs=aux)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tim = eng.last_timing
+    chunks = -(-W_PROMPT // CHUNK)
+    expect = expected_counts(flash_decode=MAX_NEW * 2 * A,
+                             flash_prefill=chunks * A,
+                             flash_attention_fwd=cfg.n_encoder_layers)
+    check_counts("whisper static", counts, expect)
+    kv = eng.last_kv
+    for name, t in (("self k", kv["self"].k), ("self v", kv["self"].v),
+                    ("cross k", kv["cross"]["k"]),
+                    ("cross v", kv["cross"]["v"])):
+        if not torch.isfinite(t.float()).all():
+            raise SmokeError(f"whisper static: non-finite {name}")
+    eng.last_kv = kv = None
+    K.reset_launch_counts()
+    bare = eng.generate(params, prompts, MAX_NEW, prompt_lengths=plens,
+                        z0=z)
+    check_counts("whisper static, no audio", K.launch_counts(),
+                 expected_counts(flash_decode=MAX_NEW * 2 * A,
+                                 flash_prefill=chunks * A))
+    add_counts(counts, K.launch_counts())
+    eng.last_kv = None
+    got, ref = _generated(out, plens), _generated(bare, plens)
+    if not ((got >= 0) & (got < cfg.vocab_size)).all():
+        raise SmokeError("whisper static: a token outside the vocabulary")
+    differ = (got != ref).any(dim=1)
+    decode_ms = tim["total_ms"] - tim["prefill_ms"]
+    say(f"[whisper] static: bf16, greedy, {BATCH} requests each with "
+        f"({cfg.n_audio_frames}, {cfg.d_model}) fp32 audio, prompts of "
+        f"{plens.tolist()} tokens (chunk {CHUNK}), {MAX_NEW} new tokens: "
+        f"wall {wall:.3f} s | {BATCH * MAX_NEW / wall:.1f} tok/s | ttft "
+        f"{tim['ttft_ms']:.1f} ms (the encoder and the audio blocks' write, "
+        f"and prefill: {tim['prefill_ms']:.1f} ms) | decode "
+        f"{decode_ms / MAX_NEW:.2f} ms/step | peak {peak / 2**30:.2f} GiB | "
+        f"launches {counts}")
+    say(f"[whisper] static: the same prompts and draws without audio: "
+        f"tokens differ in {int(differ.sum())} of {BATCH} requests")
+    if not differ.any():
+        raise SmokeError("whisper static: the audio did not change a token")
+    return {"counts": counts, "wall_s": wall, "ttft_ms": tim["ttft_ms"],
+            "decode_ms_per_step": decode_ms / MAX_NEW, "peak": peak}
+
+
+def w_queue(vocab: int, d: int):
+    """Phase 19's continuous traffic: CB_REQUESTS ``MarkovLM`` prompts from
+    seed 1 of CB_MIN-W_CB_MAX tokens, the even ones opening with one shared
+    CB_SHARED-token prefix and carrying one shared audio; the odd ones each
+    their own; every audio W_FRAMES[0]-W_FRAMES[1] frames from seed 2.
+    Returns [(prompt, {"audio_embs": (frames, d)})]."""
+    import numpy as np
+    from repro_torch.data import MarkovLM
+    lm = MarkovLM(vocab_size=vocab, seed=7)
+    rs, ra = np.random.RandomState(1), np.random.RandomState(2)
+    frames = lambda: ra.randint(W_FRAMES[0], W_FRAMES[1] + 1)  # noqa: E731
+    shared = lm.sample(rs, 1, CB_SHARED)[0]
+    shared_audio = {"audio_embs": w_audio(ra, frames(), d)}
+    out = []
+    for i in range(CB_REQUESTS):
+        if i % 2 == 0:
+            n = rs.randint(CB_SHARED + 1, W_CB_MAX + 1)
+            out.append((np.concatenate(
+                [shared, lm.sample(rs, 1, n - CB_SHARED)[0]]), shared_audio))
+        else:
+            out.append((lm.sample(rs, 1, rs.randint(CB_MIN,
+                                                    W_CB_MAX + 1))[0],
+                        {"audio_embs": w_audio(ra, frames(), d)}))
+    return out
+
+
+def w_continuous(dev, model, queue) -> dict:
+    """The graphed batcher over ``w_queue``: every request complete, no
+    page or audio row left, launches equal to the dispatches' arithmetic
+    and one encoder run per admission; tok/s, the segment step's ms
+    against ``w_bounds``, the encoder's ms per admission, peak memory."""
+    from repro_torch import kernels as K
+    dbm, params, _ = model
+    torch.cuda.reset_peak_memory_stats()
+    cb = cb_batcher(dev, model, max_prompt=W_CB_MAX)
+    t0 = time.perf_counter()
+    cb.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    events = cb_timed(cb)
+    enc = w_encodes(dbm)
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for p, aux in queue:
+            cb.submit(p, CB_NEW, aux_inputs=aux)
+        done = cb.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del dbm.model.encode_conditioning
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cb_drained("whisper continuous", cb, done, CB_REQUESTS)
+    if cb.cond_lengths.any():
+        raise SmokeError(f"whisper continuous: audio rows left set "
+                         f"{cb.cond_lengths.tolist()}")
+    if len(enc) != CB_REQUESTS:
+        raise SmokeError(f"whisper continuous: {len(enc)} encoder runs for "
+                         f"{CB_REQUESTS} admissions")
+    check_counts("whisper continuous", counts,
+                 w_serve_counts(dbm, [(*paged_layers(dbm), cb.steps,
+                                       cb.ingest_dispatches)], len(enc)))
+    seg_ms = [a.elapsed_time(b) for a, b in events["segment"]]
+    chunk_ms = [a.elapsed_time(b) for a, b in events["chunk"]]
+    enc_ms = [a.elapsed_time(b) for a, b in enc]
+    seg_step_ms = sum(seg_ms) / cb.steps
+    in_dispatch = (sum(seg_ms) + sum(chunk_ms) + sum(enc_ms)) / (wall * 1e3)
+    ttft = sorted(r.ttft for r in done)
+    n_tok = sum(len(r.out) for r in done)
+    frames = [r.aux_inputs["audio_embs"].shape[0] for r in done]
+    mean_len = statistics.mean(len(r.prompt) for r in done) + CB_NEW / 2
+    lb = w_bounds(dbm, params, mean_len, statistics.mean(frames))
+    say(f"[whisper] continuous, {CB_REQUESTS} requests on {CB_SLOTS} slots, "
+        f"bf16, prompts {CB_MIN}-{W_CB_MAX} tokens (the even ones behind a "
+        f"{CB_SHARED}-token prefix with one shared audio), audio "
+        f"{min(frames)}-{max(frames)} frames, each encoded alone at "
+        f"admission, graphs captured in {capture_s:.2f} s: wall "
+        f"{wall:.3f} s | {n_tok / wall:.1f} tok/s | TTFT median "
+        f"{statistics.median(ttft) * 1e3:.1f} ms, max {ttft[-1] * 1e3:.1f} "
+        f"ms | decode {seg_step_ms:.3f} ms per segment step "
+        f"({len(seg_ms)} segments) against a bound of "
+        f"{lb['decode_step_ms']:.3f} ms ({lb['decode_step_by']}) | chunk "
+        f"dispatch {statistics.median(chunk_ms):.2f} ms median "
+        f"({len(chunk_ms)}) | encoder {statistics.median(enc_ms):.2f} ms "
+        f"median per admission (min {min(enc_ms):.2f}, max "
+        f"{max(enc_ms):.2f}; {len(enc_ms)} runs, fp32, CUDA events) | "
+        f"inside a dispatch or an encode {100 * in_dispatch:.1f}% of the "
+        f"wall | prefix hits {cb.prefix.hits}, shared tokens "
+        f"{sum(r.shared_tokens for r in done)} | peak {peak / 2**30:.2f} "
+        f"GiB | launches {counts} | nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    return {"counts": counts, "wall_s": wall, "tok_s": n_tok / wall,
+            "segment_step_ms": seg_step_ms, "bound": lb,
+            "chunk_ms_median": statistics.median(chunk_ms),
+            "encoder_ms_median": statistics.median(enc_ms),
+            "encoder_ms": [min(enc_ms), max(enc_ms)],
+            "in_dispatch": in_dispatch, "peak_bytes": peak,
+            "ttft_median_s": statistics.median(ttft),
+            "capture_s": capture_s}
+
+
+def w_migration(dev, model, queue) -> dict:
+    """One audio request through a one-slot ``pages`` router (1 prefill + 1
+    decode worker on one shared pool) and through a one-slot graphed
+    batcher under the same generator seed: the tokens after the handoff
+    equal the unmigrated run's, bit for bit."""
+    from repro_torch import kernels as K
+    dbm = model[0]
+    p, aux = queue[1]
+    reqs = [(p, VLM_MIGRATE_NEW, aux)]
+    enc = w_encodes(dbm)
+    try:
+        K.reset_launch_counts()
+        cb = cb_batcher(dev, model, seed=5, num_slots=1)
+        cb.capture()
+        cb.submit(p, VLM_MIGRATE_NEW, aux_inputs=aux)
+        direct = [cb.run()[0].out]
+        ledger = [srv_ledger(cb)]
+        del cb
+        router = dg_router(model, "pages", num_slots=1, n_decode=1)
+        router.decode_workers[0].cb.generator.manual_seed(5)
+        routed = dg_sequential(router, reqs)
+        whole = dg_whole("whisper migration", router)
+        ledger += [srv_ledger(w.cb) for w in router.workers]
+        migrations = router.migrations
+        del router
+        counts = K.launch_counts()
+    finally:
+        del dbm.model.encode_conditioning
+    check_counts("whisper migration", counts,
+                 w_serve_counts(dbm, ledger, len(enc)))
+    say(f"[whisper] migration: an audio request "
+        f"({aux['audio_embs'].shape[0]} frames) through a pages router (1 "
+        f"prefill + 1 decode worker, one slot each, one shared pool) "
+        f"{'equals' if routed == direct else 'DIFFERS FROM'} a graphed "
+        f"batcher's run under the same draws, bit for bit "
+        f"({sum(map(len, direct))} tokens, {migrations} migrations, "
+        f"{len(enc)} encoder runs: the block travels with the slot) | pool "
+        f"{whole}")
+    if routed != direct or migrations < 1 or len(enc) != 2:
+        raise SmokeError(f"whisper migration: routed {routed}, direct "
+                         f"{direct}, {len(enc)} encoder runs")
+    return {"counts": counts}
+
+
+def w_fp32_check(dev, model, queue) -> dict:
+    """Greedy decoding of 8 audio requests under the fp32 policy for one
+    segment, through the kernels and through ``impl="ref"`` (the encoder
+    too): tokens identical, logits within 1e-3 relative."""
+    import numpy as np
+    from repro_torch import kernels as K
+    few = [p for p, _ in queue[:CB_SLOTS]]
+    auxes = [a for _, a in queue[:CB_SLOTS]]
+    dbm = model[0]
+    enc = w_encodes(dbm)
+    try:
+        K.reset_launch_counts()
+        ck, lk, ek = cb_logged(dev, model, few, "fp32", "kernels", n_seg=1,
+                               auxes=auxes)
+        counts = K.launch_counts()
+        runs = len(enc)
+        _, lr, er = cb_logged(dev, model, few, "fp32", "ref", n_seg=1,
+                              auxes=auxes)
+    finally:
+        del dbm.model.encode_conditioning
+    check_counts("whisper fp32", counts,
+                 w_serve_counts(dbm, [(*paged_layers(dbm), ck.steps,
+                                       ck.ingest_dispatches)], runs))
+    on = ek[0] >= 0
+    rel = max(((lk[t] - lr[t])[on[:, t]].abs().max()
+               / lr[t][on[:, t]].abs().max()).item()
+              for t in range(CB_SEG) if on[:, t].any())
+    equal = bool(np.array_equal(ek, er))
+    say(f"[whisper] fp32 greedy at full width and depth, {CB_SLOTS} audio "
+        f"requests, one segment, kernels (the encoder through the 3xTF32 "
+        f"attention) vs plain versions: tokens "
+        f"{'identical' if equal else 'DIFFER'} ({int(on.sum())}) | logits "
+        f"rel max|diff| {rel:.2e} (limit 1e-3)")
+    if not (rel <= 1e-3 and math.isfinite(rel)) or not equal:
+        raise SmokeError(f"whisper fp32 check: logits {rel:.2e}, tokens "
+                         f"identical {equal}")
+    return {"counts": counts, "logits_rel": rel}
+
+
+def phase_whisper(dev) -> dict:
+    """Phase 19: whisper-small at full width and depth (12 encoder and 12
+    decoder layers, d 768, 12 heads of 64, d_ff 3072, vocab 51865, 1500
+    audio frames; LayerNorm, gelu, sinusoidal positions), after phase 18
+    under its memory check; ``DEFAULT_DB`` (4 blocks of 3 decoder layers),
+    random fp32 weights from seed 0, the AdaLN heads randomised. Served
+    (bf16): ``w_static``, ``w_continuous``, ``w_migration``; the fp32
+    greedy check ``w_fp32_check``; with serving's memory checked, trained
+    (bf16 policy, bf16 audio, MarkovLM batches of TRAIN_BATCH x W_TRAIN_SEQ
+    with TRAIN_BATCH x 1500 frames): ``resident_db_steps`` (concat x CE,
+    all four AdamW states resident), one two_pass x l2 DB step of block 0,
+    ``e2e_steps``; then the fp32 check of a 2 + 2-layer model, concat and
+    two_pass, against ``impl="ref"``."""
+    import numpy as np
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import MarkovLM
+    from repro_torch.launch.serve import ContinuousBatcher
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    base = torch.cuda.memory_allocated()
+    say(f"[whisper] memory allocated at the phase's start: "
+        f"{base / 2**30:.3f} GiB")
+    if base > W_MEM_START:
+        raise SmokeError(f"whisper: {base / 2**30:.2f} GiB still allocated "
+                         "from earlier phases")
+    t0 = time.perf_counter()
+    model = w_model(dev)
+    dbm, params, gen = model
+    torch.cuda.synchronize()
+    cfg = dbm.cfg
+    masters = sum(p.numel() * p.element_size() for _, p in _leaves(params))
+    say(f"[whisper] {cfg.name}: {cfg.n_encoder_layers} encoder + "
+        f"{cfg.n_layers} decoder layers d={cfg.d_model} heads={cfg.n_heads}"
+        f" of {cfg.head_dim} ff={cfg.d_ff} vocab={cfg.vocab_size}, "
+        f"{cfg.n_audio_frames} audio frames, {dbm.num_blocks} blocks "
+        f"{dbm.ranges}; {sum(p.numel() for _, p in _leaves(params)) / 1e9:.3f}"
+        f" B params fp32 made in {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    static = w_static(dev, model)
+    add_counts(counts, static["counts"])
+    queue = w_queue(cfg.vocab_size, cfg.d_model)
+    cont = w_continuous(dev, model, queue)
+    add_counts(counts, cont["counts"])
+    mig = w_migration(dev, model, queue)
+    add_counts(counts, mig["counts"])
+    fp32 = w_fp32_check(dev, model, queue)
+    add_counts(counts, fp32["counts"])
+    dbm.__dict__.pop("_compute_copies", None)     # serving's bf16 copy
+    dbm.model.__dict__.pop("_unit_memo", None)
+    dbm.__dict__.pop("_serve_engines", None)      # the static engine's pool
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - base - masters
+    stray = sum(isinstance(o, ContinuousBatcher) for o in gc.get_objects())
+    say(f"[whisper] after serving: {left / 2**30:.3f} GiB allocated beyond "
+        f"the {masters / 2**30:.2f} GiB of masters, {stray} batchers in "
+        "memory")
+    if left > 2**30 or stray:
+        raise SmokeError(f"whisper serving left {left / 2**30:.2f} GiB "
+                         f"beyond the masters and {stray} batchers")
+
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    data = MarkovLM(vocab_size=cfg.vocab_size, seed=7).iterator(
+        TRAIN_BATCH, W_TRAIN_SEQ)
+
+    def audio():
+        return {"audio_embs": torch.randn(
+            TRAIN_BATCH, cfg.n_audio_frames, cfg.d_model, generator=gen,
+            device=dev).to(torch.bfloat16)}
+    torch.cuda.reset_peak_memory_stats()
+    db = resident_db_steps(dbm, params, gen, tcfg, data, "whisper-train",
+                           aux=audio)
+    torch.cuda.empty_cache()
+    db_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    two_pass = two_pass_step(two_pass_view(model), tcfg, data,
+                             "whisper-train", aux=audio)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e2e = e2e_steps(dbm, params, tcfg, data, "whisper-train", aux=audio)
+    e2e_peak = torch.cuda.max_memory_allocated()
+    for c in (db["launches"], two_pass["launches"], e2e["launches"]):
+        add_counts(counts, c)
+    say(f"[whisper-train] peak memory: DB steps with all {dbm.num_blocks} "
+        f"AdamW states {db_peak / 2**30:.2f} GiB, two_pass step "
+        f"{two_pass['peak_bytes'] / 2**30:.2f} GiB, e2e step "
+        f"{e2e_peak / 2**30:.2f} GiB; nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del model, dbm, params, gen
+    torch.cuda.empty_cache()
+    check = w_model(dev, n_layers=W_CHECK_LAYERS,
+                    n_encoder_layers=W_CHECK_LAYERS, blocks=1)
+    grads = [("attn", "wq"), ("xattn", "wk"), ("xattn", "wq"),
+             ("adaln", "w")]
+    whole = [("encoder", "attn", "wq"), ("encoder", "mlp", "wi")]
+    rs = np.random.RandomState(3)
+    aux = {"audio_embs": torch.from_numpy(np.stack(
+        [w_audio(rs, check[0].cfg.n_audio_frames, check[0].cfg.d_model)
+         for _ in range(TRAIN_BATCH)])).to(dev)}
+    kw = dict(whole=whole, batch=TRAIN_BATCH, seq=W_TRAIN_SEQ, aux=aux)
+    cross = {"concat": db_crosscheck(dev, check, "whisper concat ce", grads,
+                                     **kw),
+             "two_pass": db_crosscheck(dev, two_pass_view(check),
+                                       "whisper two-pass l2", grads, **kw)}
+    del check, aux
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    left = torch.cuda.memory_allocated()
+    say(f"[whisper] with everything dropped (no gc pass): "
+        f"{left / 2**30:.3f} GiB allocated against {base / 2**30:.3f} GiB "
+        "at the start")
+    if left - base > 2**30:
+        raise SmokeError(f"whisper: {(left - base) / 2**30:.2f} GiB left "
+                         "allocated after the phase")
+    took = time.perf_counter() - t_phase
+    say(f"[whisper] phase 19 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "static": static, "continuous": cont,
+            "db": db, "two_pass": two_pass, "e2e": e2e, "db_peak": db_peak,
+            "e2e_peak": e2e_peak, "crosscheck": cross, "seconds": took}
+
+
 OFF_PATH = {"euler_bwd"}
 
 
@@ -5682,23 +6259,40 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda", 0)
-    t_all = time.perf_counter()
+    t_all = t_lap = time.perf_counter()
+
+    def lap(phases: str) -> None:
+        """The seconds since the last lap, on a line of its own."""
+        nonlocal t_lap
+        now = time.perf_counter()
+        say(f"[time] phase {phases}: {now - t_lap:.1f} s (script "
+            f"{now - t_all:.1f} s)")
+        t_lap = now
+
     phase_device()
     phase_build()
+    lap("1-2")
     rows = phase_kernels(dev)
     rows.update(phase_rowwise(dev))
     rows.update(phase_attention(dev))
     rows.update(phase_euler(dev))
+    lap("3")
     serve = phase_serve(dev)
     model = serve.pop("model")
     phase_profile(dev, model)
+    lap("4")
     phase_crosscheck(dev, model)
     phase_crosscheck_bf16(dev, model)
+    lap("5")
     continuous = phase_continuous(dev, model)
+    lap("5b")
     server = phase_server(dev, model, continuous)
+    lap("5c")
     disagg = phase_disagg(dev, model, continuous, server)
+    lap("5d")
     train = phase_train(dev, model)
     db_crosscheck(dev, model, "concat ce", [("attn", "wq")])
+    lap("6-7")
     del model                      # stablelm's masters and caches
     gc.collect()
     torch.cuda.empty_cache()
@@ -5709,17 +6303,30 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    lap("8-9")
     dit = phase_dit(dev)
+    lap("10")
     huginn = phase_huginn(dev)
+    lap("11")
     vit = phase_vit(dev)
+    lap("12")
     mdm = phase_mdm(dev)
+    lap("13")
     block_parallel = phase_block_parallel(dev, train)
     phase_block_parallel_crosscheck(dev)
+    lap("14a")
     runner = phase_runner(dev)
+    lap("14b")
     vlm = phase_vlm(dev)
+    lap("15")
     hybrid = phase_hybrid(dev)
+    lap("16")
     hybrid_train = phase_hybrid_train(dev)
+    lap("17")
     h2o = phase_h2o(dev)
+    lap("18")
+    whisper = phase_whisper(dev)
+    lap("19")
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
@@ -5727,7 +6334,8 @@ def main() -> int:
                    huginn["launches"], vit["launches"], mdm["launches"],
                    block_parallel["launches"], runner["launches"],
                    vlm["counts"], hybrid["counts"],
-                   hybrid_train["counts"], h2o["counts"]):
+                   hybrid_train["counts"], h2o["counts"],
+                   whisper["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

@@ -1,11 +1,17 @@
-"""DiffusionBlocks over the dense decoder, the VLM and the hybrid (port of
-``repro.core.blocks``): the block-local training loss of the AR adapter in
-concat or two-pass mode with the CE or l2 loss (``block_loss``: the
-dense decoder in either mode, the hybrid always in two-pass, its Mamba
-layers having no mask), the end-to-end baseline (``e2e_loss``; the dense
-decoder and the hybrid, not the VLM), and the sampler over the
-paged cache (all three families; the VLM's slots read their image blocks
-under ``cond_lengths``, the hybrid's Mamba rows advance in place).
+"""DiffusionBlocks over the dense decoder, the VLM, the hybrid and the
+encoder-decoder (port of ``repro.core.blocks``): the block-local training
+loss of the AR adapter in concat or two-pass mode with the CE or l2 loss
+(``block_loss``: the dense decoder and the encoder-decoder in either mode,
+the hybrid always in two-pass, its Mamba layers having no mask), the
+end-to-end baseline (``e2e_loss``; every family but the VLM), and the
+sampler over the paged cache (all four families; conditioned slots read
+their image or audio blocks under ``cond_lengths``, the hybrid's Mamba
+rows advance in place).
+
+Conditioning inputs (``aux_inputs``, e.g. ``{"audio_embs": (B, Sk, d)}``)
+go through ``model.encode_conditioning`` in ``make_ctx`` (the
+encoder-decoder runs its encoder there, inside the loss's graph) into
+``ctx.kv_x``, which the cross-attention attends in ``train``.
 
 Training. ``block_loss`` runs block b's units over the clean‖noisy stream
 of length 2S under ``db_concat_mask`` (concat) or over paired clean and
@@ -83,7 +89,7 @@ def chunked_ce(model, params, h: torch.Tensor, targets: torch.Tensor,
 
 # leaves that stay fp32 in the compute-dtype copy: norm gains are read in
 # fp32, and the AdaLN heads run only in the fp32 probe
-_KEEP_FP32 = ("ln1", "ln2", "adaln")
+_KEEP_FP32 = ("ln1", "lnx", "ln2", "adaln")
 
 
 def gumbel(generator: Optional[torch.Generator], shape,
@@ -144,13 +150,22 @@ class DiffusionBlocksModel:
                                           q_hi, u=u, device=device)
 
     def make_ctx(self, params, S: int, mode: str, sigma=None,
+                 aux_inputs: Optional[Dict[str, torch.Tensor]] = None,
                  precision=None, **kw) -> LayerCtx:
         """A ``LayerCtx`` over positions arange(S) (on the CPU: they only
-        describe the mask), σ-conditioned when ``sigma`` is given."""
+        describe the mask), σ-conditioned when ``sigma`` is given. In every
+        mode but ``decode`` (which reads the cache's blocks) ``aux_inputs``
+        are encoded (``model.encode_conditioning``) into ``ctx.kv_x``, with
+        key positions arange(Sk)."""
         ctx = LayerCtx(cfg=self.cfg, mode=mode, positions=torch.arange(S),
                        precision=precision_mod.get_policy(precision), **kw)
         if sigma is not None:
             ctx.cond = self.model.cond(params, torch.log(sigma.reshape(-1)))
+        if mode != "decode":
+            kv_x = self.model.encode_conditioning(params, aux_inputs, ctx)
+            if kv_x is not None:
+                ctx.kv_x = kv_x
+                ctx.kv_positions = torch.arange(kv_x.shape[1])
         return ctx
 
     # ------------------------------------------------------------------
@@ -160,6 +175,7 @@ class DiffusionBlocksModel:
                    generator: Optional[torch.Generator] = None, *,
                    sigma: Optional[torch.Tensor] = None,
                    eps: Optional[torch.Tensor] = None,
+                   aux_inputs: Optional[Dict[str, torch.Tensor]] = None,
                    impl: str = "kernels",
                    unit_range: Optional[Tuple[int, int]] = None,
                    precision=None) -> Tuple[torch.Tensor, Dict]:
@@ -178,7 +194,9 @@ class DiffusionBlocksModel:
         the readout; ``l2`` is the score-matching loss in F-space (under
         ``impl="kernels"`` the EDM-loss kernels, which never store the
         target). The σ preconditioning, denoiser combine and loss stay fp32;
-        the hidden stream runs in the policy's compute dtype."""
+        the hidden stream runs in the policy's compute dtype. ``aux_inputs``
+        condition a cross-attending family (``make_ctx``); the clean stream
+        is the token rows alone, as JAX's (no absolute positions)."""
         pol = precision_mod.get_policy(precision)
         cd = pol.compute_for(self.cfg.family)
         Bsz, S = tokens.shape
@@ -191,7 +209,7 @@ class DiffusionBlocksModel:
         sigma = torch.as_tensor(sigma, dtype=torch.float32,
                                 device=dev).reshape(Bsz, 1, 1)
 
-        emb_clean = self.model.embed(params, tokens)
+        emb_clean = self.model.token_rows(params, tokens)
         z, _ = edm.add_noise(generator, emb_clean.float(), sigma, eps=eps)
         _, _, c_in, _ = edm.preconditioning(sigma, self.db.sigma_data)
         z_in = (c_in * z).to(cd)
@@ -199,16 +217,16 @@ class DiffusionBlocksModel:
         ar = torch.arange(S, device=dev)
         if self.causal_mode == "concat":
             stream = torch.cat([emb_clean.to(cd), z_in], dim=1)
-            ctx = self.make_ctx(params, 2 * S, "train", sigma, impl=impl,
-                                precision=pol)
+            ctx = self.make_ctx(params, 2 * S, "train", sigma, aux_inputs,
+                                impl=impl, precision=pol)
             ctx.mask_mod = A.db_concat_mask(S)
             ctx.rope_positions = torch.cat([ar, ar])
             ctx.cond_mask = torch.arange(2 * S, device=dev) >= S
             h, _ = self.model.apply_units(params, stream, start, size, ctx)
             f_out = h[:, S:]
         else:
-            ctx = self.make_ctx(params, S, "train", sigma, impl=impl,
-                                precision=pol)
+            ctx = self.make_ctx(params, S, "train", sigma, aux_inputs,
+                                impl=impl, precision=pol)
             ctx.rope_positions = ar
             _, f_out = self.model.apply_units_two_pass(
                 params, emb_clean.to(cd), z_in, start, size, ctx)
@@ -232,13 +250,15 @@ class DiffusionBlocksModel:
         return loss, {**metrics, "loss": loss, "sigma_mean": sigma.mean()}
 
     def e2e_loss(self, params, tokens: torch.Tensor, *,
+                 aux_inputs: Optional[Dict[str, torch.Tensor]] = None,
                  impl: str = "kernels", precision=None
                  ) -> Tuple[torch.Tensor, Dict]:
         """End-to-end next-token CE over the FULL stack (the backprop
-        baseline; ``cond`` is None, so the AdaLN heads stay inert)."""
+        baseline; ``cond`` is None, so the AdaLN heads stay inert),
+        conditioned on ``aux_inputs`` where the family takes them."""
         pol = precision_mod.get_policy(precision)
         S = tokens.shape[1]
-        ctx = self.make_ctx(params, S, "train", None, impl=impl,
+        ctx = self.make_ctx(params, S, "train", None, aux_inputs, impl=impl,
                             precision=pol)
         ctx.rope_positions = torch.arange(S, device=tokens.device)
         h = self.model.embed(params, tokens,
@@ -305,12 +325,14 @@ class DiffusionBlocksModel:
         """Append the chosen token's k/v to every unit's pool in one pass over
         all units; each block's clean stream restarts from the raw embedding
         (blocks are independent denoisers). ``cond`` is None, so the gates
-        are plain residual adds."""
+        are plain residual adds. The token embeds at each slot's offset
+        ``lengths[b]`` (absolute-position families)."""
         ctx = dataclasses.replace(ctx_base, mode="decode", cond=None,
                                   commit=True)
         cd = precision_mod.get_policy(ctx.precision).compute_for(
             self.cfg.family)
-        emb = self.model.embed(params, token, dtype=cd)
+        emb = self.model.embed(params, token, dtype=cd,
+                               positions=ctx.lengths[:, None])
         self.model.apply_units(self.params_for(params, cd), emb, 0,
                                self.model.n_units, ctx, cache,
                                reset_mask=self._block_starts())
@@ -363,7 +385,7 @@ class DiffusionBlocksModel:
         ``noise`` (B, V) is the sampler's Gumbel noise (temperature > 0).
         Where ``forced`` (B,) is >= 0 the slot commits that token instead of
         its sample (a prompt token of a continuous-batching segment).
-        Conditioned slots read their image block from the cache under
+        Conditioned slots read their conditioning block from the cache under
         ``cond_lengths`` (B,) (written once at admission). Returns (token
         (B,), kv, new_lengths), plus the step's logits (B, V) with
         ``return_logits``."""
@@ -398,16 +420,19 @@ class DiffusionBlocksModel:
                             n_valid, precision=None, impl: str = "kernels",
                             cond_lengths=None):
         """Commit up to C known prompt tokens per slot in one pass: tokens
-        (B, C) start at each slot's own ``lengths[b]``; entries past
-        ``n_valid[b]`` are padding whose k/v go to the trash page. Returns
-        (kv, lengths + n_valid)."""
+        (B, C) start at each slot's own ``lengths[b]`` (their embedding
+        positions too); entries past ``n_valid[b]`` are padding whose k/v go
+        to the trash page. Returns (kv, lengths + n_valid)."""
         ctx = self._paged_ctx(lengths, page_table, None, precision, impl,
                               cond_lengths)
         ctx.mode = "prefill_chunk"
         ctx.n_valid = n_valid
         cd = precision_mod.get_policy(ctx.precision).compute_for(
             self.cfg.family)
-        emb = self.model.embed(params, tokens, dtype=cd)
+        C = tokens.shape[1]
+        epos = lengths[:, None] + torch.arange(C, dtype=lengths.dtype,
+                                               device=lengths.device)
+        emb = self.model.embed(params, tokens, dtype=cd, positions=epos)
         self.model.apply_units(self.params_for(params, cd), emb, 0,
                                self.model.n_units, ctx, kv,
                                reset_mask=self._block_starts())

@@ -216,9 +216,13 @@ def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
     """Returns (init_opt_state_fn, step_fn).
 
     step_fn(params, opt_state_b, tokens, generator=None, *, sigma=None,
-            eps=None) -> (params, opt_state_b, loss, metrics)
+            eps=None, aux_inputs=None) -> (params, opt_state_b, loss,
+                                           metrics)
 
     σ (B, 1, 1) and ε (B, S, d) are drawn from ``generator`` unless given.
+    ``aux_inputs`` (e.g. ``{"audio_embs": (B, Sk, d)}``) condition a
+    cross-attending family; the encoder-decoder's encoder and ``enc_norm``
+    lie outside ``STACK_KEYS``, so every block's step trains them.
     ``precision`` keeps fp32 masters and moments while the loss sees
     compute-dtype copies; the cast's backward brings the grads to fp32.
 
@@ -226,15 +230,17 @@ def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
     of ``make_view_train_step``:
 
     step_fn(params, opt_state_b, ewma, tokens, generator=None, *,
-            sigma=None, eps=None, loss_mult=1.0)
+            sigma=None, eps=None, aux_inputs=None, loss_mult=1.0)
         -> (params, opt_state_b, ewma, loss, metrics)"""
     start, size = dbm.ranges[b]
     pol = precision_mod.get_policy(precision)
 
-    def loss_fn(view, tokens, generator=None, *, sigma=None, eps=None):
+    def loss_fn(view, tokens, generator=None, *, sigma=None, eps=None,
+                aux_inputs=None):
         vc = precision_mod.cast_params_for_compute(pol, view, dbm.cfg.family)
         return dbm.block_loss(vc, b, tokens, generator, sigma=sigma, eps=eps,
-                              impl=impl, unit_range=(0, size), precision=pol)
+                              aux_inputs=aux_inputs, impl=impl,
+                              unit_range=(0, size), precision=pol)
 
     return make_view_train_step(loss_fn, tcfg, (start, size), guard)
 
@@ -242,13 +248,14 @@ def make_db_train_step(dbm: DiffusionBlocksModel, b: int, tcfg: TrainConfig,
 def make_e2e_train_step(dbm: DiffusionBlocksModel, tcfg: TrainConfig,
                         impl: str = "kernels", precision=None):
     """Returns (init_opt_state_fn, step_fn) with
-    step_fn(params, opt_state, tokens) -> (params, opt_state, loss,
-    metrics)."""
+    step_fn(params, opt_state, tokens, *, aux_inputs=None) -> (params,
+    opt_state, loss, metrics)."""
     pol = precision_mod.get_policy(precision)
 
-    def loss_fn(view, tokens):
+    def loss_fn(view, tokens, *, aux_inputs=None):
         pc = precision_mod.cast_params_for_compute(pol, view, dbm.cfg.family)
-        return dbm.e2e_loss(pc, tokens, impl=impl, precision=pol)
+        return dbm.e2e_loss(pc, tokens, aux_inputs=aux_inputs, impl=impl,
+                            precision=pol)
 
     return make_view_train_step(loss_fn, tcfg)
 

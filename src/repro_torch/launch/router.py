@@ -90,7 +90,7 @@ class RoutedRequest:
     rid: int
     prompt: np.ndarray
     max_new: int
-    aux_inputs: Optional[dict] = None   # {"image_embs": (Sk, d) fp32}
+    aux_inputs: Optional[dict] = None   # {"image_embs"/"audio_embs": (Sk, d)}
     cond_fp: int = 0                    # its conditioning fingerprint
     priority: int = PRIORITY_CLASSES["standard"]
     ttft_deadline: Optional[float] = None
@@ -338,7 +338,7 @@ class DisaggRouter:
         ``ValueError`` for a request the workers cannot take and
         ``AdmissionError`` when admission control sheds it. ``aux_inputs``
         conditions the request as ``ContinuousBatcher.submit``'s do; it
-        travels with every re-prefill, and the image block with every
+        travels with every re-prefill, and the conditioning block with every
         migration (the dense row of the payload)."""
         aux_inputs = ContinuousBatcher.check_aux(self.dbm, aux_inputs)
         if isinstance(priority, str):

@@ -34,6 +34,8 @@ Run (defaults: the reduced stablelm-1.6b on the card, bf16 policy):
     python -m repro_torch.launch.serve --device cpu \
         --arch llama-3.2-vision-11b --blocks 1 --conditioned \
         --scheduler continuous           # the VLM, image-conditioned
+    python -m repro_torch.launch.serve --device cpu --arch whisper-small \
+        --blocks 1 --conditioned --scheduler continuous  # audio-conditioned
     python -m repro_torch.launch.serve --arch zamba2-7b --full \
         --scheduler continuous           # the hybrid (no --prefix-cache)
 """
@@ -56,6 +58,7 @@ from repro_torch.configs import DBConfig, get_config, reduced
 from repro_torch.core.blocks import DiffusionBlocksModel, gumbel
 from repro_torch.data import MarkovLM
 from repro_torch.launch.faults import WorkerDied
+from repro_torch.models.common import LayerCtx
 from repro_torch.models.model_api import build_model
 from repro_torch.nn import cache as KVC
 
@@ -138,7 +141,7 @@ class DecodeEngine:
     def _prefill_chunk1(self, params, kv, table, lengths, prompt_buf, plens,
                         cond_lengths=None):
         """Commit each slot's next chunk, starting at its own offset; a
-        conditioned family's slots read their image blocks under
+        conditioned family's slots read their conditioning blocks under
         ``cond_lengths``. Returns (kv, lengths)."""
         Ck = self.chunk_size
         idx = lengths[:, None].long() + torch.arange(Ck, device=lengths.device)
@@ -203,7 +206,8 @@ class DecodeEngine:
         token while lengths < plens, else the token it samples. ``z`` (n, B,
         1, d) holds each step's initial z; ``noise`` (n, B, vocab) the
         sampling noise, needed when temperature > 0; ``cond_lengths`` (B,)
-        the valid tokens of each slot's image block (conditioned families).
+        the valid tokens of each slot's conditioning block (conditioned
+        families).
         Makes no random draw and no host sync, so a CUDA graph can capture
         it. Returns (kv, lengths, emitted (B, n): the generated tokens, -1
         where a slot emitted nothing)."""
@@ -267,10 +271,11 @@ class DecodeEngine:
         each step's initial z and ``noise`` (max_new, B, vocab) its
         sampling noise; else they come from ``generator``.
 
-        ``aux_inputs`` ({"image_embs": (B, Sk, d)}) is encoded once and
-        written into every slot's image block before prefill; the steps read
-        it under ``cond_lengths`` (B,) (default: Sk for every row; a
-        conditioned family without aux inputs reads none)."""
+        ``aux_inputs`` ({"image_embs" or "audio_embs": (B, Sk, d)}) is
+        encoded once and written into every slot's conditioning block
+        before prefill; the steps read it under ``cond_lengths`` (B,)
+        (default: Sk for every row; a conditioned family without aux inputs
+        reads none)."""
         device = params["embed"]["table"].device
         pr = np.asarray(prompts)
         B, S0 = pr.shape
@@ -305,9 +310,15 @@ class DecodeEngine:
             out[b, pl[b]:pl[b] + max_new] = gen[b]
         return torch.from_numpy(out)
 
+    def encode_ctx(self) -> LayerCtx:
+        """The context an admission-time encode of conditioning runs in
+        (the encoder-decoder's encoder): the engine's ``impl``."""
+        return LayerCtx(cfg=self.dbm.cfg, mode="train", impl=self.impl)
+
     def _conditioning(self, params, kv, B: int, aux_inputs, cond_lengths):
-        """Write every slot's image block from ``aux_inputs`` (B, Sk, d)
-        before prefill, as JAX's engine does. Returns the steps'
+        """Write every slot's conditioning block from ``aux_inputs`` (B, Sk,
+        d) before prefill, as JAX's engine does (the encoder, if the family
+        has one, under the engine's ``impl``). Returns the steps'
         ``cond_lengths``: None for an unconditioned family, zeros for a
         conditioned one served without aux inputs."""
         model = self.dbm.model
@@ -317,7 +328,7 @@ class DecodeEngine:
                     if model.max_cond_tokens else None)
         aux = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
                for k, v in aux_inputs.items()}
-        cond = model.encode_conditioning(params, aux)
+        cond = model.encode_conditioning(params, aux, self.encode_ctx())
         if cond is None:
             spec = model.aux_input_specs(B)
             raise ValueError(
@@ -404,7 +415,8 @@ class Request:
     rid: int
     prompt: np.ndarray
     max_new: int
-    aux_inputs: Optional[dict] = None   # {"image_embs": (Sk, d) fp32}
+    aux_inputs: Optional[dict] = None   # {"image_embs": (Sk, d) fp32}, or
+    #                                     {"audio_embs": ...}
     cond_fp: int = 0              # conditioning fingerprint (0 = none)
     out: List[int] = dataclasses.field(default_factory=list)
     pages: List[int] = dataclasses.field(default_factory=list)
@@ -486,8 +498,8 @@ class SharedPagePool:
     """ONE physical page pool shared by several batchers (disaggregated
     prefill/decode with page-handle migration): the free list, the refcount
     map, the pool's paged tensors and one lock are common; each batcher
-    keeps its own page table, slots and dense per-slot state (the VLM's
-    image blocks). A page a prefill worker hands to a decode worker is
+    keeps its own page table, slots and dense per-slot state (the
+    conditioning blocks). A page a prefill worker hands to a decode worker is
     visible there without a byte copied: the request carries only the
     physical page ids (``Request.handoff_pages``) and its dense rows.
 
@@ -595,11 +607,13 @@ class ContinuousBatcher:
     (``handoff_pages``) and the admission of another sharer maps them (the
     page-handle migration of ``launch.router``).
 
-    Conditioned requests (a family with ``max_cond_tokens``, the VLM):
-    ``submit(aux_inputs={"image_embs": (Sk, d)})`` fingerprints the image
-    for the prefix cache; admission writes the slot's image block once
-    (``_write_conditioning``, in place, on the stepping thread's stream,
-    which every dispatch waits for) and every dispatch reads it under
+    Conditioned requests (a family with ``max_cond_tokens``: the VLM, the
+    encoder-decoder): ``submit(aux_inputs={"image_embs": (Sk, d)})`` (or
+    ``audio_embs``) fingerprints the conditioning for the prefix cache;
+    admission encodes it alone at its true length and writes the slot's
+    conditioning block once (``_write_conditioning``, in place, on the
+    stepping thread's stream, which every dispatch waits for) and every
+    dispatch reads it under
     ``cond_lengths`` (0 for an unconditioned slot, whose cross term is
     exactly 0). The block travels with a spilled or migrated request as
     the dense row of its snapshot.
@@ -651,7 +665,7 @@ class ContinuousBatcher:
         self.total_pages = (1 + num_slots * pps + cow_spare
                             if total_pages is None else total_pages)
         self._shared = shared_pool
-        # a family with per-slot image blocks: every dispatch reads them
+        # a family with per-slot conditioning blocks: every dispatch reads them
         # under ``cond_lengths``
         self.conditioned = dbm.model.max_cond_tokens > 0
         if shared_pool is None:
@@ -679,7 +693,7 @@ class ContinuousBatcher:
         self.stop_at = np.zeros(num_slots, np.int32)
         self.active = np.zeros(num_slots, bool)
         self.prompt_buf = np.zeros((num_slots, max_prompt), np.int64)
-        self.cond_lengths = np.zeros(num_slots, np.int32)   # image tokens
+        self.cond_lengths = np.zeros(num_slots, np.int32)   # cond. tokens
         self.slot_req: List[Optional[Request]] = [None] * num_slots
         self.queue: collections.deque = collections.deque()
         self._next_rid = 0
@@ -722,8 +736,8 @@ class ContinuousBatcher:
         SLOs in seconds. Raises ``AdmissionError`` when admission control
         sheds the request: the backlog counted against ``max_queue`` is
         the queued work at or above this priority, so under mixed overload
-        the low classes shed first. ``aux_inputs`` ({"image_embs": (Sk,
-        d)}, no batch axis) conditions the request; the family must take
+        the low classes shed first. ``aux_inputs`` ({"image_embs" or
+        "audio_embs": (Sk, d)}, no batch axis) conditions the request; the family must take
         conditioning and Sk fit its block."""
         aux_inputs = self.check_aux(self.dbm, aux_inputs)
         if isinstance(priority, str):
@@ -1086,8 +1100,9 @@ class ContinuousBatcher:
         return int(new_slots.sum())
 
     def _write_conditioning(self, slot: int, req: Request) -> None:
-        """Write a newly admitted request's image block into ``slot``'s row
-        once, in place, on this thread's stream (every dispatch waits for
+        """Encode a newly admitted request's conditioning alone, at its true
+        length, and write its block into ``slot``'s row once, in place, on
+        this thread's stream (every dispatch waits for
         it), and set the slot's ``cond_lengths``."""
         if req.aux_inputs is None:
             self.cond_lengths[slot] = 0
@@ -1095,9 +1110,11 @@ class ContinuousBatcher:
         aux = {k: torch.from_numpy(v)[None].to(self.device)
                for k, v in req.aux_inputs.items()}
         model = self.dbm.model
-        model.set_conditioning(self.params, self.kv,
-                               model.encode_conditioning(self.params, aux),
-                               slot)
+        model.set_conditioning(
+            self.params, self.kv,
+            model.encode_conditioning(self.params, aux,
+                                      self.eng.encode_ctx()),
+            slot)
         self.cond_lengths[slot] = next(iter(req.aux_inputs.values())
                                        ).shape[0]
 
@@ -1595,7 +1612,7 @@ def conditioning_pool(dbm, n: int, rs: np.random.RandomState):
     specs = dbm.model.aux_input_specs(1)
     if not specs:
         raise SystemExit(f"--conditioned: family {dbm.cfg.family!r} takes "
-                         "no aux inputs (pick a vlm arch)")
+                         "no aux inputs (pick a vlm or audio arch)")
     Sk = dbm.model.max_cond_tokens
     return next(iter(specs)), [rs.randn(Sk, dbm.cfg.d_model).astype(
         np.float32) for _ in range(n)]
@@ -1649,7 +1666,8 @@ def main(argv=None):
     ap.add_argument("--ragged", action="store_true",
                     help="vary prompt lengths across the batch/queue")
     ap.add_argument("--conditioned", action="store_true",
-                    help="attach image conditioning (vlm archs): random "
+                    help="attach image or audio conditioning (vlm and "
+                         "audio archs): random "
                          "embeddings from a small pool, so the "
                          "conditioning-aware prefix cache can hit")
     ap.add_argument("--cond-pool", type=int, default=3,

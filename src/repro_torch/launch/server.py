@@ -369,7 +369,7 @@ class InferenceServer:
     Sampler settings are static per engine: a request may state
     ``temperature`` / ``top_k``, but values other than the engine's are
     rejected with 400. ``aux_registry`` maps names to conditioning inputs
-    (``{"image_embs": (Sk, d)}``); a request names one as ``{"aux":
+    (``{"image_embs" or "audio_embs": (Sk, d)}``); a request names one as ``{"aux":
     "<name>"}`` (embeddings never travel over the wire), and an unknown
     name is a 400 that lists the registered ones."""
 
@@ -813,7 +813,8 @@ def build_batcher_from_args(args):
     ``args.device``, or with ``--disagg`` behind a ``DisaggRouter`` over
     ``--prefill-workers`` + ``--decode-workers`` batchers (their draws
     seeded from ``--seed``). ``--conditioned`` registers ``--cond-pool``
-    images as ``cond0``, ``cond1``, ... (drawn as JAX's CLI draws them;
+    conditioning inputs (images or audio) as ``cond0``, ``cond1``, ...
+    (drawn as JAX's CLI draws them;
     a family without conditioning exits)."""
     device = cli_device(args.device)
     _, dbm, params, gen = load_model(args, device)

@@ -18,9 +18,12 @@ holds the inactive slots' state and ``write_state`` writes a new state
 into the cache's storage in place.
 
 Cross layers (``tlayer_spec(cross=True)``: the VLM's tanh-gated image
-attention) run in the cached modes only: their queries attend the slot's
-precomputed (k, v) image block (``write_cross_block`` projects it once at
-admission) under ``ctx.cond_lengths`` (``cross_cached_attn``).
+attention; the encoder-decoder's cross branch, ``models.encdec``) attend in
+the cached modes the slot's precomputed (k, v) conditioning block
+(``write_cross_block`` projects it once at admission) under
+``ctx.cond_lengths`` (``cross_cached_attn``). In ``train`` the
+encoder-decoder attends ``ctx.kv_x``, the encoded memory, through
+``attention_fwd(kv_x=...)``; the VLM's cross layer has no train mode yet.
 """
 from __future__ import annotations
 
@@ -45,6 +48,10 @@ class LayerCtx:
     positions: Optional[torch.Tensor] = None       # (S,) mask positions, CPU
     rope_positions: Optional[torch.Tensor] = None  # (S,) rope phases
     mask_mod: Optional[Callable] = None            # None: default_mask
+    # cross-attention memory (the encoder's output, B, Sk, d) and its key
+    # positions (Sk,) on the CPU: set by make_ctx in every mode but decode
+    kv_x: Optional[torch.Tensor] = None
+    kv_positions: Optional[torch.Tensor] = None
     cond: Optional[torch.Tensor] = None         # (B, d) σ embedding, or None
     cond_mask: Optional[torch.Tensor] = None    # (S,) bool: where AdaLN applies
     impl: str = "kernels"                       # kernels | ref
@@ -54,7 +61,7 @@ class LayerCtx:
     page_table: Optional[torch.Tensor] = None   # (B, n_logical_pages) int32
     active: Optional[torch.Tensor] = None       # (B,) bool: slots that commit
     n_valid: Optional[torch.Tensor] = None      # (B,) prefill_chunk real toks
-    # (B,) int32 valid tokens of each slot's cross (image) block; 0 =
+    # (B,) int32 valid tokens of each slot's cross (conditioning) block; 0 =
     # unconditioned (the cross term is exactly 0); None reads the whole block
     cond_lengths: Optional[torch.Tensor] = None
     commit: bool = True                         # False = denoise probe
@@ -114,13 +121,13 @@ def default_mask(cfg: ModelConfig, bidirectional: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# Cross-attention over per-slot conditioning blocks (VLM image memory)
+# Cross-attention over per-slot conditioning blocks (image or audio memory)
 # ---------------------------------------------------------------------------
 
 def cross_cached_attn(p, x, ctx: LayerCtx, cache):
     """Cross-attention of x (B, S, d) over the slot's precomputed (k, v)
-    block ``cache`` (B, Sk, KV, hd), masked to ``ctx.cond_lengths`` (None:
-    the whole block). Only q is projected: JAX's ``project_qkv`` also
+    conditioning block ``cache`` (B, Sk, KV, hd), masked to
+    ``ctx.cond_lengths`` (None: the whole block). Only q is projected: JAX's ``project_qkv`` also
     computes k and v from x and drops them. Returns (B, S, d)."""
     dims = ctx.dims()
     B, S, _ = x.shape

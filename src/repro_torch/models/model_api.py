@@ -57,12 +57,19 @@ class BaseModel:
     def embedding_table(self, params):
         return self._normalize(params["embed"]["table"])
 
-    def embed(self, params, tokens, dtype=None):
+    def token_rows(self, params, tokens, dtype=None):
         """Rows of the (L2-normalised) table. Normalisation is row-wise, so
         the port normalises the gathered rows instead of the whole
         vocabulary-sized table, as JAX does, on every call."""
         h = self._normalize(params["embed"]["table"][tokens.long()])
         return h if dtype is None else h.to(dtype)
+
+    def embed(self, params, tokens, dtype=None, positions=None):
+        """The token rows (``token_rows``). ``positions`` (broadcastable to
+        the tokens' shape) matter only for families with absolute position
+        embeddings (the encoder-decoder); the rope families ignore them."""
+        del positions
+        return self.token_rows(params, tokens, dtype)
 
     def cond(self, params, log_sigma, dtype=torch.float32):
         assert self.db is not None
@@ -87,7 +94,7 @@ class BaseModel:
         is the family's: the VLM overrides with its blocks' slot axis)."""
         return KVC.cache_tensors(cache)[0].shape[1]
 
-    # ---- conditioning (aux image inputs) ----------------------------------
+    # ---- conditioning (aux image or audio inputs) -------------------------
     # The serving engines feature-test these instead of switching on the
     # family: the static engine writes every slot's block before prefill,
     # the continuous batcher one slot's at admission. Unconditioned
@@ -141,11 +148,13 @@ class BaseModel:
 def build_model(cfg: ModelConfig, db: Optional[DBConfig] = None) -> BaseModel:
     """The model of ``cfg.family`` (port of ``repro.models.build_model``):
     ``VLMModel`` for the vlm family, ``HybridModel`` for the hybrid
-    (zamba2), else ``DecoderModel``, which raises for any family but dense
-    (MoE, xLSTM and audio are not ported yet)."""
-    from repro_torch.configs.base import HYBRID, VLM
-    from repro_torch.models import hybrid as H         # import cycle
+    (zamba2), ``EncDecModel`` for the audio family (whisper), else
+    ``DecoderModel``, which raises for any family but dense (MoE and xLSTM
+    are not ported yet)."""
+    from repro_torch.configs.base import AUDIO, HYBRID, VLM
+    from repro_torch.models import encdec as E         # import cycle
+    from repro_torch.models import hybrid as H
     from repro_torch.models import transformer as T
-    cls = {VLM: T.VLMModel, HYBRID: H.HybridModel}.get(cfg.family,
-                                                       T.DecoderModel)
+    cls = {VLM: T.VLMModel, HYBRID: H.HybridModel,
+           AUDIO: E.EncDecModel}.get(cfg.family, T.DecoderModel)
     return cls(cfg, db)

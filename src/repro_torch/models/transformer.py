@@ -26,8 +26,9 @@ class DecoderModel(BaseModel):
         if cfg.family != DENSE:
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port has the dense decoder, "
-                "the VLM (VLMModel) and the hybrid (models.hybrid."
-                "HybridModel) only so far")
+                "the VLM (VLMModel), the hybrid (models.hybrid.HybridModel) "
+                "and the encoder-decoder (models.encdec.EncDecModel) only so "
+                "far")
         super().__init__(cfg, db)
 
     @property

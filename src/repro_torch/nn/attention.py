@@ -110,13 +110,16 @@ def project_qkv(params, x, dims: AttnDims, kv_x=None):
     kv_x = x if kv_x is None else kv_x
     S_kv = kv_x.shape[1]
     dt = x.dtype
+    # JAX casts the weights to x's dtype and promotes: an fp32 memory under
+    # a bf16 stream gives fp32 k and v
+    kt = torch.promote_types(dt, kv_x.dtype)
     q = x @ as_dtype(params["wq"], dt)
-    k = kv_x @ as_dtype(params["wk"], dt)
-    v = kv_x @ as_dtype(params["wv"], dt)
+    k = kv_x.to(kt) @ as_dtype(params["wk"], dt).to(kt)
+    v = kv_x.to(kt) @ as_dtype(params["wv"], dt).to(kt)
     if "bq" in params:
         q = q + as_dtype(params["bq"], dt)
-        k = k + as_dtype(params["bk"], dt)
-        v = v + as_dtype(params["bv"], dt)
+        k = k + as_dtype(params["bk"], dt).to(kt)
+        v = v + as_dtype(params["bv"], dt).to(kt)
     q = q.reshape(B, S, dims.n_heads, dims.head_dim)
     k = k.reshape(B, S_kv, dims.n_kv_heads, dims.head_dim)
     v = v.reshape(B, S_kv, dims.n_kv_heads, dims.head_dim)
@@ -149,7 +152,13 @@ def attend(q, k, v, *, mask_mod: Optional[MaskMod], qpos, kpos,
            impl: str = "kernels"):
     """``kernels``: the flash-attention kernels (``mask_mod=None`` means
     unmasked); ``ref``: ``naive_attention`` with the mask built from the
-    positions."""
+    positions. q of another dtype than k and v (a bf16 stream over an fp32
+    memory) attends in the wider one, as JAX promotes; the output keeps
+    q's dtype."""
+    ct = torch.promote_types(q.dtype, k.dtype)
+    if ct != q.dtype or ct != k.dtype:
+        return attend(q.to(ct), k.to(ct), v.to(ct), mask_mod=mask_mod,
+                      qpos=qpos, kpos=kpos, impl=impl).to(q.dtype)
     if impl == "kernels":
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, mask_mod=mask_mod, qpos=qpos,
@@ -161,23 +170,28 @@ def attend(q, k, v, *, mask_mod: Optional[MaskMod], qpos, kpos,
 
 
 def attention_fwd(params, x, dims: AttnDims, *, positions, mask_mod,
-                  kv_x=None, rope_positions=None, impl: str = "kernels"):
-    """Full-sequence self-attention (training). Returns (out, (k, v)).
+                  kv_x=None, kv_positions=None, rope_positions=None,
+                  impl: str = "kernels"):
+    """Full-sequence attention (training). Returns (out, (k, v)).
 
     ``positions`` drive the mask; ``rope_positions`` (default: positions)
     drive the rotary phases. They differ for the DB clean||noisy concat
     stream, where the noisy copy of token i sits at mask position S+i but
-    rope position i."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention over kv_x (VLM / audio training) is not ported "
-            "yet: ROADMAP A6.6. Serving attends the per-slot image blocks "
-            "instead (models.common.cross_cached_attn)")
-    q, k, v = project_qkv(params, x, dims)
+    rope position i.
+
+    Cross-attention (``kv_x`` (B, Sk, d) given): q from ``x``, k and v from
+    ``kv_x``, key positions ``kv_positions`` (default: ``positions``), and
+    no rope on either side whatever ``rope_theta`` is: the memory has no
+    positions relative to the text stream, and the serving path reads the
+    precomputed (k, v) block with unroped queries. ``mask_mod=None`` is
+    unmasked (the kernels' ``full`` kind, Sq != Sk)."""
+    q, k, v = project_qkv(params, x, dims, kv_x)
     rpos = positions if rope_positions is None else rope_positions
-    q = apply_rope(q, rpos, dims.rope_theta)
-    k = apply_rope(k, rpos, dims.rope_theta)
-    out = attend(q, k, v, mask_mod=mask_mod, qpos=positions, kpos=positions,
+    kpos = positions if kv_positions is None else kv_positions
+    if kv_x is None:
+        q = apply_rope(q, rpos, dims.rope_theta)
+        k = apply_rope(k, rpos, dims.rope_theta)
+    out = attend(q, k, v, mask_mod=mask_mod, qpos=positions, kpos=kpos,
                  impl=impl)
     out = out.reshape(*x.shape[:2], dims.n_heads * dims.head_dim)
     return out @ as_dtype(params["wo"], x.dtype), (k, v)

@@ -24,7 +24,9 @@ A model's serving cache is a PagedKV or a dict tree of PagedKV leaves and
 dense per-slot tensors: the VLM keeps ``{"self": PagedKV (units, k_self,
 P, psz, KV, hd), "cross": {"k", "v"} (units, slots, n_image_tokens, KV,
 hd)}``, its fixed per-slot image blocks beside the pages (``cross_attend``
-reads them under per-slot valid lengths), and the hybrid keeps
+reads them under per-slot valid lengths), the encoder-decoder the same with
+one self layer a unit and audio blocks of n_audio_frames, and the hybrid
+keeps
 ``{"mamba": {"h", "conv"} (units, inner, slots, ...), "shared_kv": PagedKV
 (units, P, psz, KV, hd)}``, its per-slot Mamba rows beside the shared
 block's pages. ``cache_unit``/``cache_units`` slice any such tree by

@@ -9,6 +9,8 @@ when a direct caller passes a mismatched weight.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -91,6 +93,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """Whisper/ViT-style fixed sinusoidal table (S, d), fp32."""
+    return sinusoidal_at(torch.arange(seq_len, device=device), d_model)
+
+
+def sinusoidal_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Sinusoidal embeddings at arbitrary per-slot positions: (...,) ->
+    (..., d) fp32, on the positions' device. The serving paths pass each
+    slot's own absolute offsets (ragged decode, chunked prefill)."""
+    pos = positions.float()[..., None]
+    half = d_model // 2
+    # made on the positions' device: a CUDA graph may capture this call
+    div = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=pos.device) / half)
+    ang = pos * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

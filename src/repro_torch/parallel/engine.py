@@ -363,8 +363,15 @@ def train_db_parallel(dbm: DiffusionBlocksModel, tcfg: TrainConfig, data_iter,
                       periphery: str = "replicate+psum-mean",
                       devices=None, ckpt_dir: Optional[str] = None,
                       impl: str = "kernels", precision=None,
-                      periphery_lr_scale=None):
-    """Functional wrapper mirroring ``train_db``'s signature."""
+                      periphery_lr_scale=None, aux_fn=None):
+    """Functional wrapper mirroring ``train_db``'s signature. Modality
+    conditioning (``aux_fn``) is refused, as JAX's block-parallel route
+    refuses it."""
+    if aux_fn is not None:
+        raise NotImplementedError(
+            "aux_fn (modality conditioning) is not supported by the "
+            "block-parallel engine yet; train conditioned families with "
+            "core.training.make_db_train_step(...)(..., aux_inputs=...)")
     trainer = BlockParallelTrainer(dbm, tcfg, periphery=periphery,
                                    devices=devices, impl=impl,
                                    precision=precision,

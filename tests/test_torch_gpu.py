@@ -11,6 +11,8 @@ machine that has PyTorch and the CUDA toolkit only:
 Tolerance 2e-4 (absolute and relative): fp32 outputs from identical inputs,
 summed in another order. TF32 is off, so fp32 products stay fp32.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -1245,6 +1247,102 @@ def test_flash_attention_hd120_never_touches_columns_past_120(cuda, dtype,
                                        rtol=1e-2)
 
 
+# (Sq, Sk) of the ``full`` kind with fewer or more keys than queries:
+# whisper's cross-attention (the DB concat stream of 2 x 448 over 1500
+# frames), fewer keys than one 64-key tile, and a ragged 130 keys under
+# 1000 queries
+FULL_SQ_SK = [(896, 1500), (64, 37), (1000, 130)]
+
+
+def _full_check(got, want, dtype):
+    for g, r in zip(got, want):
+        if dtype == torch.float32:
+            _within_fp32_bound(g, r)
+        else:
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g.float(), r.float(), atol=1e-2,
+                                       rtol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", FULL_SQ_SK)
+def test_flash_attention_full_with_other_key_count(cuda, dtype, Sq, Sk):
+    """The forward, dq and dk/dv kernels in the ``full`` kind (the
+    encoder-decoder's cross-attention) at Sq != Sk, hd 64, 4 heads: the
+    last key tile partial (or the only one), the dk/dv grid over Sk's tiles
+    reading every query tile; against the plain versions on the kernel
+    forward's lse and delta (indexed by Sq), as test_flash_attention_kernels
+    holds them."""
+    cfg = FA.FlashConfig("full")
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    B, H = 2, 4
+    mk = lambda S: torch.randn(B, S, H, 64, generator=gen,  # noqa: E731
+                               device=cuda).to(dtype).transpose(1, 2)
+    q, k, v, do = mk(Sq), mk(Sk), mk(Sk), mk(Sq)
+    n0 = K.launch_counts()
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        assert n1[n] == n0[n] + 1
+    assert lse.shape == (B, H, Sq) and dk.shape == k.shape
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    want = (ro, rl, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg)) + \
+        FA._bwd_dkv_ref(q, k, v, do, lse, delta, cfg)
+    _full_check((out, lse, dq, dk, dv), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", FULL_SQ_SK)
+def test_flash_attention_full_never_touches_rows_past_the_sequences(
+        cuda, dtype, Sq, Sk):
+    """q, dO (rows past Sq) and k, v (rows past Sk) as [:, :S] views of
+    buffers 70 rows longer whose extra rows hold NaN: the loaders must
+    zero-fill a partial tile's rows past the sequence, never read them.
+    out and dq (past Sq) and dk, dv (past Sk) written through the kernels'
+    own C entry points into views of longer buffers holding a sentinel
+    there: the stores must stop at the sequence. Results finite and equal
+    to the plain versions', sentinels unchanged."""
+    cfg = FA.FlashConfig("full")
+    gen = torch.Generator(device=cuda).manual_seed(3 * Sq + Sk)
+    B, H, extra = 2, 4, 70
+
+    def rows(S, fill):
+        buf = torch.randn(B, S + extra, H, 64, generator=gen,
+                          device=cuda).to(dtype)
+        buf[:, S:] = fill
+        return buf[:, :S].transpose(1, 2), buf
+
+    nan, sentinel = float("nan"), 7.0
+    (q, _), (k, _), (v, _), (do, _) = (rows(S, nan)
+                                       for S in (Sq, Sk, Sk, Sq))
+    (o, obuf), (dq, qbuf), (dk, kbuf), (dv, vbuf) = (
+        rows(S, sentinel) for S in (Sq, Sq, Sk, Sk))
+    lse = torch.empty(B, H, Sq, device=cuda)
+    FA._launch("flash_attention_fwd", "rt_flash_attention_fwd", q,
+               FA._args(cfg, q, k, v=v, o=o, lse=lse), "fwd")
+    delta = FA.attention_delta(o, do)
+    FA._launch("flash_attention_bwd", "rt_flash_attention_bwd_dq", q,
+               FA._args(cfg, q, k, v=v, dout=do, dq=dq, lse=lse,
+                        delta=delta), "dq")
+    FA._launch("flash_attention_bwd", "rt_flash_attention_bwd_dkv", q,
+               FA._args(cfg, q, k, v=v, dout=do, dk=dk, dv=dv, lse=lse,
+                        delta=delta), "dkv")
+    torch.cuda.synchronize()
+    for buf, S in ((obuf, Sq), (qbuf, Sq), (kbuf, Sk), (vbuf, Sk)):
+        assert (buf[:, S:] == sentinel).all()
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    want = (ro, rl, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg)) + \
+        FA._bwd_dkv_ref(q, k, v, do, lse, delta, cfg)
+    _full_check((o, lse, dq, dk, dv), want, dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 @pytest.mark.parametrize("G", [1, 4])
@@ -1612,18 +1710,25 @@ def test_flash_attention_autograd_copies_an_unaligned_do(cuda):
     pytest.param("db", "stablelm-1.6b", id="db"),
     pytest.param("e2e", "stablelm-1.6b", id="e2e"),
     pytest.param("db", "h2o-danube-3-4b", id="h2o-db"),
-    pytest.param("e2e", "h2o-danube-3-4b", id="h2o-e2e")])
+    pytest.param("e2e", "h2o-danube-3-4b", id="h2o-e2e"),
+    pytest.param("db", "whisper-small", id="whisper-db"),
+    pytest.param("e2e", "whisper-small", id="whisper-e2e")])
 def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
     """One fp32 training step through the kernels and through the plain
     versions from the same params and draws: loss, grad norm and the
     updated params agree, and the launch counts are the path's
     arithmetic (one fwd, dq and dk/dv per layer). h2o-danube3-4b at hd 120
     with 8 query heads on 2 KV heads and its window cut to 64, which the
-    96 tokens pass."""
-    h2o = arch == "h2o-danube-3-4b"
+    96 tokens pass. whisper-small with 150 audio frames: per decoder layer
+    a self and a cross call (the concat stream's 192 queries over 150
+    keys), per encoder layer one ``full`` call over the frames; the
+    encoder's moments agree as well."""
+    h2o, audio = arch == "h2o-danube-3-4b", arch == "whisper-small"
     cfg = reduced(get_config(arch), n_layers=4, d_model=960 if h2o else 512,
                   n_heads=8)
     assert cfg.head_dim == (120 if h2o else 64)
+    if audio:
+        cfg = dataclasses.replace(cfg, n_audio_frames=150)
     dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
     gen = torch.Generator(device=cuda).manual_seed(0)
     master = dbm.init(gen)
@@ -1633,6 +1738,9 @@ def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
                            device=cuda)
     sigma = torch.rand(2, 1, 1, generator=gen, device=cuda) + 0.1
     eps = torch.randn(2, 96, cfg.d_model, generator=gen, device=cuda)
+    kw = {"aux_inputs": {"audio_embs": torch.randn(
+        2, cfg.n_audio_frames, cfg.d_model, generator=gen,
+        device=cuda)}} if audio else {}
     tcfg = TrainConfig(steps=10, warmup_steps=2, lr=1e-3)
     res = {}
     for impl in ("ref", "kernels"):
@@ -1641,28 +1749,33 @@ def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
             init, step = T.make_db_train_step(dbm, 1, tcfg, impl=impl)
             K.reset_launch_counts()
             params, opt, loss, m = step(params, init(params), tokens,
-                                        sigma=sigma, eps=eps)
+                                        sigma=sigma, eps=eps, **kw)
             n_layers = dbm.ranges[1][1]
         else:
             init, step = T.make_e2e_train_step(dbm, tcfg, impl=impl)
             K.reset_launch_counts()
-            params, opt, loss, m = step(params, init(params), tokens)
+            params, opt, loss, m = step(params, init(params), tokens, **kw)
             n_layers = cfg.n_layers
         torch.cuda.synchronize()
         counts = K.launch_counts()
-        expect = 0 if impl == "ref" else n_layers
+        calls = 2 * n_layers + cfg.n_encoder_layers if audio else n_layers
+        expect = 0 if impl == "ref" else calls
         assert {k: counts[k] for k in counts if k.startswith("flash_att")} \
             == {k: expect for k in ("flash_attention_fwd",
                                     "flash_attention_bwd_dq",
                                     "flash_attention_bwd_dkv")}
-        res[impl] = (loss, m["grad_norm"], opt.mu["layers"]["attn"])
-    (lr_, gr, mr), (lk, gk, mk) = res["ref"], res["kernels"]
+        mus = [opt.mu["layers"]["attn"]]
+        if audio:
+            mus += [opt.mu["layers"]["xattn"], opt.mu["encoder"]["attn"]]
+        res[impl] = (loss, m["grad_norm"], mus)
+    (lr_, gr, mrs), (lk, gk, mks) = res["ref"], res["kernels"]
     assert torch.isfinite(lk) and abs(lk - lr_) <= 1e-4 * abs(lr_)
     assert abs(gk - gr) <= 1e-3 * abs(gr)
-    for name in ("wq", "wk", "wv"):   # first moments: 0.1 x the grads
-        scale = mr[name].abs().max().item()
-        torch.testing.assert_close(mk[name], mr[name], atol=1e-3 * scale,
-                                   rtol=1e-3)
+    for mr, mk in zip(mrs, mks):
+        for name in ("wq", "wk", "wv"):   # first moments: 0.1 x the grads
+            scale = mr[name].abs().max().item()
+            torch.testing.assert_close(mk[name], mr[name],
+                                       atol=1e-3 * scale, rtol=1e-3)
 
 
 @pytest.mark.gpu

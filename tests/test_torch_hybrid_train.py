@@ -21,6 +21,9 @@ port's are finite and agree within 1e-4 with a reference built from JAX's
 own ``mamba2_decode_step`` run token by token: the clean stream step by
 step, and each noisy token as one decode step from the clean state before
 it. The training CLI runs the hybrid reduced on the CPU in both modes.
+``block_loss`` and ``e2e_loss`` are held in
+``tests/test_torch_hybrid_block_loss.py``, which imports this file's
+helpers: two files, so that ``--dist loadfile`` runs them on two workers.
 """
 import dataclasses
 import re
@@ -301,7 +304,7 @@ def test_reference_nan_gradients_shown_and_bounded():
 
 
 # ---------------------------------------------------------------------------
-# The model: block_loss (two-pass), e2e_loss, train steps, CLI
+# The model: train steps, CLI (block_loss and e2e_loss: the other file)
 # ---------------------------------------------------------------------------
 
 def _tokens(cfg, S=12, seed=1):
@@ -314,73 +317,6 @@ def _draws(jdbm, b, rng, S):
     sigma = jdbm.sample_block_sigma(r_sig, (B, 1, 1), b)
     eps = jax.random.normal(r_eps, (B, S, jdbm.cfg.d_model), jnp.float32)
     return t(sigma), t(eps)
-
-
-def _grads_match(loss, params, jgrads):
-    leaves = [x for _, x in tree_items(params)]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    want = dict(tree_items(jax.tree_util.tree_map(np.asarray, jgrads)))
-    for (path, _), g in zip(tree_items(params), grads):
-        if g is None:
-            assert not np.any(want[path]), path
-        else:
-            close(g, want[path])
-
-
-def _with_grad(params):
-    for _, x in tree_items(params):
-        x.requires_grad_()
-    return params
-
-
-@pytest.mark.parametrize("b", [0, 1])
-@pytest.mark.parametrize("loss", ["ce", "l2"])
-@pytest.mark.parametrize("which", ["tiny", "reduced"])
-def test_block_loss_matches_jax(which, loss, b, request):
-    """``block_loss`` of block b, routed to two-pass: the loss and every
-    param's gradient (zero outside the block's units and the periphery)
-    within 1e-4 of JAX's, on JAX's σ and ε."""
-    jdbm, jparams, tdbm, tparams = request.getfixturevalue(which)
-    if loss == "l2":
-        db = dataclasses.replace(jdbm.db, loss="l2")
-        jdbm = type(jdbm)(jdbm.cfg, db)
-        tdbm = type(tdbm)(tdbm.cfg, TC.DBConfig(**dataclasses.asdict(db)))
-    assert tdbm.causal_mode == jdbm.causal_mode == "two_pass"
-    tokens = _tokens(jdbm.cfg)
-    rng = jax.random.PRNGKey(10 + b)
-    jl = lambda p: jdbm.block_loss(p, b, jnp.asarray(tokens),  # noqa: E731
-                                   rng, impl="auto")
-    (want, jm), jg = jax.value_and_grad(jl, has_aux=True)(jparams)
-    sigma, eps = _draws(jdbm, b, rng, tokens.shape[1])
-    params = _with_grad(tparams)
-    try:
-        got, tm = tdbm.block_loss(params, b, t(tokens), sigma=sigma,
-                                  eps=eps)
-        assert loss in tm and loss in jm
-        close(got, want)
-        _grads_match(got, params, jg)
-    finally:
-        for _, x in tree_items(params):
-            x.requires_grad_(False)
-
-
-@pytest.mark.parametrize("which", ["tiny", "reduced"])
-def test_e2e_loss_matches_jax(which, request):
-    """``e2e_loss`` over every unit (the uncached ``apply_units`` in the
-    train mode): loss and every param's gradient within 1e-4 of JAX's."""
-    jdbm, jparams, tdbm, tparams = request.getfixturevalue(which)
-    tokens = _tokens(jdbm.cfg, S=13)
-    jl = lambda p: jdbm.e2e_loss(p, jnp.asarray(tokens),  # noqa: E731
-                                 impl="auto")
-    (want, _), jg = jax.value_and_grad(jl, has_aux=True)(jparams)
-    params = _with_grad(tparams)
-    try:
-        got, _ = tdbm.e2e_loss(params, t(tokens))
-        close(got, want)
-        _grads_match(got, params, jg)
-    finally:
-        for _, x in tree_items(params):
-            x.requires_grad_(False)
 
 
 def _assert_tree_close(got_np, want_np):

@@ -136,10 +136,31 @@ def test_attend_and_attention_fwd_match_jax(setup, mask):
 
 
 def test_attention_fwd_rejects_cross_attention(setup):
-    x = torch.zeros(1, 4, CFG.d_model)
-    with pytest.raises(NotImplementedError, match="VLM / audio"):
-        TA.attention_fwd({}, x, TA.AttnDims(4, 4, 64), positions=None,
-                         mask_mod=None, kv_x=x)
+    """Cross-attention over ``kv_x`` runs since the audio family's port
+    (``tests/test_torch_audio.py`` holds it to JAX); through the kernels
+    it still rejects key positions that are not an arange (a packed or
+    offset memory has no kernel mask), as self-attention does. Over an
+    arange it matches JAX's within the file's tolerance."""
+    rs = np.random.RandomState(4)
+    x = rs.randn(1, 4, 32).astype(np.float32)
+    mem = rs.randn(1, 6, 32).astype(np.float32)
+    p = {k: (0.1 * rs.randn(32, 32)).astype(np.float32)
+         for k in ("wq", "wk", "wv", "wo")}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    with pytest.raises(NotImplementedError, match="arange"):
+        TA.attention_fwd(tp, torch.from_numpy(x), TA.AttnDims(2, 2, 16),
+                         positions=torch.arange(4), mask_mod=None,
+                         kv_x=torch.from_numpy(mem),
+                         kv_positions=torch.arange(1, 7))
+    got, _ = TA.attention_fwd(tp, torch.from_numpy(x), TA.AttnDims(2, 2, 16),
+                              positions=torch.arange(4), mask_mod=None,
+                              kv_x=torch.from_numpy(mem),
+                              kv_positions=torch.arange(6))
+    want, _ = JA.attention_fwd(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        JA.AttnDims(2, 2, 16), positions=jnp.arange(4), mask_mod=None,
+        kv_x=jnp.asarray(mem), kv_positions=jnp.arange(6))
+    close(got, want)
 
 
 def test_ops_route_and_positions():

@@ -210,22 +210,44 @@ def test_conditioning_fingerprint_matches_jax():
 
 
 def test_families_still_refused_and_training_raises(tiny):
-    """MoE, xLSTM and audio still raise (the hybrid is built since its
-    serving port: ``tests/test_torch_hybrid.py``); the VLM serves only (its
-    training mode, attention over ``kv_x``, raises naming ROADMAP A6.6)."""
-    for arch in ("phi3.5-moe-42b-a6.6b", "xlstm-125m", "whisper-small"):
+    """MoE and xLSTM still raise (the hybrid is built since its serving
+    port, the audio family since its own: ``tests/test_torch_hybrid.py``,
+    ``tests/test_torch_audio.py``); the VLM serves only (its training mode
+    raises naming ROADMAP A6.6). ``attention_fwd(kv_x=...)``, the attention
+    its cross layers will train through, matches JAX's on the VLM's cross
+    weights: 4 text tokens over 6 image tokens, unmasked, no rope; the
+    output and the gradients of x and the memory within 1e-5."""
+    for arch in ("phi3.5-moe-42b-a6.6b", "xlstm-125m"):
         cfg = TC.reduced(TC.get_config(arch))
         with pytest.raises(NotImplementedError, match="dense decoder"):
             TDBM(cfg, TC.DBConfig(num_blocks=1))
-    _, _, tdbm, tparams = tiny
+    jdbm, jparams, tdbm, tparams = tiny
     ctx = tdbm.make_ctx(tparams, 4, "train")
     with pytest.raises(NotImplementedError, match="A6.6"):
         tdbm.model.apply_units(tparams, torch.zeros(1, 4, 32), 0, 1, ctx)
-    with pytest.raises(NotImplementedError, match="A6.6"):
-        TA.attention_fwd(tparams["units"]["cross"]["attn"],
-                         torch.zeros(1, 4, 32), TA.AttnDims(2, 2, 16),
-                         positions=torch.arange(4), mask_mod=None,
-                         kv_x=torch.zeros(1, 4, 32))
+    rs = np.random.RandomState(8)
+    x = rs.randn(2, 4, 32).astype(np.float32)
+    mem = rs.randn(2, 6, 32).astype(np.float32)
+    do = rs.randn(2, 4, 32).astype(np.float32)
+    jp = jax.tree_util.tree_map(lambda a: a[0],
+                                jparams["units"]["cross"]["attn"])
+
+    def jf(x_, m_):
+        return JA.attention_fwd(jp, x_, JA.AttnDims(2, 2, 16, 10000.0),
+                                positions=jnp.arange(4), mask_mod=None,
+                                kv_x=m_, kv_positions=jnp.arange(6))[0]
+    want, vjp = jax.vjp(jf, jnp.asarray(x), jnp.asarray(mem))
+    gx, gm = vjp(jnp.asarray(do))
+    tx = torch.from_numpy(x).requires_grad_()
+    tm = torch.from_numpy(mem).requires_grad_()
+    got = TA.attention_fwd(
+        {k: v[0] for k, v in tparams["units"]["cross"]["attn"].items()}, tx,
+        TA.AttnDims(2, 2, 16, 10000.0), positions=torch.arange(4),
+        mask_mod=None, kv_x=tm, kv_positions=torch.arange(6))[0]
+    got.backward(torch.from_numpy(do))
+    for g, w in ((got, want), (tx.grad, gx), (tm.grad, gm)):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
