@@ -69,7 +69,12 @@ Phases, each fatal on failure:
      whisper-small's (w): the ``full`` kind at hd 64, 12 heads, B=8, the
      encoder at S=1500 (the last key tile 28 keys long) and the
      cross-attention at 896 queries (the DB concat stream of 2 x 448) over
-     1500 keys, in both dtypes, each beside SDPA;
+     1500 keys, in both dtypes, each beside SDPA; and
+     llama-3.2-vision-11b's cross layer in training (x): the ``full`` kind
+     with 32 query heads on 8 KV heads of 128 at 1024 (the DB concat
+     stream) and 512 queries over 1601 image tokens (the last key tile
+     one key long), in both dtypes, beside SDPA, and the gate-residual
+     forward and backward at the two-pass stream's (4, 512, 4096) bf16;
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -372,7 +377,39 @@ Phases, each fatal on failure:
      path's arithmetic (the encoder's calls included); then 2 encoder + 2
      decoder layers, fp32: a DB step in concat x CE and in two_pass x l2
      through the kernels against ``impl="ref"`` within 1e-3; memory back
-     within 1 GiB.
+     within 1 GiB;
+ 20. llama-3.2-vision-11b's training, after phase 19 and under its memory
+     check: full width cut to one superblock (4 self layers and the cross
+     layer; 2.663 B params: two superblocks' masters, two blocks' AdamW
+     states, one block's gradients and the bf16 copy would take 76.7 GB)
+     in one block, the cross gates opened, bf16 policy, ``MarkovLM``
+     batches of 4 x 512 over 4 x 1601 bf16 image tokens from the seeded
+     generator: a concat x CE DB step (its AdamW state made first), a
+     two_pass x l2 DB step, the e2e step (each warm-up, timed, profiled;
+     wall, device ms, busy share, peak, finite loss and grad norm,
+     launches equal to the path's arithmetic); then, the model dropped,
+     one self and one cross layer at full width, fp32: a DB step in
+     concat x CE and in two_pass x l2 through the kernels against
+     ``impl="ref"`` within 1e-3 (the cross layer's ``wk``, ``wv`` and
+     ``xgate`` among the moments); memory back within 1 GiB; the byte
+     reckoning printed before anything is made;
+ 21. phi3.5-moe-42b-a6.6b, after phase 20 and under its memory check: full
+     width (d 4096, 32 query heads on 8 KV heads of 128, 16 experts of
+     d_ff 6400, top 2, capacity factor 1.25), random fp32 weights from
+     seed 0 with the AdaLN heads randomised, bf16 policy. Served cut to 6
+     layers (8.687 B params; fp32 masters and bf16 copy 48.0 GiB): the
+     static engine over 8 requests (prompts to 512, 32 new), phase 5b's
+     queue through the graphed batcher (every request complete, no page
+     leaked, launches equal to the dispatches' arithmetic, at most 1 GiB
+     left beyond the masters), 8 requests for one segment at 2 layers,
+     fp32, through the kernels and ``impl="ref"``: tokens identical,
+     logits within 1e-3. Trained cut to 2 layers in 2 blocks, 4 x 512:
+     a concat x CE DB step on each block with both AdamW states
+     resident, a two_pass x l2 DB step, the e2e step, each with its router
+     aux loss; the share of the routers' picks dropped for capacity in
+     one DB forward a block; then 1 layer, fp32: concat and two_pass
+     through the kernels against ``impl="ref"`` within 1e-3 (the router's
+     and the experts' moments among them); memory back within 1 GiB.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -497,6 +534,20 @@ H2O_MEM_START, H2O_SERVE_SLACK = 2**30, 2**30
 # start
 W_ARCH, W_PROMPT, W_CB_MAX, W_FRAMES = "whisper-small", 64, 384, (600, 1500)
 W_TRAIN_SEQ, W_CHECK_LAYERS, W_MEM_START = 448, 2, 2**30
+# llama-3.2-vision-11b's training (20): the depth cut, one superblock in
+# one block (2.66 B params; two superblocks in 2 blocks, 4.26 B, take 76.7
+# GB of masters, AdamW moments, gradients and bf16 copy before any
+# activation), and the batch of its steps and of phase 21's training
+VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH = 5, 4
+# phi3.5-moe-42b-a6.6b (21): the arch; the serving cut, the largest even
+# depth whose fp32 masters and bf16 copy fit in about 60 GiB (6 layers:
+# 48.0 GiB; 8: 63.7); the fp32 greedy check's depth; the training cut (2
+# layers as 2 blocks, both AdamW states resident) and the fp32 check's
+MOE_ARCH, MOE_SERVE_LAYERS, MOE_CHECK_SERVE_LAYERS = (
+    "phi3.5-moe-42b-a6.6b", 6, 2)
+MOE_TRAIN_LAYERS, MOE_CHECK_LAYERS = 2, 1
+# the memory phases 20 and 21 may find allocated at their start
+PHASE_MEM_START = 2**30
 
 
 class SmokeError(RuntimeError):
@@ -895,8 +946,9 @@ def phase_rowwise(dev) -> dict:
     the first case of each being its main case; plus an fp32-stream case,
     a ragged one (S not a multiple of the kernels' tiles) and, for the
     gate backward and the loss, the DiT-S/2 step's (256, 256, 384) and
-    (256, 256, 16) fp32 (and the gate backward at the MDM step's (64, 256,
-    768) fp32). Bytes: each
+    (256, 256, 16) fp32 (and the gate backward at the VLM's and MoE's
+    two-pass (4, 512, 4096) bf16 and the MDM step's (64, 256, 768) fp32).
+    Bytes: each
     input read once, each output written once; flops per element: ln
     forward 8, ln backward 16, gate backward 3, loss forward 6, loss
     backward 9."""
@@ -949,6 +1001,16 @@ def phase_rowwise(dev) -> dict:
         label, lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
         lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
         sets, 3 * n * 4 + 2 * B * d * 4, 3 * n, PRIOR_GATE_BWD_MS["dit"]))
+    B, S, d = 4, 512, 4096             # the VLM's and MoE's two-pass gates
+    sets, n = adaln_sets(gen, dev, B, S, d, bf16), B * S * d
+    label = (f"(x) gate_residual bwd ({B},{S},{d}) bf16 (VLM, MoE two_pass),"
+             " fp32 slices")
+    say(f"[kernels] {label}: "
+        f"{adaln_plan('gate_residual_bwd', sets[0][0], sets[0][1])}")
+    rows["gate_residual_bwd"].append(rowwise_case(
+        label, lambda x, sc, sh, g: AD.gate_residual_bwd(x, sc, g),
+        lambda x, sc, sh, g: AD.gate_residual_bwd_ref(x, sc, g),
+        sets, 3 * n * 2 + 2 * B * d * 4, 3 * n))
     B, S, d = 64, 256, 768             # the MDM layer's σ-gates
     sets, n = adaln_sets(gen, dev, B, S, d, f32), B * S * d
     label = (f"(q) gate_residual bwd ({B},{S},{d}) fp32 (MDM step), fp32 "
@@ -1179,7 +1241,9 @@ def phase_attention(dev) -> dict:
     the hybrid's window and two_pass ones (fp32, hd 112), h2o-danube3's
     (hd 120, G=4, both dtypes) and whisper-small's ``full`` ones (the
     encoder at S=1500 and the cross-attention at 896 queries over 1500
-    keys, both dtypes). The first case of each kernel is its main case."""
+    keys, both dtypes) and the VLM's cross-attention in training (GQA 4:1,
+    hd 128, 1024 and 512 queries over 1601 image tokens, both dtypes). The
+    first case of each kernel is its main case."""
     gen = torch.Generator(device=dev).manual_seed(2)
     rows = {n: [] for n in ATTN}
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1282,6 +1346,21 @@ def phase_attention(dev) -> dict:
          dict(B=8, H=12, KV=12, S=896, Sk=1500, hd=64, dtype=bf16)),
         ("(w) full B=8 H=12 Sq=896 Sk=1500 hd=64 fp32 (whisper cross)",
          "full", dict(B=8, H=12, KV=12, S=896, Sk=1500, hd=64, dtype=f32)),
+        # llama-3.2-vision-11b's cross layer in training (phase 20: 32
+        # query heads on 8 KV heads of 128 over 1601 image tokens, so the
+        # last key tile holds one key): the DB concat stream's 2 x 512
+        # queries and the two-pass and e2e streams' 512
+        ("(x) full B=4 H=32 KV=8 Sq=1024 Sk=1601 hd=128 bf16 (VLM cross, "
+         "DB concat stream)", "full",
+         dict(B=4, H=32, KV=8, S=1024, Sk=1601, hd=128, dtype=bf16)),
+        ("(x) full B=4 H=32 KV=8 Sq=1024 Sk=1601 hd=128 fp32 (VLM cross, "
+         "fp32 check)", "full",
+         dict(B=4, H=32, KV=8, S=1024, Sk=1601, hd=128, dtype=f32)),
+        ("(x) full B=4 H=32 KV=8 Sq=512 Sk=1601 hd=128 bf16 (VLM cross, "
+         "two_pass and e2e)", "full",
+         dict(B=4, H=32, KV=8, S=512, Sk=1601, hd=128, dtype=bf16)),
+        ("(x) full B=4 H=32 KV=8 Sq=512 Sk=1601 hd=128 fp32 (VLM cross)",
+         "full", dict(B=4, H=32, KV=8, S=512, Sk=1601, hd=128, dtype=f32)),
     ]
     for label, kind, kw in cases:
         pr16 = kw.pop("pr16", None)
@@ -1437,6 +1516,11 @@ def phase_kernels(dev) -> dict:
     rows["gate_residual"].append(gate_case(
         "(z) gate_residual (8,1,3584) fp32, fp32 gate slice (hybrid probe)",
         (8, 1, 3584), f32, f32, dev, gen))
+    # (x) the two-pass noisy stream's gates at d 4096 (phases 20 and 21:
+    # 4 x 512 bf16 rows, the gates fp32 slices of the AdaLN heads)
+    rows["gate_residual"].append(gate_case(
+        "(x) gate_residual (4,512,4096) bf16, fp32 gate slice (VLM, MoE "
+        "two_pass)", (4, 512, 4096), bf16, f32, dev, gen))
     return rows
 
 
@@ -1470,18 +1554,25 @@ def db_step_counts(dbm, size: int) -> dict:
     gate-residual calls a transformer layer and one a Mamba layer and, for
     a non-parametric LayerNorm, two ln-modulate calls, forward and
     backward. l2: one EDM loss forward and backward. The encoder-decoder
-    (``enc_decoder_counts``) adds its cross-attention and its encoder."""
+    (``enc_decoder_counts``) adds its cross-attention and its encoder; the
+    VLM's units are counted by ``vlm_step_counts``. A MoE layer adds no
+    launch (its router and experts are plain products, as in JAX), but in
+    two_pass the last layer's clean call has its backward too: the clean
+    stream's router aux loss is in the loss."""
     l2 = int(dbm.db.loss == "l2")
     if dbm.cfg.n_encoder_layers:
         return enc_decoder_counts(dbm, size, l2)
+    if hasattr(dbm.model, "k_self"):
+        return vlm_step_counts(dbm, size, l2)
     if dbm.causal_mode == "concat":
         return expected_counts(**{n: size for n in ATTN}, edm_loss_fwd=l2,
                                edm_loss_bwd=l2)
     ln = 2 * size if dbm.cfg.norm == "nonparam_ln" else 0
     gates = (2 + getattr(dbm.model, "inner", 0)) * size
+    bwd = 2 * size - (0 if dbm.cfg.moe else 1)
     return expected_counts(
-        flash_attention_fwd=2 * size, flash_attention_bwd_dq=2 * size - 1,
-        flash_attention_bwd_dkv=2 * size - 1, gate_residual=gates,
+        flash_attention_fwd=2 * size, flash_attention_bwd_dq=bwd,
+        flash_attention_bwd_dkv=bwd, gate_residual=gates,
         gate_residual_bwd=gates, ln_modulate_fwd=ln, ln_modulate_bwd=ln,
         edm_loss_fwd=l2, edm_loss_bwd=l2)
 
@@ -1505,13 +1596,39 @@ def enc_decoder_counts(dbm, size: int, l2: int = 0,
     return expected_counts(**calls, edm_loss_fwd=l2, edm_loss_bwd=l2)
 
 
+def vlm_step_counts(dbm, size: int, l2: int = 0) -> dict:
+    """Launches of a VLM DB step over ``size`` units of ``k_self`` self
+    layers and a cross layer. concat: one attention call a layer (the
+    cross layer's a ``full`` call over the images), forward and backward;
+    the clean||noisy stream carries a cond_mask, so no AdaLN kernel.
+    two_pass: per self layer a clean and a noisy call and two gate-residual
+    calls on the noisy stream; per cross layer a ``full`` call and two
+    gate-residual calls for each stream (JAX's: both streams σ-gated
+    there). The backward runs for all but the last unit's last clean self
+    call and its clean cross call and two clean gates (their outputs reach
+    no loss). RMSNorm is parametric: no ln-modulate. l2: one EDM loss
+    forward and backward."""
+    k = dbm.model.k_self
+    if dbm.causal_mode == "concat":
+        return expected_counts(**{n: size * (k + 1) for n in ATTN},
+                               edm_loss_fwd=l2, edm_loss_bwd=l2)
+    calls, gates = size * (2 * k + 2), size * (2 * k + 4)
+    return expected_counts(
+        flash_attention_fwd=calls, flash_attention_bwd_dq=calls - 2,
+        flash_attention_bwd_dkv=calls - 2, gate_residual=gates,
+        gate_residual_bwd=gates - 2, edm_loss_fwd=l2, edm_loss_bwd=l2)
+
+
 def e2e_counts(dbm) -> dict:
     """Launches of an e2e step: one attention forward, dq and dk/dv per
-    unit (a dense layer, an application of the hybrid's shared block;
-    ``enc_decoder_counts`` for the encoder-decoder)."""
+    unit (a dense or MoE layer, an application of the hybrid's shared
+    block), per layer for the VLM (its cross layers' ``full`` calls
+    among them); ``enc_decoder_counts`` for the encoder-decoder."""
     if dbm.cfg.n_encoder_layers:
         return enc_decoder_counts(dbm, dbm.cfg.n_layers, e2e=True)
-    return expected_counts(**{k: dbm.model.n_units for k in ATTN})
+    n = (dbm.cfg.n_layers if hasattr(dbm.model, "k_self")
+         else dbm.model.n_units)
+    return expected_counts(**{k: n for k in ATTN})
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -4403,20 +4520,27 @@ def phase_runner(dev) -> dict:
 # 15. the VLM: llama-3.2-vision-11b at full width, conditioned serving
 # ---------------------------------------------------------------------------
 
-def vlm_model(dev, n_layers=None, blocks=None):
+def vlm_model(dev, n_layers=None, blocks=None, cross_every=None,
+              spec_only=False):
     """llama-3.2-vision-11b (cut to ``n_layers`` in whole superblocks where
-    given) in DEFAULT_DB's blocks (or ``blocks``), random fp32 weights from
-    seed 0, the AdaLN heads randomised and the cross gates opened (``xgate``
-    is zero at init, and tanh(0) = 0 would make every cross layer add
-    nothing). Returns (dbm, params, gen)."""
+    given, of ``cross_every`` layers where given) in DEFAULT_DB's blocks (or
+    ``blocks``), random fp32 weights from seed 0, the AdaLN heads
+    randomised and the cross gates opened (``xgate`` is zero at init, and
+    tanh(0) = 0 would make every cross layer add nothing). Returns (dbm,
+    params, gen), or the dbm alone with ``spec_only`` (nothing
+    allocated)."""
     from repro_torch.configs import DEFAULT_DB, get_config
     from repro_torch.core.blocks import DiffusionBlocksModel
     cfg = get_config(VLM_ARCH)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if cross_every is not None:
+        cfg = dataclasses.replace(cfg, cross_attn_every=cross_every)
     db = (DEFAULT_DB if blocks is None
           else dataclasses.replace(DEFAULT_DB, num_blocks=blocks))
     dbm = DiffusionBlocksModel(cfg, db)
+    if spec_only:
+        return dbm
     gen = torch.Generator(device=dev).manual_seed(0)
     params = dbm.init(gen)
     for part in ("self", "cross"):
@@ -5366,9 +5490,9 @@ def finite_step(tag, loss, m) -> None:
 
 
 def unit_stack(dbm) -> str:
-    """The name of the params' stacked units: the hybrid's ``units``,
-    else ``layers``."""
-    return "units" if hasattr(dbm.model, "inner") else "layers"
+    """The name of the params' stacked units: the hybrid's and the VLM's
+    ``units``, else ``layers``."""
+    return "units" if "units" in dbm.model.spec else "layers"
 
 
 def resident_db_steps(dbm, params, gen, tcfg, data, tag: str,
@@ -5414,7 +5538,8 @@ def resident_db_steps(dbm, params, gen, tcfg, data, tag: str,
         changed = (unit_digests(params, stack) != before).tolist()
         expect = db_step_counts(dbm, size)
         say(f"[{tag}] DB step block {b} ({stack} {start}-"
-            f"{start + size - 1}): loss {float(loss):.4f} | grad norm "
+            f"{start + size - 1}): loss {float(loss):.4f}{router_aux(dbm, m)}"
+            f" | grad norm "
             f"{float(m['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | "
             f"device {dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB "
             f"(resident before {base / 2**30:.2f}: masters + every block's "
@@ -5442,6 +5567,11 @@ def resident_db_steps(dbm, params, gen, tcfg, data, tag: str,
     return out
 
 
+def router_aux(dbm, m) -> str:
+    """`` | router aux x`` for a MoE step's metrics, else ``""``."""
+    return f" | router aux {float(m['aux']):.4f}" if dbm.cfg.moe else ""
+
+
 def e2e_steps(dbm, params, tcfg, data, tag: str, aux=None) -> dict:
     """The end-to-end step over every unit (one AdamW state over every
     param), bf16 policy: a warm-up step, a timed one, one under the
@@ -5461,7 +5591,8 @@ def e2e_steps(dbm, params, tcfg, data, tag: str, aux=None) -> dict:
     stack = unit_stack(dbm)
     n = dbm.model.n_units if stack == "units" else dbm.cfg.n_layers
     say(f"[{tag}] e2e step ({n} {stack}, batch {tokens.shape[0]}x"
-        f"{tokens.shape[1]}): loss {float(loss):.4f} | grad norm "
+        f"{tokens.shape[1]}): loss {float(loss):.4f}{router_aux(dbm, m)} | "
+        f"grad norm "
         f"{float(m['grad_norm']):.3f} | wall {wall * 1e3:.1f} ms | device "
         f"{dev_ms:.1f} ms (events) | peak {peak / 2**30:.2f} GiB (resident "
         f"before {base / 2**30:.2f}: masters + AdamW state of every param) "
@@ -5589,12 +5720,13 @@ def two_pass_view(model):
         dbm.db, causal_mode="two_pass", loss="l2")), params, gen)
 
 
-def h2o_serve(dev, model) -> dict:
+def queue_serve(dev, model, tag: str = "h2o") -> dict:
     """Phase 5b's queue (32 requests on 8 slots, 64 new tokens, the decode
     segments and chunk steps replayed from CUDA graphs) at full width:
     every request served, no page leaked, launches equal to the dispatches'
     arithmetic; with the batcher and the serving copies dropped, at most
-    H2O_SERVE_SLACK allocated beyond the masters and no batcher left."""
+    H2O_SERVE_SLACK allocated beyond the masters and no batcher left.
+    ``tag`` names the model in the lines it prints."""
     from repro_torch import kernels as K
     from repro_torch.launch.serve import ContinuousBatcher
     dbm, params, _ = model
@@ -5616,15 +5748,15 @@ def h2o_serve(dev, model) -> dict:
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    cb_drained("h2o continuous", cb, done, CB_REQUESTS)
-    check_counts("h2o continuous", counts, cb_counts(dbm, cb))
+    cb_drained(f"{tag} continuous", cb, done, CB_REQUESTS)
+    check_counts(f"{tag} continuous", counts, cb_counts(dbm, cb))
     seg_ms = [a.elapsed_time(b) for a, b in events["segment"]]
     chunk_ms = [a.elapsed_time(b) for a, b in events["chunk"]]
     seg_step_ms = sum(seg_ms) / cb.steps
     in_dispatch = (sum(seg_ms) + sum(chunk_ms)) / (wall * 1e3)
     ttft = sorted(r.ttft for r in done)
     n_tok = sum(len(r.out) for r in done)
-    say(f"[h2o] continuous, {CB_REQUESTS} requests on {CB_SLOTS} slots "
+    say(f"[{tag}] continuous, {CB_REQUESTS} requests on {CB_SLOTS} slots "
         f"(phase 5b's queue), bf16, graphs captured in {capture_s:.2f} s: "
         f"wall {wall:.3f} s | {n_tok / wall:.1f} tok/s | TTFT median "
         f"{statistics.median(ttft) * 1e3:.1f} ms, max "
@@ -5641,10 +5773,10 @@ def h2o_serve(dev, model) -> dict:
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() - masters
     stray = sum(isinstance(o, ContinuousBatcher) for o in gc.get_objects())
-    say(f"[h2o] after serving: {left / 2**30:.3f} GiB allocated beyond the "
+    say(f"[{tag}] after serving: {left / 2**30:.3f} GiB allocated beyond the "
         f"{masters / 2**30:.2f} GiB of masters, {stray} batchers in memory")
     if left > H2O_SERVE_SLACK or stray:
-        raise SmokeError(f"h2o serving left {left / 2**30:.2f} GiB beyond "
+        raise SmokeError(f"{tag} serving left {left / 2**30:.2f} GiB beyond "
                          f"the masters and {stray} batchers")
     return {"counts": counts, "wall_s": wall, "tok_s": n_tok / wall,
             "segment_step_ms": seg_step_ms, "in_dispatch": in_dispatch,
@@ -5674,8 +5806,9 @@ def two_pass_step(model, tcfg, data, tag: str, aux=None) -> dict:
     loss, m = res
     del res
     size = dbm.ranges[0][1]
-    say(f"[{tag}] two_pass x l2 DB step block 0 (layers 0-{size - 1}): "
-        f"loss {float(loss):.4f} | grad norm {float(m['grad_norm']):.3f} | "
+    say(f"[{tag}] two_pass x l2 DB step block 0 ({unit_stack(dbm)} 0-"
+        f"{size - 1}): loss {float(loss):.4f}{router_aux(dbm, m)} | grad "
+        f"norm {float(m['grad_norm']):.3f} | "
         f"wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
         f"{peak / 2**30:.2f} GiB (resident before {base / 2**30:.2f}) | "
         f"launches {counts}")
@@ -5693,7 +5826,7 @@ def two_pass_step(model, tcfg, data, tag: str, aux=None) -> dict:
 def phase_h2o(dev) -> dict:
     """Phase 18: h2o-danube3-4b at full width (24 layers, d 3840, 32 query
     heads on 8 KV heads of 120, d_ff 10240, window 4096), after phase 17
-    under its memory check. Served at full depth through ``h2o_serve``;
+    under its memory check. Served at full depth through ``queue_serve``;
     then trained cut to H2O_TRAIN_LAYERS layers in 4 blocks, the bf16
     policy, ``MarkovLM`` batches of TRAIN_BATCH x 512: ``resident_db_steps``
     (concat x CE, all four AdamW states resident), one two_pass x l2 DB
@@ -5723,7 +5856,7 @@ def phase_h2o(dev) -> dict:
         f"{cfg.d_ff}, window {cfg.sliding_window}, vocab {cfg.vocab_size}; "
         f"{sum(p.numel() for _, p in _leaves(model[1])) / 1e9:.3f} B params"
         f" fp32 made in {time.perf_counter() - t0:.1f} s")
-    serve = h2o_serve(dev, model)
+    serve = queue_serve(dev, model)
     counts = dict(serve["counts"])
     del model, dbm
     gc.collect()
@@ -6245,6 +6378,420 @@ def phase_whisper(dev) -> dict:
             "e2e_peak": e2e_peak, "crosscheck": cross, "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# 20. llama-3.2-vision-11b's training at full width
+# ---------------------------------------------------------------------------
+
+def train_bytes(n_params: float, block_params, units_params: float) -> dict:
+    """The reckoning of a training phase before anything is made: fp32
+    masters, the AdamW moments (two fp32 tensors a param) of every block's
+    view (``block_params``: its units and the periphery), one block's fp32
+    gradients and the bf16 copy of the units, in bytes."""
+    largest = max(block_params)
+    return {"masters": 4 * n_params,
+            "adamw": sum(8 * p for p in block_params),
+            "grads": 4 * largest, "bf16_copy": 2 * units_params}
+
+
+def say_bytes(tag: str, what: str, b: dict) -> None:
+    say(f"[{tag}] reckoning ({what}): fp32 masters {b['masters'] / 1e9:.2f}"
+        f" GB + AdamW moments {b['adamw'] / 1e9:.2f} GB + one block's "
+        f"gradients {b['grads'] / 1e9:.2f} GB + bf16 copy "
+        f"{b['bf16_copy'] / 1e9:.2f} GB = {sum(b.values()) / 1e9:.2f} GB "
+        "before any activation")
+
+
+def spec_params(dbm) -> dict:
+    """Params by top-level key of the model's spec, none allocated."""
+    import numpy as np
+    from repro_torch.nn.init import tree_items
+    out = {}
+    for path, spec in tree_items(dbm.model.spec):
+        out[path[0]] = out.get(path[0], 0) + int(np.prod(spec.shape))
+    return out
+
+
+def phase_start(tag: str) -> int:
+    """gc, the cache emptied and the bytes still allocated, which must be
+    at most 1 GiB."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    base = torch.cuda.memory_allocated()
+    say(f"[{tag}] memory allocated at the phase's start: "
+        f"{base / 2**30:.3f} GiB")
+    if base > PHASE_MEM_START:
+        raise SmokeError(f"{tag}: {base / 2**30:.2f} GiB still allocated "
+                         "from earlier phases")
+    return base
+
+
+def phase_end(tag: str, base: int) -> None:
+    torch.cuda.empty_cache()
+    clear_cublas_workspaces()
+    left = torch.cuda.memory_allocated()
+    say(f"[{tag}] with everything dropped (no gc pass): {left / 2**30:.3f} "
+        f"GiB allocated against {base / 2**30:.3f} GiB at the start")
+    if left - base > 2**30:
+        raise SmokeError(f"{tag}: {(left - base) / 2**30:.2f} GiB left "
+                         "allocated after the phase")
+
+
+def phase_vlm_train(dev) -> dict:
+    """Phase 20: llama-3.2-vision-11b trained at full width (d 4096, 32
+    query heads on 8 KV heads of 128, d_ff 14336, 1601 image tokens), cut
+    to VLM_TRAIN_LAYERS layers (one superblock of 4 self layers and the
+    cross layer) in one block, the cross gates opened, the bf16 policy,
+    ``MarkovLM`` batches of VLM_TRAIN_BATCH x TRAIN_SEQ over as many bf16
+    image blocks from the seeded generator (so the cross layer's q, k and v
+    are bf16 and the bf16 kernels run): ``resident_db_steps`` (concat x
+    CE), one two_pass x l2 DB step, ``e2e_steps``; then, the model dropped,
+    one self and one cross layer (``cross_attn_every`` 2) at full width,
+    fp32: a DB step in concat x CE and in two_pass x l2 through the kernels
+    against ``impl="ref"`` within 1e-3, the cross layer's ``wk``, ``wv``
+    and ``xgate`` among the moments compared; memory back within 1 GiB."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import MarkovLM
+    tag = "vlm-train"
+    t_phase = time.perf_counter()
+    base = phase_start(tag)
+    dbm = vlm_model(dev, n_layers=VLM_TRAIN_LAYERS, blocks=1,
+                    spec_only=True)
+    n = spec_params(dbm)
+    periphery = sum(v for k, v in n.items() if k != "units")
+    b1 = train_bytes(sum(n.values()), [sum(n.values())], n["units"])
+    say_bytes(tag, f"{VLM_TRAIN_LAYERS} layers, 1 block, "
+              f"{sum(n.values()) / 1e9:.3f} B params", b1)
+    two = 2 * VLM_TRAIN_LAYERS
+    n2 = spec_params(vlm_model(dev, n_layers=two, blocks=2,
+                               spec_only=True))
+    half = n2["units"] / 2 + periphery
+    say_bytes(tag, f"the cut not taken: {two} layers in 2 blocks, "
+              f"{sum(n2.values()) / 1e9:.3f} B params",
+              train_bytes(sum(n2.values()), [half, half], n2["units"]))
+    t0 = time.perf_counter()
+    model = vlm_model(dev, n_layers=VLM_TRAIN_LAYERS, blocks=1)
+    dbm, params, gen = model
+    torch.cuda.synchronize()
+    cfg = dbm.cfg
+    say(f"[{tag}] {cfg.name} cut to {cfg.n_layers} layers ("
+        f"{dbm.model.n_units} superblock of {dbm.model.k_self} self + 1 "
+        f"cross), d={cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads} "
+        f"KV heads of {cfg.head_dim}, {cfg.n_image_tokens} image tokens, "
+        f"{dbm.num_blocks} block {dbm.ranges}; "
+        f"{sum(p.numel() for _, p in _leaves(params)) / 1e9:.3f} B params "
+        f"fp32 made in {time.perf_counter() - t0:.1f} s")
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    data = MarkovLM(vocab_size=cfg.vocab_size, seed=7).iterator(
+        VLM_TRAIN_BATCH, TRAIN_SEQ)
+
+    def images():
+        return {"image_embs": torch.randn(
+            VLM_TRAIN_BATCH, cfg.n_image_tokens, cfg.d_model, generator=gen,
+            device=dev).to(torch.bfloat16)}
+    torch.cuda.reset_peak_memory_stats()
+    db = resident_db_steps(dbm, params, gen, tcfg, data, tag, aux=images)
+    torch.cuda.empty_cache()
+    db_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    two_pass = two_pass_step(two_pass_view(model), tcfg, data, tag,
+                             aux=images)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e2e = e2e_steps(dbm, params, tcfg, data, tag, aux=images)
+    e2e_peak = torch.cuda.max_memory_allocated()
+    counts = {}
+    for c in (db["launches"], two_pass["launches"], e2e["launches"]):
+        add_counts(counts, c)
+    say(f"[{tag}] peak memory: DB steps {db_peak / 2**30:.2f} GiB, two_pass "
+        f"step {two_pass['peak_bytes'] / 2**30:.2f} GiB, e2e step "
+        f"{e2e_peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f} "
+        f"(reckoned {sum(b1.values()) / 2**30:.2f} GiB before activations); "
+        f"nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del model, dbm, params, gen
+    torch.cuda.empty_cache()
+    check = vlm_model(dev, n_layers=2, blocks=1, cross_every=2)
+    grads = [("self", "attn", "wq"), ("self", "mlp", "wg"),
+             ("cross", "attn", "wq"), ("cross", "attn", "wk"),
+             ("cross", "attn", "wv"), ("cross", "xgate"),
+             ("cross", "adaln", "w")]
+    cgen = torch.Generator(device=dev).manual_seed(4)
+    aux = {"image_embs": torch.randn(
+        VLM_TRAIN_BATCH, check[0].cfg.n_image_tokens, check[0].cfg.d_model,
+        generator=cgen, device=dev)}
+    kw = dict(stack="units", batch=VLM_TRAIN_BATCH, aux=aux)
+    cross = {"concat": db_crosscheck(dev, check, "vlm concat ce", grads,
+                                     **kw),
+             "two_pass": db_crosscheck(dev, two_pass_view(check),
+                                       "vlm two-pass l2", grads, **kw)}
+    del check, aux
+    phase_end(tag, base)
+    took = time.perf_counter() - t_phase
+    say(f"[{tag}] phase 20 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "db": db, "two_pass": two_pass, "e2e": e2e,
+            "db_peak": db_peak, "e2e_peak": e2e_peak, "crosscheck": cross,
+            "reckoned_bytes": b1, "seconds": took}
+
+
+# ---------------------------------------------------------------------------
+# 21. phi3.5-moe-42b-a6.6b served and trained at full width
+# ---------------------------------------------------------------------------
+
+def moe_model(dev, n_layers, blocks=None, spec_only=False):
+    """phi3.5-moe-42b-a6.6b cut to ``n_layers`` layers in DEFAULT_DB's
+    blocks (or ``blocks``), random fp32 weights from seed 0, the AdaLN
+    heads randomised. Returns (dbm, params, gen), or the dbm alone with
+    ``spec_only`` (nothing allocated)."""
+    from repro_torch.configs import DEFAULT_DB, get_config
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=n_layers)
+    dbm = DiffusionBlocksModel(cfg, dataclasses.replace(
+        DEFAULT_DB, num_blocks=blocks or DEFAULT_DB.num_blocks))
+    if spec_only:
+        return dbm
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, params, gen
+
+
+def moe_static(dev, model) -> dict:
+    """The static engine, bf16, greedy: BATCH requests with prompts padded
+    to PROMPT (ragged), chunk CHUNK, MAX_NEW new tokens, after a 2-token
+    warm-up; launches equal to the path's arithmetic, tokens in the
+    vocabulary, pages finite."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    dbm, params, gen = model
+    prompts, plens = prompts_np(dbm.cfg.vocab_size)
+    eng = get_engine(dbm, precision="bf16", chunk_size=CHUNK)
+    eng.generate(params, prompts, 2, prompt_lengths=plens, generator=gen)
+    eng.last_kv = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(params, prompts, MAX_NEW, prompt_lengths=plens,
+                       generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tim = eng.last_timing
+    L = dbm.cfg.n_layers
+    check_counts("moe static", counts, expected_counts(
+        flash_decode=MAX_NEW * 2 * L, gate_residual=MAX_NEW * 2 * L,
+        flash_prefill=-(-PROMPT // CHUNK) * L))
+    gen_tok = _generated(out, plens)
+    if not ((gen_tok >= 0) & (gen_tok < dbm.cfg.vocab_size)).all():
+        raise SmokeError("moe: generated token outside the vocabulary")
+    for name in ("k", "v"):
+        if not torch.isfinite(getattr(eng.last_kv, name)[:, 1:].float()
+                              ).all():
+            raise SmokeError(f"moe: non-finite {name} pages after serving")
+    decode_ms = (tim["total_ms"] - tim["prefill_ms"]) / MAX_NEW
+    say(f"[moe] static engine, bf16, greedy, {BATCH} requests (prompts "
+        f"{plens.tolist()}), chunk {CHUNK}, {MAX_NEW} new: wall {wall:.3f} s"
+        f" | {BATCH * MAX_NEW / wall:.1f} tok/s | prefill "
+        f"{tim['prefill_ms']:.1f} ms | decode {decode_ms:.2f} ms/step | "
+        f"peak {peak / 2**30:.2f} GiB | launches {counts} | nvidia-smi (sm "
+        f"MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    eng.last_kv = None
+    dbm.__dict__.pop("_serve_engines", None)
+    return {"counts": counts, "wall_s": wall, "decode_ms_per_step": decode_ms,
+            "prefill_ms": tim["prefill_ms"], "peak_bytes": peak}
+
+
+def moe_fp32_check(dev) -> dict:
+    """MOE_CHECK_SERVE_LAYERS layers at full width in 2 blocks, fp32: 8
+    requests of phase 5b's queue for one segment through the kernels and
+    through ``impl="ref"``; the greedy tokens identical and the logits
+    within 1e-3 relative."""
+    import numpy as np
+    from repro_torch import kernels as K
+    model = moe_model(dev, MOE_CHECK_SERVE_LAYERS, blocks=2)
+    prompts, _ = cb_queue(model[0].cfg.vocab_size)
+    few = prompts[:CB_SLOTS]
+    K.reset_launch_counts()
+    ck, lk, ek = cb_logged(dev, model, few, "fp32", "kernels", n_seg=1)
+    counts = K.launch_counts()
+    check_counts("moe fp32", counts, cb_counts(model[0], ck))
+    _, lr, er = cb_logged(dev, model, few, "fp32", "ref", n_seg=1)
+    on = ek[0] >= 0
+    rel = max(((lk[t] - lr[t])[on[:, t]].abs().max()
+               / lr[t][on[:, t]].abs().max()).item()
+              for t in range(CB_SEG) if on[:, t].any())
+    equal = bool(np.array_equal(ek, er))
+    say(f"[moe] fp32 depth cut ({MOE_CHECK_SERVE_LAYERS} layers, 2 blocks, "
+        f"full width), {CB_SLOTS} requests, one segment, kernels vs plain "
+        f"versions: logits rel max|diff| {rel:.2e} (limit 1e-3) | greedy "
+        f"tokens {'equal' if equal else 'DIFFER'} ({int(on.sum())})")
+    if not (rel <= 1e-3 and math.isfinite(rel)) or not equal:
+        raise SmokeError(f"moe fp32 cross-check: logits {rel:.2e}, tokens "
+                         f"equal {equal}")
+    return {"counts": counts, "logits_rel": rel}
+
+
+def moe_capacity(moe, g: int) -> int:
+    """The slots an expert has in a group of ``g`` tokens (``nn.moe``)."""
+    return max(int(moe.capacity_factor * moe.top_k * g / moe.num_experts), 1)
+
+
+@torch.no_grad()
+def moe_drop_share(dbm, params, tokens, gen) -> float:
+    """The share of the routers' (token, expert) picks past capacity in
+    one bf16 ``block_loss`` forward of each block over ``tokens``: every
+    MoE layer's routing counted through ``nn.moe.route``."""
+    from repro_torch.nn import moe as M
+    plain, stats = M.moe_fwd, [0, 0]
+
+    def counted(p, x, cfg, kind, group_size=None):
+        _, gates, _, pos, cap = M.route(p, x, cfg, group_size)
+        sel = gates > 0
+        stats[0] += int((sel & (pos >= cap)).sum())
+        stats[1] += int(sel.sum())
+        return plain(p, x, cfg, kind, group_size)
+    M.moe_fwd = counted
+    try:
+        for b in range(dbm.num_blocks):
+            dbm.block_loss(params, b, tokens, gen, precision="bf16")
+    finally:
+        M.moe_fwd = plain
+    return stats[0] / stats[1]
+
+
+def phase_moe(dev) -> dict:
+    """Phase 21: phi3.5-moe-42b-a6.6b at full width (d 4096, 32 query heads
+    on 8 KV heads of 128, LayerNorm, swiglu experts: 16 of d_ff 6400, top
+    2, capacity factor 1.25), random fp32 weights from seed 0, the AdaLN
+    heads randomised, bf16 policy. Served cut to MOE_SERVE_LAYERS layers in
+    DEFAULT_DB's 4 blocks: ``moe_static``, phase 5b's queue through the
+    graphed batcher (``queue_serve``), ``moe_fp32_check``; serving must
+    leave at most 1 GiB beyond the masters. Trained cut to MOE_TRAIN_LAYERS
+    layers in as many blocks, ``MarkovLM`` batches of VLM_TRAIN_BATCH x
+    TRAIN_SEQ: ``resident_db_steps`` (concat x CE, both AdamW states
+    resident), one two_pass x l2 DB step, ``e2e_steps``, each printing the
+    router aux loss, and the share of picks dropped for capacity; then
+    MOE_CHECK_LAYERS layer at full width, fp32: a DB step in concat x CE
+    and in two_pass x l2 through the kernels against ``impl="ref"`` within
+    1e-3, the router's and the experts' moments among those compared;
+    memory back within 1 GiB."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import MarkovLM
+    from repro_torch.nn import moe as M
+    t_phase = time.perf_counter()
+    base = phase_start("moe")
+    n = spec_params(moe_model(dev, MOE_SERVE_LAYERS, spec_only=True))
+    total = sum(n.values())
+    say(f"[moe] reckoning (serving, {MOE_SERVE_LAYERS} layers, "
+        f"{total / 1e9:.3f} B params): fp32 masters {4 * total / 1e9:.2f} GB"
+        f" + bf16 copy of the layers {2 * n['layers'] / 1e9:.2f} GB = "
+        f"{(4 * total + 2 * n['layers']) / 2**30:.2f} GiB; a decode step "
+        f"reads each layer's {n['layers'] / MOE_SERVE_LAYERS / 1e9:.3f} B "
+        "params once in the fp32 probe and once in the bf16 commit: "
+        f"{6 * n['layers'] / 1e9:.1f} GB, "
+        f"{6 * n['layers'] / HBM_BYTES_PER_S * 1e3:.1f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    t0 = time.perf_counter()
+    model = moe_model(dev, MOE_SERVE_LAYERS)
+    dbm, params, _ = model
+    torch.cuda.synchronize()
+    cfg, moe = dbm.cfg, dbm.cfg.moe
+    masters = sum(p.numel() * p.element_size() for _, p in _leaves(params))
+    say(f"[moe] {cfg.name} cut to {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads} heads on {cfg.n_kv_heads} KV heads of "
+        f"{cfg.head_dim}, {moe.num_experts} experts of d_ff {cfg.d_ff}, top "
+        f"{moe.top_k}, capacity factor {moe.capacity_factor}, vocab "
+        f"{cfg.vocab_size}, {dbm.num_blocks} blocks {dbm.ranges}; "
+        f"{masters / 4e9:.3f} B params fp32 made in "
+        f"{time.perf_counter() - t0:.1f} s; decode routes {CB_SLOTS} slot "
+        f"tokens a group: capacity max(int({moe.capacity_factor} x "
+        f"{moe.top_k} x {CB_SLOTS} / {moe.num_experts}), 1) = "
+        f"{moe_capacity(moe, CB_SLOTS)} an expert")
+    counts = {}
+    static = moe_static(dev, model)
+    add_counts(counts, static["counts"])
+    serve = queue_serve(dev, model, "moe")
+    add_counts(counts, serve["counts"])
+    del model, dbm, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32 = moe_fp32_check(dev)
+    add_counts(counts, fp32["counts"])
+    torch.cuda.empty_cache()
+
+    tag = "moe-train"
+    n = spec_params(moe_model(dev, MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS,
+                              spec_only=True))
+    periphery = sum(v for k, v in n.items() if k != "layers")
+    per_block = n["layers"] / MOE_TRAIN_LAYERS + periphery
+    b1 = train_bytes(sum(n.values()), [per_block] * MOE_TRAIN_LAYERS,
+                     n["layers"])
+    say_bytes(tag, f"{MOE_TRAIN_LAYERS} layers in {MOE_TRAIN_LAYERS} blocks"
+              f", {sum(n.values()) / 1e9:.3f} B params, every block's AdamW "
+              "state resident", b1)
+    t0 = time.perf_counter()
+    model = moe_model(dev, MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS)
+    dbm, params, gen = model
+    torch.cuda.synchronize()
+    say(f"[{tag}] depth cut to {MOE_TRAIN_LAYERS} layers, {dbm.num_blocks} "
+        f"blocks {dbm.ranges}: "
+        f"{sum(p.numel() for _, p in _leaves(params)) / 1e9:.3f} B params "
+        f"fp32 made in {time.perf_counter() - t0:.1f} s")
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    lm = MarkovLM(vocab_size=cfg.vocab_size, seed=7)
+    data = lm.iterator(VLM_TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    db = resident_db_steps(dbm, params, gen, tcfg, data, tag)
+    torch.cuda.empty_cache()
+    db_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    two_pass = two_pass_step(two_pass_view(model), tcfg, data, tag)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e2e = e2e_steps(dbm, params, tcfg, data, tag)
+    e2e_peak = torch.cuda.max_memory_allocated()
+    for c in (db["launches"], two_pass["launches"], e2e["launches"]):
+        add_counts(counts, c)
+    drop = moe_drop_share(dbm, params,
+                          torch.as_tensor(next(data), device=dev), gen)
+    g = min(M.GROUP_SIZE, 2 * VLM_TRAIN_BATCH * TRAIN_SEQ)
+    say(f"[{tag}] routing of one bf16 DB forward a block (the concat "
+        f"stream, {2 * VLM_TRAIN_BATCH * TRAIN_SEQ} tokens in groups of "
+        f"{g}, capacity {moe_capacity(moe, g)} an expert): "
+        f"{100 * drop:.2f}% of the picks dropped for capacity")
+    say(f"[{tag}] peak memory: DB steps with both AdamW states "
+        f"{db_peak / 2**30:.2f} GiB, two_pass step "
+        f"{two_pass['peak_bytes'] / 2**30:.2f} GiB, e2e step "
+        f"{e2e_peak / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f} "
+        f"(reckoned {sum(b1.values()) / 2**30:.2f} GiB before activations); "
+        f"nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    del model, dbm, params, gen
+    torch.cuda.empty_cache()
+    check = moe_model(dev, MOE_CHECK_LAYERS, blocks=1)
+    grads = [("attn", "wq"), ("moe", "router", "w"), ("moe", "wi"),
+             ("moe", "wo"), ("adaln", "w")]
+    kw = dict(batch=VLM_TRAIN_BATCH)
+    cross = {"concat": db_crosscheck(dev, check, "moe concat ce", grads,
+                                     **kw),
+             "two_pass": db_crosscheck(dev, two_pass_view(check),
+                                       "moe two-pass l2", grads, **kw)}
+    del check
+    phase_end("moe", base)
+    took = time.perf_counter() - t_phase
+    say(f"[moe] phase 21 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "static": static, "serve": serve,
+            "fp32_rel": fp32["logits_rel"], "db": db, "two_pass": two_pass,
+            "e2e": e2e, "db_peak": db_peak, "e2e_peak": e2e_peak,
+            "drop_share": drop, "crosscheck": cross, "seconds": took}
+
+
 OFF_PATH = {"euler_bwd"}
 
 
@@ -6327,6 +6874,10 @@ def main() -> int:
     lap("18")
     whisper = phase_whisper(dev)
     lap("19")
+    vlm_train = phase_vlm_train(dev)
+    lap("20")
+    moe = phase_moe(dev)
+    lap("21")
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
@@ -6335,7 +6886,7 @@ def main() -> int:
                    block_parallel["launches"], runner["launches"],
                    vlm["counts"], hybrid["counts"],
                    hybrid_train["counts"], h2o["counts"],
-                   whisper["counts"]):
+                   whisper["counts"], vlm_train["counts"], moe["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

@@ -1,17 +1,22 @@
-"""DiffusionBlocks over the dense decoder, the VLM, the hybrid and the
-encoder-decoder (port of ``repro.core.blocks``): the block-local training
-loss of the AR adapter in concat or two-pass mode with the CE or l2 loss
-(``block_loss``: the dense decoder and the encoder-decoder in either mode,
-the hybrid always in two-pass, its Mamba layers having no mask), the
-end-to-end baseline (``e2e_loss``; every family but the VLM), and the
-sampler over the paged cache (all four families; conditioned slots read
-their image or audio blocks under ``cond_lengths``, the hybrid's Mamba
-rows advance in place).
+"""DiffusionBlocks over the dense and MoE decoders, the VLM, the hybrid
+and the encoder-decoder (port of ``repro.core.blocks``): the block-local
+training loss of the AR adapter in concat or two-pass mode with the CE or
+l2 loss (``block_loss``: every family but the hybrid in either mode, the
+hybrid always in two-pass, its Mamba layers having no mask), the
+end-to-end baseline (``e2e_loss``), and the sampler over the paged cache
+(conditioned slots read their image or audio blocks under
+``cond_lengths``, the hybrid's Mamba rows advance in place).
 
-Conditioning inputs (``aux_inputs``, e.g. ``{"audio_embs": (B, Sk, d)}``)
-go through ``model.encode_conditioning`` in ``make_ctx`` (the
-encoder-decoder runs its encoder there, inside the loss's graph) into
-``ctx.kv_x``, which the cross-attention attends in ``train``.
+Conditioning inputs (``aux_inputs``: ``{"image_embs": (B, Sk, d)}`` for
+the VLM, ``{"audio_embs": (B, Sk, d)}`` for the encoder-decoder) go
+through ``model.encode_conditioning`` in ``make_ctx`` (the encoder-decoder
+runs its encoder there, inside the loss's graph) into ``ctx.kv_x``, which
+the cross-attention attends in ``train``.
+
+Both losses report ``metrics["aux"]``, the MoE routers' load-balance loss
+summed over the layers run (``ctx.aux``; 0 for the other families), and
+add ``cfg.moe.router_aux_weight * aux`` to the loss they return for the
+MoE family; ``metrics["loss"]`` is the loss before it, as in JAX.
 
 Training. ``block_loss`` runs block b's units over the clean‖noisy stream
 of length 2S under ``db_concat_mask`` (concat) or over paired clean and
@@ -99,6 +104,13 @@ def gumbel(generator: Optional[torch.Generator], shape,
     u = torch.rand(shape, generator=generator, dtype=torch.float32,
                    device=device).clamp_min(torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def _aux(ctx: LayerCtx, device) -> torch.Tensor:
+    """The aux loss the ctx's MoE layers added (fp32 0-dim; 0 if none)."""
+    if ctx.aux is None:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return ctx.aux
 
 
 def _needs_two_pass(cfg: ModelConfig) -> bool:
@@ -247,7 +259,16 @@ class DiffusionBlocksModel:
             loss = chunked_ce(self.model, params, d_hat.to(emb_clean.dtype),
                               tokens)
             metrics = {"ce": loss}
-        return loss, {**metrics, "loss": loss, "sigma_mean": sigma.mean()}
+        aux = _aux(ctx, dev)
+        metrics.update({"loss": loss, "aux": aux,
+                        "sigma_mean": sigma.mean()})
+        return self._with_aux(loss, aux), metrics
+
+    def _with_aux(self, loss, aux):
+        """``loss`` plus the weighted router aux loss for the MoE family."""
+        if self.cfg.moe is None:
+            return loss
+        return loss + self.cfg.moe.router_aux_weight * aux
 
     def e2e_loss(self, params, tokens: torch.Tensor, *,
                  aux_inputs: Optional[Dict[str, torch.Tensor]] = None,
@@ -265,7 +286,8 @@ class DiffusionBlocksModel:
                              dtype=pol.compute_for(self.cfg.family))
         h, _ = self.model.apply_units(params, h, 0, self.model.n_units, ctx)
         loss = chunked_ce(self.model, params, h[:, :-1], tokens[:, 1:])
-        return loss, {"ce": loss}
+        aux = _aux(ctx, tokens.device)
+        return self._with_aux(loss, aux), {"ce": loss, "aux": aux}
 
     # ------------------------------------------------------------------
     # Block-wise Euler sampling of the next token (App. B / H)

@@ -21,9 +21,16 @@ Cross layers (``tlayer_spec(cross=True)``: the VLM's tanh-gated image
 attention; the encoder-decoder's cross branch, ``models.encdec``) attend in
 the cached modes the slot's precomputed (k, v) conditioning block
 (``write_cross_block`` projects it once at admission) under
-``ctx.cond_lengths`` (``cross_cached_attn``). In ``train`` the
-encoder-decoder attends ``ctx.kv_x``, the encoded memory, through
-``attention_fwd(kv_x=...)``; the VLM's cross layer has no train mode yet.
+``ctx.cond_lengths`` (``cross_cached_attn``). In ``train`` they attend
+``ctx.kv_x`` (the VLM's image embeddings, the encoder-decoder's encoded
+memory) through ``attention_fwd(kv_x=...)``: unmasked, no rope, the flash
+kernels' ``full`` kind at Sq != Sk.
+
+MoE layers (``tlayer_spec(moe_layer=True)``: a ``moe`` subtree in place of
+``mlp``) route through ``nn.moe.moe_fwd``. In ``train`` each adds its
+router's load-balance loss to ``ctx.aux`` (``add_aux``), which
+``core.blocks`` reads after the units ran; the serving modes drop it, as
+JAX's serving steps do.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.nn import adaln
 from repro_torch.nn import attention as A
 from repro_torch.nn import cache as KVC
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as M
 from repro_torch.nn.init import ParamSpec
 
 
@@ -65,10 +73,19 @@ class LayerCtx:
     # unconditioned (the cross term is exactly 0); None reads the whole block
     cond_lengths: Optional[torch.Tensor] = None
     commit: bool = True                         # False = denoise probe
+    # the MoE routers' load-balance loss summed over the layers run in
+    # ``train`` (fp32 0-dim), None until a MoE layer adds to it
+    aux: Optional[torch.Tensor] = None
 
     def dims(self) -> A.AttnDims:
         c = self.cfg
         return A.AttnDims(c.n_heads, c.n_kv_heads, c.head_dim, c.rope_theta)
+
+    def add_aux(self, aux: torch.Tensor) -> None:
+        """Add a MoE layer's aux loss to ``self.aux`` in ``train``; the
+        serving modes drop it."""
+        if self.mode == "train":
+            self.aux = aux if self.aux is None else self.aux + aux
 
 
 def chunk_token_scan(step_fn, x, state, n_valid):
@@ -195,7 +212,8 @@ def write_cross_block(cross_cache, cross_params, cond, dims: A.AttnDims,
     return cross_cache
 
 
-def tlayer_spec(cfg: ModelConfig, db: bool, *, cross: bool = False):
+def tlayer_spec(cfg: ModelConfig, db: bool, *, cross: bool = False,
+                moe_layer: bool = False):
     d = cfg.d_model
     dims = A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                       cfg.rope_theta)
@@ -203,8 +221,11 @@ def tlayer_spec(cfg: ModelConfig, db: bool, *, cross: bool = False):
         "ln1": L.norm_spec(d, cfg.norm),
         "attn": A.attention_spec(d, dims, cfg.qkv_bias),
         "ln2": L.norm_spec(d, cfg.norm),
-        "mlp": L.mlp_spec(d, cfg.d_ff, cfg.mlp),
     }
+    if moe_layer:
+        spec["moe"] = M.moe_spec(d, cfg.d_ff, cfg.moe, cfg.mlp)
+    else:
+        spec["mlp"] = L.mlp_spec(d, cfg.d_ff, cfg.mlp)
     if db:
         spec["adaln"] = adaln.adaln_spec(d, n_mods=6)
     if cross:
@@ -235,13 +256,23 @@ def _norm_modulate(p_ln, h, ctx: LayerCtx, shift, scale, cond_mask):
                           cond_mask)
 
 
+def _mlp(params, x, ctx: LayerCtx, moe_layer: bool):
+    """The layer's MLP, or its MoE with the aux loss added to ``ctx``."""
+    if not moe_layer:
+        return L.apply_mlp(params["mlp"], x, ctx.cfg.mlp)
+    out, aux = M.moe_fwd(params["moe"], x, ctx.cfg.moe, ctx.cfg.mlp)
+    ctx.add_aux(aux)
+    return out
+
+
 def tlayer_apply(params, h, ctx: LayerCtx, *, cross: bool = False,
-                 cache=None):
+                 moe_layer: bool = False, cache=None):
     """One transformer layer: over the paged ``cache`` in the serving modes,
     over the whole sequence (no cache) in ``train``. A ``cross`` layer
     attends the slot's image block ``cache`` ({"k", "v"}) in the serving
-    modes, its output through the tanh gate ``xgate``. Returns (h,
-    cache)."""
+    modes and ``ctx.kv_x`` in ``train``, its output through the tanh gate
+    ``xgate``. A ``moe_layer`` routes its MLP through ``nn.moe`` (the aux
+    loss to ``ctx.add_aux``). Returns (h, cache)."""
     cfg = ctx.cfg
     dims = ctx.dims()
     s1, c1, g1, s2, c2, g2 = _mods(params, ctx)
@@ -249,12 +280,22 @@ def tlayer_apply(params, h, ctx: LayerCtx, *, cross: bool = False,
 
     x = _norm_modulate(params["ln1"], h, ctx, s1, c1, cm)
     if cross:
-        if cache is None or ctx.mode not in ("decode", "prefill_chunk"):
+        if cache is not None and ctx.mode in ("decode", "prefill_chunk"):
+            attn_out = cross_cached_attn(params["attn"], x, ctx, cache)
+        elif ctx.mode != "train":
             raise NotImplementedError(
-                f"cross-attention layer in mode {ctx.mode!r}: the port runs "
-                "cross layers over the serving cache only; training the VLM "
-                "(attention over kv_x) is ROADMAP A6.6")
-        attn_out = cross_cached_attn(params["attn"], x, ctx, cache)
+                f"cross-attention layer in mode {ctx.mode!r} without its "
+                "cache: the port has train, decode and prefill_chunk")
+        elif ctx.kv_x is None:
+            raise ValueError(
+                "cross-attention layer with no conditioning memory: pass "
+                "aux_inputs (image_embs) on the training path; the serving "
+                "engines admit unconditioned requests with cond_lengths=0")
+        else:
+            attn_out, _ = A.attention_fwd(
+                params["attn"], x, dims, positions=ctx.positions,
+                mask_mod=None, kv_x=ctx.kv_x,
+                kv_positions=ctx.kv_positions, impl=ctx.impl)
         attn_out = attn_out * torch.tanh(L.as_dtype(params["xgate"],
                                                     attn_out.dtype))
     elif ctx.mode == "train":
@@ -279,8 +320,8 @@ def tlayer_apply(params, h, ctx: LayerCtx, *, cross: bool = False,
     h = adaln.gate(h, attn_out, g1, cm, impl=ctx.impl)
 
     x = _norm_modulate(params["ln2"], h, ctx, s2, c2, cm)
-    mlp_out = L.apply_mlp(params["mlp"], x, cfg.mlp)
-    h = adaln.gate(h, mlp_out, g2, cm, impl=ctx.impl)
+    h = adaln.gate(h, _mlp(params, x, ctx, moe_layer), g2, cm,
+                   impl=ctx.impl)
     return h, cache
 
 
@@ -300,13 +341,16 @@ def two_pass_mask(seq_len: int) -> A.MaskMod:
     return mask
 
 
-def tlayer_two_pass(params, h_clean, h_noisy, ctx: LayerCtx):
+def tlayer_two_pass(params, h_clean, h_noisy, ctx: LayerCtx, *,
+                    moe_layer: bool = False):
     """DB two-pass for an attention layer: the clean stream runs standard
     causal attention with no σ modulation; the noisy stream is modulated and
     gated by the σ conditioning and attends to the clean past and its own
     noisy key. Mask positions are ``ctx.positions`` (arange(S), on the CPU);
     rope phases come from ``ctx.rope_positions`` when set (the same arange on
-    the stream's device). Returns (h_clean, h_noisy)."""
+    the stream's device). A ``moe_layer`` routes each stream through the
+    MoE on its own and adds both aux losses to ``ctx``. Returns (h_clean,
+    h_noisy)."""
     cfg = ctx.cfg
     dims = ctx.dims()
     S = h_clean.shape[1]
@@ -337,7 +381,7 @@ def tlayer_two_pass(params, h_clean, h_noisy, ctx: LayerCtx):
     # --- mlp ---
     xc = L.apply_norm(params["ln2"], h_clean, cfg.norm)
     xn = _norm_modulate(params["ln2"], h_noisy, ctx, s2, c2, None)
-    h_clean = h_clean + L.apply_mlp(params["mlp"], xc, cfg.mlp)
-    h_noisy = adaln.gate(h_noisy, L.apply_mlp(params["mlp"], xn, cfg.mlp),
-                         g2, impl=ctx.impl)
+    h_clean = h_clean + _mlp(params, xc, ctx, moe_layer)
+    h_noisy = adaln.gate(h_noisy, _mlp(params, xn, ctx, moe_layer), g2,
+                         impl=ctx.impl)
     return h_clean, h_noisy

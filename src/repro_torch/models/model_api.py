@@ -149,8 +149,8 @@ def build_model(cfg: ModelConfig, db: Optional[DBConfig] = None) -> BaseModel:
     """The model of ``cfg.family`` (port of ``repro.models.build_model``):
     ``VLMModel`` for the vlm family, ``HybridModel`` for the hybrid
     (zamba2), ``EncDecModel`` for the audio family (whisper), else
-    ``DecoderModel``, which raises for any family but dense (MoE and xLSTM
-    are not ported yet)."""
+    ``DecoderModel``: the dense and MoE families. It raises for the
+    ``ssm`` family (xLSTM, ROADMAP A6.3), which is not ported yet."""
     from repro_torch.configs.base import AUDIO, HYBRID, VLM
     from repro_torch.models import encdec as E         # import cycle
     from repro_torch.models import hybrid as H

@@ -1,9 +1,13 @@
-"""Dense decoder and VLM (port of ``repro.models.transformer``):
-``DecoderModel`` for the dense family (the training passes, concat and
-two-pass, and the paged-serving paths) and ``VLMModel``, llama-3.2-vision's
-superblocks of self layers and one tanh-gated cross-attention layer over
-per-slot image blocks (the paged-serving paths). The JAX ``lax.scan`` over
-units is a Python loop over the stacked unit axis."""
+"""Dense and MoE decoders and the VLM (port of
+``repro.models.transformer``): ``DecoderModel`` for the dense and MoE
+families (every layer of the MoE family routes its MLP through
+``nn.moe``) and ``VLMModel``, llama-3.2-vision's superblocks of self
+layers and one tanh-gated cross-attention layer, which attends the image
+embeddings (``ctx.kv_x``) in training and the slot's image block in
+serving. Both have the training passes, concat and two-pass, and the
+paged-serving paths. The JAX ``lax.scan`` over units is a Python loop over
+the stacked unit axis; the MoE routers' aux loss goes to ``ctx.aux``
+(``common.LayerCtx.add_aux``) instead of the scan's carry."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,7 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch import precision as precision_mod
-from repro_torch.configs.base import DENSE
+from repro_torch.configs.base import DENSE, MOE
 from repro_torch.models import common as C
 from repro_torch.models.model_api import BaseModel
 from repro_torch.nn import attention as A
@@ -20,15 +24,16 @@ from repro_torch.nn.init import stack_specs, tree_map
 
 
 class DecoderModel(BaseModel):
-    """Standard decoder stack; one unit is one layer."""
+    """Standard decoder stack; one unit is one layer, every layer a MoE
+    layer for the MoE family."""
 
     def __init__(self, cfg, db=None):
-        if cfg.family != DENSE:
+        if cfg.family not in (DENSE, MOE):
             raise NotImplementedError(
-                f"family {cfg.family!r}: the port has the dense decoder, "
-                "the VLM (VLMModel), the hybrid (models.hybrid.HybridModel) "
-                "and the encoder-decoder (models.encdec.EncDecModel) only so "
-                "far")
+                f"family {cfg.family!r}: the port has the dense decoder and "
+                "the MoE (DecoderModel), the VLM (VLMModel), the hybrid "
+                "(models.hybrid.HybridModel) and the encoder-decoder "
+                "(models.encdec.EncDecModel); xLSTM is ROADMAP A6.3")
         super().__init__(cfg, db)
 
     @property
@@ -36,14 +41,18 @@ class DecoderModel(BaseModel):
         return self.cfg.n_layers
 
     @property
+    def is_moe(self) -> bool:
+        return self.cfg.family == MOE
+
+    @property
     def kv_carries_all_state(self) -> bool:
         return True
 
     def build_spec(self):
         spec = self.common_spec()
-        spec["layers"] = stack_specs(C.tlayer_spec(self.cfg,
-                                                   self.db is not None),
-                                     self.cfg.n_layers)
+        spec["layers"] = stack_specs(
+            C.tlayer_spec(self.cfg, self.db is not None,
+                          moe_layer=self.is_moe), self.cfg.n_layers)
         return spec
 
     def apply_units(self, params, h, start: int, size: int, ctx,
@@ -61,7 +70,7 @@ class DecoderModel(BaseModel):
             # grad per unit)
             units = _unbind(params["layers"], start, size)
             for u in units:
-                h, _ = C.tlayer_apply(u, h, ctx)
+                h, _ = C.tlayer_apply(u, h, ctx, moe_layer=self.is_moe)
             return h, None
         h0 = h
         units = self.unit_params(params)
@@ -69,6 +78,7 @@ class DecoderModel(BaseModel):
             if reset_mask is not None and reset_mask[i]:
                 h = h0
             h, _ = C.tlayer_apply(units[start + i], h, ctx,
+                                  moe_layer=self.is_moe,
                                   cache=KVC.cache_unit(cache, i))
         return h, cache
 
@@ -78,7 +88,8 @@ class DecoderModel(BaseModel):
         and noisy streams through ``tlayer_two_pass`` unit by unit. Returns
         (h_clean, h_noisy)."""
         for u in _unbind(params["layers"], start, size):
-            h_clean, h_noisy = C.tlayer_two_pass(u, h_clean, h_noisy, ctx)
+            h_clean, h_noisy = C.tlayer_two_pass(u, h_clean, h_noisy, ctx,
+                                                 moe_layer=self.is_moe)
         return h_clean, h_noisy
 
     def unit_params(self, params) -> list:
@@ -112,8 +123,9 @@ class VLMModel(BaseModel):
     {"k", "v"} (n_units, num_slots, n_image_tokens, KV, hd)}``: the self
     layers' history is paged, the image block is fixed per slot (written
     once at admission by ``set_conditioning``, read under
-    ``ctx.cond_lengths``; 0 makes the cross term exactly 0). Serving only:
-    training the VLM is ROADMAP A6.6."""
+    ``ctx.cond_lengths``; 0 makes the cross term exactly 0). In training
+    (no cache) the cross layer attends ``ctx.kv_x``, the image embeddings
+    ``make_ctx`` takes from ``aux_inputs``."""
 
     @property
     def k_self(self) -> int:
@@ -154,15 +166,19 @@ class VLMModel(BaseModel):
 
     def apply_units(self, params, h, start: int, size: int, ctx, cache=None,
                     reset_mask=None):
-        """Run units [start, start + size) over the serving ``cache``
-        (sliced to those units, ``cache_units``); ``reset_mask`` restarts
-        the hidden stream from the input ``h`` before each flagged unit.
-        Returns (h, cache)."""
+        """Run units [start, start + size): per unit the ``k_self`` self
+        layers, then the cross layer; with no cache over the whole sequence
+        (``train``, the images in ``ctx.kv_x``), else over the serving
+        ``cache`` (sliced to those units, ``cache_units``). ``reset_mask``
+        restarts the hidden stream from the input ``h`` before each flagged
+        unit. Returns (h, cache)."""
         if cache is None:
-            raise NotImplementedError(
-                "VLMModel runs over the serving cache only: training the "
-                "VLM (cross-attention over kv_x through the flash kernels) "
-                "is ROADMAP A6.6")
+            assert reset_mask is None
+            for u in _unbind(params["units"], start, size):
+                for p in _unbind(u["self"], 0, self.k_self):
+                    h, _ = C.tlayer_apply(p, h, ctx)
+                h, _ = C.tlayer_apply(u["cross"], h, ctx, cross=True)
+            return h, None
         h0 = h
         units = self.unit_params(params)
         for i in range(size):
@@ -176,6 +192,21 @@ class VLMModel(BaseModel):
             h, _ = C.tlayer_apply(cross, h, ctx, cross=True,
                                   cache=c["cross"])
         return h, cache
+
+    def apply_units_two_pass(self, params, h_clean, h_noisy, start: int,
+                             size: int, ctx):
+        """DB two-pass training over units [start, start + size): the self
+        layers through ``tlayer_two_pass``, then both streams through the
+        cross layer (``tlayer_apply`` in ``train``) under the same σ ctx,
+        as JAX's: the clean stream is σ-modulated and gated there too.
+        Returns (h_clean, h_noisy)."""
+        for u in _unbind(params["units"], start, size):
+            for p in _unbind(u["self"], 0, self.k_self):
+                h_clean, h_noisy = C.tlayer_two_pass(p, h_clean, h_noisy,
+                                                     ctx)
+            h_clean, _ = C.tlayer_apply(u["cross"], h_clean, ctx, cross=True)
+            h_noisy, _ = C.tlayer_apply(u["cross"], h_noisy, ctx, cross=True)
+        return h_clean, h_noisy
 
     def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
                          policy=None, device="cuda") -> dict:

@@ -134,8 +134,8 @@ def test_build_model_bridges_the_encdec_tree():
     """``build_model`` builds ``EncDecModel`` for the audio family, whose
     spec has exactly JAX's leaves and shapes: ``encoder`` stacked
     (n_encoder_layers, ...), ``enc_norm``, ``layers`` (n_layers, ...) with
-    ``xattn`` and ``lnx``; every value crosses unchanged. MoE and xLSTM
-    still raise."""
+    ``xattn`` and ``lnx``; every value crosses unchanged. xLSTM still
+    raises; the MoE builds."""
     jdbm, tdbm = _models()
     assert type(tdbm.model).__name__ == "EncDecModel"
     assert type(build_model(TC.get_config(ARCH))).__name__ == "EncDecModel"
@@ -153,9 +153,11 @@ def test_build_model_bridges_the_encdec_tree():
         CFG.n_audio_frames, {"cross": 1}, False)
     spec = m.aux_input_specs(3)["audio_embs"]
     assert spec.shape == (3, CFG.n_audio_frames, CFG.d_model)
-    for arch in ("phi3.5-moe-42b-a6.6b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="dense decoder"):
-            TDBM(TC.reduced(TC.get_config(arch)), TC.DBConfig(num_blocks=1))
+    with pytest.raises(NotImplementedError, match="A6.3"):
+        TDBM(TC.reduced(TC.get_config("xlstm-125m")),
+             TC.DBConfig(num_blocks=1))
+    assert TDBM(TC.reduced(TC.get_config("phi3.5-moe-42b-a6.6b")),
+                TC.DBConfig(num_blocks=1)).model.is_moe
 
 
 @pytest.mark.parametrize("what", ["table_1500", "table_32", "at"])

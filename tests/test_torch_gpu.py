@@ -1343,6 +1343,136 @@ def test_flash_attention_full_never_touches_rows_past_the_sequences(
     _full_check((o, lse, dq, dk, dv), want, dtype)
 
 
+# (Sq, Sk) of the ``full`` kind with 4 query heads a KV head at hd 128:
+# the VLM's cross-attention (the DB concat stream of 2 x 512 queries over
+# 1601 image tokens, one key in the last 64-key tile), one key past a tile,
+# and one key under 130 queries
+FULL_GQA_SQ_SK = [(1024, 1601), (64, 65), (130, 1)]
+
+
+def _gqa_rows(gen, cuda, dtype, B, S, heads, extra=0, fill=None):
+    """(B, heads, S, 128) views of (B, S + extra, heads, 128) buffers whose
+    rows past S hold ``fill``; returns (view, buffer)."""
+    buf = torch.randn(B, S + extra, heads, 128, generator=gen,
+                      device=cuda).to(dtype)
+    if extra:
+        buf[:, S:] = fill
+    return buf[:, :S].transpose(1, 2), buf
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", FULL_GQA_SQ_SK)
+def test_flash_attention_full_gqa_hd128(cuda, dtype, Sq, Sk):
+    """The forward, dq and dk/dv kernels in the ``full`` kind at Sq != Sk
+    with 8 query heads on 2 KV heads of 128 (the VLM's GQA 4:1): dk and dv
+    sum the group's 4 query heads over every query tile, lse and delta are
+    read by the query head; against the plain versions on the kernel
+    forward's lse and delta, and through the autograd Function
+    (``flash_attention``) against the plain backward."""
+    cfg = FA.FlashConfig("full")
+    gen = torch.Generator(device=cuda).manual_seed(Sq + 7 * Sk)
+    B, H, KV = 2, 8, 2
+    q, k, v, do = (_gqa_rows(gen, cuda, dtype, B, S, h)[0]
+                   for S, h in ((Sq, H), (Sk, KV), (Sk, KV), (Sq, H)))
+    n0 = K.launch_counts()
+    out, lse = FA.flash_attention_fwd(q, k, v, cfg)
+    delta = FA.attention_delta(out, do)
+    dq = FA.flash_attention_bwd_dq(q, k, v, do, lse, delta, cfg)
+    dk, dv = FA.flash_attention_bwd_dkv(q, k, v, do, lse, delta, cfg)
+    torch.cuda.synchronize()
+    n1 = K.launch_counts()
+    for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        assert n1[n] == n0[n] + 1
+    assert lse.shape == (B, H, Sq) and dk.shape == k.shape == (B, KV, Sk,
+                                                               128)
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    want = (ro, rl, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg)) + \
+        FA._bwd_dkv_ref(q, k, v, do, lse, delta, cfg)
+    _full_check((out, lse, dq, dk, dv), want, dtype)
+    qa, ka, va = (x.detach().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(FA.flash_attention(qa, ka, va,
+                                                 mask_kind="full"),
+                              (qa, ka, va), do)
+    ref = FA.flash_attention_bwd_ref(q, k, v, ro.to(dtype), rl, do, cfg)
+    _full_check(got, ref, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", FULL_GQA_SQ_SK)
+def test_flash_attention_full_gqa_never_touches_rows_past_the_sequences(
+        cuda, dtype, Sq, Sk):
+    """The GQA 4:1 hd-128 ``full`` case with NaN in the rows past Sq of q
+    and dO and past Sk of k and v (views of buffers 70 rows longer): every
+    fill zero-fills the padded keys and masks them out of the softmax. out
+    and dq past Sq and dk, dv past Sk written into views of longer buffers
+    holding a sentinel there: the stores stop at the sequence. Results
+    finite and equal to the plain versions', sentinels unchanged."""
+    cfg = FA.FlashConfig("full")
+    gen = torch.Generator(device=cuda).manual_seed(5 * Sq + Sk)
+    B, H, KV, extra = 2, 8, 2, 70
+    nan, sentinel = float("nan"), 7.0
+    (q, _), (k, _), (v, _), (do, _) = (
+        _gqa_rows(gen, cuda, dtype, B, S, h, extra, nan)
+        for S, h in ((Sq, H), (Sk, KV), (Sk, KV), (Sq, H)))
+    (o, obuf), (dq, qbuf), (dk, kbuf), (dv, vbuf) = (
+        _gqa_rows(gen, cuda, dtype, B, S, h, extra, sentinel)
+        for S, h in ((Sq, H), (Sq, H), (Sk, KV), (Sk, KV)))
+    lse = torch.empty(B, H, Sq, device=cuda)
+    FA._launch("flash_attention_fwd", "rt_flash_attention_fwd", q,
+               FA._args(cfg, q, k, v=v, o=o, lse=lse), "fwd")
+    delta = FA.attention_delta(o, do)
+    FA._launch("flash_attention_bwd", "rt_flash_attention_bwd_dq", q,
+               FA._args(cfg, q, k, v=v, dout=do, dq=dq, lse=lse,
+                        delta=delta), "dq")
+    FA._launch("flash_attention_bwd", "rt_flash_attention_bwd_dkv", q,
+               FA._args(cfg, q, k, v=v, dout=do, dk=dk, dv=dv, lse=lse,
+                        delta=delta), "dkv")
+    torch.cuda.synchronize()
+    for buf, S in ((obuf, Sq), (qbuf, Sq), (kbuf, Sk), (vbuf, Sk)):
+        assert (buf[:, S:] == sentinel).all()
+    ro, rl = FA.flash_attention_fwd_ref(q, k, v, cfg)
+    want = (ro, rl, FA._bwd_dq_ref(q, k, v, do, lse, delta, cfg)) + \
+        FA._bwd_dkv_ref(q, k, v, do, lse, delta, cfg)
+    _full_check((o, lse, dq, dk, dv), want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 600])
+def test_moe_fwd_replays_in_a_cuda_graph(cuda, T):
+    """``nn.moe.moe_fwd`` captured in a CUDA graph (no host sync: the
+    routing, capacity and dispatch stay on the card) and replayed on new
+    tokens in the captured buffer: bit-equal to the eager layer on those
+    tokens. 8 tokens are phi3.5-moe's decode batch on 8 slots (capacity
+    1 an expert), 600 shrink the group to 8; bf16, d 512, 16 experts of
+    ff 256, top 2."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.nn import moe as M
+    from repro_torch.nn.init import init_params
+    cfg = MoEConfig(num_experts=16, top_k=2, capacity_factor=1.25)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    params = init_params(M.moe_spec(512, 256, cfg, "swiglu"), gen,
+                         torch.bfloat16)
+    x = torch.randn(1, T, 512, generator=gen, device=cuda).to(torch.bfloat16)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        M.moe_fwd(params, x, cfg, "swiglu")          # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, aux = M.moe_fwd(params, x, cfg, "swiglu")
+    for seed in (1, 2):
+        x.copy_(torch.randn(1, T, 512, generator=gen, device=cuda))
+        graph.replay()
+        want, want_aux = M.moe_fwd(params, x, cfg, "swiglu")
+        torch.cuda.synchronize()
+        assert torch.equal(out, want) and torch.equal(aux, want_aux)
+        assert torch.isfinite(out).all()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd", FA.HEAD_DIMS[torch.float32])
 @pytest.mark.parametrize("G", [1, 4])
@@ -1712,7 +1842,11 @@ def test_flash_attention_autograd_copies_an_unaligned_do(cuda):
     pytest.param("db", "h2o-danube-3-4b", id="h2o-db"),
     pytest.param("e2e", "h2o-danube-3-4b", id="h2o-e2e"),
     pytest.param("db", "whisper-small", id="whisper-db"),
-    pytest.param("e2e", "whisper-small", id="whisper-e2e")])
+    pytest.param("e2e", "whisper-small", id="whisper-e2e"),
+    pytest.param("db", "llama-3.2-vision-11b", id="vlm-db"),
+    pytest.param("e2e", "llama-3.2-vision-11b", id="vlm-e2e"),
+    pytest.param("db", "phi3.5-moe-42b-a6.6b", id="moe-db"),
+    pytest.param("e2e", "phi3.5-moe-42b-a6.6b", id="moe-e2e")])
 def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
     """One fp32 training step through the kernels and through the plain
     versions from the same params and draws: loss, grad norm and the
@@ -1722,18 +1856,30 @@ def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
     96 tokens pass. whisper-small with 150 audio frames: per decoder layer
     a self and a cross call (the concat stream's 192 queries over 150
     keys), per encoder layer one ``full`` call over the frames; the
-    encoder's moments agree as well."""
+    encoder's moments agree as well. llama-3.2-vision-11b at 4 layers (2
+    superblocks of a self and a cross layer, 8 query heads on 2 KV heads)
+    over 130 image tokens, the cross gates opened: one call per layer, the
+    cross layer's a ``full`` call over the images, its moments agree too.
+    phi3.5-moe-42b-a6.6b at 4 layers of 4 experts: the aux loss in both
+    losses."""
     h2o, audio = arch == "h2o-danube-3-4b", arch == "whisper-small"
+    vlm = arch == "llama-3.2-vision-11b"
     cfg = reduced(get_config(arch), n_layers=4, d_model=960 if h2o else 512,
                   n_heads=8)
     assert cfg.head_dim == (120 if h2o else 64)
     if audio:
         cfg = dataclasses.replace(cfg, n_audio_frames=150)
+    if vlm:
+        cfg = dataclasses.replace(cfg, n_layers=4, n_image_tokens=130)
     dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
     gen = torch.Generator(device=cuda).manual_seed(0)
     master = dbm.init(gen)
-    for k in ("w", "b"):
-        master["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    for lay in ([master["units"]["self"], master["units"]["cross"]] if vlm
+                else [master["layers"]]):
+        for k in ("w", "b"):
+            lay["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    if vlm:
+        master["units"]["cross"]["xgate"].fill_(1.0)
     tokens = torch.randint(0, cfg.vocab_size, (2, 96), generator=gen,
                            device=cuda)
     sigma = torch.rand(2, 1, 1, generator=gen, device=cuda) + 0.1
@@ -1741,6 +1887,10 @@ def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
     kw = {"aux_inputs": {"audio_embs": torch.randn(
         2, cfg.n_audio_frames, cfg.d_model, generator=gen,
         device=cuda)}} if audio else {}
+    if vlm:
+        kw = {"aux_inputs": {"image_embs": torch.randn(
+            2, cfg.n_image_tokens, cfg.d_model, generator=gen,
+            device=cuda)}}
     tcfg = TrainConfig(steps=10, warmup_steps=2, lr=1e-3)
     res = {}
     for impl in ("ref", "kernels"):
@@ -1750,7 +1900,7 @@ def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
             K.reset_launch_counts()
             params, opt, loss, m = step(params, init(params), tokens,
                                         sigma=sigma, eps=eps, **kw)
-            n_layers = dbm.ranges[1][1]
+            n_layers = dbm.ranges[1][1] * (cfg.cross_attn_every or 1)
         else:
             init, step = T.make_e2e_train_step(dbm, tcfg, impl=impl)
             K.reset_launch_counts()
@@ -1764,7 +1914,11 @@ def test_train_step_through_kernels_matches_plain_versions(cuda, mode, arch):
             == {k: expect for k in ("flash_attention_fwd",
                                     "flash_attention_bwd_dq",
                                     "flash_attention_bwd_dkv")}
-        mus = [opt.mu["layers"]["attn"]]
+        if vlm:
+            mus = [tree_map(lambda _, x: x[:, 0], opt.mu["units"]["self"][
+                "attn"]), opt.mu["units"]["cross"]["attn"]]
+        else:
+            mus = [opt.mu["layers"]["attn"]]
         if audio:
             mus += [opt.mu["layers"]["xattn"], opt.mu["encoder"]["attn"]]
         res[impl] = (loss, m["grad_norm"], mus)

@@ -86,8 +86,8 @@ def test_build_model_builds_the_dense_decoder_and_refuses_the_rest():
     assert isinstance(model, DecoderModel) and model.n_units == 4
     assert "cond" in model.spec and "adaln" in model.spec["layers"]
     assert "cond" not in build_model(cfg).spec
-    with pytest.raises(NotImplementedError, match="family 'moe'"):
-        build_model(dataclasses.replace(cfg, family="moe"), db)
+    with pytest.raises(NotImplementedError, match="family 'ssm'"):
+        build_model(dataclasses.replace(cfg, family="ssm"), db)
 
 
 # ---------------------------------------------------------------------------

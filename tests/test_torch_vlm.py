@@ -210,21 +210,32 @@ def test_conditioning_fingerprint_matches_jax():
 
 
 def test_families_still_refused_and_training_raises(tiny):
-    """MoE and xLSTM still raise (the hybrid is built since its serving
-    port, the audio family since its own: ``tests/test_torch_hybrid.py``,
-    ``tests/test_torch_audio.py``); the VLM serves only (its training mode
-    raises naming ROADMAP A6.6). ``attention_fwd(kv_x=...)``, the attention
-    its cross layers will train through, matches JAX's on the VLM's cross
-    weights: 4 text tokens over 6 image tokens, unmasked, no rope; the
-    output and the gradients of x and the memory within 1e-5."""
-    for arch in ("phi3.5-moe-42b-a6.6b", "xlstm-125m"):
-        cfg = TC.reduced(TC.get_config(arch))
-        with pytest.raises(NotImplementedError, match="dense decoder"):
-            TDBM(cfg, TC.DBConfig(num_blocks=1))
+    """xLSTM still raises, naming ROADMAP A6.3; the MoE builds (the hybrid
+    since its serving port, the audio family since its own:
+    ``tests/test_torch_hybrid.py``, ``tests/test_torch_audio.py``,
+    ``tests/test_torch_moe.py``). The VLM's train mode runs: a unit over 4
+    text tokens attends the images in ``ctx.kv_x`` (and raises without
+    them; ``tests/test_torch_vlm_train.py`` holds its training to JAX's).
+    ``attention_fwd(kv_x=...)``, the attention its cross layers train
+    through, matches JAX's on the VLM's cross weights: 4 text tokens over 6
+    image tokens, unmasked, no rope; the output and the gradients of x and
+    the memory within 1e-5."""
+    with pytest.raises(NotImplementedError, match="A6.3"):
+        TDBM(TC.reduced(TC.get_config("xlstm-125m")),
+             TC.DBConfig(num_blocks=1))
+    moe = TDBM(TC.reduced(TC.get_config("phi3.5-moe-42b-a6.6b")),
+               TC.DBConfig(num_blocks=1))
+    assert moe.model.is_moe and "moe" in moe.model.spec["layers"]
     jdbm, jparams, tdbm, tparams = tiny
     ctx = tdbm.make_ctx(tparams, 4, "train")
-    with pytest.raises(NotImplementedError, match="A6.6"):
+    with pytest.raises(ValueError, match="no conditioning memory"):
         tdbm.model.apply_units(tparams, torch.zeros(1, 4, 32), 0, 1, ctx)
+    ctx = tdbm.make_ctx(tparams, 4, "train", aux_inputs={
+        "image_embs": torch.ones(1, 6, 32)})
+    h, cache = tdbm.model.apply_units(tparams, torch.ones(1, 4, 32), 0, 1,
+                                      ctx)
+    assert h.shape == (1, 4, 32) and cache is None
+    assert torch.isfinite(h).all()
     rs = np.random.RandomState(8)
     x = rs.randn(2, 4, 32).astype(np.float32)
     mem = rs.randn(2, 6, 32).astype(np.float32)
