@@ -75,6 +75,8 @@ Phases, each fatal on failure:
      stream) and 512 queries over 1601 image tokens (the last key tile
      one key long), in both dtypes, beside SDPA, and the gate-residual
      forward and backward at the two-pass stream's (4, 512, 4096) bf16;
+     and xlstm-125m's (u): the gate-residual forward at its probes' (8, 1,
+     768) fp32;
   4. serve: stablelm-1.6b at full width (24 layers, d=2048), DEFAULT_DB
      (4 blocks), random weights from seed 0 with the AdaLN heads randomised,
      bf16 policy, greedy, 8 requests with prompts padded to 512 (ragged
@@ -410,6 +412,26 @@ Phases, each fatal on failure:
      one DB forward a block; then 1 layer, fp32: concat and two_pass
      through the kernels against ``impl="ref"`` within 1e-3 (the router's
      and the experts' moments among them); memory back within 1 GiB.
+ 22. xlstm-125m, after phase 21 and under its memory check: full width
+     and depth (12 layers: 6 units of one sLSTM and one mLSTM block, d
+     768, 4 heads; 0.1915 B params served as their fp32 masters; 14.23 MB
+     of fp32 state a slot, no pages) in 3 blocks, random weights from seed
+     0 with the AdaLN heads randomised, bf16 policy (the family computes
+     and keeps its state in fp32). The static engine over 8 requests
+     (prompts to 512, chunk 64, 32 new; its device busy share over 4 more
+     decode steps); phase 5b's queue through the graphed batcher with draws
+     keyed by prompt and position (every request complete, no page leaked,
+     the chunk step a chain of per-token steps in one graph), the first 8
+     prompts again in recycled slots with one spilled mid-decode through
+     the wire bytes and restored, then 4 of them at once over HTTP/SSE
+     through ``InferenceServer`` on the same batcher: all with the first
+     run's tokens; a one-slot check (the same second request after two
+     other first occupants, the same tokens); the prefix cache and a
+     ``SharedPagePool`` refusing the family; 8 prompts at full depth, fp32,
+     through the kernels and ``impl="ref"``: tokens identical, logits
+     within 1e-3; launches equal to the path's arithmetic (a gate-residual
+     a block in the probes, none in the commit or the chunk); memory back
+     within 1 GiB.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -546,8 +568,15 @@ VLM_TRAIN_LAYERS, VLM_TRAIN_BATCH = 5, 4
 MOE_ARCH, MOE_SERVE_LAYERS, MOE_CHECK_SERVE_LAYERS = (
     "phi3.5-moe-42b-a6.6b", 6, 2)
 MOE_TRAIN_LAYERS, MOE_CHECK_LAYERS = 2, 1
-# the memory phases 20 and 21 may find allocated at their start
+# the memory phases 20 to 22 may find allocated at their start
 PHASE_MEM_START = 2**30
+# xlstm-125m (22): the arch and its blocks (6 units in 3 of 2, as JAX's
+# default DBConfig cuts it); the slot-reuse check's prompts (one chunk
+# each) and new tokens, the requests sent over HTTP at once, and the fp32
+# check's prompts and new tokens
+XL_ARCH, XL_BLOCKS = "xlstm-125m", 3
+XL_REUSE_LEN, XL_REUSE_NEW, XL_HTTP_REQUESTS = 16, 8, 4
+XL_CHECK_PROMPT, XL_CHECK_NEW = 64, 8
 
 
 class SmokeError(RuntimeError):
@@ -1516,6 +1545,11 @@ def phase_kernels(dev) -> dict:
     rows["gate_residual"].append(gate_case(
         "(z) gate_residual (8,1,3584) fp32, fp32 gate slice (hybrid probe)",
         (8, 1, 3584), f32, f32, dev, gen))
+    # (u) the xLSTM probe's gates (phase 22: d 768, a (B, 3d) AdaLN head;
+    # the strided slice is of the same width)
+    rows["gate_residual"].append(gate_case(
+        "(u) gate_residual (8,1,768) fp32, fp32 gate slice (xLSTM probe)",
+        (8, 1, 768), f32, f32, dev, gen))
     # (x) the two-pass noisy stream's gates at d 4096 (phases 20 and 21:
     # 4 x 512 bf16 rows, the gates fp32 slices of the AdaLN heads)
     rows["gate_residual"].append(gate_case(
@@ -2150,8 +2184,11 @@ def paged_layers(dbm) -> tuple:
     ``cross_attend``) and two gates for each of its layers; the hybrid's
     shared-block applications (one a unit) and a gate for each Mamba layer
     and two for each application; the encoder-decoder's decoder layers and
-    no gate kernel (it gates in plain ops, as JAX's does)."""
+    no gate kernel (it gates in plain ops, as JAX's does); the xLSTM's none
+    and a gate for each of its blocks (one sLSTM and one mLSTM a unit)."""
     m = dbm.model
+    if dbm.cfg.family == "ssm":                       # the xLSTM: no pages
+        return 0, dbm.cfg.n_layers
     if hasattr(m, "inner"):                           # the hybrid
         return m.n_units, m.n_units * (m.inner + 2)
     if dbm.cfg.n_encoder_layers:                      # the encoder-decoder
@@ -6792,6 +6829,429 @@ def phase_moe(dev) -> dict:
             "drop_share": drop, "crosscheck": cross, "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# 22. xlstm-125m served at full width and depth
+# ---------------------------------------------------------------------------
+
+def xl_model(dev):
+    """xlstm-125m at full width and depth (12 layers: 6 units of one sLSTM
+    and one mLSTM block, d 768, 4 heads) in XL_BLOCKS blocks, random fp32
+    weights from seed 0, the AdaLN heads randomised. Returns (dbm, params,
+    gen)."""
+    from repro_torch.configs import DEFAULT_DB, get_config
+    from repro_torch.core.blocks import DiffusionBlocksModel
+    dbm = DiffusionBlocksModel(get_config(XL_ARCH), dataclasses.replace(
+        DEFAULT_DB, num_blocks=XL_BLOCKS))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = dbm.init(gen)
+    for kind in ("slstm", "mlstm"):
+        for k in ("w", "b"):
+            params["units"][kind]["adaln"][k].normal_(0.0, 0.02,
+                                                      generator=gen)
+    return dbm, params, gen
+
+
+def xl_state_bytes(dbm) -> int:
+    """Bytes of one slot's state (every unit's sLSTM and mLSTM leaves),
+    from a meta cache: nothing allocated."""
+    from repro_torch.nn import cache as KVC
+    kv = dbm.model.init_paged_cache(1, 1, PSZ, device="meta")
+    return sum(t.numel() * t.element_size() for t in KVC.cache_tensors(kv))
+
+
+def xl_bounds(dbm, params) -> dict:
+    """Least device time of a decode step and of a prefill chunk over BATCH
+    slots from their shapes (larger of bytes over 3.35 TB/s and flops over
+    the fp32 peak: the family computes in fp32). A step: the probes (every
+    unit once across the blocks) read the units' fp32 weights with their
+    AdaLN heads, the commit reads them again without, the head once and
+    the σ-MLP once a block; the state rows are read by the probes and read
+    and written by the commit. A chunk: the commit's weights once, CHUNK
+    tokens a slot computed, the rows read and written."""
+    units = params["units"]
+    w_units = sum(t.numel() for _, t in _leaves(units))
+    w_adaln = sum(t.numel() for k in units
+                  for _, t in _leaves(units[k]["adaln"]))
+    head = params["head"]["w"].numel()
+    cond = sum(t.numel() for _, t in _leaves(params["cond"]))
+    probe_w, commit_w = 4 * w_units, 4 * (w_units - w_adaln)
+    rows = BATCH * xl_state_bytes(dbm)
+    small = 4 * head + dbm.num_blocks * 4 * cond
+    dec = bound(probe_w + commit_w + small + 3 * rows,
+                2 * BATCH * (probe_w + commit_w + 4 * head) / 4, PEAK_FP32)
+    pre = bound(commit_w + 2 * rows, 2 * (commit_w / 4) * BATCH * CHUNK,
+                PEAK_FP32)
+    return {"chunk_ms": pre[0], "chunk_by": pre[1],
+            "decode_step_ms": dec[0], "decode_step_by": dec[1],
+            "decode_bytes": {"probe weights": probe_w,
+                             "commit weights": commit_w,
+                             "state rows": 3 * rows,
+                             "head and sigma-MLP": small}}
+
+
+def xl_finite(tag: str, kv) -> None:
+    from repro_torch.nn import cache as KVC
+    for t in KVC.cache_tensors(kv):
+        if not torch.isfinite(t).all():
+            raise SmokeError(f"{tag}: non-finite state after serving")
+
+
+def xl_static(dev, model) -> dict:
+    """The static engine, bf16 policy (the family computes and keeps its
+    state in fp32 under it), greedy: BATCH requests with prompts padded to
+    PROMPT (ragged), chunk CHUNK, MAX_NEW new tokens, after a one-chunk
+    warm-up; launches equal to the path's arithmetic (a gate-residual a
+    block in the probes, none in the commit or the chunk), tokens in the
+    vocabulary, the state finite; then 4 more decode steps under the
+    profiler, for the device's busy share."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    from repro_torch.nn import cache as KVC
+    dbm, params, gen = model
+    cfg = dbm.cfg
+    _, G = paged_layers(dbm)
+    prompts, plens = prompts_np(cfg.vocab_size)
+    eng = get_engine(dbm, precision="bf16", chunk_size=CHUNK)
+    eng.generate(params, prompts[:, :CHUNK], 2, generator=gen)
+    eng.last_kv = None
+    z, _ = eng.draw(MAX_NEW, BATCH, gen, dev)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(params, prompts, MAX_NEW, prompt_lengths=plens, z0=z)
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    tim = eng.last_timing
+    n_chunks = -(-PROMPT // CHUNK)
+    check_counts("xlstm static", counts,
+                 expected_counts(gate_residual=MAX_NEW * G))
+    kv = eng.last_kv
+    eng.last_kv = None
+    xl_finite("xlstm static", kv)
+    got = _generated(out, plens)
+    if not ((got >= 0) & (got < cfg.vocab_size)).all():
+        raise SmokeError("xlstm static: token outside the vocabulary")
+    # 4 more decode steps on the run's state, for the busy share
+    lens = torch.as_tensor(plens + MAX_NEW, dtype=torch.int32, device=dev)
+    table = KVC.identity_page_table(BATCH, 1, device=dev)
+    K.reset_launch_counts()
+    pwall, busy, top = device_busy(lambda: eng.decode(
+        params, kv, table, lens, lens + 4, 4, generator=gen), top=8)
+    more = K.launch_counts()
+    check_counts("xlstm static, profiled", more,
+                 expected_counts(gate_residual=4 * G))
+    add_counts(counts, more)
+    del kv
+    decode_ms = (tim["total_ms"] - tim["prefill_ms"]) / MAX_NEW
+    lb = xl_bounds(dbm, params)
+    say(f"[xlstm] static: bf16 policy (fp32 compute and state), greedy, "
+        f"{BATCH} requests, prompts padded to {PROMPT} (lengths "
+        f"{plens.tolist()}), chunk {CHUNK}, {MAX_NEW} new tokens")
+    say(f"[xlstm] static: wall {wall:.3f} s | {BATCH * MAX_NEW / wall:.1f} "
+        f"tok/s | ttft {tim['ttft_ms']:.1f} ms (prefill "
+        f"{tim['prefill_ms']:.1f} ms: {tim['prefill_ms'] / n_chunks:.1f} ms "
+        f"a chunk, eager) | decode {decode_ms:.2f} ms/step | bound from the "
+        f"shapes: chunk {lb['chunk_ms']:.3f} ms ({lb['chunk_by']}), decode "
+        f"{lb['decode_step_ms']:.3f} ms/step ({lb['decode_step_by']}; "
+        + ", ".join(f"{k} {v / 1e9:.3f} GB"
+                    for k, v in lb["decode_bytes"].items()) + ")")
+    say(f"[xlstm] static: 4 decode steps under the profiler: device busy "
+        f"{busy:.1f} ms of {pwall:.1f} ms ({100 * busy / pwall:.1f}%)")
+    for ms, count, key in top:
+        say(f"[xlstm]   {ms:8.2f} ms  x{count:<6d} {key[:90]}")
+    return {"counts": counts, "wall_s": wall, "ttft_ms": tim["ttft_ms"],
+            "chunk_ms": tim["prefill_ms"] / n_chunks,
+            "decode_ms_per_step": decode_ms, "busy": busy / pwall,
+            "bounds": lb}
+
+
+def xl_continuous(dev, model) -> tuple:
+    """The graphed batcher on phase 5b's queue (CB_REQUESTS prompts of
+    CB_MIN-CB_MAX tokens on CB_SLOTS slots, CB_NEW new each, draws keyed by
+    prompt and position, ``hyb_z``, so a request's tokens do not depend on
+    its slot or schedule; no prefix cache: refused for the family); then
+    on the same batcher the first CB_SLOTS prompts again, each in a slot
+    that other requests held before, one of them spilled mid-decode
+    through the wire bytes and restored: all must finish with the first
+    run's tokens. Returns (stats, the first run's tokens, launch
+    ledger)."""
+    from repro_torch import kernels as K
+    from repro_torch.nn import cache as KVC
+    dbm = model[0]
+    prompts, _ = cb_queue(dbm.cfg.vocab_size)
+    K.reset_launch_counts()
+    cb = cb_batcher(dev, model, prefix_cache=False)
+    cb.draw_segment = hyb_keyed_draws(cb)
+    t0 = time.perf_counter()
+    cb.capture()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    events = cb_timed(cb)
+    for p in prompts:
+        cb.submit(p, CB_NEW)
+    reqs = list(cb.queue)
+    t0 = time.perf_counter()
+    cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [r.rid for r in reqs if len(r.out) != CB_NEW or r.error]
+    if bad or cb.page_refs or len(cb.free_pages) != cb.total_pages - 1:
+        raise SmokeError(f"xlstm continuous: short or failed {bad}, pages "
+                         f"{len(cb.free_pages)} free of {cb.total_pages - 1}")
+    first = [list(r.out) for r in reqs]
+    seg_ms = [s.elapsed_time(e) for s, e in events["segment"]]
+    chunk_ms = [s.elapsed_time(e) for s, e in events["chunk"]]
+    in_dispatch = (sum(seg_ms) + sum(chunk_ms)) / (wall * 1e3)
+    ttft = sorted(r.ttft for r in reqs)
+    n_tok = sum(len(r.out) for r in reqs)
+    state_mb = KVC.cache_bytes(cb.kv) / 1e6
+    say(f"[xlstm] continuous: {CB_REQUESTS} requests of {CB_MIN}-{CB_MAX} "
+        f"tokens on {CB_SLOTS} slots (phase 5b's queue), bf16 policy, "
+        f"greedy, chunk {CHUNK} (a chain of per-token steps), seg_len "
+        f"{CB_SEG}, {CB_NEW} new tokens each, no prefix cache; both "
+        f"dispatches replayed from graphs captured in {capture_s:.2f} s "
+        f"(warm-ups {cb.graph_warmups}); state {state_mb:.1f} MB fp32, no "
+        "pages")
+    say(f"[xlstm] continuous: wall {wall:.3f} s | {n_tok / wall:.1f} tok/s "
+        f"| TTFT median {statistics.median(ttft) * 1e3:.1f} ms, max "
+        f"{ttft[-1] * 1e3:.1f} ms | decode {sum(seg_ms) / cb.steps:.3f} ms "
+        f"per segment step ({len(seg_ms)} segments) | chunk dispatch "
+        f"{statistics.median(chunk_ms):.2f} ms median ({len(chunk_ms)}) | "
+        f"inside a dispatch {100 * in_dispatch:.1f}% of the wall (CUDA "
+        f"events) | nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    stats = {"wall_s": wall, "tok_s": n_tok / wall,
+             "ttft_median_s": statistics.median(ttft),
+             "segment_step_ms": sum(seg_ms) / max(1, cb.steps),
+             "chunk_ms_median": statistics.median(chunk_ms),
+             "in_dispatch": in_dispatch, "capture_s": capture_s}
+    del events, cb._decode_segment, cb._chunk     # cb_timed's wrappers
+
+    # the first slots' prompts again, in recycled slots, one spilled
+    for p in prompts[:CB_SLOTS]:
+        cb.submit(p, CB_NEW)
+    again = list(cb.queue)
+    d0 = cb.decode_dispatches
+    while cb.decode_dispatches < d0 + 2:
+        cb.step()
+    s = next((s for s in range(cb.num_slots) if cb.active[s]
+              and cb.lengths[s] >= cb.plens[s]), None)
+    if s is None:
+        raise SmokeError("xlstm continuous: no slot decoding to preempt")
+    with cb._pool_lock:
+        req = cb._preempt_slot(s)
+    raw = req.spilled.to_bytes()
+    req.spilled = KVC.SpilledSlot.from_bytes(raw)
+    n_leaves = len(req.spilled.data)
+    cb.run()
+    torch.cuda.synchronize()
+    resumed = [list(r.out) for r in again]
+    say(f"[xlstm] continuous: the first {CB_SLOTS} prompts again, each in "
+        f"a slot other requests held before, request {req.rid} spilled "
+        f"from slot {s} mid-decode ({len(raw) / 1e6:.1f} MB of wire bytes: "
+        f"its state rows, {n_leaves} leaves) and restored: "
+        f"tokens {'equal to' if resumed == first[:CB_SLOTS] else 'DIFFER FROM'}"
+        f" the first run's (preemptions {cb.preemptions}, restores "
+        f"{cb.restores})")
+    if resumed != first[:CB_SLOTS] or cb.restores != 1:
+        raise SmokeError("xlstm continuous: the recycled or restored runs' "
+                         "tokens differ from the first run's")
+    stats["http_start_s"], stats["http_wall_s"] = xl_http(cb, prompts,
+                                                          first)
+    ledger = [srv_ledger(cb)]
+    check_counts("xlstm continuous", K.launch_counts(), srv_counts(ledger))
+    return stats, ledger
+
+
+def xl_slot_reuse(dev, model) -> tuple:
+    """One slot, eager, chunks of XL_REUSE_LEN (one a prompt): [p1, p2] and
+    [p1', p2] (p1' another prompt of p1's length), keyed draws; p2 must
+    give the same tokens after either first occupant, and p1 and p1' other
+    tokens. Returns (the launch ledger, p2's tokens)."""
+    from repro_torch.launch.serve import ContinuousBatcher
+    dbm, params, _ = model
+    prompts = hyb_prompts(dbm.cfg.vocab_size, 3, XL_REUSE_LEN,
+                          XL_REUSE_LEN, 3)
+    outs, ledger = [], []
+    for first in prompts[:2]:
+        cb = ContinuousBatcher(
+            dbm, params, num_slots=1, page_size=PSZ, max_prompt=XL_REUSE_LEN,
+            max_len=XL_REUSE_LEN + XL_REUSE_NEW, seg_len=XL_REUSE_NEW,
+            chunk_size=XL_REUSE_LEN, precision="bf16", graphs=False)
+        cb.draw_segment = hyb_keyed_draws(cb)
+        cb.submit(first, XL_REUSE_NEW)
+        cb.submit(prompts[2], XL_REUSE_NEW)
+        outs.append([list(r.out) for r in cb.run()])
+        ledger.append(srv_ledger(cb))
+        del cb
+    same = outs[0][1] == outs[1][1]
+    say(f"[xlstm] slot reuse: one slot, two first occupants of "
+        f"{XL_REUSE_LEN} tokens, then the same second request: its "
+        f"{XL_REUSE_NEW} tokens {'identical' if same else 'DIFFER'} (the "
+        f"first occupants' {'differ' if outs[0][0] != outs[1][0] else 'ARE EQUAL'})")
+    if not same or outs[0][0] == outs[1][0]:
+        raise SmokeError("xlstm slot reuse: the first occupant leaked into "
+                         "the second request")
+    return ledger, outs[0][1]
+
+
+def xl_http(cb, prompts, want) -> tuple:
+    """The server over the graphed batcher ``cb`` (its graphs captured,
+    keyed draws): the first XL_HTTP_REQUESTS prompts of the queue at once
+    over HTTP/SSE; each must stream the tokens ``want`` holds (the
+    batcher's first run). Returns (start s, wall s)."""
+    import asyncio
+    from repro_torch.launch.server import InferenceServer, stream_generate
+    server = InferenceServer(cb)
+
+    async def run():
+        t0 = time.perf_counter()
+        await server.start()
+        start_s = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(
+                stream_generate(SRV_HOST, server.port, p, CB_NEW)
+                for p in prompts[:XL_HTTP_REQUESTS]))
+            return res, start_s, time.perf_counter() - t0
+        finally:
+            await server.aclose()
+    results, start_s, wall = asyncio.run(run())
+    srv_runner("xlstm", server.runner, 0)
+    srv_complete("xlstm http", [dict(r, max_new=CB_NEW) for r in results])
+    ok = [r["ids"] for r in results] == want[:XL_HTTP_REQUESTS]
+    ttft = statistics.median(r["token_times"][0] - r["submit_t"]
+                             for r in results)
+    say(f"[xlstm] server over the same batcher: {XL_HTTP_REQUESTS} requests"
+        f" at once over HTTP/SSE (started in {start_s:.2f} s): wall "
+        f"{wall:.3f} s, {XL_HTTP_REQUESTS * CB_NEW / wall:.1f} tok/s, TTFT "
+        f"median {ttft * 1e3:.1f} ms (client clock) | tokens "
+        f"{'equal to' if ok else 'DIFFER FROM'} the batcher's first run")
+    if not ok:
+        raise SmokeError("xlstm server: streamed tokens differ from the "
+                         "batcher's")
+    return start_s, wall
+
+
+def xl_fp32_check(dev, model) -> dict:
+    """Full depth, fp32 policy: BATCH prompts of XL_CHECK_PROMPT tokens
+    through the static engine, through the kernels and through
+    ``impl="ref"`` under the same draws, XL_CHECK_NEW new tokens: every
+    step's logits within 1e-3 relative and the greedy tokens equal."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    dbm, params, gen = model
+    _, G = paged_layers(dbm)
+    prompts = prompts_np(dbm.cfg.vocab_size, 1)[0][:, :XL_CHECK_PROMPT]
+    z, _ = get_engine(dbm, precision="fp32", chunk_size=CHUNK).draw(
+        XL_CHECK_NEW, BATCH, gen, dev)
+    plain = dbm.model.logits
+    runs = {}
+    for impl in ("kernels", "ref"):
+        logits = []
+
+        def readout(p, h, logits=logits):
+            logits.append(plain(p, h))
+            return logits[-1]
+        dbm.model.logits = readout
+        K.reset_launch_counts()
+        try:
+            eng = get_engine(dbm, precision="fp32", impl=impl,
+                             chunk_size=CHUNK)
+            out = eng.generate(params, prompts, XL_CHECK_NEW, z0=z)
+            eng.last_kv = None
+        finally:
+            del dbm.model.logits
+        runs[impl] = (out, torch.stack([x[:, 0].float() for x in logits]),
+                      K.launch_counts())
+    counts = runs["kernels"][2]
+    check_counts("xlstm fp32", counts,
+                 expected_counts(gate_residual=XL_CHECK_NEW * G))
+    check_counts("xlstm fp32, plain", runs["ref"][2], expected_counts())
+    lk, lr = runs["kernels"][1], runs["ref"][1]
+    rel = ((lk - lr).abs().max() / lr.abs().max()).item()
+    equal = torch.equal(runs["kernels"][0], runs["ref"][0])
+    say(f"[xlstm] fp32 at full depth ({dbm.cfg.n_layers} layers), "
+        f"{BATCH} prompts of {XL_CHECK_PROMPT} tokens, {XL_CHECK_NEW} new, "
+        f"kernels vs plain versions: logits rel max|diff| {rel:.2e} (limit "
+        f"1e-3) | greedy tokens {'equal' if equal else 'DIFFER'}")
+    if not (rel <= 1e-3 and math.isfinite(rel)) or not equal:
+        raise SmokeError(f"xlstm fp32 cross-check: logits {rel:.2e}, tokens "
+                         f"equal {equal}")
+    dbm.__dict__.pop("_serve_engines", None)
+    return {"counts": counts, "logits_rel": rel}
+
+
+def xl_refusals(dev, model) -> None:
+    """The prefix cache and a ``SharedPagePool`` refuse the family (its
+    state is per slot, not paged), as JAX's do."""
+    from repro_torch import precision as precision_mod
+    from repro_torch.launch.serve import SharedPagePool
+    dbm = model[0]
+    said = []
+    for what, make in (
+            ("prefix cache", lambda: cb_batcher(dev, model)),
+            ("SharedPagePool", lambda: SharedPagePool(64).join(
+                dbm, precision_mod.get_policy("bf16"), PSZ, dev, CB_SLOTS))):
+        try:
+            make()
+        except ValueError as e:
+            said.append(f"{what}: {e}")
+            continue
+        raise SmokeError(f"xlstm: the {what} took the family")
+    say("[xlstm] refused, as in JAX: " + " | ".join(said))
+
+
+def phase_xlstm(dev) -> dict:
+    """Phase 22: xlstm-125m at full width and depth (see the module
+    docstring), after phase 21 under its memory check: the static engine,
+    the graphed batcher (recycled slots, a spill and restore), a one-slot
+    reuse check, the server over HTTP, the refusals, fp32 greedy tokens
+    through the kernels against ``impl="ref"``; memory back within 1 GiB
+    of the phase's start."""
+    t_phase = time.perf_counter()
+    base = phase_start("xlstm")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = xl_model(dev)
+    dbm, params, _ = model
+    torch.cuda.synchronize()
+    cfg, m = dbm.cfg, dbm.model
+    n_params = sum(t.numel() for _, t in _leaves(params))
+    d_in = int(cfg.xlstm.proj_factor * cfg.d_model)
+    slot = xl_state_bytes(dbm)
+    say(f"[xlstm] {cfg.name}: {cfg.n_layers} layers in {m.n_units} units of "
+        f"one sLSTM and one mLSTM block; d={cfg.d_model} heads="
+        f"{cfg.n_heads} (mLSTM d_in {d_in}, head dim {d_in // cfg.n_heads};"
+        f" sLSTM head dim {cfg.d_model // cfg.n_heads}) vocab="
+        f"{cfg.vocab_size}; {dbm.num_blocks} blocks {dbm.ranges}; "
+        f"{n_params / 1e9:.4f} B params fp32 (reckoned 0.1915 B; 0.766 GB "
+        f"served as they are) made in {time.perf_counter() - t0:.1f} s; "
+        f"state {slot / 1e6:.2f} MB a slot (reckoned 14.2)")
+    counts = {}
+    static = xl_static(dev, model)
+    add_counts(counts, static["counts"])
+    cont, ledger = xl_continuous(dev, model)
+    torch.cuda.empty_cache()
+    reuse, _ = xl_slot_reuse(dev, model)
+    add_counts(counts, srv_counts(ledger + reuse))
+    xl_refusals(dev, model)
+    fp32 = xl_fp32_check(dev, model)
+    add_counts(counts, fp32["counts"])
+    peak = torch.cuda.max_memory_allocated()
+    say(f"[xlstm] peak memory {peak / 2**30:.3f} GiB (reckoned under 3 "
+        f"GiB: {4 * n_params / 2**30:.3f} GiB of masters, "
+        f"{CB_SLOTS * slot / 2**30:.3f} GiB of state a batcher, the graphs' "
+        f"pools) of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f}")
+    del model, dbm, params, m
+    phase_end("xlstm", base)
+    took = time.perf_counter() - t_phase
+    say(f"[xlstm] phase 22 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "static": static, "continuous": cont,
+            "peak": peak, "fp32_rel": fp32["logits_rel"], "seconds": took}
+
+
 OFF_PATH = {"euler_bwd"}
 
 
@@ -6878,6 +7338,8 @@ def main() -> int:
     lap("20")
     moe = phase_moe(dev)
     lap("21")
+    xlstm = phase_xlstm(dev)
+    lap("22")
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
@@ -6886,7 +7348,8 @@ def main() -> int:
                    block_parallel["launches"], runner["launches"],
                    vlm["counts"], hybrid["counts"],
                    hybrid_train["counts"], h2o["counts"],
-                   whisper["counts"], vlm_train["counts"], moe["counts"]):
+                   whisper["counts"], vlm_train["counts"], moe["counts"],
+                   xlstm["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

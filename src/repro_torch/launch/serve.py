@@ -38,6 +38,8 @@ Run (defaults: the reduced stablelm-1.6b on the card, bf16 policy):
         --blocks 1 --conditioned --scheduler continuous  # audio-conditioned
     python -m repro_torch.launch.serve --arch zamba2-7b --full \
         --scheduler continuous           # the hybrid (no --prefix-cache)
+    python -m repro_torch.launch.serve --arch xlstm-125m --full \
+        --scheduler continuous           # the xLSTM (no --prefix-cache)
 """
 from __future__ import annotations
 
@@ -817,10 +819,12 @@ class ContinuousBatcher:
 
     def kv_stats(self) -> dict:
         """The pool's storage dtype and bytes, in total and by dtype (an
-        int8 pool reports its fp32 scales)."""
-        pages = KVC.paged_leaves(self.kv)[0]
-        return {"kv_dtype": str(pages.k.dtype).replace("torch.", ""),
-                "kv_quantized": pages.quantized,
+        int8 pool reports its fp32 scales); a cache with no pages (the
+        xLSTM's) has no KV dtype."""
+        leaves = KVC.paged_leaves(self.kv)
+        return {"kv_dtype": (str(leaves[0].k.dtype).replace("torch.", "")
+                             if leaves else None),
+                "kv_quantized": bool(leaves and leaves[0].quantized),
                 "kv_bytes": KVC.cache_bytes(self.kv),
                 "kv_bytes_by_dtype": KVC.cache_bytes_by_dtype(self.kv)}
 

@@ -43,6 +43,7 @@ from repro_torch.core.training import train_db, train_e2e
 from repro_torch.data import HostDataLoader, MarkovLM, MarkovStream
 from repro_torch.launch.faults import make_injector
 from repro_torch.launch.trainrunner import TrainRunner
+from repro_torch.models.model_api import build_model
 from repro_torch.parallel import BlockParallelTrainer
 
 
@@ -106,7 +107,8 @@ def main(argv=None):
                          "(pass --device cpu to run its plain versions)")
     cfg = get_config(args.arch)
     cfg = cfg if args.full else reduced(cfg)
-    db = DBConfig(num_blocks=min(args.blocks, cfg.n_layers),
+    # at most one block a unit (an xLSTM unit is two layers), as JAX's CLI
+    db = DBConfig(num_blocks=min(args.blocks, build_model(cfg).n_units),
                   overlap_gamma=0.1)
     dbm = DiffusionBlocksModel(cfg, db)
     tcfg = TrainConfig(steps=args.steps, batch_size=args.batch,

@@ -11,11 +11,12 @@ call). ``tlayer_two_pass`` is the DB two-pass training layer: a clean
 stream under the causal mask and a σ-conditioned noisy stream that attends
 to the clean past and to itself.
 
-Recurrent layers (the hybrid's Mamba2) keep a per-slot state beside the
-pages: ``chunk_token_scan`` advances one over a chunk a token at a time
-(the plain version of the hybrid's chunk mode), ``masked_state_update``
-holds the inactive slots' state and ``write_state`` writes a new state
-into the cache's storage in place.
+Recurrent layers (the hybrid's Mamba2, the xLSTM's cells) keep a per-slot
+state beside the pages, or in place of them: ``chunk_token_scan`` advances
+one over a chunk a token at a time (the xLSTM's chunk mode, and the plain
+version of the hybrid's), ``masked_state_update`` holds the inactive
+slots' state and ``write_state`` writes a new state into the cache's
+storage in place.
 
 Cross layers (``tlayer_spec(cross=True)``: the VLM's tanh-gated image
 attention; the encoder-decoder's cross branch, ``models.encdec``) attend in
@@ -111,22 +112,28 @@ def masked_state_update(new_state, old_state, active):
     appends go to the trash page)."""
     if active is None or old_state is None:
         return new_state
-    return {k: (masked_state_update(n, old_state[k], active)
-                if isinstance(n, dict) else
-                torch.where(active.reshape((-1,) + (1,) * (n.ndim - 1)),
-                            n, old_state[k]))
-            for k, n in new_state.items()}
+    if isinstance(new_state, dict):
+        return {k: masked_state_update(n, old_state[k], active)
+                for k, n in new_state.items()}
+    if isinstance(new_state, tuple):
+        return tuple(masked_state_update(n, o, active)
+                     for n, o in zip(new_state, old_state))
+    return torch.where(active.reshape((-1,) + (1,) * (new_state.ndim - 1)),
+                       new_state, old_state)
 
 
 def write_state(dst, new) -> None:
-    """Copy a new per-slot state tree into ``dst``'s storage, in place: a
-    captured CUDA graph holds the state's addresses, as it holds the
-    pool's pages."""
-    for k, t in dst.items():
-        if isinstance(t, dict):
+    """Copy a new per-slot state tree (dicts and tuples of tensors) into
+    ``dst``'s storage, in place: a captured CUDA graph holds the state's
+    addresses, as it holds the pool's pages."""
+    if isinstance(dst, dict):
+        for k, t in dst.items():
             write_state(t, new[k])
-        else:
-            t.copy_(new[k])
+    elif isinstance(dst, tuple):
+        for t, n in zip(dst, new):
+            write_state(t, n)
+    else:
+        dst.copy_(new)
 
 
 def default_mask(cfg: ModelConfig, bidirectional: bool = False):

@@ -148,13 +148,15 @@ class BaseModel:
 def build_model(cfg: ModelConfig, db: Optional[DBConfig] = None) -> BaseModel:
     """The model of ``cfg.family`` (port of ``repro.models.build_model``):
     ``VLMModel`` for the vlm family, ``HybridModel`` for the hybrid
-    (zamba2), ``EncDecModel`` for the audio family (whisper), else
-    ``DecoderModel``: the dense and MoE families. It raises for the
-    ``ssm`` family (xLSTM, ROADMAP A6.3), which is not ported yet."""
-    from repro_torch.configs.base import AUDIO, HYBRID, VLM
+    (zamba2), ``EncDecModel`` for the audio family (whisper),
+    ``XLSTMModel`` for the ``ssm`` family (xLSTM: served; its training is
+    ROADMAP A6.3b), else ``DecoderModel``: the dense and MoE families,
+    which raises for any other."""
+    from repro_torch.configs.base import AUDIO, HYBRID, SSM, VLM
     from repro_torch.models import encdec as E         # import cycle
     from repro_torch.models import hybrid as H
+    from repro_torch.models import ssm_model as X
     from repro_torch.models import transformer as T
-    cls = {VLM: T.VLMModel, HYBRID: H.HybridModel,
-           AUDIO: E.EncDecModel}.get(cfg.family, T.DecoderModel)
+    cls = {VLM: T.VLMModel, HYBRID: H.HybridModel, AUDIO: E.EncDecModel,
+           SSM: X.XLSTMModel}.get(cfg.family, T.DecoderModel)
     return cls(cfg, db)

@@ -32,8 +32,9 @@ class DecoderModel(BaseModel):
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port has the dense decoder and "
                 "the MoE (DecoderModel), the VLM (VLMModel), the hybrid "
-                "(models.hybrid.HybridModel) and the encoder-decoder "
-                "(models.encdec.EncDecModel); xLSTM is ROADMAP A6.3")
+                "(models.hybrid.HybridModel), the encoder-decoder "
+                "(models.encdec.EncDecModel) and the xLSTM "
+                "(models.ssm_model.XLSTMModel)")
         super().__init__(cfg, db)
 
     @property

@@ -29,9 +29,11 @@ one self layer a unit and audio blocks of n_audio_frames, and the hybrid
 keeps
 ``{"mamba": {"h", "conv"} (units, inner, slots, ...), "shared_kv": PagedKV
 (units, P, psz, KV, hd)}``, its per-slot Mamba rows beside the shared
-block's pages. ``cache_unit``/``cache_units`` slice any such tree by
-units (every leaf leads with the unit axis); the dense leaves' slot axis
-is the family's ``paged_state_axes``.
+block's pages. The xLSTM's cache has no pages at all: ``{"mlstm": (C, n,
+m), "slstm": (h, c, n, m)}``, tuples as JAX's, every leaf (units, slots,
+...). ``cache_unit``/``cache_units`` slice any such tree by units (every
+leaf leads with the unit axis); the dense leaves' slot axis is the
+family's ``paged_state_axes``.
 """
 from __future__ import annotations
 
@@ -91,6 +93,8 @@ def _map_cache(cache, fn):
         return cache._map(fn)
     if torch.is_tensor(cache):
         return fn(cache)
+    if isinstance(cache, tuple):
+        return tuple(_map_cache(v, fn) for v in cache)
     return {k: _map_cache(v, fn) for k, v in cache.items()}
 
 
@@ -377,9 +381,13 @@ PAGE_AXIS = -4
 
 def _flatten(cache, path=()):
     """[(path, leaf)] of a model cache: PagedKV leaves and dense per-slot
-    tensors, dict keys in sorted order (JAX's flatten order)."""
+    tensors, dict keys in sorted order and tuples in order (JAX's flatten
+    order)."""
     if isinstance(cache, PagedKV) or torch.is_tensor(cache):
         return [(path, cache)]
+    if isinstance(cache, tuple):
+        return [item for i, c in enumerate(cache)
+                for item in _flatten(c, path + (i,))]
     return [item for k in sorted(cache) for item in
             _flatten(cache[k], path + (k,))]
 
@@ -421,6 +429,8 @@ def graft_paged(cache, leaves: list):
             return next(it)
         if torch.is_tensor(node):
             return node
+        if isinstance(node, tuple):
+            return tuple(walk(n) for n in node)
         return {k: walk(node[k]) for k in sorted(node)}
     return walk(cache)
 

@@ -2885,3 +2885,158 @@ def test_hybrid_step_through_kernels_matches_plain_versions(cuda, mode):
                 a, r = a[key], r[key]
             scale = r.abs().max().item()
             torch.testing.assert_close(a, r, atol=1e-3 * scale, rtol=1e-3)
+
+
+def _xlstm_model(cuda, n_layers=4):
+    """xlstm-125m at full width (d 768, 4 heads: mLSTM head dim 384, sLSTM
+    head dim 192) cut to ``n_layers`` (2 units by default) in 2 blocks;
+    the AdaLN heads randomised."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("xlstm-125m"), n_layers=n_layers)
+    dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=2, overlap_gamma=0.1))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = dbm.init(gen)
+    for kind in ("slstm", "mlstm"):
+        for k in ("w", "b"):
+            params["units"][kind]["adaln"][k].normal_(0.0, 0.02,
+                                                      generator=gen)
+    return dbm, params
+
+
+@pytest.mark.gpu
+def test_gate_residual_kernel_at_the_xlstm_probe_shape(cuda):
+    """Row 3 at the xLSTM probes' shape: (8, 1, 768) fp32, the gate a
+    column slice of the block's 3-mod AdaLN heads; bit-equal to the plain
+    version, one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    res, br = (torch.randn(8, 1, 768, generator=gen, device=cuda)
+               for _ in range(2))
+    heads = torch.randn(8, 3 * 768, generator=gen, device=cuda)
+    gate = heads[:, 2 * 768:]
+    n0 = K.launch_counts()["gate_residual"]
+    out = AD.gate_residual(res, br, gate)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["gate_residual"] == n0 + 1
+    torch.testing.assert_close(out, AD.gate_residual_ref(res, br, gate),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["slstm", "mlstm"])
+def test_xlstm_decode_steps_on_the_card_match_the_cpu(cuda, kind):
+    """The cells' decode steps at full width (plain torch on the card) over
+    8 tokens from the init state against the same steps on the CPU: every
+    output and state leaf within 2e-4 (TF32 off)."""
+    from repro_torch.nn import xlstm as X
+    dbm, params = _xlstm_model(cuda)
+    cfg = dbm.cfg
+    cell = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[0])
+            for k, v in params["units"][kind]["cell"].items()}
+    cpu = tree_map(lambda _, x: x.cpu(), cell)
+    H, d = cfg.n_heads, cfg.d_model
+    if kind == "mlstm":
+        init, step, width = X.mlstm_init_state, X.mlstm_decode_step, 2 * d
+    else:
+        init, step, width = X.slstm_init_state, X.slstm_decode_step, d
+    sg, sc = init(8, H, width, device=cuda), init(8, H, width, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    for _ in range(8):
+        x = torch.randn(8, 1, d, generator=gen)
+        yg, sg = step(cell, x.to(cuda), H, cfg.xlstm, sg)
+        yc, sc = step(cpu, x, H, cfg.xlstm, sc)
+        for a, b in zip((yg, *sg), (yc, *sc)):
+            torch.testing.assert_close(a.cpu(), b, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("commit", [False, True])
+def test_xlstm_unit_through_kernels_matches_plain_versions(cuda, commit):
+    """Both units at full width over 8 slots through ``impl="kernels"``
+    against ``impl="ref"`` from the same state: a σ-conditioned probe (one
+    gate-residual launch a block) or a commit with slot 3 inactive (no
+    kernel: the commit's gates are plain adds); h and every state leaf
+    within 2e-4, and the probe leaves the state bit-unchanged."""
+    from repro_torch.models.common import LayerCtx
+    from repro_torch.nn import cache as KVC
+    dbm, params = _xlstm_model(cuda)
+    m = dbm.model
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    kv0 = m.init_paged_cache(8, 1, 16, device=cuda)
+    for t in KVC.cache_tensors(kv0):
+        t.copy_(torch.randn(t.shape, generator=gen, device=cuda).abs() + 0.5)
+    h = torch.randn(8, 1, dbm.cfg.d_model, generator=gen, device=cuda)
+    active = torch.ones(8, dtype=torch.bool, device=cuda)
+    active[3] = False
+    out = {}
+    for impl in ("ref", "kernels"):
+        kv = {k: tuple(t.clone() for t in v) for k, v in kv0.items()}
+        ctx = LayerCtx(cfg=dbm.cfg, mode="decode", impl=impl, commit=commit,
+                       active=active if commit else None)
+        if not commit:
+            ctx.cond = m.cond(params, torch.full((8,), 0.5, device=cuda))
+        K.reset_launch_counts()
+        hh, _ = m.apply_units(params, h, 0, m.n_units, ctx, kv,
+                              [True, True] if commit else None)
+        torch.cuda.synchronize()
+        out[impl] = (hh, kv, K.launch_counts()["gate_residual"])
+    (hr, kr, nr), (hk, kk, nk) = out["ref"], out["kernels"]
+    assert nr == 0 and nk == (0 if commit else 2 * m.n_units)
+    torch.testing.assert_close(hk, hr, atol=TOL, rtol=TOL)
+    for a, b, c in zip(KVC.cache_tensors(kk), KVC.cache_tensors(kr),
+                       KVC.cache_tensors(kv0)):
+        torch.testing.assert_close(a, b, atol=TOL, rtol=TOL)
+        if not commit:
+            assert torch.equal(a, c)
+        else:
+            assert torch.equal(a[:, 3], c[:, 3])
+
+
+def _xlstm_run(dbm, params, cuda, graphs):
+    """Five ragged requests on 2 slots (recycled: each admission resets the
+    slot's state to the init values), the first preempted once mid-decode
+    (its state rows spilled and restored); the state's addresses checked
+    after every step. Returns (batcher, {rid: tokens}, counts)."""
+    from repro_torch.nn import cache as KVC
+    cb = S.ContinuousBatcher(
+        dbm, params, num_slots=2, page_size=16, max_prompt=80, max_len=112,
+        seg_len=4, chunk_size=16, precision="bf16", graphs=graphs,
+        generator=torch.Generator(device=cuda).manual_seed(3))
+    ptrs = KVC.pool_ptrs(cb.kv)
+    gen = torch.Generator().manual_seed(1)
+    for n in (70, 9, 33, 51, 12):
+        cb.submit(torch.randint(0, dbm.cfg.vocab_size, (n,), generator=gen)
+                  .numpy(), 24)
+    K.reset_launch_counts()
+    done, step = [], 0
+    while cb.has_work():
+        if step == 6 and cb.slot_req[0] is not None:
+            cb.preempt(cb.slot_req[0].rid)
+        done.extend(cb.step())
+        assert KVC.pool_ptrs(cb.kv) == ptrs
+        step += 1
+    torch.cuda.synchronize()
+    return cb, {r.rid: r.out for r in done}, K.launch_counts()
+
+
+@pytest.mark.gpu
+def test_xlstm_graph_segments_bit_equal_to_eager(cuda):
+    """The xLSTM (full width, 2 units) through the batcher's CUDA graphs
+    (its state the graphs' static buffers, written in place; the chunk
+    step a chain of per-token steps): tokens and state bit-equal to the
+    eager dispatches, a preemption restored, and the launches the path's
+    arithmetic (a gate-residual per block in the probes, per step; none in
+    the chunk or the commit)."""
+    from repro_torch.nn import cache as KVC
+    dbm, params = _xlstm_model(cuda)
+    (ce, de, ne), (cg, dg, ng) = (_xlstm_run(dbm, params, cuda, g)
+                                  for g in (False, True))
+    assert dg == de and all(len(t) == 24 for t in dg.values())
+    assert cg.preemptions == 1 and cg.restores == 1
+    for a, b in zip(KVC.cache_tensors(cg.kv), KVC.cache_tensors(ce.kv)):
+        assert torch.equal(a, b)
+    for cb, counts in ((ce, ne), (cg, ng)):
+        steps = cb.steps + cb.graph_warmups["segment"]
+        want = {"gate_residual": dbm.cfg.n_layers * steps}
+        assert counts == {**{k: 0 for k in counts}, **want}
+    assert cg.graph_warmups == {"chunk": 1, "segment": 1}

@@ -210,19 +210,22 @@ def test_conditioning_fingerprint_matches_jax():
 
 
 def test_families_still_refused_and_training_raises(tiny):
-    """xLSTM still raises, naming ROADMAP A6.3; the MoE builds (the hybrid
-    since its serving port, the audio family since its own:
+    """The xLSTM builds and its training raises, naming ROADMAP A6.3b; the
+    MoE builds (the hybrid since its serving port, the audio family since
+    its own, the xLSTM since its serving port:
     ``tests/test_torch_hybrid.py``, ``tests/test_torch_audio.py``,
-    ``tests/test_torch_moe.py``). The VLM's train mode runs: a unit over 4
+    ``tests/test_torch_moe.py``, ``tests/test_torch_xlstm.py``). The VLM's train mode runs: a unit over 4
     text tokens attends the images in ``ctx.kv_x`` (and raises without
     them; ``tests/test_torch_vlm_train.py`` holds its training to JAX's).
     ``attention_fwd(kv_x=...)``, the attention its cross layers train
     through, matches JAX's on the VLM's cross weights: 4 text tokens over 6
     image tokens, unmasked, no rope; the output and the gradients of x and
     the memory within 1e-5."""
-    with pytest.raises(NotImplementedError, match="A6.3"):
-        TDBM(TC.reduced(TC.get_config("xlstm-125m")),
-             TC.DBConfig(num_blocks=1))
+    xl = TDBM(TC.reduced(TC.get_config("xlstm-125m")),
+              TC.DBConfig(num_blocks=1))
+    assert type(xl.model).__name__ == "XLSTMModel"
+    with pytest.raises(NotImplementedError, match="A6.3b"):
+        xl.model.apply_units_two_pass(None, None, None, 0, 1, None)
     moe = TDBM(TC.reduced(TC.get_config("phi3.5-moe-42b-a6.6b")),
                TC.DBConfig(num_blocks=1))
     assert moe.model.is_moe and "moe" in moe.model.spec["layers"]
