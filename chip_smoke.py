@@ -432,6 +432,22 @@ Phases, each fatal on failure:
      within 1e-3; launches equal to the path's arithmetic (a gate-residual
      a block in the probes, none in the commit or the chunk); memory back
      within 1 GiB.
+ 23. xlstm-125m's training, after phase 22 and under its memory check: the
+     same model (full width and depth, 3 blocks of 2 units), bf16 policy,
+     ``MarkovLM`` batches; ``block_loss`` takes the two-pass route for the
+     family (the sLSTM an eager scan over time, the mLSTM's parallel form
+     and its strict-history query). A two_pass x CE DB step on each block
+     at 8 x 512 with all three AdamW states resident, one at 4 x 1024
+     (the clean mLSTM in its chunked form), a two_pass x l2 step (the
+     EDM-loss kernels), the e2e step at 8 x 512 (no σ: no kernel); each
+     step's wall beside its bound from the shapes (6 N D over the units
+     and both streams, the readout's CE, the mLSTM's quadratic terms, at
+     the fp32 peak), busy share and top kernels under the profiler, peak
+     memory, finite loss and grad norm, launches equal to the path's
+     arithmetic (two gate-residual calls a unit, forward and backward, in
+     a DB step; none in e2e); then one fp32 DB step of block 0 through the
+     kernels against ``impl="ref"``, every trained leaf's moment within
+     1e-4; memory back within 1 GiB.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -577,6 +593,9 @@ PHASE_MEM_START = 2**30
 XL_ARCH, XL_BLOCKS = "xlstm-125m", 3
 XL_REUSE_LEN, XL_REUSE_NEW, XL_HTTP_REQUESTS = 16, 8, 4
 XL_CHECK_PROMPT, XL_CHECK_NEW = 64, 8
+# its training (23): the long DB step's batch and length (past 512 the
+# clean mLSTM takes its chunked form)
+XL_LONG_BATCH, XL_LONG_SEQ = 4, 1024
 
 
 class SmokeError(RuntimeError):
@@ -1592,8 +1611,10 @@ def db_step_counts(dbm, size: int) -> dict:
     VLM's units are counted by ``vlm_step_counts``. A MoE layer adds no
     launch (its router and experts are plain products, as in JAX), but in
     two_pass the last layer's clean call has its backward too: the clean
-    stream's router aux loss is in the loss."""
+    stream's router aux loss is in the loss. The xLSTM: ``xl_step_counts``."""
     l2 = int(dbm.db.loss == "l2")
+    if dbm.cfg.xlstm is not None:
+        return xl_step_counts(size, l2)
     if dbm.cfg.n_encoder_layers:
         return enc_decoder_counts(dbm, size, l2)
     if hasattr(dbm.model, "k_self"):
@@ -1609,6 +1630,17 @@ def db_step_counts(dbm, size: int) -> dict:
         flash_attention_bwd_dkv=bwd, gate_residual=gates,
         gate_residual_bwd=gates, ln_modulate_fwd=ln, ln_modulate_bwd=ln,
         edm_loss_fwd=l2, edm_loss_bwd=l2)
+
+
+def xl_step_counts(size: int, l2: int = 0) -> dict:
+    """Launches of an xLSTM DB step over ``size`` units (always two-pass):
+    per unit two gate-residual calls on the noisy stream (its sLSTM and
+    mLSTM blocks), forward and backward; the clean stream's residuals are
+    plain adds and the cells plain torch, and the LayerNorm is parametric
+    (no ln-modulate). l2: one EDM loss forward and backward."""
+    return expected_counts(gate_residual=2 * size,
+                           gate_residual_bwd=2 * size, edm_loss_fwd=l2,
+                           edm_loss_bwd=l2)
 
 
 def enc_decoder_counts(dbm, size: int, l2: int = 0,
@@ -1657,9 +1689,12 @@ def e2e_counts(dbm) -> dict:
     """Launches of an e2e step: one attention forward, dq and dk/dv per
     unit (a dense or MoE layer, an application of the hybrid's shared
     block), per layer for the VLM (its cross layers' ``full`` calls
-    among them); ``enc_decoder_counts`` for the encoder-decoder."""
+    among them); ``enc_decoder_counts`` for the encoder-decoder; none for
+    the xLSTM (no attention, and with no σ its gates are plain adds)."""
     if dbm.cfg.n_encoder_layers:
         return enc_decoder_counts(dbm, dbm.cfg.n_layers, e2e=True)
+    if dbm.cfg.xlstm is not None:
+        return expected_counts()
     n = (dbm.cfg.n_layers if hasattr(dbm.model, "k_self")
          else dbm.model.n_units)
     return expected_counts(**{k: n for k in ATTN})
@@ -3515,7 +3550,8 @@ def _at(tree, path):
 
 
 def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
-                     grads, stack: str = "layers", whole=()) -> dict:
+                     grads, stack: str = "layers", whole=(),
+                     limit: float = 1e-3) -> dict:
     """One fp32 step from the same params and draws (``step(params, state,
     *args, **kw)``), through the kernels and through their plain versions
     (``make_step(impl)`` for impl "kernels" and "ref"), on ``view`` =
@@ -3524,12 +3560,13 @@ def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
     are restored between the two. Loss, grad norm and the first moments
     (0.1 x the clipped gradients) of the ``grads`` leaves (paths below
     ``stack``) of the first trained unit of ``stack`` and of the ``whole``
-    leaves (paths from the root: an unstacked shared block) must agree to
-    1e-3 relative, and the launches equal ``expect`` (none for the plain
-    path)."""
+    leaves (paths from the root: an unstacked shared block), or of every
+    trained leaf where ``grads`` is None, must agree to ``limit`` relative
+    (a leaf: max |diff| over max |ref|), and the launches equal ``expect``
+    (none for the plain path)."""
     from repro_torch import kernels as K
     from repro_torch.core import training as T
-    from repro_torch.nn.init import tree_map
+    from repro_torch.nn.init import tree_items, tree_map
     start, size = view or (0, None)
     saved = tree_map(lambda _, x: x.clone(), params if view is None
                      else T.extract_block_view(params, start, size))
@@ -3540,9 +3577,11 @@ def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
         _, opt, loss, m = step(params, init(params), *args, **kw)
         check_counts(f"{tag} cross-check impl={impl}", K.launch_counts(),
                      expect if impl == "kernels" else expected_counts())
-        res[impl] = (float(loss), float(m["grad_norm"]),
-                     {**{g: _at(opt.mu[stack], g)[0].clone() for g in grads},
-                      **{g: _at(opt.mu, g).clone() for g in whole}})
+        moments = ({g: x.clone() for g, x in tree_items(opt.mu)}
+                   if grads is None else
+                   {**{g: _at(opt.mu[stack], g)[0].clone() for g in grads},
+                    **{g: _at(opt.mu, g).clone() for g in whole}})
+        res[impl] = (float(loss), float(m["grad_norm"]), moments)
         del opt
         T.write_back_block_view(params, saved, start)
         torch.cuda.empty_cache()
@@ -3553,14 +3592,20 @@ def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
     what = ("every param" if view is None
             else f"{'layers' if stack == 'core' else stack} {start}-"
             f"{start + size - 1}")
+    if grads is None:
+        worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3]
+        shown = (f"every one of the {len(grad_rel)} trained leaves, grad "
+                 "rel max|diff| worst " + ", ".join(
+                     f"{k} {v:.2e}" for k, v in worst))
+    else:
+        shown = (f"{stack}[{start}] grad rel max|diff| " + ", ".join(
+            f"{k} {v:.2e}" for k, v in grad_rel.items()))
     say(f"[crosscheck] {tag}: fp32 step on {what}, kernels vs plain "
         f"versions: loss {lk:.7f} vs {lr:.7f} (rel {loss_rel:.2e}) | grad "
-        f"norm {gk:.7f} vs {gr:.7f} (rel {gn_rel:.2e}) | {stack}[{start}] "
-        "grad rel max|diff| "
-        + ", ".join(f"{k} {v:.2e}" for k, v in grad_rel.items())
-        + "; limit 1e-3")
-    if not (loss_rel <= 1e-3 and gn_rel <= 1e-3
-            and max(grad_rel.values()) <= 1e-3):
+        f"norm {gk:.7f} vs {gr:.7f} (rel {gn_rel:.2e}) | {shown}; limit "
+        f"{limit:g}")
+    if not (loss_rel <= limit and gn_rel <= limit
+            and max(grad_rel.values()) <= limit):
         raise SmokeError(f"fp32 {tag} cross-check: kernels and plain "
                          "versions disagree")
     return {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
@@ -3569,7 +3614,7 @@ def block_crosscheck(params, view, make_step, args, kw, expect, tag: str,
 
 def db_crosscheck(dev, model, tag: str, grads, stack: str = "layers",
                   whole=(), batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                  aux=None) -> dict:
+                  aux=None, limit: float = 1e-3) -> dict:
     """``block_crosscheck`` of one DB step on block 0 of a
     ``DiffusionBlocksModel`` (``batch`` x ``seq`` random tokens, σ and ε
     from the generator; ``aux`` the step's ``aux_inputs``, where given)."""
@@ -3590,7 +3635,8 @@ def db_crosscheck(dev, model, tag: str, grads, stack: str = "layers",
         params, (start, size),
         lambda impl: T.make_db_train_step(dbm, 0, tcfg, impl=impl,
                                           precision="fp32"),
-        (tokens,), kw, db_step_counts(dbm, size), tag, grads, stack, whole)
+        (tokens,), kw, db_step_counts(dbm, size), tag, grads, stack, whole,
+        limit)
 
 
 def phase_two_pass(dev) -> dict:
@@ -5612,7 +5658,8 @@ def router_aux(dbm, m) -> str:
 def e2e_steps(dbm, params, tcfg, data, tag: str, aux=None) -> dict:
     """The end-to-end step over every unit (one AdamW state over every
     param), bf16 policy: a warm-up step, a timed one, one under the
-    profiler. ``aux()``, where given, makes each step's ``aux_inputs``."""
+    profiler. ``aux()``, where given, makes each step's
+    ``aux_inputs``."""
     from repro_torch.core import training as T
     dev = params["embed"]["table"].device
     batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
@@ -5822,20 +5869,24 @@ def queue_serve(dev, model, tag: str = "h2o") -> dict:
             "capture_s": capture_s}
 
 
-def two_pass_step(model, tcfg, data, tag: str, aux=None) -> dict:
-    """One two_pass x l2 DB step of block 0 (its own AdamW state): a
-    warm-up, a timed step (launches against the path's arithmetic, finite
-    loss and grad norm) and one under the profiler. ``aux()``, where given,
-    makes each step's ``aux_inputs``."""
+def two_pass_step(model, tcfg, data, tag: str, aux=None,
+                  profile: bool = True) -> dict:
+    """One DB step of block 0 (its own AdamW state) in the model's causal
+    mode and loss (the callers' two_pass x l2, or the xLSTM's two_pass x
+    ce at a longer sequence): a warm-up, a timed step (launches against
+    the path's arithmetic, finite loss and grad norm) and one under the
+    profiler (where asked). ``aux()``, where
+    given, makes each step's ``aux_inputs``."""
     from repro_torch.core import training as T
     dbm, params, gen = model
     dev = params["embed"]["table"].device
     batch = lambda: torch.as_tensor(next(data), device=dev)  # noqa: E731
     kw = lambda: {} if aux is None else {"aux_inputs": aux()}  # noqa: E731
     init, step = T.make_db_train_step(dbm, 0, tcfg, precision="bf16")
+    what = f"{dbm.causal_mode} x {dbm.db.loss}"
     state = init(params)
     loss = step(params, state, batch(), gen, **kw())[2]
-    say(f"[{tag}] warm-up two_pass x l2 DB step on block 0: loss "
+    say(f"[{tag}] warm-up {what} DB step on block 0: loss "
         f"{float(loss):.4f}")
     tokens, extra = batch(), kw()
     (res, wall, dev_ms, peak, base, counts) = timed_step(
@@ -5843,18 +5894,22 @@ def two_pass_step(model, tcfg, data, tag: str, aux=None) -> dict:
     loss, m = res
     del res
     size = dbm.ranges[0][1]
-    say(f"[{tag}] two_pass x l2 DB step block 0 ({unit_stack(dbm)} 0-"
-        f"{size - 1}): loss {float(loss):.4f}{router_aux(dbm, m)} | grad "
-        f"norm {float(m['grad_norm']):.3f} | "
+    say(f"[{tag}] {what} DB step block 0 ({unit_stack(dbm)} 0-"
+        f"{size - 1}, batch {tokens.shape[0]}x{tokens.shape[1]}): loss "
+        f"{float(loss):.4f}{router_aux(dbm, m)} | grad norm "
+        f"{float(m['grad_norm']):.3f} | "
         f"wall {wall * 1e3:.1f} ms | device {dev_ms:.1f} ms (events) | peak "
         f"{peak / 2**30:.2f} GiB (resident before {base / 2**30:.2f}) | "
         f"launches {counts}")
     check_counts(f"{tag} two_pass DB step", counts,
                  db_step_counts(dbm, size))
     finite_step(f"{tag} two_pass DB step", loss, m)
-    tokens, extra = batch(), kw()
-    prof = profile_step(f"{tag}: two_pass x l2 DB step block 0",
-                        lambda: step(params, state, tokens, gen, **extra))
+    prof = None
+    if profile:
+        tokens, extra = batch(), kw()
+        prof = profile_step(f"{tag}: {what} DB step block 0",
+                            lambda: step(params, state, tokens, gen,
+                                         **extra))
     del state
     return {"loss": float(loss), "wall_s": wall, "device_ms": dev_ms,
             "peak_bytes": peak, "launches": counts, "profile": prof}
@@ -7252,6 +7307,152 @@ def phase_xlstm(dev) -> dict:
             "peak": peak, "fp32_rel": fp32["logits_rel"], "seconds": took}
 
 
+# ---------------------------------------------------------------------------
+# 23. xlstm-125m trained at full width and depth
+# ---------------------------------------------------------------------------
+
+def xl_train_bound(dbm, params, units: int, batch: int, seq: int,
+                   two_pass: bool) -> tuple:
+    """(ms, "bytes" or "operations") of the least device time of one
+    xLSTM training step over ``units`` units (a DB step's block,
+    ``two_pass``, or the e2e step's every unit) at ``batch`` x ``seq``
+    tokens, from the shapes: the larger of bytes over 3.35 TB/s and flops
+    over the fp32 peak (the family computes in fp32). Flops: 6 N D over
+    the units' params N and the tokens of both streams (two-pass) or of
+    one; the readout's CE, 6 d vocab a token; the mLSTM's quadratic terms,
+    three times their forward (forward and backward), the causal half
+    only: the parallel form (S <= 512) 2 B S^2 d_in, a chunked pass (the
+    clean stream past 512 tokens; the two-pass history query at every
+    length) 2 B S Q d_in within chunks of Q = 256 plus 4 B S hd d_in
+    against the carried state. Bytes: the trained params (the units and
+    the periphery), their gradients and both AdamW moments, each read and
+    written once (32 bytes a param). The AdaLN heads act once an example
+    on σ, on no token (and not at all in the e2e step): their params
+    count in the bytes, not in 6 N D."""
+    from repro_torch.nn.init import tree_items
+    cfg = dbm.cfg
+    leaves = list(tree_items(params))
+    n_units = dbm.model.n_units
+    per_unit = sum(x.numel() for p, x in leaves if p[0] == "units") / n_units
+    per_unit_tok = sum(x.numel() for p, x in leaves
+                       if p[0] == "units" and "adaln" not in p) / n_units
+    periphery = sum(x.numel() for p, x in leaves if p[0] != "units")
+    d_in = int(cfg.xlstm.proj_factor * cfg.d_model)
+    hd = d_in // cfg.n_heads
+    tokens = batch * seq
+
+    def chunked(q: int) -> float:
+        return 2 * tokens * min(q, seq) * d_in + 4 * tokens * hd * d_in
+    clean = chunked(256) if seq > 512 else 2 * tokens * seq * d_in
+    quad = 3 * units * (clean + (chunked(256) if two_pass else 0))
+    flops = (6 * per_unit_tok * units * tokens * (2 if two_pass else 1)
+             + 6 * cfg.d_model * cfg.vocab_size * tokens + quad)
+    return bound(32 * (per_unit * units + periphery), flops, PEAK_FP32)
+
+
+def xl_step_line(tag: str, what: str, wall_s: float, device_ms: float,
+                 b: tuple, prof=None) -> dict:
+    """Print and return a step's wall and device ms beside its bound and,
+    where profiled, its busy share."""
+    busy = (f" | busy {prof['device_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+            f"under the profiler "
+            f"({100 * prof['device_ms'] / prof['wall_ms']:.1f}%)"
+            if prof else "")
+    say(f"[{tag}] {what}: wall {wall_s * 1e3:.1f} ms, device (events) "
+        f"{device_ms:.1f} ms, bound {b[0]:.3f} ms ({b[1]}; wall "
+        f"{wall_s * 1e3 / b[0]:.1f}x the bound){busy}")
+    return {"wall_ms": wall_s * 1e3, "device_ms": device_ms,
+            "bound_ms": b[0], "bound_by": b[1],
+            "busy_share": (prof["device_ms"] / prof["wall_ms"]
+                           if prof else None)}
+
+
+def phase_xlstm_train(dev) -> dict:
+    """Phase 23: xlstm-125m trained at full width and depth (``xl_model``:
+    6 units in 3 blocks of 2, random fp32 weights, AdaLN heads
+    randomised), bf16 policy (the family computes in fp32), after phase 22
+    under its memory check. ``block_loss`` takes the two-pass route for the
+    family. ``resident_db_steps`` at TRAIN_BATCH x TRAIN_SEQ ``MarkovLM``
+    tokens (every block's AdamW state resident, one step a block, two
+    gate-residual calls a unit forward and backward), one DB step at
+    XL_LONG_BATCH x XL_LONG_SEQ (the clean mLSTM in its chunked form), one
+    two_pass x l2 DB step (the EDM-loss kernels), ``e2e_steps`` (no σ: no
+    kernel); each step's wall beside its bound (``xl_train_bound``) and,
+    but for the l2 step (the DB step's work and the EDM-loss kernels),
+    its busy share under the profiler. Every timed step follows a warm-up
+    step of its own shape and mode (the e2e step's train-mode
+    ``apply_units`` over 6 units allocates GiBs its first time). Then one fp32 DB step of block 0 through the kernels
+    against ``impl="ref"``, every trained leaf's moment within 1e-4;
+    memory back within 1 GiB of the phase's start."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import MarkovLM
+    tag = "xlstm-train"
+    t_phase = time.perf_counter()
+    base = phase_start(tag)
+    torch.cuda.reset_peak_memory_stats()
+    model = xl_model(dev)
+    dbm, params, gen = model
+    cfg = dbm.cfg
+    size = dbm.ranges[0][1]
+    say(f"[{tag}] {cfg.name} at full width and depth: {dbm.model.n_units} "
+        f"units in {dbm.num_blocks} blocks {dbm.ranges}, causal_mode "
+        f"{dbm.causal_mode}, loss {dbm.db.loss}; "
+        f"{sum(t.numel() for _, t in _leaves(params)) / 1e9:.4f} B params "
+        "fp32")
+    tcfg = TrainConfig(steps=100, warmup_steps=10, lr=1e-4)
+    lm = MarkovLM(vocab_size=cfg.vocab_size, seed=7)
+    db = resident_db_steps(dbm, params, gen, tcfg,
+                           lm.iterator(TRAIN_BATCH, TRAIN_SEQ), tag)
+    peaks = {"db": torch.cuda.max_memory_allocated()}
+    b_db = xl_train_bound(dbm, params, size, TRAIN_BATCH, TRAIN_SEQ, True)
+    lines = {"db": [xl_step_line(
+        tag, f"DB step block {r['block']} ({TRAIN_BATCH}x{TRAIN_SEQ})",
+        r["wall_s"], r["device_ms"], b_db,
+        db["db_profile"] if r["block"] == 0 else None) for r in db["db"]]}
+    torch.cuda.reset_peak_memory_stats()
+    long = two_pass_step(model, tcfg,
+                         lm.iterator(XL_LONG_BATCH, XL_LONG_SEQ), tag)
+    peaks["long"] = torch.cuda.max_memory_allocated()
+    lines["long"] = xl_step_line(
+        tag, f"DB step block 0 ({XL_LONG_BATCH}x{XL_LONG_SEQ})",
+        long["wall_s"], long["device_ms"],
+        xl_train_bound(dbm, params, size, XL_LONG_BATCH, XL_LONG_SEQ, True),
+        long["profile"])
+    torch.cuda.reset_peak_memory_stats()
+    l2 = two_pass_step(two_pass_view(model), tcfg,
+                       lm.iterator(TRAIN_BATCH, TRAIN_SEQ), tag,
+                       profile=False)
+    peaks["l2"] = torch.cuda.max_memory_allocated()
+    lines["l2"] = xl_step_line(
+        tag, f"two_pass x l2 DB step block 0 ({TRAIN_BATCH}x{TRAIN_SEQ})",
+        l2["wall_s"], l2["device_ms"], b_db)
+    torch.cuda.reset_peak_memory_stats()
+    e2e = e2e_steps(dbm, params, tcfg, lm.iterator(TRAIN_BATCH, TRAIN_SEQ),
+                    tag)
+    peaks["e2e"] = torch.cuda.max_memory_allocated()
+    lines["e2e"] = xl_step_line(
+        tag, f"e2e step ({TRAIN_BATCH}x{TRAIN_SEQ})", e2e["wall_s"],
+        e2e["device_ms"],
+        xl_train_bound(dbm, params, dbm.model.n_units, TRAIN_BATCH,
+                       TRAIN_SEQ, False), e2e["profile"])
+    counts = {}
+    for part in (db, long, l2, e2e):
+        add_counts(counts, part["launches"])
+    total = torch.cuda.get_device_properties(dev).total_memory
+    say(f"[{tag}] peak memory (GiB): "
+        + ", ".join(f"{k} {v / 2**30:.2f}" for k, v in peaks.items())
+        + f" of {total / 2**30:.1f}; nvidia-smi (sm MHz, W, limit, C): "
+        f"{gpu_query('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+    cross = db_crosscheck(dev, model, "xlstm two-pass ce", None,
+                          stack="units", limit=1e-4)
+    del model, dbm, params, gen
+    phase_end(tag, base)
+    took = time.perf_counter() - t_phase
+    say(f"[{tag}] phase 23 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "steps": lines, "peaks": peaks,
+            "crosscheck": cross, "seconds": took}
+
+
 OFF_PATH = {"euler_bwd"}
 
 
@@ -7340,6 +7541,8 @@ def main() -> int:
     lap("21")
     xlstm = phase_xlstm(dev)
     lap("22")
+    xlstm_train = phase_xlstm_train(dev)
+    lap("23")
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
@@ -7349,7 +7552,7 @@ def main() -> int:
                    vlm["counts"], hybrid["counts"],
                    hybrid_train["counts"], h2o["counts"],
                    whisper["counts"], vlm_train["counts"], moe["counts"],
-                   xlstm["counts"]):
+                   xlstm["counts"], xlstm_train["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

@@ -1,9 +1,9 @@
 """DiffusionBlocks over the dense and MoE decoders, the VLM, the hybrid,
 the encoder-decoder and the xLSTM (port of ``repro.core.blocks``): the
 block-local training loss of the AR adapter in concat or two-pass mode
-with the CE or l2 loss (``block_loss``: every family but the hybrid in
-either mode, the hybrid always in two-pass, its Mamba layers having no
-mask; the xLSTM, routed to two-pass too, raises until ROADMAP A6.3b), the
+with the CE or l2 loss (``block_loss``: every family but the recurrent
+ones in either mode, the hybrid and the xLSTM always in two-pass, their
+Mamba layers and cells having no mask), the
 end-to-end baseline (``e2e_loss``), and the sampler over the paged cache
 (conditioned slots read their image or audio blocks under
 ``cond_lengths``, the hybrid's Mamba rows and the xLSTM's cell states

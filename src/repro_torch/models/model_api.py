@@ -149,8 +149,8 @@ def build_model(cfg: ModelConfig, db: Optional[DBConfig] = None) -> BaseModel:
     """The model of ``cfg.family`` (port of ``repro.models.build_model``):
     ``VLMModel`` for the vlm family, ``HybridModel`` for the hybrid
     (zamba2), ``EncDecModel`` for the audio family (whisper),
-    ``XLSTMModel`` for the ``ssm`` family (xLSTM: served; its training is
-    ROADMAP A6.3b), else ``DecoderModel``: the dense and MoE families,
+    ``XLSTMModel`` for the ``ssm`` family (xLSTM), else
+    ``DecoderModel``: the dense and MoE families,
     which raises for any other."""
     from repro_torch.configs.base import AUDIO, HYBRID, SSM, VLM
     from repro_torch.models import encdec as E         # import cycle

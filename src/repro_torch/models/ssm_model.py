@@ -20,8 +20,13 @@ to the init values (m -1e30, the sLSTM's n 1e-6), not to zero.
 Modes: ``decode`` (one token a slot through ``slstm_decode_step`` and
 ``mlstm_decode_step``) and ``prefill_chunk`` (``chunk_token_scan`` over
 those same steps, slot b's tokens past ``ctx.n_valid[b]`` holding its
-state), as JAX's. Training (the ``train`` mode, ``apply_units_two_pass``)
-is ROADMAP A6.3b and raises.
+state), as JAX's. Training: the uncached ``apply_units`` in the ``train``
+mode (each block over the whole sequence, ``slstm_fwd`` and
+``mlstm_fwd``: the end-to-end baseline) and ``apply_units_two_pass``
+(DiffusionBlocks' block loss, which routes the recurrent families to
+two-pass: ``slstm_two_pass`` and ``mlstm_two_pass``, the clean stream a
+plain residual, the noisy stream σ-modulated and gated). JAX's dense-cache
+``prefill`` mode is ROADMAP A8 and raises.
 
 JAX scans over units with ``uscan``; the port loops over them in Python,
 as ``HybridModel.apply_units`` does. Conditioning: none
@@ -35,15 +40,18 @@ import torch
 
 from repro_torch.models import common as C
 from repro_torch.models.model_api import BaseModel
-from repro_torch.models.transformer import _index, _unit_views
+from repro_torch.models.transformer import _index, _unbind, _unit_views
 from repro_torch.nn import adaln
 from repro_torch.nn import cache as KVC
 from repro_torch.nn import layers as L
 from repro_torch.nn import xlstm as X
 from repro_torch.nn.init import stack_specs
 
-TRAINING = "xLSTM training is ROADMAP A6.3b: the port serves the family"
+DENSE_CACHE = ("the dense-cache prefill is ROADMAP A8: the port has the "
+               "paged serving path")
 _STEPS = {"slstm": X.slstm_decode_step, "mlstm": X.mlstm_decode_step}
+_FWDS = {"slstm": X.slstm_fwd, "mlstm": X.mlstm_fwd}
+_TWO_PASS = {"slstm": X.slstm_two_pass, "mlstm": X.mlstm_two_pass}
 _INITS = {"slstm": X.SLSTM_INIT, "mlstm": X.MLSTM_INIT}
 
 
@@ -66,12 +74,13 @@ def _mods3(p, ctx: C.LayerCtx):
     return None, None, None
 
 
-def _block_apply(p, h, ctx: C.LayerCtx, kind: str, state):
-    """One pre-norm xLSTM block over the slots' ``state`` (a tuple of
-    slot-leading views into the cache): ``decode``, one token, the new
-    state written in place when ``ctx.commit`` (inactive slots hold
-    theirs), never in a probe; ``prefill_chunk``, C tokens through the
-    token scan. Returns h."""
+def _block_apply(p, h, ctx: C.LayerCtx, kind: str, state=None):
+    """One pre-norm xLSTM block. ``train``: the whole sequence from the
+    init state, no ``state``. The serving modes run over the slots'
+    ``state`` (a tuple of slot-leading views into the cache): ``decode``,
+    one token, the new state written in place when ``ctx.commit``
+    (inactive slots hold theirs), never in a probe; ``prefill_chunk``, C
+    tokens through the token scan. Returns h."""
     cfg = ctx.cfg
     s, c, g = _mods3(p, ctx)
     x = adaln.modulate(L.apply_norm(p["ln"], h, cfg.norm), s, c)
@@ -86,10 +95,24 @@ def _block_apply(p, h, ctx: C.LayerCtx, kind: str, state):
     elif ctx.mode == "prefill_chunk":
         y, new = C.chunk_token_scan(cell, x, state, ctx.n_valid)
         C.write_state(state, new)
+    elif ctx.mode == "train":
+        y, _ = _FWDS[kind](p["cell"], x, cfg.n_heads, cfg.xlstm)
     else:
         raise NotImplementedError(f"xLSTM block in mode {ctx.mode!r}: "
-                                  f"{TRAINING} (decode, prefill_chunk)")
+                                  f"{DENSE_CACHE} (train, decode, "
+                                  "prefill_chunk)")
     return adaln.gate(h, y, g, impl=ctx.impl)
+
+
+def _block_two_pass(p, hc, hn, ctx: C.LayerCtx, kind: str):
+    """DB two-pass for one block: the clean stream unmodulated with a plain
+    residual, the noisy stream σ-modulated and gated. Returns (hc, hn)."""
+    cfg = ctx.cfg
+    s, c, g = _mods3(p, ctx)
+    xc = L.apply_norm(p["ln"], hc, cfg.norm)
+    xn = adaln.modulate(L.apply_norm(p["ln"], hn, cfg.norm), s, c)
+    yc, yn = _TWO_PASS[kind](p["cell"], xc, xn, cfg.n_heads, cfg.xlstm)
+    return hc + yc, adaln.gate(hn, yn, g, impl=ctx.impl)
 
 
 class XLSTMModel(BaseModel):
@@ -117,14 +140,19 @@ class XLSTMModel(BaseModel):
 
     def apply_units(self, params, h, start: int, size: int, ctx, cache=None,
                     reset_mask=None):
-        """Run units [start, start + size) over the serving ``cache``
-        (sliced to those units, ``cache_units``): each unit's sLSTM block,
-        then its mLSTM block. ``reset_mask`` restarts the hidden stream
-        from the input ``h`` before each flagged unit. Returns (h,
-        cache)."""
+        """Run units [start, start + size), each unit's sLSTM block then
+        its mLSTM block: with no cache over the whole sequence
+        (``ctx.mode == "train"``; one unbind a leaf, so the backward stacks
+        each leaf's grads in one pass), else over the serving ``cache``
+        (sliced to those units, ``cache_units``). ``reset_mask`` restarts
+        the hidden stream from the input ``h`` before each flagged unit.
+        Returns (h, cache)."""
         if cache is None:
-            raise NotImplementedError(f"{TRAINING} (apply_units needs the "
-                                      "serving cache)")
+            assert reset_mask is None
+            for p in _unbind(params["units"], start, size):
+                for kind in ("slstm", "mlstm"):
+                    h = _block_apply(p[kind], h, ctx, kind)
+            return h, None
         h0 = h
         units = self.unit_params(params)
         for i in range(size):
@@ -138,7 +166,14 @@ class XLSTMModel(BaseModel):
 
     def apply_units_two_pass(self, params, h_clean, h_noisy, start: int,
                              size: int, ctx):
-        raise NotImplementedError(f"{TRAINING} (the two-pass block loss)")
+        """DB two-pass training over units [start, start + size): each
+        unit's sLSTM block then its mLSTM block through
+        ``_block_two_pass``. Returns (h_clean, h_noisy)."""
+        for p in _unbind(params["units"], start, size):
+            for kind in ("slstm", "mlstm"):
+                h_clean, h_noisy = _block_two_pass(p[kind], h_clean,
+                                                   h_noisy, ctx, kind)
+        return h_clean, h_noisy
 
     def init_cache(self, batch: int, device="cuda") -> dict:
         """Every unit's init states, stacked: each leaf (n_units, batch,

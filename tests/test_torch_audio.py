@@ -135,7 +135,7 @@ def test_build_model_bridges_the_encdec_tree():
     spec has exactly JAX's leaves and shapes: ``encoder`` stacked
     (n_encoder_layers, ...), ``enc_norm``, ``layers`` (n_layers, ...) with
     ``xattn`` and ``lnx``; every value crosses unchanged. The xLSTM builds
-    and its training raises, naming ROADMAP A6.3b; the MoE builds."""
+    and routes to two-pass DB training; the MoE builds."""
     jdbm, tdbm = _models()
     assert type(tdbm.model).__name__ == "EncDecModel"
     assert type(build_model(TC.get_config(ARCH))).__name__ == "EncDecModel"
@@ -156,8 +156,7 @@ def test_build_model_bridges_the_encdec_tree():
     xl = TDBM(TC.reduced(TC.get_config("xlstm-125m")),
               TC.DBConfig(num_blocks=1))
     assert type(xl.model).__name__ == "XLSTMModel"
-    with pytest.raises(NotImplementedError, match="A6.3b"):
-        xl.model.apply_units_two_pass(None, None, None, 0, 1, None)
+    assert xl.causal_mode == "two_pass"
     assert TDBM(TC.reduced(TC.get_config("phi3.5-moe-42b-a6.6b")),
                 TC.DBConfig(num_blocks=1)).model.is_moe
 

@@ -2950,6 +2950,80 @@ def test_xlstm_decode_steps_on_the_card_match_the_cpu(cuda, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_two_pass_on_the_card_matches_the_cpu(cuda, kind):
+    """The cells' two-pass functions at full width (plain torch on the card)
+    over 600 tokens (past 512: the clean mLSTM in its chunked form, the
+    history query over 3 chunks of 256) against the same calls on the
+    CPU: both streams within 2e-4 (TF32 off)."""
+    from repro_torch.nn import xlstm as X
+    dbm, params = _xlstm_model(cuda)
+    cfg = dbm.cfg
+    cell = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[0])
+            for k, v in params["units"][kind]["cell"].items()}
+    cpu = tree_map(lambda _, x: x.cpu(), cell)
+    fn = getattr(X, f"{kind}_two_pass")
+    gen = torch.Generator().manual_seed(2)
+    xc, xn = (torch.randn(2, 600, cfg.d_model, generator=gen)
+              for _ in range(2))
+    with torch.no_grad():
+        got = fn(cell, xc.to(cuda), xn.to(cuda), cfg.n_heads, cfg.xlstm)
+        want = fn(cpu, xc, xn, cfg.n_heads, cfg.xlstm)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.cpu(), b, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["db", "e2e"])
+def test_xlstm_step_through_kernels_matches_plain_versions(cuda, mode):
+    """The xLSTM's training (``_xlstm_model``: 2 units at full width in 2
+    blocks): one fp32 DB step of each block (two-pass) and one e2e step,
+    through the kernels and through the plain versions from the same
+    params and draws: loss, grad norm and the first moment of every
+    trained leaf within 1e-4 relative (a leaf: max |diff| over max |ref|;
+    the cells are plain torch on both paths), and the launch counts the
+    path's arithmetic (DB: two gate-residual calls a unit on the noisy
+    stream, forward and backward; e2e: none, no σ)."""
+    from repro_torch.nn.init import tree_items
+    dbm, master = _xlstm_model(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (2, 150), generator=gen,
+                           device=cuda)
+    sigma = torch.rand(2, 1, 1, generator=gen, device=cuda) + 0.1
+    eps = torch.randn(2, 150, dbm.cfg.d_model, generator=gen, device=cuda)
+    tcfg = TrainConfig(steps=10, warmup_steps=2, lr=1e-3)
+    blocks = range(dbm.num_blocks) if mode == "db" else [None]
+    for b in blocks:
+        res = {}
+        for impl in ("ref", "kernels"):
+            params = tree_map(lambda _, x: x.clone(), master)
+            if mode == "db":
+                init, step = T.make_db_train_step(dbm, b, tcfg, impl=impl)
+                kw = {"sigma": sigma, "eps": eps}
+                n = 2 * dbm.ranges[b][1]
+                want = {"gate_residual": n, "gate_residual_bwd": n}
+            else:
+                init, step = T.make_e2e_train_step(dbm, tcfg, impl=impl)
+                kw, want = {}, {}
+            K.reset_launch_counts()
+            params, opt, loss, m = step(params, init(params), tokens, **kw)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            assert counts == {**{k: 0 for k in counts},
+                              **(want if impl == "kernels" else {})}
+            res[impl] = (loss, m["grad_norm"], dict(tree_items(opt.mu)))
+        (lr_, gr, mr), (lk, gk, mk) = res["ref"], res["kernels"]
+        assert torch.isfinite(lk) and abs(lk - lr_) <= 1e-4 * abs(lr_)
+        assert torch.isfinite(gk) and abs(gk - gr) <= 1e-4 * abs(gr)
+        assert sorted(mk) == sorted(mr)
+        for path, r in mr.items():
+            scale = r.abs().max().item()
+            assert (mk[path] - r).abs().max().item() <= 1e-4 * scale, path
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("commit", [False, True])
 def test_xlstm_unit_through_kernels_matches_plain_versions(cuda, commit):
     """Both units at full width over 8 slots through ``impl="kernels"``

@@ -243,14 +243,13 @@ def test_bridge_carries_the_expert_stacks_bit_for_bit():
 
 def test_build_model_takes_moe_and_the_xlstm():
     """``build_model`` builds the MoE as a ``DecoderModel`` and the xLSTM
-    as an ``XLSTMModel``, whose training raises naming ROADMAP A6.3b."""
+    as an ``XLSTMModel`` of (sLSTM, mLSTM) units."""
     model = build_model(T_CFG)
     assert isinstance(model, DecoderModel) and model.is_moe
     assert "cond" not in model.spec
     xl = build_model(TC.reduced(TC.get_config("xlstm-125m")))
     assert type(xl).__name__ == "XLSTMModel"
-    with pytest.raises(NotImplementedError, match="A6.3b"):
-        xl.apply_units_two_pass(None, None, None, 0, 1, None)
+    assert xl.n_units == 1 and sorted(xl.spec["units"]) == ["mlstm", "slstm"]
 
 
 # ---------------------------------------------------------------------------

@@ -210,7 +210,7 @@ def test_conditioning_fingerprint_matches_jax():
 
 
 def test_families_still_refused_and_training_raises(tiny):
-    """The xLSTM builds and its training raises, naming ROADMAP A6.3b; the
+    """The xLSTM builds and routes to two-pass DB training; the
     MoE builds (the hybrid since its serving port, the audio family since
     its own, the xLSTM since its serving port:
     ``tests/test_torch_hybrid.py``, ``tests/test_torch_audio.py``,
@@ -224,8 +224,7 @@ def test_families_still_refused_and_training_raises(tiny):
     xl = TDBM(TC.reduced(TC.get_config("xlstm-125m")),
               TC.DBConfig(num_blocks=1))
     assert type(xl.model).__name__ == "XLSTMModel"
-    with pytest.raises(NotImplementedError, match="A6.3b"):
-        xl.model.apply_units_two_pass(None, None, None, 0, 1, None)
+    assert xl.causal_mode == "two_pass"
     moe = TDBM(TC.reduced(TC.get_config("phi3.5-moe-42b-a6.6b")),
                TC.DBConfig(num_blocks=1))
     assert moe.model.is_moe and "moe" in moe.model.spec["layers"]

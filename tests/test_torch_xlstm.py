@@ -19,7 +19,8 @@ static engine and of the batcher, with its per-step scheduling logs,
 bit-equal; a slot spilled by JAX's batcher restored by the port's. In the
 port alone: a probe leaves the state bit-unchanged and in place, slot reuse
 leaks nothing, the prefix cache and the shared pool refuse the family,
-training raises naming ROADMAP A6.3b.
+the dense-cache ``prefill`` mode raises naming ROADMAP A8 (training:
+``tests/test_torch_xlstm_train.py``).
 
 Every wait is bounded and fails instead of hanging.
 """
@@ -47,7 +48,7 @@ from repro_torch.launch import router as TR
 from repro_torch.launch import serve as TS
 from repro_torch.models import common as TCM
 from repro_torch.models.model_api import build_model
-from repro_torch.models.ssm_model import XLSTMModel
+from repro_torch.models.ssm_model import XLSTMModel, _block_apply
 from repro_torch.nn import cache as TKVC
 from repro_torch.nn import xlstm as TX
 from repro_torch.nn.init import tree_items
@@ -605,17 +606,16 @@ def test_serve_cli_xlstm(capsys):
 
 
 def test_training_raises_naming_a63b(xl):
-    """The family serves; its training is ROADMAP A6.3b: ``block_loss``
-    (routed to two-pass), ``e2e_loss`` and the train CLI raise
-    ``NotImplementedError`` naming it."""
+    """The family serves and trains (``tests/test_torch_xlstm_train.py``);
+    JAX's dense-cache ``prefill`` mode is ROADMAP A8: a block and the
+    uncached ``apply_units`` in that mode raise ``NotImplementedError``
+    naming it."""
     _, _, tdbm, tparams = xl
-    tokens = torch.zeros((2, 8), dtype=torch.int64)
-    g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A6.3b"):
-        tdbm.block_loss(tparams, 0, tokens, g, precision="fp32")
-    with pytest.raises(NotImplementedError, match="A6.3b"):
-        tdbm.e2e_loss(tparams, tokens, precision="fp32")
-    from repro_torch.launch import train as TT
-    with pytest.raises(NotImplementedError, match="A6.3b"):
-        TT.main(["--device", "cpu", "--arch", ARCH, "--steps", "1",
-                 "--batch", "2", "--seq", "8"])
+    ctx = tdbm.make_ctx(tparams, 8, "prefill", precision="fp32")
+    h = torch.zeros(2, 8, REDUCED.d_model)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tdbm.model.apply_units(tparams, h, 0, 1, ctx)
+    unit = tdbm.model.unit_params(tparams)[0]
+    for kind in KINDS:
+        with pytest.raises(NotImplementedError, match="A8"):
+            _block_apply(unit[kind], h, ctx, kind)
