@@ -448,6 +448,33 @@ Phases, each fatal on failure:
      a DB step; none in e2e); then one fp32 DB step of block 0 through the
      kernels against ``impl="ref"``, every trained leaf's moment within
      1e-4; memory back within 1 GiB.
+ 24. the dense-cache serving path (``init_cache``, ``prefill``,
+     ``prefill_probe``, ``serve_step``; the flash-decode kernel over the
+     dense cache viewed as one page of C keys a slot), after phase 23 under
+     its memory check. (a) stablelm-1.6b at full width and depth, bf16
+     policy, the kernels: ``prefill`` of 8 x 512 (a flash-attention
+     forward a layer), ``prefill_probe(k=1)`` (its unit 0 the prefill's);
+     128 tokens committed one at a time into ``init_cache(8, 160)``, the
+     caches against the prefill of the same 128 tokens (worst leaf within
+     5e-2 relative); 32 greedy ``serve_step``s; the prefill's and a step's
+     ms beside their bounds from the shapes, busy shares, top kernels and
+     the peak; then fp32: the same commits within 2e-3 of the fp32 prefill
+     (JAX's bound), 16 greedy dense steps through the kernels and through
+     ``impl="ref"`` (logits within 1e-3) and through the paged static
+     engine on the same z: identical tokens. (b) xlstm-125m at full width
+     and depth, fp32: the dense ``prefill`` of 8 x 512 (the sequence
+     forms) against the paged chunk chain (per-token steps), every state
+     leaf within 1e-4 relative, both walls; 16 greedy dense steps from the
+     prefill's state and the paged engine's from the chain's: identical
+     tokens. (c) ``decode_attention`` on a 4096-slot ring at
+     h2o-danube3-4b's attention dims (32 heads on 8 of 120), 8 slots, wo
+     the identity: the kernel route against the reference route at
+     positions 100, 4095, 4096 and 9000, bf16 and fp32, within the
+     kernel's tolerance, the ring bit-unchanged. Then the flash-decode
+     kernel over the identity view at (a)'s probe (fp32 q over a bf16
+     cache of 160 slots at 144 keys) and (c)'s bf16 ring (4095 keys)
+     against its plain version, timed: cases of the kernels line. Every
+     run's launches equal to its arithmetic; memory back within 1 GiB.
 
 Prints one JSON line ``{"kernels": [...]}`` and, last, ``{"ok": true,
 "device": {...}}``. The Euler backward runs on no main path (the samplers
@@ -7456,6 +7483,439 @@ def phase_xlstm_train(dev) -> dict:
 OFF_PATH = {"euler_bwd"}
 
 
+# ---------------------------------------------------------------------------
+# 24. the dense-cache serving path: stablelm-1.6b and xlstm-125m at full
+#     width, a sliding-window ring at h2o-danube3-4b's attention dims
+# ---------------------------------------------------------------------------
+
+# (a): the tokens committed one at a time and the bf16 serve steps after
+# them (the cache holds both); (a)'s fp32 check and (b): greedy steps;
+# (c): ring positions before, at and past the wrap of a 4096-slot ring
+DENSE_PREFIX, DENSE_STEPS, DENSE_CHECK_NEW = 128, 32, 16
+RING_POS = (100, 4095, 4096, 9000)
+# (a): the bf16 per-token commits against the bf16 prefill, largest
+# |diff| / max |ref| of a leaf (a wrong slot or position is O(1)); the
+# fp32 ones within JAX's own bound (tests/test_models_smoke.py)
+DENSE_BF16_CACHE_REL, DENSE_FP32_CACHE_ABS = 5e-2, 2e-3
+
+
+def dense_commits(dbm, params, cache, tokens, precision, impl) -> None:
+    """Commit ``tokens`` (B, n) one at a time at positions 0..n-1 into the
+    dense ``cache``, in place."""
+    ctx = dbm.dense_ctx(0, precision=precision, impl=impl)
+    for t in range(tokens.shape[1]):
+        ctx.pos = t
+        dbm.commit_token(params, cache, tokens[:, t:t + 1], ctx)
+
+
+def dense_steps(dbm, params, cache, pos0: int, z, precision, impl,
+                step_ms=None):
+    """len(z) greedy dense serve steps from position ``pos0``: (tokens (B,
+    n), logits (n, B, V) fp32); each step's host ms (synchronised) into
+    ``step_ms`` where given."""
+    toks, logits = [], []
+    for t in range(z.shape[0]):
+        t0 = time.perf_counter()
+        tok, cache, lg = dbm.serve_step(params, cache, pos0 + t, z0=z[t],
+                                        precision=precision, impl=impl,
+                                        return_logits=True)
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+        logits.append(lg.float())
+    return torch.stack(toks, dim=1), torch.stack(logits)
+
+
+def cache_gaps(got, want, n=None) -> list:
+    """Per leaf of two alike caches: (max |diff|, max |diff| / max |ref|);
+    ``n``: got's KV leaves read at their first n positions (axis -3)."""
+    from repro_torch.nn import cache as KVC
+    out = []
+    for g, w in zip(KVC.cache_tensors(got), KVC.cache_tensors(want)):
+        if n is not None and g.shape != w.shape:
+            g = g[..., :n, :, :]
+        if g.shape != w.shape:
+            raise SmokeError(f"cache leaf {tuple(g.shape)} against "
+                             f"{tuple(w.shape)}")
+        d = (g.float() - w.float()).abs().max().item()
+        out.append((d, d / max(w.float().abs().max().item(), 1e-30)))
+    return out
+
+
+def dense_prefill_bound(dbm, params, S: int):
+    """Least device time of the bf16 prefill of BATCH x S tokens (larger of
+    bytes over 3.35 TB/s and flops at the bf16 peak): the attention and MLP
+    weights read once in bf16, every layer's keys and values written, the
+    fp32 head read once for the last position; the weights' flops for
+    every token and the causal attention's."""
+    cfg, L = dbm.cfg, dbm.cfg.n_layers
+    commit = sum(t.numel() for p, t in _leaves(params["layers"])
+                 if p[0] in ("attn", "mlp"))
+    head = params["head"]["w"].numel()
+    kv_row = 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    attn = 4 * L * BATCH * cfg.n_heads * cfg.head_dim * S * (S + 1) / 2
+    return bound(commit * 2 + L * BATCH * S * kv_row + head * 4,
+                 2 * commit * BATCH * S + attn + 2 * BATCH * head,
+                 PEAK_BF16)
+
+
+def dense_view_case(label, *, C, KV, G, hd, q_dtype, length, dev, gen):
+    """The flash-decode kernel over a dense (BATCH, C, KV, hd) bf16 cache
+    viewed as pages (``cache.dense_to_paged``: one page of C keys a slot)
+    at ``length`` committed keys, against its plain version, timed by
+    CUDA-graph replay over caches that together exceed the L2."""
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.nn import cache as KVC
+
+    def view():
+        k, v = (torch.randn((BATCH, C, KV, hd), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        return KVC.dense_to_paged(k, v)
+    first = view()
+    nbytes = 2 * first[0].k.numel() * 2
+    sets = [first] + [view() for _ in range(rotations(nbytes) - 1)]
+    lens = torch.full((BATCH,), length, dtype=torch.int32, device=dev)
+    q = torch.randn((BATCH, KV, G, hd), generator=gen,
+                    device=dev).to(q_dtype)
+    call_k = lambda i: FD.flash_decode(q, sets[i][0].k, sets[i][0].v,
+                                       sets[i][1], lens)
+    call_r = lambda i: FD.flash_decode_ref(q, sets[i][0].k, sets[i][0].v,
+                                           sets[i][1], lens)
+    got = call_k(0)
+    torch.cuda.synchronize()
+    err = compare(label, got, call_r(0))
+    ms, e_ms = device_ms(call_k, len(sets)), eager_ms(call_k, len(sets))
+    plain_ms = device_ms(call_r, len(sets), calls=4, reps=3)
+    nb, flops, peak = attn_work(q, first[0].k, lens, 1, None, False, False)
+    bound_ms, by = bound(nb, flops, peak)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ns = FD.decode_splits(BATCH * KV, FD.max_tiles(C, None), sms)
+    say(f"[dense] {label} [paged_decode_kernel over the identity view, "
+        f"page {C} keys, {ns} blocks a pair]: max|err| {err:.2e} | kernel "
+        f"{ms:.4f} ms device ({e_ms:.4f} ms per eager call) | bound "
+        f"{bound_ms:.4f} ms ({by}; {nb / 1e6:.2f} MB, {flops / 1e9:.3f} "
+        f"GFLOP) | plain {plain_ms:.3f} ms | library none")
+    return {"case": label, "max_abs_err": err, "ms": ms, "eager_ms": e_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": None, "bytes": nb, "flops": flops}
+
+
+def dense_stablelm(dev) -> dict:
+    """(a) stablelm-1.6b at full width and depth, bf16 policy, the kernels:
+    ``prefill`` of BATCH x PROMPT (one flash-attention forward a layer) and
+    ``prefill_probe(k=1)``; DENSE_PREFIX tokens committed one at a time
+    into ``init_cache(BATCH, DENSE_PREFIX + DENSE_STEPS)``, held to the
+    prefill of the same tokens; DENSE_STEPS greedy ``serve_step``s; ms and
+    busy share of both beside their bounds, the peak. Then fp32: the same
+    commits held to the fp32 prefill within JAX's bound, DENSE_CHECK_NEW
+    greedy steps through the kernels and through ``impl="ref"`` (logits
+    within 1e-3) and the paged static engine's on the same z: the same
+    tokens. Launches equal to each run's arithmetic."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    cfg, dbm, params, gen = build_model(dev)
+    m, L = dbm.model, cfg.n_layers
+    prompts, _ = prompts_np(cfg.vocab_size)
+    tokens = torch.as_tensor(prompts, device=dev)
+    head = tokens[:, :DENSE_PREFIX]
+    counts = {}
+
+    def counted(tag, run, **expect):
+        K.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        got = K.launch_counts()
+        check_counts(f"dense {tag}", got, expected_counts(**expect))
+        add_counts(counts, got)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dbm.prefill(params, tokens, impl="kernels", precision="bf16")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pre = counted("prefill", lambda: dbm.prefill(
+        params, tokens, impl="kernels", precision="bf16"),
+        flash_attention_fwd=L)
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(logits).all() or any(
+            not torch.isfinite(t).all() for t in pre.values()):
+        raise SmokeError("dense prefill: non-finite logits or cache")
+    p_wall, p_busy, _ = device_busy(lambda: dbm.prefill(
+        params, tokens, impl="kernels", precision="bf16"))
+    plog, sub = counted("prefill_probe", lambda: dbm.prefill_probe(
+        params, tokens, 1, impl="kernels", precision="bf16"),
+        flash_attention_fwd=1)
+    probe_gap = max(r for _, r in cache_gaps(sub, {k: t[:1] for k, t in
+                                                   pre.items()}))
+    if not (probe_gap <= BF16_ULP and torch.isfinite(plog).all()):
+        raise SmokeError(f"dense prefill_probe: unit 0 {probe_gap:.2e} "
+                         "from the prefill's")
+    cache = m.init_cache(BATCH, DENSE_PREFIX + DENSE_STEPS, torch.bfloat16,
+                         device=dev)
+    t0 = time.perf_counter()
+    counted("commits", lambda: dense_commits(dbm, params, cache, head,
+                                             "bf16", "kernels"),
+            flash_decode=DENSE_PREFIX * L)
+    commit_ms = (time.perf_counter() - t0) * 1e3 / DENSE_PREFIX
+    _, pre_head = counted("prefill of the commits' tokens", lambda:
+                          dbm.prefill(params, head, impl="kernels",
+                                      precision="bf16"),
+                          flash_attention_fwd=L)
+    gaps = cache_gaps(cache, pre_head, DENSE_PREFIX)
+    if not max(r for _, r in gaps) <= DENSE_BF16_CACHE_REL:
+        raise SmokeError(f"dense bf16 commits against the prefill: {gaps}")
+    eng = get_engine(dbm, precision="bf16", chunk_size=CHUNK)
+    z, _ = eng.draw(DENSE_STEPS + 4, BATCH, gen, dev)
+    spare = {k: t.clone() for k, t in cache.items()}
+    dbm.serve_step(params, spare, DENSE_PREFIX, z0=z[0],
+                   precision="bf16")                              # warm-up
+    step_ms = []
+    toks, _ = counted("serve steps", lambda: dense_steps(
+        dbm, params, cache, DENSE_PREFIX, z[:DENSE_STEPS], "bf16",
+        "kernels", step_ms), flash_decode=DENSE_STEPS * 2 * L,
+        gate_residual=DENSE_STEPS * 2 * L)
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all() or any(
+            not torch.isfinite(t).all() for t in cache.values()):
+        raise SmokeError("dense serve steps: token outside the vocabulary "
+                         "or a non-finite cache")
+    s_wall, s_busy, top = counted("profiled serve steps", lambda: device_busy(
+        lambda: dense_steps(dbm, params, spare, DENSE_PREFIX,
+                            z[DENSE_STEPS:], "bf16", "kernels")),
+        flash_decode=4 * 2 * L, gate_residual=4 * 2 * L)
+    peak = torch.cuda.max_memory_allocated()
+    del spare
+    lb = serve_bounds(dbm, params, [DENSE_PREFIX] * BATCH)
+    pb = dense_prefill_bound(dbm, params, PROMPT)
+    med = statistics.median(step_ms)
+    say(f"[dense] (a) {cfg.name} at full width and depth ({L} layers, d "
+        f"{cfg.d_model}), bf16 policy, kernels: prefill {BATCH} x {PROMPT} "
+        f"{pre_ms:.1f} ms (bound {pb[0]:.3f} ms, {pb[1]}; busy "
+        f"{100 * p_busy / p_wall:.1f}% under the profiler) | "
+        f"prefill_probe(k=1): unit 0 within {probe_gap:.2e} of the prefill's"
+        f" | {DENSE_PREFIX} per-token commits {commit_ms:.2f} ms each, caches"
+        f" against the prefill of the same tokens: worst leaf "
+        f"{max(r for _, r in gaps):.2e} relative (limit "
+        f"{DENSE_BF16_CACHE_REL:g})")
+    say(f"[dense] (a) {DENSE_STEPS} serve steps from position "
+        f"{DENSE_PREFIX}: median {med:.2f} ms a step (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}; bound "
+        f"{lb['decode_step_ms']:.3f} ms, {lb['decode_step_by']}) | 4 steps "
+        f"under the profiler: device busy {s_busy:.1f} ms of {s_wall:.1f} ms"
+        f" ({100 * s_busy / s_wall:.1f}%) | peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    for ms, count, key in top:
+        say(f"[dense]   {ms:8.2f} ms  x{count:<6d} {key[:90]}")
+
+    # fp32: per-token commits against the prefill; the dense step through
+    # the kernels against impl="ref" and against the paged engine
+    z32, _ = get_engine(dbm, precision="fp32", chunk_size=CHUNK).draw(
+        DENSE_CHECK_NEW, BATCH, gen, dev)
+    c32 = m.init_cache(BATCH, DENSE_PREFIX + DENSE_CHECK_NEW, torch.float32,
+                       device=dev)
+    counted("fp32 commits", lambda: dense_commits(
+        dbm, params, c32, head, "fp32", "kernels"),
+        flash_decode=DENSE_PREFIX * L)
+    _, pre32 = counted("fp32 prefill", lambda: dbm.prefill(
+        params, head, impl="kernels", precision="fp32"),
+        flash_attention_fwd=L)
+    gaps32 = cache_gaps(c32, pre32, DENSE_PREFIX)
+    if not max(a for a, _ in gaps32) <= DENSE_FP32_CACHE_ABS:
+        raise SmokeError(f"dense fp32 commits against the prefill: {gaps32}")
+    del pre32
+    r32 = {k: t.clone() for k, t in c32.items()}
+    tk, lk = counted("fp32 serve steps", lambda: dense_steps(
+        dbm, params, c32, DENSE_PREFIX, z32, "fp32", "kernels"),
+        flash_decode=DENSE_CHECK_NEW * 2 * L,
+        gate_residual=DENSE_CHECK_NEW * 2 * L)
+    tr, lr = counted("fp32 serve steps, plain", lambda: dense_steps(
+        dbm, params, r32, DENSE_PREFIX, z32, "fp32", "ref"))
+    same = (tk == tr).all(dim=0)
+    n_same = DENSE_CHECK_NEW if bool(same.all()) else int(
+        torch.nonzero(~same)[0, 0]) + 1
+    rel = ((lk[:n_same] - lr[:n_same]).abs().max()
+           / lr[:n_same].abs().max()).item()
+    peng = get_engine(dbm, precision="fp32", chunk_size=CHUNK)
+    out = counted("fp32 paged engine", lambda: peng.generate(
+        params, prompts[:, :DENSE_PREFIX], DENSE_CHECK_NEW, z0=z32),
+        flash_prefill=-(-DENSE_PREFIX // CHUNK) * L,
+        flash_decode=DENSE_CHECK_NEW * 2 * L,
+        gate_residual=DENSE_CHECK_NEW * 2 * L)
+    peng.last_kv = None
+    paged_equal = torch.equal(tk.cpu(), out[:, DENSE_PREFIX:])
+    say(f"[dense] (a) fp32: {DENSE_PREFIX} per-token commits against the "
+        f"prefill: worst leaf {max(a for a, _ in gaps32):.2e} absolute "
+        f"(limit {DENSE_FP32_CACHE_ABS:g}) | {DENSE_CHECK_NEW} greedy dense "
+        f"steps, kernels against impl=\"ref\": logits rel max|diff| "
+        f"{rel:.2e} over {n_same} steps (limit 1e-3), tokens "
+        f"{'equal' if bool(same.all()) else 'DIFFER'} | against the paged "
+        f"static engine on the same z: tokens "
+        f"{'equal' if paged_equal else 'DIFFER'}")
+    if not (rel <= 1e-3 and math.isfinite(rel)) or not paged_equal:
+        raise SmokeError(f"dense fp32 check: logits {rel:.2e}, tokens equal "
+                         f"to the paged engine's {paged_equal}")
+    dbm.__dict__.pop("_serve_engines", None)
+    return {"counts": counts, "prefill_ms": pre_ms, "prefill_bound": pb,
+            "step_ms": med, "step_bound": lb["decode_step_ms"],
+            "busy": s_busy / s_wall, "peak": peak, "fp32_rel": rel}
+
+
+def dense_xlstm(dev) -> dict:
+    """(b) xlstm-125m at full width and depth: the dense ``prefill`` of
+    BATCH x PROMPT (the sequence forms: ``slstm_fwd``, the chunked
+    ``mlstm_fwd`` with its final state) against the paged engine's chunk
+    chain (``commit_prompt_chunk``, per-token steps) on the same prompts,
+    fp32: every state leaf within 1e-4 relative, both walls; then
+    DENSE_CHECK_NEW greedy dense ``serve_step``s from the prefill's state
+    and the paged engine's decode from the chain's, on the same z: the same
+    tokens."""
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import get_engine
+    from repro_torch.nn import cache as KVC
+    dbm, params, gen = xl_model(dev)
+    m = dbm.model
+    _, G = paged_layers(dbm)
+    prompts, _ = prompts_np(dbm.cfg.vocab_size)
+    tokens = torch.as_tensor(prompts, device=dev)
+    eng = get_engine(dbm, precision="fp32", chunk_size=CHUNK)
+    table = KVC.identity_page_table(BATCH, 1, device=dev)
+    plens = torch.full((BATCH,), PROMPT, dtype=torch.int32, device=dev)
+
+    def chain():
+        kv = m.init_paged_cache(BATCH, 1, PSZ, device=dev)
+        lens = torch.zeros((BATCH,), dtype=torch.int32, device=dev)
+        return eng.run_prefill(params, kv, table, lens, tokens, plens)
+    dbm.prefill(params, tokens[:, :CHUNK], precision="fp32")     # warm-up
+    eng.run_prefill(params, m.init_paged_cache(BATCH, 1, PSZ, device=dev),
+                    table, torch.zeros((BATCH,), dtype=torch.int32,
+                                       device=dev),
+                    tokens[:, :CHUNK], torch.full_like(plens, CHUNK))
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, dense = dbm.prefill(params, tokens, precision="fp32")
+    torch.cuda.synchronize()
+    t_dense = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kv, lens = chain()
+    torch.cuda.synchronize()
+    t_chain = time.perf_counter() - t0
+    check_counts("xlstm prefill and chain", K.launch_counts(),
+                 expected_counts())
+    gaps = cache_gaps(dense, kv)
+    worst = max(r for _, r in gaps)
+    z, _ = eng.draw(DENSE_CHECK_NEW, BATCH, gen, dev)
+    K.reset_launch_counts()
+    td, _ = dense_steps(dbm, params, dense, PROMPT, z, "fp32", "kernels")
+    _, _, tp = eng.decode(params, kv, table, lens, lens + DENSE_CHECK_NEW,
+                          DENSE_CHECK_NEW, z0=z)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check_counts("xlstm dense and paged steps", counts, expected_counts(
+        gate_residual=2 * DENSE_CHECK_NEW * G))
+    equal = torch.equal(td, tp)
+    lb = xl_bounds(dbm, params)
+    say(f"[dense] (b) {dbm.cfg.name} at full width and depth, fp32: prefill "
+        f"of {BATCH} x {PROMPT} through the sequence forms {t_dense:.3f} s "
+        f"against the paged chunk chain (per-token steps, "
+        f"{-(-PROMPT // CHUNK)} chunks of {CHUNK}) {t_chain:.3f} s (chain "
+        f"bound {-(-PROMPT // CHUNK) * lb['chunk_ms']:.3f} ms, "
+        f"{lb['chunk_by']}) | states: worst leaf {worst:.2e} relative (limit"
+        f" 1e-4) | {DENSE_CHECK_NEW} greedy steps from each: tokens "
+        f"{'equal' if equal else 'DIFFER'}")
+    if not worst <= 1e-4 or not equal:
+        raise SmokeError(f"xlstm dense prefill: states {gaps}, tokens equal "
+                         f"{equal}")
+    dbm.__dict__.pop("_serve_engines", None)
+    return {"counts": counts, "dense_s": t_dense, "chain_s": t_chain,
+            "state_rel": worst}
+
+
+def dense_ring(dev) -> float:
+    """(c) ``decode_attention`` on a sliding-window ring at
+    h2o-danube3-4b's attention dims (32 query heads on 8 KV heads of 120,
+    window 4096 = C, BATCH slots), random weights with wo the identity (so
+    the output is the attention itself), probes (``commit=False``): the
+    kernel route (the ring un-rotated, the kernel over the identity view)
+    against the reference route at RING_POS, in bf16 and fp32, within the
+    kernel's tolerance; the ring bit-unchanged. Returns the worst error."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import attention as A
+    cfg = get_config(H2O_ARCH)
+    dims = A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                      cfg.rope_theta)
+    d, hq = cfg.d_model, cfg.n_heads * cfg.head_dim
+    C = cfg.sliding_window
+    gen = torch.Generator(device=dev).manual_seed(24)
+    w = lambda n: torch.randn((d, n), generator=gen, device=dev) / d ** 0.5
+    p32 = {"wq": w(hq), "wk": w(cfg.n_kv_heads * cfg.head_dim),
+           "wv": w(cfg.n_kv_heads * cfg.head_dim),
+           "wo": torch.eye(hq, d, device=dev)}
+    kv_shape = (BATCH, C, cfg.n_kv_heads, cfg.head_dim)
+    worst, said = 0.0, []
+    for dt in (torch.bfloat16, torch.float32):
+        p = {k: t.to(dt) for k, t in p32.items()}
+        ring = {k: torch.randn(kv_shape, generator=gen, device=dev).to(dt)
+                for k in ("k", "v")}
+        before = {k: t.clone() for k, t in ring.items()}
+        x = torch.randn((BATCH, 1, d), generator=gen, device=dev).to(dt)
+        for pos in RING_POS:
+            got, _ = A.decode_attention(p, x, dims, ring, pos, window=C,
+                                        impl="kernels", commit=False)
+            want, _ = A.decode_attention(p, x, dims, ring, pos, window=C,
+                                         impl="ref", commit=False)
+            torch.cuda.synchronize()
+            err = compare(f"ring {str(dt)[6:]} pos {pos}", got, want,
+                          bf16_rounding=True)
+            worst = max(worst, err)
+            said.append(f"{str(dt)[6:]} {pos}: {err:.2e}")
+        if not all(torch.equal(ring[k], before[k]) for k in ring):
+            raise SmokeError("ring probe wrote the cache")
+    say(f"[dense] (c) ring of {C} slots at {H2O_ARCH}'s dims ({cfg.n_heads} "
+        f"heads on {cfg.n_kv_heads} of {cfg.head_dim}), kernels against "
+        f"impl=\"ref\", max|err| by dtype and position: " + ", ".join(said)
+        + " (limit 2e-4 + 2e-4 |ref|, bf16 2e-4 + 2^-7 |ref|); the ring "
+        "bit-unchanged")
+    return worst
+
+
+def phase_dense(dev) -> dict:
+    """Phase 24: the dense-cache serving path (see the module docstring),
+    after phase 23 under its memory check: (a) stablelm-1.6b, (b)
+    xlstm-125m, (c) the ring check; then the flash-decode kernel over the
+    identity view at (a)'s probe shape and (c)'s bf16 ring against its
+    plain version, timed (cases of the kernels line, not main-path
+    launches); memory back within 1 GiB."""
+    t_phase = time.perf_counter()
+    base = phase_start("dense")
+    counts = {}
+    a = dense_stablelm(dev)
+    add_counts(counts, a["counts"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = dense_xlstm(dev)
+    add_counts(counts, b["counts"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring = dense_ring(dev)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    cases = [dense_view_case("(d) stablelm dense probe, fp32 q over bf16 "
+                             f"C={DENSE_PREFIX + DENSE_STEPS}",
+                             C=DENSE_PREFIX + DENSE_STEPS, KV=32, G=1,
+                             hd=64, q_dtype=torch.float32,
+                             length=DENSE_PREFIX + DENSE_STEPS // 2,
+                             dev=dev, gen=gen),
+             dense_view_case("(h) h2o ring un-rotated, bf16 C=4096", C=4096,
+                             KV=8, G=4, hd=120, q_dtype=torch.bfloat16,
+                             length=4095, dev=dev, gen=gen)]
+    phase_end("dense", base)
+    took = time.perf_counter() - t_phase
+    say(f"[dense] phase 24 took {took:.1f} s | launches {counts}")
+    return {"counts": counts, "cases": cases, "stablelm": a, "xlstm": b,
+            "ring_err": ring, "seconds": took}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run on the "
@@ -7543,6 +8003,9 @@ def main() -> int:
     lap("22")
     xlstm_train = phase_xlstm_train(dev)
     lap("23")
+    dense = phase_dense(dev)
+    rows["flash_decode"].extend(dense["cases"])
+    lap("24")
     launches = {}
     for counts in (serve["counts"], continuous["counts"], server["counts"],
                    disagg["counts"], train["launches"],
@@ -7552,7 +8015,7 @@ def main() -> int:
                    vlm["counts"], hybrid["counts"],
                    hybrid_train["counts"], h2o["counts"],
                    whisper["counts"], vlm_train["counts"], moe["counts"],
-                   xlstm["counts"], xlstm_train["counts"]):
+                   xlstm["counts"], xlstm_train["counts"], dense["counts"]):
         add_counts(launches, counts)
     missing = sorted(n for n in SOURCES
                      if n not in OFF_PATH and launches.get(n, 0) == 0)

@@ -7,7 +7,10 @@ Mamba layers and cells having no mask), the
 end-to-end baseline (``e2e_loss``), and the sampler over the paged cache
 (conditioned slots read their image or audio blocks under
 ``cond_lengths``, the hybrid's Mamba rows and the xLSTM's cell states
-advance in place).
+advance in place) and over the dense one (``serve_step``, ``prefill``,
+``prefill_probe``: JAX's dry-run and reference path, every slot at one
+position ``pos``; the cache from ``model.init_cache``, filled by
+per-token commits or returned by ``prefill``, written in place).
 
 Conditioning inputs (``aux_inputs``: ``{"image_embs": (B, Sk, d)}`` for
 the VLM, ``{"audio_embs": (B, Sk, d)}`` for the encoder-decoder) go
@@ -60,7 +63,7 @@ from repro_torch import precision as precision_mod
 from repro_torch.configs.base import HYBRID, SSM, DBConfig, ModelConfig
 from repro_torch.core import edm
 from repro_torch.core import partition as P
-from repro_torch.models.common import LayerCtx
+from repro_torch.models.common import LayerCtx, zip_caches
 from repro_torch.models.model_api import build_model
 from repro_torch.nn import attention as A
 from repro_torch.nn import cache as KVC
@@ -310,8 +313,9 @@ class DiffusionBlocksModel:
 
     def _probe_block(self, params, b: int, z: torch.Tensor, sigma: float,
                      cache, ctx_base: LayerCtx) -> torch.Tensor:
-        """Run block b's units over one noisy token without appending.
-        Returns F (B, 1, d) in z's dtype."""
+        """Run block b's units over one noisy token without appending (at
+        each slot's ``lengths[b]`` over a paged cache, at ``pos`` over a
+        dense one). Returns F (B, 1, d) in z's dtype."""
         start, size = self.ranges[b]
         sig = torch.full((z.shape[0], 1, 1), sigma, dtype=torch.float32,
                          device=z.device)
@@ -328,12 +332,14 @@ class DiffusionBlocksModel:
                            steps_per_block: int = 1, *,
                            z0: torch.Tensor) -> torch.Tensor:
         """Full Euler chain (σ_max → 0) for the token at each slot's
-        ``ctx_base.lengths`` from the initial z ``z0`` (B, 1, d). Returns
-        D (B, 1, d)."""
+        ``ctx_base.lengths`` (paged) or at ``ctx_base.pos`` (dense) from the
+        initial z ``z0`` (B, 1, d). Returns D (B, 1, d)."""
         lengths = ctx_base.lengths
-        shape = (lengths.shape[0], 1, self.cfg.d_model)
+        batch = (lengths.shape[0] if lengths is not None
+                 else self.model.cache_batch(cache))
         z = torch.as_tensor(z0, dtype=torch.float32,
-                            device=lengths.device).reshape(shape)
+                            device=params["embed"]["table"].device
+                            ).reshape(batch, 1, self.cfg.d_model)
         for b, s_from, s_to in self.denoise_schedule(steps_per_block):
             f = self._probe_block(params, b, z, s_from, cache, ctx_base)
             # a 0-dim CPU tensor: fp32 preconditioning without a device copy
@@ -350,13 +356,15 @@ class DiffusionBlocksModel:
         all units; each block's clean stream restarts from the raw embedding
         (blocks are independent denoisers). ``cond`` is None, so the gates
         are plain residual adds. The token embeds at each slot's offset
-        ``lengths[b]`` (absolute-position families)."""
+        ``lengths[b]``, or at ``pos`` over a dense cache (absolute-position
+        families)."""
         ctx = dataclasses.replace(ctx_base, mode="decode", cond=None,
                                   commit=True)
         cd = precision_mod.get_policy(ctx.precision).compute_for(
             self.cfg.family)
-        emb = self.model.embed(params, token, dtype=cd,
-                               positions=ctx.lengths[:, None])
+        epos = (ctx.lengths[:, None] if ctx.lengths is not None else
+                torch.full((1, 1), ctx.pos, device=token.device))
+        emb = self.model.embed(params, token, dtype=cd, positions=epos)
         self.model.apply_units(self.params_for(params, cd), emb, 0,
                                self.model.n_units, ctx, cache,
                                reset_mask=self._block_starts())
@@ -386,6 +394,79 @@ class DiffusionBlocksModel:
                                  torch.full_like(logits, float("-inf")),
                                  logits)
         return torch.argmax(logits + noise, dim=-1)
+
+    # ------------------------------------------------------------------
+    # Dense-cache serving (JAX's dry-run and single-request reference path)
+    # ------------------------------------------------------------------
+    def dense_ctx(self, pos: int, *, precision=None, impl: str = "kernels",
+                  cond_lengths=None) -> LayerCtx:
+        """The ``decode`` context of a dense cache at position ``pos``: the
+        base of ``serve_step`` and of a prompt's per-token
+        ``commit_token``s."""
+        return LayerCtx(cfg=self.cfg, mode="decode", pos=int(pos),
+                        precision=precision_mod.get_policy(precision),
+                        impl=impl, cond_lengths=cond_lengths)
+
+    def serve_step(self, params, cache, pos: int, *, z0, noise=None,
+                   steps_per_block: int = 1, temperature: float = 0.0,
+                   top_k: int = 0, precision=None, impl: str = "kernels",
+                   cond_lengths=None, return_logits: bool = False):
+        """One generation step over the DENSE cache (``model.init_cache``):
+        every slot denoises the token at position ``pos`` from ``z0`` (B,
+        1, d) through the blocks, samples (``noise`` (B, V) the Gumbel noise
+        at temperature > 0) and commits it at ``pos`` in place. Conditioned
+        families read their blocks (``model.set_conditioning``) under
+        ``cond_lengths`` (B,), or whole when None. The policy defaults to
+        fp32, as JAX's ``serve_step`` runs. Returns (token (B,), cache),
+        plus the logits (B, V) with ``return_logits``."""
+        ctx = self.dense_ctx(pos, precision=precision, impl=impl,
+                             cond_lengths=cond_lengths)
+        d_final = self.denoise_next_token(params, cache, ctx,
+                                          steps_per_block, z0=z0)
+        logits = self.model.logits(params, d_final)[:, 0]
+        token = self.sample_token(logits, temperature, top_k, noise)
+        cache = self.commit_token(params, cache, token[:, None], ctx)
+        if return_logits:
+            return token, cache, logits
+        return token, cache
+
+    def _prefill_ctx(self, params, tokens, aux_inputs, impl, precision):
+        pol = precision_mod.get_policy(precision)
+        S = tokens.shape[1]
+        ctx = self.make_ctx(params, S, "prefill", None, aux_inputs,
+                            impl=impl, precision=pol)
+        ctx.rope_positions = torch.arange(S, device=tokens.device)
+        cd = pol.compute_for(self.cfg.family)
+        return ctx, self.model.embed(params, tokens, dtype=cd), \
+            self.params_for(params, cd)
+
+    def prefill_probe(self, params, tokens, k: int, aux_inputs=None,
+                      impl: str = "kernels", precision=None):
+        """The clean stream over the first ``k`` units only (the dry run's
+        cost probe). Returns (logits (B, 1, V) of the last position, the
+        k units' dense caches)."""
+        ctx, emb, p = self._prefill_ctx(params, tokens, aux_inputs, impl,
+                                        precision)
+        h, sub = self.model.apply_units(p, emb, 0, k, ctx)
+        return self.model.logits(params, h[:, -1:]), sub
+
+    def prefill(self, params, tokens, aux_inputs=None, impl: str = "kernels",
+                precision=None):
+        """Clean-stream prefill of every unit's dense cache over the prompt
+        ``tokens`` (B, S) in the policy's compute dtype (fp32 by default, as
+        JAX's): each block's units run from the raw embeddings (blocks are
+        independent denoisers, as in ``commit_token``), their caches joined
+        on the unit axis. The caches hold the S positions (not a ring, even
+        under a sliding window). Returns (logits (B, 1, V) of the last
+        position, cache)."""
+        ctx, emb, p = self._prefill_ctx(params, tokens, aux_inputs, impl,
+                                        precision)
+        parts = []
+        for start, size in self.ranges:
+            h, sub = self.model.apply_units(p, emb, start, size, ctx)
+            parts.append(sub)
+        return (self.model.logits(params, h[:, -1:]),
+                zip_caches(torch.cat, parts))
 
     # ------------------------------------------------------------------
     # Paged serving steps (used by launch.serve)

@@ -4,12 +4,16 @@
 
 Modes ported: ``train`` (the full sequence under ``ctx.mask_mod``, the
 causal mask by default; the DB concat stream sets ``db_concat_mask`` and
-separate rope positions), ``decode`` (one token per slot over the paged
-cache, the denoising probe when ``commit`` is False) and ``prefill_chunk``
-(C prompt tokens per slot appended to the paged cache and attended in one
-call). ``tlayer_two_pass`` is the DB two-pass training layer: a clean
-stream under the causal mask and a σ-conditioned noisy stream that attends
-to the clean past and to itself.
+separate rope positions), ``prefill`` (``train``'s attention over a prompt,
+returning each self layer's roped (k, v) and each cross layer's projected
+memory as ``{"k", "v"}``: the dense caches), ``decode`` (one token a slot:
+over the paged cache at each slot's ``lengths[b]``, or over a dense cache
+``{"k", "v"}`` at the scalar ``ctx.pos``; the denoising probe when
+``commit`` is False) and ``prefill_chunk`` (C prompt tokens per slot
+appended to the paged cache and attended in one call). ``tlayer_two_pass``
+is the DB two-pass training layer: a clean stream under the causal mask
+and a σ-conditioned noisy stream that attends to the clean past and to
+itself.
 
 Recurrent layers (the hybrid's Mamba2, the xLSTM's cells) keep a per-slot
 state beside the pages, or in place of them: ``chunk_token_scan`` advances
@@ -65,6 +69,9 @@ class LayerCtx:
     cond_mask: Optional[torch.Tensor] = None    # (S,) bool: where AdaLN applies
     impl: str = "kernels"                       # kernels | ref
     precision: Any = None                       # precision.Policy | None
+    # ---- dense-cache decode ----
+    pos: Optional[int] = None                   # the token's position
+    kv_chunk: int = 1024                        # key tile past 4096 keys
     # ---- paged serving (nn.cache) ----
     lengths: Optional[torch.Tensor] = None      # (B,) int32 committed tokens
     page_table: Optional[torch.Tensor] = None   # (B, n_logical_pages) int32
@@ -274,12 +281,16 @@ def _mlp(params, x, ctx: LayerCtx, moe_layer: bool):
 
 def tlayer_apply(params, h, ctx: LayerCtx, *, cross: bool = False,
                  moe_layer: bool = False, cache=None):
-    """One transformer layer: over the paged ``cache`` in the serving modes,
-    over the whole sequence (no cache) in ``train``. A ``cross`` layer
-    attends the slot's image block ``cache`` ({"k", "v"}) in the serving
-    modes and ``ctx.kv_x`` in ``train``, its output through the tanh gate
-    ``xgate``. A ``moe_layer`` routes its MLP through ``nn.moe`` (the aux
-    loss to ``ctx.add_aux``). Returns (h, cache)."""
+    """One transformer layer: over the whole sequence (no cache) in
+    ``train`` and ``prefill``, over ``cache`` in ``decode`` (a PagedKV, or
+    a dense ``{"k", "v"}`` read at ``ctx.pos``) and ``prefill_chunk``. A
+    ``cross`` layer attends the slot's conditioning block ``cache`` ({"k",
+    "v"}) in the cached modes and ``ctx.kv_x`` otherwise, its output
+    through the tanh gate ``xgate``. A ``moe_layer`` routes its MLP through
+    ``nn.moe`` (the aux loss to ``ctx.add_aux``). Returns (h, cache): in
+    ``prefill`` the layer's new dense cache {"k", "v"} (the self layer's
+    roped keys, the cross layer's projected memory), else the cache it was
+    given."""
     cfg = ctx.cfg
     dims = ctx.dims()
     s1, c1, g1, s2, c2, g2 = _mods(params, ctx)
@@ -289,47 +300,77 @@ def tlayer_apply(params, h, ctx: LayerCtx, *, cross: bool = False,
     if cross:
         if cache is not None and ctx.mode in ("decode", "prefill_chunk"):
             attn_out = cross_cached_attn(params["attn"], x, ctx, cache)
-        elif ctx.mode != "train":
+        elif ctx.mode not in ("train", "prefill"):
             raise NotImplementedError(
                 f"cross-attention layer in mode {ctx.mode!r} without its "
-                "cache: the port has train, decode and prefill_chunk")
+                "cache")
         elif ctx.kv_x is None:
             raise ValueError(
                 "cross-attention layer with no conditioning memory: pass "
-                "aux_inputs (image_embs) on the training path; the serving "
-                "engines admit unconditioned requests with cond_lengths=0")
+                "aux_inputs (image_embs) on the training and prefill paths; "
+                "the serving engines admit unconditioned requests with "
+                "cond_lengths=0")
         else:
-            attn_out, _ = A.attention_fwd(
+            attn_out, (k, v) = A.attention_fwd(
                 params["attn"], x, dims, positions=ctx.positions,
                 mask_mod=None, kv_x=ctx.kv_x,
                 kv_positions=ctx.kv_positions, impl=ctx.impl)
+            if ctx.mode == "prefill":
+                cache = {"k": k, "v": v}
         attn_out = attn_out * torch.tanh(L.as_dtype(params["xgate"],
                                                     attn_out.dtype))
-    elif ctx.mode == "train":
-        attn_out, _ = A.attention_fwd(
+    elif ctx.mode in ("train", "prefill"):
+        attn_out, (k, v) = A.attention_fwd(
             params["attn"], x, dims, positions=ctx.positions,
             mask_mod=ctx.mask_mod or default_mask(cfg),
             rope_positions=ctx.rope_positions, impl=ctx.impl)
+        if ctx.mode == "prefill":
+            cache = {"k": k, "v": v}
     elif ctx.mode == "prefill_chunk":
         attn_out, cache = KVC.paged_prefill_attention(
             params["attn"], x, dims, cache, lengths=ctx.lengths,
             page_table=ctx.page_table, n_valid=ctx.n_valid,
             window=cfg.sliding_window, impl=ctx.impl)
     elif ctx.mode == "decode":
-        attn_out, cache = KVC.paged_decode_attention(
-            params["attn"], x, dims, cache, lengths=ctx.lengths,
-            page_table=ctx.page_table, active=ctx.active,
-            commit=ctx.commit, window=cfg.sliding_window, impl=ctx.impl)
+        attn_out, cache = decode_self(params["attn"], x, ctx, cache,
+                                      cfg.sliding_window)
     else:
-        raise NotImplementedError(
-            f"mode {ctx.mode!r}: the port has the train, paged decode and "
-            "prefill_chunk modes only so far")
+        raise ValueError(f"unknown mode {ctx.mode!r}")
     h = adaln.gate(h, attn_out, g1, cm, impl=ctx.impl)
 
     x = _norm_modulate(params["ln2"], h, ctx, s2, c2, cm)
     h = adaln.gate(h, _mlp(params, x, ctx, moe_layer), g2, cm,
                    impl=ctx.impl)
     return h, cache
+
+
+def decode_self(p, x, ctx: LayerCtx, cache, window):
+    """One token's self-attention in ``decode``: over the paged pool at
+    each slot's ``ctx.lengths[b]``, or over the dense cache at ``ctx.pos``.
+    Appends (writes) the token's k/v only when ``ctx.commit``. Returns
+    (out, cache)."""
+    if isinstance(cache, KVC.PagedKV):
+        return KVC.paged_decode_attention(
+            p, x, ctx.dims(), cache, lengths=ctx.lengths,
+            page_table=ctx.page_table, active=ctx.active,
+            commit=ctx.commit, window=window, impl=ctx.impl)
+    return A.decode_attention(p, x, ctx.dims(), cache, ctx.pos,
+                              window=window, kv_chunk=ctx.kv_chunk,
+                              impl=ctx.impl, commit=ctx.commit)
+
+
+def zip_caches(fn, caches: list):
+    """``fn`` (``torch.stack`` or ``torch.cat``) over the matching leaves
+    of alike cache trees (dicts and tuples of tensors): ``prefill`` stacks
+    the units' dense caches on a new unit axis, as JAX's scans stack them,
+    and joins the blocks' on that axis."""
+    first = caches[0]
+    if isinstance(first, dict):
+        return {k: zip_caches(fn, [c[k] for c in caches]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(zip_caches(fn, [c[i] for c in caches])
+                     for i in range(len(first)))
+    return fn(caches)
 
 
 def two_pass_mask(seq_len: int) -> A.MaskMod:

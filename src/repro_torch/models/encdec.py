@@ -23,7 +23,10 @@ Params (JAX's tree): ``encoder`` (n_encoder_layers, ...) of
 psz, KV, hd), "cross": {"k", "v"} (n_layers, num_slots, n_audio_frames,
 KV, hd)}``: the decoder's history is paged, each slot's audio block is
 projected once at admission (``set_conditioning``) and read under
-``ctx.cond_lengths``. The encoder mixes every frame into every frame, so a
+``ctx.cond_lengths``. The dense cache (``init_cache``) has the same
+layout with the decoder's keys in ``{"k", "v"}`` (n_layers, slots, C, KV,
+hd); ``prefill`` returns each layer's self (k, v) over the prompt and its
+projected memory. The encoder mixes every frame into every frame, so a
 zero-padded batch does not encode each row as its unpadded self
 (``cond_padding_safe`` False): ragged audio is served through the
 continuous batcher, which encodes each request alone.
@@ -31,13 +34,15 @@ continuous batcher, which encodes each request alone.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from repro_torch import precision as precision_mod
 from repro_torch.models import common as C
 from repro_torch.models.model_api import BaseModel
-from repro_torch.models.transformer import _index, _unbind, _unit_views
+from repro_torch.models.transformer import (_dims, _index, _prefilled,
+                                           _unbind, _unit_views)
 from repro_torch.nn import adaln
 from repro_torch.nn import attention as A
 from repro_torch.nn import cache as KVC
@@ -63,47 +68,50 @@ def dlayer_spec(cfg, db: bool):
 
 
 def _self_attn(p, x, ctx: C.LayerCtx, cache):
-    """The decoder's self-attention: over the paged ``cache`` in the
-    serving modes, over the whole sequence (causal unless ``ctx.mask_mod``)
-    in ``train``."""
+    """The decoder's self-attention: over ``cache`` in the serving modes
+    (paged or, in ``decode``, dense at ``ctx.pos``), over the whole
+    sequence (causal unless ``ctx.mask_mod``) in ``train`` and ``prefill``.
+    Returns (out, cache): in ``prefill`` the layer's {"k", "v"}."""
     dims = ctx.dims()
     if ctx.mode == "prefill_chunk":
         return KVC.paged_prefill_attention(
             p, x, dims, cache, lengths=ctx.lengths,
-            page_table=ctx.page_table, n_valid=ctx.n_valid,
-            impl=ctx.impl)[0]
+            page_table=ctx.page_table, n_valid=ctx.n_valid, impl=ctx.impl)
     if ctx.mode == "decode":
-        return KVC.paged_decode_attention(
-            p, x, dims, cache, lengths=ctx.lengths,
-            page_table=ctx.page_table, active=ctx.active, commit=ctx.commit,
-            impl=ctx.impl)[0]
-    if ctx.mode != "train":
-        raise NotImplementedError(f"mode {ctx.mode!r}: the port has train, "
-                                  "decode and prefill_chunk")
-    return A.attention_fwd(p, x, dims, positions=ctx.positions,
-                           mask_mod=ctx.mask_mod or A.causal_mask,
-                           rope_positions=ctx.rope_positions,
-                           impl=ctx.impl)[0]
+        return C.decode_self(p, x, ctx, cache, None)
+    if ctx.mode not in ("train", "prefill"):
+        raise ValueError(f"unknown mode {ctx.mode!r}")
+    out, (k, v) = A.attention_fwd(p, x, dims, positions=ctx.positions,
+                                  mask_mod=ctx.mask_mod or A.causal_mask,
+                                  rope_positions=ctx.rope_positions,
+                                  impl=ctx.impl)
+    return out, ({"k": k, "v": v} if ctx.mode == "prefill" else None)
 
 
 def _cross_attn(p, x, ctx: C.LayerCtx, cache):
     """Cross-attention over the encoder's memory: the slot's precomputed
-    block in the serving modes, ``ctx.kv_x`` in ``train``."""
+    block in the serving modes, ``ctx.kv_x`` in ``train`` and ``prefill``.
+    Returns (out, cache): in ``prefill`` the projected memory {"k", "v"}."""
     if cache is not None and ctx.mode in ("decode", "prefill_chunk"):
-        return C.cross_cached_attn(p, x, ctx, cache)
+        return C.cross_cached_attn(p, x, ctx, cache), cache
     if ctx.kv_x is None:
         raise ValueError(
             "cross-attention layer with no conditioning memory: pass "
-            "aux_inputs (audio_embs) on the training path; the serving "
-            "engines admit unconditioned requests with cond_lengths=0")
-    return A.attention_fwd(p, x, ctx.dims(), positions=ctx.positions,
-                           mask_mod=None, kv_x=ctx.kv_x,
-                           kv_positions=ctx.kv_positions, impl=ctx.impl)[0]
+            "aux_inputs (audio_embs) on the training and prefill paths; the "
+            "serving engines admit unconditioned requests with "
+            "cond_lengths=0")
+    out, (k, v) = A.attention_fwd(p, x, ctx.dims(), positions=ctx.positions,
+                                  mask_mod=None, kv_x=ctx.kv_x,
+                                  kv_positions=ctx.kv_positions,
+                                  impl=ctx.impl)
+    return out, ({"k": k, "v": v} if ctx.mode == "prefill" else None)
 
 
 def dlayer_apply(p, h, ctx: C.LayerCtx, cache=None):
-    """One decoder layer; ``cache`` is the unit's {"self": PagedKV, "cross":
-    {"k", "v"}} in the serving modes, None in ``train``. Returns h."""
+    """One decoder layer; ``cache`` is the unit's {"self": PagedKV or
+    {"k", "v"}, "cross": {"k", "v"}} in the serving modes, None in
+    ``train`` and ``prefill``. Returns (h, cache): in ``prefill`` the
+    layer's new {"self", "cross"}."""
     cfg = ctx.cfg
     s1, c1, g1, s2, c2, g2 = C._mods(p, ctx)
     sc, xc = (None, None) if cache is None else (cache["self"],
@@ -111,14 +119,18 @@ def dlayer_apply(p, h, ctx: C.LayerCtx, cache=None):
     cm = ctx.cond_mask
 
     x = adaln.modulate(L.apply_norm(p["ln1"], h, cfg.norm), s1, c1, cm)
-    h = adaln.gate(h, _self_attn(p["attn"], x, ctx, sc), g1, cm, impl="ref")
+    out, sc = _self_attn(p["attn"], x, ctx, sc)
+    h = adaln.gate(h, out, g1, cm, impl="ref")
 
     x = L.apply_norm(p["lnx"], h, cfg.norm)
-    h = h + _cross_attn(p["xattn"], x, ctx, xc)
+    out, xc = _cross_attn(p["xattn"], x, ctx, xc)
+    h = h + out
 
     x = adaln.modulate(L.apply_norm(p["ln2"], h, cfg.norm), s2, c2, cm)
-    return adaln.gate(h, L.apply_mlp(p["mlp"], x, cfg.mlp), g2, cm,
-                      impl="ref")
+    h = adaln.gate(h, L.apply_mlp(p["mlp"], x, cfg.mlp), g2, cm, impl="ref")
+    if ctx.mode == "prefill":
+        cache = {"self": sc, "cross": xc}
+    return h, cache
 
 
 def dlayer_two_pass(p, hc, hn, ctx: C.LayerCtx):
@@ -151,9 +163,9 @@ def dlayer_two_pass(p, hc, hn, ctx: C.LayerCtx):
 
     # cross-attention: both streams attend the encoder's memory
     hc = hc + _cross_attn(p["xattn"], L.apply_norm(p["lnx"], hc, cfg.norm),
-                          ctx, None)
+                          ctx, None)[0]
     hn = hn + _cross_attn(p["xattn"], L.apply_norm(p["lnx"], hn, cfg.norm),
-                          ctx, None)
+                          ctx, None)[0]
 
     xc = L.apply_norm(p["ln2"], hc, cfg.norm)
     xn = adaln.modulate(L.apply_norm(p["ln2"], hn, cfg.norm), s2, c2)
@@ -228,22 +240,25 @@ class EncDecModel(BaseModel):
     def apply_units(self, params, h, start: int, size: int, ctx, cache=None,
                     reset_mask=None):
         """Run decoder units [start, start + size): with no cache over the
-        whole sequence (``train``, the memory in ``ctx.kv_x``), else over
-        the serving ``cache`` (sliced to those units); ``reset_mask``
-        restarts the hidden stream from the input ``h`` before each flagged
-        unit. Returns (h, cache)."""
+        whole sequence (``train``, ``prefill``; the memory in ``ctx.kv_x``;
+        ``prefill`` returns the units' {"self", "cross"} stacked), else
+        over ``cache``, paged or dense (sliced to those units);
+        ``reset_mask`` restarts the hidden stream from the input ``h``
+        before each flagged unit. Returns (h, cache)."""
         if cache is None:
             assert reset_mask is None
+            caches = []
             for u in _unbind(params["layers"], start, size):
-                h = dlayer_apply(u, h, ctx)
-            return h, None
+                h, c = dlayer_apply(u, h, ctx)
+                caches.append(c)
+            return h, _prefilled(ctx, caches)
         h0 = h
         units = self.unit_params(params)
         for i in range(size):
             if reset_mask is not None and reset_mask[i]:
                 h = h0
-            h = dlayer_apply(units[start + i], h, ctx,
-                             KVC.cache_unit(cache, i))
+            h, _ = dlayer_apply(units[start + i], h, ctx,
+                                KVC.cache_unit(cache, i))
         return h, cache
 
     def apply_units_two_pass(self, params, h_clean, h_noisy, start: int,
@@ -251,6 +266,21 @@ class EncDecModel(BaseModel):
         for u in _unbind(params["layers"], start, size):
             h_clean, h_noisy = dlayer_two_pass(u, h_clean, h_noisy, ctx)
         return h_clean, h_noisy
+
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   start: int = 0, size: Optional[int] = None,
+                   device="cuda") -> dict:
+        """Zeroed dense caches for ``size`` decoder units (all by default):
+        {"self": {"k", "v"} (size, batch, cache_len, KV, hd), "cross": {"k",
+        "v"} (size, batch, n_audio_frames, KV, hd)}, the audio blocks that
+        ``set_conditioning`` writes."""
+        del start
+        size = self.n_units if size is None else size
+        dims = _dims(self.cfg)
+        return {"self": A.init_kv_cache(batch, cache_len, dims, dtype,
+                                        (size,), device),
+                "cross": A.init_kv_cache(batch, self.cfg.n_audio_frames,
+                                         dims, dtype, (size,), device)}
 
     def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
                          policy=None, device="cuda") -> dict:

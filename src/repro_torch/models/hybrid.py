@@ -11,7 +11,12 @@ application keeps its own paged KV. The serving cache is
      "shared_kv": PagedKV (n_units, P, psz, KV, hd)}
 
 with the states in ``Policy.state_for(HYBRID)`` (fp32 under every shipped
-policy) and the pages in the policy's KV dtype. The states are written in
+policy) and the pages in the policy's KV dtype. The dense cache
+(``init_cache``, JAX's layout) is the same with the shared block's keys in
+``{"k", "v"}`` (n_units, slots, C, KV, hd), a ring of C = min(cache_len,
+sliding_window) under the window; ``prefill`` returns each Mamba layer's
+final state from ``mamba2_fwd`` and the shared block's (k, v) over the
+prompt, stacked on the unit axes. The states are written in
 place (``models.common.write_state``), so the batcher's CUDA graphs hold
 their addresses as they hold the pages'; a denoising probe
 (``ctx.commit=False``) leaves them bit-unchanged, and inactive slots hold
@@ -44,7 +49,8 @@ from repro_torch import precision as precision_mod
 from repro_torch.configs.base import HYBRID
 from repro_torch.models import common as C
 from repro_torch.models.model_api import BaseModel
-from repro_torch.models.transformer import _index, _unbind, _unit_views
+from repro_torch.models.transformer import (_dims, _index, _prefilled,
+                                           _unbind, _unit_views)
 from repro_torch.nn import adaln
 from repro_torch.nn import attention as A
 from repro_torch.nn import cache as KVC
@@ -72,13 +78,14 @@ def _mods(p, ctx: C.LayerCtx):
 
 def mamba_layer_apply(p, h, ctx: C.LayerCtx, state: Optional[dict] = None):
     """One pre-norm Mamba2 layer, σ-modulated and gated where ``ctx.cond``
-    is set. ``train``: the whole sequence from a zero state
-    (``mamba2_fwd``), no ``state``. The serving modes run over the slot's
-    ``state`` ({"h", "conv"}, slot-leading views into the cache):
-    ``decode``, one token, the new state written in place when
-    ``ctx.commit`` (inactive slots hold theirs), never in a probe;
-    ``prefill_chunk``, C tokens, slot b's first ``ctx.n_valid[b]``
-    advancing its state (``mamba2_chunk_step``). Returns h."""
+    is set. ``train`` and ``prefill``: the whole sequence from a zero state
+    (``mamba2_fwd``), no ``state``; ``prefill`` returns the final state.
+    The serving modes run over the slot's ``state`` ({"h", "conv"},
+    slot-leading views into the cache): ``decode``, one token, the new
+    state written in place when ``ctx.commit`` (inactive slots hold
+    theirs), never in a probe; ``prefill_chunk``, C tokens, slot b's first
+    ``ctx.n_valid[b]`` advancing its state (``mamba2_chunk_step``).
+    Returns (h, state): the new state in ``prefill``, else ``state``."""
     cfg = ctx.cfg
     s, c, g = _mods(p, ctx)
     x = adaln.modulate(L.apply_norm(p["ln"], h, cfg.norm), s, c)
@@ -92,12 +99,13 @@ def mamba_layer_apply(p, h, ctx: C.LayerCtx, state: Optional[dict] = None):
         y, new = SSM.mamba2_chunk_step(p["mixer"], x, cfg.ssm, cfg.d_model,
                                        state, ctx.n_valid)
         C.write_state(state, new)
-    elif ctx.mode == "train":
-        y, _ = SSM.mamba2_fwd(p["mixer"], x, cfg.ssm, cfg.d_model)
+    elif ctx.mode in ("train", "prefill"):
+        y, new = SSM.mamba2_fwd(p["mixer"], x, cfg.ssm, cfg.d_model)
+        if ctx.mode == "prefill":
+            state = new
     else:
-        raise NotImplementedError(f"mamba layer in mode {ctx.mode!r}: the "
-                                  "port has train, decode and prefill_chunk")
-    return adaln.gate(h, y, g, impl=ctx.impl)
+        raise ValueError(f"unknown mode {ctx.mode!r}")
+    return adaln.gate(h, y, g, impl=ctx.impl), state
 
 
 def mamba_layer_two_pass(p, hc, hn, ctx: C.LayerCtx):
@@ -152,19 +160,26 @@ class HybridModel(BaseModel):
     def apply_units(self, params, h, start: int, size: int, ctx, cache=None,
                     reset_mask=None):
         """Run units [start, start + size): with no cache over the whole
-        sequence (``ctx.mode == "train"``), else over the serving ``cache``
+        sequence (``train``; ``prefill`` returns the units' dense caches,
+        {"mamba": final states (size, inner, B, ...), "shared_kv": {"k",
+        "v"} (size, B, S, KV, hd)}), else over ``cache``, paged or dense
         (sliced to those units, ``cache_units``): each unit's Mamba layers
-        over their state rows, then the shared block over the unit's paged
-        KV. ``reset_mask`` restarts the hidden stream from the input ``h``
+        over their state rows, then the shared block over the unit's KV.
+        ``reset_mask`` restarts the hidden stream from the input ``h``
         before each flagged unit. Returns (h, cache)."""
         shared = params["shared"]
         if cache is None:
             assert reset_mask is None
+            caches = []
             for layers in self._train_units(params, start, size):
+                states = []
                 for p in layers:
-                    h = mamba_layer_apply(p, h, ctx)
-                h, _ = C.tlayer_apply(shared, h, ctx)
-            return h, None
+                    h, st = mamba_layer_apply(p, h, ctx)
+                    states.append(st)
+                h, kv = C.tlayer_apply(shared, h, ctx)
+                caches.append({"mamba": _prefilled(ctx, states),
+                               "shared_kv": kv})
+            return h, _prefilled(ctx, caches)
         h0 = h
         units = self.unit_params(params)
         for i in range(size):
@@ -172,8 +187,8 @@ class HybridModel(BaseModel):
                 h = h0
             c = KVC.cache_unit(cache, i)
             for j, p in enumerate(units[start + i]):
-                h = mamba_layer_apply(p, h, ctx,
-                                      KVC.cache_unit(c["mamba"], j))
+                h, _ = mamba_layer_apply(p, h, ctx,
+                                         KVC.cache_unit(c["mamba"], j))
             h, _ = C.tlayer_apply(shared, h, ctx, cache=c["shared_kv"])
         return h, cache
 
@@ -190,6 +205,28 @@ class HybridModel(BaseModel):
             h_clean, h_noisy = C.tlayer_two_pass(shared, h_clean, h_noisy,
                                                  ctx)
         return h_clean, h_noisy
+
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   start: int = 0, size: Optional[int] = None,
+                   device="cuda") -> dict:
+        """Zeroed dense caches for ``size`` units (all by default), JAX's
+        layout: {"mamba": {"h" fp32, "conv" in ``dtype``} (size, inner,
+        batch, ...), "shared_kv": {"k", "v"} (size, batch, C, KV, hd)}, C
+        the ring of min(cache_len, sliding_window) under a window."""
+        del start
+        size = self.n_units if size is None else size
+        cfg = self.cfg
+        clen = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+                else cache_len)
+        one = SSM.mamba2_init_state(batch, cfg.ssm, cfg.d_model, dtype,
+                                    device="meta")
+        return {
+            "mamba": {k: torch.zeros((size, self.inner) + t.shape,
+                                     dtype=t.dtype, device=device)
+                      for k, t in one.items()},
+            "shared_kv": A.init_kv_cache(batch, clen, _dims(cfg), dtype,
+                                         (size,), device),
+        }
 
     def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
                          policy=None, device="cuda") -> dict:

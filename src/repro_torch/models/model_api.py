@@ -1,10 +1,13 @@
-"""Uniform model API (port of ``repro.models.model_api.BaseModel``, the part
-the serving path needs: specs, init, embedding, σ conditioning, logits, and
-the continuous batcher's hooks on per-slot state).
+"""Uniform model API (port of ``repro.models.model_api.BaseModel``): specs,
+init, embedding, σ conditioning, logits, the full forward, and the
+continuous batcher's hooks on per-slot state.
 
 A model is partitioned into ``n_units`` units (for the dense family one
 unit is one transformer layer), the granularity at which DiffusionBlocks
-slices the network into blocks.
+slices the network into blocks. Every family has two serving caches:
+``init_paged_cache`` (the engines' pools) and ``init_cache(batch,
+cache_len, dtype, start, size)``, JAX's dense layout, which ``prefill``
+returns and the dense ``decode`` reads at ``LayerCtx.pos``.
 """
 from __future__ import annotations
 
@@ -137,6 +140,26 @@ class BaseModel:
         slots mapping the same prefix pages share the same computation: the
         precondition of the shared-prefix page cache."""
         return False
+
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   start: int = 0, size: Optional[int] = None,
+                   device="cuda"):
+        """Zeroed dense caches of units [start, start + size) (every unit
+        by default): each leaf leads with the unit axis, then the batch."""
+        raise NotImplementedError
+
+    def forward(self, params, tokens, ctx, cache=None):
+        """The full stack over ``tokens`` (B, S) in the ctx policy's compute
+        dtype (the logits' reductions stay fp32): returns (logits (B, S, V),
+        cache), the cache ``apply_units`` returns in ``ctx.mode`` (the
+        units' dense caches in ``prefill``). A MoE family's aux loss is in
+        ``ctx.aux``."""
+        pol = getattr(ctx, "precision", None)
+        h = self.embed(params, tokens,
+                       dtype=None if pol is None
+                       else pol.compute_for(self.cfg.family))
+        h, cache = self.apply_units(params, h, 0, self.n_units, ctx, cache)
+        return self.logits(params, h), cache
 
     def logits(self, params, h):
         h = L.apply_norm(params["final_norm"], h, self.cfg.norm)

@@ -20,13 +20,17 @@ to the init values (m -1e30, the sLSTM's n 1e-6), not to zero.
 Modes: ``decode`` (one token a slot through ``slstm_decode_step`` and
 ``mlstm_decode_step``) and ``prefill_chunk`` (``chunk_token_scan`` over
 those same steps, slot b's tokens past ``ctx.n_valid[b]`` holding its
-state), as JAX's. Training: the uncached ``apply_units`` in the ``train``
-mode (each block over the whole sequence, ``slstm_fwd`` and
-``mlstm_fwd``: the end-to-end baseline) and ``apply_units_two_pass``
-(DiffusionBlocks' block loss, which routes the recurrent families to
-two-pass: ``slstm_two_pass`` and ``mlstm_two_pass``, the clean stream a
-plain residual, the noisy stream σ-modulated and gated). JAX's dense-cache
-``prefill`` mode is ROADMAP A8 and raises.
+state), as JAX's; the state has no pages, so the dense cache
+(``init_cache``) and the paged one are the same tree, and ``decode`` runs
+over either. ``prefill`` runs the sequence forms over the prompt from the
+init state (``slstm_fwd`` and ``mlstm_fwd(return_state=True)``, the
+chunked form) and returns each block's final state, stacked on the unit
+axis. Training: the uncached ``apply_units`` in the ``train`` mode (each
+block over the whole sequence, ``slstm_fwd`` and ``mlstm_fwd``: the
+end-to-end baseline) and ``apply_units_two_pass`` (DiffusionBlocks' block
+loss, which routes the recurrent families to two-pass: ``slstm_two_pass``
+and ``mlstm_two_pass``, the clean stream a plain residual, the noisy
+stream σ-modulated and gated).
 
 JAX scans over units with ``uscan``; the port loops over them in Python,
 as ``HybridModel.apply_units`` does. Conditioning: none
@@ -36,19 +40,20 @@ the family, as in JAX.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.models import common as C
 from repro_torch.models.model_api import BaseModel
-from repro_torch.models.transformer import _index, _unbind, _unit_views
+from repro_torch.models.transformer import (_index, _prefilled, _unbind,
+                                           _unit_views)
 from repro_torch.nn import adaln
 from repro_torch.nn import cache as KVC
 from repro_torch.nn import layers as L
 from repro_torch.nn import xlstm as X
 from repro_torch.nn.init import stack_specs
 
-DENSE_CACHE = ("the dense-cache prefill is ROADMAP A8: the port has the "
-               "paged serving path")
 _STEPS = {"slstm": X.slstm_decode_step, "mlstm": X.mlstm_decode_step}
 _FWDS = {"slstm": X.slstm_fwd, "mlstm": X.mlstm_fwd}
 _TWO_PASS = {"slstm": X.slstm_two_pass, "mlstm": X.mlstm_two_pass}
@@ -75,12 +80,14 @@ def _mods3(p, ctx: C.LayerCtx):
 
 
 def _block_apply(p, h, ctx: C.LayerCtx, kind: str, state=None):
-    """One pre-norm xLSTM block. ``train``: the whole sequence from the
-    init state, no ``state``. The serving modes run over the slots'
-    ``state`` (a tuple of slot-leading views into the cache): ``decode``,
-    one token, the new state written in place when ``ctx.commit``
-    (inactive slots hold theirs), never in a probe; ``prefill_chunk``, C
-    tokens through the token scan. Returns h."""
+    """One pre-norm xLSTM block. ``train`` and ``prefill``: the whole
+    sequence from the init state, no ``state``; ``prefill`` returns the
+    final state. The serving modes run over the slots' ``state`` (a tuple
+    of slot-leading views into the cache): ``decode``, one token, the new
+    state written in place when ``ctx.commit`` (inactive slots hold
+    theirs), never in a probe; ``prefill_chunk``, C tokens through the
+    token scan. Returns (h, state): the new state in ``prefill``, else
+    ``state``."""
     cfg = ctx.cfg
     s, c, g = _mods3(p, ctx)
     x = adaln.modulate(L.apply_norm(p["ln"], h, cfg.norm), s, c)
@@ -97,11 +104,12 @@ def _block_apply(p, h, ctx: C.LayerCtx, kind: str, state=None):
         C.write_state(state, new)
     elif ctx.mode == "train":
         y, _ = _FWDS[kind](p["cell"], x, cfg.n_heads, cfg.xlstm)
+    elif ctx.mode == "prefill":
+        kw = {"return_state": True} if kind == "mlstm" else {}
+        y, state = _FWDS[kind](p["cell"], x, cfg.n_heads, cfg.xlstm, **kw)
     else:
-        raise NotImplementedError(f"xLSTM block in mode {ctx.mode!r}: "
-                                  f"{DENSE_CACHE} (train, decode, "
-                                  "prefill_chunk)")
-    return adaln.gate(h, y, g, impl=ctx.impl)
+        raise ValueError(f"unknown mode {ctx.mode!r}")
+    return adaln.gate(h, y, g, impl=ctx.impl), state
 
 
 def _block_two_pass(p, hc, hn, ctx: C.LayerCtx, kind: str):
@@ -141,18 +149,22 @@ class XLSTMModel(BaseModel):
     def apply_units(self, params, h, start: int, size: int, ctx, cache=None,
                     reset_mask=None):
         """Run units [start, start + size), each unit's sLSTM block then
-        its mLSTM block: with no cache over the whole sequence
-        (``ctx.mode == "train"``; one unbind a leaf, so the backward stacks
-        each leaf's grads in one pass), else over the serving ``cache``
-        (sliced to those units, ``cache_units``). ``reset_mask`` restarts
-        the hidden stream from the input ``h`` before each flagged unit.
-        Returns (h, cache)."""
+        its mLSTM block: with no cache over the whole sequence (``train``;
+        one unbind a leaf, so the backward stacks each leaf's grads in one
+        pass; ``prefill`` returns the units' final states stacked, the
+        cache's layout), else over the serving ``cache`` (sliced to those
+        units, ``cache_units``). ``reset_mask`` restarts the hidden stream
+        from the input ``h`` before each flagged unit. Returns (h,
+        cache)."""
         if cache is None:
             assert reset_mask is None
+            caches = []
             for p in _unbind(params["units"], start, size):
+                states = {}
                 for kind in ("slstm", "mlstm"):
-                    h = _block_apply(p[kind], h, ctx, kind)
-            return h, None
+                    h, states[kind] = _block_apply(p[kind], h, ctx, kind)
+                caches.append(states)
+            return h, _prefilled(ctx, caches)
         h0 = h
         units = self.unit_params(params)
         for i in range(size):
@@ -160,8 +172,8 @@ class XLSTMModel(BaseModel):
                 h = h0
             c = KVC.cache_unit(cache, i)
             for kind in ("slstm", "mlstm"):
-                h = _block_apply(units[start + i][kind], h, ctx, kind,
-                                 c[kind])
+                h, _ = _block_apply(units[start + i][kind], h, ctx, kind,
+                                    c[kind])
         return h, cache
 
     def apply_units_two_pass(self, params, h_clean, h_noisy, start: int,
@@ -175,17 +187,22 @@ class XLSTMModel(BaseModel):
                                                    h_noisy, ctx, kind)
         return h_clean, h_noisy
 
-    def init_cache(self, batch: int, device="cuda") -> dict:
-        """Every unit's init states, stacked: each leaf (n_units, batch,
-        ...) fp32."""
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   start: int = 0, size: Optional[int] = None,
+                   device="cuda") -> dict:
+        """The init states of ``size`` units (all by default), stacked:
+        each leaf (size, batch, ...) fp32 whatever ``dtype`` (JAX's state
+        constructors pin it); ``cache_len`` is not used (the state is O(1)
+        a slot), as in JAX."""
+        del cache_len, dtype, start
+        size = self.n_units if size is None else size
         cfg = self.cfg
         d_in = int(cfg.xlstm.proj_factor * cfg.d_model)
         one = {"slstm": X.slstm_init_state(batch, cfg.n_heads, cfg.d_model,
                                            device=device),
                "mlstm": X.mlstm_init_state(batch, cfg.n_heads, d_in,
                                            device=device)}
-        return {k: tuple(t.expand(self.n_units, *t.shape).contiguous()
-                         for t in st)
+        return {k: tuple(t.expand(size, *t.shape).contiguous() for t in st)
                 for k, st in one.items()}
 
     def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
@@ -194,8 +211,8 @@ class XLSTMModel(BaseModel):
         page tables and active masks still apply; the pages are simply
         unused. The policy is not threaded: the states are fp32 under
         every policy, as JAX's."""
-        del n_pages, page_size, policy
-        return self.init_cache(num_slots, device=device)
+        del n_pages, policy
+        return self.init_cache(num_slots, page_size, device=device)
 
     def reset_paged_slots(self, cache, slot_mask):
         """Restore the masked slots' state (axis 1) to the init values, in

@@ -4,9 +4,11 @@ families (every layer of the MoE family routes its MLP through
 ``nn.moe``) and ``VLMModel``, llama-3.2-vision's superblocks of self
 layers and one tanh-gated cross-attention layer, which attends the image
 embeddings (``ctx.kv_x``) in training and the slot's image block in
-serving. Both have the training passes, concat and two-pass, and the
-paged-serving paths. The JAX ``lax.scan`` over units is a Python loop over
-the stacked unit axis; the MoE routers' aux loss goes to ``ctx.aux``
+serving. Both have the training passes, concat and two-pass, the
+paged-serving paths and the dense-cache ones (``init_cache``; ``prefill``
+returns each unit's (k, v) over the prompt, stacked on the unit axis as
+JAX's scans stack them). The JAX ``lax.scan`` over units is a Python loop
+over the stacked unit axis; the MoE routers' aux loss goes to ``ctx.aux``
 (``common.LayerCtx.add_aux``) instead of the scan's carry."""
 from __future__ import annotations
 
@@ -58,9 +60,10 @@ class DecoderModel(BaseModel):
 
     def apply_units(self, params, h, start: int, size: int, ctx,
                     cache: Optional[KVC.PagedKV] = None, reset_mask=None):
-        """Run units [start, start + size) over the paged ``cache`` (whose
-        unit axis covers exactly those units), or with no cache over the
-        whole sequence (``ctx.mode == "train"``). ``reset_mask`` (a sequence
+        """Run units [start, start + size) over ``cache`` (paged or dense;
+        its unit axis covers exactly those units), or with no cache over
+        the whole sequence (``train``; ``prefill`` returns the units' dense
+        caches {"k", "v"} (size, B, S, KV, hd)). ``reset_mask`` (a sequence
         of ``size`` bools) restarts the hidden stream from the input ``h``
         before each flagged unit: the commit passes restart every DB block's
         clean stream from the raw embeddings. Returns (h, cache)."""
@@ -70,9 +73,11 @@ class DecoderModel(BaseModel):
             # one pass (per-unit indexing would add a zero-padded full-size
             # grad per unit)
             units = _unbind(params["layers"], start, size)
+            caches = []
             for u in units:
-                h, _ = C.tlayer_apply(u, h, ctx, moe_layer=self.is_moe)
-            return h, None
+                h, c = C.tlayer_apply(u, h, ctx, moe_layer=self.is_moe)
+                caches.append(c)
+            return h, _prefilled(ctx, caches)
         h0 = h
         units = self.unit_params(params)
         for i in range(size):
@@ -98,6 +103,20 @@ class DecoderModel(BaseModel):
         return _unit_views(self, params["layers"],
                            lambda t: [_index(t, u)
                                       for u in range(self.n_units)])
+
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   start: int = 0, size: Optional[int] = None,
+                   device="cuda") -> dict:
+        """Zeroed dense caches {"k", "v"} (size, batch, C, KV, hd) for
+        ``size`` units (all by default); C is ``cache_len``, or the ring of
+        min(cache_len, sliding_window) under a window."""
+        del start
+        size = self.n_units if size is None else size
+        cfg = self.cfg
+        clen = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+                else cache_len)
+        return A.init_kv_cache(batch, clen, _dims(cfg), dtype, (size,),
+                               device)
 
     def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
                          policy=None, device="cuda") -> KVC.PagedKV:
@@ -169,17 +188,24 @@ class VLMModel(BaseModel):
                     reset_mask=None):
         """Run units [start, start + size): per unit the ``k_self`` self
         layers, then the cross layer; with no cache over the whole sequence
-        (``train``, the images in ``ctx.kv_x``), else over the serving
-        ``cache`` (sliced to those units, ``cache_units``). ``reset_mask``
-        restarts the hidden stream from the input ``h`` before each flagged
-        unit. Returns (h, cache)."""
+        (``train``, ``prefill``; the images in ``ctx.kv_x``), else over the
+        serving ``cache``, paged or dense (sliced to those units,
+        ``cache_units``). ``prefill`` returns {"self": {"k", "v"} (size,
+        k_self, B, S, KV, hd), "cross": {"k", "v"} (size, B, Sk, KV, hd)}.
+        ``reset_mask`` restarts the hidden stream from the input ``h``
+        before each flagged unit. Returns (h, cache)."""
         if cache is None:
             assert reset_mask is None
+            caches = []
             for u in _unbind(params["units"], start, size):
+                selfs = []
                 for p in _unbind(u["self"], 0, self.k_self):
-                    h, _ = C.tlayer_apply(p, h, ctx)
-                h, _ = C.tlayer_apply(u["cross"], h, ctx, cross=True)
-            return h, None
+                    h, c = C.tlayer_apply(p, h, ctx)
+                    selfs.append(c)
+                h, c = C.tlayer_apply(u["cross"], h, ctx, cross=True)
+                caches.append({"self": _prefilled(ctx, selfs),
+                               "cross": c})
+            return h, _prefilled(ctx, caches)
         h0 = h
         units = self.unit_params(params)
         for i in range(size):
@@ -208,6 +234,21 @@ class VLMModel(BaseModel):
             h_clean, _ = C.tlayer_apply(u["cross"], h_clean, ctx, cross=True)
             h_noisy, _ = C.tlayer_apply(u["cross"], h_noisy, ctx, cross=True)
         return h_clean, h_noisy
+
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16,
+                   start: int = 0, size: Optional[int] = None,
+                   device="cuda") -> dict:
+        """Zeroed dense caches for ``size`` units (all by default): {"self":
+        {"k", "v"} (size, k_self, batch, cache_len, KV, hd), "cross": {"k",
+        "v"} (size, batch, n_image_tokens, KV, hd)}, the image blocks that
+        ``set_conditioning`` writes."""
+        del start
+        size = self.n_units if size is None else size
+        dims = _dims(self.cfg)
+        return {"self": A.init_kv_cache(batch, cache_len, dims, dtype,
+                                        (size, self.k_self), device),
+                "cross": A.init_kv_cache(batch, self.cfg.n_image_tokens,
+                                         dims, dtype, (size,), device)}
 
     def init_paged_cache(self, num_slots: int, n_pages: int, page_size: int,
                          policy=None, device="cuda") -> dict:
@@ -267,6 +308,18 @@ class VLMModel(BaseModel):
         C.write_cross_block(cache["cross"], params["units"]["cross"]["attn"],
                             cond, dims, slot)
         return cache
+
+
+def _dims(cfg) -> A.AttnDims:
+    return A.AttnDims(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                      cfg.rope_theta)
+
+
+def _prefilled(ctx, caches: list):
+    """The units' dense caches stacked on the unit axis in ``prefill``;
+    None in ``train``."""
+    return (C.zip_caches(torch.stack, caches) if ctx.mode == "prefill"
+            else None)
 
 
 def _unit_views(model, tree, make) -> list:

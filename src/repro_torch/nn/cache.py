@@ -303,6 +303,19 @@ def attend_paged(qg, pkv: PagedKV, page_table, lengths, k_self, v_self, *,
     return combine_self(out_p, lse, s_self, v_self.float())
 
 
+def dense_to_paged(k: torch.Tensor, v: torch.Tensor
+                   ) -> Tuple[PagedKV, torch.Tensor]:
+    """View a dense (B, C, KV, hd) cache as pages with an identity table,
+    so the flash-decode kernel serves the dense decode path too: one page
+    of C keys a slot, so the pages ARE ``k`` and ``v`` (no copy; JAX pads C
+    to 128-key pages, a copy a call, which the kernel here does not need:
+    it takes any page size). The table (B, 1) int32 maps slot b to page b.
+    No trash page: this view is never appended to."""
+    table = torch.arange(k.shape[0], dtype=torch.int32,
+                         device=k.device)[:, None]
+    return PagedKV(k, v), table
+
+
 def paged_decode_attention(params, x, dims: A.AttnDims, pkv: PagedKV, *,
                            lengths, page_table, active=None,
                            commit: bool = True,

@@ -290,6 +290,51 @@ def test_prefill_tensor_core_route_raises_on_a_misaligned_view(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,positions", [(512, (100, 511, 512, 2000)),
+                                              (None, (0, 100, 639))])
+def test_dense_decode_kernel_route_on_a_ring(cuda, dtype, window, positions):
+    """The dense cache's decode through the flash-decode kernel (the cache
+    viewed as one page of C keys a slot; a ring un-rotated first) against
+    the reference route on the card, at h2o-danube3's head layout (8 KV
+    heads of 120, 4 queries each), before, at and past the ring's wrap;
+    the kernel alone over the identity view against its plain version;
+    probes write nothing. Tolerance 2e-4, plus one bf16 rounding."""
+    from repro_torch.nn import attention as A
+    from repro_torch.nn import cache as KVC
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, KV, G, hd = 3, 8, 4, 120
+    C, d = window or 640, KV * G * hd
+    dims = A.AttnDims(KV * G, KV, hd)
+    p = {k: (torch.randn(d, n, generator=gen, device=cuda) / d ** 0.5
+             ).to(dtype) for k, n in (("wq", d), ("wk", KV * hd),
+                                      ("wv", KV * hd))}
+    p["wo"] = torch.eye(d, device=cuda, dtype=dtype)
+    cache = {k: torch.randn(B, C, KV, hd, generator=gen, device=cuda
+                            ).to(dtype) for k in "kv"}
+    before = {k: t.clone() for k, t in cache.items()}
+    x = torch.randn(B, 1, d, generator=gen, device=cuda).to(dtype)
+    tol = 2e-4 if dtype == torch.float32 else 2.0 ** -7
+    for pos in positions:
+        n0 = FD.flash_decode.launches
+        got, _ = A.decode_attention(p, x, dims, cache, pos, window=window,
+                                    impl="kernels", commit=False)
+        assert FD.flash_decode.launches == n0 + 1
+        want, _ = A.decode_attention(p, x, dims, cache, pos, window=window,
+                                     impl="ref", commit=False)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=2e-4)
+    assert all(torch.equal(cache[k], before[k]) for k in cache)
+    pages, table = KVC.dense_to_paged(cache["k"], cache["v"])
+    lens = torch.tensor([0, 1, C - 1], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, KV, G, hd, generator=gen, device=cuda).to(dtype)
+    out, lse = FD.flash_decode(q, pages.k, pages.v, table, lens)
+    ref_out, ref_lse = FD.flash_decode_ref(q, pages.k, pages.v, table, lens)
+    torch.testing.assert_close(out, ref_out, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(lse[1:], ref_lse[1:], rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
 def test_paged_kernels_replay_in_cuda_graphs(cuda):
     """Both wrappers captured in one CUDA graph (decode split across
     blocks with its merge kernel; prefill on the tensor-core route) give

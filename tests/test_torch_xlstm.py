@@ -19,8 +19,9 @@ static engine and of the batcher, with its per-step scheduling logs,
 bit-equal; a slot spilled by JAX's batcher restored by the port's. In the
 port alone: a probe leaves the state bit-unchanged and in place, slot reuse
 leaks nothing, the prefix cache and the shared pool refuse the family,
-the dense-cache ``prefill`` mode raises naming ROADMAP A8 (training:
-``tests/test_torch_xlstm_train.py``).
+the dense-cache ``prefill`` mode's states equal the decode steps' token
+chain (the whole dense path against JAX: ``tests/test_torch_dense.py``;
+training: ``tests/test_torch_xlstm_train.py``).
 
 Every wait is bounded and fails instead of hanging.
 """
@@ -606,16 +607,28 @@ def test_serve_cli_xlstm(capsys):
 
 
 def test_training_raises_naming_a63b(xl):
-    """The family serves and trains (``tests/test_torch_xlstm_train.py``);
-    JAX's dense-cache ``prefill`` mode is ROADMAP A8: a block and the
-    uncached ``apply_units`` in that mode raise ``NotImplementedError``
-    naming it."""
+    """The dense-cache ``prefill`` mode runs the sequence forms
+    (``slstm_fwd``, ``mlstm_fwd(return_state=True)``): the uncached
+    ``apply_units`` returns each unit's final states, stacked as
+    ``init_cache`` lays them out, and its output; both equal the decode
+    steps' token chain from the init state within 1e-4. A block alone
+    returns its final state in that mode."""
     _, _, tdbm, tparams = xl
-    ctx = tdbm.make_ctx(tparams, 8, "prefill", precision="fp32")
-    h = torch.zeros(2, 8, REDUCED.d_model)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tdbm.model.apply_units(tparams, h, 0, 1, ctx)
+    B_, S_ = 2, 8
+    ctx = tdbm.make_ctx(tparams, S_, "prefill", precision="fp32")
+    h = torch.randn(B_, S_, REDUCED.d_model,
+                    generator=torch.Generator().manual_seed(0))
+    out, states = tdbm.model.apply_units(tparams, h, 0, 1, ctx)
+    chain = tdbm.model.init_cache(B_, S_, torch.float32, size=1,
+                                  device="cpu")
+    dctx = tdbm.make_ctx(tparams, 1, "decode", precision="fp32")
+    ys = [tdbm.model.apply_units(tparams, h[:, t:t + 1], 0, 1, dctx,
+                                 chain)[0] for t in range(S_)]
+    _close(out, _np(torch.cat(ys, dim=1)), 1e-4, "output")
+    for got, want in zip(_leaves_np(states), _leaves_np(chain)):
+        assert got.shape == want.shape
+        _close(torch.from_numpy(got), want, 1e-4, "state")
     unit = tdbm.model.unit_params(tparams)[0]
     for kind in KINDS:
-        with pytest.raises(NotImplementedError, match="A8"):
-            _block_apply(unit[kind], h, ctx, kind)
+        y, st = _block_apply(unit[kind], h, ctx, kind)
+        assert y.shape == h.shape and isinstance(st, tuple)

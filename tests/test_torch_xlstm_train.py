@@ -23,8 +23,8 @@ step: the loss, the grad norm, every clipped grad leaf of ``block_loss``
 and ``e2e_loss`` (the first moments), the second moments and the updated
 params within 1e-4 (``_step_close`` says which elements of the params are
 held to the update's bound and sign instead). A ``concat`` config routes to
-two-pass, as in JAX, and the dense-cache ``prefill`` mode raises naming
-ROADMAP A8. ``tests/test_ssm_xlstm.py``'s identities hold in the port: the
+two-pass, as in JAX, and the dense-cache ``prefill`` mode returns the
+units' final states. ``tests/test_ssm_xlstm.py``'s identities hold in the port: the
 parallel, chunked and recurrent forms agree, and the two-pass noisy stream
 fed the clean one gives the clean output. The train CLI runs the family
 reduced in both modes. JAX's side runs jitted: its compiles are most of
@@ -50,6 +50,7 @@ from repro_torch.bridge import params_to_numpy
 from repro_torch.core import training as TT
 from repro_torch.core.blocks import DiffusionBlocksModel as TDBM
 from repro_torch.launch import train as TTRAIN
+from repro_torch.nn import cache as TKVC
 from repro_torch.nn import xlstm as TX
 from repro_torch.nn.init import tree_items
 from repro_torch.optim import warmup_cosine
@@ -472,7 +473,7 @@ def test_train_step_matches_jax(xl, kind):
 def test_concat_config_routes_to_two_pass():
     """A ``DBConfig(causal_mode="concat")`` routes the family to two-pass,
     as JAX's ``_needs_two_pass`` does; the dense-cache ``prefill`` mode
-    raises naming ROADMAP A8."""
+    runs, returning the unit's final states in ``init_cache``'s layout."""
     db = JC.DBConfig(num_blocks=2, causal_mode="concat")
     jdbm = JDBM(JC.reduced(JC.get_config("xlstm-125m"), n_layers=4), db)
     tdbm = TDBM(TC.reduced(TC.get_config("xlstm-125m"), n_layers=4),
@@ -480,8 +481,11 @@ def test_concat_config_routes_to_two_pass():
     assert tdbm.causal_mode == jdbm.causal_mode == "two_pass"
     params = tdbm.init(torch.Generator().manual_seed(0))
     ctx = tdbm.make_ctx(params, 4, "prefill")
-    with pytest.raises(NotImplementedError, match="A8"):
-        tdbm.model.apply_units(params, torch.zeros(1, 4, 256), 0, 1, ctx)
+    _, states = tdbm.model.apply_units(params, torch.zeros(1, 4, 256), 0, 1,
+                                       ctx)
+    want = tdbm.model.init_cache(1, 4, size=1, device="cpu")
+    assert [t.shape for t in TKVC.cache_tensors(states)] == \
+        [t.shape for t in TKVC.cache_tensors(want)]
 
 
 @pytest.mark.parametrize("mode", ["db", "e2e"])
