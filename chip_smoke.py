@@ -261,7 +261,29 @@ Phases, each fatal on failure:
      resumed, which must fall back past the torn generation and end
      bit-equal to the uninterrupted run (params, moments, step counters,
      history, heartbeats, guard state); and db mode (2 blocks of 2
-     layers) with one ``pod_die`` restart, killed after step 3 of 4;
+     layers) with one ``pod_die`` restart, killed after step 3 of 4.
+     14c: the pod-per-block engine (``BlockParallelTrainer`` in its
+     ``shard_map`` mode): ``MESH_RANKS`` ranks of this script
+     (``--mesh-rank``), each on the one card under gloo (NCCL refuses two
+     ranks on one device), meeting on a ``file://`` store, each loading
+     the kernels phase 2 built (rank 0 first). First, in this process, the
+     round-robin engine and runner on the same models, batches and draws
+     (seeded alike). Then the ranks: (a) stablelm-1.6b at full width cut
+     to 8 of its 24 layers in 4 blocks of 2, bf16, ``MarkovStream`` 4 x
+     512: a warm-up batch, two timed batches (rank 0's wall, each rank's
+     all-reduce ms and peak memory), a NaN in block 2's loss (its stack,
+     moments and counter bit-unchanged on its rank, every other block
+     moved); each rank's launches one DB step's a batch; (b)
+     ``TrainRunner`` at ``MESH_RUNNER_CUT`` (4 layers in 4 blocks): one
+     generation, a pod death, two orphan passes on rank 0, a re-adoption,
+     counters ``MESH_RUNNER_COUNTERS`` and the launches of 16 block
+     updates over the ranks; (c) fp32 at 4 layers (4 blocks of 1) through
+     the kernels, one step against the round-robin engine on rank 0:
+     losses and every param within 1e-5 relative. After every batch the
+     periphery's bits equal on every rank; every batch's losses (and the
+     runner's history) within 1e-3 relative of the round robin's. Any
+     rank's failure, or the group outliving ``MESH_WALL_S``, fails the
+     phase;
  15. the VLM (fatal if more than 1 GiB is still allocated at its
      start): llama-3.2-vision-11b at full width (40 layers: 8 superblocks
      of 4 self layers and one tanh-gated cross-attention layer; d=4096,
@@ -4412,14 +4434,15 @@ def phase_block_parallel(dev, train) -> dict:
     return out
 
 
-def runner_model(dev, n_layers: int, blocks: int, cut: bool = False):
-    """stablelm-1.6b's widths and vocabulary (``cut``: ``RUNNER_CUT``'s)
-    with ``n_layers`` layers in ``blocks`` blocks, random weights from seed
-    0 (AdaLN heads randomised)."""
+def runner_model(dev, n_layers: int, blocks: int, cut=None):
+    """stablelm-1.6b's widths and vocabulary (or ``cut``'s, a dict of
+    config fields such as ``RUNNER_CUT``) with ``n_layers`` layers in
+    ``blocks`` blocks, random weights from seed 0 (AdaLN heads
+    randomised)."""
     from repro_torch.configs import DBConfig, get_config
     from repro_torch.core.blocks import DiffusionBlocksModel
     cfg = dataclasses.replace(get_config(ARCH), n_layers=n_layers,
-                              **(RUNNER_CUT if cut else {}))
+                              **(cut or {}))
     dbm = DiffusionBlocksModel(cfg, DBConfig(num_blocks=blocks,
                                              overlap_gamma=0.1))
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4517,7 +4540,7 @@ def _ckpt_lines(tag, mgr) -> list:
 
 
 def phase_runner(dev) -> dict:
-    """Phase 14b: ``TrainRunner`` on ``runner_model(cut=True)`` with 4
+    """Phase 14b: ``TrainRunner`` on ``runner_model(cut=RUNNER_CUT)`` with 4
     layers, bf16 policy, ``MarkovStream`` through ``HostDataLoader``,
     checkpoints in a temporary directory on the machine's disk (deleted at
     the end). block-parallel (4 blocks of 1): the uninterrupted run under
@@ -4539,7 +4562,7 @@ def phase_runner(dev) -> dict:
         f"{shutil.disk_usage(root).free / 1e9:.1f} GB)")
     out = {"launches": {}, "ckpt": []}
     try:
-        dbm, master = runner_model(dev, 4, 4, cut=True)
+        dbm, master = runner_model(dev, 4, 4, cut=RUNNER_CUT)
         lm = MarkovLM(vocab_size=dbm.cfg.vocab_size, seed=7)
 
         def make_data(cur):
@@ -4610,7 +4633,7 @@ def phase_runner(dev) -> dict:
 
         # db: generation 1, a restart from it at step 1, then a kill after
         # step 3 of 4 (no final save: one save and one load)
-        model = runner_model(dev, 4, 2, cut=True)
+        model = runner_model(dev, 4, 2, cut=RUNNER_CUT)
         r, _, hist = run("db", "db", {"pod_die": {"at": [2]}}, mode="db",
                          model=model, steps=4, ckpt_every=100, halt_after=3)
         if r.counters["restarts"] != 1 or len(hist) != 4:
@@ -4621,6 +4644,413 @@ def phase_runner(dev) -> dict:
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 14c. the pod-per-block engine: 4 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+# The ranks (this script run with --mesh-rank), stablelm's depth cut (8 of
+# its 24 layers in 4 blocks of 2: masters, moments, grads and the periphery's
+# fp32 accumulator come to about 13-15 GB a rank), the batch of a mesh step
+# (x TRAIN_SEQ) and the fp32 check's depth (4 blocks of 1 layer). The
+# runner's model: stablelm's layer at a quarter of its width with an
+# 8192-token vocabulary (at RUNNER_CUT a generation's save and four ranks'
+# sha256 checks of it would take 20-30 s of the phase); its faults (block
+# 0's pod dead in batch 1, re-adopted in batch 3: two orphan passes), its
+# batches and the batch it halts after (no final save: one generation).
+# Each rank's collective timeout, and the limit on the group's wall.
+MESH_RANKS, MESH_LAYERS, MESH_BATCH, MESH_CHECK_LAYERS = 4, 8, 4, 4
+MESH_RUNNER_CUT = dict(d_model=512, n_heads=8, n_kv_heads=8, head_dim=64,
+                       d_ff=1408, vocab_size=8192)
+MESH_RUNNER_FAULTS = {"pod_die": {"at": [2]}}
+MESH_RUNNER_COUNTERS = {"pod_deaths": 1, "readoptions": 1, "rewinds": 0,
+                        "restarts": 0, "data_stalls": 0, "nan_injected": 0,
+                        "degraded_batches": 2, "ckpt_saves": 1}
+MESH_RUNNER_BATCHES, MESH_RUNNER_HALT, MESH_VICTIM = 5, 4, 2
+MESH_TIMEOUT_S, MESH_WALL_S = 120, 400
+
+
+def mesh_tcfg(steps: int = 100):
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(steps=steps, warmup_steps=2, lr=1e-4, log_every=0)
+
+
+def mesh_batches(dev, dbm):
+    """The phase's four engine batches: a warm-up, two timed, and a NaN in
+    block ``MESH_VICTIM``'s loss: (tokens, loss_mult) from ``MarkovStream``
+    through ``HostDataLoader``."""
+    from repro_torch.data import HostDataLoader, MarkovLM
+    data = HostDataLoader(MarkovLM(vocab_size=dbm.cfg.vocab_size,
+                                   seed=7).stream(MESH_BATCH, TRAIN_SEQ),
+                          device=dev)
+    nan = [1.0] * dbm.num_blocks
+    nan[MESH_VICTIM] = float("nan")
+    try:
+        return [(next(data), m) for m in (None, None, None, nan)]
+    finally:
+        data.close()
+
+
+def mesh_runner(dev, ckpt_dir: str, log):
+    """``TrainRunner`` (block-parallel, bf16) at ``MESH_RUNNER_CUT`` under
+    ``MESH_RUNNER_FAULTS``; the engine is the mesh under a process group,
+    else round robin. Returns (runner, history)."""
+    from repro_torch.data import HostDataLoader, MarkovLM, MarkovStream
+    from repro_torch.launch.faults import make_injector
+    from repro_torch.launch.trainrunner import TrainRunner
+    dbm, params = runner_model(dev, 4, 4, cut=MESH_RUNNER_CUT)
+    lm = MarkovLM(vocab_size=dbm.cfg.vocab_size, seed=7)
+
+    def make_data(cur):
+        src = (lm.stream(MESH_BATCH, TRAIN_SEQ) if cur is None
+               else MarkovStream.from_cursor(cur))
+        return HostDataLoader(src, device=dev)
+
+    r = TrainRunner(dbm, mesh_tcfg(MESH_RUNNER_BATCHES * dbm.num_blocks),
+                    mode="block-parallel", precision="bf16",
+                    ckpt_dir=ckpt_dir, ckpt_every=100, keep=2,
+                    faults=make_injector(MESH_RUNNER_FAULTS),
+                    pod_restart_after=2, log=log)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    _, hist = r.train(make_data, gen, params=params,
+                      halt_after=MESH_RUNNER_HALT)
+    return r, hist
+
+
+def _quiet(*_a, **_k) -> None:
+    pass
+
+
+def mesh_rank(rank: int, out_dir: str) -> int:
+    """One rank of phase 14c (``--mesh-rank RANK DIR``): joins the gloo
+    group on ``DIR/store``, loads the kernels phase 2 built (rank 0 first),
+    runs ``mesh_rank_work`` and writes ``DIR/rank{RANK}.json``."""
+    started = time.time()
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as tdist
+    from repro_torch.kernels import _build
+    from repro_torch.parallel import dist as D
+    dev = torch.device("cuda", 0)
+    D.init(dev, "gloo", init_method=f"file://{out_dir}/store", rank=rank,
+           world_size=MESH_RANKS, timeout_s=MESH_TIMEOUT_S)
+    try:
+        if rank == 0:
+            for name in _build.SOURCES:
+                _build.load(name)
+        D.barrier()
+        for name in _build.SOURCES:
+            _build.load(name)
+        out = mesh_rank_work(rank, dev, out_dir)
+        out["stamps"]["start"] = started
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def mesh_rank_work(rank: int, dev, out_dir: str) -> dict:
+    """The rank's work: (a) the bf16 engine batches at ``MESH_LAYERS``,
+    (b) the runner, (c) one fp32 step at ``MESH_CHECK_LAYERS`` and, on rank
+    0, the same step through the round-robin engine. After every batch the
+    periphery's bits must agree on every rank."""
+    from repro_torch import kernels as K
+    from repro_torch.parallel import BlockParallelTrainer
+    from repro_torch.parallel import dist as D
+    reduce_ms = []
+    all_reduce = D.all_reduce
+
+    def timed_all_reduce(t, group=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce(t, group)
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return t
+    D.all_reduce = timed_all_reduce
+
+    def same_periphery(state, what):
+        D.check_same(torch.tensor([_bits(state.periph),
+                                   _bits(state.periph_opt.mu),
+                                   _bits(state.periph_opt.nu)]), what)
+
+    # wall-clock stamps (time.time(), comparable across the processes) of
+    # where the rank's time goes: the group joined and the kernels loaded,
+    # ready for the go, and the ends of (a), (b) and (c)
+    out = {"launches": {}, "stamps": {"joined": time.time()}}
+    # (a) the engine at full width, 8 layers in 4 blocks of 2, bf16
+    dbm, params = runner_model(dev, MESH_LAYERS, 4)
+    tr = BlockParallelTrainer(dbm, mesh_tcfg(), precision="bf16")
+    if tr.mode != "shard_map" or tr.blocks != (rank,):
+        raise SmokeError(f"rank {rank}: engine {tr.mode}, blocks "
+                         f"{tr.blocks}")
+    state = tr.init_state(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batches, rows = mesh_batches(dev, dbm), []
+    go, t0 = os.path.join(out_dir, "go"), time.perf_counter()
+    out["stamps"]["ready"] = time.time()
+    while not os.path.exists(go):     # the references are running
+        if time.perf_counter() - t0 > MESH_WALL_S:
+            raise SmokeError(f"rank {rank}: no go after {MESH_WALL_S} s")
+        time.sleep(0.05)
+    D.barrier()
+    for i, (tokens, mult) in enumerate(batches):
+        own = tr.local_trees(state, rank)
+        kept = (_bits(own[0]), _bits(own[1].mu), _bits(own[1].nu),
+                int(own[1].step))
+        reduce_ms.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, losses, _ = tr.step(state, tokens, gen, loss_mult=mult)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms = list(reduce_ms)
+        counts = K.launch_counts()
+        check_counts(f"mesh rank {rank} batch {i}", counts,
+                     db_step_counts(dbm, tr.u))
+        add_counts(out["launches"], counts)
+        same_periphery(state, f"the periphery after batch {i}")
+        own = tr.local_trees(state, rank)
+        now = (_bits(own[0]), _bits(own[1].mu), _bits(own[1].nu),
+               int(own[1].step))
+        rows.append({"losses": losses.tolist(), "wall_ms": wall * 1e3,
+                     "reduce_ms": ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "last_ok": tr.last_ok.tolist(),
+                     "unchanged": [a == b for a, b in zip(kept, now)],
+                     "step": now[3]})
+    out["bf16"] = rows
+    out["stamps"]["a"] = time.time()
+    del state, tr, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the runner under the mesh: a generation, a pod death, orphan
+    # passes on rank 0, a re-adoption
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    r, hist = mesh_runner(dev, os.path.join(out_dir, "ckpt"),
+                          say if rank == 0 else _quiet)
+    torch.cuda.synchronize()
+    add_counts(out["launches"], K.launch_counts())
+    same_periphery(r.state, "the periphery after the runner")
+    out["runner"] = {"history": hist, "counters": r.counters,
+                     "heartbeats": r.heartbeats, "engine": r.trainer.mode,
+                     "launches": K.launch_counts(),
+                     "wall_s": time.perf_counter() - t0}
+    out["stamps"]["b"] = time.time()
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) fp32 at 4 layers (4 blocks of 1) through the kernels; rank 0 then
+    # runs the same step through the round-robin engine
+    dbm, params = runner_model(dev, MESH_CHECK_LAYERS, 4)
+    tokens = torch.randint(0, dbm.cfg.vocab_size, (MESH_BATCH, TRAIN_SEQ),
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(5), device=dev)
+    tr = BlockParallelTrainer(dbm, mesh_tcfg(), precision="fp32")
+    state = tr.init_state(params)
+    del params
+    state, losses, _ = tr.step(state, tokens,
+                               torch.Generator(device=dev).manual_seed(6))
+    same_periphery(state, "the periphery after the fp32 step")
+    full = tr.full_params(state)
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        from repro_torch.nn.init import tree_items
+        rdbm, rparams = runner_model(dev, MESH_CHECK_LAYERS, 4)
+        rr = BlockParallelTrainer(rdbm, mesh_tcfg(), precision="fp32",
+                                  devices=[dev])
+        rs, rl, _ = rr.step(rr.init_state(rparams), tokens,
+                            torch.Generator(device=dev).manual_seed(6))
+        want = dict(tree_items(rr.full_params(rs)))
+        out["fp32"] = {
+            "losses": losses.tolist(), "ref_losses": rl.tolist(),
+            "loss_rel": ((losses - rl).abs() / rl.abs()).max().item(),
+            "param_rel": max(((x - want[p]).abs().max()
+                              / want[p].abs().max()).item()
+                             for p, x in tree_items(full))}
+        del rs, rr, rparams, want
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    D.barrier()
+    out["stamps"]["c"] = time.time()
+    return out
+
+
+def phase_mesh(dev) -> dict:
+    """Phase 14c: the pod-per-block engine (``BlockParallelTrainer`` in its
+    ``shard_map`` mode) on ``MESH_RANKS`` ranks of this script, each on the
+    one card, under gloo (NCCL refuses two ranks on one device). First the
+    round-robin engine in this process: the same four batches of the same
+    model (seeded alike) and the runner, for the losses to hold the mesh
+    to. Then the ranks: (a) stablelm-1.6b at full width, 8 layers in 4
+    blocks of 2, bf16: a warm-up, two timed batches (wall, each rank's
+    all-reduce ms and peak), a NaN on block ``MESH_VICTIM`` (its stack,
+    moments and counter bit-unchanged, the others moved); (b) the runner
+    (one generation, a pod death, orphan passes on rank 0, a
+    re-adoption; counters ``MESH_RUNNER_COUNTERS``); (c) fp32 at 4 layers
+    against the round-robin engine on rank 0 (losses and every param within
+    1e-5 relative). The periphery bit-equal on every rank after every
+    batch; each batch's losses within 1e-3 relative of the round robin's;
+    each rank's launches each block update's DB-step arithmetic."""
+    import shutil
+    import tempfile
+    from repro_torch.parallel import BlockParallelTrainer
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    logs = [open(os.path.join(root, f"rank{r}.log"), "w")
+            for r in range(MESH_RANKS)]
+    # the ranks start up (a process, a CUDA context, their blocks) while
+    # this process runs the round-robin references; they take no batch
+    # before the "go" file exists
+    spawned = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+         str(r), root], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(MESH_RANKS)]
+    try:
+        dbm, params = runner_model(dev, MESH_LAYERS, 4)
+        tr = BlockParallelTrainer(dbm, mesh_tcfg(), precision="bf16")
+        state = tr.init_state(params)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        ref, ref_ms = [], []
+        for tokens, mult in mesh_batches(dev, dbm):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, losses, _ = tr.step(state, tokens, gen, loss_mult=mult)
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t1) * 1e3)
+            ref.append(losses.tolist())
+        del state, tr, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rr, rr_hist = mesh_runner(dev, os.path.join(root, "rr"), _quiet)
+        rr_counters = dict(rr.counters)
+        del rr
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"[mesh] round-robin references ({MESH_LAYERS} layers in 4 "
+            f"blocks, bf16, {MESH_BATCH}x{TRAIN_SEQ}; the runner at "
+            f"MESH_RUNNER_CUT) in {time.perf_counter() - t0:.1f} s; batch "
+            f"walls {[round(x, 1) for x in ref_ms]} ms")
+        Path(root, "go").touch()
+        t1, went = time.perf_counter(), time.time()
+        for p in procs:
+            p.wait(timeout=max(1.0, MESH_WALL_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+        if not Path(root, "go").exists():     # the references failed
+            shutil.rmtree(root, ignore_errors=True)
+    try:
+        wall = time.perf_counter() - t1
+        with open(os.path.join(root, "rank0.log")) as f:
+            for line in f.read().splitlines():
+                say(f"[mesh r0] {line}")
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            with open(os.path.join(root, f"rank{failed[0]}.log")) as f:
+                tail = f.read()[-3000:]
+            raise SmokeError(f"mesh ranks {failed} failed (exit codes "
+                             f"{[procs[r].returncode for r in failed]}; "
+                             f"rank {failed[0]}'s log ends):\n{tail}")
+        res = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def rel(got, want):
+        return max((0.0 if (math.isnan(g) and math.isnan(w))
+                    else abs(g - w) / abs(w)) for g, w in zip(got, want))
+
+    out = {"launches": {}, "wall_s": wall}
+    say(f"[mesh] the ranks' batches to their end: {wall:.1f} s after the "
+        f"go (the phase {time.perf_counter() - t0:.1f} s)")
+    for r, rr_ in enumerate(res):
+        add_counts(out["launches"], rr_["launches"])
+    st = [x["stamps"] for x in res]
+    say(f"[mesh] where the phase's time goes (s from the spawn, ranks "
+        f"0-3): interpreter and imports up to "
+        f"{max(x['start'] for x in st) - spawned:.1f}, group joined and "
+        f"kernels loaded {max(x['joined'] for x in st) - spawned:.1f}, "
+        f"ready (model built) {max(x['ready'] for x in st) - spawned:.1f}; "
+        f"the references done and the go at {went - spawned:.1f}; (a) the "
+        f"bf16 batches end at {max(x['a'] for x in st) - spawned:.1f}, (b) "
+        f"the runner at {max(x['b'] for x in st) - spawned:.1f}, (c) the "
+        f"fp32 check at {max(x['c'] for x in st) - spawned:.1f}")
+    rows = res[0]["bf16"]
+    worst = max(rel(row["losses"], want) for row, want in zip(rows, ref))
+    for i, row in enumerate(rows):
+        say(f"[mesh] batch {i}: losses {[round(x, 4) for x in row['losses']]}"
+            f" (round robin {[round(x, 4) for x in ref[i]]}) | wall "
+            f"{row['wall_ms']:.1f} ms (round robin {ref_ms[i]:.1f}) | "
+            f"all-reduce ms by rank "
+            f"{[round(sum(x['bf16'][i]['reduce_ms']), 1) for x in res]} | "
+            f"peak GiB by rank "
+            f"{[round(x['bf16'][i]['peak_gib'], 2) for x in res]}")
+    nan = [x["bf16"][3] for x in res]
+    victim_ok = all(n["unchanged"] == [r == MESH_VICTIM] * 4
+                    and n["last_ok"] == [b != MESH_VICTIM for b in range(4)]
+                    and n["step"] == 3 + (r != MESH_VICTIM)
+                    for r, n in enumerate(nan))
+    say(f"[mesh] NaN on block {MESH_VICTIM}: each rank's block bit-unchanged"
+        f" (stack, mu, nu, step): {[n['unchanged'] for n in nan]}; step "
+        f"counters {[n['step'] for n in nan]}")
+    run = [x["runner"] for x in res]
+    hist_rel = rel([h[2] for h in run[0]["history"]],
+                   [h[2] for h in rr_hist])
+    runner_ok = (all(x["counters"] == MESH_RUNNER_COUNTERS == rr_counters
+                     and x["engine"] == "shard_map"
+                     and x["heartbeats"] == run[0]["heartbeats"]
+                     for x in run)
+                 and [h[:2] for h in run[0]["history"]]
+                 == [list(h[:2]) for h in rr_hist])
+    say(f"[mesh] runner: {len(run[0]['history'])} block updates in "
+        f"{run[0]['wall_s']:.1f} s | counters {run[0]['counters']} "
+        f"(round robin {rr_counters}) | heartbeats {run[0]['heartbeats']} "
+        f"| losses vs round robin rel max {hist_rel:.2e} | launches by rank "
+        f"{[sum(x['launches'].values()) for x in run]}")
+    fp = res[0]["fp32"]
+    say(f"[mesh] fp32, {MESH_CHECK_LAYERS} blocks of 1 layer, mesh vs round "
+        f"robin: losses {[round(x, 6) for x in fp['losses']]} vs "
+        f"{[round(x, 6) for x in fp['ref_losses']]} (rel max "
+        f"{fp['loss_rel']:.2e}) | params rel max {fp['param_rel']:.2e}; "
+        f"limit 1e-5")
+    say(f"[mesh] bf16 losses vs round robin rel max {worst:.2e} (limit "
+        f"1e-3)")
+    # every block update of the runner's 4 batches (rank 0's orphan passes
+    # included) is one layer's concat DB step
+    expect = expected_counts(**{n: 4 * MESH_RUNNER_HALT for n in ATTN})
+    runner_counts = {}
+    for x in run:
+        add_counts(runner_counts, x["launches"])
+    check_counts("mesh runner (all ranks)", runner_counts, expect)
+    if not (worst <= 1e-3 and victim_ok and runner_ok and hist_rel <= 1e-3
+            and fp["loss_rel"] <= 1e-5 and fp["param_rel"] <= 1e-5):
+        raise SmokeError("mesh: the pod-per-block engine disagrees with the "
+                         "round-robin engine or its guard")
+    out.update(rows=rows, ref_ms=ref_ms, runner=run[0], fp32=fp,
+               loss_rel=worst)
     return out
 
 
@@ -7985,6 +8415,8 @@ def main() -> int:
     lap("14a")
     runner = phase_runner(dev)
     lap("14b")
+    mesh = phase_mesh(dev)
+    lap("14c")
     vlm = phase_vlm(dev)
     lap("15")
     hybrid = phase_hybrid(dev)
@@ -8012,6 +8444,7 @@ def main() -> int:
                    two_pass["launches"], dit["launches"],
                    huginn["launches"], vit["launches"], mdm["launches"],
                    block_parallel["launches"], runner["launches"],
+                   mesh["launches"],
                    vlm["counts"], hybrid["counts"],
                    hybrid_train["counts"], h2o["counts"],
                    whisper["counts"], vlm_train["counts"], moe["counts"],
@@ -8041,4 +8474,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:        # a rank of phase 14c
+        sys.exit(mesh_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -4,5 +4,6 @@ from repro_torch.checkpoint.ckpt import (CheckpointCorrupt, CheckpointError,
                                          load_blocks, load_metadata,
                                          load_pytree, rng_from_json,
                                          rng_to_json, save_block,
-                                         save_block_opt, save_pytree,
+                                         save_block_opt, save_block_view,
+                                         save_pytree,
                                          tree_digest)

@@ -220,7 +220,14 @@ def save_block(ckpt_dir: str, params, block: int, start: int, size: int,
                step: int = 0) -> str:
     """Save block ``block``'s unit slice + the shared periphery."""
     from repro_torch.core.training import extract_block_view
-    view = extract_block_view(params, start, size)
+    return save_block_view(ckpt_dir, extract_block_view(params, start, size),
+                           block, start, size, step)
+
+
+def save_block_view(ckpt_dir: str, view, block: int, start: int, size: int,
+                    step: int = 0) -> str:
+    """Save a block's view (its ``size`` units + the periphery) as block
+    ``block`` at units ``start`` (``save_block``'s file)."""
     path = os.path.join(ckpt_dir, f"block_{block:02d}.npz")
     save_pytree(path, view, {"block": block, "start": start, "size": size,
                              "step": step})

@@ -166,6 +166,24 @@ class DiffusionBlocksModel:
         return edm.sample_sigma_in_qrange(generator, shape, self.db, q_lo,
                                           q_hi, u=u, device=device)
 
+    def draw_block(self, generator, tokens: torch.Tensor, b: int, *,
+                   sigma=None, eps=None):
+        """Block b's noise for ``tokens`` (Bsz, S): σ (Bsz, 1, 1) in its
+        overlap-expanded range, then ε (Bsz, S, d) fp32 standard normal,
+        each drawn from ``generator`` unless given. ``block_loss`` draws
+        through it, and so does the block-parallel engine, which draws
+        every block's full-batch pair in block order."""
+        Bsz, S = tokens.shape
+        dev = tokens.device
+        if sigma is None:
+            sigma = self.sample_block_sigma(generator, (Bsz, 1, 1), b,
+                                            device=dev)
+        if eps is None:
+            eps = torch.randn((Bsz, S, self.cfg.d_model),
+                              generator=generator, dtype=torch.float32,
+                              device=dev)
+        return sigma, eps
+
     def make_ctx(self, params, S: int, mode: str, sigma=None,
                  aux_inputs: Optional[Dict[str, torch.Tensor]] = None,
                  precision=None, **kw) -> LayerCtx:
@@ -220,9 +238,8 @@ class DiffusionBlocksModel:
         dev = tokens.device
         start, size = unit_range if unit_range is not None \
             else self.ranges[b]
-        if sigma is None:
-            sigma = self.sample_block_sigma(generator, (Bsz, 1, 1), b,
-                                            device=dev)
+        sigma, eps = self.draw_block(generator, tokens, b, sigma=sigma,
+                                     eps=eps)
         sigma = torch.as_tensor(sigma, dtype=torch.float32,
                                 device=dev).reshape(Bsz, 1, 1)
 

@@ -67,6 +67,15 @@ def block_qrange(db: DBConfig, b: int,
     return float(q_of_sigma(lo, db)), float(q_of_sigma(hi, db))
 
 
+def block_qranges(db: DBConfig, with_overlap: bool = True) -> np.ndarray:
+    """(B, 2) float32 rows of (q_lo, q_hi) per block: the array form of
+    ``block_qrange`` (JAX's block-parallel engine reads a block's range as
+    data; the port's ranks know their block as an int and call
+    ``block_qrange``)."""
+    return np.asarray([block_qrange(db, b, with_overlap)
+                       for b in range(db.num_blocks)], np.float32)
+
+
 def unit_ranges(n_units: int, num_blocks: int,
                 distribution: Sequence[int] | None = None
                 ) -> List[Tuple[int, int]]:

@@ -7,9 +7,16 @@
     only.
   * ``--mode e2e``: the end-to-end backprop baseline.
   * ``--block-parallel``: every batch trains EVERY block
-    (``repro_torch.parallel``, round-robin on one device), each block with
-    its own AdamW moments, the shared periphery reconciled by
-    ``--periphery``; per-block checkpoints in ``--ckpt-dir``.
+    (``repro_torch.parallel``), each block with its own AdamW moments, the
+    shared periphery reconciled by ``--periphery``; per-block checkpoints in
+    ``--ckpt-dir``. In one process the engine is round robin; under
+    ``python -m torch.distributed.run`` with a multiple of the blocks'
+    count of processes it is the pod-per-block mesh (``mode=shard_map``):
+    one rank per mesh position, each on ``cuda:{LOCAL_RANK % cards}`` (or
+    the CPU with ``--device cpu``), the process group on
+    ``--dist-backend`` (default ``nccl`` on the card, ``gloo`` on the CPU;
+    ranks that share a card need ``gloo``). Rank 0 prints and writes the
+    shared files; an owner rank writes its block's.
   * ``--supervise`` (implied by ``--resume`` / ``--faults``): the
     ``TrainRunner`` fault-tolerant loop over ``--mode db`` or
     ``--block-parallel`` — generational crash-consistent checkpoints in
@@ -22,6 +29,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --block-parallel --supervise --ckpt-dir /tmp/ck \
         --faults '{"grad_nan": {"at": [2]}}' --steps 8 [--resume]
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+        --dist-backend gloo --block-parallel --steps 8
 
 Attention forward and backward go through the flash-attention kernels on
 the card (their plain versions with ``--device cpu``). Data: ``MarkovLM``
@@ -45,6 +55,8 @@ from repro_torch.launch.faults import make_injector
 from repro_torch.launch.trainrunner import TrainRunner
 from repro_torch.models.model_api import build_model
 from repro_torch.parallel import BlockParallelTrainer
+from repro_torch.parallel import dist as D
+from repro_torch.sharding import check_world
 
 
 def main(argv=None):
@@ -64,6 +76,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--block-parallel", action="store_true")
+    ap.add_argument("--dist-backend", default=None, choices=D.BACKENDS,
+                    help="process-group backend under torch.distributed.run "
+                         "(default: nccl on the card, gloo on the CPU; ranks "
+                         "sharing one card need gloo)")
     ap.add_argument("--periphery", default="replicate+psum-mean",
                     help="periphery sync policy for --block-parallel "
                          "(replicate+psum-mean | owner-broadcast | "
@@ -110,6 +126,39 @@ def main(argv=None):
     # at most one block a unit (an xLSTM unit is two layers), as JAX's CLI
     db = DBConfig(num_blocks=min(args.blocks, build_model(cfg).n_units),
                   overlap_gamma=0.1)
+    if D.launched():
+        if not args.block_parallel:
+            raise SystemExit("under torch.distributed.run only "
+                             "--block-parallel runs (one rank a pod)")
+        try:
+            check_world(db.num_blocks, D.env_ranks()[1])
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+        device = D.pick_device(args.device)
+        D.init(device, args.dist_backend)
+        try:
+            return _train(args, cfg, db, device,
+                          print if D.env_ranks()[0] == 0 else _quiet)
+        finally:
+            torch.distributed.destroy_process_group()
+    return _train(args, cfg, db, device, print)
+
+
+def _quiet(*_a, **_k) -> None:
+    """The log of a rank other than 0."""
+
+
+def _engine_line(trainer: BlockParallelTrainer) -> str:
+    """The engine's mode, and its mesh as JAX prints it."""
+    line = f"block-parallel mode={trainer.mode}"
+    if trainer.mesh is not None:
+        shape = dict(zip(trainer.mesh.mesh_dim_names,
+                         trainer.mesh.mesh.shape))
+        line += f" mesh={shape}"
+    return line
+
+
+def _train(args, cfg, db, device, say):
     dbm = DiffusionBlocksModel(cfg, db)
     tcfg = TrainConfig(steps=args.steps, batch_size=args.batch,
                        seq_len=args.seq, lr=args.lr, seed=args.seed,
@@ -119,9 +168,9 @@ def main(argv=None):
         raise SystemExit("--supervise covers --mode db and --block-parallel "
                          "only")
     mode = "block-parallel" if args.block_parallel else args.mode
-    print(f"arch={cfg.name} layers={cfg.n_layers} blocks={db.num_blocks} "
-          f"{dbm.ranges} mode={mode} precision={args.precision} "
-          f"device={device} supervise={supervise}")
+    say(f"arch={cfg.name} layers={cfg.n_layers} blocks={db.num_blocks} "
+        f"{dbm.ranges} mode={mode} precision={args.precision} "
+        f"device={device} supervise={supervise}")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     lm = MarkovLM(vocab_size=cfg.vocab_size, seed=7)
     t0 = time.perf_counter()
@@ -135,7 +184,7 @@ def main(argv=None):
             faults=make_injector(json.loads(args.faults) if args.faults
                                  else None, seed=args.fault_seed),
             max_restarts=args.max_restarts,
-            pod_restart_after=args.pod_restart_after)
+            pod_restart_after=args.pod_restart_after, log=say)
 
         def make_data(cur):
             src = (lm.stream(args.batch, args.seq) if cur is None
@@ -143,7 +192,9 @@ def main(argv=None):
             return HostDataLoader(src, device=device)
 
         _, history = runner.train(make_data, gen, resume=args.resume)
-        print("supervisor stats:", json.dumps(runner.stats()))
+        if args.block_parallel:
+            say(_engine_line(runner.trainer))
+        say("supervisor stats:", json.dumps(runner.stats()))
     else:
         data = lm.iterator(args.batch, args.seq)
         if args.block_parallel:
@@ -151,7 +202,8 @@ def main(argv=None):
                 dbm, tcfg, periphery=args.periphery,
                 precision=args.precision,
                 periphery_lr_scale=args.periphery_lr_scale)
-            _, history = trainer.train(data, gen,
+            say(_engine_line(trainer))
+            _, history = trainer.train(data, gen, log=say,
                                        ckpt_dir=args.ckpt_dir or None)
         else:
             train = train_db if args.mode == "db" else train_e2e
@@ -159,16 +211,16 @@ def main(argv=None):
                                     precision=args.precision)
             if args.ckpt_dir and args.mode == "db":
                 for b, (start, size) in enumerate(dbm.ranges):
-                    print("saved", save_block(args.ckpt_dir, params, b,
-                                              start, size, step=args.steps))
+                    say("saved", save_block(args.ckpt_dir, params, b,
+                                            start, size, step=args.steps))
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if history:
-        print(f"[{mode}] {len(history)} steps in {dt:.2f}s (on the card: "
-              f"first-call kernel builds included); first loss "
-              f"{history[0][2]:.4f}, last {history[-1][2]:.4f}")
-    print("done")
+        say(f"[{mode}] {len(history)} steps in {dt:.2f}s (on the card: "
+            f"first-call kernel builds included); first loss "
+            f"{history[0][2]:.4f}, last {history[-1][2]:.4f}")
+    say("done")
 
 
 if __name__ == "__main__":

@@ -31,10 +31,16 @@ Pod death semantics differ by mode, as in JAX:
                    generation and DEGRADES to the orphan path — each batch
                    runs one engine pass for the survivors plus one orphan
                    pass (``update_periphery=False``, so the survivors' pass
-                   stays the single periphery writer). The engine is
-                   round-robin, so it IS the orphan path. When the pod
-                   revives after ``pod_restart_after`` batches the block is
-                   re-adopted.
+                   stays the single periphery writer). A round-robin engine
+                   IS the orphan path. Under the mesh (``shard_map``) rank
+                   0 holds a one-device round-robin sibling with the
+                   orphan's state: it runs the orphan's pass on the full
+                   batch after the survivors' mesh step and broadcasts the
+                   guard outcome; the dead pod's ranks run nothing for it.
+                   When the pod revives after ``pod_restart_after`` batches
+                   the block is re-adopted (under the mesh rank 0
+                   broadcasts its stack, moments and step counter to the
+                   pod's ranks).
   db               there is no pod to lose a block to — ``pod_die`` is
                    simulated PROCESS death: the runner restarts from the
                    latest good generation (bounded by ``max_restarts``,
@@ -48,7 +54,15 @@ The random draws come from the ``torch.Generator`` passed to ``train``
 (its state is in every manifest), or, with ``draws``, from a function of the
 batch index (block-parallel: ``draws(bt) -> [(sigma, eps)] * B``) or step
 index (db: ``draws(it) -> (block, sigma, eps)``), so that tests can feed
-another package's draws.
+another package's draws. Degraded, the survivors' draws come first, then
+the orphans'.
+
+Under the mesh every rank runs this loop in step: rank 0 gathers each
+generation (every block broadcast from its owner into host tensors) and
+writes it while the others wait; a resume reads the latest generation on
+every rank, each taking its own block and the periphery; the generator
+states, replicas seeded alike, are checked equal on every rank at each save
+and resume.
 """
 from __future__ import annotations
 
@@ -65,6 +79,9 @@ from repro_torch.core.blocks import DiffusionBlocksModel
 from repro_torch.core.training import (STACK_KEYS, GuardConfig, _tokens,
                                        extract_block_view, make_db_train_step)
 from repro_torch.launch.faults import PodDied
+from repro_torch.nn.init import tree_items, tree_map
+from repro_torch.optim import AdamWState
+from repro_torch.parallel import dist as D
 from repro_torch.parallel.engine import BlockParallelTrainer
 from repro_torch.parallel.state import BlockParallelState
 
@@ -76,6 +93,10 @@ class TrainFailed(RuntimeError):
 
 def _bname(b: int) -> str:
     return f"block_{b:02d}"
+
+
+def _device(state: BlockParallelState) -> torch.device:
+    return next(iter(tree_items(state.periph)))[1].device
 
 
 class TrainRunner:
@@ -119,6 +140,8 @@ class TrainRunner:
         # handles populated by train() for tests and the chip smoke run
         self.trainer: Optional[BlockParallelTrainer] = None
         self.state: Optional[BlockParallelState] = None
+        # rank 0 under the mesh: orphaned block -> (sibling, its state)
+        self._orphans: Dict[int, tuple] = {}
 
     # ------------------------------------------------------------------
     def train(self, make_data: Callable, generator: torch.Generator,
@@ -168,15 +191,41 @@ class TrainRunner:
     # block-parallel mode
     # ==================================================================
     @staticmethod
-    def _parallel_trees(trainer: BlockParallelTrainer, state):
+    def _local_trees(trainer: BlockParallelTrainer, state):
+        """name -> live tree of the blocks this process holds and the
+        periphery: resume templates (and, round robin, a generation)."""
         trees = {}
-        for b in range(trainer.B):
-            s, o = trainer.block_trees(state, b)
+        for b in trainer.blocks:
+            s, o = trainer.local_trees(state, b)
             trees[_bname(b)] = s
             trees[_bname(b) + ".opt"] = o
         trees["periphery"] = state.periph
         trees["periphery.opt"] = state.periph_opt
         return trees
+
+    @staticmethod
+    def _parallel_trees(trainer: BlockParallelTrainer, state):
+        """A generation's trees. Under the mesh a collective: each block is
+        broadcast from its owner and moved to rank 0's host as it arrives;
+        the other ranks get {}."""
+        if trainer.mesh is None:
+            return TrainRunner._local_trees(trainer, state)
+        trees = {}
+        for b in range(trainer.B):
+            s, o = trainer.block_trees(state, b)
+            if trainer.rank == 0:
+                trees[_bname(b)] = tree_map(lambda _, x: x.cpu(), s)
+                trees[_bname(b) + ".opt"] = AdamWState(*[
+                    tree_map(lambda _, x: x.cpu(), t) for t in o])
+        if trainer.rank == 0:
+            trees["periphery"] = state.periph
+            trees["periphery.opt"] = state.periph_opt
+        return trees
+
+    @staticmethod
+    def _same_generator(trainer, generator, what: str) -> None:
+        if trainer.mesh is not None:
+            D.check_same(generator.get_state(), f"the generator state {what}")
 
     def _save_parallel(self, trainer, state, bt, it, generator, data) -> None:
         st = {"mode": "block-parallel", "engine": trainer.mode,
@@ -186,24 +235,112 @@ class TrainRunner:
               "guard": trainer.guard_state(),
               "heartbeats": self._heartbeats_json(),
               "counters": dict(self.counters)}
-        gen = self.manager.save(self._parallel_trees(trainer, state), st)
+        self._same_generator(trainer, generator, f"at batch {bt}")
+        trees = self._parallel_trees(trainer, state)
+        if trainer.rank == 0:
+            gen = self.manager.save(trees, st)
+            self.log(f"[runner] checkpoint generation {gen} at batch {bt}")
+        del trees
+        if trainer.mesh is not None:
+            D.barrier()
         self.counters["ckpt_saves"] += 1
-        self.log(f"[runner] checkpoint generation {gen} at batch {bt}")
 
     def _rewind_block(self, trainer, state, b: int, why: str):
         """Restore ONE block's stack + optimizer moments from the latest good
-        generation (periphery and other blocks untouched)."""
+        generation (periphery and other blocks untouched): on the ranks
+        that hold it, or on rank 0's sibling while it is orphaned."""
         gen = self.manager.latest_good_generation() if self.manager else None
         if gen is None:
             trainer.anomaly_streak[b] = 0
             self.log(f"[runner] {why}; no checkpoint generation to rewind "
                      f"block {b} — keeping current state")
             return state
-        stack_t, opt_t = trainer.block_trees(state, b)
-        stack = self.manager.load_tree(gen, _bname(b), stack_t, "cpu")
-        opt = self.manager.load_tree(gen, _bname(b) + ".opt", opt_t, "cpu")
+        holder, hstate = self._orphans.get(b, (trainer, state))
+        if holder.holds(b):
+            stack_t, opt_t = holder.local_trees(hstate, b)
+            holder.write_block(
+                hstate, b,
+                self.manager.load_tree(gen, _bname(b), stack_t, "cpu"),
+                self.manager.load_tree(gen, _bname(b) + ".opt", opt_t, "cpu"))
+        trainer.anomaly_streak[b] = 0
+        trainer.guard_ewma[b] = -1.0
         self.log(f"[runner] {why}; block {b} rewound to generation {gen}")
-        return trainer.write_block(state, b, stack, opt)
+        return state
+
+    def _orphan(self, trainer, state, v: int) -> None:
+        """Under the mesh, rank 0 takes orphaned block ``v`` (just rewound)
+        into a one-device round-robin sibling that holds it alone."""
+        if trainer.mesh is None:
+            return
+        stack, opt = trainer.block_trees(state, v)
+        if trainer.rank != 0:
+            return
+        sib = BlockParallelTrainer(
+            self.dbm, self.tcfg, periphery=self.periphery, impl=self.impl,
+            precision=self.precision,
+            periphery_lr_scale=self.periphery_lr_scale, guard=self.guard,
+            devices=[_device(state)], blocks=(v,))
+
+        def one(_, x):
+            return x.unsqueeze(0).clone()
+        self._orphans[v] = (sib, BlockParallelState(
+            tree_map(one, stack), state.periph,
+            AdamWState(opt.step.reshape(1).clone(), tree_map(one, opt.mu),
+                       tree_map(one, opt.nu)), state.periph_opt))
+        self.log(f"[runner] rank 0 carries orphaned block {v}")
+
+    def _readopt(self, trainer, state, v: int) -> None:
+        """Under the mesh, rank 0 broadcasts its sibling's stack, moments and
+        step counter of block ``v`` back to pod ``v``'s ranks."""
+        if trainer.mesh is None:
+            return
+        trees = None
+        if trainer.rank == 0:
+            sib, sstate = self._orphans.pop(v)
+            trees = sib.local_trees(sstate, v)
+        got = trainer.broadcast_block(state, v, trees, 0)
+        if trainer.rank == 0 and trainer.holds(v):
+            copy_into(trainer.local_trees(state, v), got)
+
+    def _orphan_pass(self, trainer, state, tokens, generator, m, kw):
+        """The orphans' pass (after the survivors' step): (state, losses
+        (B,), last_ok (B,)) for the orphaned blocks ``m``, their guard
+        state merged into ``trainer``."""
+        if trainer.mesh is None:
+            state, l2, _ = trainer.step(state, tokens, generator, active=m,
+                                        update_periphery=False, **kw)
+            return state, l2, trainer.last_ok.copy()
+        B = trainer.B
+        l2 = torch.full((B,), float("nan"))
+        ok = np.zeros(B, bool)
+        tokens = _tokens(tokens, _device(state))
+        for v in np.nonzero(m)[0].tolist():
+            draws = kw["draws"]
+            if draws is None:         # every rank draws: generators in step
+                draws = [None] * B
+                draws[v] = trainer.dbm.draw_block(generator, tokens, v)
+            out = torch.zeros(6, dtype=torch.float64)
+            if trainer.rank == 0:
+                sib, sstate = self._orphans[v]
+                sib.guard_ewma = trainer.guard_ewma.clone()
+                sib.anomaly_streak = trainer.anomaly_streak.copy()
+                sib.anomalies = trainer.anomalies.copy()
+                act = np.zeros(B, bool)
+                act[v] = True
+                sstate, lv, gv = sib.step(sstate, tokens, draws=draws,
+                                          loss_mult=kw["loss_mult"],
+                                          active=act, update_periphery=False)
+                self._orphans[v] = (sib, sstate)
+                out[:] = torch.tensor([
+                    float(lv[v]), float(gv[v]), float(sib.last_ok[v]),
+                    float(sib.guard_ewma[v]), float(sib.anomaly_streak[v]),
+                    float(sib.anomalies[v])], dtype=torch.float64)
+            D.broadcast(out, 0)
+            l2[v], ok[v] = out[0], bool(out[2])
+            trainer.guard_ewma[v] = float(out[3])
+            trainer.anomaly_streak[v] = int(out[4])
+            trainer.anomalies[v] = int(out[5])
+        return state, l2, ok
 
     def _pick_victim(self, B: int, dead) -> Optional[int]:
         start = self.counters["pod_deaths"] % B
@@ -223,9 +360,10 @@ class TrainRunner:
             devices=self.devices)
         B = trainer.B
         state = trainer.init_state(params)
+        self._orphans = {}
         start_batch, it, data = 0, 0, None
         if resume:
-            live = self._parallel_trees(trainer, state)
+            live = self._local_trees(trainer, state)
             trees, manifest = self.manager.load_latest(live, log=self.log,
                                                        device="cpu")
             if trees is None:
@@ -236,6 +374,7 @@ class TrainRunner:
             st = manifest["state"]
             start_batch, it = int(st["batch"]), int(st["it"])
             rng_from_json(generator, st["rng"])
+            self._same_generator(trainer, generator, "on resume")
             trainer.set_guard_state(st.get("guard"))
             self.heartbeats = {int(k): int(v)
                                for k, v in st.get("heartbeats", {}).items()}
@@ -259,6 +398,7 @@ class TrainRunner:
             for b in [b for b, until in sorted(dead_until.items())
                       if bt >= until]:
                 del dead_until[b]
+                self._readopt(trainer, state, b)
                 self.counters["readoptions"] += 1
                 self.log(f"[runner] pod {b} recovered at batch {bt}; block "
                          f"re-adopted")
@@ -270,6 +410,7 @@ class TrainRunner:
                     state = self._rewind_block(
                         trainer, state, v,
                         f"pod {v} died at batch {bt} (device state lost)")
+                    self._orphan(trainer, state, v)
             # -- fault hooks + data -------------------------------------
             loss_mult = None
             if self.faults is not None and self.faults.fire("grad_nan"):
@@ -292,12 +433,11 @@ class TrainRunner:
                 state, losses, _ = trainer.step(
                     state, tokens, generator, active=~m, **kw)
                 ok_main = trainer.last_ok.copy()
-                # the orphan pass: the round-robin engine itself, with the
-                # periphery left to the survivors' pass
-                state, l2, _ = trainer.step(
-                    state, tokens, generator, active=m,
-                    update_periphery=False, **kw)
-                trainer.last_ok = np.where(m, trainer.last_ok, ok_main)
+                # the orphan pass, with the periphery left to the
+                # survivors' pass
+                state, l2, ok_orphan = self._orphan_pass(
+                    trainer, state, tokens, generator, m, kw)
+                trainer.last_ok = np.where(m, ok_orphan, ok_main)
                 losses = torch.where(torch.from_numpy(m), l2, losses)
                 self.counters["degraded_batches"] += 1
             else:

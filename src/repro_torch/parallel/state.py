@@ -16,6 +16,10 @@ Layout (``BlockParallelState``):
               with the same leading (B, ...) block axis.
   periph_opt  ``AdamWState`` for the single periphery copy.
 
+Under the pod-per-block mesh a rank's state holds its own block alone: the
+stacks (1, u, ...) copies of its slice, ``step`` (1,), the moments (1, ...),
+beside a replica of the periphery and its AdamW state (``engine.py``).
+
 The stacked form requires equal block sizes; ``stack_block_views`` raises
 ``ValueError`` otherwise — use the sequential ``train_db`` path for
 non-uniform partitions.

@@ -3159,3 +3159,93 @@ def test_xlstm_graph_segments_bit_equal_to_eager(cuda):
         want = {"gate_residual": dbm.cfg.n_layers * steps}
         assert counts == {**{k: 0 for k in counts}, **want}
     assert cg.graph_warmups == {"chunk": 1, "segment": 1}
+
+
+# ---------------------------------------------------------------------------
+# the pod-per-block engine: 4 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_POLICIES = ("replicate+psum-mean", "owner-broadcast",
+                 "freeze-after-warmup")
+
+
+def _mesh_model():
+    """TINY8's widths (8 layers, d 64, vocab 64) with one head of 64, the
+    attention kernels' head dim, in 4 blocks; fp32 params from seed 0 made
+    on the CPU (the AdaLN heads randomised), as numpy."""
+    from repro_torch.bridge import params_to_numpy
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"), name="tiny8-hd64",
+                              n_layers=8, d_model=64, n_heads=1,
+                              n_kv_heads=1, head_dim=64, d_ff=128,
+                              vocab_size=64)
+    db = DBConfig(num_blocks=4, overlap_gamma=0.05)
+    dbm = DiffusionBlocksModel(cfg, db)
+    gen = torch.Generator().manual_seed(0)
+    params = dbm.init(gen)
+    for k in ("w", "b"):
+        params["layers"]["adaln"][k].normal_(0.0, 0.02, generator=gen)
+    return dbm, {"cfg": dataclasses.asdict(cfg), "db": dataclasses.asdict(db),
+                 "params": params_to_numpy(params)}
+
+
+@pytest.mark.gpu
+def test_mesh_step_on_the_card_matches_round_robin(cuda, tmp_path):
+    """4 ranks on the one card (gloo), fp32 through the attention kernels:
+    one step per periphery policy from the same params and draws against
+    the round-robin engine on the card, within 1e-5 (the periphery mean's
+    summation order is the only difference); the periphery bit-equal on
+    every rank."""
+    from torch_mesh_worker import spawn
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.parallel import BlockParallelTrainer
+    dbm, model = _mesh_model()
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, 64, (4, 16), generator=gen).numpy()
+    draws = [(dbm.sample_block_sigma(gen, (4, 1, 1), b).numpy(),
+              torch.randn(4, 16, 64, generator=gen).numpy())
+             for b in range(4)]
+    tcfg = TrainConfig(steps=8, batch_size=4, seq_len=16, lr=2e-3,
+                       warmup_steps=2, log_every=0)
+    tasks = [(p, {"kind": "steps", "model": model,
+                  "tcfg": dataclasses.asdict(tcfg), "policy": p,
+                  "precision": "fp32",
+                  "steps": [{"tokens": tokens, "draws": draws}]})
+             for p in MESH_POLICIES]
+    res = spawn({"device": "cuda", "backend": "gloo", "tasks": tasks},
+                tmp_path)
+    for p in MESH_POLICIES:
+        tr = BlockParallelTrainer(dbm, tcfg, periphery=p, precision="fp32")
+        state = tr.init_state(params_from_jax(model["params"], cuda,
+                                              dbm.model.spec))
+        state, losses, gnorms = tr.step(state, tokens, draws=[
+            tuple(torch.from_numpy(x) for x in d) for d in draws])
+        want = {"params": tr.full_params(state), "stack_opt": state.stack_opt,
+                "periph_opt": state.periph_opt}
+        for out in res:
+            assert out[p]["mesh_device"] == "cuda"   # the ranks' device
+            got = out[p]["steps"][0]
+            assert got["periph_digest"] == res[0][p]["steps"][0][
+                "periph_digest"]
+            torch.testing.assert_close(got["losses"], losses, rtol=1e-5,
+                                       atol=1e-5)
+            torch.testing.assert_close(got["gnorms"], gnorms, rtol=1e-5,
+                                       atol=1e-5)
+            for part in want:
+                w = dict(ckpt._items(want[part]))
+                for key, x in ckpt._items(got[part]):
+                    torch.testing.assert_close(
+                        x.float(), w[key].float().cpu(), rtol=1e-5,
+                        atol=1e-5, msg=f"{p} {part} {key}")
+
+
+@pytest.mark.gpu
+def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
+    """NCCL with two ranks on one device fails with NCCL's own error; the
+    port does not switch to gloo behind the caller's back."""
+    if torch.cuda.device_count() > 1:
+        pytest.skip("checks two ranks sharing one card")
+    from torch_mesh_worker import spawn
+    with pytest.raises(RuntimeError, match="Duplicate GPU|NCCL"):
+        spawn({"device": "cuda", "backend": "nccl", "tasks": []}, tmp_path,
+              world=2, timeout_s=120)

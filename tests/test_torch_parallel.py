@@ -301,7 +301,10 @@ def test_unequal_blocks_and_devices_rejected():
                  TC.DBConfig(num_blocks=4))
     with pytest.raises(ValueError, match="equal-sized"):
         BlockParallelTrainer(tdbm6, tcfg(torch_side=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    # more than one device and no process group: the mesh runs one process
+    # a device, so the refusal names the torchrun launch
+    with pytest.raises(ValueError, match="torch.distributed.run "
+                       "--nproc-per-node 2"):
         BlockParallelTrainer(make_models()[2], tcfg(torch_side=True),
                              devices=["cpu", "cpu"])
 
